@@ -1,0 +1,215 @@
+"""The post-spawn checker handle: counts, discoveries, joins, assertions.
+
+Reference: ``Checker`` trait at ``src/checker.rs:273-557``. This is the
+compatibility surface that tests hit; every backend of the port (host BFS,
+GPU BFS) returns an object with this interface. It is the JAX package's
+``checker/base.py`` without the lazy hooks into telemetry, coverage,
+liveness and the live monitor, which the port has not taken on yet.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, Generic, List, Optional, TypeVar
+
+from ..core.model import Expectation
+from ..core.path import Path
+from ..report import ReportData, ReportDiscovery, Reporter
+
+State = TypeVar("State")
+Action = TypeVar("Action")
+
+EXAMPLE = "example"
+COUNTEREXAMPLE = "counterexample"
+
+
+class Checker(Generic[State, Action]):
+    """Base class for checker handles. Subclasses implement the abstract
+    accessors; joins/reports/assertions are shared."""
+
+    # -- abstract surface --------------------------------------------------
+
+    def model(self):
+        raise NotImplementedError
+
+    def state_count(self) -> int:
+        """Total states generated including repeats (>= unique_state_count)."""
+        raise NotImplementedError
+
+    def unique_state_count(self) -> int:
+        raise NotImplementedError
+
+    def max_depth(self) -> int:
+        raise NotImplementedError
+
+    def discoveries(self) -> Dict[str, Path]:
+        """Map from property name to discovery path."""
+        raise NotImplementedError
+
+    def handles(self) -> List[threading.Thread]:
+        """Extract (and clear) the worker thread handles."""
+        raise NotImplementedError
+
+    def is_done(self) -> bool:
+        raise NotImplementedError
+
+    def worker_error(self) -> Optional[BaseException]:
+        """The first exception raised by a worker thread, if any."""
+        return None
+
+    # -- shared behavior ---------------------------------------------------
+
+    def join(self) -> "Checker":
+        for h in self.handles():
+            h.join()
+        err = self.worker_error()
+        if err is not None:
+            raise RuntimeError("checker worker thread failed") from err
+        return self
+
+    def join_and_report(self, reporter: Reporter) -> "Checker":
+        return self._report_loop(reporter, join=True)
+
+    def report(self, reporter: Reporter) -> "Checker":
+        return self._report_loop(reporter, join=False)
+
+    def _report_loop(self, reporter: Reporter, join: bool) -> "Checker":
+        start = time.monotonic()
+        handles = self.handles() if join else []
+        stop = threading.Event()
+
+        def poll():
+            while not self.is_done() and not stop.is_set():
+                reporter.report_checking(
+                    ReportData(
+                        total_states=self.state_count(),
+                        unique_states=self.unique_state_count(),
+                        max_depth=self.max_depth(),
+                        duration_secs=time.monotonic() - start,
+                        done=False,
+                    )
+                )
+                stop.wait(reporter.delay())
+
+        if join:
+            poller = threading.Thread(target=poll, daemon=True)
+            poller.start()
+            for h in handles:
+                h.join()
+            stop.set()
+            poller.join()
+        else:
+            poll()
+        err = self.worker_error()
+        if err is not None:
+            raise RuntimeError("checker worker thread failed") from err
+
+        reporter.report_checking(
+            ReportData(
+                total_states=self.state_count(),
+                unique_states=self.unique_state_count(),
+                max_depth=self.max_depth(),
+                duration_secs=time.monotonic() - start,
+                done=True,
+            )
+        )
+        discoveries = {
+            name: ReportDiscovery(path, self.discovery_classification(name))
+            for name, path in self.discoveries().items()
+        }
+        reporter.report_discoveries(discoveries)
+        # A sometimes/eventually property with no discovery is a silent
+        # pass unless the reporter says so; only once checking completed.
+        if self.is_done():
+            undiscovered = [
+                p
+                for p in self.model().properties()
+                if p.name not in discoveries
+                and p.expectation in (
+                    Expectation.SOMETIMES, Expectation.EVENTUALLY
+                )
+            ]
+            if undiscovered:
+                reporter.report_undiscovered(undiscovered)
+        return self
+
+    def discovery(self, name: str) -> Optional[Path]:
+        return self.discoveries().get(name)
+
+    def discovery_classification(self, name: str) -> str:
+        prop = self.model().property(name)
+        if prop.expectation in (Expectation.ALWAYS, Expectation.EVENTUALLY):
+            return COUNTEREXAMPLE
+        return EXAMPLE
+
+    def assert_properties(self) -> None:
+        """Verifies examples exist for all `sometimes` properties and no
+        counterexamples exist for any `always`/`eventually` properties."""
+        for p in self.model().properties():
+            if p.expectation == Expectation.SOMETIMES:
+                self.assert_any_discovery(p.name)
+            else:
+                self.assert_no_discovery(p.name)
+
+    def assert_any_discovery(self, name: str) -> Path:
+        found = self.discovery(name)
+        if found is not None:
+            return found
+        if not self.is_done():
+            raise AssertionError(
+                f'Discovery for "{name}" not found, but model checking is incomplete.'
+            )
+        raise AssertionError(f'Discovery for "{name}" not found.')
+
+    def assert_no_discovery(self, name: str) -> None:
+        found = self.discovery(name)
+        if found is not None:
+            raise AssertionError(
+                f'Unexpected "{name}" {self.discovery_classification(name)} '
+                f"{found}Last state: {found.last_state()!r}\n"
+            )
+        if not self.is_done():
+            raise AssertionError(
+                f'Discovery for "{name}" not found, but model checking is incomplete.'
+            )
+
+    def assert_discovery(self, name: str, actions: List[Action]) -> None:
+        """Verifies the specified actions constitute a valid discovery for the
+        named property (by replaying them through the model), and that some
+        discovery was in fact found."""
+        additional_info: List[str] = []
+        found = self.assert_any_discovery(name)
+        model = self.model()
+        for init_state in model.init_states():
+            path = Path.from_actions(model, init_state, actions)
+            if path is None:
+                continue
+            prop = model.property(name)
+            if prop.expectation == Expectation.ALWAYS:
+                if not prop.condition(model, path.last_state()):
+                    return
+            elif prop.expectation == Expectation.EVENTUALLY:
+                states = path.into_states()
+                is_liveness_satisfied = any(
+                    prop.condition(model, s) for s in states
+                )
+                last_actions: List[Action] = []
+                model.actions(states[-1], last_actions)
+                is_path_terminal = not last_actions
+                if not is_liveness_satisfied and is_path_terminal:
+                    return
+                if is_liveness_satisfied:
+                    additional_info.append(
+                        "incorrect counterexample satisfies eventually property"
+                    )
+                if not is_path_terminal:
+                    additional_info.append("incorrect counterexample is nonterminal")
+            else:  # SOMETIMES
+                if prop.condition(model, path.last_state()):
+                    return
+        extra = f" ({'; '.join(additional_info)})" if additional_info else ""
+        raise AssertionError(
+            f'Invalid discovery for "{name}"{extra}, but a valid one was found. '
+            f"found={found.into_actions()!r}"
+        )
