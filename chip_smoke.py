@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port from the sources in this checkout,
-holds each kernel against its plain torch twin (bit for bit) up to the main
-path's full shapes, then drives the main path: an exhaustive check of
-two-phase commit with 8 resource managers (1,745,408 states) through
-``TwoPhaseSys(8).checker().spawn_gpu_bfs()``, and smaller runs whose paths
-are replayed. Prints phase lines, the card's name and power limit, one
-``{"kernels": [...]}`` line, and as its last line
+Builds every CUDA kernel of the port from the sources in this checkout
+(one ``nvcc`` per source, all at once), holds each kernel against its plain
+torch twin (bit for bit) at the main paths' full shapes, then drives both
+main paths: an exhaustive check of two-phase commit with 8 resource
+managers (1,745,408 states) through
+``TwoPhaseSys(8).checker().spawn_gpu_bfs()`` with the staged wave (torch +
+the CUDA insert) and with ``wave_kernel="fused"`` (the model stage in
+torch, every other stage in CUDA), and smaller runs of both whose paths are
+replayed. Prints phase lines, the card's name and power limit, the fused
+wave's stage times, one ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when
 any phase fails, when no CUDA device is present, or when the port's package
 is not beside it. Imports nothing of JAX or of the JAX package.
@@ -24,6 +27,7 @@ import time
 import traceback
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+KERNEL_SOURCES = ("hashset_insert", "fused_wave")
 FAILED = []
 
 
@@ -67,13 +71,15 @@ def card_line():
 
 
 @phase("build")
-def build_kernel():
+def build_kernels():
     from stateright_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build("hashset_insert", verbose=True)
-    log(f"built hashset_insert.cu in {time.perf_counter() - t0:.2f} s")
-    _build.load("hashset_insert")
+    _build.build_all(KERNEL_SOURCES, verbose=True)
+    log(f"built {', '.join(n + '.cu' for n in KERNEL_SOURCES)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name in KERNEL_SOURCES:
+        _build.load(name)
 
 
 # -- 2. each kernel against its plain twin --------------------------------
@@ -103,20 +109,15 @@ def _sorted_batch(rng, n, active_frac, dup_frac=0.0, span=None, old=None, old_fr
     return hi[order], lo[order], valid[order]
 
 
-def _must_move_bytes(after, hi, lo, active, fresh):
-    """Bytes the insert must move on this input: the distinct table rows
-    that the keys' probes read (a probe reads from its home to the row
-    where it stops: its match, its claim, or the window's last row when it
-    is pending; a later copy of a key is settled by the first, its
-    neighbour in the sorted batch), the claimed rows written, the keys
-    (hi, lo, active) read and the three flags written."""
+def _probed_rows(after, k):
+    """The distinct table rows that the probes of the sorted, distinct u64
+    keys ``k`` read in the table ``after`` the insert: a probe reads from
+    its home to the row where it stops (its match, its claim, or the
+    window's last row when it is pending)."""
     import numpy as np
 
     probes = 128
     cap = after.shape[0] - probes
-    keys = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
-    k = keys[active]
-    k = k[np.concatenate([[True], k[1:] != k[:-1]])]
     home = (k >> np.uint64(64 - (cap.bit_length() - 1))).astype(np.int64)
     rows = (after[:, 0].astype(np.uint64) << np.uint64(32)) | after[:, 1].astype(np.uint64)
     stop = np.empty_like(home)
@@ -127,9 +128,21 @@ def _must_move_bytes(after, hi, lo, active, fresh):
     # Rows of [home, end] not already read by an earlier key (homes are
     # monotone, so the earlier probes end at most at the running maximum).
     reach = np.concatenate([[-1], np.maximum.accumulate(end)[:-1]])
-    read_rows = int(np.clip(end - np.maximum(home, reach + 1) + 1, 0, None).sum())
+    return int(np.clip(end - np.maximum(home, reach + 1) + 1, 0, None).sum())
+
+
+def _must_move_bytes(after, hi, lo, active, fresh):
+    """Bytes the insert must move on this input: the distinct table rows
+    that the keys' probes read (a later copy of a key is settled by the
+    first, its neighbour in the sorted batch), the claimed rows written,
+    the keys (hi, lo, active) read and the three flags written."""
+    import numpy as np
+
+    keys = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    k = keys[active]
+    k = k[np.concatenate([[True], k[1:] != k[:-1]])]
     B = hi.shape[0]
-    return read_rows * 8 + int(fresh.sum()) * 8 + B * 9 + B * 3
+    return _probed_rows(after, k) * 8 + int(fresh.sum()) * 8 + B * 9 + B * 3
 
 
 def _compare_insert(table_np, hi, lo, active, timing=False):
@@ -256,66 +269,268 @@ def kernel_vs_plain():
     }
 
 
-# -- 3. the main path ---------------------------------------------------------
+def _capture_2pc8_wave():
+    """A full-width 2pc-8 frontier chunk (F = 8,192) and the visited table
+    that a staged run holds when that chunk comes up on a 2^22-row table,
+    with the run's wave spec; the run stops after that wave."""
+    import torch
+
+    from stateright_tpu_torch.checker import gpu
+    from stateright_tpu_torch.core.batch import map_leaves
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    got = {}
+    consume = gpu.GpuBfsChecker._consume_wave
+
+    def spy(self, table, chunk, queue):
+        if not got and table.shape[0] - 128 == 1 << 22 and chunk["hi"].shape[0] == 8192:
+            got.update(table=table.clone(), chunk=map_leaves(torch.clone, chunk),
+                       spec=self._spec, depth_cap=self._depth_cap,
+                       unique=self._unique_count)
+            self._target_state_count = 0  # stop after this wave
+        return consume(self, table, chunk, queue)
+
+    gpu.GpuBfsChecker._consume_wave = spy
+    try:
+        TwoPhaseSys(8).checker().spawn_gpu_bfs(
+            frontier_capacity=8192, table_capacity=1 << 20
+        ).join()
+    finally:
+        gpu.GpuBfsChecker._consume_wave = consume
+    if not got:
+        raise AssertionError("no full-width 2pc-8 wave on a 2^22-row table")
+    return got
+
+
+def _max_abs_err(pairs):
+    """The largest |plain - kernel| over pairs of integer tensors, after
+    checking that their shapes agree."""
+    import torch
+
+    err = 0
+    for p, c in pairs:
+        assert tuple(p.shape) == tuple(c.shape), (p.shape, c.shape)
+        if p.numel():
+            err = max(err, int((p.to(torch.int64) - c.cpu().to(torch.int64)).abs().max()))
+    return err
+
+
+def _time_on_card(fn, reps=11, reset=None):
+    """Median device ms of ``fn`` over ``reps`` runs with CUDA events, each
+    run queued behind a sleep so the host's launch overhead stays out of
+    the interval; ``reset`` runs before each (outside the events).
+    ``fn(mark)`` calls ``mark(name)`` between stages; returns the median
+    total and the median of each stage."""
+    import torch
+
+    totals, stages = [], {}
+    for _ in range(reps):
+        if reset is not None:
+            reset()
+        events = []
+
+        def mark(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events.append((name, e))
+
+        torch.cuda._sleep(40_000_000)
+        mark("start")
+        fn(mark)
+        mark(None)
+        events[-1][1].synchronize()
+        totals.append(events[0][1].elapsed_time(events[-1][1]))
+        for (name, a), (_n, b) in zip(events[1:-1], events[2:]):
+            if name is not None:
+                stages.setdefault(name, []).append(a.elapsed_time(b))
+    return statistics.median(totals), {k: statistics.median(v) for k, v in stages.items()}
+
+
+@phase("fused_wave_vs_plain")
+def fused_vs_plain():
+    import numpy as np
+    import torch
+
+    from stateright_tpu_torch.core.batch import map_leaves
+    from stateright_tpu_torch.interop import table_to_numpy
+    from stateright_tpu_torch.ops import fused_wave as fw
+    from stateright_tpu_torch.ops.fingerprint import fingerprint_words, state_words
+
+    got = _capture_2pc8_wave()
+    spec, table0, chunk, depth_cap = got["spec"], got["table"], got["chunk"], got["depth_cap"]
+    states = chunk["states"]
+    hi, lo, ebits, depth = (chunk[k] for k in ("hi", "lo", "ebits", "depth"))
+    F, A, P = hi.shape[0], spec.action_count, len(spec.conditions)
+    B = F * A
+    cpu = lambda x: x.cpu()  # noqa: E731
+
+    t0 = time.perf_counter()
+    pt, pout = fw.fused_wave_plain(spec, table0.cpu(), map_leaves(cpu, states),
+                                   hi.cpu(), lo.cpu(), ebits.cpu(), depth.cpu(), depth_cap)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ct, cout = fw.fused_wave(spec, table0.clone(), states, hi, lo, ebits, depth, depth_cap)
+    torch.cuda.synchronize()
+    stats = pout["stats"].tolist()
+    n = stats[1]
+    pairs = [(pt, ct), (pout["stats"], cout["stats"])]
+    pairs += [(pout[k][:n], cout[k][:n]) for k in ("parent_hi", "parent_lo")]
+    pairs += [(pout["new"][k][:n], cout["new"][k][:n]) for k in ("hi", "lo", "ebits", "depth")]
+    pairs += [(v[:n], cout["new"]["states"][k][:n]) for k, v in pout["new"]["states"].items()]
+    err = _max_abs_err(pairs)
+    log(f"  2pc-8 wave: F={F} B={B} table rows={table0.shape[0]} unique before={got['unique']} "
+        f"generated={stats[0]} n_new={n} overflow={stats[2]} max_abs_err={err} "
+        f"plain={plain_ms:.1f} ms (host CPU)")
+    if err:
+        raise AssertionError("fused kernels and the plain twin disagree")
+
+    # The stages alone at this shape: the model stage (torch), then the
+    # kernel chain with an event between stages.
+    cond, cvalid, cand_flat = fw.model_stage(spec, states, F)
+    words = state_words(cand_flat)
+    model_ms, _ = _time_on_card(lambda mark: state_words(fw.model_stage(spec, states, F)[2]))
+    work = table0.clone()
+    chain_ms, stage_ms = _time_on_card(
+        lambda mark: fw.kernel_chain(spec, work, hi, lo, ebits, depth, depth_cap, cond,
+                                     cvalid, words, cand_flat, mark=mark),
+        reset=lambda: work.copy_(table0),
+    )
+
+    # The fingerprint stage against fingerprint_words, on the wave's own
+    # width and on the chunked branch (65 and 391 words).
+    rng = np.random.default_rng(2026)
+    for width in (words.shape[1], 65, 391):
+        w = torch.from_numpy(rng.integers(0, 1 << 32, size=(8192, width), dtype=np.uint64)
+                             .astype(np.int64))
+        key, _ = fw.keys_stage(w.cuda(), torch.ones(8192, dtype=torch.bool, device="cuda"))
+        fh, fl = fingerprint_words(w)
+        e = _max_abs_err([(fh, (key >> 32) & 0xFFFFFFFF), (fl, key & 0xFFFFFFFF)])
+        log(f"  fingerprint stage, {width}-word rows: max_abs_err={e}")
+        err = max(err, e)
+
+    # The radix sort against a stable torch.sort: the wave's own keys
+    # (the invalid lanes' sentinel repeated) and keys with many duplicates;
+    # torch.sort of the same keys on the card is the stage's yardstick.
+    key, idx = fw.keys_stage(words, cvalid, depth, depth_cap, A)
+    wave_keys = key.clone()
+    dup = torch.from_numpy((rng.integers(0, 1000, size=B).astype(np.uint64)
+                            * np.uint64(0x9E3779B97F4A7C15)).view(np.int64))
+    for label, keys in (("wave keys", wave_keys.cpu()), ("1,000 distinct keys", dup)):
+        k, i = keys.cuda(), torch.arange(B, dtype=torch.int32, device="cuda")
+        fw.sort_stage(k, i)
+        skey, sidx = torch.sort(keys ^ (-(1 << 63)), stable=True)
+        e = _max_abs_err([(skey ^ (-(1 << 63)), k), (sidx, i)])
+        log(f"  radix sort, {label}: n={B} max_abs_err={e}")
+        err = max(err, e)
+    signed = wave_keys ^ (-(1 << 63))
+    torch_sort_ms, _ = _time_on_card(lambda mark: torch.sort(signed, stable=True))
+    if err:
+        raise AssertionError("a fused stage and its plain counterpart disagree")
+
+    # Bytes the wave must move: the u32 words, valid bits, the four u32
+    # frontier arrays and the conditions read; the distinct table rows its
+    # probes read; the claimed rows, the fresh candidates' leaves (read and
+    # written), the six u32 per-lane outputs and the int64 stats written.
+    # u32 values count 4 B, though the port carries them in int64.
+    valid = (cvalid.view(F, A) & (depth < depth_cap)[:, None]).reshape(B).cpu().numpy()
+    fh, fl = fingerprint_words(words.cpu())
+    fps = (fh.numpy().astype(np.uint64) << np.uint64(32)) | fl.numpy().astype(np.uint64)
+    probed = _probed_rows(table_to_numpy(pt), np.unique(fps[valid]))
+    leaf_row_bytes = sum(x[0].numel() * x.element_size() for x in pout["new"]["states"].values())
+    moved = (words.numel() * 4 + B + 4 * F * 4 + P * F + probed * 8
+             + n * 8 + 2 * n * leaf_row_bytes + 6 * n * 4 + (5 + 3 * P) * 8)
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    log(json.dumps({"fused_wave_stage_ms": stage_ms, "kernel_chain_ms": chain_ms,
+                    "model_stage_torch_ms": model_ms, "torch_sort_ms": torch_sort_ms,
+                    "must_move_bytes": moved, "probed_rows": probed}))
+    log(f"  fused wave kernels: median {chain_ms:.3f} ms (sweep {stage_ms['sweep']:.3f} ms, "
+        f"radix sort {stage_ms['sort']:.3f} ms vs torch.sort {torch_sort_ms:.3f} ms); "
+        f"model stage (torch) {model_ms:.3f} ms; bound {bound_ms:.5f} ms ({moved} B)")
+    return {"max_abs_err": err, "ms": chain_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+
+# -- 3. the main paths ----------------------------------------------------------
+
+
+def _drive_2pc8(wave_kernel):
+    """Drives 2pc-8 through ``spawn_gpu_bfs`` with every kernel count set
+    to 0 just before and read just after."""
+    import torch
+
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+    from stateright_tpu_torch.ops import fused_wave as fw
+    from stateright_tpu_torch.ops import hashset_kernel as hk
+
+    torch.cuda.reset_peak_memory_stats()
+    hk.launches = fw.launches = 0
+    t0 = time.perf_counter()
+    checker = TwoPhaseSys(8).checker().spawn_gpu_bfs(
+        frontier_capacity=8192, table_capacity=1 << 20, wave_kernel=wave_kernel
+    ).join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches}
+    unique = checker.unique_state_count()
+    log(f"  2pc-8 ({wave_kernel}): unique={unique} states={checker.state_count()} "
+        f"depth={checker.max_depth()} waves={checker.waves} "
+        f"table_growths={checker.table_growths} "
+        f"table_capacity={checker.table_capacity()} wall={wall:.3f} s "
+        f"unique_states_per_s={unique / wall:.0f} launches={launches} "
+        f"peak_device_bytes={torch.cuda.max_memory_allocated()}")
+    assert checker.device.type == "cuda"
+    assert unique == 1_745_408, unique
+    checker.assert_properties()
+    return {"launches": launches, "wall_s": wall, "waves": checker.waves,
+            "state_count": checker.state_count(), "max_depth": checker.max_depth()}
 
 
 @phase("main_path_2pc8")
 def main_path():
-    import torch
+    run = _drive_2pc8("staged")
+    n = run["launches"]
+    assert n["hashset_insert_sorted"] >= run["waves"] > 0 and n["fused_wave"] == 0, n
+    return run
 
-    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
-    from stateright_tpu_torch.ops import hashset_kernel as hk
 
-    hk.launches = 0
-    t0 = time.perf_counter()
-    checker = TwoPhaseSys(8).checker().spawn_gpu_bfs(
-        frontier_capacity=8192, table_capacity=1 << 20
-    ).join()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = hk.launches
-    unique = checker.unique_state_count()
-    log(f"  2pc-8: unique={unique} states={checker.state_count()} "
-        f"depth={checker.max_depth()} waves={checker.waves} "
-        f"table_growths={checker.table_growths} "
-        f"table_capacity={checker.table_capacity()} wall={wall:.3f} s "
-        f"unique_states_per_s={unique / wall:.0f} insert_launches={launches}")
-    assert checker.device.type == "cuda"
-    assert unique == 1_745_408, unique
-    checker.assert_properties()
-    assert launches >= checker.waves > 0, (launches, checker.waves)
-    return {"launches": launches, "wall_s": wall, "waves": checker.waves}
+@phase("main_path_2pc8_fused")
+def main_path_fused(staged):
+    run = _drive_2pc8("fused")
+    n = run["launches"]
+    for k in ("state_count", "max_depth", "waves"):
+        assert run[k] == staged[k], (k, run[k], staged[k])
+    # The insert kernel still seeds the table and rehashes it on growth.
+    assert n["fused_wave"] >= run["waves"] > 0 and n["hashset_insert_sorted"] >= 1, n
+    return run
 
 
 @phase("replay_2pc3_2pc5")
 def replay_small():
     from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 
-    for n, expected in ((3, 288), (5, 8832)):
-        model = TwoPhaseSys(n)
-        gpu = model.checker().spawn_gpu_bfs(frontier_capacity=1024, table_capacity=1 << 14).join()
-        cpu = model.checker().spawn_gpu_bfs(
-            frontier_capacity=1024, table_capacity=1 << 14, device="cpu"
-        ).join()
-        assert gpu.unique_state_count() == cpu.unique_state_count() == expected
-        assert gpu.state_count() == cpu.state_count()
-        assert gpu.max_depth() == cpu.max_depth()
-        gd, cd = gpu.discoveries(), cpu.discoveries()
-        assert set(gd) == set(cd) == {"abort agreement", "commit agreement"}
-        for name in gd:
-            assert gd[name].encode() == cd[name].encode(), name
-        gpu.assert_properties()
-        gpu.assert_discovery(
-            "abort agreement",
-            [("TmAbort",)] + [("RmRcvAbortMsg", i) for i in range(n)],
-        )
-        if n == 3:
-            host = model.checker().spawn_bfs().join()
-            assert host.unique_state_count() == 288
-            assert host.state_count() == gpu.state_count()
-        log(f"  2pc-{n}: unique={gpu.unique_state_count()} states={gpu.state_count()} "
-            f"depth={gpu.max_depth()} abort path "
-            f"{gd['abort agreement'].into_actions()} (cuda == cpu twin)")
+    for wave_kernel in ("staged", "fused"):
+        for n, expected in ((3, 288), (5, 8832)):
+            model = TwoPhaseSys(n)
+            spawn = dict(frontier_capacity=1024, table_capacity=1 << 14, wave_kernel=wave_kernel)
+            gpu = model.checker().spawn_gpu_bfs(**spawn).join()
+            cpu = model.checker().spawn_gpu_bfs(**spawn, device="cpu").join()
+            assert gpu.unique_state_count() == cpu.unique_state_count() == expected
+            assert gpu.state_count() == cpu.state_count()
+            assert gpu.max_depth() == cpu.max_depth()
+            gd, cd = gpu.discoveries(), cpu.discoveries()
+            assert set(gd) == set(cd) == {"abort agreement", "commit agreement"}
+            for name in gd:
+                assert gd[name].encode() == cd[name].encode(), name
+            gpu.assert_properties()
+            gpu.assert_discovery(
+                "abort agreement",
+                [("TmAbort",)] + [("RmRcvAbortMsg", i) for i in range(n)],
+            )
+            if n == 3:
+                host = model.checker().spawn_bfs().join()
+                assert host.unique_state_count() == 288
+                assert host.state_count() == gpu.state_count()
+            log(f"  2pc-{n} ({wave_kernel}): unique={gpu.unique_state_count()} "
+                f"states={gpu.state_count()} depth={gpu.max_depth()} abort path "
+                f"{gd['abort agreement'].into_actions()} (cuda == cpu twin)")
 
 
 def main() -> int:
@@ -338,28 +553,45 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     card = card_line()
-    build_kernel()
+    build_kernels()
     insert = kernel_vs_plain() if not FAILED else None
-    main = main_path() if not FAILED else None
+    fused = fused_vs_plain() if not FAILED else None
+    staged = main_path() if not FAILED else None
+    fused_run = main_path_fused(staged) if not FAILED else None
     if not FAILED:
         replay_small()
     if FAILED:
         log(f"FAILED phases: {FAILED}")
         return 1
     log(card)
-    log(json.dumps({"kernels": [{
-        "name": "hashset_insert_sorted",
-        "route": "cuda",
-        "source": "stateright_tpu_torch/csrc/hashset_insert.cu",
-        "replaces": "stateright_tpu/ops/pallas_hashset.py:193",
-        "launches": main["launches"],
-        "max_abs_err": insert["max_abs_err"],
-        "ms": insert["ms"],
-        "plain_ms": insert["plain_ms"],
-        "bound_ms": insert["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,
-    }]}))
+    log(json.dumps({"kernels": [
+        {
+            "name": "hashset_insert_sorted",
+            "route": "cuda",
+            "source": "stateright_tpu_torch/csrc/hashset_insert.cu",
+            "replaces": "stateright_tpu/ops/pallas_hashset.py:193",
+            "launches": staged["launches"]["hashset_insert_sorted"],
+            "max_abs_err": insert["max_abs_err"],
+            "ms": insert["ms"],
+            "plain_ms": insert["plain_ms"],
+            "bound_ms": insert["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+        },
+        {
+            "name": "fused_wave",
+            "route": "cuda",
+            "source": "stateright_tpu_torch/csrc/fused_wave.cu",
+            "replaces": "stateright_tpu/ops/pallas_wave.py:91",
+            "launches": fused_run["launches"]["fused_wave"],
+            "max_abs_err": fused["max_abs_err"],
+            "ms": fused["ms"],
+            "plain_ms": fused["plain_ms"],
+            "bound_ms": fused["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+        },
+    ]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

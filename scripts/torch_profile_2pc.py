@@ -1,14 +1,16 @@
 """Where the time of one GPU BFS run of the PyTorch/CUDA port goes.
 
     python scripts/torch_profile_2pc.py [--rm 8] [--frontier 8192]
-        [--table 1048576] [--trace chiprun_out/profile_2pc8.json]
+        [--table 1048576] [--wave-kernel staged|fused]
+        [--trace TRACE.json]
 
 Runs ``TwoPhaseSys(rm).checker().spawn_gpu_bfs(...)`` once to warm up
 (kernel build, allocator, library handles), then once more under
 ``torch.profiler`` with CPU and CUDA activities. Prints the device time of
 each CUDA kernel name (summed over the run), the wall time, the device
-busy time (union of kernel intervals) and the device idle share, and one
-JSON summary line. Needs a CUDA device; imports nothing of JAX.
+busy time (union of kernel intervals), the device idle share, the device
+launches per wave, and one JSON summary line. Needs a CUDA device;
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ def main() -> int:
     ap.add_argument("--rm", type=int, default=8)
     ap.add_argument("--frontier", type=int, default=8192)
     ap.add_argument("--table", type=int, default=1 << 20)
+    ap.add_argument("--wave-kernel", default="staged", choices=("staged", "fused"))
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
     args = ap.parse_args()
 
@@ -40,6 +43,7 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 2
     from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+    from stateright_tpu_torch.ops import fused_wave as fw
     from stateright_tpu_torch.ops import hashset_kernel as hk
 
     card = subprocess.run(
@@ -51,7 +55,8 @@ def main() -> int:
     def run():
         t0 = time.perf_counter()
         c = TwoPhaseSys(args.rm).checker().spawn_gpu_bfs(
-            frontier_capacity=args.frontier, table_capacity=args.table
+            frontier_capacity=args.frontier, table_capacity=args.table,
+            wave_kernel=args.wave_kernel,
         ).join()
         torch.cuda.synchronize()
         return c, time.perf_counter() - t0
@@ -59,10 +64,10 @@ def main() -> int:
     warm, warm_wall = run()
     print(f"warm-up run: unique={warm.unique_state_count()} wall={warm_wall:.3f} s", flush=True)
 
-    hk.launches = 0
+    hk.launches = fw.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         checker, wall = run()
-    launches = hk.launches
+    launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches}
 
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_name = defaultdict(lambda: [0, 0.0])
@@ -86,27 +91,31 @@ def main() -> int:
     span_us = (intervals[-1][1] - intervals[0][0]) if intervals else 0.0
 
     total_ms = sum(v[1] for v in by_name.values())
-    print(f"profiled run: unique={checker.unique_state_count()} waves={checker.waves} "
-          f"table_growths={checker.table_growths} wall={wall:.3f} s "
-          f"insert_launches={launches}")
+    print(f"profiled run ({args.wave_kernel}): unique={checker.unique_state_count()} "
+          f"waves={checker.waves} table_growths={checker.table_growths} "
+          f"wall={wall:.3f} s launches={launches}")
     print(f"{'device ms':>12} {'share':>7} {'count':>8}  kernel")
     for name, (count, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:20]:
         print(f"{ms:12.3f} {ms / total_ms:7.1%} {count:8d}  {name[:90]}")
     insert_ms = sum(ms for name, (_c, ms) in by_name.items() if "hashset_insert" in name)
+    sweep_ms = sum(ms for name, (_c, ms) in by_name.items() if "sweep_kernel" in name)
     summary = {
         "card": card,
         "model": f"2pc-{args.rm}",
+        "wave_kernel": args.wave_kernel,
         "unique": checker.unique_state_count(),
         "waves": checker.waves,
-        "insert_launches": launches,
+        "launches": launches,
         "wall_s": wall,
         "warm_wall_s": warm_wall,
         "kernel_ms_total": total_ms,
         "insert_kernel_ms": insert_ms,
+        "sweep_kernel_ms": sweep_ms,
         "device_busy_ms": busy_us / 1e3,
         "device_span_ms": span_us / 1e3,
         "device_idle_share_of_wall": 1.0 - (busy_us / 1e6) / wall,
         "kernel_launches": len(kernels),
+        "kernel_launches_per_wave": len(kernels) / max(1, checker.waves),
     }
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)

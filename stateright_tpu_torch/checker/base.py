@@ -119,6 +119,11 @@ class Checker(Generic[State, Action]):
             for name, path in self.discoveries().items()
         }
         reporter.report_discoveries(discoveries)
+        # Configuration the checker rounded or rewrote on the user's behalf
+        # (e.g. a tile-aligned table capacity) is reported on every run.
+        notes = getattr(self, "config_notes", None)
+        if notes:
+            reporter.report_config_notes(notes)
         # A sometimes/eventually property with no discovery is a silent
         # pass unless the reporter says so; only once checking completed.
         if self.is_done():

@@ -48,12 +48,15 @@ class CheckerBuilder:
         return BfsChecker(self)
 
     def spawn_gpu_bfs(self, **kwargs):
-        """Breadth-first search on the GPU: batched frontier expansion in
-        torch and a visited set whose inserts run through a hand-written
-        CUDA kernel. Requires the model to implement ``BatchableModel``.
-        Runs on ``cuda`` unless ``device="cpu"`` is passed, which selects
-        the plain torch twin of every kernel; with no CUDA device and no
-        ``device="cpu"`` it raises. See ``checker/gpu.py`` for the knobs."""
+        """Breadth-first search on the GPU. Requires the model to implement
+        ``BatchableModel``. ``wave_kernel="staged"`` (the default) expands,
+        fingerprints, sorts and compacts each wave in torch and inserts
+        through a hand-written CUDA kernel; ``wave_kernel="fused"`` runs
+        only the model's own code in torch and every other stage of the
+        wave in hand-written CUDA kernels. Runs on ``cuda`` unless
+        ``device="cpu"`` is passed, which selects the plain torch twin of
+        every kernel; with no CUDA device and no ``device="cpu"`` it
+        raises. See ``checker/gpu.py`` for the knobs."""
         from .gpu import GpuBfsChecker
 
         return GpuBfsChecker(self, **kwargs)

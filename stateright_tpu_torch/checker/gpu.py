@@ -1,9 +1,9 @@
-"""GPU breadth-first checker: frontier waves in torch, inserts in CUDA.
+"""GPU breadth-first checker: frontier waves in torch and CUDA.
 
 The port of the JAX package's ``TpuBfsChecker`` as configured with
-``hashset_impl="pallas"``, ``wave_kernel="staged"`` and
-``wave_dedup="sort"``, driven wave at a time (``_explore_waves``). Each
-wave takes one frontier chunk of at most ``frontier_capacity`` states and
+``hashset_impl="pallas"``, ``wave_dedup="sort"`` and either wave engine,
+driven wave at a time (``_explore_waves``). Each wave takes one frontier
+chunk of at most ``frontier_capacity`` states and
 
     evaluates the property conditions (clearing ``eventually`` bits)
       -> expands the F x A action grid (``packed_expand``), drops lanes
@@ -15,6 +15,13 @@ wave takes one frontier chunk of at most ``frontier_capacity`` states and
          CUDA tile-sweep kernel (``ops/hashset_kernel.py``)
       -> compacts the fresh lanes, in key order, into the next frontier,
          and logs (child, parent) fingerprints for path replay.
+
+``wave_kernel="staged"`` (the default) runs that wave in torch with the
+CUDA insert (``ops/fused_wave.py::torch_wave``); ``wave_kernel="fused"``
+runs the model's stage in torch and every other stage in the hand-written
+kernels of ``csrc/fused_wave.cu`` (``ops/fused_wave.py::fused_wave``). The
+two give the same results bit for bit. Either way the host reads one
+stats vector per wave and copies the parent log: two syncs a wave.
 
 Counts, depths, verdicts and counterexample paths equal the JAX
 package's. The table grows (doubling + rehash) before a wave whose
@@ -46,10 +53,12 @@ from ..core.model import Expectation
 from ..core.path import Path
 from ..native import make_fingerprint_store
 from ..ops.fingerprint import fp_to_int
+from ..ops.fused_wave import FusedWaveSpec, fused_wave, sorted_dedup, torch_wave
 from ..ops.hashset import hashset_new, i32_to_u32, u32_to_i32
 from ..ops.hashset_kernel import (
     TILE_ROWS,
     hashset_insert_sorted,
+    round_table_capacity,
     sort_key,
     split_key,
 )
@@ -84,19 +93,6 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _sorted_dedup(khi, klo, valid):
-    """Stable sort of the (hi, lo) keys with invalid lanes sunk to the
-    (MAX, MAX) sentinel; returns ``(shi, slo, sidx, unique)`` where
-    ``unique`` marks each valid key's first (lowest-lane) occurrence —
-    ``jax.lax.sort(num_keys=2)`` over ``(hi, lo, lane)`` in the reference."""
-    key = torch.where(valid, sort_key(khi, klo), torch.full_like(khi, (1 << 63) - 1))
-    skey, sidx = torch.sort(key, stable=True)
-    first = torch.ones_like(valid)
-    first[1:] = skey[1:] != skey[:-1]
-    shi, slo = split_key(skey)
-    return shi, slo, sidx, valid[sidx] & first
-
-
 def _fp64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     """(hi, lo) u32 pairs as int64 whose bits are the u64 fingerprint."""
     return (hi << 32) | lo
@@ -107,8 +103,11 @@ class GpuBfsChecker(Checker):
 
     ``frontier_capacity`` caps lanes per wave (larger frontiers split into
     chunks); ``table_capacity`` is the initial visited-set size, a power
-    of two and a multiple of ``TILE_ROWS`` (grows by doubling + rehash);
-    ``device`` is ``"cuda"`` (the default) or ``"cpu"``."""
+    of two and a multiple of ``TILE_ROWS`` (grows by doubling + rehash;
+    ``wave_kernel="fused"`` rounds it up instead, and says so in
+    ``config_notes``); ``device`` is ``"cuda"`` (the default) or
+    ``"cpu"``; ``wave_kernel`` is ``"staged"`` (the default) or
+    ``"fused"``."""
 
     def __init__(
         self,
@@ -116,6 +115,7 @@ class GpuBfsChecker(Checker):
         frontier_capacity=1 << 13,
         table_capacity=1 << 16,
         device=None,
+        wave_kernel="staged",
     ):
         model = options.model
         if not isinstance(model, BatchableModel):
@@ -124,6 +124,20 @@ class GpuBfsChecker(Checker):
                 "does not implement the packed protocol (see "
                 "stateright_tpu_torch.core.batch)"
             )
+        if wave_kernel not in ("staged", "fused"):
+            raise ValueError(
+                f"wave_kernel must be 'staged' or 'fused', got {wave_kernel!r}"
+            )
+        if wave_kernel == "fused" and (
+            getattr(model.packed_fingerprint, "__func__", None)
+            is not BatchableModel.packed_fingerprint
+        ):
+            raise ValueError(
+                "wave_kernel='fused' fingerprints the default fold over "
+                f"state_words, and {type(model).__name__} overrides "
+                "packed_fingerprint; use wave_kernel='staged'"
+            )
+        self._wave_kernel = wave_kernel
         self._device = resolve_device(device)
         self._model = model
         self._properties = model.properties()
@@ -144,7 +158,21 @@ class GpuBfsChecker(Checker):
         self._ebits0 = sum(1 << b for b in self._ebit.values())
         self._A = model.packed_action_count()
         self._F_max = _pow2ceil(frontier_capacity)
+        # Run-configuration notes, reported once at run end
+        # (``Reporter.report_config_notes``).
+        self.config_notes: List[str] = []
         cap = int(table_capacity)
+        if wave_kernel == "fused":
+            # The fused wave's sweep grids over TILE_ROWS-row tiles: round
+            # the capacity up and say so, as the JAX package does. The
+            # staged insert keeps its refusal below.
+            rounded = round_table_capacity(cap)
+            if rounded != cap:
+                self.config_notes.append(
+                    f"table_capacity rounded {cap} -> {rounded} (tile-sweep "
+                    f"kernels grid over {TILE_ROWS}-row table tiles)"
+                )
+                cap = rounded
         if cap <= 0 or cap & (cap - 1) or cap % TILE_ROWS:
             raise ValueError(
                 "table_capacity must be a power of two and a multiple of "
@@ -154,6 +182,14 @@ class GpuBfsChecker(Checker):
         self._visitor = options._visitor
         self._target_state_count: Optional[int] = options._target_state_count
         self._depth_cap = options._target_max_depth or _DEPTH_INF
+        self._spec = FusedWaveSpec(
+            expand=model.packed_expand,
+            within_boundary=model.packed_within_boundary,
+            conditions=tuple(self._conditions),
+            expectations=tuple(p.expectation.value for p in self._properties),
+            ebit=tuple(sorted(self._ebit.items())),
+            action_count=self._A,
+        )
 
         self._state_count = 0
         self._unique_count = 0
@@ -179,69 +215,23 @@ class GpuBfsChecker(Checker):
     # -- device work ---------------------------------------------------------
 
     def _dedup_insert(self, table, khi, klo, valid):
-        shi, slo, sidx, unique = _sorted_dedup(khi, klo, valid)
+        shi, slo, sidx, unique = sorted_dedup(khi, klo, valid)
         table, fresh, _found, pending = hashset_insert_sorted(
             table, u32_to_i32(shi), u32_to_i32(slo), unique
         )
         return table, sidx, fresh, pending
 
     def _wave(self, table, chunk):
-        """One wave over a frontier chunk; returns ``(table, out)`` where
-        ``out["stats"]`` is the host list ``[generated, n_new, overflow,
-        max_depth, (hit, hi, lo) per property...]``."""
-        model = self._model
-        A = self._A
-        states, hi, lo = chunk["states"], chunk["hi"], chunk["lo"]
-        ebits, depth = chunk["ebits"], chunk["depth"]
-        F = hi.shape[0]
-        B = F * A
-        eval_mask = depth < self._depth_cap
-
-        # Property conditions on the frontier (the states being "popped").
-        cond_vals = [c(states) for c in self._conditions]
-        ebits_after = ebits
-        for pi, b in self._ebit.items():
-            ebits_after = torch.where(
-                cond_vals[pi], ebits_after & ~(1 << b), ebits_after
-            )
-
-        cand, cvalid = model.packed_expand(states)
-        cand_flat = map_leaves(lambda x: x.reshape((B,) + x.shape[2:]), cand)
-        cvalid = (cvalid & eval_mask[:, None]).reshape(B)
-        cvalid = cvalid & model.packed_within_boundary(cand_flat)
-        generated = cvalid.sum()
-        terminal = eval_mask & ~cvalid.view(F, A).any(dim=1)
-        chi, clo = model.packed_fingerprint(cand_flat)
-
-        table, sidx, fresh, pending = self._dedup_insert(table, chi, clo, cvalid)
-
-        items = [generated, fresh.sum(), pending.sum(), depth.max()]
-        lanes = torch.arange(F, device=hi.device)
-        for i, p in enumerate(self._properties):
-            if p.expectation == Expectation.ALWAYS:
-                h = eval_mask & ~cond_vals[i]
-            elif p.expectation == Expectation.SOMETIMES:
-                h = eval_mask & cond_vals[i]
-            else:  # EVENTUALLY: unmet bit at a terminal state
-                h = terminal & (((ebits_after >> self._ebit[i]) & 1) == 1)
-            # First hit lane (lane 0 when there is none; unused then).
-            idx = torch.where(h, lanes, F).min().clamp(max=F - 1)
-            items += [h.any(), hi[idx], lo[idx]]
-        stats = torch.stack([x.to(torch.int64) for x in items]).tolist()
-
-        # Compact the fresh lanes, in sorted-key order, into the next
-        # frontier.
-        src = sidx[torch.nonzero(fresh).squeeze(1)]
-        parent = src // A
-        new = {
-            "states": map_leaves(lambda x: x[src], cand_flat),
-            "hi": chi[src],
-            "lo": clo[src],
-            "ebits": ebits_after[parent],
-            "depth": depth[parent] + 1,
-        }
-        log = torch.stack([_fp64(new["hi"], new["lo"]), _fp64(hi[parent], lo[parent])])
-        return table, {"stats": stats, "new": new, "log": log}
+        """One wave over a frontier chunk; returns ``(table, out)``, the
+        output of ``ops/fused_wave.py`` (a device stats vector and B-row
+        outputs whose first ``n_new`` rows are the fresh states)."""
+        args = (
+            self._spec, table, chunk["states"], chunk["hi"], chunk["lo"],
+            chunk["ebits"], chunk["depth"], self._depth_cap,
+        )
+        if self._wave_kernel == "fused":
+            return fused_wave(*args)
+        return torch_wave(*args, fingerprint=self._model.packed_fingerprint)
 
     def _rehash(self, table, capacity):
         """The old table's live rows, sorted, inserted into an empty table
@@ -348,15 +338,29 @@ class GpuBfsChecker(Checker):
         while True:
             table, out = self._wave(table, chunk)
             self.waves += 1
-            stats = out["stats"]
+            stats = out["stats"].tolist()  # the wave's one read of its counters
             if attempt == 0:
                 self._apply_wave_stats(stats, chunk)
             n_new = stats[1]
             self._unique_count += n_new
             if n_new:
-                child, parent = out["log"].cpu().numpy().view(np.uint64)
+                # Copies of the fresh rows: the queued chunks are views of
+                # these, so the wave's B-row outputs are freed now rather
+                # than held until its last chunk runs.
+                new = {
+                    k: (
+                        map_leaves(lambda x: x[:n_new].clone(), v)
+                        if k == "states"
+                        else v[:n_new].clone()
+                    )
+                    for k, v in out["new"].items()
+                }
+                log = torch.stack([
+                    _fp64(new["hi"], new["lo"]),
+                    _fp64(out["parent_hi"][:n_new], out["parent_lo"][:n_new]),
+                ])
+                child, parent = log.cpu().numpy().view(np.uint64)
                 self._wave_log.append((child, parent))
-                new = out["new"]
                 for s in range(0, n_new, self._F_max):
                     queue.append({
                         k: (
@@ -375,7 +379,7 @@ class GpuBfsChecker(Checker):
         self._state_count += stats[0]
         self._max_depth = max(self._max_depth, stats[3])
         for i, p in enumerate(self._properties):
-            hit, phi, plo = stats[4 + 3 * i : 7 + 3 * i]
+            hit, phi, plo = stats[5 + 3 * i : 8 + 3 * i]
             if hit and p.name not in self._discoveries_fp:
                 self._discoveries_fp[p.name] = fp_to_int(phi, plo)
         if self._visitor is not None:

@@ -23,6 +23,7 @@ both.
 
 from __future__ import annotations
 
+import math
 from typing import Any, List, Tuple
 
 import torch
@@ -84,7 +85,7 @@ def _leaf_words(leaf: torch.Tensor) -> torch.Tensor:
         torch.int32, torch.int64,
     ):
         raise TypeError(f"cannot fingerprint leaf dtype {x.dtype}")
-    return (x.to(torch.int64) & U32).reshape(x.shape[0], -1)
+    return (x.to(torch.int64) & U32).reshape(x.shape[0], math.prod(x.shape[1:]))
 
 
 def _leaves(state: Any) -> List[torch.Tensor]:

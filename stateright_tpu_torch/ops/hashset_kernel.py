@@ -159,11 +159,8 @@ def _kernel():
     from ._build import load
 
     fn = load("hashset_insert").hashset_insert_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p
-        ] * 4
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
     return fn
 
 

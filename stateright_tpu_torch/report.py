@@ -41,6 +41,13 @@ class Reporter:
         without the coverage ledger (upstream-parity: see MIGRATING.md).
         Default no-op keeps existing reporters source-compatible."""
 
+    def report_config_notes(self, notes) -> None:
+        """Called once per report with the configuration adjustments the
+        checker made on the user's behalf (e.g. the tile-sweep kernels
+        rounding ``table_capacity`` up to a tile-aligned power of two), so
+        an adjusted run never reads as the run that was asked for. Default
+        no-op keeps existing reporters source-compatible."""
+
     def delay(self) -> float:
         """Seconds between progress reports."""
         return 1.0
@@ -80,3 +87,7 @@ class WriteReporter(Reporter):
             self.writer.write(
                 f'Property "{p.name}" not discovered ({kind})\n'
             )
+
+    def report_config_notes(self, notes) -> None:
+        for note in notes:
+            self.writer.write(f"Note: {note}\n")

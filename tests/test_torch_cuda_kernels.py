@@ -1,5 +1,11 @@
 """The port's CUDA kernels on the card, against their plain torch twins.
 
+The visited-set insert (``csrc/hashset_insert.cu``) against
+``hashset_insert_sorted_plain``, and the fused wave's kernels
+(``csrc/fused_wave.cu``) against ``fused_wave_plain``: single waves at
+small shapes built to reach each hard case, the fingerprint and sort
+stages alone, and whole runs on the card against the CPU twin.
+
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports neither JAX nor
 the JAX package, so it runs on a machine with only PyTorch; there, from
@@ -12,9 +18,12 @@ import numpy as np
 import pytest
 import torch
 
+from stateright_tpu_torch.core.batch import map_leaves
 from stateright_tpu_torch.interop import keys_from_numpy, table_from_numpy, table_to_numpy
 from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+from stateright_tpu_torch.ops import fused_wave as fw
 from stateright_tpu_torch.ops import hashset_kernel as hk
+from stateright_tpu_torch.ops.fingerprint import fingerprint_state, fingerprint_words
 from stateright_tpu_torch.ops.hashset import MAX_PROBES
 
 TILE_ROWS = hk.TILE_ROWS
@@ -93,6 +102,183 @@ def test_cuda_checker_matches_cpu_twin(cuda_device):
     assert gpu.unique_state_count() == cpu.unique_state_count() == 8832
     assert gpu.state_count() == cpu.state_count()
     assert gpu.max_depth() == cpu.max_depth()
+    assert gpu.table_growths == cpu.table_growths >= 1
+    for name, path in cpu.discoveries().items():
+        assert gpu.discoveries()[name].encode() == path.encode()
+
+
+# -- the fused wave ------------------------------------------------------------
+
+
+def hop_spec(n, actions=4, bound=None):
+    """A wave over states x in [0, n): action a takes x to (x + a) % n, so
+    neighbouring frontier lanes share children (in-wave duplicates). Leaves
+    of three dtypes exercise the byte-row gather; properties of all three
+    kinds exercise the hits and the eventually bit."""
+
+    def expand(st):
+        x = st["x"][:, None] + torch.arange(actions, device=st["x"].device)
+        x = x % n
+        cand = {
+            "x": x,
+            "tag": torch.stack([x, x * 3, x * 7], dim=-1).to(torch.int16),
+            "odd": (x % 2) == 1,
+        }
+        return cand, x != st["x"][:, None]
+
+    def within(c):
+        return torch.ones_like(c["x"], dtype=torch.bool) if bound is None else c["x"] < bound
+
+    return fw.FusedWaveSpec(
+        expand=expand,
+        within_boundary=within,
+        conditions=(lambda st: st["x"] % 97 != 5, lambda st: st["x"] % 101 == 3,
+                    lambda st: st["x"] == n // 2),
+        expectations=("always", "sometimes", "eventually"),
+        ebit=((2, 0),),
+        action_count=actions,
+    )
+
+
+def hop_frontier(xs, depth, ebits=1, device="cpu"):
+    x = torch.as_tensor(xs, dtype=torch.int64)
+    states = {"x": x, "tag": torch.stack([x, x * 3, x * 7], dim=-1).to(torch.int16),
+              "odd": (x % 2) == 1}
+    hi, lo = fingerprint_state(states)
+    F = x.shape[0]
+    cols = {"hi": hi, "lo": lo, "ebits": torch.full((F,), ebits, dtype=torch.int64),
+            "depth": torch.as_tensor(depth, dtype=torch.int64).expand(F).contiguous()}
+    return map_leaves(lambda t: t.to(device), states), {k: v.to(device) for k, v in cols.items()}
+
+
+def fused_both(spec, table_np, states, cols, depth_cap, dev):
+    """One wave through the kernels and through the plain twin; asserts
+    that every output agrees bit for bit and returns the plain stats."""
+    before = fw.launches
+    pt, pout = fw.fused_wave_plain(spec, table_from_numpy(table_np), states,
+                                   cols["hi"], cols["lo"], cols["ebits"], cols["depth"], depth_cap)
+    ct, cout = fw.fused_wave(
+        spec, table_from_numpy(table_np, dev), map_leaves(lambda t: t.to(dev), states),
+        *(cols[k].to(dev) for k in ("hi", "lo", "ebits", "depth")), depth_cap,
+    )
+    torch.cuda.synchronize()
+    assert fw.launches == before + 1
+    assert np.array_equal(table_to_numpy(ct), table_to_numpy(pt))
+    stats = pout["stats"].tolist()
+    assert cout["stats"].cpu().tolist() == stats
+    n = stats[1]
+    for k in ("hi", "lo", "ebits", "depth"):
+        assert torch.equal(cout["new"][k][:n].cpu(), pout["new"][k][:n]), k
+    for k in ("parent_hi", "parent_lo"):
+        assert torch.equal(cout[k][:n].cpu(), pout[k][:n]), k
+    for k, leaf in pout["new"]["states"].items():
+        assert torch.equal(cout["new"]["states"][k][:n].cpu(), leaf[:n]), k
+    return stats, table_to_numpy(pt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case", ["empty_frontier", "all_invalid", "duplicates", "overflow_rerun", "cross_tile"]
+)
+def test_cuda_fused_wave_matches_plain_twin(cuda_device, case):
+    cap = TILE_ROWS * 2
+    table = empty_table(cap)
+    spec = hop_spec(5000)
+    if case == "empty_frontier":
+        states, cols = hop_frontier([], 1)
+        stats, _ = fused_both(spec, table, states, cols, 10, cuda_device)
+        assert stats[:5] == [0, 0, 0, 0, 0]
+    elif case == "all_invalid":
+        # Every lane is past the depth cap: nothing is generated, and the
+        # terminal-only eventually property does not fire.
+        states, cols = hop_frontier(list(range(64)), 5)
+        stats, _ = fused_both(spec, table, states, cols, 5, cuda_device)
+        assert stats[0] == stats[1] == 0 and stats[3] == 5
+    elif case == "duplicates":
+        # 600 consecutive states with 8 actions: most children come from 8
+        # lanes; the lowest lane must win (the plain twin's stable sort).
+        # Lanes at the boundary are terminal; every property hits.
+        spec = hop_spec(5000, actions=8, bound=2590)
+        states, cols = hop_frontier(list(range(2000, 2600)), 3)
+        stats, _ = fused_both(spec, table, states, cols, 10, cuda_device)
+        assert stats[1] == 589 and stats[4] == 1
+        assert stats[5] == stats[8] == stats[11] == 1
+    elif case == "overflow_rerun":
+        # More fresh keys than a 4,096-row table holds: keys go pending;
+        # the same wave again on the grown table (as the checker re-runs
+        # it) must agree too.
+        spec = hop_spec(1 << 20, actions=8)
+        states, cols = hop_frontier(list(range(0, 8 * 700, 8)), 2)
+        stats, after = fused_both(spec, table, states, cols, 10, cuda_device)
+        assert stats[2] > 0
+        grown = empty_table(cap * 4)
+        stats2, _ = fused_both(spec, grown, states, cols, 10, cuda_device)
+        assert stats2[2] == 0 and stats2[1] == 700 * 7
+    else:
+        # Rows around the tile boundary are taken, so keys homing below it
+        # claim rows past it, which the next tile's keys must see.
+        rng = np.random.default_rng(1)
+        table[TILE_ROWS - 200 : TILE_ROWS + 40] = rng.integers(
+            1, 1 << 32, size=(240, 2), dtype=np.uint64
+        ).astype(np.uint32)
+        states, cols = hop_frontier(list(range(0, 3000, 3)), 2)
+        stats, after = fused_both(spec, table, states, cols, 10, cuda_device)
+        assert (after[TILE_ROWS + 40 : TILE_ROWS + MAX_PROBES, 0] != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [11, 65, 391])
+def test_cuda_fingerprint_stage_matches_fingerprint_words(cuda_device, width):
+    rng = np.random.default_rng(width)
+    words = torch.from_numpy(
+        rng.integers(0, 1 << 32, size=(3000, width), dtype=np.uint64).astype(np.int64)
+    )
+    words[:2] = 0  # all-zero rows
+    key, idx = fw.keys_stage(words.to(cuda_device),
+                             torch.ones(3000, dtype=torch.bool, device=cuda_device))
+    key = key.cpu()
+    hi, lo = fingerprint_words(words)
+    assert torch.equal((key >> 32) & 0xFFFFFFFF, hi)
+    assert torch.equal(key & 0xFFFFFFFF, lo)
+    assert torch.equal(idx.cpu(), torch.arange(3000, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2047, 2049, 50000])
+def test_cuda_radix_sort_matches_stable_torch_sort(cuda_device, n):
+    rng = np.random.default_rng(n)
+    hi = rng.integers(0, 1 << 32, size=n, dtype=np.uint64)
+    lo = rng.integers(0, 1 << 32, size=n, dtype=np.uint64)
+    dup = rng.integers(0, n, size=n // 2)
+    hi[dup], lo[dup] = hi[dup[::-1]], lo[dup[::-1]]  # many equal keys
+    hi[: n // 10] = 0xFFFFFFFF  # and the invalid-lane sentinel
+    lo[: n // 10] = 0xFFFFFFFF
+    thi = torch.from_numpy(hi.astype(np.int64))
+    tlo = torch.from_numpy(lo.astype(np.int64))
+    skey, sidx = torch.sort(hk.sort_key(thi, tlo), stable=True)
+    key = ((thi << 32) | tlo).to(cuda_device)
+    idx = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    fw.sort_stage(key, idx)
+    assert torch.equal(key.cpu(), skey ^ (-(1 << 63)))
+    assert torch.equal(idx.cpu().to(torch.int64), sidx)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_checker_matches_cpu_twin(cuda_device):
+    """2pc-5 through the fused kernels on the card and through the CPU
+    twin: same counts, growths and paths."""
+    fw.launches = 0
+    gpu, cpu = [
+        TwoPhaseSys(5).checker().spawn_gpu_bfs(
+            frontier_capacity=256, table_capacity=1 << 12, device=d, wave_kernel="fused",
+        ).join()
+        for d in (cuda_device, "cpu")
+    ]
+    assert fw.launches >= gpu.waves > 0
+    assert gpu.unique_state_count() == cpu.unique_state_count() == 8832
+    assert gpu.state_count() == cpu.state_count()
+    assert gpu.max_depth() == cpu.max_depth()
+    assert gpu.waves == cpu.waves
     assert gpu.table_growths == cpu.table_growths >= 1
     for name, path in cpu.discoveries().items():
         assert gpu.discoveries()[name].encode() == path.encode()
