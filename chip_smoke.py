@@ -19,6 +19,7 @@ is not beside it. Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -145,14 +146,39 @@ def _must_move_bytes(after, hi, lo, active, fresh):
     return _probed_rows(after, k) * 8 + int(fresh.sum()) * 8 + B * 9 + B * 3
 
 
+def _sweep_pass_ms(run, reset=None, reps=5):
+    """Median device ms of each pass of the tile sweep (extent, speculate,
+    repair, commit) over ``reps`` calls of ``run()``, from ``torch.profiler``'s
+    kernel records; None where the profiler recorded no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if reset is not None:
+                reset()
+            run()
+        torch.cuda.synchronize()
+    out = {}
+    for p in ("extent", "speculate", "repair", "commit"):
+        ds = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+              if e.device_type == DeviceType.CUDA and f"sweep_{p}_kernel" in e.name]
+        out[p] = statistics.median(ds) if ds else None
+    return out
+
+
 def _compare_insert(table_np, hi, lo, active, timing=False):
     """Runs the CUDA kernel and the plain twin on the same inputs; returns
-    (max_abs_err, kernel ms, plain ms, touched tiles, table after, fresh)."""
+    a dict: max_abs_err, the kernel's median ms and its passes' ms (with
+    ``timing``), plain ms, touched tiles, the tiles the repair redid and
+    the tiles it had to redo, the table after and the fresh flags."""
     import numpy as np
     import torch
 
     from stateright_tpu_torch.interop import keys_from_numpy, table_from_numpy, table_to_numpy
     from stateright_tpu_torch.ops import hashset_kernel as hk
+    from stateright_tpu_torch.testing import tiles_to_redo
 
     khi, klo = keys_from_numpy(hi, lo)
     act = torch.from_numpy(np.ascontiguousarray(active))
@@ -174,14 +200,19 @@ def _compare_insert(table_np, hi, lo, active, timing=False):
     starts = hk.tile_starts(khi, cap)
     act_c = torch.cat([torch.zeros(1, dtype=torch.int64), act.to(torch.int64).cumsum(0)])
     touched = int(((act_c[starts[1:]] - act_c[starts[:-1]]) > 0).sum())
-    kernel_ms = None
+    after = table_to_numpy(pt)
+    # The launch alone, for its scratch: how many tiles the repair redid.
+    dstarts = starts.to(dev)
+    flags = [torch.empty_like(dact) for _ in range(3)]
+    work = orig.clone()
+    redone = hk.tiles_redone(hk._launch(work, dhi, dlo, dact, dstarts, *flags))
+    res = {"err": err, "plain_ms": plain_ms, "touched": touched, "redone": redone,
+           "to_redo": tiles_to_redo(table_np, after, hi, lo, active), "after": after,
+           "fresh": pf.numpy(), "ms": None, "pass_ms": None}
     if timing:
         # Only the kernel's launch lies between the events: the tile bounds
         # and the flags are made once, before.
-        dstarts = starts.to(dev)
-        flags = [torch.empty_like(dact) for _ in range(3)]
         times = []
-        work = orig.clone()
         for _ in range(21):
             work.copy_(orig)
             start = torch.cuda.Event(enable_timing=True)
@@ -191,8 +222,12 @@ def _compare_insert(table_np, hi, lo, active, timing=False):
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
-        kernel_ms = statistics.median(times)
-    return err, kernel_ms, plain_ms, touched, table_to_numpy(pt), pf.numpy()
+        res["ms"] = statistics.median(times)
+        res["pass_ms"] = _sweep_pass_ms(
+            lambda: hk._launch(work, dhi, dlo, dact, dstarts, *flags),
+            reset=lambda: work.copy_(orig),
+        )
+    return res
 
 
 @phase("kernel_vs_plain")
@@ -200,6 +235,7 @@ def kernel_vs_plain():
     import numpy as np
 
     from stateright_tpu_torch.ops import hashset_kernel as hk
+    from stateright_tpu_torch.testing import SWEEP_CASES, sweep_case
 
     tile = hk.TILE_ROWS
     rng = np.random.default_rng(2026)
@@ -208,26 +244,30 @@ def kernel_vs_plain():
     def empty(cap):
         return np.zeros((cap + 128, 2), np.uint32)
 
-    def check(label, table, hi, lo, active):
+    def check(label, table, hi, lo, active, timing=False):
         nonlocal worst
-        err, _ms, plain_ms, touched, after, _fresh = _compare_insert(table, hi, lo, active)
-        worst = max(worst, err)
-        log(f"  {label}: B={hi.shape[0]} active={int(active.sum())} tiles={touched} "
-            f"max_abs_err={err} plain={plain_ms:.1f} ms")
-        if err:
+        r = _compare_insert(table, hi, lo, active, timing)
+        worst = max(worst, r["err"])
+        log(f"  {label}: B={hi.shape[0]} active={int(active.sum())} tiles={r['touched']} "
+            f"redone={r['redone']} (to redo {r['to_redo']}) max_abs_err={r['err']} "
+            f"plain={r['plain_ms']:.1f} ms")
+        if r["err"]:
             raise AssertionError(f"{label}: kernel and plain twin disagree")
-        return after
+        if r["redone"] != r["to_redo"]:
+            raise AssertionError(f"{label}: the repair redid {r['redone']} tiles, "
+                                 f"not the {r['to_redo']} whose predecessor spilled")
+        return r
 
     # Edge cases of the CPU tests.
     for seed in range(3):
         hi, lo, act = _sorted_batch(rng, 1024, 0.9)
-        t = check(f"random seed {seed}", empty(2 * tile), hi, lo, act)
+        t = check(f"random seed {seed}", empty(2 * tile), hi, lo, act)["after"]
         hi2, lo2, act2 = _sorted_batch(rng, 1024, 0.9, old=(hi[act], lo[act]), old_frac=0.3)
         check(f"random seed {seed} second", t, hi2, lo2, act2)
     shift = 32 - ((2 * tile).bit_length() - 1)
     lo = np.arange(1, 65, dtype=np.uint32)
     t = check("cross-tile cluster", empty(2 * tile),
-              np.full(64, (tile - 1) << shift, np.uint32), lo, np.ones(64, bool))
+              np.full(64, (tile - 1) << shift, np.uint32), lo, np.ones(64, bool))["after"]
     check("cross-tile next tile", t, np.full(64, tile << shift, np.uint32), lo, np.ones(64, bool))
     n = 144
     check("probe overflow", empty(2 * tile), np.zeros(n, np.uint32),
@@ -235,14 +275,17 @@ def kernel_vs_plain():
     hi, lo, act = _sorted_batch(rng, 3500, 1.0, dup_frac=0.2, span=1 << 31)
     check("dense overflow + duplicates", empty(2 * tile), hi, lo, act)
     hi, lo, act = _sorted_batch(rng, 512, 1.0, dup_frac=0.25)
-    t = check("in-batch duplicates", empty(2 * tile), hi, lo, act)
+    t = check("in-batch duplicates", empty(2 * tile), hi, lo, act)["after"]
     check("second insert found", t, hi, lo, act)
+    # The hard cases of the sweep's ordered repair.
+    for name in SWEEP_CASES:
+        check(f"repair case {name}", *sweep_case(name))
 
     # The main path's full shape: a 2^22-row table pre-filled to a load of
     # about 0.4, then one 8,192 x 42 = 344,064-lane wave batch.
     cap = 1 << 22
     hi, lo, act = _sorted_batch(rng, int(0.4 * cap), 1.0)
-    table = check("prefill 0.4 of 2^22", empty(cap), hi, lo, act)
+    table = check("prefill 0.4 of 2^22", empty(cap), hi, lo, act)["after"]
     B = 8192 * 42
     hi2, lo2, valid = _sorted_batch(
         rng, B, 0.3, dup_frac=0.1, old=(hi, lo), old_frac=0.3
@@ -250,23 +293,24 @@ def kernel_vs_plain():
     first = np.ones(B, bool)
     first[1:] = (hi2[1:] != hi2[:-1]) | (lo2[1:] != lo2[:-1])
     active = valid & first
-    err, kernel_ms, plain_ms, touched, after, fresh = _compare_insert(
-        table, hi2, lo2, active, timing=True
-    )
-    worst = max(worst, err)
-    moved = _must_move_bytes(after, hi2, lo2, active, fresh)
+    r = check("full wave", table, hi2, lo2, active, timing=True)
+    moved = _must_move_bytes(r["after"], hi2, lo2, active, r["fresh"])
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    windows = touched * 2 * (tile + 128) * 8
-    log(f"  full wave: B={B} active={int(active.sum())} fresh={int(fresh.sum())} "
-        f"tiles={touched} max_abs_err={err} kernel median={kernel_ms:.3f} ms "
-        f"plain={plain_ms:.1f} ms bound={bound_ms:.5f} ms ({moved} B must move; "
-        f"the kernel's windows move {windows} B)")
-    if err:
-        raise AssertionError("full wave: kernel and plain twin disagree")
+    windows = (r["touched"] + r["redone"]) * (tile + 128) * 8
+    log(f"  full wave: B={B} active={int(active.sum())} fresh={int(r['fresh'].sum())} "
+        f"tiles touched={r['touched']} redone={r['redone']} kernel median={r['ms']:.4f} ms "
+        f"passes {_fmt_passes(r['pass_ms'])} plain={r['plain_ms']:.1f} ms "
+        f"bound={bound_ms:.5f} ms ({moved} B must move; the kernel's windows move "
+        f"{windows} B)")
     return {
-        "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
+        "max_abs_err": worst, "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": bound_ms,
     }
+
+
+def _fmt_passes(pass_ms):
+    return " ".join(f"{k}={'not measured' if v is None else f'{v:.4f} ms'}"
+                    for k, v in pass_ms.items())
 
 
 def _capture_2pc8_wave():
@@ -346,6 +390,69 @@ def _time_on_card(fn, reps=11, reset=None):
     return statistics.median(totals), {k: statistics.median(v) for k, v in stages.items()}
 
 
+@contextlib.contextmanager
+def _spy_sweeps(record):
+    """Records ``(key, active, starts, scratch)`` of every fused sweep
+    stage run inside the block."""
+    from stateright_tpu_torch.ops import fused_wave as fw
+
+    sweep_stage = fw.sweep_stage
+
+    def spy(table, key, active, starts, acc):
+        flag, scratch = sweep_stage(table, key, active, starts, acc)
+        record.append((key, active, starts, scratch))
+        return flag, scratch
+
+    fw.sweep_stage = spy
+    try:
+        yield
+    finally:
+        fw.sweep_stage = sweep_stage
+
+
+def _fused_sweep_case(spec, chunk, depth_cap, kind):
+    """The first 256 states of ``chunk`` through the fused kernels and the
+    plain twin, over a 2^14-row ``testing.sweep_table`` of ``kind`` built
+    around their keys; returns (max_abs_err, tiles redone, tiles to redo)."""
+    import numpy as np
+    import torch
+
+    from stateright_tpu_torch.core.batch import map_leaves
+    from stateright_tpu_torch.interop import table_from_numpy, table_to_numpy
+    from stateright_tpu_torch.ops import fused_wave as fw
+    from stateright_tpu_torch.ops import hashset_kernel as hk
+    from stateright_tpu_torch.ops.fingerprint import fingerprint_words, state_words
+    from stateright_tpu_torch.testing import sweep_table, tiles_to_redo
+
+    F = 256
+    states = map_leaves(lambda x: x[:F].contiguous(), chunk["states"])
+    cols = [chunk[k][:F].contiguous() for k in ("hi", "lo", "ebits", "depth")]
+    _cond, cvalid, cand = fw.model_stage(spec, states, F)
+    valid = (cvalid.view(F, -1) & (cols[3] < depth_cap)[:, None]).reshape(-1).cpu().numpy()
+    khi, klo = fingerprint_words(state_words(cand).cpu())
+    key = np.sort(np.where(valid, ((khi << 32) | klo).numpy().astype(np.uint64),
+                           np.uint64(2**64 - 1)))
+    active = (key != np.uint64(2**64 - 1)) & np.concatenate([[True], key[1:] != key[:-1]])
+    hi = (key >> np.uint64(32)).astype(np.uint32)
+    lo = (key & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    table = sweep_table(1 << 14, hi[active], lo[active], kind)
+    cpu = lambda x: x.cpu()  # noqa: E731
+    pt, pout = fw.fused_wave_plain(spec, table_from_numpy(table), map_leaves(cpu, states),
+                                   *(c.cpu() for c in cols), depth_cap)
+    sweeps = []
+    with _spy_sweeps(sweeps):
+        ct, cout = fw.fused_wave(spec, table_from_numpy(table, "cuda"), states, *cols,
+                                 depth_cap)
+    torch.cuda.synchronize()
+    n = int(pout["stats"][1])
+    pairs = [(pt, ct), (pout["stats"], cout["stats"])]
+    pairs += [(pout[k][:n], cout[k][:n]) for k in ("parent_hi", "parent_lo")]
+    pairs += [(pout["new"][k][:n], cout["new"][k][:n]) for k in ("hi", "lo", "ebits", "depth")]
+    pairs += [(v[:n], cout["new"]["states"][k][:n]) for k, v in pout["new"]["states"].items()]
+    to_redo = tiles_to_redo(table, table_to_numpy(pt), hi, lo, active)
+    return _max_abs_err(pairs), hk.tiles_redone(sweeps[0][3]), to_redo
+
+
 @phase("fused_wave_vs_plain")
 def fused_vs_plain():
     import numpy as np
@@ -354,6 +461,7 @@ def fused_vs_plain():
     from stateright_tpu_torch.core.batch import map_leaves
     from stateright_tpu_torch.interop import table_to_numpy
     from stateright_tpu_torch.ops import fused_wave as fw
+    from stateright_tpu_torch.ops import hashset_kernel as hk
     from stateright_tpu_torch.ops.fingerprint import fingerprint_words, state_words
 
     got = _capture_2pc8_wave()
@@ -368,8 +476,15 @@ def fused_vs_plain():
     pt, pout = fw.fused_wave_plain(spec, table0.cpu(), map_leaves(cpu, states),
                                    hi.cpu(), lo.cpu(), ebits.cpu(), depth.cpu(), depth_cap)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    ct, cout = fw.fused_wave(spec, table0.clone(), states, hi, lo, ebits, depth, depth_cap)
+    sweeps = []
+    with _spy_sweeps(sweeps):
+        ct, cout = fw.fused_wave(spec, table0.clone(), states, hi, lo, ebits, depth, depth_cap)
     torch.cuda.synchronize()
+    _key, sweep_active, sweep_starts, scratch = sweeps[0]
+    act_c = torch.cat([torch.zeros(1, dtype=torch.int64, device="cuda"),
+                       sweep_active.to(torch.int64).cumsum(0)])
+    touched = int(((act_c[sweep_starts[1:]] - act_c[sweep_starts[:-1]]) > 0).sum())
+    redone = hk.tiles_redone(scratch)
     stats = pout["stats"].tolist()
     n = stats[1]
     pairs = [(pt, ct), (pout["stats"], cout["stats"])]
@@ -378,10 +493,19 @@ def fused_vs_plain():
     pairs += [(v[:n], cout["new"]["states"][k][:n]) for k, v in pout["new"]["states"].items()]
     err = _max_abs_err(pairs)
     log(f"  2pc-8 wave: F={F} B={B} table rows={table0.shape[0]} unique before={got['unique']} "
-        f"generated={stats[0]} n_new={n} overflow={stats[2]} max_abs_err={err} "
-        f"plain={plain_ms:.1f} ms (host CPU)")
+        f"generated={stats[0]} n_new={n} overflow={stats[2]} tiles touched={touched} "
+        f"redone={redone} max_abs_err={err} plain={plain_ms:.1f} ms (host CPU)")
     if err:
         raise AssertionError("fused kernels and the plain twin disagree")
+
+    # The hard cases of the sweep's repair: the wave's first 256 states
+    # over 2^14-row tables built around their own keys.
+    for kind in ("empty_after_home", "load_0_9"):
+        e, sub_redone, to_redo = _fused_sweep_case(spec, chunk, depth_cap, kind)
+        log(f"  2pc-8 sub-wave over a {kind} table: redone={sub_redone} "
+            f"(to redo {to_redo}) max_abs_err={e}")
+        if e or sub_redone != to_redo:
+            raise AssertionError(f"fused sweep case {kind}: kernels and plain twin disagree")
 
     # The stages alone at this shape: the model stage (torch), then the
     # kernel chain with an event between stages.
@@ -392,6 +516,11 @@ def fused_vs_plain():
     chain_ms, stage_ms = _time_on_card(
         lambda mark: fw.kernel_chain(spec, work, hi, lo, ebits, depth, depth_cap, cond,
                                      cvalid, words, cand_flat, mark=mark),
+        reset=lambda: work.copy_(table0),
+    )
+    pass_ms = _sweep_pass_ms(
+        lambda: fw.kernel_chain(spec, work, hi, lo, ebits, depth, depth_cap, cond,
+                                cvalid, words, cand_flat),
         reset=lambda: work.copy_(table0),
     )
 
@@ -440,10 +569,13 @@ def fused_vs_plain():
              + n * 8 + 2 * n * leaf_row_bytes + 6 * n * 4 + (5 + 3 * P) * 8)
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     log(json.dumps({"fused_wave_stage_ms": stage_ms, "kernel_chain_ms": chain_ms,
+                    "sweep_pass_ms": pass_ms, "sweep_tiles_touched": touched,
+                    "sweep_tiles_redone": redone,
                     "model_stage_torch_ms": model_ms, "torch_sort_ms": torch_sort_ms,
                     "must_move_bytes": moved, "probed_rows": probed}))
-    log(f"  fused wave kernels: median {chain_ms:.3f} ms (sweep {stage_ms['sweep']:.3f} ms, "
-        f"radix sort {stage_ms['sort']:.3f} ms vs torch.sort {torch_sort_ms:.3f} ms); "
+    log(f"  fused wave kernels: median {chain_ms:.4f} ms (sweep {stage_ms['sweep']:.4f} ms: "
+        f"{_fmt_passes(pass_ms)}; tiles touched={touched} redone={redone}; "
+        f"radix sort {stage_ms['sort']:.4f} ms vs torch.sort {torch_sort_ms:.4f} ms); "
         f"model stage (torch) {model_ms:.3f} ms; bound {bound_ms:.5f} ms ({moved} B)")
     return {"max_abs_err": err, "ms": chain_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
 

@@ -97,8 +97,16 @@ def main() -> int:
     print(f"{'device ms':>12} {'share':>7} {'count':>8}  kernel")
     for name, (count, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:20]:
         print(f"{ms:12.3f} {ms / total_ms:7.1%} {count:8d}  {name[:90]}")
-    insert_ms = sum(ms for name, (_c, ms) in by_name.items() if "hashset_insert" in name)
-    sweep_ms = sum(ms for name, (_c, ms) in by_name.items() if "sweep_kernel" in name)
+    def kernel_ms(*parts):
+        return sum(ms for name, (_c, ms) in by_name.items() if all(p in name for p in parts))
+
+    # The tile sweep's passes run in the insert (InsertBatch) and in the
+    # fused wave (WaveBatch).
+    insert_ms = kernel_ms("InsertBatch")
+    sweep_ms = kernel_ms("WaveBatch")
+    pass_ms = {p: {"insert": kernel_ms(f"sweep_{p}_kernel", "InsertBatch"),
+                   "fused": kernel_ms(f"sweep_{p}_kernel", "WaveBatch")}
+               for p in ("extent", "speculate", "repair", "commit")}
     summary = {
         "card": card,
         "model": f"2pc-{args.rm}",
@@ -111,6 +119,7 @@ def main() -> int:
         "kernel_ms_total": total_ms,
         "insert_kernel_ms": insert_ms,
         "sweep_kernel_ms": sweep_ms,
+        "sweep_pass_ms": pass_ms,
         "device_busy_ms": busy_us / 1e3,
         "device_span_ms": span_us / 1e3,
         "device_idle_share_of_wall": 1.0 - (busy_us / 1e6) / wall,

@@ -24,9 +24,10 @@
 //   fw_dedup     first occurrence of each valid key (active), and each
 //                table tile's key range by binary search over the monotone
 //                homes;
-//   fw_sweep     the ordered tile sweep of tile_sweep.cuh, the one the
-//                insert kernel runs (Pallas: probe_claim, shared the same
-//                way);
+//   fw_sweep     the tile sweep of tile_sweep.cuh, the one the insert
+//                kernel runs (Pallas: probe_claim, shared the same way):
+//                tiles speculated in parallel, an ordered repair of the
+//                tiles whose predecessor spilled, a parallel commit;
 //   fw_compact   an exclusive scan of the fresh flags over the sorted
 //                positions (block counts, one block scanning them, block
 //                scans) and the scatter of hi, lo, ebits, depth + 1 and the
@@ -45,16 +46,14 @@
 // the probes read, the claimed rows, the fresh rows' outputs and leaves.
 // At 2pc-8's main-path shape (F = 8,192, A = 42, B = 344,064, W = 11) that
 // is about 20 MB, about 6 us at 3.35 TB/s; chip_smoke.py computes it from
-// its inputs. The sweep is far
-// above that bound: like the insert, it runs in one block that walks the
-// touched tiles in order (latency of a few dependent device-memory round
-// trips a tile). The other stages are bandwidth-shaped passes over B
-// lanes; the sort makes 8 passes over 12 B a lane. The design keeps every
-// stage off the host (no sync inside a wave; counters live in a small
-// device vector that the host reads once) and the launches few (about 33
-// a wave). What it does not yet do: run the sweep on more than one SM,
-// overlap a tile's loads with the previous tile's work, or sort only the
-// valid lanes.
+// its inputs. The sweep moves whole windows into shared memory (one warp a
+// touched tile, on every SM) and then repairs, in one block, the few tiles
+// whose predecessor spilled into their apron. The other stages are
+// bandwidth-shaped passes over B lanes; the sort makes 8 passes over 12 B a
+// lane. The design keeps every stage off the host (no sync inside a wave;
+// counters live in a small device vector that the host reads once) and the
+// launches few (about 35 a wave). What it does not yet do: prefetch the
+// sweep's windows asynchronously, or sort only the valid lanes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -406,12 +405,6 @@ struct WaveBatch {
   }
 };
 
-__global__ void __launch_bounds__(SWEEP_THREADS, 1) sweep_kernel(
-    uint2* __restrict__ table, WaveBatch batch,
-    const int64_t* __restrict__ starts, int n_tiles, int cap_bits) {
-  tile_sweep(table, batch, starts, n_tiles, cap_bits);
-}
-
 // -- (f) compaction ------------------------------------------------------------
 
 // bsum[block] = fresh keys among the block's COMPACT_TILE positions.
@@ -594,13 +587,13 @@ extern "C" int fw_dedup(int64_t B, const void* skey, void* active, void* starts,
   return last_error(cudaSuccess);
 }
 
+// scratch holds 8 + 9 * n_tiles + B bytes (tile_sweep.cuh).
 extern "C" int fw_sweep(void* table, const void* skey, const void* active,
-                        const void* starts, int n_tiles, int cap_bits, void* flag,
-                        void* acc, void* stream) {
+                        const void* starts, int64_t B, int n_tiles, int cap_bits,
+                        void* flag, void* acc, void* scratch, void* stream) {
   WaveBatch batch{(const ull*)skey, (const uint8_t*)active, (uint8_t*)flag, (ull*)acc};
-  sweep_kernel<<<1, SWEEP_THREADS, 0, (cudaStream_t)stream>>>(
-      (uint2*)table, batch, (const int64_t*)starts, n_tiles, cap_bits);
-  return last_error(cudaSuccess);
+  return last_error(tile_sweep((uint2*)table, batch, (const int64_t*)starts, B, n_tiles,
+                               cap_bits, scratch, (cudaStream_t)stream));
 }
 
 // bsum is ceil(B / COMPACT_TILE) long (at least 1).

@@ -2,10 +2,10 @@
 //
 // Replaces the TPU kernel stateright_tpu/ops/pallas_hashset.py::
 // pallas_hashset_insert (kernel _insert_kernel, helper probe_claim), and
-// computes exactly what it computes: the ordered tile sweep of
-// tile_sweep.cuh (which states the claim rules and why one block walking
-// the tiles in order is exact) over a batch of u32 key pairs and an active
-// mask, reporting fresh, found and pending as three byte flags.
+// computes exactly what it computes: the tile sweep of tile_sweep.cuh
+// (which states the claim rules and why its three passes are exact) over
+// a batch of u32 key pairs and an active mask, reporting fresh, found and
+// pending as three byte flags.
 //
 // What bounds it on an H100. The bytes the insert must move are the
 // distinct table rows its probes read (each from its home to its match,
@@ -13,16 +13,15 @@
 // keys and flags: B * 9 B (hi, lo, active) + B * 3 B. For a 2pc-8-sized
 // batch (B = 344,064, about 100k distinct keys, a 2^22-row table at load
 // 0.4) that is a few MB, a few us at 3.35 TB/s; chip_smoke.py computes it
-// from its inputs. This kernel moves whole windows instead, in and out:
-// touched_tiles * 2 * 17,408 B, about 71 MB when all 2,048 tiles are
-// touched. The ordered claims make the kernel latency-bound far above
-// both: one SM walks every tile, each tile pays a
-// few dependent device-memory round trips (window in, keys in, flags out,
-// window out), and each key pays ~8 ballots in shared memory. The design
-// keeps every probe in shared memory, stages keys and flags through shared
-// memory in coalesced chunks, and skips inactive keys 32 at a time with one
-// ballot; it does not yet overlap one tile's loads with the previous tile's
-// work, nor run independent tiles on other SMs (design (ii) in ROADMAP.md).
+// from its inputs. The speculative pass moves whole windows in instead
+// (touched_tiles * 17,408 B, about 36 MB when all 2,048 tiles are
+// touched, by cp.async) plus an outcome byte a position out and back in;
+// it runs one warp a tile on every SM, so its time is a few window loads
+// and a few tiles' worth of ordered ballots (~8 a key, in shared memory).
+// The ordered repair is serial: ~10 us for each tile whose predecessor
+// spilled into its apron, so its cost grows with the table's load. What
+// it does not yet do: overlap one redo's loads with the previous redo,
+// or repair independent chains in parallel.
 
 #include "tile_sweep.cuh"
 
@@ -46,23 +45,18 @@ struct InsertBatch {
   }
 };
 
-__global__ void __launch_bounds__(SWEEP_THREADS, 1) hashset_insert_kernel(
-    uint2* __restrict__ table, InsertBatch batch,
-    const int64_t* __restrict__ starts, int n_tiles, int cap_bits) {
-  tile_sweep(table, batch, starts, n_tiles, cap_bits);
-}
-
-// Plain C entry point (loaded with ctypes). Launches on `stream` and
-// returns cudaGetLastError(), so a refused launch is seen by the caller.
+// Plain C entry point (loaded with ctypes). Launches the sweep's passes on
+// `stream` over B sorted positions and returns the first CUDA error, so a
+// refused launch is seen by the caller. `scratch` holds
+// 8 + 9 * n_tiles + B bytes (tile_sweep.cuh).
 extern "C" int hashset_insert_launch(void* table, const void* key_hi,
                                      const void* key_lo, const void* active,
-                                     const void* starts, int n_tiles,
+                                     const void* starts, int64_t B, int n_tiles,
                                      int cap_bits, void* fresh, void* found,
-                                     void* pending, void* stream) {
+                                     void* pending, void* scratch, void* stream) {
   InsertBatch batch{(const uint32_t*)key_hi, (const uint32_t*)key_lo,
                     (const uint8_t*)active, (uint8_t*)fresh,
                     (uint8_t*)found, (uint8_t*)pending};
-  hashset_insert_kernel<<<1, SWEEP_THREADS, 0, (cudaStream_t)stream>>>(
-      (uint2*)table, batch, (const int64_t*)starts, n_tiles, cap_bits);
-  return (int)cudaGetLastError();
+  return (int)tile_sweep((uint2*)table, batch, (const int64_t*)starts, B, n_tiles,
+                         cap_bits, scratch, (cudaStream_t)stream);
 }

@@ -13,7 +13,7 @@ cannot hold another program's code, so the wave splits in two:
   ``csrc/fused_wave.cu``, launched back to back with no host sync: the
   frontier lanes (eval mask, ``eventually`` bits, terminal lanes, property
   hits), the fingerprints, a stable radix sort of the keys, dedup and
-  tile ranges, the ordered tile sweep shared with the insert kernel
+  tile ranges, the tile sweep shared with the insert kernel
   (``csrc/tile_sweep.cuh``), compaction of the fresh keys, and the stats.
 
 On a CUDA table ``fused_wave`` launches the kernels or raises; on a CPU
@@ -49,6 +49,7 @@ from .hashset_kernel import (
     hashset_insert_sorted,
     sort_key,
     split_key,
+    sweep_scratch,
 )
 
 __all__ = [
@@ -231,7 +232,7 @@ ARGTYPES = {
     "fw_keys": [_c_i64, _c_int, _c_int] + [_c_ptr] * 3 + [_c_i64] + [_c_ptr] * 4,
     "fw_sort": [_c_i64] + [_c_ptr] * 6,
     "fw_dedup": [_c_i64] + [_c_ptr] * 3 + [_c_int] * 2 + [_c_ptr],
-    "fw_sweep": [_c_ptr] * 4 + [_c_int] * 2 + [_c_ptr] * 3,
+    "fw_sweep": [_c_ptr] * 4 + [_c_i64] + [_c_int] * 2 + [_c_ptr] * 4,
     "fw_compact": [_c_i64, _c_int] + [_c_ptr] * 17,
     "fw_gather": [_c_i64, _c_ptr, _c_ptr, _c_int] + [_c_ptr] * 5,
     "fw_stats": [_c_int, _c_i64] + [_c_ptr] * 5,
@@ -325,15 +326,18 @@ def dedup_stage(key, capacity):
 
 
 def sweep_stage(table, key, active, starts, acc):
-    """Stage (e): the ordered tile sweep; returns each sorted position's
-    outcome byte (1 fresh, 2 found, 4 pending, 0 inactive) and counts the
-    pending keys into ``acc``."""
+    """Stage (e): the tile sweep; returns each sorted position's outcome
+    byte (1 fresh, 2 found, 4 pending, 0 inactive) and the sweep's scratch
+    (``tiles_redone`` reads it), and counts the pending keys into
+    ``acc``."""
     cap = _check_capacity(table)
-    flag = torch.empty(key.shape[0], dtype=torch.uint8, device=key.device)
+    B, n_tiles = key.shape[0], cap // TILE_ROWS
+    flag = torch.empty(B, dtype=torch.uint8, device=key.device)
+    scratch = sweep_scratch(B, n_tiles, key.device)
     _call("fw_sweep", table.data_ptr(), key.data_ptr(), active.data_ptr(),
-          starts.data_ptr(), cap // TILE_ROWS, cap.bit_length() - 1,
-          flag.data_ptr(), acc.data_ptr(), _stream(table))
-    return flag
+          starts.data_ptr(), B, n_tiles, cap.bit_length() - 1,
+          flag.data_ptr(), acc.data_ptr(), scratch.data_ptr(), _stream(table))
+    return flag, scratch
 
 
 def compact_stage(flag, key, idx, action_count, ebits_after, depth, hi, lo, acc):
@@ -427,7 +431,7 @@ def kernel_chain(spec, table, hi, lo, ebits, depth, depth_cap, cond, cvalid,
     mark("dedup")
     active, starts = dedup_stage(key, cap)
     mark("sweep")
-    flag = sweep_stage(table, key, active, starts, acc)
+    flag, _scratch = sweep_stage(table, key, active, starts, acc)
     mark("compact")
     c = compact_stage(flag, key, idx, A, ebits_after, depth, hi, lo, acc)
     mark("gather")

@@ -38,7 +38,9 @@ __all__ = [
     "round_table_capacity",
     "sort_key",
     "split_key",
+    "sweep_scratch",
     "tile_starts",
+    "tiles_redone",
 ]
 
 # Table rows per tile: a 2,048-row tile plus its apron is a 17,408-byte
@@ -160,27 +162,48 @@ def _kernel():
 
     fn = load("hashset_insert").hashset_insert_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+    fn.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int64] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p] * 5
+    )
     return fn
+
+
+def sweep_scratch(B: int, n_tiles: int, device) -> torch.Tensor:
+    """The tile sweep's scratch (``csrc/tile_sweep.cuh``): the count of
+    tiles its ordered repair redid (int32, padded to 8 bytes), each tile's
+    end (u64), a spill byte per tile and an outcome byte per sorted
+    position."""
+    return torch.empty(8 + 9 * n_tiles + B, dtype=torch.uint8, device=device)
+
+
+def tiles_redone(scratch: torch.Tensor) -> int:
+    """How many tiles the sweep that used ``scratch`` redid in order
+    (synchronises)."""
+    return int(scratch[:4].view(torch.int32)[0])
 
 
 def _launch(table, key_hi, key_lo, active, starts, fresh, found, pending):
     """Launches the kernel on the current stream (no sync) over checked
-    inputs, the tile bounds ``starts`` and the allocated flags; counts it."""
+    inputs, the tile bounds ``starts`` and the allocated flags; counts it
+    and returns the sweep's scratch."""
     global launches
 
     cap = table.shape[0] - MAX_PROBES
+    B, n_tiles = key_hi.shape[0], cap // TILE_ROWS
+    scratch = sweep_scratch(B, n_tiles, table.device)
     launch = _kernel()
     stream = torch.cuda.current_stream(table.device).cuda_stream
     launches += 1
     err = launch(
         table.data_ptr(), key_hi.data_ptr(), key_lo.data_ptr(),
-        active.data_ptr(), starts.data_ptr(), cap // TILE_ROWS,
+        active.data_ptr(), starts.data_ptr(), B, n_tiles,
         cap.bit_length() - 1, fresh.data_ptr(), found.data_ptr(),
-        pending.data_ptr(), stream,
+        pending.data_ptr(), scratch.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"hashset_insert kernel launch failed: cudaError {err}")
+    return scratch
 
 
 # -- the plain twin ------------------------------------------------------

@@ -25,6 +25,8 @@ from stateright_tpu_torch.ops import fused_wave as fw
 from stateright_tpu_torch.ops import hashset_kernel as hk
 from stateright_tpu_torch.ops.fingerprint import fingerprint_state, fingerprint_words
 from stateright_tpu_torch.ops.hashset import MAX_PROBES
+from stateright_tpu_torch.ops.fingerprint import state_words
+from stateright_tpu_torch.testing import SWEEP_CASES, sweep_case, sweep_table, tiles_to_redo
 
 TILE_ROWS = hk.TILE_ROWS
 
@@ -87,6 +89,29 @@ def test_cuda_insert_matches_plain_twin(cuda_device, case):
     assert np.array_equal(table_to_numpy(ct), table_to_numpy(pt))
     for p, c in ((pf, cf), (pfo, cfo), (pp, cp)):
         assert torch.equal(p, c.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SWEEP_CASES))
+def test_cuda_insert_repair_cases(cuda_device, case):
+    """The hard cases of the ordered repair (``testing.SWEEP_CASES``): the
+    kernel equals the plain twin, and its repair redid exactly the tiles
+    whose predecessor spilled in the ordered result."""
+    table, hi, lo, active = sweep_case(case)
+    cap = table.shape[0] - MAX_PROBES
+    khi, klo = keys_from_numpy(hi, lo)
+    act = torch.from_numpy(active)
+    pt, pf, pfo, pp = hk.hashset_insert_sorted(table_from_numpy(table), khi, klo, act)
+    ct = table_from_numpy(table, cuda_device)
+    dhi, dlo, dact = khi.to(cuda_device), klo.to(cuda_device), act.to(cuda_device)
+    flags = [torch.empty_like(dact) for _ in range(3)]
+    scratch = hk._launch(ct, dhi, dlo, dact, hk.tile_starts(dhi, cap), *flags)
+    torch.cuda.synchronize()
+    after = table_to_numpy(pt)
+    assert np.array_equal(table_to_numpy(ct), after)
+    for p, c in zip((pf, pfo, pp), flags):
+        assert torch.equal(p, c.cpu())
+    assert hk.tiles_redone(scratch) == tiles_to_redo(table, after, hi, lo, active) > 0
 
 
 @pytest.mark.cuda
@@ -224,6 +249,38 @@ def test_cuda_fused_wave_matches_plain_twin(cuda_device, case):
         states, cols = hop_frontier(list(range(0, 3000, 3)), 2)
         stats, after = fused_both(spec, table, states, cols, 10, cuda_device)
         assert (after[TILE_ROWS + 40 : TILE_ROWS + MAX_PROBES, 0] != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["empty_after_home", "load_0_9"])
+def test_cuda_fused_wave_over_sweep_tables(cuda_device, kind, monkeypatch):
+    """A wave of 300 states over an 8,192-row table built around its own
+    keys so that the sweep's repair has work (``testing.sweep_table``):
+    the kernels equal the plain twin, and the repair redid exactly the
+    tiles whose predecessor spilled in the ordered result."""
+    spec = hop_spec(1 << 20, actions=8)
+    states, cols = hop_frontier(list(range(0, 8 * 300, 8)), 2)
+    _cond, cvalid, cand = fw.model_stage(spec, states, 300)
+    khi, klo = fingerprint_words(state_words(cand))
+    # The sweep's batch: valid keys sorted, the rest as (MAX, MAX) last;
+    # the first copy of each key is active.
+    key = np.sort(np.where(cvalid.numpy(), ((khi << 32) | klo).numpy().astype(np.uint64),
+                           np.uint64(2**64 - 1)))
+    active = (key != np.uint64(2**64 - 1)) & np.concatenate([[True], key[1:] != key[:-1]])
+    hi, lo = (key >> np.uint64(32)).astype(np.uint32), (key & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    table = sweep_table(TILE_ROWS * 4, hi[active], lo[active], kind)
+    scratches = []
+    sweep_stage = fw.sweep_stage
+
+    def spy(*args):
+        flag, scratch = sweep_stage(*args)
+        scratches.append(scratch)
+        return flag, scratch
+
+    monkeypatch.setattr(fw, "sweep_stage", spy)
+    stats, after = fused_both(spec, table, states, cols, 10, cuda_device)
+    assert stats[1] > 0 and stats[2] > 0
+    assert hk.tiles_redone(scratches[0]) == tiles_to_redo(table, after, hi, lo, active) > 0
 
 
 @pytest.mark.cuda

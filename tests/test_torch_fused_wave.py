@@ -37,7 +37,8 @@ from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 from stateright_tpu_torch.ops import _build
 from stateright_tpu_torch.ops import fused_wave as fw
 from stateright_tpu_torch.ops import hashset_kernel as hk
-from stateright_tpu_torch.testing import Chain
+from stateright_tpu_torch.ops.fingerprint import fingerprint_words, state_words
+from stateright_tpu_torch.testing import Chain, sweep_table
 
 from test_tpu_bfs import Chain as JaxChain
 
@@ -93,6 +94,56 @@ WAVES = {
 }
 
 
+def _compare_wave(jwave, tspec, table, states, hi, lo, ebits, depth, dcap, F_pad):
+    """One wave through the JAX fused wave (the frontier padded to
+    ``F_pad`` under its lane mask) and the port's (the live lanes only, as
+    its checker's chunks hold them); asserts that every output field
+    agrees and returns the JAX wave's new frontier and table."""
+    F = hi.shape[0]
+
+    def pad(x):
+        return np.concatenate([x, np.zeros((F_pad - F,) + x.shape[1:], x.dtype)])
+
+    jout = jwave(
+        table, jax.tree_util.tree_map(pad, states), pad(hi), pad(lo), pad(ebits),
+        pad(depth), pad(np.ones(F, bool)), dcap,
+    )
+    tstates = (
+        {k: _to_port(v) for k, v in states.items()} if isinstance(states, dict)
+        else _to_port(states)
+    )
+    ttable, tout = fw.fused_wave(
+        tspec, table_from_numpy(table), tstates, _to_port(hi), _to_port(lo),
+        _to_port(ebits), _to_port(depth), dcap,
+    )
+
+    jtable = np.asarray(jout["table"])
+    assert np.array_equal(table_to_numpy(ttable), jtable)
+    stats = tout["stats"].tolist()
+    jstats = np.asarray(jout["stats"]).tolist()
+    assert stats[: len(jstats)] == jstats
+    if "prop_hit" in jout:
+        assert stats[5::3] == np.asarray(jout["prop_hit"]).astype(int).tolist()
+        assert stats[6::3] == np.asarray(jout["prop_hi"]).tolist()
+        assert stats[7::3] == np.asarray(jout["prop_lo"]).tolist()
+    n = stats[1]
+    jnew = jax.tree_util.tree_map(lambda x: np.asarray(x)[:n], jout["new"])
+    for k in ("hi", "lo", "ebits", "depth"):
+        assert np.array_equal(tout["new"][k][:n].numpy(), jnew[k].astype(np.int64)), k
+    for k in ("parent_hi", "parent_lo"):
+        assert np.array_equal(tout[k][:n].numpy(), np.asarray(jout[k])[:n]), k
+    for (jk, jleaf), (tk, tleaf) in zip(_leaves(jnew["states"]), _leaves(tout["new"]["states"])):
+        assert jk == tk
+        assert np.array_equal(tleaf[:n].numpy(), jleaf.astype(np.int64)), jk
+    return jnew, jtable, stats
+
+
+def _initial(jmodel):
+    states = jax.tree_util.tree_map(np.asarray, jmodel.packed_init_states())
+    hi, lo = (np.asarray(x) for x in jax.vmap(jmodel.packed_fingerprint)(states))
+    return states, hi, lo, np.ones(hi.shape[0], np.int32)
+
+
 @pytest.mark.parametrize("name", list(WAVES))
 def test_single_waves_match_jax_fused_wave(name):
     """Consecutive waves from the initial state: each wave's inputs are the
@@ -107,9 +158,7 @@ def test_single_waves_match_jax_fused_wave(name):
     rng = np.random.default_rng(len(name))
     jwave = jax.jit(lambda *a: jax_fused_wave(jspec, *a))
 
-    states = jax.tree_util.tree_map(np.asarray, jmodel.packed_init_states())
-    hi, lo = (np.asarray(x) for x in jax.vmap(jmodel.packed_fingerprint)(states))
-    depth = np.ones(hi.shape[0], np.int32)
+    states, hi, lo, depth = _initial(jmodel)
     table = np.zeros((CAP + 128, 2), np.uint32)
     compared = 0
     for _ in range(n_waves):
@@ -121,46 +170,58 @@ def test_single_waves_match_jax_fused_wave(name):
         d = int(depth.max())
         depth = np.where(rng.random(F) < 0.1, d + 1, depth).astype(np.int32)
         ebits = rng.integers(0, 1 << n_ev, size=F).astype(np.uint32)
-        dcap = d + 1
-
-        def pad(x):
-            return np.concatenate([x, np.zeros((F_pad - F,) + x.shape[1:], x.dtype)])
-
-        jout = jwave(
-            table, jax.tree_util.tree_map(pad, states), pad(hi), pad(lo), pad(ebits),
-            pad(depth), pad(np.ones(F, bool)), dcap,
+        jnew, table, _stats = _compare_wave(
+            jwave, tspec, table, states, hi, lo, ebits, depth, d + 1, F_pad
         )
-        tstates = (
-            {k: _to_port(v) for k, v in states.items()} if isinstance(states, dict)
-            else _to_port(states)
-        )
-        ttable, tout = fw.fused_wave(
-            tspec, table_from_numpy(table), tstates, _to_port(hi), _to_port(lo),
-            _to_port(ebits), _to_port(depth), dcap,
-        )
-
-        jtable = np.asarray(jout["table"])
-        assert np.array_equal(table_to_numpy(ttable), jtable)
-        stats = tout["stats"].tolist()
-        jstats = np.asarray(jout["stats"]).tolist()
-        assert stats[: len(jstats)] == jstats
-        if "prop_hit" in jout:
-            assert stats[5::3] == np.asarray(jout["prop_hit"]).astype(int).tolist()
-            assert stats[6::3] == np.asarray(jout["prop_hi"]).tolist()
-            assert stats[7::3] == np.asarray(jout["prop_lo"]).tolist()
-        n = stats[1]
-        jnew = jax.tree_util.tree_map(lambda x: np.asarray(x)[:n], jout["new"])
-        for k in ("hi", "lo", "ebits", "depth"):
-            assert np.array_equal(tout["new"][k][:n].numpy(), jnew[k].astype(np.int64)), k
-        for k in ("parent_hi", "parent_lo"):
-            assert np.array_equal(tout[k][:n].numpy(), np.asarray(jout[k])[:n]), k
-        for (jk, jleaf), (tk, tleaf) in zip(_leaves(jnew["states"]), _leaves(tout["new"]["states"])):
-            assert jk == tk
-            assert np.array_equal(tleaf[:n].numpy(), jleaf.astype(np.int64)), jk
         compared += 1
         states, hi, lo, depth = jnew["states"], jnew["hi"], jnew["lo"], jnew["depth"]
-        table = jtable
     assert compared >= 3
+
+
+@pytest.mark.parametrize("kind", ["empty_after_home", "load_0_9"])
+def test_wave_over_sweep_repair_tables(kind):
+    """A 2pc-5 wave of 256 states over an 8,192-row table built around the
+    wave's own keys so that the CUDA sweep's ordered repair has work in
+    every tile (``testing.sweep_table``: every tile spilling into the
+    next and into the overflow rows, or a load of 0.9 with keys going
+    pending): the port's fused wave equals the JAX fused wave."""
+    jmodel, tmodel = JaxTwoPhaseSys(5), TwoPhaseSys(5)
+    jspec, tspec = jax_spec(jmodel), port_spec(tmodel)
+    jwave = jax.jit(lambda *a: jax_fused_wave(jspec, *a))
+    F, cap = 256, 8192
+    states, hi, lo, depth = _initial(jmodel)
+    table = np.zeros((cap + 128, 2), np.uint32)
+    while hi.shape[0] < F:  # grow the frontier, padded to F lanes
+        F_now = hi.shape[0]
+
+        def pad(x):
+            return np.concatenate([x, np.zeros((F - F_now,) + x.shape[1:], x.dtype)])
+
+        jout = jwave(table, jax.tree_util.tree_map(pad, states), pad(hi), pad(lo),
+                     np.zeros(F, np.uint32), pad(depth), pad(np.ones(F_now, bool)), 100)
+        n = int(np.asarray(jout["stats"])[1])
+        table = np.asarray(jout["table"])
+        states, hi, lo, depth = (
+            jax.tree_util.tree_map(lambda x: np.asarray(x)[:n], jout["new"][k])
+            for k in ("states", "hi", "lo", "depth")
+        )
+    states = jax.tree_util.tree_map(lambda x: x[:F], states)
+    hi, lo, depth = hi[:F], lo[:F], depth[:F]
+    # The wave's distinct keys, from the port's own stages.
+    tstates = {k: _to_port(v) for k, v in states.items()}
+    _cond, cvalid, cand = fw.model_stage(tspec, tstates, F)
+    khi, klo = fingerprint_words(state_words(cand))
+    keys = np.unique(((khi << 32) | klo)[cvalid].numpy().astype(np.uint64))
+    sweep = sweep_table(cap, (keys >> np.uint64(32)).astype(np.uint32),
+                        (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32), kind)
+    _jnew, after, stats = _compare_wave(
+        jwave, tspec, sweep, states, hi, lo, np.zeros(F, np.uint32), depth, 100, F
+    )
+    assert keys.size > 500 and stats[1] > 0
+    if kind == "empty_after_home":
+        assert (after[cap:] != 0).all()
+    else:
+        assert stats[2] > 0  # pending keys
 
 
 # -- whole runs ------------------------------------------------------------------

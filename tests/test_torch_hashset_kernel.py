@@ -28,6 +28,9 @@ from stateright_tpu_torch.ops.hashset import (
     hashset_contains,
     hashset_new,
 )
+from stateright_tpu_torch.testing import SWEEP_CASES, sweep_case
+
+from test_torch_fused_wave import _c_signatures
 
 TILE_ROWS = hk.TILE_ROWS
 CAP = TILE_ROWS * 2
@@ -108,6 +111,41 @@ def test_clustered_keys_cross_tile_margin():
     both_lo = np.concatenate([lo, lo + n])
     order = np.lexsort((both_lo, both_hi))
     insert_both(empty_table(), both_hi[order], both_lo[order], np.ones(2 * n, bool))
+
+
+def _home_at(table, row, cap):
+    """The home of the key held in ``row``."""
+    return int(table[row, 0]) >> (32 - (cap.bit_length() - 1))
+
+
+@pytest.mark.parametrize("case", list(SWEEP_CASES))
+def test_sweep_repair_cases(case):
+    """Inputs built to reach each hard case of the CUDA sweep's ordered
+    repair (``csrc/tile_sweep.cuh``): the plain twin equals the Pallas
+    kernel on each, and the ordered result has the shape the case was
+    built for (which claims cross which tile boundary)."""
+    table, hi, lo, active = sweep_case(case)
+    cap = table.shape[0] - MAX_PROBES
+    after, fresh, found, pend = insert_both(table, hi, lo, active)
+    if case == "one_spill":
+        assert fresh.all() and (after[TILE_ROWS : TILE_ROWS + 22] != 0).all()
+    elif case == "chain_three_tiles":
+        # Each tile's last key claims past its boundary (rows 2,130,
+        # 4,130 and 6,230), pushed there by the cascade.
+        for row, home in ((2130, 2020), (4130, 4020), (6230, 6120)):
+            assert _home_at(after, row, cap) == home
+        assert fresh.all()
+    elif case == "redo_moves_apron_claims":
+        assert _home_at(after, 4200, cap) == 4090
+        assert _home_at(after, 4300, cap) == 4190
+    elif case == "pending_straddles_boundary":
+        homes = hi.astype(np.int64) >> (32 - (cap.bit_length() - 1))
+        assert pend.sum() == 27 and pend[homes == 2100].all()
+    elif case == "load_0_9":
+        assert fresh.any() and found.any() and pend.any()
+    else:
+        assert _home_at(after, cap + 38, cap) == cap - 72  # row 8,230, home 8,120
+        assert (after[cap : cap + MAX_PROBES] != 0).sum() > 40
 
 
 def test_probe_overflow_reports_pending():
@@ -208,8 +246,9 @@ def test_cpu_table_never_touches_the_cuda_build(monkeypatch):
 
 
 def test_kernel_binding_types_every_argument(monkeypatch):
-    """The ctypes binding must declare every argument: left undeclared,
-    ctypes passes the pointers and the stream as 32-bit ints."""
+    """The ctypes binding must declare every argument as its C declaration
+    types it: left undeclared, ctypes passes the pointers and the stream
+    as 32-bit ints."""
     import ctypes
     import types
 
@@ -219,7 +258,7 @@ def test_kernel_binding_types_every_argument(monkeypatch):
     )
     fn = hk._kernel()
     assert fn is fresh_fn
-    assert fn.argtypes == [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+    assert fn.argtypes == _c_signatures("hashset_insert.cu")["hashset_insert_launch"]
     assert fn.restype is ctypes.c_int
 
 
