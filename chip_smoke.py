@@ -4,14 +4,20 @@
 
 Builds every CUDA kernel of the port from the sources in this checkout
 (one ``nvcc`` per source, all at once), holds each kernel against its plain
-torch twin (bit for bit) at the main paths' full shapes, then drives both
+torch twin (bit for bit) at the main paths' full shapes (the fused wave
+also on a masked take of the deep drain's ring), then drives both
 main paths: an exhaustive check of two-phase commit with 8 resource
 managers (1,745,408 states) through
 ``TwoPhaseSys(8).checker().spawn_gpu_bfs()`` with the staged wave (torch +
 the CUDA insert) and with ``wave_kernel="fused"`` (the model stage in
-torch, every other stage in CUDA), and smaller runs of both whose paths are
-replayed. Prints phase lines, the card's name and power limit, the fused
-wave's stage times, one ``{"kernels": [...]}`` line, and as its last line
+torch, every other stage in CUDA), each wave at a time
+(``max_drain_waves=1``) and through the deep drain (the default: the
+frontier in a device ring, drained by replayed CUDA Graphs with no host
+sync inside a drain), and smaller runs of all four whose paths are
+replayed against the CPU twin. Prints phase lines, the card's name and
+power limit, the fused wave's stage times, the drains' walls, waves,
+no-op and warm-up waves, exits, graph captures and replays and rungs, one
+``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when
 any phase fails, when no CUDA device is present, or when the port's package
 is not beside it. Imports nothing of JAX or of the JAX package.
@@ -337,13 +343,84 @@ def _capture_2pc8_wave():
     gpu.GpuBfsChecker._consume_wave = spy
     try:
         TwoPhaseSys(8).checker().spawn_gpu_bfs(
-            frontier_capacity=8192, table_capacity=1 << 20
+            frontier_capacity=8192, table_capacity=1 << 20, max_drain_waves=1
         ).join()
     finally:
         gpu.GpuBfsChecker._consume_wave = consume
     if not got:
         raise AssertionError("no full-width 2pc-8 wave on a 2^22-row table")
     return got
+
+
+def _capture_2pc8_ring_take():
+    """A masked 2pc-8 frontier of the deep drain (F = 8,192) and the table
+    it runs on: the fused drain's ring and table are copied at the start
+    of the first drain whose ring holds a full-width take, and the take's
+    mask keeps the first 6,143 lanes, so the 2,049 off lanes hold
+    pending, would-be-fresh states of the ring."""
+    import torch
+
+    from stateright_tpu_torch.checker import gpu
+    from stateright_tpu_torch.core.batch import map_leaves
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+    from stateright_tpu_torch.ops.ring import ring_take
+
+    F = 8192
+    got = {}
+    deep_drain = gpu.GpuBfsChecker._deep_drain
+
+    def spy(self, table, width, budget):
+        d = self._drain
+        if not got and width == F and int(d["scalars"][gpu._COUNT]) >= F:
+            got.update(table=table.clone(), capacity=d["capacity"],
+                       pool=map_leaves(torch.clone, d["pool"]),
+                       head=d["scalars"][gpu._HEAD].clone(),
+                       spec=self._spec, depth_cap=self._depth_cap,
+                       unique=self._unique_count)
+        return deep_drain(self, table, width, budget)
+
+    gpu.GpuBfsChecker._deep_drain = spy
+    try:
+        TwoPhaseSys(8).checker().spawn_gpu_bfs(
+            frontier_capacity=F, table_capacity=1 << 20, wave_kernel="fused",
+            drain_log_factor=48,
+        ).join()
+    finally:
+        gpu.GpuBfsChecker._deep_drain = deep_drain
+    if not got:
+        raise AssertionError("no 2pc-8 drain started with a full-width take")
+    live = torch.full((), F - F // 4 - 1, dtype=torch.int64, device="cuda")
+    got["frontier"] = ring_take(got["pool"], got["head"], live, got["capacity"], F)[0]
+    return got
+
+
+def _compare_fused(spec, table, frontier, depth_cap, mask=None):
+    """One wave through the fused kernels and the plain twin on the same
+    inputs; returns (max_abs_err, the twin's output, the twin's host ms, its
+    table and the sweeps' record)."""
+    import torch
+
+    from stateright_tpu_torch.core.batch import map_leaves
+    from stateright_tpu_torch.ops import fused_wave as fw
+
+    cols = [frontier[k] for k in ("hi", "lo", "ebits", "depth")]
+    cpu = lambda x: x.cpu()  # noqa: E731
+    t0 = time.perf_counter()
+    pt, pout = fw.fused_wave_plain(spec, table.cpu(), map_leaves(cpu, frontier["states"]),
+                                   *(c.cpu() for c in cols), depth_cap,
+                                   mask=None if mask is None else mask.cpu())
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    sweeps = []
+    with _spy_sweeps(sweeps):
+        ct, cout = fw.fused_wave(spec, table.clone(), frontier["states"], *cols, depth_cap,
+                                 mask=mask)
+    torch.cuda.synchronize()
+    n = int(pout["stats"][1])
+    pairs = [(pt, ct), (pout["stats"], cout["stats"])]
+    pairs += [(pout[k][:n], cout[k][:n]) for k in ("parent_hi", "parent_lo")]
+    pairs += [(pout["new"][k][:n], cout["new"][k][:n]) for k in ("hi", "lo", "ebits", "depth")]
+    pairs += [(v[:n], cout["new"]["states"][k][:n]) for k, v in pout["new"]["states"].items()]
+    return _max_abs_err(pairs), pout, plain_ms, pt, sweeps
 
 
 def _max_abs_err(pairs):
@@ -415,7 +492,6 @@ def _fused_sweep_case(spec, chunk, depth_cap, kind):
     plain twin, over a 2^14-row ``testing.sweep_table`` of ``kind`` built
     around their keys; returns (max_abs_err, tiles redone, tiles to redo)."""
     import numpy as np
-    import torch
 
     from stateright_tpu_torch.core.batch import map_leaves
     from stateright_tpu_torch.interop import table_from_numpy, table_to_numpy
@@ -436,21 +512,11 @@ def _fused_sweep_case(spec, chunk, depth_cap, kind):
     hi = (key >> np.uint64(32)).astype(np.uint32)
     lo = (key & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     table = sweep_table(1 << 14, hi[active], lo[active], kind)
-    cpu = lambda x: x.cpu()  # noqa: E731
-    pt, pout = fw.fused_wave_plain(spec, table_from_numpy(table), map_leaves(cpu, states),
-                                   *(c.cpu() for c in cols), depth_cap)
-    sweeps = []
-    with _spy_sweeps(sweeps):
-        ct, cout = fw.fused_wave(spec, table_from_numpy(table, "cuda"), states, *cols,
-                                 depth_cap)
-    torch.cuda.synchronize()
-    n = int(pout["stats"][1])
-    pairs = [(pt, ct), (pout["stats"], cout["stats"])]
-    pairs += [(pout[k][:n], cout[k][:n]) for k in ("parent_hi", "parent_lo")]
-    pairs += [(pout["new"][k][:n], cout["new"][k][:n]) for k in ("hi", "lo", "ebits", "depth")]
-    pairs += [(v[:n], cout["new"]["states"][k][:n]) for k, v in pout["new"]["states"].items()]
+    frontier = dict(zip(("hi", "lo", "ebits", "depth"), cols), states=states)
+    err, _pout, _ms, pt, sweeps = _compare_fused(spec, table_from_numpy(table, "cuda"),
+                                                 frontier, depth_cap)
     to_redo = tiles_to_redo(table, table_to_numpy(pt), hi, lo, active)
-    return _max_abs_err(pairs), hk.tiles_redone(sweeps[0][3]), to_redo
+    return err, hk.tiles_redone(sweeps[0][3]), to_redo
 
 
 @phase("fused_wave_vs_plain")
@@ -458,7 +524,6 @@ def fused_vs_plain():
     import numpy as np
     import torch
 
-    from stateright_tpu_torch.core.batch import map_leaves
     from stateright_tpu_torch.interop import table_to_numpy
     from stateright_tpu_torch.ops import fused_wave as fw
     from stateright_tpu_torch.ops import hashset_kernel as hk
@@ -470,16 +535,8 @@ def fused_vs_plain():
     hi, lo, ebits, depth = (chunk[k] for k in ("hi", "lo", "ebits", "depth"))
     F, A, P = hi.shape[0], spec.action_count, len(spec.conditions)
     B = F * A
-    cpu = lambda x: x.cpu()  # noqa: E731
 
-    t0 = time.perf_counter()
-    pt, pout = fw.fused_wave_plain(spec, table0.cpu(), map_leaves(cpu, states),
-                                   hi.cpu(), lo.cpu(), ebits.cpu(), depth.cpu(), depth_cap)
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    sweeps = []
-    with _spy_sweeps(sweeps):
-        ct, cout = fw.fused_wave(spec, table0.clone(), states, hi, lo, ebits, depth, depth_cap)
-    torch.cuda.synchronize()
+    err, pout, plain_ms, pt, sweeps = _compare_fused(spec, table0, chunk, depth_cap)
     _key, sweep_active, sweep_starts, scratch = sweeps[0]
     act_c = torch.cat([torch.zeros(1, dtype=torch.int64, device="cuda"),
                        sweep_active.to(torch.int64).cumsum(0)])
@@ -487,16 +544,26 @@ def fused_vs_plain():
     redone = hk.tiles_redone(scratch)
     stats = pout["stats"].tolist()
     n = stats[1]
-    pairs = [(pt, ct), (pout["stats"], cout["stats"])]
-    pairs += [(pout[k][:n], cout[k][:n]) for k in ("parent_hi", "parent_lo")]
-    pairs += [(pout["new"][k][:n], cout["new"][k][:n]) for k in ("hi", "lo", "ebits", "depth")]
-    pairs += [(v[:n], cout["new"]["states"][k][:n]) for k, v in pout["new"]["states"].items()]
-    err = _max_abs_err(pairs)
     log(f"  2pc-8 wave: F={F} B={B} table rows={table0.shape[0]} unique before={got['unique']} "
         f"generated={stats[0]} n_new={n} overflow={stats[2]} tiles touched={touched} "
         f"redone={redone} max_abs_err={err} plain={plain_ms:.1f} ms (host CPU)")
     if err:
         raise AssertionError("fused kernels and the plain twin disagree")
+
+    # A masked take of the deep drain at the same width: its off lanes
+    # hold pending states that no stage may read.
+    take = _capture_2pc8_ring_take()
+    mask = take["frontier"]["mask"]
+    m_err, m_out, m_plain_ms, _pt, _sw = _compare_fused(
+        take["spec"], take["table"], take["frontier"], take["depth_cap"], mask=mask)
+    m_stats = m_out["stats"].tolist()
+    log(f"  2pc-8 drain take: F={F} live lanes={int(mask.sum())} table rows="
+        f"{take['table'].shape[0]} ring rows={take['capacity']} unique before={take['unique']} "
+        f"generated={m_stats[0]} n_new={m_stats[1]} overflow={m_stats[2]} "
+        f"max_abs_err={m_err} plain={m_plain_ms:.1f} ms (host CPU)")
+    if m_err:
+        raise AssertionError("masked fused kernels and the plain twin disagree")
+    err = max(err, m_err)
 
     # The hard cases of the sweep's repair: the wave's first 256 states
     # over 2^14-row tables built around their own keys.
@@ -583,7 +650,7 @@ def fused_vs_plain():
 # -- 3. the main paths ----------------------------------------------------------
 
 
-def _drive_2pc8(wave_kernel):
+def _drive_2pc8(wave_kernel, **spawn):
     """Drives 2pc-8 through ``spawn_gpu_bfs`` with every kernel count set
     to 0 just before and read just after."""
     import torch
@@ -596,28 +663,39 @@ def _drive_2pc8(wave_kernel):
     hk.launches = fw.launches = 0
     t0 = time.perf_counter()
     checker = TwoPhaseSys(8).checker().spawn_gpu_bfs(
-        frontier_capacity=8192, table_capacity=1 << 20, wave_kernel=wave_kernel
+        frontier_capacity=8192, table_capacity=1 << 20, wave_kernel=wave_kernel, **spawn
     ).join()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches}
     unique = checker.unique_state_count()
-    log(f"  2pc-8 ({wave_kernel}): unique={unique} states={checker.state_count()} "
+    mode = "drain" if checker.drains else "wave at a time"
+    log(f"  2pc-8 ({wave_kernel}, {mode}): unique={unique} states={checker.state_count()} "
         f"depth={checker.max_depth()} waves={checker.waves} "
         f"table_growths={checker.table_growths} "
         f"table_capacity={checker.table_capacity()} wall={wall:.3f} s "
         f"unique_states_per_s={unique / wall:.0f} launches={launches} "
         f"peak_device_bytes={torch.cuda.max_memory_allocated()}")
+    if checker.drains:
+        log(f"  2pc-8 ({wave_kernel}, drain): wall={wall:.3f} s waves={checker.waves} "
+            f"noop_waves={checker.noop_waves} warmup_waves={checker.warmup_waves} "
+            f"drains={checker.drains} exits={dict(checker.drain_exits)} "
+            f"graph_captures={checker.graph_captures} "
+            f"graph_replays={checker.graph_replays} rungs={dict(checker.rungs)}")
     assert checker.device.type == "cuda"
     assert unique == 1_745_408, unique
     checker.assert_properties()
     return {"launches": launches, "wall_s": wall, "waves": checker.waves,
-            "state_count": checker.state_count(), "max_depth": checker.max_depth()}
+            "state_count": checker.state_count(), "max_depth": checker.max_depth(),
+            "drains": checker.drains, "noop_waves": checker.noop_waves,
+            "warmup_waves": checker.warmup_waves,
+            "exits": dict(checker.drain_exits), "graph_captures": checker.graph_captures,
+            "graph_replays": checker.graph_replays, "rungs": dict(checker.rungs)}
 
 
 @phase("main_path_2pc8")
 def main_path():
-    run = _drive_2pc8("staged")
+    run = _drive_2pc8("staged", max_drain_waves=1)
     n = run["launches"]
     assert n["hashset_insert_sorted"] >= run["waves"] > 0 and n["fused_wave"] == 0, n
     return run
@@ -625,7 +703,7 @@ def main_path():
 
 @phase("main_path_2pc8_fused")
 def main_path_fused(staged):
-    run = _drive_2pc8("fused")
+    run = _drive_2pc8("fused", max_drain_waves=1)
     n = run["launches"]
     for k in ("state_count", "max_depth", "waves"):
         assert run[k] == staged[k], (k, run[k], staged[k])
@@ -634,19 +712,65 @@ def main_path_fused(staged):
     return run
 
 
+@phase("main_path_2pc8_drain")
+def main_path_drain(wave_runs):
+    """Both engines through the deep drain, at the reference's 2pc-8 scale
+    settings; their launches are the kernels line's. A replayed graph
+    launches the kernels of all its waves, so they count the live waves,
+    the no-op waves after each exit and the warm-up wave before each pair
+    of captures, besides the seeding and rehash inserts and the overflow
+    retries."""
+    runs = {}
+    for wave_kernel, wave_run in zip(("staged", "fused"), wave_runs):
+        run = _drive_2pc8(wave_kernel, drain_log_factor=48)
+        for k in ("state_count", "max_depth"):
+            assert run[k] == wave_run[k], (wave_kernel, k, run[k], wave_run[k])
+        n = run["launches"]
+        assert run["drains"] > 0 and run["graph_replays"] > 0, run
+        name = "hashset_insert_sorted" if wave_kernel == "staged" else "fused_wave"
+        waves = {k: run[k] for k in ("waves", "noop_waves", "warmup_waves")}
+        other = n[name] - sum(waves.values())
+        assert run["waves"] > 0 and other >= 0, (n, waves)
+        if wave_kernel == "staged":
+            assert n["fused_wave"] == 0, n
+        else:
+            assert n["hashset_insert_sorted"] >= 1, n
+        log(f"  2pc-8 ({wave_kernel}): {name} launches={n[name]}: live waves={waves['waves']} "
+            f"no-op waves={waves['noop_waves']} warm-up waves={waves['warmup_waves']} "
+            f"other={other} (seeding, rehashes, overflow retries)")
+        log(f"  2pc-8 ({wave_kernel}): drain wall {run['wall_s']:.3f} s against "
+            f"{wave_run['wall_s']:.3f} s wave at a time")
+        runs[wave_kernel] = run
+    return runs
+
+
 @phase("replay_2pc3_2pc5")
 def replay_small():
     from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 
+    modes = {
+        "wave at a time": dict(frontier_capacity=1024, table_capacity=1 << 14,
+                               max_drain_waves=1),
+        "drain": dict(frontier_capacity=1024, table_capacity=1 << 14),
+        # Ring growth and many short drains, on narrow rungs.
+        "tiny drain": dict(frontier_capacity=32, table_capacity=2048, drain_log_factor=1,
+                           pool_factor=1, max_drain_waves=3),
+    }
     for wave_kernel in ("staged", "fused"):
-        for n, expected in ((3, 288), (5, 8832)):
+        for (n, expected), (mode, options) in (
+            (c, m) for c in ((3, 288), (5, 8832)) for m in modes.items()
+        ):
             model = TwoPhaseSys(n)
-            spawn = dict(frontier_capacity=1024, table_capacity=1 << 14, wave_kernel=wave_kernel)
+            spawn = dict(options, wave_kernel=wave_kernel)
             gpu = model.checker().spawn_gpu_bfs(**spawn).join()
             cpu = model.checker().spawn_gpu_bfs(**spawn, device="cpu").join()
+            assert gpu.worker_error() is None, gpu.worker_error()
             assert gpu.unique_state_count() == cpu.unique_state_count() == expected
             assert gpu.state_count() == cpu.state_count()
             assert gpu.max_depth() == cpu.max_depth()
+            assert gpu.waves == cpu.waves and gpu.drains == cpu.drains
+            assert gpu.drain_exits == cpu.drain_exits and gpu.rungs == cpu.rungs
+            assert (gpu.graph_replays > 0) == (gpu.drains > 0)
             gd, cd = gpu.discoveries(), cpu.discoveries()
             assert set(gd) == set(cd) == {"abort agreement", "commit agreement"}
             for name in gd:
@@ -660,8 +784,10 @@ def replay_small():
                 host = model.checker().spawn_bfs().join()
                 assert host.unique_state_count() == 288
                 assert host.state_count() == gpu.state_count()
-            log(f"  2pc-{n} ({wave_kernel}): unique={gpu.unique_state_count()} "
-                f"states={gpu.state_count()} depth={gpu.max_depth()} abort path "
+            log(f"  2pc-{n} ({wave_kernel}, {mode}): unique={gpu.unique_state_count()} "
+                f"states={gpu.state_count()} depth={gpu.max_depth()} waves={gpu.waves} "
+                f"drains={gpu.drains} noop_waves={gpu.noop_waves} "
+                f"graph_captures={gpu.graph_captures} abort path "
                 f"{gd['abort agreement'].into_actions()} (cuda == cpu twin)")
 
 
@@ -690,6 +816,7 @@ def main() -> int:
     fused = fused_vs_plain() if not FAILED else None
     staged = main_path() if not FAILED else None
     fused_run = main_path_fused(staged) if not FAILED else None
+    drains = main_path_drain((staged, fused_run)) if not FAILED else None
     if not FAILED:
         replay_small()
     if FAILED:
@@ -702,7 +829,7 @@ def main() -> int:
             "route": "cuda",
             "source": "stateright_tpu_torch/csrc/hashset_insert.cu",
             "replaces": "stateright_tpu/ops/pallas_hashset.py:193",
-            "launches": staged["launches"]["hashset_insert_sorted"],
+            "launches": drains["staged"]["launches"]["hashset_insert_sorted"],
             "max_abs_err": insert["max_abs_err"],
             "ms": insert["ms"],
             "plain_ms": insert["plain_ms"],
@@ -715,7 +842,7 @@ def main() -> int:
             "route": "cuda",
             "source": "stateright_tpu_torch/csrc/fused_wave.cu",
             "replaces": "stateright_tpu/ops/pallas_wave.py:91",
-            "launches": fused_run["launches"]["fused_wave"],
+            "launches": drains["fused"]["launches"]["fused_wave"],
             "max_abs_err": fused["max_abs_err"],
             "ms": fused["ms"],
             "plain_ms": fused["plain_ms"],

@@ -2,15 +2,17 @@
 
     python scripts/torch_profile_2pc.py [--rm 8] [--frontier 8192]
         [--table 1048576] [--wave-kernel staged|fused]
-        [--trace TRACE.json]
+        [--max-drain-waves N] [--drain-log-factor N] [--trace TRACE.json]
 
 Runs ``TwoPhaseSys(rm).checker().spawn_gpu_bfs(...)`` once to warm up
 (kernel build, allocator, library handles), then once more under
 ``torch.profiler`` with CPU and CUDA activities. Prints the device time of
 each CUDA kernel name (summed over the run), the wall time, the device
 busy time (union of kernel intervals), the device idle share, the device
-launches per wave, and one JSON summary line. Needs a CUDA device;
-imports nothing of JAX.
+launches per wave, the drains (exits, no-op waves, graph captures and
+replays) and one JSON summary line. ``--max-drain-waves 1`` runs wave at a
+time; the default runs the deep drain with the checker's defaults. Needs a
+CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ def main() -> int:
     ap.add_argument("--frontier", type=int, default=8192)
     ap.add_argument("--table", type=int, default=1 << 20)
     ap.add_argument("--wave-kernel", default="staged", choices=("staged", "fused"))
+    ap.add_argument("--max-drain-waves", type=int, default=100_000)
+    ap.add_argument("--drain-log-factor", type=int, default=8)
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
     args = ap.parse_args()
 
@@ -56,7 +60,8 @@ def main() -> int:
         t0 = time.perf_counter()
         c = TwoPhaseSys(args.rm).checker().spawn_gpu_bfs(
             frontier_capacity=args.frontier, table_capacity=args.table,
-            wave_kernel=args.wave_kernel,
+            wave_kernel=args.wave_kernel, max_drain_waves=args.max_drain_waves,
+            drain_log_factor=args.drain_log_factor,
         ).join()
         torch.cuda.synchronize()
         return c, time.perf_counter() - t0
@@ -91,9 +96,13 @@ def main() -> int:
     span_us = (intervals[-1][1] - intervals[0][0]) if intervals else 0.0
 
     total_ms = sum(v[1] for v in by_name.values())
-    print(f"profiled run ({args.wave_kernel}): unique={checker.unique_state_count()} "
-          f"waves={checker.waves} table_growths={checker.table_growths} "
-          f"wall={wall:.3f} s launches={launches}")
+    print(f"profiled run ({args.wave_kernel}, max_drain_waves={args.max_drain_waves}): "
+          f"unique={checker.unique_state_count()} waves={checker.waves} "
+          f"table_growths={checker.table_growths} wall={wall:.3f} s launches={launches} "
+          f"drains={checker.drains} exits={dict(checker.drain_exits)} "
+          f"noop_waves={checker.noop_waves} warmup_waves={checker.warmup_waves} "
+          f"graph_captures={checker.graph_captures} "
+          f"graph_replays={checker.graph_replays} rungs={dict(checker.rungs)}")
     print(f"{'device ms':>12} {'share':>7} {'count':>8}  kernel")
     for name, (count, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:20]:
         print(f"{ms:12.3f} {ms / total_ms:7.1%} {count:8d}  {name[:90]}")
@@ -111,8 +120,17 @@ def main() -> int:
         "card": card,
         "model": f"2pc-{args.rm}",
         "wave_kernel": args.wave_kernel,
+        "max_drain_waves": args.max_drain_waves,
+        "drain_log_factor": args.drain_log_factor,
         "unique": checker.unique_state_count(),
         "waves": checker.waves,
+        "noop_waves": checker.noop_waves,
+        "warmup_waves": checker.warmup_waves,
+        "drains": checker.drains,
+        "drain_exits": dict(checker.drain_exits),
+        "graph_captures": checker.graph_captures,
+        "graph_replays": checker.graph_replays,
+        "rungs": {str(k): v for k, v in checker.rungs.items()},
         "launches": launches,
         "wall_s": wall,
         "warm_wall_s": warm_wall,
@@ -125,6 +143,9 @@ def main() -> int:
         "device_idle_share_of_wall": 1.0 - (busy_us / 1e6) / wall,
         "kernel_launches": len(kernels),
         "kernel_launches_per_wave": len(kernels) / max(1, checker.waves),
+        "kernel_launches_per_wave_incl_noop": len(kernels) / max(
+            1, checker.waves + checker.noop_waves
+        ),
     }
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)

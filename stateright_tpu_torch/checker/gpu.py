@@ -1,9 +1,8 @@
 """GPU breadth-first checker: frontier waves in torch and CUDA.
 
 The port of the JAX package's ``TpuBfsChecker`` as configured with
-``hashset_impl="pallas"``, ``wave_dedup="sort"`` and either wave engine,
-driven wave at a time (``_explore_waves``). Each wave takes one frontier
-chunk of at most ``frontier_capacity`` states and
+``hashset_impl="pallas"``, ``wave_dedup="sort"`` and either wave engine.
+Each wave takes at most ``frontier_capacity`` frontier states and
 
     evaluates the property conditions (clearing ``eventually`` bits)
       -> expands the F x A action grid (``packed_expand``), drops lanes
@@ -20,8 +19,29 @@ chunk of at most ``frontier_capacity`` states and
 CUDA insert (``ops/fused_wave.py::torch_wave``); ``wave_kernel="fused"``
 runs the model's stage in torch and every other stage in the hand-written
 kernels of ``csrc/fused_wave.cu`` (``ops/fused_wave.py::fused_wave``). The
-two give the same results bit for bit. Either way the host reads one
-stats vector per wave and copies the parent log: two syncs a wave.
+two give the same results bit for bit.
+
+The waves are driven in one of two ways, as in the reference:
+
+- the deep drain (``_explore_deep``, the default): the pending frontier
+  lives in a device FIFO ring (``ops/ring.py``); a drain takes waves of one
+  rung of the bucket ladder (``bucket_ladder_widths``) from the ring head,
+  logs their (child, parent) fingerprints on the device and pushes their
+  fresh rows at the ring tail, until a wave cannot be consumed on the
+  device: nothing left, a probe overflow, a hit of an undiscovered
+  property, a full log, a full ring, a frontier that outgrew a narrow rung
+  (promote), the table's insert budget, ``max_drain_waves`` or 2^30
+  generated states. The host then reads one stats vector and the log
+  prefix and consumes that final wave itself. On the card a drain is a
+  pair of CUDA Graphs of ``_GRAPH_WAVES`` waves each, captured once per
+  (rung width, table capacity, ring capacity) and replayed in turns: every
+  wave is predicated on a device ``go`` flag that stays false once it
+  falls, so the waves after the exit take no lanes and write only trash
+  rows, and the host never drains the stream inside a drain. On the CPU
+  the same step runs uncaptured, one wave at a time;
+- wave at a time (``_explore_waves``, ``max_drain_waves=1``, and any run
+  with a visitor or a ``target_state_count``): the host reads one stats
+  vector per wave and copies the parent log, two syncs a wave.
 
 Counts, depths, verdicts and counterexample paths equal the JAX
 package's. The table grows (doubling + rehash) before a wave whose
@@ -32,8 +52,6 @@ and inserts them through the same kernel, so the table layout after a
 growth is the port's own (deterministic, but not the JAX package's
 scatter layout).
 
-The device-resident deep drain of the JAX package waits for a later slice.
-
 Semantics parity notes (mirrored from the reference): ``eventually`` bits
 propagate along paths and are not part of the fingerprint;
 ``target_state_count``/``target_max_depth`` may overshoot by up to a wave.
@@ -42,7 +60,7 @@ propagate along paths and are not part of the fingerprint;
 from __future__ import annotations
 
 import threading
-from collections import deque
+from collections import Counter, deque
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -52,6 +70,8 @@ from ..core.batch import BatchableModel, map_leaves
 from ..core.model import Expectation
 from ..core.path import Path
 from ..native import make_fingerprint_store
+from ..ops import fused_wave as fw
+from ..ops import hashset_kernel as hk
 from ..ops.fingerprint import fp_to_int
 from ..ops.fused_wave import FusedWaveSpec, fused_wave, sorted_dedup, torch_wave
 from ..ops.hashset import hashset_new, i32_to_u32, u32_to_i32
@@ -62,15 +82,62 @@ from ..ops.hashset_kernel import (
     sort_key,
     split_key,
 )
+from ..ops.ring import ring_export, ring_push, ring_rows, ring_take
 from .base import Checker
 
 _DEPTH_INF = (1 << 31) - 1
 # Grow the visited set before its load factor can pass this.
 _MAX_LOAD = 0.55
 
+# The bucket ladder (the JAX package's ``checker/tpu.py``): the narrowest
+# rung, the default depth of the ladder, and the frontier capacity from
+# which ``bucket_ladder=None`` turns it on.
+_MIN_BUCKET = 8
+_DEFAULT_BUCKET_STEPS = 4
+_AUTO_BUCKET_MIN_F = 512
+
+# Waves in one captured drain graph. A drain overshoots its exit by at
+# most this many no-op waves in its last graph and as many again in the
+# graph queued behind it.
+_GRAPH_WAVES = 4
+# The drain exits to the host before its generated counter reaches this.
+_GENERATED_CAP = 1 << 30
+
+# The drain's device scalars (one int64 vector): the ring's head and
+# count, the consumed waves' totals, the budget left, the waves run, the
+# go flag, and what the exit recorded.
+(_HEAD, _COUNT, _LOG_N, _GENERATED, _CONSUMED, _MAX_DEPTH, _BUDGET, _WAVES,
+ _GO, _REASON, _FINAL_SLOT, _FINAL_TAKE) = range(12)
+_N_SCALARS = 12
+# Why a drain exits, by bit of ``_REASON``, in the order of the
+# reference's loop condition; ``drain_exits`` counts a drain under the
+# first of its reasons.
+EXIT_REASONS = (
+    "nothing left", "probe overflow", "property hit", "log full", "ring full",
+    "promote", "budget", "max waves", "generated cap",
+)
+
 
 def _pow2ceil(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
+
+
+def bucket_ladder_widths(f_max: int, steps: int) -> list:
+    """The descending power-of-two wave-width ladder for a checker with
+    frontier capacity ``f_max``: ``[F_max, F_max/2, ...]`` down to
+    ``max(F_max >> steps, _MIN_BUCKET)``; ``steps=0`` is one rung."""
+    floor = max(min(f_max, _MIN_BUCKET), f_max >> max(0, steps))
+    return [f_max >> i for i in range(steps + 1) if (f_max >> i) >= floor]
+
+
+def bucket_for(widths, live: int) -> int:
+    """The smallest ladder width that holds ``live`` lanes (``widths``
+    descending; the widest rung when nothing smaller fits)."""
+    chosen = widths[0]
+    for w in widths[1:]:
+        if live <= w:
+            chosen = w
+    return chosen
 
 
 def resolve_device(device) -> torch.device:
@@ -107,7 +174,16 @@ class GpuBfsChecker(Checker):
     ``wave_kernel="fused"`` rounds it up instead, and says so in
     ``config_notes``); ``device`` is ``"cuda"`` (the default) or
     ``"cpu"``; ``wave_kernel`` is ``"staged"`` (the default) or
-    ``"fused"``."""
+    ``"fused"``.
+
+    The deep drain's options are the JAX package's, with its defaults:
+    ``max_drain_waves`` caps the waves of one drain (1 runs wave at a
+    time); the parent log holds ``drain_log_factor * F_max`` rows (at least
+    one worst-case wave) and the ring ``pool_factor * F_max`` (rounded up
+    to a power of two, at least one worst-case wave; it doubles when the
+    host queue does not fit); ``bucket_ladder`` is the number of rungs
+    below ``F_max`` a drain may run at (None: 4 from ``F_max >= 512``, else
+    none)."""
 
     def __init__(
         self,
@@ -116,6 +192,10 @@ class GpuBfsChecker(Checker):
         table_capacity=1 << 16,
         device=None,
         wave_kernel="staged",
+        max_drain_waves=100_000,
+        drain_log_factor=8,
+        pool_factor=16,
+        bucket_ladder=None,
     ):
         model = options.model
         if not isinstance(model, BatchableModel):
@@ -158,6 +238,22 @@ class GpuBfsChecker(Checker):
         self._ebits0 = sum(1 << b for b in self._ebit.values())
         self._A = model.packed_action_count()
         self._F_max = _pow2ceil(frontier_capacity)
+        if bucket_ladder is None:
+            bucket_ladder = (
+                _DEFAULT_BUCKET_STEPS if self._F_max >= _AUTO_BUCKET_MIN_F else 0
+            )
+        if bucket_ladder < 0:
+            raise ValueError(f"bucket_ladder must be >= 0, got {bucket_ladder}")
+        self._buckets = bucket_ladder_widths(self._F_max, bucket_ladder)
+        self._max_drain_waves = max(1, int(max_drain_waves))
+        # The log holds at least one worst-case wave (F_max * A fresh
+        # states), and so does the ring.
+        self._drain_log_capacity = max(
+            max(1, drain_log_factor) * self._F_max, self._F_max * self._A
+        )
+        self._pool_capacity = _pow2ceil(
+            max(max(1, pool_factor) * self._F_max, self._F_max * self._A)
+        )
         # Run-configuration notes, reported once at run end
         # (``Reporter.report_config_notes``).
         self.config_notes: List[str] = []
@@ -202,9 +298,24 @@ class GpuBfsChecker(Checker):
         self._ingested = 0
         self._ingest_lock = threading.Lock()
         self._host_fps: Dict = {}
-        # Run statistics (read by chip_smoke.py and the tests).
+        # Run statistics (read by chip_smoke.py and the tests): waves run
+        # with live lanes, table growths, drains, drains by exit reason and
+        # by rung width, and, on the card, the no-op waves after the exits,
+        # the warm-up waves before the captures (both take no lanes but
+        # launch the wave's kernels) and the drain graphs captured and
+        # replayed.
         self.waves = 0
         self.table_growths = 0
+        self.drains = 0
+        self.drain_exits: Counter = Counter()
+        self.rungs: Counter = Counter()
+        self.noop_waves = 0
+        self.warmup_waves = 0
+        self.graph_captures = 0
+        self.graph_replays = 0
+        self._drain = None
+        self._graphs: Dict = {}
+        self._go_host = None
         self._done_event = threading.Event()
         self._error: Optional[BaseException] = None
         self._handles = [
@@ -221,17 +332,19 @@ class GpuBfsChecker(Checker):
         )
         return table, sidx, fresh, pending
 
-    def _wave(self, table, chunk):
-        """One wave over a frontier chunk; returns ``(table, out)``, the
-        output of ``ops/fused_wave.py`` (a device stats vector and B-row
-        outputs whose first ``n_new`` rows are the fresh states)."""
+    def _wave(self, table, chunk, mask=None):
+        """One wave over a frontier chunk (its live lanes marked by
+        ``mask``; None: all); returns ``(table, out)``, the output of
+        ``ops/fused_wave.py`` (a device stats vector and B-row outputs
+        whose first ``n_new`` rows are the fresh states)."""
         args = (
             self._spec, table, chunk["states"], chunk["hi"], chunk["lo"],
             chunk["ebits"], chunk["depth"], self._depth_cap,
         )
         if self._wave_kernel == "fused":
-            return fused_wave(*args)
-        return torch_wave(*args, fingerprint=self._model.packed_fingerprint)
+            return fused_wave(*args, mask=mask)
+        return torch_wave(*args, fingerprint=self._model.packed_fingerprint,
+                          mask=mask)
 
     def _rehash(self, table, capacity):
         """The old table's live rows, sorted, inserted into an empty table
@@ -267,10 +380,24 @@ class GpuBfsChecker(Checker):
     def _run(self):
         try:
             table, queue = self._seed()
-            self._explore_waves(table, queue)
+            # As in the reference: the drain is off when a visitor needs
+            # each chunk or a target count caps the run (a drain would
+            # overshoot by whole drains).
+            if (
+                self._max_drain_waves > 1
+                and self._visitor is None
+                and self._target_state_count is None
+            ):
+                self._explore_deep(table, queue)
+            else:
+                self._explore_waves(table, queue)
         except BaseException as e:  # noqa: BLE001 - surfaced via worker_error
             self._error = e
         finally:
+            # The drain's ring, log and graphs hold device memory that the
+            # finished checker no longer needs.
+            self._drain = None
+            self._graphs = {}
             self._done_event.set()
 
     def _seed(self):
@@ -326,23 +453,29 @@ class GpuBfsChecker(Checker):
                 table = self._grow_table(
                     table, _pow2ceil(int((self._unique_count + B) / _MAX_LOAD))
                 )
-            table = self._consume_wave(table, chunk, queue)
+            table, _ = self._consume_wave(table, chunk, queue)
 
-    def _consume_wave(self, table, chunk, queue):
+    def _consume_wave(self, table, chunk, queue, out=None, stats=None):
         """Applies one wave host-side (counters, discoveries, log, requeue),
         growing the table and running the same chunk again while keys
-        overflow their probe windows; each attempt's fresh states are kept."""
-        if chunk["hi"].shape[0] == 0:
-            return table
+        overflow their probe windows; each attempt's fresh states are kept.
+        ``out`` and its ``stats`` (a list), when given, are the first
+        attempt, already run (a drain's final wave; ``chunk`` holds its
+        live lanes). Returns ``(table, fresh states kept)``."""
+        if chunk["hi"].shape[0] == 0 and out is None:
+            return table, 0
         attempt = 0
+        wave_new = 0
         while True:
-            table, out = self._wave(table, chunk)
+            if out is None:
+                table, out = self._wave(table, chunk)
+                stats = out["stats"].tolist()  # the wave's one read of its counters
             self.waves += 1
-            stats = out["stats"].tolist()  # the wave's one read of its counters
             if attempt == 0:
                 self._apply_wave_stats(stats, chunk)
             n_new = stats[1]
             self._unique_count += n_new
+            wave_new += n_new
             if n_new:
                 # Copies of the fresh rows: the queued chunks are views of
                 # these, so the wave's B-row outputs are freed now rather
@@ -371,9 +504,10 @@ class GpuBfsChecker(Checker):
                         for k, v in new.items()
                     })
             if not stats[2]:
-                return table
+                return table, wave_new
             table = self._grow_table(table, self._capacity * 2)
             attempt += 1
+            out = None
 
     def _apply_wave_stats(self, stats, chunk):
         self._state_count += stats[0]
@@ -391,6 +525,310 @@ class GpuBfsChecker(Checker):
                     self._visitor.visit(
                         self._model, self._reconstruct(fp_to_int(h, lo_))
                     )
+
+    # -- the deep drain ---------------------------------------------------------
+
+    def _explore_deep(self, table, queue):
+        """The host side of the deep drain (the reference's
+        ``_explore_deep``): on every pass it pushes the whole host queue
+        into the ring (growing the ring when it must), grows the table
+        ahead of the drain, picks the rung, runs one drain and consumes its
+        final wave, whose fresh states go to the host queue."""
+        props = self._properties
+        if not props:
+            return
+        F_max = self._F_max
+        B = F_max * self._A
+        self._drain = self._drain_state(self._pool_capacity)
+        pool_count = 0  # host view: exact after a drain, a bound after pushes
+        # Exact pending live lanes (ring + spilled queue), the rung
+        # selector's input; None until the first drain exit, so the first
+        # drain runs at F_max.
+        live_est = None
+        # Votes of consecutive drains for a rung not yet entered: a new
+        # rung is entered only when two drains in a row select it.
+        rung_votes: Dict[int, int] = {}
+        entered = set()
+        while True:
+            if len(self._discoveries_fp) == len(props):
+                break
+            # The queue must drain fully into the ring: its states are
+            # older than anything the drain will push (exact BFS order).
+            while queue:
+                if pool_count + F_max > self._pool_capacity:
+                    # The host bound counts F_max a push; read the device
+                    # count before doubling the ring.
+                    pool_count = int(self._drain["scalars"][_COUNT])
+                    if pool_count + F_max > self._pool_capacity:
+                        self._grow_pool()
+                self._ring_push_chunk(queue.popleft())
+                pool_count += F_max
+            if pool_count == 0:
+                break
+            self.drains += 1
+            if self._unique_count + B > _MAX_LOAD * self._capacity:
+                table = self._grow_table(
+                    table, _pow2ceil(int((self._unique_count + B) / _MAX_LOAD))
+                )
+            width = F_max
+            if live_est is not None and len(self._buckets) > 1:
+                want = bucket_for(self._buckets, max(1, min(live_est, F_max)))
+                if want in entered or want == F_max:
+                    width = want
+                    rung_votes = {}
+                else:
+                    votes = rung_votes.get(want, 0) + 1
+                    rung_votes = {want: votes}
+                    if votes >= 2:
+                        width = want
+                    else:
+                        # The narrowest rung already entered that holds
+                        # the load.
+                        width = min((w for w in entered if w >= want),
+                                    default=F_max)
+            entered.add(width)
+            self.rungs[width] += 1
+            budget = min(
+                int(_MAX_LOAD * self._capacity) - self._unique_count, (1 << 31) - 1 - B
+            )
+            table, summary, out, frontier = self._deep_drain(table, width, budget)
+
+            sc, stats = summary[:_N_SCALARS], summary[_N_SCALARS:]
+            reason = sc[_REASON]
+            self.drain_exits[EXIT_REASONS[(reason & -reason).bit_length() - 1]] += 1
+            log_n = sc[_LOG_N]
+            self._state_count += sc[_GENERATED]
+            self._unique_count += sc[_CONSUMED]
+            self._max_depth = max(self._max_depth, sc[_MAX_DEPTH])
+            # The final wave is counted by _consume_wave below.
+            self.waves += sc[_WAVES] - 1
+            pool_count = sc[_COUNT]
+            if log_n:
+                log = self._drain["log"][:, :log_n].contiguous().cpu().numpy()
+                child, parent = log.view(np.uint64)
+                self._wave_log.append((child, parent))
+            # The final wave, which the device could not consume: its live
+            # lanes are the prefix it took.
+            n = sc[_FINAL_TAKE]
+            chunk = {
+                k: (map_leaves(lambda x: x[:n], v) if k == "states" else v[:n])
+                for k, v in frontier.items()
+                if k != "mask"
+            }
+            table, spilled = self._consume_wave(table, chunk, queue, out=out,
+                                                stats=stats)
+            live_est = pool_count + spilled
+
+    def _drain_state(self, capacity):
+        """The drain's device state around a ring of ``capacity`` rows (and
+        a trash row): the ring, the scalars, the parent log (child and
+        parent fingerprints, ``(hi << 32) | lo``, and a trash column), the
+        final wave's stats and the undiscovered-property mask."""
+        dev, P = self._device, len(self._properties)
+        return {
+            "capacity": capacity,
+            "pool": ring_rows(self._model, capacity + 1, dev),
+            "scalars": torch.zeros(_N_SCALARS, dtype=torch.int64, device=dev),
+            "log": torch.zeros((2, self._drain_log_capacity + 1), dtype=torch.int64,
+                               device=dev),
+            "final_stats": torch.zeros(5 + 3 * P, dtype=torch.int64, device=dev),
+            "undiscovered": torch.zeros(P, dtype=torch.bool, device=dev),
+        }
+
+    def _ring_push_chunk(self, chunk):
+        """Pushes a host-queue chunk (live lanes only) at the ring tail."""
+        d = self._drain
+        sc = d["scalars"]
+        mask = torch.ones(chunk["hi"].shape[0], dtype=torch.bool, device=self._device)
+        sc[_COUNT] = ring_push(d["pool"], sc[_HEAD], sc[_COUNT], chunk, mask,
+                               d["capacity"])
+
+    def _grow_pool(self):
+        """Doubles the ring, keeping its FIFO order (export, then push into
+        the new ring from row 0)."""
+        d = self._drain
+        sc = d["scalars"]
+        exported = ring_export(d["pool"], sc[_HEAD], sc[_COUNT], d["capacity"])
+        self._pool_capacity *= 2
+        d["capacity"] = self._pool_capacity
+        d["pool"] = ring_rows(self._model, self._pool_capacity + 1, self._device)
+        zero = torch.zeros((), dtype=torch.int64, device=self._device)
+        sc[_COUNT] = ring_push(d["pool"], zero, zero, exported, exported["mask"],
+                               self._pool_capacity)
+        sc[_HEAD] = 0
+
+    def _drain_step(self, table, width, slot):
+        """One wave of a drain, every shape fixed and no value read back:
+        takes ``n = go * min(count, width)`` lanes from the ring, runs the
+        wave over them, and, while the drain goes on, checks that the
+        device can consume the wave (the reference's loop condition) and
+        consumes it: its fresh rows are logged and pushed at the ring tail.
+        The wave that fails the check stops the drain: ``go`` falls, and
+        the exit's reasons, the wave's ``slot`` and its take are recorded.
+        Returns ``(table, out, frontier)``."""
+        d = self._drain
+        sc = d["scalars"]
+        PC, L, F = d["capacity"], self._drain_log_capacity, width
+        B = F * self._A
+        go = sc[_GO]
+        frontier, head, count, n = ring_take(d["pool"], sc[_HEAD], sc[_COUNT], PC, F,
+                                             go)
+        table, out = self._wave(table, frontier, frontier["mask"])
+        stats = out["stats"]
+        generated, n_new, overflow, depth = stats[0], stats[1], stats[2], stats[3]
+        waves = sc[_WAVES] + go
+        log_n, budget = sc[_LOG_N], sc[_BUDGET]
+        false = torch.zeros((), dtype=torch.bool, device=stats.device)
+        hit = stats[5::3] != 0
+        fails = [
+            (n_new == 0) & (count == 0),
+            overflow != 0,
+            (hit & d["undiscovered"]).any() if hit.numel() else false,
+            log_n + n_new > L,
+            count + n_new > PC,
+            count > F if F < self._F_max else false,
+            budget - n_new < B,
+            waves >= self._max_drain_waves,
+            sc[_GENERATED] >= _GENERATED_CAP,
+        ]
+        reason = sum(f.to(torch.int64) << i for i, f in enumerate(fails))
+        ok = (reason == 0).to(torch.int64)
+        consume = go * ok
+        stop = (go * (1 - ok)).to(torch.bool)
+
+        lanes = torch.arange(B, dtype=torch.int64, device=stats.device)
+        fresh = (lanes < n_new) & (consume == 1)
+        new = out["new"]
+        dest = torch.where(fresh, log_n + lanes, L)
+        d["log"][0][dest] = (new["hi"] << 32) | new["lo"]
+        d["log"][1][dest] = (out["parent_hi"] << 32) | out["parent_lo"]
+        count = ring_push(d["pool"], head, count, new, fresh, PC)
+        sc.copy_(torch.stack([
+            head,
+            count,
+            log_n + consume * n_new,
+            sc[_GENERATED] + consume * generated,
+            sc[_CONSUMED] + consume * n_new,
+            torch.maximum(sc[_MAX_DEPTH], consume * depth),
+            budget - consume * n_new,
+            waves,
+            consume,
+            torch.where(stop, reason, sc[_REASON]),
+            torch.where(stop, slot, sc[_FINAL_SLOT]),
+            torch.where(stop, n, sc[_FINAL_TAKE]),
+        ]))
+        d["final_stats"].copy_(torch.where(stop, stats, d["final_stats"]))
+        return table, out, frontier
+
+    def _deep_drain(self, table, width, budget):
+        """One drain at rung ``width``; returns ``(table, summary, out,
+        frontier)``: the drain's scalars followed by the final wave's stats
+        (one read), and the final wave's output and frontier."""
+        d = self._drain
+        sc = d["scalars"]
+        sc[_LOG_N:] = torch.tensor(
+            [0, 0, 0, 0, budget, 0, 1, 0, 0, 0], dtype=torch.int64
+        )
+        d["undiscovered"].copy_(torch.tensor(
+            [p.name not in self._discoveries_fp for p in self._properties],
+            dtype=torch.bool,
+        ))
+        if self._device.type == "cuda":
+            slots = self._replay_drain(table, width)
+        else:
+            while True:
+                table, out, frontier = self._drain_step(table, width, 0)
+                if not int(sc[_GO]):
+                    break
+            slots = [(out, frontier)]
+        summary = torch.cat([sc, d["final_stats"]]).tolist()  # the drain's one read
+        out, frontier = slots[summary[_FINAL_SLOT]]
+        return table, summary, out, frontier
+
+    def _replay_drain(self, table, width):
+        """Runs a drain on the card: replays the pair of captured graphs of
+        ``_GRAPH_WAVES`` waves in turns, two queued at a time. Before
+        queueing a graph again the host waits for its last replay and reads
+        the ``go`` flag copied after it: the graph queued behind it keeps
+        the card busy, and a graph is replayed again only once every wave
+        of its last replay was consumed, so the final wave is never
+        overwritten. Returns the graphs' (out, frontier) slots."""
+        d = self._drain
+        key = (width, self._capacity, d["capacity"])
+        entry = self._graphs.get(key)
+        if entry is None or entry["table"] != table.data_ptr():
+            # Capacities only grow: graphs of other capacities are done.
+            self._graphs = {
+                k: v for k, v in self._graphs.items() if k[1:] == key[1:]
+                and v["table"] == table.data_ptr()
+            }
+            entry = self._graphs[key] = self._capture_drain(table, width)
+        if self._go_host is None:
+            self._go_host = torch.zeros(2, dtype=torch.int64, pin_memory=True)
+        graphs, events, flag = entry["graphs"], entry["events"], self._go_host
+        fw_n, hk_n = entry["launches"]
+
+        def launch(i):
+            # A replay launches every kernel of its waves, no-op waves
+            # included, with no Python call of the wrappers.
+            fw.launches += fw_n
+            hk.launches += hk_n
+            graphs[i % 2].replay()
+            flag[i % 2].copy_(d["scalars"][_GO], non_blocking=True)
+            events[i % 2].record()
+
+        launch(0)
+        launch(1)
+        q = 2
+        while True:
+            events[q % 2].synchronize()
+            if not int(flag[q % 2]):
+                break
+            launch(q)
+            q += 1
+        self.graph_replays += q
+        self.noop_waves += q * _GRAPH_WAVES - int(d["scalars"][_WAVES])
+        return entry["slots"]
+
+    def _capture_drain(self, table, width):
+        """Captures the pair of drain graphs for ``width`` over the current
+        table and ring, after a warm-up wave that takes no lanes (it builds
+        the kernels and sets up the libraries' workspaces). A capture that
+        fails raises: nothing falls back to the uncaptured loop. Returns the
+        graphs with the kernel launches each replay makes."""
+        d = self._drain
+        sc = d["scalars"]
+        sc[_GO] = 0
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self._drain_step(table, width, 0)
+        torch.cuda.current_stream().wait_stream(side)
+        self.warmup_waves += 1
+        sc[_GO] = 1
+        # A capture records the kernels and launches none: its counts are
+        # undone here and added at every replay instead.
+        counts = fw.launches, hk.launches
+        graphs, slots = [], []
+        for g in range(2):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                for j in range(_GRAPH_WAVES):
+                    _table, out, frontier = self._drain_step(
+                        table, width, g * _GRAPH_WAVES + j
+                    )
+                    slots.append((out, frontier))
+            graphs.append(graph)
+        per_replay = ((fw.launches - counts[0]) // 2, (hk.launches - counts[1]) // 2)
+        fw.launches, hk.launches = counts
+        self.graph_captures += 2
+        return {
+            "graphs": graphs,
+            "slots": slots,
+            "events": [torch.cuda.Event(), torch.cuda.Event()],
+            "table": table.data_ptr(),
+            "launches": per_replay,
+        }
 
     # -- path reconstruction ------------------------------------------------
 

@@ -10,12 +10,15 @@
 // u32 words. The stages here are launched back to back on one stream,
 // each through its own C entry point:
 //
-//   fw_frontier  eval mask (depth < depth_cap), eventually bits cleared by
-//                their conditions, terminal lanes, the first hit lane of
-//                every property, max depth;
+//   fw_frontier  eval mask (a live lane under depth_cap; the frontier mask
+//                is optional, and a masked lane may hold a stale row that
+//                no stage reads unmasked), eventually bits cleared by their
+//                conditions, terminal lanes, the first hit lane of every
+//                property, the max depth of the live lanes;
 //   fw_keys      the (hi, lo) fingerprint of every candidate, one thread a
 //                lane, bit-identical to ops/fingerprint.py::
-//                fingerprint_words; invalid lanes sink to (MAX, MAX);
+//                fingerprint_words; invalid lanes (and the lanes of masked
+//                frontier lanes) sink to (MAX, MAX);
 //   fw_sort      a stable LSD radix sort of the 64-bit keys carrying the
 //                lane index: per-block digit histograms, an exclusive scan
 //                in digit-major, block-minor order, and a scatter that
@@ -174,12 +177,14 @@ __global__ void __launch_bounds__(THREADS) frontier_kernel(
     const uint8_t* __restrict__ cond,    // (P, F) 0/1
     const uint8_t* __restrict__ cvalid,  // (F * A,) expand & boundary
     const int64_t* __restrict__ depth, const int64_t* __restrict__ ebits,
+    const uint8_t* __restrict__ mask,  // (F,) live lanes, or null: all
     int64_t* __restrict__ ebits_after, Props props, ull* __restrict__ acc) {
   const int64_t f = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   ull d = 0;
   if (f < F) {
     const int64_t dep = depth[f];
-    const bool ev = dep < depth_cap;
+    const bool live = mask == nullptr || mask[f] != 0;
+    const bool ev = live && dep < depth_cap;
     int64_t eb = ebits[f];
     for (int i = 0; i < props.n; ++i) {
       if (props.ebit[i] >= 0 && cond[(int64_t)i * F + f]) eb &= ~(1LL << props.ebit[i]);
@@ -201,7 +206,7 @@ __global__ void __launch_bounds__(THREADS) frontier_kernel(
       }
       if (hit) atomicMin(&acc[ACC_FIRST_HIT + i], (ull)f);
     }
-    d = (ull)dep;
+    d = live ? (ull)dep : 0ull;  // max(where(mask, depth, 0))
   }
 #pragma unroll
   for (int o = 16; o; o >>= 1) {
@@ -270,17 +275,19 @@ __device__ uint2 fingerprint_row(const int64_t* __restrict__ row, int n) {
 }
 
 // key[b] = (hi << 32) | lo of lane b, or all ones when the lane is not
-// valid (cvalid and, when depth is given, depth[b / A] < depth_cap);
-// idx[b] = b. Counts the valid lanes into acc (when given).
+// valid (cvalid, when mask is given mask[b / A], and when depth is given
+// depth[b / A] < depth_cap); idx[b] = b. Counts the valid lanes into acc
+// (when given).
 __global__ void __launch_bounds__(THREADS) keys_kernel(
     int64_t B, int A, int W, const int64_t* __restrict__ words,
     const uint8_t* __restrict__ cvalid, const int64_t* __restrict__ depth,
-    int64_t depth_cap, ull* __restrict__ key, uint32_t* __restrict__ idx,
-    ull* __restrict__ acc) {
+    const uint8_t* __restrict__ mask, int64_t depth_cap, ull* __restrict__ key,
+    uint32_t* __restrict__ idx, ull* __restrict__ acc) {
   const int64_t b = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   unsigned valid = 0;
   if (b < B) {
-    valid = cvalid[b] != 0 && (depth == nullptr || depth[b / A] < depth_cap);
+    valid = cvalid[b] != 0 && (mask == nullptr || mask[b / A] != 0) &&
+            (depth == nullptr || depth[b / A] < depth_cap);
     ull k = ~0ull;
     if (valid) {
       const uint2 fp = fingerprint_row(words + b * W, W);
@@ -522,10 +529,12 @@ static int last_error(cudaError_t e) {
   return (int)(e != cudaSuccess ? e : l);
 }
 
+// mask may be null (every lane live).
 extern "C" int fw_frontier(int64_t F, int A, int64_t depth_cap, const void* cond,
                            const void* cvalid, const void* depth, const void* ebits,
-                           void* ebits_after, int P, const void* kind_host,
-                           const void* ebit_host, void* acc, void* stream) {
+                           const void* mask, void* ebits_after, int P,
+                           const void* kind_host, const void* ebit_host, void* acc,
+                           void* stream) {
   if (P < 0 || P > MAX_PROPS) return (int)cudaErrorInvalidValue;
   Props props;
   props.n = P;
@@ -540,17 +549,18 @@ extern "C" int fw_frontier(int64_t F, int A, int64_t depth_cap, const void* cond
   if (e != cudaSuccess) return (int)e;
   frontier_kernel<<<blocks_for(F, THREADS), THREADS, 0, s>>>(
       F, A, depth_cap, (const uint8_t*)cond, (const uint8_t*)cvalid,
-      (const int64_t*)depth, (const int64_t*)ebits, (int64_t*)ebits_after, props,
-      (ull*)acc);
+      (const int64_t*)depth, (const int64_t*)ebits, (const uint8_t*)mask,
+      (int64_t*)ebits_after, props, (ull*)acc);
   return last_error(cudaSuccess);
 }
 
+// depth, mask and acc may be null.
 extern "C" int fw_keys(int64_t B, int A, int W, const void* words, const void* cvalid,
-                       const void* depth, int64_t depth_cap, void* key, void* idx,
-                       void* acc, void* stream) {
+                       const void* depth, const void* mask, int64_t depth_cap,
+                       void* key, void* idx, void* acc, void* stream) {
   keys_kernel<<<blocks_for(B, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
       B, A, W, (const int64_t*)words, (const uint8_t*)cvalid, (const int64_t*)depth,
-      depth_cap, (ull*)key, (uint32_t*)idx, (ull*)acc);
+      (const uint8_t*)mask, depth_cap, (ull*)key, (uint32_t*)idx, (ull*)acc);
   return last_error(cudaSuccess);
 }
 

@@ -29,7 +29,9 @@ first hit lane (lane 0 when none hit), and B-row per-lane outputs
 and ``parent_lo`` whose first ``n_new`` rows hold the fresh states in key
 order; the rows past ``n_new`` are unspecified. The caller reads
 ``stats`` once and slices. u32 values ride in int64, as everywhere in
-the port.
+the port. An optional ``(F,)`` bool ``mask`` marks the live frontier
+lanes (None: all live): the deep drain's fixed-width ring takes carry
+stale rows in their masked lanes, and no stage reads those unmasked.
 """
 
 from __future__ import annotations
@@ -128,12 +130,15 @@ def sorted_dedup(khi, klo, valid):
     return shi, slo, sidx, valid[sidx] & first
 
 
-def _frontier_plain(spec, cond, cvalid, ebits, depth, depth_cap):
-    """Stage (a): the eval mask, the ``eventually`` bits cleared where
-    their condition holds, the valid bits under the eval mask, and the
-    terminal lanes (evaluated, with no valid candidate)."""
+def _frontier_plain(spec, cond, cvalid, ebits, depth, depth_cap, mask=None):
+    """Stage (a): the eval mask (live, under the depth cap), the
+    ``eventually`` bits cleared where their condition holds, the valid
+    bits under the eval mask, and the terminal lanes (evaluated, with no
+    valid candidate). ``mask`` marks the live lanes (None: all)."""
     F, A = depth.shape[0], spec.action_count
     eval_mask = depth < depth_cap
+    if mask is not None:
+        eval_mask = eval_mask & mask
     ebits_after = ebits
     for pi, b in spec.ebit:
         ebits_after = torch.where(cond[pi], ebits_after & ~(1 << b), ebits_after)
@@ -143,10 +148,10 @@ def _frontier_plain(spec, cond, cvalid, ebits, depth, depth_cap):
 
 
 def _stats(spec, cond, eval_mask, terminal, ebits_after, hi, lo, depth,
-           generated, fresh, pending):
-    """The stats vector: counts, then each property's hit and the
-    fingerprint of its first hit lane (lane 0 when none hit, as
-    ``jnp.argmax``)."""
+           generated, fresh, pending, mask=None):
+    """The stats vector: counts (the max depth over the live lanes), then
+    each property's hit and the fingerprint of its first hit lane (lane 0
+    when none hit, as ``jnp.argmax``)."""
     zero = torch.zeros((), dtype=torch.int64, device=hi.device)
     F = hi.shape[0]
     ebit = dict(spec.ebit)
@@ -164,6 +169,8 @@ def _stats(spec, cond, eval_mask, terminal, ebits_after, hi, lo, depth,
             props += [hits[-1], hi.index_select(0, idx)[0], lo.index_select(0, idx)[0]]
         else:
             props += [hits[-1], zero, zero]
+    if mask is not None:
+        depth = torch.where(mask, depth, 0)
     items = [
         generated,
         fresh.sum(),
@@ -175,17 +182,19 @@ def _stats(spec, cond, eval_mask, terminal, ebits_after, hi, lo, depth,
 
 
 def torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap,
-               fingerprint=fingerprint_state):
+               fingerprint=fingerprint_state, mask=None):
     """The whole wave in torch, with the visited-set insert through
     ``hashset_insert_sorted`` (the CUDA kernel on a CUDA table, its plain
     twin on a CPU table). It is the staged path of ``checker/gpu.py``
     (with the model's ``packed_fingerprint``) and, on a CPU table with the
-    default fingerprint, ``fused_wave_plain``."""
+    default fingerprint, ``fused_wave_plain``. ``mask`` (F,) bool marks
+    the live lanes; None means every lane is live. Masked lanes may hold
+    stale rows: nothing of them reaches the outputs."""
     F, A = hi.shape[0], spec.action_count
     B = F * A
     cond, cvalid, cand_flat = model_stage(spec, states, F)
     eval_mask, ebits_after, cvalid, terminal = _frontier_plain(
-        spec, cond, cvalid, ebits, depth, depth_cap
+        spec, cond, cvalid, ebits, depth, depth_cap, mask
     )
     chi, clo = fingerprint(cand_flat)
     shi, slo, sidx, unique = sorted_dedup(chi, clo, cvalid)
@@ -193,7 +202,7 @@ def torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap,
         table, u32_to_i32(shi), u32_to_i32(slo), unique
     )
     stats = _stats(spec, cond, eval_mask, terminal, ebits_after, hi, lo,
-                   depth, cvalid.sum(), fresh, pending)
+                   depth, cvalid.sum(), fresh, pending, mask)
     # Cumsum compaction: fresh key i (in sorted order) goes to slot
     # rank(i); the rows past n_new are unspecified (here lane 0's).
     slot = torch.where(fresh, torch.cumsum(fresh, 0) - 1, B)
@@ -213,13 +222,15 @@ def torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap,
     return table, out
 
 
-def fused_wave_plain(spec, table, states, hi, lo, ebits, depth, depth_cap):
+def fused_wave_plain(spec, table, states, hi, lo, ebits, depth, depth_cap,
+                     mask=None):
     """The plain torch twin of the fused kernels (CPU tables only):
     ``fingerprint_words`` over ``state_words``, a stable ``torch.sort``,
     ``hashset_insert_sorted_plain`` and cumsum compaction."""
     if table.device.type != "cpu":
         raise ValueError(f"fused_wave_plain runs on CPU tensors, got {table.device}")
-    return torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap)
+    return torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap,
+                      mask=mask)
 
 
 # -- the CUDA path ---------------------------------------------------------------
@@ -228,8 +239,8 @@ _c_ptr, _c_int, _c_i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # The C entry points of csrc/fused_wave.cu and their parameter types
 # (c_void_p for every pointer and the stream).
 ARGTYPES = {
-    "fw_frontier": [_c_i64, _c_int, _c_i64] + [_c_ptr] * 5 + [_c_int] + [_c_ptr] * 4,
-    "fw_keys": [_c_i64, _c_int, _c_int] + [_c_ptr] * 3 + [_c_i64] + [_c_ptr] * 4,
+    "fw_frontier": [_c_i64, _c_int, _c_i64] + [_c_ptr] * 6 + [_c_int] + [_c_ptr] * 4,
+    "fw_keys": [_c_i64, _c_int, _c_int] + [_c_ptr] * 4 + [_c_i64] + [_c_ptr] * 4,
     "fw_sort": [_c_i64] + [_c_ptr] * 6,
     "fw_dedup": [_c_i64] + [_c_ptr] * 3 + [_c_int] * 2 + [_c_ptr],
     "fw_sweep": [_c_ptr] * 4 + [_c_i64] + [_c_int] * 2 + [_c_ptr] * 4,
@@ -272,33 +283,39 @@ def _host_ints(values, ctype=ctypes.c_int):
     return arr, ctypes.addressof(arr)
 
 
-def frontier_stage(spec, cond, cvalid, ebits, depth, depth_cap, acc):
+def _ptr(x):
+    return x.data_ptr() if x is not None else None
+
+
+def frontier_stage(spec, cond, cvalid, ebits, depth, depth_cap, acc, mask=None):
     """Stage (a): resets ``acc`` and returns ``ebits_after``; ``acc``
-    gathers max depth and each property's first hit lane."""
+    gathers the max depth of the live lanes (``mask``; None: all) and each
+    property's first hit lane."""
     F, P = depth.shape[0], len(spec.conditions)
     ebit = dict(spec.ebit)
     kinds, kind_p = _host_ints([KINDS[k] for k in spec.expectations])
     bits, bit_p = _host_ints([ebit.get(i, -1) for i in range(P)])
     ebits_after = torch.empty_like(ebits)
     _call("fw_frontier", F, spec.action_count, int(depth_cap), cond.data_ptr(),
-          cvalid.data_ptr(), depth.data_ptr(), ebits.data_ptr(),
+          cvalid.data_ptr(), depth.data_ptr(), ebits.data_ptr(), _ptr(mask),
           ebits_after.data_ptr(), P, kind_p, bit_p, acc.data_ptr(),
           _stream(depth))
     return ebits_after
 
 
-def keys_stage(words, cvalid, depth=None, depth_cap=0, action_count=1, acc=None):
+def keys_stage(words, cvalid, depth=None, depth_cap=0, action_count=1, acc=None,
+               mask=None):
     """Stage (b): ``(key, idx)``, each lane's fingerprint as the int64 bits
     of ``(hi << 32) | lo`` (all ones for a lane that is not valid: not
-    ``cvalid``, or, with ``depth``, at or past ``depth_cap``) and the lane
-    index (int32). Counts the valid lanes into ``acc`` when given."""
+    ``cvalid``, with ``mask`` a lane of a frontier lane that is not live,
+    or, with ``depth``, at or past ``depth_cap``) and the lane index
+    (int32). Counts the valid lanes into ``acc`` when given."""
     B, W = words.shape
     key = torch.empty(B, dtype=torch.int64, device=words.device)
     idx = torch.empty(B, dtype=torch.int32, device=words.device)
     _call("fw_keys", B, action_count, W, words.data_ptr(), cvalid.data_ptr(),
-          depth.data_ptr() if depth is not None else None, int(depth_cap),
-          key.data_ptr(), idx.data_ptr(),
-          acc.data_ptr() if acc is not None else None, _stream(words))
+          _ptr(depth), _ptr(mask), int(depth_cap), key.data_ptr(),
+          idx.data_ptr(), _ptr(acc), _stream(words))
     return key, idx
 
 
@@ -409,12 +426,13 @@ def _check_inputs(table, named):
 
 
 def kernel_chain(spec, table, hi, lo, ebits, depth, depth_cap, cond, cvalid,
-                 words, cand_flat, mark=None):
+                 words, cand_flat, mark=None, mask=None):
     """Every kernel of the wave, launched back to back on the current
     stream over the model stage's outputs (``model_stage`` and
-    ``state_words``); counts one launch. ``mark(name)``, when given, is
-    called before each stage and once after the last (``chip_smoke.py``
-    records CUDA events there). Returns ``(table, out)``."""
+    ``state_words``); counts one launch. ``mask`` (F,) bool marks the live
+    frontier lanes (None: all). ``mark(name)``, when given, is called
+    before each stage and once after the last (``chip_smoke.py`` records
+    CUDA events there). Returns ``(table, out)``."""
     global launches
 
     mark = mark or (lambda name: None)
@@ -423,9 +441,10 @@ def kernel_chain(spec, table, hi, lo, ebits, depth, depth_cap, cond, cvalid,
     launches += 1
     acc = torch.empty(4 + P, dtype=torch.int64, device=table.device)
     mark("frontier")
-    ebits_after = frontier_stage(spec, cond, cvalid, ebits, depth, depth_cap, acc)
+    ebits_after = frontier_stage(spec, cond, cvalid, ebits, depth, depth_cap, acc,
+                                 mask)
     mark("keys")
-    key, idx = keys_stage(words, cvalid, depth, depth_cap, A, acc)
+    key, idx = keys_stage(words, cvalid, depth, depth_cap, A, acc, mask)
     mark("sort")
     sort_stage(key, idx)
     mark("dedup")
@@ -446,13 +465,15 @@ def kernel_chain(spec, table, hi, lo, ebits, depth, depth_cap, cond, cvalid,
     return table, out
 
 
-def fused_wave(spec, table, states, hi, lo, ebits, depth, depth_cap):
+def fused_wave(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None):
     """One wave over F frontier states (``hi``, ``lo``, ``ebits`` and
-    ``depth`` are ``(F,)`` int64). Returns ``(table, out)`` as the module
+    ``depth`` are ``(F,)`` int64; ``mask``, ``(F,)`` bool, marks the live
+    lanes, None meaning all). Returns ``(table, out)`` as the module
     docstring says. A CPU table runs ``fused_wave_plain``; a CUDA table
     runs the model stage in torch and launches the kernels, or raises."""
     if table.device.type == "cpu":
-        return fused_wave_plain(spec, table, states, hi, lo, ebits, depth, depth_cap)
+        return fused_wave_plain(spec, table, states, hi, lo, ebits, depth, depth_cap,
+                                mask)
     if table.device.type != "cuda":
         raise ValueError(f"no fused wave kernels for device {table.device}")
     _check_capacity(table)
@@ -477,6 +498,6 @@ def fused_wave(spec, table, states, hi, lo, ebits, depth, depth_cap):
         ("cond", cond, torch.bool, (P, F)),
         ("cvalid", cvalid, torch.bool, (B,)),
         ("words", words, torch.int64, (B, words.shape[1])),
-    ])
+    ] + ([] if mask is None else [("mask", mask, torch.bool, (F,))]))
     return kernel_chain(spec, table, hi, lo, ebits, depth, depth_cap, cond,
-                        cvalid, words, cand_flat)
+                        cvalid, words, cand_flat, mask=mask)

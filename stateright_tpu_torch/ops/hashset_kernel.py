@@ -125,7 +125,7 @@ def tile_starts(key_hi: torch.Tensor, capacity: int) -> torch.Tensor:
         0, n_tiles + 1, dtype=torch.int64, device=key_hi.device
     ) * TILE_ROWS
     starts = torch.searchsorted(homes, bounds)
-    starts[0] = 0
+    starts[:1].zero_()  # in place: no host value, so a graph can capture it
     return starts
 
 

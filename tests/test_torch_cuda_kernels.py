@@ -3,8 +3,9 @@
 The visited-set insert (``csrc/hashset_insert.cu``) against
 ``hashset_insert_sorted_plain``, and the fused wave's kernels
 (``csrc/fused_wave.cu``) against ``fused_wave_plain``: single waves at
-small shapes built to reach each hard case, the fingerprint and sort
-stages alone, and whole runs on the card against the CPU twin.
+small shapes built to reach each hard case (masked frontiers included),
+the fingerprint and sort stages alone, and whole runs on the card against
+the CPU twin, wave at a time and through the captured deep drain.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports neither JAX nor
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from stateright_tpu_torch.checker.gpu import _GRAPH_WAVES
 from stateright_tpu_torch.core.batch import map_leaves
 from stateright_tpu_torch.interop import keys_from_numpy, table_from_numpy, table_to_numpy
 from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
@@ -119,7 +121,7 @@ def test_cuda_checker_matches_cpu_twin(cuda_device):
     """2pc-5 on the card and on the CPU twin: same counts, same paths."""
     runs = [
         TwoPhaseSys(5).checker().spawn_gpu_bfs(
-            frontier_capacity=256, table_capacity=1 << 12, device=d
+            frontier_capacity=256, table_capacity=1 << 12, device=d, max_drain_waves=1
         ).join()
         for d in (cuda_device, "cpu")
     ]
@@ -176,15 +178,17 @@ def hop_frontier(xs, depth, ebits=1, device="cpu"):
     return map_leaves(lambda t: t.to(device), states), {k: v.to(device) for k, v in cols.items()}
 
 
-def fused_both(spec, table_np, states, cols, depth_cap, dev):
+def fused_both(spec, table_np, states, cols, depth_cap, dev, mask=None):
     """One wave through the kernels and through the plain twin; asserts
     that every output agrees bit for bit and returns the plain stats."""
     before = fw.launches
     pt, pout = fw.fused_wave_plain(spec, table_from_numpy(table_np), states,
-                                   cols["hi"], cols["lo"], cols["ebits"], cols["depth"], depth_cap)
+                                   cols["hi"], cols["lo"], cols["ebits"], cols["depth"], depth_cap,
+                                   mask=mask)
     ct, cout = fw.fused_wave(
         spec, table_from_numpy(table_np, dev), map_leaves(lambda t: t.to(dev), states),
         *(cols[k].to(dev) for k in ("hi", "lo", "ebits", "depth")), depth_cap,
+        mask=None if mask is None else mask.to(dev),
     )
     torch.cuda.synchronize()
     assert fw.launches == before + 1
@@ -328,6 +332,7 @@ def test_cuda_fused_checker_matches_cpu_twin(cuda_device):
     gpu, cpu = [
         TwoPhaseSys(5).checker().spawn_gpu_bfs(
             frontier_capacity=256, table_capacity=1 << 12, device=d, wave_kernel="fused",
+            max_drain_waves=1,
         ).join()
         for d in (cuda_device, "cpu")
     ]
@@ -339,3 +344,77 @@ def test_cuda_fused_checker_matches_cpu_twin(cuda_device):
     assert gpu.table_growths == cpu.table_growths >= 1
     for name, path in cpu.discoveries().items():
         assert gpu.discoveries()[name].encode() == path.encode()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["prefix", "random", "none_live"])
+def test_cuda_masked_fused_wave_matches_plain_twin(cuda_device, pattern):
+    """A frontier whose masked lanes hold other states (deeper, and some
+    where every property hits): the kernels equal the plain twin with the
+    mask, and the masked lanes count for nothing."""
+    spec = hop_spec(5000, actions=8, bound=4000)
+    xs = list(range(0, 3000, 3)) + list(range(3990, 4100))
+    rng = np.random.default_rng(len(pattern))
+    F = len(xs)
+    if pattern == "prefix":
+        mask = torch.arange(F) < 700
+    elif pattern == "random":
+        mask = torch.from_numpy(rng.random(F) < 0.5)
+    else:
+        mask = torch.zeros(F, dtype=torch.bool)
+    depth = torch.where(mask, 2, 9)
+    states, cols = hop_frontier(xs, depth)
+    stats, _ = fused_both(spec, empty_table(TILE_ROWS * 4), states, cols, 10, cuda_device,
+                          mask=mask)
+    assert stats[3] == (2 if mask.any() else 0)
+    if pattern == "none_live":
+        assert stats[:5] == [0, 0, 0, 0, 0]
+
+
+DRAIN_CASES = {
+    # Ring growth, ring-full, budget and max-waves exits, many drains.
+    "tiny": dict(frontier_capacity=32, table_capacity=2048, drain_log_factor=1,
+                 pool_factor=1, max_drain_waves=3),
+    # Every rung of a ladder, table growth between drains.
+    "ladder": dict(frontier_capacity=256, table_capacity=1 << 12, bucket_ladder=2,
+                   max_drain_waves=2),
+    # The defaults: few long drains.
+    "default": dict(frontier_capacity=256, table_capacity=1 << 12),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wave_kernel", ["staged", "fused"])
+@pytest.mark.parametrize("case", list(DRAIN_CASES))
+def test_cuda_captured_drain_matches_cpu_drain(cuda_device, wave_kernel, case):
+    """2pc-5 through the captured drain on the card and the uncaptured
+    drain of the CPU twin: the same counts, paths, drains, exits, rungs and
+    growths; the card's waves ran in replayed graphs, and every replay
+    counted the launches of all its waves (live, no-op) besides the
+    warm-up waves."""
+    spawn = dict(DRAIN_CASES[case], wave_kernel=wave_kernel)
+    counter = fw if wave_kernel == "fused" else hk
+    counter.launches = 0
+    gpu = TwoPhaseSys(5).checker().spawn_gpu_bfs(device=cuda_device, **spawn).join()
+    launches = counter.launches
+    cpu = TwoPhaseSys(5).checker().spawn_gpu_bfs(device="cpu", **spawn).join()
+    assert gpu.worker_error() is None, gpu.worker_error()
+    assert gpu.unique_state_count() == cpu.unique_state_count() == 8832
+    assert gpu.state_count() == cpu.state_count() == 58146
+    assert gpu.max_depth() == cpu.max_depth()
+    assert gpu.waves == cpu.waves
+    assert gpu.drains == cpu.drains > 1
+    assert gpu.drain_exits == cpu.drain_exits
+    assert gpu.rungs == cpu.rungs
+    assert gpu.table_growths == cpu.table_growths
+    assert gpu._pool_capacity == cpu._pool_capacity
+    assert gpu.graph_captures >= 2 and gpu.graph_replays >= 2 * gpu.drains
+    assert cpu.graph_captures == cpu.graph_replays == cpu.noop_waves == 0
+    assert cpu.warmup_waves == 0
+    assert gpu.warmup_waves == gpu.graph_captures // 2
+    # Every replayed wave is live or a no-op; overflow retries add waves.
+    assert gpu.waves + gpu.noop_waves >= gpu.graph_replays * _GRAPH_WAVES
+    assert launches >= gpu.waves + gpu.noop_waves + gpu.warmup_waves
+    for name, path in cpu.discoveries().items():
+        assert gpu.discoveries()[name].encode() == path.encode()
+    gpu.assert_properties()

@@ -244,8 +244,12 @@ def runs(request):
     jax_fused = make_jax().checker().spawn_tpu_bfs(
         wave_kernel="fused", max_drain_waves=1, **spawn
     ).join()
-    fused = make_port().checker().spawn_gpu_bfs(wave_kernel="fused", device="cpu", **spawn).join()
-    staged = make_port().checker().spawn_gpu_bfs(device="cpu", **spawn).join()
+    fused = make_port().checker().spawn_gpu_bfs(
+        wave_kernel="fused", device="cpu", max_drain_waves=1, **spawn
+    ).join()
+    staged = make_port().checker().spawn_gpu_bfs(
+        device="cpu", max_drain_waves=1, **spawn
+    ).join()
     return jax_fused, fused, staged
 
 
@@ -423,7 +427,8 @@ def test_queued_chunks_hold_only_the_fresh_rows(monkeypatch, wave_kernel):
 
     monkeypatch.setattr(gpu.GpuBfsChecker, "_consume_wave", spy)
     checker = TwoPhaseSys(3).checker().spawn_gpu_bfs(
-        frontier_capacity=64, table_capacity=2048, wave_kernel=wave_kernel, device="cpu"
+        frontier_capacity=64, table_capacity=2048, wave_kernel=wave_kernel, device="cpu",
+        max_drain_waves=1,
     ).join()
     assert checker.unique_state_count() == 288
     # B = 64 x 17 = 1,088 rows a wave; no wave finds more than the 288 states.
@@ -442,6 +447,7 @@ def test_import_leaves_jax_out():
     code = (
         "import sys\n"
         "import stateright_tpu_torch.ops.fused_wave\n"
+        "import stateright_tpu_torch.ops.ring\n"
         "import stateright_tpu_torch.checker.gpu\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'stateright_tpu' or m.startswith('stateright_tpu.')]\n"

@@ -1,9 +1,10 @@
 """The port's GPU checker (on the CPU) against the JAX package's checker.
 
-``spawn_gpu_bfs(device="cpu")`` runs the port's whole main path with the
-plain twin of the insert kernel; the JAX side runs ``spawn_tpu_bfs`` with
-the Pallas insert (interpret mode), the staged sort-dedup wave and one
-wave per host exit. Counts, depths, discoveries, discovery paths and the
+``spawn_gpu_bfs(device="cpu", max_drain_waves=1)`` runs the port's wave
+path with the plain twin of the insert kernel; the JAX side runs
+``spawn_tpu_bfs`` with the Pallas insert (interpret mode), the staged
+sort-dedup wave and one wave per host exit. The deep drain is held to the
+JAX drain in ``test_torch_deep_drain.py``. Counts, depths, discoveries, discovery paths and the
 reporter's golden lines must be equal. The ``Chain`` fixture's semantics
 (depth cap, boundary, ``eventually``) are held to the JAX host BFS.
 """
@@ -47,7 +48,10 @@ def port_run(n, frontier, table):
     return (
         TwoPhaseSys(n)
         .checker()
-        .spawn_gpu_bfs(frontier_capacity=frontier, table_capacity=table, device="cpu")
+        .spawn_gpu_bfs(
+            frontier_capacity=frontier, table_capacity=table, device="cpu",
+            max_drain_waves=1,
+        )
         .join()
     )
 
@@ -157,7 +161,8 @@ def test_chain_visitor_paths_match_jax_host_bfs():
 
     jrec, trec = JaxPathRecorder(), PathRecorder()
     JaxChain(4).checker().visitor(jrec).spawn_bfs().join()
-    Chain(4).checker().visitor(trec).spawn_gpu_bfs(device="cpu").join()
+    port = Chain(4).checker().visitor(trec).spawn_gpu_bfs(device="cpu").join()
+    assert port.drains == 0  # a visitor keeps the run on the wave path
     as_tuples = lambda rec: {tuple(p.into_vec()) for p in rec.paths}  # noqa: E731
     assert as_tuples(trec) == as_tuples(jrec)
     assert len(trec.paths) == 5
@@ -179,6 +184,7 @@ def test_target_state_count_stops_early():
         .join()
     )
     assert 100 <= checker.state_count() < 8258
+    assert checker.drains == 0  # a target count keeps the run on the wave path
 
 
 def test_cpu_run_launches_no_kernel():
@@ -217,6 +223,7 @@ def test_import_leaves_jax_out():
         "import stateright_tpu_torch.testing\n"
         "import stateright_tpu_torch.models.two_phase_commit\n"
         "import stateright_tpu_torch.ops.hashset_kernel\n"
+        "import stateright_tpu_torch.ops.ring\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'stateright_tpu' or m.startswith('stateright_tpu.')]\n"
         "print(bad)\n"
