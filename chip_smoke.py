@@ -14,10 +14,19 @@ torch, every other stage in CUDA), each wave at a time
 (``max_drain_waves=1``) and through the deep drain (the default: the
 frontier in a device ring, drained by replayed CUDA Graphs with no host
 sync inside a drain), and smaller runs of all four whose paths are
-replayed against the CPU twin. Prints phase lines, the card's name and
-power limit, the fused wave's stage times, the drains' walls, waves,
-no-op and warm-up waves, exits, graph captures and replays and rungs, one
-``{"kernels": [...]}`` line, and as its last line
+replayed against the CPU twin. Then the actor path: the fused wave's
+component-hash keys stage (``fw_comphash_keys``) and its whole chain held
+against their plain twins on a full-width wave of "paxos check 3" (3
+clients, 3 servers, 24 envelope slots) taken from the drain with its
+table; an exhaustive check of paxos check 3 (1,194,428 states) through
+``PaxosModelCfg(3, 3, envelope_capacity=24).into_model().checker()
+.spawn_gpu_bfs(...)`` on both engines through the deep drain, its
+``value chosen`` path replayed on the host; and small paxos and
+single-copy register runs on the card against the CPU twin. Prints phase
+lines, the card's name and power limit, the fused wave's stage times, the
+drains' walls, waves, no-op and warm-up waves, exits, graph captures and
+replays and rungs, peak device memory, one ``{"kernels": [...]}`` line, and
+as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when
 any phase fails, when no CUDA device is present, or when the port's package
 is not beside it. Imports nothing of JAX or of the JAX package.
@@ -791,6 +800,267 @@ def replay_small():
                 f"{gd['abort agreement'].into_actions()} (cuda == cpu twin)")
 
 
+# -- 4. the actor path -------------------------------------------------------------
+
+PAXOS3 = dict(frontier_capacity=2048, table_capacity=1 << 21, drain_log_factor=32)
+PAXOS3_UNIQUE = 1_194_428
+
+
+def _paxos3():
+    from stateright_tpu_torch.models.paxos import PaxosModelCfg
+
+    return PaxosModelCfg(3, 3, envelope_capacity=24).into_model()
+
+
+class _Stop(Exception):
+    """Ends a run once its wave was captured."""
+
+
+def _capture_paxos3_take(min_unique=300_000):
+    """A full-width paxos check 3 frontier of the fused deep drain (F =
+    2,048 lanes, all live) and the table it runs on: the ring and table
+    are copied at the start of the first drain whose ring holds a
+    full-width take once ``min_unique`` states are visited, and the run
+    stops there."""
+    import torch
+
+    from stateright_tpu_torch.checker import gpu
+    from stateright_tpu_torch.core.batch import map_leaves
+    from stateright_tpu_torch.ops.ring import ring_take
+
+    F = PAXOS3["frontier_capacity"]
+    got = {}
+    deep_drain = gpu.GpuBfsChecker._deep_drain
+
+    def spy(self, table, width, budget):
+        d = self._drain
+        if (not got and width == F and self._unique_count >= min_unique
+                and int(d["scalars"][gpu._COUNT]) >= F):
+            got.update(table=table.clone(), capacity=d["capacity"],
+                       pool=map_leaves(torch.clone, d["pool"]),
+                       head=d["scalars"][gpu._HEAD].clone(),
+                       spec=self._spec, depth_cap=self._depth_cap,
+                       unique=self._unique_count)
+            raise _Stop()
+        return deep_drain(self, table, width, budget)
+
+    gpu.GpuBfsChecker._deep_drain = spy
+    try:
+        checker = _paxos3().checker().spawn_gpu_bfs(wave_kernel="fused", **PAXOS3)
+        for h in checker.handles():
+            h.join()
+    finally:
+        gpu.GpuBfsChecker._deep_drain = deep_drain
+    if not got or not isinstance(checker.worker_error(), _Stop):
+        raise AssertionError(f"no paxos3 drain started with a full-width take "
+                             f"({checker.worker_error()!r})")
+    live = torch.full((), F, dtype=torch.int64, device="cuda")
+    got["frontier"] = ring_take(got["pool"], got["head"], live, got["capacity"], F)[0]
+    return got
+
+
+def _comphash_must_move(spec, cand, valid, F):
+    """Bytes ``fw_comphash_keys`` must move on this wave, u32 values at
+    4 B: every lane's valid bit and its frontier lane's depth and mask; for
+    each valid lane its actor rows and timer words, its history row, every
+    envelope count, and the src, dst and message words of its active
+    envelopes; the key (8 B) and lane index (4 B) of every lane."""
+    lay = spec.comphash["layout"]
+    B = valid.shape[0]
+    N, R, E, W, H = (lay[k] for k in ("N", "R", "E", "W", "H"))
+    active_envs = int(((cand["net_cnt"] != 0) & valid[:, None]).sum())
+    n_valid = int(valid.sum())
+    words = n_valid * (N * (R + 1) + H + E) + active_envs * (2 + W)
+    return B * 1 + F * (4 + 1) + words * 4 + B * 12
+
+
+@phase("comphash_vs_plain")
+def comphash_vs_plain():
+    """``fw_comphash_keys`` and the whole fused chain against their plain
+    twins on a full-width paxos3 wave taken from the drain with its table;
+    their median times and bound."""
+    import torch
+
+    from stateright_tpu_torch.ops import fused_wave as fw
+
+    got = _capture_paxos3_take()
+    spec, table0, front, depth_cap = got["spec"], got["table"], got["frontier"], got["depth_cap"]
+    assert spec.keys_route == "comphash", spec.keys_route
+    states, mask = front["states"], front["mask"]
+    hi, lo, ebits, depth = (front[k] for k in ("hi", "lo", "ebits", "depth"))
+    F, A = hi.shape[0], spec.action_count
+    B = F * A
+
+    # The whole chain against fused_wave_plain (the host CPU).
+    chain_err, pout, plain_ms, _pt, _sweeps = _compare_fused(spec, table0, front, depth_cap,
+                                                             mask=mask)
+    stats = pout["stats"].tolist()
+    log(f"  paxos3 wave: F={F} B={B} table rows={table0.shape[0]} ring rows={got['capacity']} "
+        f"unique before={got['unique']} generated={stats[0]} n_new={stats[1]} "
+        f"overflow={stats[2]} max_abs_err={chain_err} plain={plain_ms:.1f} ms (host CPU)")
+    if chain_err:
+        raise AssertionError("fused kernels and the plain twin disagree on a paxos3 wave")
+
+    # The keys stage alone, on the card: the kernel against the model's
+    # torch packed_fingerprint and the fw_keys masking.
+    cond, cvalid, cand = fw.model_stage(spec, states, F)
+    key, idx = fw.comphash_keys_stage(spec.comphash, cand, cvalid, depth, depth_cap, A,
+                                      None, mask)
+    chi, clo = spec.fingerprint(cand)
+    pkey, pidx = fw.keys_plain(chi, clo, cvalid, depth, depth_cap, A, mask)
+    torch.cuda.synchronize()
+    err = _max_abs_err([(pkey.cpu(), key), (pidx.cpu(), idx)])
+    n_valid = int((pkey != -1).sum())
+    log(f"  fw_comphash_keys: B={B} valid lanes={n_valid} max_abs_err={err}")
+    if err:
+        raise AssertionError("fw_comphash_keys and its plain twin disagree")
+    if not n_valid:
+        raise AssertionError("the paxos3 wave has no valid lane")
+
+    ms, _ = _time_on_card(lambda mark: fw.comphash_keys_stage(
+        spec.comphash, cand, cvalid, depth, depth_cap, A, None, mask))
+    twin_ms, _ = _time_on_card(lambda mark: fw.keys_plain(
+        *spec.fingerprint(cand), cvalid, depth, depth_cap, A, mask))
+    model_ms, _ = _time_on_card(lambda mark: fw.model_stage(spec, states, F))
+    work = table0.clone()
+    chain_ms, stage_ms = _time_on_card(
+        lambda mark: fw.kernel_chain(spec, work, hi, lo, ebits, depth, depth_cap, cond,
+                                     cvalid, None, cand, mark=mark, mask=mask),
+        reset=lambda: work.copy_(table0),
+    )
+    valid = (pkey != -1)
+    moved = _comphash_must_move(spec, cand, valid, F)
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    log(json.dumps({"paxos3_wave": {
+        "comphash_keys_ms": ms, "comphash_plain_on_card_ms": twin_ms,
+        "kernel_chain_ms": chain_ms, "fused_wave_stage_ms": stage_ms,
+        "model_stage_torch_ms": model_ms, "comphash_must_move_bytes": moved,
+        "comphash_bound_ms": bound_ms, "valid_lanes": n_valid, "B": B,
+        "chain_plain_host_ms": plain_ms,
+    }}))
+    log(f"  fw_comphash_keys: median {ms:.4f} ms, plain twin on the card {twin_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms ({moved} B); chain {chain_ms:.4f} ms; model stage "
+        f"(torch) {model_ms:.3f} ms")
+    return {"max_abs_err": max(err, chain_err), "ms": ms, "plain_ms": twin_ms,
+            "bound_ms": bound_ms}
+
+
+def _drive_paxos3(wave_kernel):
+    """Drives paxos check 3 through ``spawn_gpu_bfs`` and the deep drain,
+    every kernel count set to 0 just before and read just after."""
+    import torch
+
+    from stateright_tpu_torch.ops import fused_wave as fw
+    from stateright_tpu_torch.ops import hashset_kernel as hk
+
+    model = _paxos3()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hk.launches = fw.launches = fw.comphash_launches = 0
+    t0 = time.perf_counter()
+    checker = model.checker().spawn_gpu_bfs(wave_kernel=wave_kernel, **PAXOS3).join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
+                "fw_comphash_keys": fw.comphash_launches}
+    peak = torch.cuda.max_memory_allocated()
+    unique = checker.unique_state_count()
+    log(f"  paxos3 ({wave_kernel}, drain): unique={unique} states={checker.state_count()} "
+        f"depth={checker.max_depth()} wall={wall:.3f} s unique_states_per_s={unique / wall:.0f} "
+        f"waves={checker.waves} noop_waves={checker.noop_waves} "
+        f"warmup_waves={checker.warmup_waves} drains={checker.drains} "
+        f"exits={dict(checker.drain_exits)} rungs={dict(checker.rungs)} "
+        f"graph_captures={checker.graph_captures} graph_replays={checker.graph_replays} "
+        f"table_growths={checker.table_growths} table_capacity={checker.table_capacity()} "
+        f"launches={launches} peak_device_bytes={peak} keys_route={checker.keys_route}")
+    assert checker.device.type == "cuda" and checker.drains > 0
+    assert unique == PAXOS3_UNIQUE, unique
+    checker.assert_properties()
+    t1 = time.perf_counter()
+    path = checker.discoveries()["value chosen"]
+    actions = path.into_actions()
+    last = path.last_state()
+    cond = next(p for p in model.properties() if p.name == "value chosen").condition
+    assert cond(model, last), "the value chosen path does not end in a chosen value"
+    assert last.history.serialized_history() is not None
+    log(f"  paxos3 ({wave_kernel}): value chosen path of {len(actions)} actions replayed on "
+        f"the host in {time.perf_counter() - t1:.2f} s: {path.encode()}")
+    return {"launches": launches, "wall_s": wall, "waves": checker.waves,
+            "state_count": checker.state_count(), "max_depth": checker.max_depth(),
+            "path": path.encode(), "peak_device_bytes": peak}
+
+
+@phase("main_path_paxos3_drain")
+def main_path_paxos3():
+    runs = {}
+    for wave_kernel in ("staged", "fused"):
+        runs[wave_kernel] = run = _drive_paxos3(wave_kernel)
+        n = run["launches"]
+        if wave_kernel == "staged":
+            assert n["hashset_insert_sorted"] >= run["waves"] > 0, n
+            assert n["fused_wave"] == 0 and n["fw_comphash_keys"] == 0, n
+        else:
+            assert n["fw_comphash_keys"] >= run["waves"] > 0, n
+            assert n["fused_wave"] == n["fw_comphash_keys"], n
+            assert n["hashset_insert_sorted"] >= 1, n  # the seed
+    for k in ("state_count", "max_depth"):
+        assert runs["staged"][k] == runs["fused"][k], (k, runs)
+    return runs
+
+
+# (model, its arguments, unique states or None where the run stops at
+# its discoveries, whether it is linearizable).
+ACTOR_CASES = {
+    "paxos 2c/2s": ("paxos", dict(client_count=2, server_count=2), 111, True),
+    "paxos 1c/3s": ("paxos", dict(client_count=1, server_count=3), 265, True),
+    "single-copy 2c/1s": ("single_copy", dict(client_count=2, server_count=1), 93, True),
+    "single-copy 2c/2s": ("single_copy", dict(client_count=2, server_count=2), None, False),
+    "single-copy 2c/1s, duplicating network": (
+        "single_copy", dict(client_count=2, server_count=1, envelope_capacity=24,
+                            network="duplicating"), None, False),
+}
+
+
+@phase("replay_actor_small")
+def replay_actor_small():
+    from stateright_tpu_torch.actor.network import Network
+    from stateright_tpu_torch.models.paxos import PaxosModelCfg
+    from stateright_tpu_torch.models.single_copy_register import SingleCopyModelCfg
+
+    cfgs = {"paxos": PaxosModelCfg, "single_copy": SingleCopyModelCfg}
+    modes = {"wave at a time": dict(max_drain_waves=1), "drain": {}}
+
+    def make(kind, args):
+        args = dict(args)
+        if args.pop("network", None) == "duplicating":
+            args["network"] = Network.new_unordered_duplicating()
+        return cfgs[kind](**args).into_model()
+
+    for label, (kind, args, expected, linearizable) in ACTOR_CASES.items():
+        for wave_kernel in ("staged", "fused"):
+            for mode, options in modes.items():
+                spawn = dict(options, frontier_capacity=64, table_capacity=1 << 12,
+                             wave_kernel=wave_kernel)
+                gpu = make(kind, args).checker().spawn_gpu_bfs(**spawn).join()
+                cpu = make(kind, args).checker().spawn_gpu_bfs(**spawn, device="cpu").join()
+                assert gpu.keys_route == "comphash"
+                assert gpu.unique_state_count() == cpu.unique_state_count()
+                if expected is not None:
+                    assert gpu.unique_state_count() == expected
+                assert gpu.state_count() == cpu.state_count()
+                assert gpu.max_depth() == cpu.max_depth()
+                assert gpu.waves == cpu.waves and gpu.drains == cpu.drains
+                gd, cd = gpu.discoveries(), cpu.discoveries()
+                assert set(gd) == set(cd)
+                for name in gd:
+                    assert gd[name].encode() == cd[name].encode(), name
+                want = {"value chosen"} | (set() if linearizable else {"linearizable"})
+                assert set(gd) == want, (set(gd), want)
+                log(f"  {label} ({wave_kernel}, {mode}): unique={gpu.unique_state_count()} "
+                    f"states={gpu.state_count()} depth={gpu.max_depth()} waves={gpu.waves} "
+                    f"drains={gpu.drains} discoveries={sorted(gd)} (cuda == cpu twin)")
+
+
 def main() -> int:
     try:
         import torch
@@ -819,6 +1089,10 @@ def main() -> int:
     drains = main_path_drain((staged, fused_run)) if not FAILED else None
     if not FAILED:
         replay_small()
+    comphash = comphash_vs_plain() if not FAILED else None
+    paxos3 = main_path_paxos3() if not FAILED else None
+    if not FAILED:
+        replay_actor_small()
     if FAILED:
         log(f"FAILED phases: {FAILED}")
         return 1
@@ -828,7 +1102,7 @@ def main() -> int:
             "name": "hashset_insert_sorted",
             "route": "cuda",
             "source": "stateright_tpu_torch/csrc/hashset_insert.cu",
-            "replaces": "stateright_tpu/ops/pallas_hashset.py:193",
+            "replaces": "stateright_tpu/ops/pallas_hashset.py:191",
             "launches": drains["staged"]["launches"]["hashset_insert_sorted"],
             "max_abs_err": insert["max_abs_err"],
             "ms": insert["ms"],
@@ -847,6 +1121,19 @@ def main() -> int:
             "ms": fused["ms"],
             "plain_ms": fused["plain_ms"],
             "bound_ms": fused["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+        },
+        {
+            "name": "fw_comphash_keys",
+            "route": "cuda",
+            "source": "stateright_tpu_torch/csrc/fused_wave.cu",
+            "replaces": "stateright_tpu/ops/pallas_wave.py:180",
+            "launches": paxos3["fused"]["launches"]["fw_comphash_keys"],
+            "max_abs_err": comphash["max_abs_err"],
+            "ms": comphash["ms"],
+            "plain_ms": comphash["plain_ms"],
+            "bound_ms": comphash["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
         },

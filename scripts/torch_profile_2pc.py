@@ -3,8 +3,12 @@
     python scripts/torch_profile_2pc.py [--rm 8] [--frontier 8192]
         [--table 1048576] [--wave-kernel staged|fused]
         [--max-drain-waves N] [--drain-log-factor N] [--trace TRACE.json]
+    python scripts/torch_profile_2pc.py --paxos 3 3 24 --frontier 2048
+        --table 2097152 --drain-log-factor 32 [--wave-kernel ...]
 
-Runs ``TwoPhaseSys(rm).checker().spawn_gpu_bfs(...)`` once to warm up
+Runs ``TwoPhaseSys(rm).checker().spawn_gpu_bfs(...)`` (with ``--paxos C S
+E``: ``PaxosModelCfg(C, S, envelope_capacity=E).into_model()``, "paxos
+check 3" being ``3 3 24``) once to warm up
 (kernel build, allocator, library handles), then once more under
 ``torch.profiler`` with CPU and CUDA activities. Prints the device time of
 each CUDA kernel name (summed over the run), the wall time, the device
@@ -31,6 +35,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rm", type=int, default=8)
+    ap.add_argument("--paxos", type=int, nargs=3, default=None,
+                    metavar=("CLIENTS", "SERVERS", "ENVELOPES"))
     ap.add_argument("--frontier", type=int, default=8192)
     ap.add_argument("--table", type=int, default=1 << 20)
     ap.add_argument("--wave-kernel", default="staged", choices=("staged", "fused"))
@@ -56,9 +62,18 @@ def main() -> int:
     ).stdout.strip()
     print(card, flush=True)
 
+    def make():
+        if args.paxos:
+            from stateright_tpu_torch.models.paxos import PaxosModelCfg
+
+            c, s, e = args.paxos
+            return PaxosModelCfg(c, s, envelope_capacity=e).into_model()
+        return TwoPhaseSys(args.rm)
+
     def run():
+        model = make()
         t0 = time.perf_counter()
-        c = TwoPhaseSys(args.rm).checker().spawn_gpu_bfs(
+        c = model.checker().spawn_gpu_bfs(
             frontier_capacity=args.frontier, table_capacity=args.table,
             wave_kernel=args.wave_kernel, max_drain_waves=args.max_drain_waves,
             drain_log_factor=args.drain_log_factor,
@@ -69,10 +84,11 @@ def main() -> int:
     warm, warm_wall = run()
     print(f"warm-up run: unique={warm.unique_state_count()} wall={warm_wall:.3f} s", flush=True)
 
-    hk.launches = fw.launches = 0
+    hk.launches = fw.launches = fw.comphash_launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         checker, wall = run()
-    launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches}
+    launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
+                "fw_comphash_keys": fw.comphash_launches}
 
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_name = defaultdict(lambda: [0, 0.0])
@@ -118,7 +134,8 @@ def main() -> int:
                for p in ("extent", "speculate", "repair", "commit")}
     summary = {
         "card": card,
-        "model": f"2pc-{args.rm}",
+        "model": ("paxos {} clients {} servers {} envelopes".format(*args.paxos)
+                  if args.paxos else f"2pc-{args.rm}"),
         "wave_kernel": args.wave_kernel,
         "max_drain_waves": args.max_drain_waves,
         "drain_log_factor": args.drain_log_factor,
@@ -138,6 +155,7 @@ def main() -> int:
         "insert_kernel_ms": insert_ms,
         "sweep_kernel_ms": sweep_ms,
         "sweep_pass_ms": pass_ms,
+        "comphash_kernel_ms": kernel_ms("comphash_keys_kernel"),
         "device_busy_ms": busy_us / 1e3,
         "device_span_ms": span_us / 1e3,
         "device_idle_share_of_wall": 1.0 - (busy_us / 1e6) / wall,

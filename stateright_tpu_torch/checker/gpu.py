@@ -19,7 +19,11 @@ Each wave takes at most ``frontier_capacity`` frontier states and
 CUDA insert (``ops/fused_wave.py::torch_wave``); ``wave_kernel="fused"``
 runs the model's stage in torch and every other stage in the hand-written
 kernels of ``csrc/fused_wave.cu`` (``ops/fused_wave.py::fused_wave``). The
-two give the same results bit for bit.
+two give the same results bit for bit, and both take every model: the
+fused wave fingerprints the default fold in ``fw_keys``, a
+``PackedActorModel``'s component hash in ``fw_comphash_keys``, and any other
+``packed_fingerprint`` in torch, handing its pairs to ``fw_keys_pairs``
+(``keys_route``, chosen once here).
 
 The waves are driven in one of two ways, as in the reference:
 
@@ -66,6 +70,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..actor.packed import PackedActorModel
 from ..core.batch import BatchableModel, map_leaves
 from ..core.model import Expectation
 from ..core.path import Path
@@ -73,7 +78,13 @@ from ..native import make_fingerprint_store
 from ..ops import fused_wave as fw
 from ..ops import hashset_kernel as hk
 from ..ops.fingerprint import fp_to_int
-from ..ops.fused_wave import FusedWaveSpec, fused_wave, sorted_dedup, torch_wave
+from ..ops.fused_wave import (
+    FusedWaveSpec,
+    comphash_tables,
+    fused_wave,
+    sorted_dedup,
+    torch_wave,
+)
 from ..ops.hashset import hashset_new, i32_to_u32, u32_to_i32
 from ..ops.hashset_kernel import (
     TILE_ROWS,
@@ -208,15 +219,6 @@ class GpuBfsChecker(Checker):
             raise ValueError(
                 f"wave_kernel must be 'staged' or 'fused', got {wave_kernel!r}"
             )
-        if wave_kernel == "fused" and (
-            getattr(model.packed_fingerprint, "__func__", None)
-            is not BatchableModel.packed_fingerprint
-        ):
-            raise ValueError(
-                "wave_kernel='fused' fingerprints the default fold over "
-                f"state_words, and {type(model).__name__} overrides "
-                "packed_fingerprint; use wave_kernel='staged'"
-            )
         self._wave_kernel = wave_kernel
         self._device = resolve_device(device)
         self._model = model
@@ -278,6 +280,20 @@ class GpuBfsChecker(Checker):
         self._visitor = options._visitor
         self._target_state_count: Optional[int] = options._target_state_count
         self._depth_cap = options._target_max_depth or _DEPTH_INF
+        # The fused wave's key route (``ops/fused_wave.py``): the default
+        # fold, the component hash of a packed actor model, or the model's
+        # own pairs. The comphash constants go to the device now, before
+        # any capture.
+        fp = getattr(model.packed_fingerprint, "__func__", None)
+        if fp is BatchableModel.packed_fingerprint:
+            self.keys_route = "fold"
+        elif fp is PackedActorModel.packed_fingerprint:
+            self.keys_route = "comphash"
+        else:
+            self.keys_route = "pairs"
+        comphash = None
+        if self.keys_route == "comphash":
+            comphash = comphash_tables(model.packed_comphash_layout(), self._device)
         self._spec = FusedWaveSpec(
             expand=model.packed_expand,
             within_boundary=model.packed_within_boundary,
@@ -285,6 +301,9 @@ class GpuBfsChecker(Checker):
             expectations=tuple(p.expectation.value for p in self._properties),
             ebit=tuple(sorted(self._ebit.items())),
             action_count=self._A,
+            fingerprint=model.packed_fingerprint,
+            keys_route=self.keys_route,
+            comphash=comphash,
         )
 
         self._state_count = 0
@@ -343,8 +362,7 @@ class GpuBfsChecker(Checker):
         )
         if self._wave_kernel == "fused":
             return fused_wave(*args, mask=mask)
-        return torch_wave(*args, fingerprint=self._model.packed_fingerprint,
-                          mask=mask)
+        return torch_wave(*args, mask=mask)
 
     def _rehash(self, table, capacity):
         """The old table's live rows, sorted, inserted into an empty table
@@ -766,12 +784,13 @@ class GpuBfsChecker(Checker):
         if self._go_host is None:
             self._go_host = torch.zeros(2, dtype=torch.int64, pin_memory=True)
         graphs, events, flag = entry["graphs"], entry["events"], self._go_host
-        fw_n, hk_n = entry["launches"]
+        fw_n, ch_n, hk_n = entry["launches"]
 
         def launch(i):
             # A replay launches every kernel of its waves, no-op waves
             # included, with no Python call of the wrappers.
             fw.launches += fw_n
+            fw.comphash_launches += ch_n
             hk.launches += hk_n
             graphs[i % 2].replay()
             flag[i % 2].copy_(d["scalars"][_GO], non_blocking=True)
@@ -808,7 +827,7 @@ class GpuBfsChecker(Checker):
         sc[_GO] = 1
         # A capture records the kernels and launches none: its counts are
         # undone here and added at every replay instead.
-        counts = fw.launches, hk.launches
+        counts = fw.launches, fw.comphash_launches, hk.launches
         graphs, slots = [], []
         for g in range(2):
             graph = torch.cuda.CUDAGraph()
@@ -819,8 +838,12 @@ class GpuBfsChecker(Checker):
                     )
                     slots.append((out, frontier))
             graphs.append(graph)
-        per_replay = ((fw.launches - counts[0]) // 2, (hk.launches - counts[1]) // 2)
-        fw.launches, hk.launches = counts
+        per_replay = (
+            (fw.launches - counts[0]) // 2,
+            (fw.comphash_launches - counts[1]) // 2,
+            (hk.launches - counts[2]) // 2,
+        )
+        fw.launches, fw.comphash_launches, hk.launches = counts
         self.graph_captures += 2
         return {
             "graphs": graphs,

@@ -18,7 +18,19 @@
 //   fw_keys      the (hi, lo) fingerprint of every candidate, one thread a
 //                lane, bit-identical to ops/fingerprint.py::
 //                fingerprint_words; invalid lanes (and the lanes of masked
-//                frontier lanes) sink to (MAX, MAX);
+//                frontier lanes) sink to (MAX, MAX). Two variants take its
+//                place for a model with its own fingerprint (Pallas: the
+//                model's fp_fn traced into the prologue, pallas_wave.py:180):
+//   fw_comphash_keys  the component hash of a packed actor state
+//                (actor/packed.py::PackedActorModel.packed_fingerprint),
+//                one thread a lane, read straight from the candidate
+//                leaves: each actor row and timer word hashed
+//                multilinearly and seeded by its tag, the envelope table's
+//                multiset digest (sum and xor of its active rows' hashes)
+//                hashed as one row, the history row, then the sum/xor
+//                combination and the shared finalizer;
+//   fw_keys_pairs the (hi, lo) pairs a model's own packed_fingerprint
+//                computed in torch, with fw_keys's validity and count;
 //   fw_sort      a stable LSD radix sort of the 64-bit keys carrying the
 //                lane index: per-block digit histograms, an exclusive scan
 //                in digit-major, block-minor order, and a scatter that
@@ -57,6 +69,14 @@
 // counters live in a small device vector that the host reads once) and the
 // launches few (about 35 a wave). What it does not yet do: prefetch the
 // sweep's windows asynchronously, or sort only the valid lanes.
+//
+// fw_comphash_keys (the Pallas prologue's model fingerprint,
+// pallas_wave.py:180, for a packed actor model) is bound by bytes too: each
+// valid lane's actor rows, timers, envelope counts, active envelopes and
+// history (538 u32 words a lane at paxos check 3) read once, 12 B a lane
+// written; an invalid lane reads only its valid bit. One thread walks one
+// lane, so a warp's loads hit 32 rows 4.3 KB apart and do not coalesce; a
+// warp a lane would (a later change).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -274,6 +294,17 @@ __device__ uint2 fingerprint_row(const int64_t* __restrict__ row, int n) {
   return make_uint2(hi, lo);
 }
 
+// A candidate lane is valid when cvalid holds, its frontier lane is live
+// (mask[b / A], when mask is given) and under depth_cap (when depth is).
+__device__ __forceinline__ unsigned lane_valid(int64_t b, int A,
+                                               const uint8_t* __restrict__ cvalid,
+                                               const int64_t* __restrict__ depth,
+                                               const uint8_t* __restrict__ mask,
+                                               int64_t depth_cap) {
+  return cvalid[b] != 0 && (mask == nullptr || mask[b / A] != 0) &&
+         (depth == nullptr || depth[b / A] < depth_cap);
+}
+
 // key[b] = (hi << 32) | lo of lane b, or all ones when the lane is not
 // valid (cvalid, when mask is given mask[b / A], and when depth is given
 // depth[b / A] < depth_cap); idx[b] = b. Counts the valid lanes into acc
@@ -286,11 +317,156 @@ __global__ void __launch_bounds__(THREADS) keys_kernel(
   const int64_t b = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   unsigned valid = 0;
   if (b < B) {
-    valid = cvalid[b] != 0 && (mask == nullptr || mask[b / A] != 0) &&
-            (depth == nullptr || depth[b / A] < depth_cap);
+    valid = lane_valid(b, A, cvalid, depth, mask, depth_cap);
     ull k = ~0ull;
     if (valid) {
       const uint2 fp = fingerprint_row(words + b * W, W);
+      k = ((ull)fp.x << 32) | fp.y;
+    }
+    key[b] = k;
+    idx[b] = (uint32_t)b;
+  }
+  const unsigned n = __reduce_add_sync(FULL_MASK, valid);
+  if (acc != nullptr && (threadIdx.x & 31) == 0 && n) atomicAdd(&acc[ACC_GENERATED], (ull)n);
+}
+
+// key[b] = (chi << 32) | clo of a valid lane, all ones otherwise (as
+// keys_kernel); chi and clo are the model's own fingerprints.
+__global__ void __launch_bounds__(THREADS) keys_pairs_kernel(
+    int64_t B, int A, const int64_t* __restrict__ chi, const int64_t* __restrict__ clo,
+    const uint8_t* __restrict__ cvalid, const int64_t* __restrict__ depth,
+    const uint8_t* __restrict__ mask, int64_t depth_cap, ull* __restrict__ key,
+    uint32_t* __restrict__ idx, ull* __restrict__ acc) {
+  const int64_t b = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  unsigned valid = 0;
+  if (b < B) {
+    valid = lane_valid(b, A, cvalid, depth, mask, depth_cap);
+    key[b] = valid ? ((ull)(uint32_t)chi[b] << 32) | (uint32_t)clo[b] : ~0ull;
+    idx[b] = (uint32_t)b;
+  }
+  const unsigned n = __reduce_add_sync(FULL_MASK, valid);
+  if (acc != nullptr && (threadIdx.x & 31) == 0 && n) atomicAdd(&acc[ACC_GENERATED], (ull)n);
+}
+
+// The layout of a packed actor state's components, and the constants of
+// its hash (int64 words carrying u32, made on the host once per device):
+// the multilinear coefficients (hi lane, then lo lane) of an actor row
+// with its timer word (R + 1), of an envelope row [src, dst, msg, cnt]
+// (3 + W), of the 4-word digest and of the history row (H), then the
+// seeds (hi lane C words, then lo lane C words) of the C = N + 1 + (H > 0)
+// component tags 0..C-1.
+struct CompHash {
+  int N, R, E, W, H;
+  const int64_t* k;
+};
+
+__device__ __forceinline__ void fold_pair(uint32_t h, uint32_t l, uint32_t* acc4) {
+  acc4[0] += h;
+  acc4[1] ^= h;
+  acc4[2] += l;
+  acc4[3] ^= l;
+}
+
+// ops/fingerprint.py::combine_pairs(*PackedActorModel.packed_component_pairs)
+// of lane b.
+__device__ uint2 comphash_lane(int64_t b, const CompHash& ch, const int64_t* __restrict__ rows,
+                               const int64_t* __restrict__ timers,
+                               const int64_t* __restrict__ net_src,
+                               const int64_t* __restrict__ net_dst,
+                               const int64_t* __restrict__ net_msg,
+                               const int64_t* __restrict__ net_cnt,
+                               const int64_t* __restrict__ hist) {
+  const int N = ch.N, R = ch.R, E = ch.E, W = ch.W, H = ch.H;
+  const int M = 3 + W;
+  const int C = N + 1 + (H > 0 ? 1 : 0);
+  const int64_t* k_act = ch.k;
+  const int64_t* k_env = k_act + 2 * (R + 1);
+  const int64_t* k_dig = k_env + 2 * M;
+  const int64_t* k_hist = k_dig + 8;
+  const int64_t* seed = k_hist + 2 * H;
+  uint32_t acc4[4] = {0u, 0u, 0u, 0u};
+  // Actor components 0..N-1: row ‖ timer word.
+  for (int c = 0; c < N; ++c) {
+    const int64_t* r = rows + (b * N + c) * R;
+    uint32_t ah = 0u, al = 0u;
+    for (int j = 0; j < R; ++j) {
+      const uint32_t w = (uint32_t)r[j];
+      ah += w * (uint32_t)k_act[j];
+      al += w * (uint32_t)k_act[R + 1 + j];
+    }
+    const uint32_t t = (uint32_t)timers[b * N + c];
+    ah += t * (uint32_t)k_act[R];
+    al += t * (uint32_t)k_act[2 * R + 1];
+    fold_pair(fmix32(ah ^ (uint32_t)seed[c]), fmix32(al ^ (uint32_t)seed[C + c]), acc4);
+  }
+  // The network, tag N: the multiset digest of the active envelope rows,
+  // hashed as one row.
+  uint32_t dig[4] = {0u, 0u, 0u, 0u};
+  for (int e = 0; e < E; ++e) {
+    const uint32_t cnt = (uint32_t)net_cnt[b * E + e];
+    if (cnt == 0u) continue;
+    const uint32_t src = (uint32_t)net_src[b * E + e];
+    const uint32_t dst = (uint32_t)net_dst[b * E + e];
+    uint32_t ah = src * (uint32_t)k_env[0] + dst * (uint32_t)k_env[1];
+    uint32_t al = src * (uint32_t)k_env[M] + dst * (uint32_t)k_env[M + 1];
+    const int64_t* m = net_msg + (b * E + e) * W;
+    for (int j = 0; j < W; ++j) {
+      const uint32_t w = (uint32_t)m[j];
+      ah += w * (uint32_t)k_env[2 + j];
+      al += w * (uint32_t)k_env[M + 2 + j];
+    }
+    ah += cnt * (uint32_t)k_env[2 + W];
+    al += cnt * (uint32_t)k_env[M + 2 + W];
+    fold_pair(fmix32(ah ^ SEED_HI), fmix32(al ^ SEED_LO), dig);
+  }
+  uint32_t ah = 0u, al = 0u;
+  for (int j = 0; j < 4; ++j) {
+    ah += dig[j] * (uint32_t)k_dig[j];
+    al += dig[j] * (uint32_t)k_dig[4 + j];
+  }
+  fold_pair(fmix32(ah ^ (uint32_t)seed[N]), fmix32(al ^ (uint32_t)seed[C + N]), acc4);
+  // The history, tag N + 1.
+  if (H > 0) {
+    const int64_t* h = hist + b * H;
+    ah = 0u;
+    al = 0u;
+    for (int j = 0; j < H; ++j) {
+      const uint32_t w = (uint32_t)h[j];
+      ah += w * (uint32_t)k_hist[j];
+      al += w * (uint32_t)k_hist[H + j];
+    }
+    fold_pair(fmix32(ah ^ (uint32_t)seed[N + 1]), fmix32(al ^ (uint32_t)seed[C + N + 1]),
+              acc4);
+  }
+  // acc_finalize(C), then the shared finalizer and its nudges.
+  const uint32_t c = (uint32_t)C;
+  uint32_t hi = fmix32(acc4[0] ^ rotl32(acc4[1], 16) ^ (c * 0x9E3779B9u));
+  uint32_t lo = fmix32(acc4[2] ^ rotl32(acc4[3], 16) ^ (c * 0x85EBCA6Bu + 1u));
+  hi = fmix32(hi ^ (c * 4u));
+  lo = fmix32(lo ^ (c * 4u + 1u));
+  if (hi == 0u && lo == 0u) lo = 1u;
+  if (hi == 0xFFFFFFFFu && lo == 0xFFFFFFFFu) lo = 0xFFFFFFFEu;
+  return make_uint2(hi, lo);
+}
+
+// keys_kernel with the component hash of each valid lane's packed actor
+// state in place of the default fold.
+__global__ void __launch_bounds__(THREADS) comphash_keys_kernel(
+    int64_t B, int A, CompHash ch, const int64_t* __restrict__ rows,
+    const int64_t* __restrict__ timers, const int64_t* __restrict__ net_src,
+    const int64_t* __restrict__ net_dst, const int64_t* __restrict__ net_msg,
+    const int64_t* __restrict__ net_cnt, const int64_t* __restrict__ hist,
+    const uint8_t* __restrict__ cvalid, const int64_t* __restrict__ depth,
+    const uint8_t* __restrict__ mask, int64_t depth_cap, ull* __restrict__ key,
+    uint32_t* __restrict__ idx, ull* __restrict__ acc) {
+  const int64_t b = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  unsigned valid = 0;
+  if (b < B) {
+    valid = lane_valid(b, A, cvalid, depth, mask, depth_cap);
+    ull k = ~0ull;
+    if (valid) {
+      const uint2 fp = comphash_lane(b, ch, rows, timers, net_src, net_dst, net_msg,
+                                     net_cnt, hist);
       k = ((ull)fp.x << 32) | fp.y;
     }
     key[b] = k;
@@ -560,6 +736,40 @@ extern "C" int fw_keys(int64_t B, int A, int W, const void* words, const void* c
                        void* key, void* idx, void* acc, void* stream) {
   keys_kernel<<<blocks_for(B, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
       B, A, W, (const int64_t*)words, (const uint8_t*)cvalid, (const int64_t*)depth,
+      (const uint8_t*)mask, depth_cap, (ull*)key, (uint32_t*)idx, (ull*)acc);
+  return last_error(cudaSuccess);
+}
+
+// depth, mask and acc may be null.
+extern "C" int fw_keys_pairs(int64_t B, int A, const void* chi, const void* clo,
+                             const void* cvalid, const void* depth, const void* mask,
+                             int64_t depth_cap, void* key, void* idx, void* acc,
+                             void* stream) {
+  keys_pairs_kernel<<<blocks_for(B, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
+      B, A, (const int64_t*)chi, (const int64_t*)clo, (const uint8_t*)cvalid,
+      (const int64_t*)depth, (const uint8_t*)mask, depth_cap, (ull*)key, (uint32_t*)idx,
+      (ull*)acc);
+  return last_error(cudaSuccess);
+}
+
+// The leaves are the candidates' int64 arrays: rows (B, N, R), timers
+// (B, N), net_src, net_dst and net_cnt (B, E), net_msg (B, E, W) and hist
+// (B, H), null when H is 0; consts is laid out as CompHash says. depth,
+// mask and acc may be null.
+extern "C" int fw_comphash_keys(int64_t B, int A, int N, int R, int E, int W, int H,
+                                const void* rows, const void* timers, const void* net_src,
+                                const void* net_dst, const void* net_msg,
+                                const void* net_cnt, const void* hist, const void* consts,
+                                const void* cvalid, const void* depth, const void* mask,
+                                int64_t depth_cap, void* key, void* idx, void* acc,
+                                void* stream) {
+  if (N < 1 || R < 0 || E < 0 || W < 0 || H < 0 || (H > 0 && hist == nullptr))
+    return (int)cudaErrorInvalidValue;
+  CompHash ch{N, R, E, W, H, (const int64_t*)consts};
+  comphash_keys_kernel<<<blocks_for(B, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
+      B, A, ch, (const int64_t*)rows, (const int64_t*)timers, (const int64_t*)net_src,
+      (const int64_t*)net_dst, (const int64_t*)net_msg, (const int64_t*)net_cnt,
+      (const int64_t*)hist, (const uint8_t*)cvalid, (const int64_t*)depth,
       (const uint8_t*)mask, depth_cap, (ull*)key, (uint32_t*)idx, (ull*)acc);
   return last_error(cudaSuccess);
 }

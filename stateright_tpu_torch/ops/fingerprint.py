@@ -23,18 +23,31 @@ both.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, List, Tuple
 
+import numpy as np
 import torch
 
 __all__ = [
     "FP_SCHEME",
     "U32",
+    "acc_finalize",
     "avalanche32",
+    "combine_pairs",
+    "component_seeds",
     "fingerprint_state",
     "fingerprint_words",
+    "fp64_pairs",
     "fp_to_int",
+    "hash_rows",
+    "lin_consts",
+    "multiset_digest",
+    "multiset_row_pairs",
+    "multiset_salts",
+    "pairs_acc",
+    "row_salts",
     "state_words",
 ]
 
@@ -161,6 +174,161 @@ def fingerprint_state(states: Any) -> Tuple[torch.Tensor, torch.Tensor]:
 def fp_to_int(hi, lo) -> int:
     """Host-side: a (hi, lo) pair as one python int fingerprint."""
     return (int(hi) << 32) | int(lo)
+
+
+# -- the component hash ----------------------------------------------------------
+#
+# The second half of the scheme: a packed actor state is hashed component
+# by component (each actor row, the network's multiset digest, the
+# history), each pair seeded by its component's tag, and the pairs are
+# combined by commutative sum/xor reductions. Every function works on the
+# last axis with any leading (lane) axes, u32 values in int64.
+
+
+@functools.lru_cache(maxsize=None)
+def lin_consts(width: int, salt: int) -> np.ndarray:
+    """Deterministic odd u32 coefficient vector (``np.uint32``) for the
+    multilinear row hash: the frozen legacy ``RandomState`` stream, whose
+    bits numpy keeps stable across versions, as the JAX package draws it.
+    Read-only."""
+    rng = np.random.RandomState((0xC0FFEE ^ salt) & 0x7FFFFFFF)
+    k = rng.randint(0, 1 << 32, size=width, dtype=np.uint32) | np.uint32(1)
+    k.flags.writeable = False  # cached: every caller gets this array
+    return k
+
+
+def row_salts(width: int) -> Tuple[int, int]:
+    """The (hi, lo) ``lin_consts`` salts of ``hash_rows`` at ``width``."""
+    return 0x48AC1 + 2 * width, 0x5B3D5 + 7 * width
+
+
+def multiset_salts(width: int) -> Tuple[int, int]:
+    """The (hi, lo) ``lin_consts`` salts of ``multiset_row_pairs``."""
+    return 0x77A11 + 3 * width, 0x19D3F + 11 * width
+
+
+_CONST_CACHE = {}
+
+
+def _consts(width: int, salt: int, device) -> torch.Tensor:
+    """``lin_consts`` as an int64 tensor on ``device``, made once per
+    (width, salt, device): a CUDA Graph capture may not copy from the host,
+    and the checker's warm-up wave fills this before any capture."""
+    key = (width, salt, str(torch.device(device)))
+    t = _CONST_CACHE.get(key)
+    if t is None:
+        t = torch.from_numpy(lin_consts(width, salt).astype(np.int64)).to(device)
+        _CONST_CACHE[key] = t
+    return t
+
+
+def _lin_sum(rows: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``Σ_j rows[..., j] * k[j]`` mod 2^32: each product masked before the
+    sum (a product of two u32 values may wrap int64; its low 32 bits are
+    still right)."""
+    return ((rows * k) & U32).sum(dim=-1) & U32
+
+
+def multiset_row_pairs(rows: torch.Tensor):
+    """Per-row (hi, lo) hashes of a ``(..., E, W)`` table, as
+    ``multiset_digest`` folds them: the multilinear row hash under the
+    multiset salts, then fmix with the fold's seeds."""
+    W = rows.shape[-1]
+    khi, klo = (_consts(W, salt, rows.device) for salt in multiset_salts(W))
+    return (_fmix(_lin_sum(rows, khi) ^ _SEED_HI),
+            _fmix(_lin_sum(rows, klo) ^ _SEED_LO))
+
+
+def multiset_digest(rows: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """``(..., 4)`` order-insensitive digest (Σhi, ⊕hi, Σlo, ⊕lo) of the
+    active rows (``active``: ``(..., E)`` bool) of a ``(..., E, W)``
+    table."""
+    hi, lo = multiset_row_pairs(rows)
+    hi = torch.where(active, hi, 0)
+    lo = torch.where(active, lo, 0)
+    return torch.stack([
+        hi.sum(dim=-1) & U32, _xor_reduce(hi), lo.sum(dim=-1) & U32, _xor_reduce(lo),
+    ], dim=-1)
+
+
+def _xor_reduce(x: torch.Tensor) -> torch.Tensor:
+    """XOR over the last axis (torch has no xor reduction): a pairwise
+    tree of elementwise XORs."""
+    while x.shape[-1] > 1:
+        n = x.shape[-1]
+        half = n // 2
+        head = x[..., :half] ^ x[..., half : 2 * half]
+        x = torch.cat([head, x[..., 2 * half :]], dim=-1) if n % 2 else head
+    if x.shape[-1] == 0:
+        return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    return x[..., 0]
+
+
+def component_seeds(tags):
+    """Per-component (hi, lo) seed pairs from integer component tags (a
+    tensor or a list of ints): the tag folds the component's position into
+    its hash."""
+    t = torch.as_tensor(tags, dtype=torch.int64) & U32
+    hi = _fmix(_SEED_HI ^ ((t * 0x9E3779B9) & U32))
+    lo = _fmix(_SEED_LO ^ ((t * 0x85EBCA6B) & U32))
+    return hi, lo
+
+
+def _seeds(tags: Tuple[int, ...], device):
+    """``component_seeds`` of host tags as tensors on ``device``, made once
+    per (tags, device) (see ``_consts``)."""
+    key = (tags, str(torch.device(device)))
+    t = _CONST_CACHE.get(key)
+    if t is None:
+        t = tuple(x.to(device) for x in component_seeds(list(tags)))
+        _CONST_CACHE[key] = t
+    return t
+
+
+def hash_rows(rows: torch.Tensor, tags):
+    """(hi, lo) of each row of a ``(..., R, W)`` table, row ``r`` seeded by
+    ``tags[r]``: ``fmix(Σ_j w_j · K_j ⊕ seed)`` under independent odd
+    constants per lane — the component hash. ``tags`` is a sequence of R
+    ints (their seeds are made once per device) or an ``(R,)`` tensor."""
+    W = rows.shape[-1]
+    khi, klo = (_consts(W, salt, rows.device) for salt in row_salts(W))
+    if isinstance(tags, torch.Tensor):
+        thi, tlo = component_seeds(tags)
+    else:
+        thi, tlo = _seeds(tuple(int(t) for t in tags), rows.device)
+    return (_fmix(_lin_sum(rows, khi) ^ thi), _fmix(_lin_sum(rows, klo) ^ tlo))
+
+
+def pairs_acc(his: torch.Tensor, los: torch.Tensor) -> torch.Tensor:
+    """``(..., 4)`` sum/xor accumulator over ``(..., C)`` component pairs."""
+    return torch.stack([
+        his.sum(dim=-1) & U32, _xor_reduce(his), los.sum(dim=-1) & U32, _xor_reduce(los),
+    ], dim=-1)
+
+
+def acc_finalize(acc: torch.Tensor, n_components: int):
+    """(hi, lo) state fingerprint from a ``(..., 4)`` component
+    accumulator: both reductions feed each lane, fmix, then the shared
+    finalizer with its sentinel nudges."""
+    c = n_components
+    hi = _fmix(acc[..., 0] ^ _rotl(acc[..., 1], 16) ^ ((c * 0x9E3779B9) & U32))
+    lo = _fmix(acc[..., 2] ^ _rotl(acc[..., 3], 16) ^ ((c * 0x85EBCA6B + 1) & U32))
+    return _finalize_pair(hi, lo, c)
+
+
+def combine_pairs(his: torch.Tensor, los: torch.Tensor):
+    """One (hi, lo) state fingerprint from ``(..., C)`` component pairs."""
+    return acc_finalize(pairs_acc(his, los), his.shape[-1])
+
+
+def fp64_pairs(hi, lo) -> np.ndarray:
+    """Host-side: (hi, lo) u32 arrays (or tensors) as one ``np.uint64``
+    array."""
+    if isinstance(hi, torch.Tensor):
+        hi, lo = hi.cpu().numpy(), lo.cpu().numpy()
+    return (np.asarray(hi).astype(np.uint64) << np.uint64(32)) | (
+        np.asarray(lo).astype(np.uint64) & np.uint64(U32)
+    )
 
 
 # Identifies the fingerprint definition; the same string as the JAX

@@ -7,14 +7,28 @@ cannot hold another program's code, so the wave splits in two:
 
 - the model stage, in torch (``model_stage``): the ``(P, F)`` condition
   matrix, the candidates and their valid bits (``packed_expand`` &
-  ``packed_within_boundary``), and the candidates' u32 words
-  (``state_words``);
+  ``packed_within_boundary``), and what the keys stage reads
+  (``keys_input``);
 - every model-independent stage, in the hand-written kernels of
   ``csrc/fused_wave.cu``, launched back to back with no host sync: the
   frontier lanes (eval mask, ``eventually`` bits, terminal lanes, property
-  hits), the fingerprints, a stable radix sort of the keys, dedup and
+  hits), the fingerprints (by the spec's ``keys_route``, below), a stable
+  radix sort of the keys, dedup and
   tile ranges, the tile sweep shared with the insert kernel
   (``csrc/tile_sweep.cuh``), compaction of the fresh keys, and the stats.
+
+The Pallas kernel fingerprints with the model's own ``fp_fn``
+(``pallas_wave.py:180``). A model takes one of three key routes, chosen once
+by the checker (``keys_route``), none falling back to another:
+
+- ``"fold"``: the model keeps the default fold; ``fw_keys`` hashes the
+  candidates' u32 words (``state_words``);
+- ``"comphash"``: the model is a ``PackedActorModel``; ``fw_comphash_keys``
+  computes its component hash from the candidate leaves, with the layout
+  and constants of ``comphash_tables`` (made once, before any capture);
+- ``"pairs"``: any other ``packed_fingerprint`` runs in the torch model
+  stage, as ``packed_expand`` does, and ``fw_keys_pairs`` applies the
+  validity, the sentinel and the count to its (hi, lo) pairs.
 
 On a CUDA table ``fused_wave`` launches the kernels or raises; on a CPU
 table it runs ``fused_wave_plain``, the same function in plain torch and
@@ -38,12 +52,20 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.batch import map_leaves
-from .fingerprint import fingerprint_state, state_words
+from .fingerprint import (
+    component_seeds,
+    fingerprint_state,
+    lin_consts,
+    multiset_salts,
+    row_salts,
+    state_words,
+)
 from .hashset import u32_to_i32
 from .hashset_kernel import (
     TILE_ROWS,
@@ -56,8 +78,13 @@ from .hashset_kernel import (
 
 __all__ = [
     "FusedWaveSpec",
+    "comphash_keys_stage",
+    "comphash_tables",
     "fused_wave",
     "fused_wave_plain",
+    "keys_input",
+    "keys_pairs_stage",
+    "keys_plain",
     "kernel_chain",
     "launches",
     "model_stage",
@@ -66,8 +93,11 @@ __all__ = [
 ]
 
 # Fused waves launched on the card in this process (each is one run of
-# ``kernel_chain``).
+# ``kernel_chain``), and of them the ones whose keys stage was
+# ``fw_comphash_keys``.
 launches = 0
+comphash_launches = 0
+KEY_ROUTES = ("fold", "comphash", "pairs")
 
 KINDS = {"always": 0, "sometimes": 1, "eventually": 2}
 MAX_PROPS = 64  # csrc/fused_wave.cu: MAX_PROPS
@@ -81,8 +111,10 @@ class FusedWaveSpec:
     """What a wave closes over, so the wave stays checker-agnostic:
     the model's batched callables, the property kinds as strings
     (``"always" | "sometimes" | "eventually"``, aligned with
-    ``conditions``), the (property index, eventually bit) pairs, and the
-    action count."""
+    ``conditions``), the (property index, eventually bit) pairs, the
+    action count, the model's ``packed_fingerprint`` and the fused wave's
+    key route (``KEY_ROUTES``; ``comphash`` holds ``comphash_tables`` on
+    the ``"comphash"`` route)."""
 
     expand: Callable
     within_boundary: Callable
@@ -90,6 +122,9 @@ class FusedWaveSpec:
     expectations: Tuple[str, ...]
     ebit: Tuple[Tuple[int, int], ...]
     action_count: int
+    fingerprint: Callable = fingerprint_state
+    keys_route: str = "fold"
+    comphash: Optional[dict] = None
 
 
 # -- the model stage (torch on both paths) ---------------------------------
@@ -181,13 +216,12 @@ def _stats(spec, cond, eval_mask, terminal, ebits_after, hi, lo, depth,
     return torch.stack([x.to(torch.int64) for x in items])
 
 
-def torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap,
-               fingerprint=fingerprint_state, mask=None):
-    """The whole wave in torch, with the visited-set insert through
-    ``hashset_insert_sorted`` (the CUDA kernel on a CUDA table, its plain
-    twin on a CPU table). It is the staged path of ``checker/gpu.py``
-    (with the model's ``packed_fingerprint``) and, on a CPU table with the
-    default fingerprint, ``fused_wave_plain``. ``mask`` (F,) bool marks
+def torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None):
+    """The whole wave in torch, fingerprinting with ``spec.fingerprint``
+    (the model's ``packed_fingerprint``), with the visited-set insert
+    through ``hashset_insert_sorted`` (the CUDA kernel on a CUDA table, its
+    plain twin on a CPU table). It is the staged path of ``checker/gpu.py``
+    and, on a CPU table, ``fused_wave_plain``. ``mask`` (F,) bool marks
     the live lanes; None means every lane is live. Masked lanes may hold
     stale rows: nothing of them reaches the outputs."""
     F, A = hi.shape[0], spec.action_count
@@ -196,7 +230,7 @@ def torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap,
     eval_mask, ebits_after, cvalid, terminal = _frontier_plain(
         spec, cond, cvalid, ebits, depth, depth_cap, mask
     )
-    chi, clo = fingerprint(cand_flat)
+    chi, clo = spec.fingerprint(cand_flat)
     shi, slo, sidx, unique = sorted_dedup(chi, clo, cvalid)
     table, fresh, _found, pending = hashset_insert_sorted(
         table, u32_to_i32(shi), u32_to_i32(slo), unique
@@ -224,9 +258,10 @@ def torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap,
 
 def fused_wave_plain(spec, table, states, hi, lo, ebits, depth, depth_cap,
                      mask=None):
-    """The plain torch twin of the fused kernels (CPU tables only):
-    ``fingerprint_words`` over ``state_words``, a stable ``torch.sort``,
-    ``hashset_insert_sorted_plain`` and cumsum compaction."""
+    """The plain torch twin of the fused kernels (CPU tables only): the
+    model's ``packed_fingerprint`` (on every key route), a stable
+    ``torch.sort``, ``hashset_insert_sorted_plain`` and cumsum
+    compaction."""
     if table.device.type != "cpu":
         raise ValueError(f"fused_wave_plain runs on CPU tensors, got {table.device}")
     return torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap,
@@ -241,6 +276,8 @@ _c_ptr, _c_int, _c_i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 ARGTYPES = {
     "fw_frontier": [_c_i64, _c_int, _c_i64] + [_c_ptr] * 6 + [_c_int] + [_c_ptr] * 4,
     "fw_keys": [_c_i64, _c_int, _c_int] + [_c_ptr] * 4 + [_c_i64] + [_c_ptr] * 4,
+    "fw_keys_pairs": [_c_i64, _c_int] + [_c_ptr] * 5 + [_c_i64] + [_c_ptr] * 4,
+    "fw_comphash_keys": [_c_i64] + [_c_int] * 6 + [_c_ptr] * 11 + [_c_i64] + [_c_ptr] * 4,
     "fw_sort": [_c_i64] + [_c_ptr] * 6,
     "fw_dedup": [_c_i64] + [_c_ptr] * 3 + [_c_int] * 2 + [_c_ptr],
     "fw_sweep": [_c_ptr] * 4 + [_c_i64] + [_c_int] * 2 + [_c_ptr] * 4,
@@ -317,6 +354,114 @@ def keys_stage(words, cvalid, depth=None, depth_cap=0, action_count=1, acc=None,
           _ptr(depth), _ptr(mask), int(depth_cap), key.data_ptr(),
           idx.data_ptr(), _ptr(acc), _stream(words))
     return key, idx
+
+
+def keys_pairs_stage(chi, clo, cvalid, depth=None, depth_cap=0, action_count=1,
+                     acc=None, mask=None):
+    """Stage (b) on the ``"pairs"`` route: ``keys_stage`` over the model's
+    own (hi, lo) fingerprints, ``(B,)`` int64 each."""
+    B = chi.shape[0]
+    key = torch.empty(B, dtype=torch.int64, device=chi.device)
+    idx = torch.empty(B, dtype=torch.int32, device=chi.device)
+    _call("fw_keys_pairs", B, action_count, chi.data_ptr(), clo.data_ptr(),
+          cvalid.data_ptr(), _ptr(depth), _ptr(mask), int(depth_cap), key.data_ptr(),
+          idx.data_ptr(), _ptr(acc), _stream(chi))
+    return key, idx
+
+
+def comphash_tables(layout, device):
+    """The ``"comphash"`` route's constants for a ``PackedActorModel``'s
+    ``packed_comphash_layout()``: the layout and one int64 device tensor
+    of the hash's coefficients and seeds, in ``csrc/fused_wave.cu``'s
+    ``CompHash`` order (actor row ‖ timer, envelope row, digest, history,
+    then the tags' seeds), the same ``lin_consts`` and ``component_seeds``
+    as ``ops/fingerprint.py``. Made once, before any capture."""
+    N, R, W, H = layout["N"], layout["R"], layout["W"], layout["H"]
+    if (layout["actor_tag"], layout["network_tag"], layout["history_tag"]) != (
+        0, N, N + 1
+    ):
+        raise ValueError(f"fw_comphash_keys takes tags 0..N+1, got {layout}")
+    parts = []
+    for width, salts in ((R + 1, row_salts), (3 + W, multiset_salts), (4, row_salts),
+                         (H, row_salts)):
+        if width:
+            parts += [lin_consts(width, salt) for salt in salts(width)]
+    C = N + 1 + (1 if H else 0)
+    parts += [x.numpy() for x in component_seeds(list(range(C)))]
+    consts = np.concatenate([np.asarray(p, np.int64) for p in parts])
+    return {"layout": dict(layout), "consts": torch.from_numpy(consts).to(device)}
+
+
+def comphash_keys_stage(tables, cand_flat, cvalid, depth=None, depth_cap=0,
+                        action_count=1, acc=None, mask=None):
+    """Stage (b) on the ``"comphash"`` route: ``keys_stage`` with each
+    valid lane's ``PackedActorModel.packed_fingerprint``, computed by
+    ``fw_comphash_keys`` from the candidate leaves (int64, contiguous);
+    counts one ``comphash_launches``."""
+    global comphash_launches
+
+    lay = tables["layout"]
+    N, R, E, W, H = (lay[k] for k in ("N", "R", "E", "W", "H"))
+    rows_k, timers_k = lay["actors"]
+    leaves = [cand_flat[rows_k], cand_flat[timers_k]] + [cand_flat[k] for k in lay["network"]]
+    hist = cand_flat[lay["history"]] if lay["history"] else None
+    B = cvalid.shape[0]
+    shapes = [(B, N, R), (B, N), (B, E), (B, E), (B, E, W), (B, E)]
+    for x, shape in zip(leaves + ([hist] if hist is not None else []),
+                        shapes + [(B, H)]):
+        if x.dtype != torch.int64 or tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(
+                f"fw_comphash_keys takes contiguous int64 leaves of shape {shape}, "
+                f"got {tuple(x.shape)} {x.dtype}"
+            )
+    comphash_launches += 1
+    key = torch.empty(B, dtype=torch.int64, device=cvalid.device)
+    idx = torch.empty(B, dtype=torch.int32, device=cvalid.device)
+    _call("fw_comphash_keys", B, action_count, N, R, E, W, H,
+          *(x.data_ptr() for x in leaves), _ptr(hist), tables["consts"].data_ptr(),
+          cvalid.data_ptr(), _ptr(depth), _ptr(mask), int(depth_cap), key.data_ptr(),
+          idx.data_ptr(), _ptr(acc), _stream(cvalid))
+    return key, idx
+
+
+def keys_plain(chi, clo, cvalid, depth=None, depth_cap=0, action_count=1, mask=None):
+    """The plain twin of every keys stage, given the lanes' fingerprints
+    (on the ``"comphash"`` route the model's torch ``packed_fingerprint``):
+    ``(key, idx)`` as the kernels write them."""
+    B = cvalid.shape[0]
+    parent = torch.arange(B, device=cvalid.device) // action_count
+    valid = cvalid
+    if mask is not None:
+        valid = valid & mask[parent]
+    if depth is not None:
+        valid = valid & (depth[parent] < depth_cap)
+    key = torch.where(valid, (chi << 32) | clo, -1)
+    return key, torch.arange(B, dtype=torch.int32, device=cvalid.device)
+
+
+def keys_input(spec, cand_flat):
+    """What the keys stage reads, by ``spec.keys_route``: the candidates'
+    u32 words (``"fold"``), the model's own (hi, lo) pairs, computed here
+    in torch (``"pairs"``), or nothing (``"comphash"``: the kernel reads
+    the candidate leaves)."""
+    if spec.keys_route == "fold":
+        return state_words(cand_flat)
+    if spec.keys_route == "pairs":
+        return tuple(x.contiguous() for x in spec.fingerprint(cand_flat))
+    if spec.keys_route == "comphash":
+        return None
+    raise ValueError(f"keys_route must be one of {KEY_ROUTES}, got {spec.keys_route!r}")
+
+
+def route_keys_stage(spec, kin, cand_flat, cvalid, depth, depth_cap, acc, mask=None):
+    """Stage (b) on ``spec.keys_route`` over ``kin = keys_input(...)``."""
+    A = spec.action_count
+    if spec.keys_route == "fold":
+        return keys_stage(kin, cvalid, depth, depth_cap, A, acc, mask)
+    if spec.keys_route == "pairs":
+        return keys_pairs_stage(kin[0], kin[1], cvalid, depth, depth_cap, A, acc, mask)
+    return comphash_keys_stage(spec.comphash, cand_flat, cvalid, depth, depth_cap, A,
+                               acc, mask)
 
 
 def sort_stage(key, idx):
@@ -426,10 +571,10 @@ def _check_inputs(table, named):
 
 
 def kernel_chain(spec, table, hi, lo, ebits, depth, depth_cap, cond, cvalid,
-                 words, cand_flat, mark=None, mask=None):
+                 kin, cand_flat, mark=None, mask=None):
     """Every kernel of the wave, launched back to back on the current
     stream over the model stage's outputs (``model_stage`` and
-    ``state_words``); counts one launch. ``mask`` (F,) bool marks the live
+    ``keys_input``); counts one launch. ``mask`` (F,) bool marks the live
     frontier lanes (None: all). ``mark(name)``, when given, is called
     before each stage and once after the last (``chip_smoke.py`` records
     CUDA events there). Returns ``(table, out)``."""
@@ -444,7 +589,8 @@ def kernel_chain(spec, table, hi, lo, ebits, depth, depth_cap, cond, cvalid,
     ebits_after = frontier_stage(spec, cond, cvalid, ebits, depth, depth_cap, acc,
                                  mask)
     mark("keys")
-    key, idx = keys_stage(words, cvalid, depth, depth_cap, A, acc, mask)
+    key, idx = route_keys_stage(spec, kin, cand_flat, cvalid, depth, depth_cap, acc,
+                                mask)
     mark("sort")
     sort_stage(key, idx)
     mark("dedup")
@@ -489,7 +635,13 @@ def fused_wave(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None):
     F = hi.shape[0]
     B = F * spec.action_count
     cond, cvalid, cand_flat = model_stage(spec, states, F)
-    words = state_words(cand_flat)
+    kin = keys_input(spec, cand_flat)
+    if spec.keys_route == "fold":
+        keyed = [("words", kin, torch.int64, (B, kin.shape[1]))]
+    elif spec.keys_route == "pairs":
+        keyed = [("chi", kin[0], torch.int64, (B,)), ("clo", kin[1], torch.int64, (B,))]
+    else:
+        keyed = []
     _check_inputs(table, [
         ("hi", hi, torch.int64, (F,)),
         ("lo", lo, torch.int64, (F,)),
@@ -497,7 +649,6 @@ def fused_wave(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None):
         ("depth", depth, torch.int64, (F,)),
         ("cond", cond, torch.bool, (P, F)),
         ("cvalid", cvalid, torch.bool, (B,)),
-        ("words", words, torch.int64, (B, words.shape[1])),
-    ] + ([] if mask is None else [("mask", mask, torch.bool, (F,))]))
+    ] + keyed + ([] if mask is None else [("mask", mask, torch.bool, (F,))]))
     return kernel_chain(spec, table, hi, lo, ebits, depth, depth_cap, cond,
-                        cvalid, words, cand_flat, mask=mask)
+                        cvalid, kin, cand_flat, mask=mask)

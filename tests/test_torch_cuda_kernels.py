@@ -418,3 +418,67 @@ def test_cuda_captured_drain_matches_cpu_drain(cuda_device, wave_kernel, case):
     for name, path in cpu.discoveries().items():
         assert gpu.discoveries()[name].encode() == path.encode()
     gpu.assert_properties()
+
+
+class _SaltedTwoPhaseSys(TwoPhaseSys):
+    """2pc with its own ``packed_fingerprint``: the ``"pairs"`` key route."""
+
+    def packed_fingerprint(self, states):
+        hi, lo = super().packed_fingerprint(states)
+        return hi, lo ^ 1
+
+
+def _route_model(route):
+    from stateright_tpu_torch.models.paxos import PaxosModelCfg
+
+    if route == "fold":
+        return TwoPhaseSys(4), 1568
+    if route == "comphash":
+        return PaxosModelCfg(2, 2).into_model(), 111
+    return _SaltedTwoPhaseSys(4), 1568
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fold", "comphash", "pairs"])
+def test_cuda_key_routes_match_plain_twin(cuda_device, route):
+    """Each key route of the fused wave on the card against the plain twin:
+    the keys stage alone on a wave's candidates, then whole fused runs,
+    wave at a time and drained, against the CPU twin."""
+    model, expected = _route_model(route)
+    checker = model.checker().spawn_gpu_bfs(
+        device=cuda_device, wave_kernel="fused", frontier_capacity=64,
+        table_capacity=1 << 12, max_drain_waves=1,
+    ).join()
+    assert checker.keys_route == route
+    spec = checker._spec
+    states = model.packed_init_states(cuda_device)
+    F = states[next(iter(states))].shape[0]
+    for _ in range(3):  # a few expansions deep, to reach varied candidates
+        cand, valid = model.packed_expand(states)
+        keep = valid.reshape(-1).nonzero().squeeze(1)
+        states = map_leaves(lambda x: x.reshape((-1,) + x.shape[2:])[keep].contiguous(), cand)
+        F = keep.shape[0]
+    A = spec.action_count
+    depth = torch.arange(F, device=cuda_device) % 5
+    mask = torch.arange(F, device=cuda_device) % 3 != 0
+    _cond, cvalid, cand_flat = fw.model_stage(spec, states, F)
+    kin = fw.keys_input(spec, cand_flat)
+    acc = torch.zeros(8, dtype=torch.int64, device=cuda_device)
+    key, idx = fw.route_keys_stage(spec, kin, cand_flat, cvalid, depth, 4, acc, mask)
+    chi, clo = spec.fingerprint(map_leaves(lambda x: x.cpu(), cand_flat))
+    pkey, pidx = fw.keys_plain(chi, clo, cvalid.cpu(), depth.cpu(), 4, A, mask.cpu())
+    assert torch.equal(key.cpu(), pkey) and torch.equal(idx.cpu(), pidx)
+    assert int(acc[0]) == int((pkey != -1).sum()) > 0
+    for options in (dict(max_drain_waves=1), {}):
+        spawn = dict(frontier_capacity=64, table_capacity=1 << 12, wave_kernel="fused",
+                     **options)
+        fw.comphash_launches = 0
+        gpu = _route_model(route)[0].checker().spawn_gpu_bfs(device=cuda_device,
+                                                            **spawn).join()
+        assert (fw.comphash_launches > 0) == (route == "comphash")
+        cpu = _route_model(route)[0].checker().spawn_gpu_bfs(device="cpu", **spawn).join()
+        assert gpu.unique_state_count() == cpu.unique_state_count() == expected
+        assert gpu.state_count() == cpu.state_count()
+        assert gpu.max_depth() == cpu.max_depth() and gpu.waves == cpu.waves
+        for name, path in cpu.discoveries().items():
+            assert gpu.discoveries()[name].encode() == path.encode()

@@ -328,10 +328,30 @@ class _SaltedTwoPhaseSys(TwoPhaseSys):
 
 
 def test_fused_refuses_a_custom_fingerprint():
-    with pytest.raises(ValueError, match="packed_fingerprint.*wave_kernel='staged'"):
-        _SaltedTwoPhaseSys(3).checker().spawn_gpu_bfs(wave_kernel="fused", device="cpu")
-    staged = _SaltedTwoPhaseSys(3).checker().spawn_gpu_bfs(device="cpu").join()
-    assert staged.unique_state_count() == 288
+    """The fused wave no longer refuses a model that overrides
+    ``packed_fingerprint``: such a model takes the ``"pairs"`` key route
+    (its fingerprint in the torch model stage, ``fw_keys_pairs`` on the
+    card) and gives the staged wave's counts, discoveries and paths, wave
+    at a time and drained."""
+    for options in (dict(max_drain_waves=1), {}):
+        spawn = dict(frontier_capacity=64, table_capacity=2048, device="cpu", **options)
+        fused = _SaltedTwoPhaseSys(3).checker().spawn_gpu_bfs(
+            wave_kernel="fused", **spawn).join()
+        staged = _SaltedTwoPhaseSys(3).checker().spawn_gpu_bfs(**spawn).join()
+        assert fused.keys_route == staged.keys_route == "pairs"
+        assert fused.unique_state_count() == staged.unique_state_count() == 288
+        assert fused.state_count() == staged.state_count() == 1146
+        assert fused.max_depth() == staged.max_depth()
+        assert fused._discoveries_fp == staged._discoveries_fp
+        fd, sd = fused.discoveries(), staged.discoveries()
+        assert set(fd) == set(sd) == {"abort agreement", "commit agreement"}
+        for name in fd:
+            assert fd[name].encode() == sd[name].encode(), name
+        # The salt reaches the keys: they are not the default fold's.
+        plain = TwoPhaseSys(3).checker().spawn_gpu_bfs(wave_kernel="fused", **spawn).join()
+        assert plain.keys_route == "fold"
+        assert fused._discoveries_fp != plain._discoveries_fp
+        assert _golden(fused, WriteReporter) == _golden(staged, WriteReporter)
 
 
 def _c_signatures(source):
@@ -449,6 +469,14 @@ def test_import_leaves_jax_out():
         "import stateright_tpu_torch.ops.fused_wave\n"
         "import stateright_tpu_torch.ops.ring\n"
         "import stateright_tpu_torch.checker.gpu\n"
+        "import stateright_tpu_torch.actor\n"
+        "import stateright_tpu_torch.actor.packed\n"
+        "import stateright_tpu_torch.actor.packed_register\n"
+        "import stateright_tpu_torch.actor.register\n"
+        "import stateright_tpu_torch.semantics\n"
+        "import stateright_tpu_torch.semantics.packed_linearizability\n"
+        "import stateright_tpu_torch.models.paxos\n"
+        "import stateright_tpu_torch.models.single_copy_register\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'stateright_tpu' or m.startswith('stateright_tpu.')]\n"
         "print(bad)\n"
