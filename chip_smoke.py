@@ -2,39 +2,49 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port from the sources in this checkout
-(one ``nvcc`` per source, all at once), holds each kernel against its plain
-torch twin (bit for bit) at the main paths' full shapes (the fused wave
-also on a masked take of the deep drain's ring), then drives both
-main paths: an exhaustive check of two-phase commit with 8 resource
-managers (1,745,408 states) through
-``TwoPhaseSys(8).checker().spawn_gpu_bfs()`` with the staged wave (torch +
-the CUDA insert) and with ``wave_kernel="fused"`` (the model stage in
-torch, every other stage in CUDA), each wave at a time
+Builds every CUDA kernel of the port from the sources in this checkout (one
+``nvcc`` per source, all at once), holds each kernel against its plain torch
+twin (bit for bit) at the main paths' full shapes (the fused wave also on a
+masked take of the deep drain's ring), then drives both main paths: an
+exhaustive check of two-phase commit with 8 resource managers (1,745,408
+states) through ``TwoPhaseSys(8).checker().spawn_gpu_bfs()`` with the staged
+wave (torch + the CUDA insert) and with ``wave_kernel="fused"`` (the model
+stage in torch, every other stage in CUDA), each wave at a time
 (``max_drain_waves=1``) and through the deep drain (the default: the
-frontier in a device ring, drained by replayed CUDA Graphs with no host
-sync inside a drain), and smaller runs of all four whose paths are
-replayed against the CPU twin. Then the actor path: the fused wave's
-component-hash keys stage (``fw_comphash_keys``) and its whole chain held
-against their plain twins on a full-width wave of "paxos check 3" (3
-clients, 3 servers, 24 envelope slots) taken from the drain with its
-table; an exhaustive check of paxos check 3 (1,194,428 states) through
+frontier in a device ring, drained by replayed CUDA Graphs with no host sync
+inside a drain), and smaller runs of all four whose paths are replayed
+against the CPU twin. The models and their spawn settings are the named
+configurations of ``stateright_tpu_torch/configs.py``. Then the actor path:
+the fused wave's component-hash keys stage (``fw_comphash_keys``) and its
+whole chain held against their plain twins on a full-width wave of "paxos
+check 3" (3 clients, 3 servers, 24 envelope slots) taken from the drain with
+its table; an exhaustive check of paxos check 3 (1,194,428 states) through
 ``PaxosModelCfg(3, 3, envelope_capacity=24).into_model().checker()
-.spawn_gpu_bfs(...)`` on both engines through the deep drain, its
-``value chosen`` path replayed on the host; and small paxos and
-single-copy register runs on the card against the CPU twin. Prints phase
-lines, the card's name and power limit, the fused wave's stage times, the
-drains' walls, waves, no-op and warm-up waves, exits, graph captures and
-replays and rungs, peak device memory, one ``{"kernels": [...]}`` line, and
-as its last line
-``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when
-any phase fails, when no CUDA device is present, or when the port's package
-is not beside it. Imports nothing of JAX or of the JAX package.
+.spawn_gpu_bfs(...)`` on both engines through the deep drain, its ``value
+chosen`` path replayed on the host; the ordered route of
+``fw_comphash_keys`` (one component per FIFO flow) and the chain held
+against their plain twins on a full-width wave of "linearizable-register
+check 3 ordered" (abd3o: ABD, 3 clients, 2 servers, FIFO flows) taken from
+the drain; abd3o (46,516 states) on both engines through the drain; the keys
+stage and the chain held against their twins on a full-width wave of raft
+with 5 servers (256,000 lanes: no history, timers, drops), and the insert
+kernel on that wave's keys; raft5 on a lossy network until its ``stable
+leader`` counterexample, the time to it (``ttc_s``) and the unique count at
+the exit, the path replayed on the host; raft with 4 servers, lossy (24,545
+states, timers, drops); and small paxos, single-copy, ordered ABD and
+raft-with-a-crash runs on the card against the CPU twin. Prints phase lines,
+the card's name and power limit, the fused wave's stage times, the drains'
+walls, waves, no-op and warm-up waves, exits, graph captures and replays and
+rungs, peak device memory, one ``{"kernels": [...]}`` line, and as its last
+line ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
+when any phase fails, when no CUDA device is present, or when the port's
+package is not beside it. Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -336,13 +346,14 @@ def _capture_2pc8_wave():
 
     from stateright_tpu_torch.checker import gpu
     from stateright_tpu_torch.core.batch import map_leaves
-    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 
+    cfg = _config("2pc8")
+    F = cfg.spawn["frontier_capacity"]
     got = {}
     consume = gpu.GpuBfsChecker._consume_wave
 
     def spy(self, table, chunk, queue):
-        if not got and table.shape[0] - 128 == 1 << 22 and chunk["hi"].shape[0] == 8192:
+        if not got and table.shape[0] - 128 == 1 << 22 and chunk["hi"].shape[0] == F:
             got.update(table=table.clone(), chunk=map_leaves(torch.clone, chunk),
                        spec=self._spec, depth_cap=self._depth_cap,
                        unique=self._unique_count)
@@ -351,9 +362,7 @@ def _capture_2pc8_wave():
 
     gpu.GpuBfsChecker._consume_wave = spy
     try:
-        TwoPhaseSys(8).checker().spawn_gpu_bfs(
-            frontier_capacity=8192, table_capacity=1 << 20, max_drain_waves=1
-        ).join()
+        cfg.make().checker().spawn_gpu_bfs(**dict(cfg.spawn, max_drain_waves=1)).join()
     finally:
         gpu.GpuBfsChecker._consume_wave = consume
     if not got:
@@ -371,10 +380,10 @@ def _capture_2pc8_ring_take():
 
     from stateright_tpu_torch.checker import gpu
     from stateright_tpu_torch.core.batch import map_leaves
-    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
     from stateright_tpu_torch.ops.ring import ring_take
 
-    F = 8192
+    cfg = _config("2pc8")
+    F = cfg.spawn["frontier_capacity"]
     got = {}
     deep_drain = gpu.GpuBfsChecker._deep_drain
 
@@ -390,10 +399,7 @@ def _capture_2pc8_ring_take():
 
     gpu.GpuBfsChecker._deep_drain = spy
     try:
-        TwoPhaseSys(8).checker().spawn_gpu_bfs(
-            frontier_capacity=F, table_capacity=1 << 20, wave_kernel="fused",
-            drain_log_factor=48,
-        ).join()
+        cfg.make().checker().spawn_gpu_bfs(wave_kernel="fused", **cfg.spawn).join()
     finally:
         gpu.GpuBfsChecker._deep_drain = deep_drain
     if not got:
@@ -664,16 +670,15 @@ def _drive_2pc8(wave_kernel, **spawn):
     to 0 just before and read just after."""
     import torch
 
-    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
     from stateright_tpu_torch.ops import fused_wave as fw
     from stateright_tpu_torch.ops import hashset_kernel as hk
 
+    cfg = _config("2pc8")
     torch.cuda.reset_peak_memory_stats()
     hk.launches = fw.launches = 0
     t0 = time.perf_counter()
-    checker = TwoPhaseSys(8).checker().spawn_gpu_bfs(
-        frontier_capacity=8192, table_capacity=1 << 20, wave_kernel=wave_kernel, **spawn
-    ).join()
+    checker = cfg.make().checker().spawn_gpu_bfs(
+        **dict(cfg.spawn, wave_kernel=wave_kernel, **spawn)).join()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches}
@@ -692,7 +697,7 @@ def _drive_2pc8(wave_kernel, **spawn):
             f"graph_captures={checker.graph_captures} "
             f"graph_replays={checker.graph_replays} rungs={dict(checker.rungs)}")
     assert checker.device.type == "cuda"
-    assert unique == 1_745_408, unique
+    assert unique == cfg.unique, unique
     checker.assert_properties()
     return {"launches": launches, "wall_s": wall, "waves": checker.waves,
             "state_count": checker.state_count(), "max_depth": checker.max_depth(),
@@ -731,7 +736,7 @@ def main_path_drain(wave_runs):
     retries."""
     runs = {}
     for wave_kernel, wave_run in zip(("staged", "fused"), wave_runs):
-        run = _drive_2pc8(wave_kernel, drain_log_factor=48)
+        run = _drive_2pc8(wave_kernel)
         for k in ("state_count", "max_depth"):
             assert run[k] == wave_run[k], (wave_kernel, k, run[k], wave_run[k])
         n = run["launches"]
@@ -802,43 +807,45 @@ def replay_small():
 
 # -- 4. the actor path -------------------------------------------------------------
 
-PAXOS3 = dict(frontier_capacity=2048, table_capacity=1 << 21, drain_log_factor=32)
-PAXOS3_UNIQUE = 1_194_428
+# The JAX package's CPU runs stopped raft5 at its stable-leader discovery
+# with 524,064 unique states (BENCH_r04.json, BENCH_r05.json).
+RAFT5_JAX_CPU_UNIQUE_AT_EXIT = 524_064
 
 
-def _paxos3():
-    from stateright_tpu_torch.models.paxos import PaxosModelCfg
+def _config(name):
+    from stateright_tpu_torch.configs import CONFIGS
 
-    return PaxosModelCfg(3, 3, envelope_capacity=24).into_model()
+    return CONFIGS[name]
 
 
 class _Stop(Exception):
     """Ends a run once its wave was captured."""
 
 
-def _capture_paxos3_take(min_unique=300_000):
-    """A full-width paxos check 3 frontier of the fused deep drain (F =
-    2,048 lanes, all live) and the table it runs on: the ring and table
-    are copied at the start of the first drain whose ring holds a
-    full-width take once ``min_unique`` states are visited, and the run
-    stops there."""
+def _capture_take(name, min_unique, min_live):
+    """A full-width frontier of the fused deep drain of the configuration
+    ``name`` (F lanes; the live ones masked in) and the table it runs on:
+    the ring and table are copied at the start of the first drain at the
+    widest rung once ``min_unique`` states are visited whose ring holds at
+    least ``min_live`` states, and the run stops there."""
     import torch
 
     from stateright_tpu_torch.checker import gpu
     from stateright_tpu_torch.core.batch import map_leaves
     from stateright_tpu_torch.ops.ring import ring_take
 
-    F = PAXOS3["frontier_capacity"]
+    cfg = _config(name)
+    F = cfg.spawn["frontier_capacity"]
     got = {}
     deep_drain = gpu.GpuBfsChecker._deep_drain
 
     def spy(self, table, width, budget):
         d = self._drain
-        if (not got and width == F and self._unique_count >= min_unique
-                and int(d["scalars"][gpu._COUNT]) >= F):
+        count = int(d["scalars"][gpu._COUNT])
+        if not got and width == F and self._unique_count >= min_unique and count >= min_live:
             got.update(table=table.clone(), capacity=d["capacity"],
                        pool=map_leaves(torch.clone, d["pool"]),
-                       head=d["scalars"][gpu._HEAD].clone(),
+                       head=d["scalars"][gpu._HEAD].clone(), live=min(count, F),
                        spec=self._spec, depth_cap=self._depth_cap,
                        unique=self._unique_count)
             raise _Stop()
@@ -846,15 +853,15 @@ def _capture_paxos3_take(min_unique=300_000):
 
     gpu.GpuBfsChecker._deep_drain = spy
     try:
-        checker = _paxos3().checker().spawn_gpu_bfs(wave_kernel="fused", **PAXOS3)
+        checker = cfg.make().checker().spawn_gpu_bfs(wave_kernel="fused", **cfg.spawn)
         for h in checker.handles():
             h.join()
     finally:
         gpu.GpuBfsChecker._deep_drain = deep_drain
     if not got or not isinstance(checker.worker_error(), _Stop):
-        raise AssertionError(f"no paxos3 drain started with a full-width take "
+        raise AssertionError(f"no drain started with a full-width take "
                              f"({checker.worker_error()!r})")
-    live = torch.full((), F, dtype=torch.int64, device="cuda")
+    live = torch.full((), got["live"], dtype=torch.int64, device="cuda")
     got["frontier"] = ring_take(got["pool"], got["head"], live, got["capacity"], F)[0]
     return got
 
@@ -862,28 +869,32 @@ def _capture_paxos3_take(min_unique=300_000):
 def _comphash_must_move(spec, cand, valid, F):
     """Bytes ``fw_comphash_keys`` must move on this wave, u32 values at
     4 B: every lane's valid bit and its frontier lane's depth and mask; for
-    each valid lane its actor rows and timer words, its history row, every
-    envelope count, and the src, dst and message words of its active
-    envelopes; the key (8 B) and lane index (4 B) of every lane."""
+    each valid lane its actor rows and timer words and its history row;
+    its network: on an unordered one every envelope count and the src, dst
+    and message words of its active envelopes, on an ordered one every
+    flow's length and the words of the messages it holds; the key (8 B)
+    and lane index (4 B) of every lane."""
     lay = spec.comphash["layout"]
     B = valid.shape[0]
-    N, R, E, W, H = (lay[k] for k in ("N", "R", "E", "W", "H"))
-    active_envs = int(((cand["net_cnt"] != 0) & valid[:, None]).sum())
+    N, R, E, P, W, H = (lay[k] for k in ("N", "R", "E", "P", "W", "H"))
     n_valid = int(valid.sum())
-    words = n_valid * (N * (R + 1) + H + E) + active_envs * (2 + W)
+    if lay["ordered"]:
+        msgs = int((cand["flow_len"] * valid[:, None]).sum())
+        words = n_valid * (N * (R + 1) + H + P) + msgs * W
+    else:
+        active_envs = int(((cand["net_cnt"] != 0) & valid[:, None]).sum())
+        words = n_valid * (N * (R + 1) + H + E) + active_envs * (2 + W)
     return B * 1 + F * (4 + 1) + words * 4 + B * 12
 
 
-@phase("comphash_vs_plain")
-def comphash_vs_plain():
+def _comphash_wave(label, got):
     """``fw_comphash_keys`` and the whole fused chain against their plain
-    twins on a full-width paxos3 wave taken from the drain with its table;
-    their median times and bound."""
+    twins on a wave taken from the drain with its table; their median times
+    and the keys stage's bound."""
     import torch
 
     from stateright_tpu_torch.ops import fused_wave as fw
 
-    got = _capture_paxos3_take()
     spec, table0, front, depth_cap = got["spec"], got["table"], got["frontier"], got["depth_cap"]
     assert spec.keys_route == "comphash", spec.keys_route
     states, mask = front["states"], front["mask"]
@@ -895,11 +906,12 @@ def comphash_vs_plain():
     chain_err, pout, plain_ms, _pt, _sweeps = _compare_fused(spec, table0, front, depth_cap,
                                                              mask=mask)
     stats = pout["stats"].tolist()
-    log(f"  paxos3 wave: F={F} B={B} table rows={table0.shape[0]} ring rows={got['capacity']} "
-        f"unique before={got['unique']} generated={stats[0]} n_new={stats[1]} "
-        f"overflow={stats[2]} max_abs_err={chain_err} plain={plain_ms:.1f} ms (host CPU)")
+    log(f"  {label} wave: F={F} live={got['live']} B={B} table rows={table0.shape[0]} "
+        f"ring rows={got['capacity']} unique before={got['unique']} generated={stats[0]} "
+        f"n_new={stats[1]} overflow={stats[2]} max_abs_err={chain_err} "
+        f"plain={plain_ms:.1f} ms (host CPU)")
     if chain_err:
-        raise AssertionError("fused kernels and the plain twin disagree on a paxos3 wave")
+        raise AssertionError(f"fused kernels and the plain twin disagree on a {label} wave")
 
     # The keys stage alone, on the card: the kernel against the model's
     # torch packed_fingerprint and the fw_keys masking.
@@ -911,11 +923,11 @@ def comphash_vs_plain():
     torch.cuda.synchronize()
     err = _max_abs_err([(pkey.cpu(), key), (pidx.cpu(), idx)])
     n_valid = int((pkey != -1).sum())
-    log(f"  fw_comphash_keys: B={B} valid lanes={n_valid} max_abs_err={err}")
+    log(f"  fw_comphash_keys ({label}): B={B} valid lanes={n_valid} max_abs_err={err}")
     if err:
         raise AssertionError("fw_comphash_keys and its plain twin disagree")
     if not n_valid:
-        raise AssertionError("the paxos3 wave has no valid lane")
+        raise AssertionError(f"the {label} wave has no valid lane")
 
     ms, _ = _time_on_card(lambda mark: fw.comphash_keys_stage(
         spec.comphash, cand, cvalid, depth, depth_cap, A, None, mask))
@@ -928,44 +940,117 @@ def comphash_vs_plain():
                                      cvalid, None, cand, mark=mark, mask=mask),
         reset=lambda: work.copy_(table0),
     )
-    valid = (pkey != -1)
-    moved = _comphash_must_move(spec, cand, valid, F)
+    moved = _comphash_must_move(spec, cand, pkey != -1, F)
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    log(json.dumps({"paxos3_wave": {
+    log(json.dumps({f"{label}_wave": {
         "comphash_keys_ms": ms, "comphash_plain_on_card_ms": twin_ms,
         "kernel_chain_ms": chain_ms, "fused_wave_stage_ms": stage_ms,
         "model_stage_torch_ms": model_ms, "comphash_must_move_bytes": moved,
         "comphash_bound_ms": bound_ms, "valid_lanes": n_valid, "B": B,
         "chain_plain_host_ms": plain_ms,
     }}))
-    log(f"  fw_comphash_keys: median {ms:.4f} ms, plain twin on the card {twin_ms:.4f} ms, "
-        f"bound {bound_ms:.5f} ms ({moved} B); chain {chain_ms:.4f} ms; model stage "
-        f"(torch) {model_ms:.3f} ms")
-    return {"max_abs_err": max(err, chain_err), "ms": ms, "plain_ms": twin_ms,
+    log(f"  fw_comphash_keys ({label}): median {ms:.4f} ms, plain twin on the card "
+        f"{twin_ms:.4f} ms, bound {bound_ms:.5f} ms ({moved} B); chain {chain_ms:.4f} ms; "
+        f"model stage (torch) {model_ms:.3f} ms")
+    return {"max_abs_err": max(err, chain_err), "keys_err": err, "chain_err": chain_err,
+            "ms": ms, "plain_ms": twin_ms, "bound_ms": bound_ms}
+
+
+def _insert_on_wave(label, got):
+    """``hashset_insert_sorted`` against its plain twin on the keys of a
+    wave taken from the drain, as the staged engine hands them over (the
+    model's fingerprints of the valid lanes, sorted, the first copy of each
+    key active), into the table the drain holds; its median time and its
+    bound."""
+    from stateright_tpu_torch.interop import table_to_numpy
+    from stateright_tpu_torch.ops import fused_wave as fw
+
+    spec, front, depth_cap = got["spec"], got["frontier"], got["depth_cap"]
+    F = front["hi"].shape[0]
+    cond, cvalid, cand = fw.model_stage(spec, front["states"], F)
+    cvalid = fw._frontier_plain(spec, cond, cvalid, front["ebits"], front["depth"], depth_cap,
+                                front["mask"])[2]
+    shi, slo, _sidx, unique = fw.sorted_dedup(*spec.fingerprint(cand), cvalid)
+    hi, lo = (x.cpu().numpy().astype("uint32") for x in (shi, slo))
+    active = unique.cpu().numpy()
+    r = _compare_insert(table_to_numpy(got["table"]), hi, lo, active, timing=True)
+    moved = _must_move_bytes(r["after"], hi, lo, active, r["fresh"])
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    log(f"  hashset_insert_sorted ({label} wave keys): B={hi.shape[0]} active={int(active.sum())} "
+        f"fresh={int(r['fresh'].sum())} tiles={r['touched']} redone={r['redone']} "
+        f"(to redo {r['to_redo']}) max_abs_err={r['err']} median {r['ms']:.4f} ms "
+        f"passes {_fmt_passes(r['pass_ms'])} plain={r['plain_ms']:.1f} ms (host CPU) "
+        f"bound={bound_ms:.5f} ms ({moved} B)")
+    if r["err"]:
+        raise AssertionError(f"hashset_insert_sorted and its plain twin disagree on the "
+                             f"{label} wave's keys")
+    if r["redone"] != r["to_redo"]:
+        raise AssertionError(f"{label}: the repair redid {r['redone']} tiles, not "
+                             f"{r['to_redo']}")
+    if not active.any():
+        raise AssertionError(f"the {label} wave has no active key")
+    return {"max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms}
 
 
-def _drive_paxos3(wave_kernel):
-    """Drives paxos check 3 through ``spawn_gpu_bfs`` and the deep drain,
-    every kernel count set to 0 just before and read just after."""
+@phase("comphash_vs_plain")
+def comphash_vs_plain():
+    """The unordered route on a full-width paxos3 wave."""
+    got = _capture_take("paxos3", 300_000, _config("paxos3").spawn["frontier_capacity"])
+    return _comphash_wave("paxos3", got)
+
+
+@phase("comphash_ordered_vs_plain")
+def comphash_ordered_vs_plain():
+    """The ordered route (one component per FIFO flow) on a full-width
+    abd3o wave."""
+    got = _capture_take("abd3o", 10_000, _config("abd3o").spawn["frontier_capacity"] // 2)
+    assert got["spec"].comphash["layout"]["ordered"]
+    return _comphash_wave("abd3o", got)
+
+
+@phase("comphash_raft5_vs_plain")
+def comphash_raft5_vs_plain():
+    """The unordered route at raft's layout (no history component, one
+    timer word a server, 60 envelope slots; the drop and timeout classes
+    in the model stage) and the chain on a full-width raft5 wave
+    (B = 256,000 lanes), and the insert kernel on that wave's keys."""
+    got = _capture_take("raft5_ttc", 10_000, _config("raft5_ttc").spawn["frontier_capacity"])
+    lay = got["spec"].comphash["layout"]
+    assert not lay["ordered"] and lay["H"] == 0, lay
+    res = _comphash_wave("raft5", got)
+    res["insert"] = _insert_on_wave("raft5", got)
+    return res
+
+
+def _drive(name, wave_kernel):
+    """Drives the configuration ``name`` through ``spawn_gpu_bfs`` and the
+    deep drain, every kernel count set to 0 just before and read just
+    after; returns the model, the checker and the run's numbers (``wall_s`` from spawn to the end of
+    ``join()``, the kernels already built)."""
     import torch
 
     from stateright_tpu_torch.ops import fused_wave as fw
     from stateright_tpu_torch.ops import hashset_kernel as hk
 
-    model = _paxos3()
+    # Tensors of an earlier phase held only by reference cycles (a stopped
+    # run's exception traceback holds its checker's frames) are freed now,
+    # so that the peak below is this run's own.
+    cfg = _config(name)
+    model = cfg.make()
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     hk.launches = fw.launches = fw.comphash_launches = 0
     t0 = time.perf_counter()
-    checker = model.checker().spawn_gpu_bfs(wave_kernel=wave_kernel, **PAXOS3).join()
+    checker = model.checker().spawn_gpu_bfs(wave_kernel=wave_kernel, **cfg.spawn).join()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
                 "fw_comphash_keys": fw.comphash_launches}
     peak = torch.cuda.max_memory_allocated()
     unique = checker.unique_state_count()
-    log(f"  paxos3 ({wave_kernel}, drain): unique={unique} states={checker.state_count()} "
+    log(f"  {name} ({wave_kernel}, drain): unique={unique} states={checker.state_count()} "
         f"depth={checker.max_depth()} wall={wall:.3f} s unique_states_per_s={unique / wall:.0f} "
         f"waves={checker.waves} noop_waves={checker.noop_waves} "
         f"warmup_waves={checker.warmup_waves} drains={checker.drains} "
@@ -974,8 +1059,29 @@ def _drive_paxos3(wave_kernel):
         f"table_growths={checker.table_growths} table_capacity={checker.table_capacity()} "
         f"launches={launches} peak_device_bytes={peak} keys_route={checker.keys_route}")
     assert checker.device.type == "cuda" and checker.drains > 0
-    assert unique == PAXOS3_UNIQUE, unique
-    checker.assert_properties()
+    assert checker.worker_error() is None, checker.worker_error()
+    assert checker.keys_route == "comphash", checker.keys_route
+    if cfg.unique is not None:
+        assert unique == cfg.unique, unique
+    n = launches
+    if wave_kernel == "staged":
+        assert n["hashset_insert_sorted"] >= checker.waves > 0, n
+        assert n["fused_wave"] == 0 and n["fw_comphash_keys"] == 0, n
+    else:
+        assert n["fw_comphash_keys"] >= checker.waves > 0, n
+        assert n["fused_wave"] == n["fw_comphash_keys"], n
+        assert n["hashset_insert_sorted"] >= 1, n  # the seed
+    run = {"launches": launches, "wall_s": wall, "waves": checker.waves,
+           "noop_waves": checker.noop_waves, "drains": checker.drains,
+           "exits": dict(checker.drain_exits), "unique": unique,
+           "state_count": checker.state_count(), "max_depth": checker.max_depth(),
+           "peak_device_bytes": peak}
+    return model, checker, run
+
+
+def _replay_value_chosen(label, model, checker, wave_kernel):
+    """Replays the ``value chosen`` path on the host: its last state holds
+    a chosen value and a linearizable history."""
     t1 = time.perf_counter()
     path = checker.discoveries()["value chosen"]
     actions = path.into_actions()
@@ -983,60 +1089,135 @@ def _drive_paxos3(wave_kernel):
     cond = next(p for p in model.properties() if p.name == "value chosen").condition
     assert cond(model, last), "the value chosen path does not end in a chosen value"
     assert last.history.serialized_history() is not None
-    log(f"  paxos3 ({wave_kernel}): value chosen path of {len(actions)} actions replayed on "
+    log(f"  {label} ({wave_kernel}): value chosen path of {len(actions)} actions replayed on "
         f"the host in {time.perf_counter() - t1:.2f} s: {path.encode()}")
-    return {"launches": launches, "wall_s": wall, "waves": checker.waves,
-            "state_count": checker.state_count(), "max_depth": checker.max_depth(),
-            "path": path.encode(), "peak_device_bytes": peak}
+    return path.encode()
+
+
+def _stuck_without_leader(model, path):
+    """Replays raft's ``stable leader`` counterexample on the host: its last
+    state has no live leader and no action leads to a state within the
+    boundary. Returns the path's action count."""
+    from stateright_tpu_torch.models.raft import LEADER
+
+    actions = path.into_actions()
+    s = path.last_state()
+    assert not any(a.role == LEADER and not c for a, c in zip(s.actor_states, s.crashed)), s
+    enabled = []
+    model.actions(s, enabled)
+    for a in enabled:
+        n = model.next_state(s, a)
+        assert n is None or not model.within_boundary(n), a
+    return len(actions)
 
 
 @phase("main_path_paxos3_drain")
 def main_path_paxos3():
     runs = {}
     for wave_kernel in ("staged", "fused"):
-        runs[wave_kernel] = run = _drive_paxos3(wave_kernel)
-        n = run["launches"]
-        if wave_kernel == "staged":
-            assert n["hashset_insert_sorted"] >= run["waves"] > 0, n
-            assert n["fused_wave"] == 0 and n["fw_comphash_keys"] == 0, n
-        else:
-            assert n["fw_comphash_keys"] >= run["waves"] > 0, n
-            assert n["fused_wave"] == n["fw_comphash_keys"], n
-            assert n["hashset_insert_sorted"] >= 1, n  # the seed
+        model, checker, run = _drive("paxos3", wave_kernel)
+        checker.assert_properties()
+        run["path"] = _replay_value_chosen("paxos3", model, checker, wave_kernel)
+        runs[wave_kernel] = run
+    for k in ("state_count", "max_depth"):
+        assert runs["staged"][k] == runs["fused"][k], (k, runs)
+    return runs
+
+
+@phase("main_path_abd3o_drain")
+def main_path_abd3o():
+    """linearizable-register check 3 ordered on both engines through the
+    drain: exactly 46,516 states, ``linearizable`` holds, ``value chosen``
+    replays on the host."""
+    runs = {}
+    for wave_kernel in ("staged", "fused"):
+        model, checker, run = _drive("abd3o", wave_kernel)
+        checker.assert_properties()
+        run["path"] = _replay_value_chosen("abd3o", model, checker, wave_kernel)
+        runs[wave_kernel] = run
+    for k in ("state_count", "max_depth"):
+        assert runs["staged"][k] == runs["fused"][k], (k, runs)
+    return runs
+
+
+@phase("main_path_raft5_ttc")
+def main_path_raft5_ttc():
+    """Raft with 5 servers on a lossy network, only ``stable leader``
+    kept: the time from spawn to its discovery (``ttc_s``), the unique
+    count at the exit, and the counterexample replayed on the host."""
+    runs = {}
+    for wave_kernel in ("staged", "fused"):
+        model, checker, run = _drive("raft5_ttc", wave_kernel)
+        assert set(checker.discoveries()) == {"stable leader"}, checker.discoveries()
+        path = checker.discoveries()["stable leader"]
+        steps = _stuck_without_leader(model, path)
+        run["ttc_s"] = run["wall_s"]
+        log(f"  raft5 ({wave_kernel}): ttc_s={run['ttc_s']:.3f} unique at exit={run['unique']} "
+            f"(the JAX package's CPU runs: {RAFT5_JAX_CPU_UNIQUE_AT_EXIT}) drains={run['drains']} "
+            f"exits={run['exits']} waves={run['waves']} noop_waves={run['noop_waves']} "
+            f"peak_device_bytes={run['peak_device_bytes']}; stable leader path of {steps} "
+            f"actions replayed on the host: no live leader, nothing enabled within the "
+            f"boundary")
+        runs[wave_kernel] = run
+    return runs
+
+
+@phase("main_path_raft4_lossy")
+def main_path_raft4():
+    """Raft with 4 servers on a lossy network, every property: the full
+    space, exactly 24,545 states."""
+    runs = {}
+    for wave_kernel in ("staged", "fused"):
+        model, checker, run = _drive("raft4", wave_kernel)
+        found = checker.discoveries()
+        assert set(found) == {"leader elected", "stable leader"}, set(found)
+        _stuck_without_leader(model, found["stable leader"])
+        runs[wave_kernel] = run
     for k in ("state_count", "max_depth"):
         assert runs["staged"][k] == runs["fused"][k], (k, runs)
     return runs
 
 
 # (model, its arguments, unique states or None where the run stops at
-# its discoveries, whether it is linearizable).
+# its discoveries, the discoveries).
+LIN = {"value chosen"}
 ACTOR_CASES = {
-    "paxos 2c/2s": ("paxos", dict(client_count=2, server_count=2), 111, True),
-    "paxos 1c/3s": ("paxos", dict(client_count=1, server_count=3), 265, True),
-    "single-copy 2c/1s": ("single_copy", dict(client_count=2, server_count=1), 93, True),
-    "single-copy 2c/2s": ("single_copy", dict(client_count=2, server_count=2), None, False),
+    "paxos 2c/2s": ("paxos", dict(client_count=2, server_count=2), 111, LIN),
+    "paxos 1c/3s": ("paxos", dict(client_count=1, server_count=3), 265, LIN),
+    "single-copy 2c/1s": ("single_copy", dict(client_count=2, server_count=1), 93, LIN),
+    "single-copy 2c/2s": ("single_copy", dict(client_count=2, server_count=2), None,
+                          LIN | {"linearizable"}),
     "single-copy 2c/1s, duplicating network": (
         "single_copy", dict(client_count=2, server_count=1, envelope_capacity=24,
-                            network="duplicating"), None, False),
+                            network="duplicating"), None, LIN | {"linearizable"}),
+    "ABD 2c/2s, ordered network": (
+        "abd", dict(client_count=2, server_count=2, network="ordered"), 620, LIN),
+    "raft3, lossy, one crash": (
+        "raft", dict(server_count=3, max_term=1, lossy=True, max_crashes=1), 2252,
+        {"leader elected", "stable leader"}),
 }
 
 
 @phase("replay_actor_small")
 def replay_actor_small():
     from stateright_tpu_torch.actor.network import Network
+    from stateright_tpu_torch.models.linearizable_register import AbdModelCfg
     from stateright_tpu_torch.models.paxos import PaxosModelCfg
+    from stateright_tpu_torch.models.raft import RaftModelCfg
     from stateright_tpu_torch.models.single_copy_register import SingleCopyModelCfg
 
-    cfgs = {"paxos": PaxosModelCfg, "single_copy": SingleCopyModelCfg}
+    cfgs = {"paxos": PaxosModelCfg, "single_copy": SingleCopyModelCfg, "abd": AbdModelCfg,
+            "raft": RaftModelCfg}
+    networks = {"duplicating": Network.new_unordered_duplicating, "ordered": Network.new_ordered}
     modes = {"wave at a time": dict(max_drain_waves=1), "drain": {}}
 
     def make(kind, args):
         args = dict(args)
-        if args.pop("network", None) == "duplicating":
-            args["network"] = Network.new_unordered_duplicating()
+        if "network" in args:
+            args["network"] = networks[args["network"]]()
         return cfgs[kind](**args).into_model()
 
-    for label, (kind, args, expected, linearizable) in ACTOR_CASES.items():
+    for label, (kind, args, expected, found) in ACTOR_CASES.items():
         for wave_kernel in ("staged", "fused"):
             for mode, options in modes.items():
                 spawn = dict(options, frontier_capacity=64, table_capacity=1 << 12,
@@ -1054,8 +1235,7 @@ def replay_actor_small():
                 assert set(gd) == set(cd)
                 for name in gd:
                     assert gd[name].encode() == cd[name].encode(), name
-                want = {"value chosen"} | (set() if linearizable else {"linearizable"})
-                assert set(gd) == want, (set(gd), want)
+                assert set(gd) == found, (set(gd), found)
                 log(f"  {label} ({wave_kernel}, {mode}): unique={gpu.unique_state_count()} "
                     f"states={gpu.state_count()} depth={gpu.max_depth()} waves={gpu.waves} "
                     f"drains={gpu.drains} discoveries={sorted(gd)} (cuda == cpu twin)")
@@ -1091,33 +1271,63 @@ def main() -> int:
         replay_small()
     comphash = comphash_vs_plain() if not FAILED else None
     paxos3 = main_path_paxos3() if not FAILED else None
+    ordered = comphash_ordered_vs_plain() if not FAILED else None
+    abd3o = main_path_abd3o() if not FAILED else None
+    raft5_wave = comphash_raft5_vs_plain() if not FAILED else None
+    raft5 = main_path_raft5_ttc() if not FAILED else None
+    raft4 = main_path_raft4() if not FAILED else None
     if not FAILED:
         replay_actor_small()
     if FAILED:
         log(f"FAILED phases: {FAILED}")
         return 1
     log(card)
+    # Each path's launches, counted over its own run; each wave held to
+    # its plain twins.
+    actor_runs = {"paxos3": paxos3, "abd3o": abd3o, "raft5": raft5, "raft4": raft4}
+    waves = {"paxos3": comphash, "abd3o": ordered, "raft5": raft5_wave}
+
+    def by_path(engine, kernel, runs):
+        return {name: run[engine]["launches"][kernel] for name, run in runs.items()}
+
+    insert_launches = by_path("staged", "hashset_insert_sorted",
+                              {"2pc8": drains, **actor_runs})
+    fused_launches = by_path("fused", "fused_wave", {"2pc8": drains, **actor_runs})
+    comphash_launches = by_path("fused", "fw_comphash_keys", actor_runs)
+    raft5_insert = raft5_wave["insert"]
+
+    def held(res, launches):
+        return {"launches": launches, "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"], "bound_by": "bytes",
+                "library_ms": None}
+
     log(json.dumps({"kernels": [
         {
             "name": "hashset_insert_sorted",
             "route": "cuda",
             "source": "stateright_tpu_torch/csrc/hashset_insert.cu",
-            "replaces": "stateright_tpu/ops/pallas_hashset.py:191",
-            "launches": drains["staged"]["launches"]["hashset_insert_sorted"],
-            "max_abs_err": insert["max_abs_err"],
+            "replaces": "stateright_tpu/ops/pallas_hashset.py:193",
+            "launches": sum(insert_launches.values()),
+            "launches_by_path": insert_launches,
+            "max_abs_err": max(insert["max_abs_err"], raft5_insert["max_abs_err"]),
+            # On a random 344,064-key batch into a 2^22-row table at load
+            # 0.4; on the keys of a raft5 wave, below.
             "ms": insert["ms"],
             "plain_ms": insert["plain_ms"],
             "bound_ms": insert["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
+            "by_path": {"raft5": held(raft5_insert, insert_launches["raft5"])},
         },
         {
             "name": "fused_wave",
             "route": "cuda",
             "source": "stateright_tpu_torch/csrc/fused_wave.cu",
             "replaces": "stateright_tpu/ops/pallas_wave.py:91",
-            "launches": drains["fused"]["launches"]["fused_wave"],
-            "max_abs_err": fused["max_abs_err"],
+            "launches": sum(fused_launches.values()),
+            "launches_by_path": fused_launches,
+            # The chain at 2pc-8; held bit for bit on the actor waves too.
+            "max_abs_err": max([fused["max_abs_err"]] + [w["chain_err"] for w in waves.values()]),
             "ms": fused["ms"],
             "plain_ms": fused["plain_ms"],
             "bound_ms": fused["bound_ms"],
@@ -1129,13 +1339,18 @@ def main() -> int:
             "route": "cuda",
             "source": "stateright_tpu_torch/csrc/fused_wave.cu",
             "replaces": "stateright_tpu/ops/pallas_wave.py:180",
-            "launches": paxos3["fused"]["launches"]["fw_comphash_keys"],
-            "max_abs_err": comphash["max_abs_err"],
+            "launches": sum(comphash_launches.values()),
+            "launches_by_path": comphash_launches,
+            "max_abs_err": max(w["max_abs_err"] for w in waves.values()),
+            # The unordered route, on the paxos3 wave; each wave's own
+            # numbers below (abd3o: the ordered route, one component per
+            # FIFO flow; raft5: no history, drop and timeout classes).
             "ms": comphash["ms"],
             "plain_ms": comphash["plain_ms"],
             "bound_ms": comphash["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
+            "by_path": {name: held(w, comphash_launches[name]) for name, w in waves.items()},
         },
     ]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,16 +1,17 @@
 """Peak device memory of one GPU BFS run of the PyTorch/CUDA port.
 
-    python scripts/torch_peak_memory_2pc.py [--root DIR] [--rm 8]
-        [--frontier 8192] [--table 1048576] [--wave-kernel staged|fused]
+    python scripts/torch_peak_memory.py [--root DIR] [--config 2pc8]
+        [--wave-kernel staged|fused]
 
 Imports ``stateright_tpu_torch`` from ``--root`` (default: this checkout),
 so that a commit unpacked with ``git archive`` can be measured beside this
-one in the same call. Runs ``TwoPhaseSys(rm).checker().spawn_gpu_bfs(...)``
-once to warm up, then once with the allocator's peak reset, and prints the
-card, the run's counts, its wall, ``torch.cuda.max_memory_allocated()`` and
-one JSON summary line. ``--wave-kernel`` is passed only when it is not the
-default, so a commit without that option runs its staged path. Needs a
-CUDA device; imports nothing of JAX.
+one in the same call; that commit must have ``stateright_tpu_torch/
+configs.py``. Runs the named configuration of that file (``2pc8``,
+``paxos3``, ``abd3o``, ``raft5_ttc``, ``raft4``) through
+``spawn_gpu_bfs`` with its spawn settings, once to warm up, then once with
+the allocator's peak reset, and prints the card, the run's counts, its
+wall, ``torch.cuda.max_memory_allocated()`` and one JSON summary line.
+Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -27,9 +28,7 @@ def main() -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=here)
-    ap.add_argument("--rm", type=int, default=8)
-    ap.add_argument("--frontier", type=int, default=8192)
-    ap.add_argument("--table", type=int, default=1 << 20)
+    ap.add_argument("--config", default="2pc8")
     ap.add_argument("--wave-kernel", default="staged", choices=("staged", "fused"))
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
@@ -39,20 +38,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+    from stateright_tpu_torch.configs import CONFIGS
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     print(card, flush=True)
-    spawn = dict(frontier_capacity=args.frontier, table_capacity=args.table)
-    if args.wave_kernel != "staged":
-        spawn["wave_kernel"] = args.wave_kernel
+    cfg = CONFIGS[args.config]
+    spawn = dict(cfg.spawn, wave_kernel=args.wave_kernel)
 
     def run():
         t0 = time.perf_counter()
-        c = TwoPhaseSys(args.rm).checker().spawn_gpu_bfs(**spawn).join()
+        c = cfg.make().checker().spawn_gpu_bfs(**spawn).join()
         torch.cuda.synchronize()
         return c, time.perf_counter() - t0
 
@@ -63,7 +61,7 @@ def main() -> int:
     summary = {
         "card": card,
         "root": os.path.abspath(args.root),
-        "model": f"2pc-{args.rm}",
+        "config": cfg.name,
         "wave_kernel": args.wave_kernel,
         "unique": checker.unique_state_count(),
         "waves": checker.waves,

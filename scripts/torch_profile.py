@@ -1,22 +1,19 @@
 """Where the time of one GPU BFS run of the PyTorch/CUDA port goes.
 
-    python scripts/torch_profile_2pc.py [--rm 8] [--frontier 8192]
-        [--table 1048576] [--wave-kernel staged|fused]
-        [--max-drain-waves N] [--drain-log-factor N] [--trace TRACE.json]
-    python scripts/torch_profile_2pc.py --paxos 3 3 24 --frontier 2048
-        --table 2097152 --drain-log-factor 32 [--wave-kernel ...]
+    python scripts/torch_profile.py [--config 2pc8] [--wave-kernel staged|fused]
+        [--max-drain-waves N] [--trace TRACE.json]
 
-Runs ``TwoPhaseSys(rm).checker().spawn_gpu_bfs(...)`` (with ``--paxos C S
-E``: ``PaxosModelCfg(C, S, envelope_capacity=E).into_model()``, "paxos
-check 3" being ``3 3 24``) once to warm up
-(kernel build, allocator, library handles), then once more under
-``torch.profiler`` with CPU and CUDA activities. Prints the device time of
-each CUDA kernel name (summed over the run), the wall time, the device
-busy time (union of kernel intervals), the device idle share, the device
-launches per wave, the drains (exits, no-op waves, graph captures and
-replays) and one JSON summary line. ``--max-drain-waves 1`` runs wave at a
-time; the default runs the deep drain with the checker's defaults. Needs a
-CUDA device; imports nothing of JAX.
+Runs the named configuration of ``stateright_tpu_torch/configs.py``
+(``2pc8``, ``paxos3``, ``abd3o``, ``raft5_ttc``, ``raft4``): its model's
+``checker().spawn_gpu_bfs(...)`` with the configuration's spawn settings,
+once to warm up (kernel build, allocator, library handles), then once more
+under ``torch.profiler`` with CPU and CUDA activities. Prints the device
+time of each CUDA kernel name (summed over the run), the wall time, the
+device busy time (union of kernel intervals), the device idle share, the
+device launches per wave, the drains (exits, no-op waves, graph captures
+and replays) and one JSON summary line. ``--max-drain-waves 1`` runs wave
+at a time; the default runs the deep drain. Needs a CUDA device; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -31,17 +28,14 @@ from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from stateright_tpu_torch.configs import CONFIGS  # noqa: E402
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rm", type=int, default=8)
-    ap.add_argument("--paxos", type=int, nargs=3, default=None,
-                    metavar=("CLIENTS", "SERVERS", "ENVELOPES"))
-    ap.add_argument("--frontier", type=int, default=8192)
-    ap.add_argument("--table", type=int, default=1 << 20)
+    ap.add_argument("--config", default="2pc8", choices=sorted(CONFIGS))
     ap.add_argument("--wave-kernel", default="staged", choices=("staged", "fused"))
     ap.add_argument("--max-drain-waves", type=int, default=100_000)
-    ap.add_argument("--drain-log-factor", type=int, default=8)
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
     args = ap.parse_args()
 
@@ -52,7 +46,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
     from stateright_tpu_torch.ops import fused_wave as fw
     from stateright_tpu_torch.ops import hashset_kernel as hk
 
@@ -62,21 +55,13 @@ def main() -> int:
     ).stdout.strip()
     print(card, flush=True)
 
-    def make():
-        if args.paxos:
-            from stateright_tpu_torch.models.paxos import PaxosModelCfg
-
-            c, s, e = args.paxos
-            return PaxosModelCfg(c, s, envelope_capacity=e).into_model()
-        return TwoPhaseSys(args.rm)
+    cfg = CONFIGS[args.config]
 
     def run():
-        model = make()
+        model = cfg.make()
         t0 = time.perf_counter()
         c = model.checker().spawn_gpu_bfs(
-            frontier_capacity=args.frontier, table_capacity=args.table,
-            wave_kernel=args.wave_kernel, max_drain_waves=args.max_drain_waves,
-            drain_log_factor=args.drain_log_factor,
+            **cfg.spawn, wave_kernel=args.wave_kernel, max_drain_waves=args.max_drain_waves,
         ).join()
         torch.cuda.synchronize()
         return c, time.perf_counter() - t0
@@ -85,6 +70,7 @@ def main() -> int:
     print(f"warm-up run: unique={warm.unique_state_count()} wall={warm_wall:.3f} s", flush=True)
 
     hk.launches = fw.launches = fw.comphash_launches = 0
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         checker, wall = run()
     launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
@@ -112,7 +98,8 @@ def main() -> int:
     span_us = (intervals[-1][1] - intervals[0][0]) if intervals else 0.0
 
     total_ms = sum(v[1] for v in by_name.values())
-    print(f"profiled run ({args.wave_kernel}, max_drain_waves={args.max_drain_waves}): "
+    print(f"profiled run ({cfg.name}: {cfg.source}; {args.wave_kernel}, "
+          f"max_drain_waves={args.max_drain_waves}): "
           f"unique={checker.unique_state_count()} waves={checker.waves} "
           f"table_growths={checker.table_growths} wall={wall:.3f} s launches={launches} "
           f"drains={checker.drains} exits={dict(checker.drain_exits)} "
@@ -134,11 +121,10 @@ def main() -> int:
                for p in ("extent", "speculate", "repair", "commit")}
     summary = {
         "card": card,
-        "model": ("paxos {} clients {} servers {} envelopes".format(*args.paxos)
-                  if args.paxos else f"2pc-{args.rm}"),
+        "config": cfg.name,
+        "spawn": cfg.spawn,
         "wave_kernel": args.wave_kernel,
         "max_drain_waves": args.max_drain_waves,
-        "drain_log_factor": args.drain_log_factor,
         "unique": checker.unique_state_count(),
         "waves": checker.waves,
         "noop_waves": checker.noop_waves,
@@ -151,6 +137,8 @@ def main() -> int:
         "launches": launches,
         "wall_s": wall,
         "warm_wall_s": warm_wall,
+        "discoveries": sorted(checker.discoveries()),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
         "kernel_ms_total": total_ms,
         "insert_kernel_ms": insert_ms,
         "sweep_kernel_ms": sweep_ms,

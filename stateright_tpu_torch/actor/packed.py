@@ -7,36 +7,46 @@ arbitrary Python actor callbacks (the reference's design,
 twin, written batched over a leading lane axis:
 
 - **actor rows**: per-actor state packs into an ``(N, R)`` u32 matrix;
-- **network table**: an unordered network is a bounded ``(E,)``-slot
-  envelope table (src, dst, msg words, count). Identical envelope multisets
+- **network**: an unordered network is a bounded ``(E,)``-slot envelope
+  table (src, dst, msg words, count). Identical envelope multisets
   fingerprint identically because the fingerprint reduces the table to an
-  order-insensitive multiset digest: no per-transition sort;
+  order-insensitive multiset digest: no per-transition sort. An ordered
+  network is one FIFO queue per directed flow, ``flow_msg (P, Q, W)`` and
+  ``flow_len (P,)``, the head always at index 0 (a consume shifts the
+  queue, so the arrays stay canonical): the reference's
+  ``BTreeMap<(src, dst), VecDeque>`` flows (``src/actor/network.rs:46-68``).
+  The ``P`` flows are all ``N²`` pairs (``src * N + dst``) or the pairs of
+  ``with_flow_pairs``;
 - **timers**: one bitmask word per actor;
-- **dense actions**: one Deliver id per envelope slot, each with its guard;
+- **crash faults**: an ``(N,)`` crashed vector when ``max_crashes`` is set,
+  left out of the fingerprint as the host state hash leaves it out
+  (``src/actor/model_state.rs:86-97``);
+- **dense actions**, in the JAX package's action-id order: Deliver (one id
+  per envelope slot, or per flow head), then Drop (lossy networks), then
+  ``N × T`` Timeout ids, then ``N`` Crash ids (``max_crashes > 0``);
 - **auxiliary history**: codecs with ``history_width > 0`` carry a packed
   history vector updated by the batched twins of ``record_msg_in`` and
   ``record_msg_out`` (see ``semantics/packed_linearizability.py``);
-- **actor callbacks**: each actor type supplies a batched ``on_msg``
-  through an ``ActorPackedCodec``. The JAX package dispatches with
-  ``lax.switch``, which under ``vmap`` runs every branch on every lane; so
-  does this port: every actor type's branch runs over all lanes and
-  ``torch.where`` selects.
+- **actor callbacks**: each actor type supplies a batched ``on_msg`` and
+  ``on_timeout`` through an ``ActorPackedCodec``. The JAX package
+  dispatches with ``lax.switch``, which under ``vmap`` runs every branch on
+  every lane; so does this port: every actor type's branch runs over all
+  lanes and ``torch.where`` selects.
 
 The transition semantics mirror the host model exactly (no-op pruning,
-deliver-before-send network effects, the lowest free slot for a new
-envelope), so packed and host checkers agree on exact state counts, and
-the port's candidates equal the JAX package's lane for lane.
+deliver-before-send network effects, the fired timer cleared before the
+callback's timer commands, the lowest free slot for a new envelope), so
+packed and host checkers agree on exact state counts, and the port's
+candidates equal the JAX package's lane for lane.
 
-Not ported yet, and refused by name with a ``ValueError``: ordered
-networks, lossy networks (the drop class), timers (the timeout class),
-crash faults (ROADMAP Queue 1 #4), symmetry and the fingerprint-only
-expansion ``packed_expand_fps``/``packed_take`` (Queue 1 #6). Nothing
-falls back to anything.
+Not ported yet, and refused by name with a ``ValueError``: symmetry and the
+fingerprint-only expansion ``packed_expand_fps``/``packed_take`` (ROADMAP
+Queue 1 #6). Nothing falls back to anything.
 
 Everything the device checker runs here is capturable in a CUDA Graph: no
 value is read back, no shape depends on data, and the constant tables
-(hash coefficients, component seeds) are made once per device before any
-capture (``ops/fingerprint.py``).
+(hash coefficients, component seeds, the flow tables) are made once per
+device on the first, uncaptured wave (``ops/fingerprint.py``).
 
 u32 values ride in ``int64``, as everywhere in the port.
 """
@@ -55,6 +65,7 @@ from .model import ActorModel
 from .model_state import ActorModelState
 from .network import (
     Envelope,
+    Network,
     ORDERED,
     UNORDERED_DUPLICATING,
     UNORDERED_NONDUPLICATING,
@@ -62,6 +73,7 @@ from .network import (
 from .timers import Timers
 
 _NET_KEYS = ("net_src", "net_dst", "net_msg", "net_cnt")
+_FLOW_KEYS = ("flow_msg", "flow_len")
 
 
 class ActorPackedCodec:
@@ -76,12 +88,15 @@ class ActorPackedCodec:
       ``(L, W)``, ``sends`` ``(L, S, 1+W)`` (column 0 = destination id, or
       ``SEND_NONE`` for unused rows), timer masks ``(L,)`` and ``changed``
       ``(L,)`` bool (the analog of returning a new state vs ``None``).
+    - ``on_timeout`` branch: ``fn(id, row, timer_bit) -> same``, with
+      ``timer_bit`` ``(L,)``.
     """
 
     SEND_NONE = 0xFFFFFFFF
 
     msg_width: int
     state_width: int
+    # timer value -> bit index by position.
     timer_values: Sequence[Any] = ()
     send_capacity: int
     # Auxiliary history (the reference's ``H``): 0 means "no history". A
@@ -131,6 +146,7 @@ class ActorPackedCodec:
         raise NotImplementedError
 
     def on_timeout_branches(self, model) -> List[Callable]:
+        """Timer-free codecs (empty ``timer_values``) may return []."""
         return []
 
     # -- batched model hooks --------------------------------------------------
@@ -140,6 +156,16 @@ class ActorPackedCodec:
 
     def packed_within_boundary(self, model, states):
         rows = states["rows"]
+        return torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
+
+    def packed_row_within_boundary(self, model, rows):
+        """The boundary of single ``(L, R)`` actor rows: a codec whose
+        ``packed_within_boundary`` is a per-row predicate (raft's term cap)
+        states it here too, so that ``packed_within_boundary(states)`` equals
+        every row passing this (the JAX package's fingerprint-only wave
+        checks only the row a transition changed). Staged for that wave
+        (``packed_expand_fps``, ROADMAP.md Queue 1 #6): no code of the port
+        reads it yet."""
         return torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
 
 
@@ -156,6 +182,16 @@ def _first_true(mask: torch.Tensor) -> torch.Tensor:
     return mask.to(torch.uint8).argmax(dim=-1)
 
 
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """The set bits of each u32 lane of ``x`` (``lax.population_count``)."""
+    return ((x[..., None] >> torch.arange(32, device=x.device)) & 1).sum(dim=-1)
+
+
+def _bit(b: torch.Tensor) -> torch.Tensor:
+    """``1 << b`` as u32 (b < 32)."""
+    return (torch.ones_like(b) << b) & U32
+
+
 class PackedActorModel(ActorModel, BatchableModel):
     """An ``ActorModel`` that also implements the packed protocol.
 
@@ -168,13 +204,68 @@ class PackedActorModel(ActorModel, BatchableModel):
         super().__init__(cfg=cfg, init_history=init_history)
         self.codec = codec
         self.envelope_capacity = 32
+        self.flow_capacity = 8
+        self.flow_pairs = None
+        self._device_tables = {}
 
     def with_envelope_capacity(self, capacity: int) -> "PackedActorModel":
-        """Sets the network table's slot count. It must bound the reachable
-        distinct-envelope count: overflowing transitions are pruned, which
-        the exact-count parity tests surface as a mismatch."""
+        """Sets the network table's slot count (unordered networks). It must
+        bound the reachable distinct-envelope count: overflowing transitions
+        are pruned, which the exact-count parity tests surface as a
+        mismatch."""
         self.envelope_capacity = capacity
         return self
+
+    def with_flow_capacity(self, capacity: int) -> "PackedActorModel":
+        """Sets the per-flow FIFO depth (ordered networks), with the same
+        overflow semantics as ``with_envelope_capacity``."""
+        self.flow_capacity = capacity
+        return self
+
+    def with_flow_pairs(self, pairs) -> "PackedActorModel":
+        """Restricts ordered-network flows to the given directed
+        ``(src, dst)`` pairs: the flow arrays and the deliver/drop action
+        grid then scale with ``len(pairs)`` instead of ``N²``. A send outside
+        the set behaves as a zero-capacity flow (the transition is pruned,
+        as on ``with_flow_capacity`` overflow); host packing of such a state
+        raises."""
+        pairs = [(int(a), int(b)) for a, b in pairs]
+        if len(set(pairs)) != len(pairs):
+            raise ValueError("flow_pairs contains duplicates")
+        self.flow_pairs = pairs
+        return self
+
+    def _pair_tables(self):
+        """(lookup, src, dst) numpy tables of the ordered flows: ``lookup``
+        maps ``src * N + dst`` to the flow index (-1 = an excluded pair);
+        ``src``/``dst`` invert it per flow index. The identity layout when
+        ``flow_pairs`` is unset."""
+        N = self._N
+        if self.flow_pairs is None:
+            idx = np.arange(N * N, dtype=np.int32)
+            return idx, (idx // N).astype(np.int32), (idx % N).astype(np.int32)
+        lookup = np.full((N * N,), -1, np.int32)
+        src = np.zeros((len(self.flow_pairs),), np.int32)
+        dst = np.zeros_like(src)
+        for k, (a, b) in enumerate(self.flow_pairs):
+            if not (0 <= a < N and 0 <= b < N):
+                raise ValueError(f"flow pair {(a, b)} out of range for N={N}")
+            lookup[a * N + b] = k
+            src[k], dst[k] = a, b
+        return lookup, src, dst
+
+    def _flow_tables(self, device):
+        """``_pair_tables`` as int64 tensors on ``device``, made once per
+        (device, layout): the first wave runs uncaptured, so no capture
+        copies from the host."""
+        key = (str(torch.device(device)), self._N,
+               None if self.flow_pairs is None else tuple(self.flow_pairs))
+        t = self._device_tables.get(key)
+        if t is None:
+            t = tuple(torch.from_numpy(x.astype(np.int64)).to(device)
+                      for x in self._pair_tables())
+            self._device_tables[key] = t
+        return t
 
     # -- validation -----------------------------------------------------------
 
@@ -184,14 +275,6 @@ class PackedActorModel(ActorModel, BatchableModel):
                 "this codec does not pack auxiliary history (declare "
                 "history_width and the history hooks to stage it on device)"
             )
-        if self._init_network.kind == ORDERED:
-            _refuse("an ordered network (FIFO flows)", "Queue 1 #4")
-        if self._lossy_network:
-            _refuse("a lossy network (the drop action class)", "Queue 1 #4")
-        if self._max_crashes:
-            _refuse("crash faults (max_crashes)", "Queue 1 #4")
-        if self.codec.timer_values:
-            _refuse("actor timers (the timeout action class)", "Queue 1 #4")
 
     # -- static shape helpers -------------------------------------------------
 
@@ -204,12 +287,42 @@ class PackedActorModel(ActorModel, BatchableModel):
         return self.envelope_capacity
 
     @property
+    def _Q(self) -> int:
+        return self.flow_capacity
+
+    @property
+    def _P(self) -> int:
+        """The directed flow count (ordered networks): all ``N²`` pairs laid
+        out as ``src * N + dst``, or the length of ``flow_pairs``."""
+        if self.flow_pairs is not None:
+            return len(self.flow_pairs)
+        return self._N * self._N
+
+    @property
+    def _T(self) -> int:
+        return len(self.codec.timer_values)
+
+    @property
+    def _D(self) -> int:
+        """Deliver (and drop) ids: one per flow head or envelope slot."""
+        return self._P if self._ordered else self._E
+
+    @property
     def _dup(self) -> bool:
         return self._init_network.kind == UNORDERED_DUPLICATING
 
+    @property
+    def _ordered(self) -> bool:
+        return self._init_network.kind == ORDERED
+
+    def _timer_bit(self, timer) -> int:
+        return self.codec.timer_values.index(timer)
+
     def packed_action_count(self) -> int:
         self._packed_check()
-        return self._E
+        deliver_drop = self._D * (2 if self._lossy_network else 1)
+        crash = self._N if self._max_crashes else 0
+        return deliver_drop + self._N * self._T + crash
 
     def _type_of(self, actor: torch.Tensor) -> torch.Tensor:
         """Each lane's actor type id, from a where-chain over the actors
@@ -232,10 +345,55 @@ class PackedActorModel(ActorModel, BatchableModel):
         for i, actor_state in enumerate(sys_state.actor_states):
             rows[i] = codec.pack_actor_state(i, actor_state)
         timers = np.zeros((N,), np.uint32)
-        if self._init_network.kind == UNORDERED_NONDUPLICATING:
-            items = list(sys_state.network.data.items())
+        for i, tset in enumerate(sys_state.timers_set):
+            for t in tset:
+                timers[i] |= np.uint32(1 << self._timer_bit(t))
+        out = {"rows": rows, "timers": timers}
+        if self._ordered:
+            out.update(self._pack_flows(sys_state.network))
         else:
-            items = [(env, 1) for env in sys_state.network.data]
+            out.update(self._pack_envelopes(sys_state.network))
+        if self._max_crashes:
+            out["crashed"] = np.array([1 if c else 0 for c in sys_state.crashed], np.uint32)
+        if codec.history_width:
+            hist = np.asarray(codec.pack_history(sys_state.history), np.uint32)
+            if hist.shape != (codec.history_width,):
+                raise ValueError(
+                    f"pack_history returned shape {hist.shape}; expected "
+                    f"({codec.history_width},)"
+                )
+            out["hist"] = hist
+        return {k: torch.from_numpy(v.astype(np.int64)) for k, v in out.items()}
+
+    def _pack_flows(self, network):
+        N, P, Q, W = self._N, self._P, self._Q, self.codec.msg_width
+        lookup, _, _ = self._pair_tables()
+        flow_msg = np.zeros((P, Q, W), np.uint32)
+        flow_len = np.zeros((P,), np.uint32)
+        for (src, dst), msgs in network.data.items():
+            if not msgs:
+                continue
+            if len(msgs) > Q:
+                raise ValueError(
+                    f"flow {src!r}->{dst!r} holds {len(msgs)} messages; "
+                    f"flow_capacity={Q} is too small"
+                )
+            p = int(lookup[int(src) * N + int(dst)])
+            if p < 0:
+                raise ValueError(
+                    f"flow {src!r}->{dst!r} holds messages but is not in flow_pairs"
+                )
+            flow_len[p] = len(msgs)
+            for i, m in enumerate(msgs):
+                flow_msg[p, i] = self.codec.pack_msg(m)
+        return {"flow_msg": flow_msg, "flow_len": flow_len}
+
+    def _pack_envelopes(self, network):
+        E, W, codec = self._E, self.codec.msg_width, self.codec
+        if self._init_network.kind == UNORDERED_NONDUPLICATING:
+            items = list(network.data.items())
+        else:
+            items = [(env, 1) for env in network.data]
         if len(items) > E:
             raise ValueError(
                 f"state has {len(items)} distinct envelopes; "
@@ -253,23 +411,8 @@ class PackedActorModel(ActorModel, BatchableModel):
         for slot, (src, dst, msg, count) in enumerate(envs):
             net_src[slot], net_dst[slot], net_cnt[slot] = src, dst, count
             net_msg[slot] = msg
-        out = {
-            "rows": rows,
-            "timers": timers,
-            "net_src": net_src,
-            "net_dst": net_dst,
-            "net_msg": net_msg,
-            "net_cnt": net_cnt,
-        }
-        if codec.history_width:
-            hist = np.asarray(codec.pack_history(sys_state.history), np.uint32)
-            if hist.shape != (codec.history_width,):
-                raise ValueError(
-                    f"pack_history returned shape {hist.shape}; expected "
-                    f"({codec.history_width},)"
-                )
-            out["hist"] = hist
-        return {k: torch.from_numpy(v.astype(np.int64)) for k, v in out.items()}
+        return {"net_src": net_src, "net_dst": net_dst, "net_msg": net_msg,
+                "net_cnt": net_cnt}
 
     def unpack_state(self, packed) -> ActorModelState:
         """One packed state (tensors or arrays, no lane axis) as a host
@@ -288,22 +431,35 @@ class PackedActorModel(ActorModel, BatchableModel):
                 if int(timers[i]) & (1 << b):
                     tset.set(timer)
             timers_set.append(tset)
-        network = self._init_network.copy()
-        for slot in range(self._E):
-            if int(p["net_cnt"][slot]):
-                env = Envelope(
-                    src=Id(int(p["net_src"][slot])),
-                    dst=Id(int(p["net_dst"][slot])),
-                    msg=codec.unpack_msg(p["net_msg"][slot]),
-                )
-                for _ in range(int(p["net_cnt"][slot])):
-                    network.send(env)
+        # An empty network of the model's kind: the packed state holds every
+        # message, those of a non-empty initial network too.
+        network = Network(self._init_network.kind)
+        if self._ordered:
+            _, psrc, pdst = self._pair_tables()
+            for f in range(self._P):
+                src, dst = Id(int(psrc[f])), Id(int(pdst[f]))
+                for i in range(int(p["flow_len"][f])):
+                    network.send(Envelope(src=src, dst=dst,
+                                          msg=codec.unpack_msg(p["flow_msg"][f, i])))
+        else:
+            for slot in range(self._E):
+                if int(p["net_cnt"][slot]):
+                    env = Envelope(
+                        src=Id(int(p["net_src"][slot])),
+                        dst=Id(int(p["net_dst"][slot])),
+                        msg=codec.unpack_msg(p["net_msg"][slot]),
+                    )
+                    for _ in range(int(p["net_cnt"][slot])):
+                        network.send(env)
         history = codec.unpack_history(p["hist"]) if codec.history_width else None
+        crashed = [False] * self._N
+        if self._max_crashes:
+            crashed = [bool(c) for c in p["crashed"]]
         return ActorModelState(
             actor_states=actor_states,
             network=network,
             timers_set=timers_set,
-            crashed=[False] * self._N,
+            crashed=crashed,
             history=history,
         )
 
@@ -321,56 +477,81 @@ class PackedActorModel(ActorModel, BatchableModel):
             states["net_msg"], states["net_cnt"][..., None],
         ], dim=-1)
 
+    def _flow_rows(self, states) -> torch.Tensor:
+        """The ``(..., P, Q·W + 1)`` flow rows ``[queue words..., len]``."""
+        fm = states["flow_msg"]
+        return torch.cat([fm.reshape(fm.shape[:-2] + (-1,)), states["flow_len"][..., None]],
+                         dim=-1)
+
     def packed_fingerprint_view(self, states):
-        """The fingerprintable view of a batch: the envelope table reduced to
-        its order-insensitive multiset digest (``net_digest``, ``(N, 4)``),
-        the other leaves as they are."""
+        """The fingerprintable view of a batch: crash flags left out, and an
+        unordered envelope table reduced to its order-insensitive multiset
+        digest (``net_digest``, ``(L, 4)``); ordered flows are canonical
+        (head at index 0) and stay as they are."""
         self._packed_check()
-        out = {k: v for k, v in states.items() if k not in _NET_KEYS}
-        out["net_digest"] = multiset_digest(self._net_rows(states), states["net_cnt"] > 0)
+        out = {k: v for k, v in states.items() if k != "crashed"}
+        if not self._ordered:
+            for k in _NET_KEYS:
+                out.pop(k)
+            out["net_digest"] = multiset_digest(self._net_rows(states),
+                                                states["net_cnt"] > 0)
         return out
 
     def packed_component_pairs(self, states):
-        """Component-hash pairs of a batch: ``(his, los)``, each ``(N, C)``,
+        """Component-hash pairs of a batch: ``(his, los)``, each ``(L, C)``,
         one pair per component in a fixed order — the actors ``0..N-1``
-        (actor row ‖ timer word), the network ``N`` (the multiset digest,
-        hashed as one row), and the history ``N + 1`` when the codec has
-        one — each seeded by its tag."""
+        (actor row ‖ timer word; crash flags left out, as in the view), then
+        the network: the flows ``N..N+P-1`` (queue ‖ length) of an ordered
+        one, or one component ``N``, the multiset digest hashed as one row,
+        of an unordered one; then the history, when the codec has one —
+        each seeded by its tag."""
         self._packed_check()
         N = self._N
         rows_t = torch.cat([states["rows"], states["timers"][..., None]], dim=-1)
         ah, al = hash_rows(rows_t, range(N))
-        digest = multiset_digest(self._net_rows(states), states["net_cnt"] > 0)
-        nh, nl = hash_rows(digest[..., None, :], (N,))
+        if self._ordered:
+            net_comps = self._P
+            nh, nl = hash_rows(self._flow_rows(states), range(N, N + net_comps))
+        else:
+            net_comps = 1
+            digest = multiset_digest(self._net_rows(states), states["net_cnt"] > 0)
+            nh, nl = hash_rows(digest[..., None, :], (N,))
         his, los = [ah, nh], [al, nl]
         if self.codec.history_width:
-            hh, hl = hash_rows(states["hist"][..., None, :], (N + 1,))
+            hh, hl = hash_rows(states["hist"][..., None, :], (N + net_comps,))
             his.append(hh)
             los.append(hl)
         return torch.cat(his, dim=-1), torch.cat(los, dim=-1)
 
     def packed_fingerprint(self, states):
         """Component-hash fingerprints (see ``packed_component_pairs``), each
-        ``(N,)``: the same view semantics as ``packed_fingerprint_view``
-        (the network hashed order-insensitively)."""
+        ``(L,)``: the same view semantics as ``packed_fingerprint_view``
+        (crash flags left out, the envelope table hashed
+        order-insensitively)."""
         return combine_pairs(*self.packed_component_pairs(states))
 
     def packed_comphash_layout(self) -> Dict[str, Any]:
         """What the fused wave's component-hash kernel
         (``csrc/fused_wave.cu::fw_comphash_keys``) needs to compute
-        ``packed_fingerprint``: the leaf of each component group, each
-        group's tag base, and the widths."""
+        ``packed_fingerprint``: the leaves of each component group, each
+        group's tag base, and the widths (``E`` is 0 on an ordered network,
+        ``P`` and ``Q`` are 0 on an unordered one)."""
         self._packed_check()
+        ordered = self._ordered
+        net_comps = self._P if ordered else 1
         return {
             "actors": ("rows", "timers"),
-            "network": _NET_KEYS,
+            "ordered": ordered,
+            "network": _FLOW_KEYS if ordered else _NET_KEYS,
             "history": "hist" if self.codec.history_width else None,
             "actor_tag": 0,
             "network_tag": self._N,
-            "history_tag": self._N + 1,
+            "history_tag": self._N + net_comps,
             "N": self._N,
             "R": self.codec.state_width,
-            "E": self._E,
+            "E": 0 if ordered else self._E,
+            "P": self._P if ordered else 0,
+            "Q": self._Q if ordered else 0,
             "W": self.codec.msg_width,
             "H": self.codec.history_width,
         }
@@ -390,10 +571,13 @@ class PackedActorModel(ActorModel, BatchableModel):
 
     def _net_send(self, state, src, dst, msg, active):
         """One network send per lane (host ``Network.send``): a duplicating
-        network keeps one copy, a non-duplicating one counts. A new envelope
-        takes the lowest free slot, as the JAX package's ``argmax`` does
-        (deliver action ids are slot indices, so the slot decides parents
-        and paths). Returns (state, overflow)."""
+        network keeps one copy, a non-duplicating one counts, an ordered one
+        appends to the (src, dst) flow. A new envelope takes the lowest free
+        slot, as the JAX package's ``argmax`` does (deliver action ids are
+        slot indices, so the slot decides parents and paths). Returns
+        (state, overflow)."""
+        if self._ordered:
+            return self._flow_send(state, src, dst, msg, active)
         E = self._E
         cnt = state["net_cnt"]
         match = (
@@ -417,16 +601,39 @@ class PackedActorModel(ActorModel, BatchableModel):
         state["net_msg"] = torch.where(w[:, :, None], msg[:, None, :], state["net_msg"])
         return state, active & ~exists & ~has_empty
 
-    def _apply_callback(self, state, actor, row_new, sends, set_bits, cancel_bits):
+    def _flow_send(self, state, src, dst, msg, active):
+        """The ordered ``_net_send``: append ``msg`` at the tail of flow
+        (src, dst). A full flow, or a pair outside ``flow_pairs`` (a
+        zero-capacity flow), overflows and the lane is pruned."""
+        N, P, Q = self._N, self._P, self._Q
+        lookup, _, _ = self._flow_tables(src.device)
+        p = lookup[(src * N + dst).clamp(0, N * N - 1)]
+        allowed = p >= 0
+        at_p = torch.arange(P, device=src.device) == p[:, None]  # (L, P); none when -1
+        length = (state["flow_len"] * at_p).sum(dim=1)
+        ok = active & allowed & (length < Q)
+        at_q = torch.arange(Q, device=src.device) == length.clamp(0, Q - 1)[:, None]
+        w = at_p[:, :, None] & at_q[:, None, :] & ok[:, None, None]  # (L, P, Q)
+        state = dict(state)
+        state["flow_msg"] = torch.where(w[..., None], msg[:, None, None, :],
+                                        state["flow_msg"])
+        state["flow_len"] = state["flow_len"] + (at_p & ok[:, None]).to(torch.int64)
+        return state, active & (~allowed | (length >= Q))
+
+    def _apply_callback(self, state, actor, row_new, sends, set_bits, cancel_bits,
+                        fired_bit=None):
         """Applies a callback's effects per lane: the row write, the timer
-        bookkeeping (sets, then cancels), then the sends in command order,
-        each followed by the history's ``record_msg_out`` twin. Returns
-        (state, overflow)."""
+        bookkeeping (the fired timer cleared first, then the sets, then the
+        cancels, as the host processes the commands), then the sends in
+        command order, each followed by the history's ``record_msg_out``
+        twin. Returns (state, overflow)."""
         codec = self.codec
         state = dict(state)
         own = torch.arange(self._N, device=actor.device) == actor[:, None]  # (L, N)
         state["rows"] = torch.where(own[:, :, None], row_new[:, None, :], state["rows"])
         t = (state["timers"] * own).sum(dim=1)
+        if fired_bit is not None:
+            t = t & (~_bit(fired_bit) & U32)
         t = (t | set_bits) & (~cancel_bits & U32)
         state["timers"] = torch.where(own, t[:, None], state["timers"])
         overflow = torch.zeros_like(actor, dtype=torch.bool)
@@ -440,33 +647,13 @@ class PackedActorModel(ActorModel, BatchableModel):
             overflow = overflow | ov
         return state, overflow
 
-    def packed_expand(self, states):
-        """All ``A = E`` Deliver candidates of each of F states, lane
-        ``(f, e)`` delivering envelope slot ``e`` (the JAX package's
-        ``packed_expand`` with the deliver class only): ``(cand, valid)``
-        with candidate leaves ``(F, E, ...)`` and ``valid`` ``(F, E)``."""
-        self._packed_check()
-        codec = self.codec
-        N, E, W = self._N, self._E, codec.msg_width
-        F = states["rows"].shape[0]
-        L = F * E
-        dev = states["rows"].device
-        st = {
-            k: v[:, None].expand((F, E) + v.shape[1:]).reshape((L,) + v.shape[1:])
-            for k, v in states.items()
-        }
-        present = states["net_cnt"].reshape(L) > 0
-        env_src = states["net_src"].reshape(L)
-        env_dst = states["net_dst"].reshape(L)
-        env_msg = states["net_msg"].reshape(L, W)
-        actor = env_dst.clamp(0, N - 1)
-        row = st["rows"].gather(
-            1, actor[:, None, None].expand(L, 1, codec.state_width)
-        )[:, 0]
-        outs = [fn(actor, row, env_src, env_msg) for fn in codec.on_msg_branches(self)]
+    def _select(self, outs, actor):
+        """The callback result of each lane's actor type from every
+        branch's ``outs``, as ``lax.switch`` picks it (a type id past the
+        last branch takes the last)."""
         row_new, sends, set_bits, cancel_bits, changed = outs[0]
         if len(outs) > 1:
-            kind = self._type_of(actor)
+            kind = self._type_of(actor).clamp(max=len(outs) - 1)
             for k, o in enumerate(outs[1:], start=1):
                 sel = kind == k
                 row_new = torch.where(sel[:, None], o[0], row_new)
@@ -474,17 +661,82 @@ class PackedActorModel(ActorModel, BatchableModel):
                 set_bits = torch.where(sel, o[2], set_bits)
                 cancel_bits = torch.where(sel, o[3], cancel_bits)
                 changed = torch.where(sel, o[4], changed)
+        return row_new, sends, set_bits, cancel_bits, changed
+
+    @staticmethod
+    def _lanes(states, k):
+        """Each state repeated ``k`` times: leaves ``(F * k, ...)``, lane
+        ``(f, j)`` at ``f * k + j``."""
+        return {
+            key: v[:, None].expand((v.shape[0], k) + v.shape[1:]).reshape(
+                (v.shape[0] * k,) + v.shape[1:])
+            for key, v in states.items()
+        }
+
+    def _env_at(self, states):
+        """``(present, src, dst, msg)`` of every deliver/drop lane
+        ``(f, slot)``, flattened: the flow heads of an ordered network or
+        the envelope slots of an unordered one."""
+        F, D, W = states["rows"].shape[0], self._D, self.codec.msg_width
+        if self._ordered:
+            _, psrc, pdst = self._flow_tables(states["rows"].device)
+            return (
+                states["flow_len"].reshape(F * D) > 0,
+                psrc.repeat(F),
+                pdst.repeat(F),
+                states["flow_msg"][:, :, 0].reshape(F * D, W),
+            )
+        return (
+            states["net_cnt"].reshape(F * D) > 0,
+            states["net_src"].reshape(F * D),
+            states["net_dst"].reshape(F * D),
+            states["net_msg"].reshape(F * D, W),
+        )
+
+    def _consume(self, st, at):
+        """Removes the message of each lane's slot (``at``: ``(L, D)``
+        one-hot): an ordered flow's head shifts out (the head stays at index
+        0), an envelope's count drops by one."""
+        st = dict(st)
+        if self._ordered:
+            fm = st["flow_msg"]
+            shifted = torch.cat([fm[:, :, 1:], torch.zeros_like(fm[:, :, :1])], dim=2)
+            st["flow_msg"] = torch.where(at[:, :, None, None], shifted, fm)
+            st["flow_len"] = (st["flow_len"] - at.to(torch.int64)) & U32
+        else:
+            st["net_cnt"] = (st["net_cnt"] - at.to(torch.int64)) & U32
+        return st
+
+    def _crashed_at(self, st, actor):
+        if not self._max_crashes:
+            return torch.zeros_like(actor, dtype=torch.bool)
+        own = torch.arange(self._N, device=actor.device) == actor[:, None]
+        return ((st["crashed"] * own).sum(dim=1)) == 1
+
+    def _slot_onehot(self, F, D, device):
+        return torch.eye(D, dtype=torch.bool, device=device).repeat(F, 1)
+
+    def _expand_deliver(self, states):
+        codec = self.codec
+        N, D = self._N, self._D
+        F = states["rows"].shape[0]
+        dev = states["rows"].device
+        st = self._lanes(states, D)
+        present, env_src, env_dst, env_msg = self._env_at(states)
+        actor = env_dst.clamp(0, N - 1)
+        row = st["rows"].gather(1, actor[:, None, None].expand(-1, 1, codec.state_width))[:, 0]
+        row_new, sends, set_bits, cancel_bits, changed = self._select(
+            [fn(actor, row, env_src, env_msg) for fn in codec.on_msg_branches(self)], actor)
         no_sends = (sends[:, :, 0] == codec.SEND_NONE).all(dim=1)
         is_no_op = ~changed & no_sends & (set_bits == 0) & (cancel_bits == 0)
-
         out = dict(st)
         if codec.history_width:
             out["hist"] = codec.history_on_deliver(self, st["hist"], env_src, env_dst,
                                                    env_msg)
-        if not self._dup:
-            slot = torch.arange(E, device=dev).repeat(F)
-            consumed = torch.arange(E, device=dev) == slot[:, None]
-            out["net_cnt"] = (st["net_cnt"] - consumed.to(torch.int64)) & U32
+        if self._ordered or not self._dup:
+            out = self._consume(out, self._slot_onehot(F, D, dev))
+        # A no-op delivery on an ordered network still consumes the message
+        # but applies no other effect (the host skips the callback result).
         out, ov = self._apply_callback(
             out,
             actor,
@@ -493,9 +745,83 @@ class PackedActorModel(ActorModel, BatchableModel):
             torch.where(is_no_op, 0, set_bits),
             torch.where(is_no_op, 0, cancel_bits),
         )
-        valid = present & (env_dst < N) & ~is_no_op & ~ov
-        cand = {k: v.reshape((F, E) + v.shape[1:]) for k, v in out.items()}
-        return cand, valid.reshape(F, E)
+        valid = present & (env_dst < N) & ~self._crashed_at(st, actor) & ~ov
+        if not self._ordered:
+            valid = valid & ~is_no_op
+        return out, valid
+
+    def _expand_drop(self, states):
+        F, D = states["rows"].shape[0], self._D
+        st = self._lanes(states, D)
+        present = self._env_at(states)[0]
+        at = self._slot_onehot(F, D, states["rows"].device)
+        if self._dup:
+            out = dict(st)
+            out["net_cnt"] = torch.where(at, 0, st["net_cnt"])
+        else:
+            out = self._consume(st, at)
+        return out, present
+
+    def _expand_timeout(self, states):
+        codec = self.codec
+        N, T = self._N, self._T
+        F = states["rows"].shape[0]
+        dev = states["rows"].device
+        st = self._lanes(states, N * T)
+        k = torch.arange(N * T, device=dev).repeat(F)
+        actor, bit = k // T, k % T
+        row = st["rows"].gather(1, actor[:, None, None].expand(-1, 1, codec.state_width))[:, 0]
+        row_new, sends, set_bits, cancel_bits, changed = self._select(
+            [fn(actor, row, bit) for fn in codec.on_timeout_branches(self)], actor)
+        renews_only = (
+            ~changed
+            & (sends[:, :, 0] == codec.SEND_NONE).all(dim=1)
+            & (cancel_bits == 0)
+            & (set_bits == _bit(bit))
+        )
+        own = torch.arange(N, device=dev) == actor[:, None]
+        timer_set = (((st["timers"] * own).sum(dim=1) >> bit) & 1) == 1
+        out, ov = self._apply_callback(st, actor, row_new, sends, set_bits, cancel_bits,
+                                       fired_bit=bit)
+        return out, timer_set & ~renews_only & ~ov
+
+    def _expand_crash(self, states):
+        N = self._N
+        F = states["rows"].shape[0]
+        st = self._lanes(states, N)
+        own = torch.eye(N, dtype=torch.bool, device=states["rows"].device).repeat(F, 1)
+        out = dict(st)
+        out["crashed"] = torch.where(own, 1, st["crashed"])
+        out["timers"] = torch.where(own, 0, st["timers"])
+        crashed = states["crashed"]
+        valid = (crashed.sum(dim=1) < self._max_crashes)[:, None] & (crashed == 0)
+        return out, valid.reshape(F * N)
+
+    def packed_expand(self, states):
+        """All ``A`` candidates of each of F states, in the JAX package's
+        action-id order (``_class_steps``): deliver ``D`` (a flow head or an
+        envelope slot each), then drop ``D`` (lossy networks), then timeout
+        ``N·T`` (lane ``i·T + t`` fires actor ``i``'s timer ``t``), then crash
+        ``N``. Returns ``(cand, valid)`` with candidate leaves ``(F, A, ...)``
+        and ``valid`` ``(F, A)``."""
+        self._packed_check()
+        F = states["rows"].shape[0]
+        parts = [self._expand_deliver(states)]
+        if self._lossy_network:
+            parts.append(self._expand_drop(states))
+        if self._T:
+            parts.append(self._expand_timeout(states))
+        if self._max_crashes:
+            parts.append(self._expand_crash(states))
+
+        def grid(x):
+            return x.reshape((F, -1) + x.shape[1:])
+
+        if len(parts) == 1:  # deliver only: views, no copy of the candidates
+            return {k: grid(v) for k, v in parts[0][0].items()}, grid(parts[0][1])
+        cand = {k: torch.cat([grid(p[0][k]) for p in parts], dim=1) for k in states}
+        valid = torch.cat([grid(p[1]) for p in parts], dim=1)
+        return cand, valid
 
     def packed_conditions(self):
         self._packed_check()

@@ -1,4 +1,4 @@
-"""Packed helpers for register-protocol actor systems (paxos, single-copy).
+"""Packed helpers for register-protocol actor systems (paxos, single-copy, ABD).
 
 The port of the JAX package's ``actor/packed_register.py``. The reference's
 register harness (``src/actor/register.rs``) pairs protocol servers with
@@ -173,7 +173,7 @@ def make_history_hooks(lin, server_count: int):
 
 
 class RegisterProtocolCodec(ActorPackedCodec):
-    """Shared base for register-protocol codecs (paxos, single-copy):
+    """Shared base for register-protocol codecs (paxos, single-copy, ABD):
     servers are actor type 0, clients type 1, and the auxiliary history is a
     packed ``LinearizabilityTester`` with the standard hooks and conditions
     (``always linearizable``, ``sometimes value chosen``)."""
@@ -218,12 +218,33 @@ class RegisterProtocolCodec(ActorPackedCodec):
 
 def value_chosen_condition(model):
     """Batched twin of the examples' ``sometimes "value chosen"``: some
-    deliverable GetOk carries a non-default value."""
+    deliverable GetOk carries a non-default value. On an ordered network
+    "deliverable" means the flow heads only (host ``iter_deliverable``)."""
 
     def cond(states):
-        kind = states["net_msg"][:, :, 0]
-        val = states["net_msg"][:, :, 2]
-        live = states["net_cnt"] > 0
-        return (live & (kind == K_GET_OK) & (val != 0)).any(dim=1)
+        if model._ordered:
+            msg = states["flow_msg"][:, :, 0]
+            live = states["flow_len"] > 0
+        else:
+            msg = states["net_msg"]
+            live = states["net_cnt"] > 0
+        return (live & (msg[:, :, 0] == K_GET_OK) & (msg[:, :, 2] != 0)).any(dim=1)
 
     return cond
+
+
+def register_flow_pairs(client_count: int, server_count: int):
+    """Directed flow pairs a register-protocol system can ever use on an
+    ordered network: every ``(src, dst)`` pair except self-pairs and
+    client-to-client ones (clients message only servers; servers message
+    clients and, in ABD's replication, other servers). For 3 clients and 2
+    servers this keeps 14 of 25 pairs (``PackedActorModel.with_flow_pairs``).
+    An excluded pair that the protocol did use would prune transitions, and
+    the pinned counts would show it."""
+    n = server_count + client_count
+    return [
+        (a, b)
+        for a in range(n)
+        for b in range(n)
+        if a != b and not (a >= server_count and b >= server_count)
+    ]

@@ -1,0 +1,80 @@
+"""Named configurations: each a model at the JAX package's bench settings
+and the ``spawn_gpu_bfs`` settings it runs with. ``chip_smoke.py`` and the
+profiling scripts (``scripts/torch_profile.py``,
+``scripts/torch_peak_memory.py``) take their models from here.
+
+    from stateright_tpu_torch.configs import CONFIGS
+    cfg = CONFIGS["abd3o"]
+    checker = cfg.make().checker().spawn_gpu_bfs(**cfg.spawn).join()
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    name: str
+    # Where the configuration comes from and what it is.
+    source: str
+    make: Callable
+    spawn: Dict[str, int]
+    # The exact count of an exhaustive check; None where the run stops at
+    # a discovery (its count at the exit depends on wave boundaries).
+    unique: Optional[int]
+
+
+def _two_phase_commit_8():
+    from .models.two_phase_commit import TwoPhaseSys
+
+    return TwoPhaseSys(8)
+
+
+def _paxos3():
+    from .models.paxos import PaxosModelCfg
+
+    return PaxosModelCfg(3, 3, envelope_capacity=24).into_model()
+
+
+def _abd3o():
+    from .actor.network import Network
+    from .models.linearizable_register import AbdModelCfg
+
+    return AbdModelCfg(3, 2, network=Network.new_ordered(), envelope_capacity=12,
+                       flow_capacity=2).into_model()
+
+
+def _raft5_ttc():
+    from .models.raft import RaftModelCfg
+
+    model = RaftModelCfg(server_count=5, max_term=1, lossy=True).into_model()
+    return model.retain_properties("stable leader")
+
+
+def _raft4():
+    from .models.raft import RaftModelCfg
+
+    return RaftModelCfg(server_count=4, max_term=1, lossy=True).into_model()
+
+
+CONFIGS = {c.name: c for c in (
+    Config("2pc8", "two-phase commit, 8 resource managers: the JAX package's scale check",
+           _two_phase_commit_8,
+           dict(frontier_capacity=8192, table_capacity=1 << 20, drain_log_factor=48),
+           1_745_408),
+    Config("paxos3", "paxos check 3: 3 clients, 3 servers, 24 envelope slots "
+           "(bench.py:164-176)", _paxos3,
+           dict(frontier_capacity=2048, table_capacity=1 << 21, drain_log_factor=32),
+           1_194_428),
+    Config("abd3o", "linearizable-register check 3 ordered: ABD, 3 clients, 2 servers, "
+           "FIFO flows of depth 2 (bench.py:199-209)", _abd3o,
+           dict(frontier_capacity=1 << 11, table_capacity=1 << 17), 46_516),
+    Config("raft5_ttc", "raft, 5 servers, lossy, only 'stable leader': the time to its "
+           "counterexample (bench.py:234-245)", _raft5_ttc,
+           dict(frontier_capacity=1 << 11, table_capacity=1 << 21), None),
+    Config("raft4", "raft, 4 servers, lossy, every property: the full space "
+           "(tests/test_raft5.py:71-80)", _raft4,
+           dict(frontier_capacity=1 << 11, table_capacity=1 << 16), 24_545),
+)}

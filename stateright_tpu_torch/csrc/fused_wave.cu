@@ -351,12 +351,14 @@ __global__ void __launch_bounds__(THREADS) keys_pairs_kernel(
 // The layout of a packed actor state's components, and the constants of
 // its hash (int64 words carrying u32, made on the host once per device):
 // the multilinear coefficients (hi lane, then lo lane) of an actor row
-// with its timer word (R + 1), of an envelope row [src, dst, msg, cnt]
-// (3 + W), of the 4-word digest and of the history row (H), then the
-// seeds (hi lane C words, then lo lane C words) of the C = N + 1 + (H > 0)
-// component tags 0..C-1.
+// with its timer word (R + 1); then, for an unordered network (P == 0),
+// those of an envelope row [src, dst, msg, cnt] (3 + W) and of the 4-word
+// digest, or, for an ordered one (P > 0), those of a flow row [queue
+// (Q * W words), len] (Q * W + 1); then those of the history row (H); then
+// the seeds (hi lane C words, then lo lane C words) of the component tags
+// 0..C-1, C = N + (P > 0 ? P : 1) + (H > 0).
 struct CompHash {
-  int N, R, E, W, H;
+  int N, R, E, P, Q, W, H;
   const int64_t* k;
 };
 
@@ -367,75 +369,86 @@ __device__ __forceinline__ void fold_pair(uint32_t h, uint32_t l, uint32_t* acc4
   acc4[3] ^= l;
 }
 
+// The (hi, lo) multilinear sums of n words at stride 1 under the
+// coefficient vectors k (hi) and k + stride_k (lo), added to (ah, al).
+__device__ __forceinline__ void lin_row(const int64_t* __restrict__ w, int n,
+                                        const int64_t* k, int stride_k, uint32_t& ah,
+                                        uint32_t& al) {
+  for (int j = 0; j < n; ++j) {
+    const uint32_t x = (uint32_t)w[j];
+    ah += x * (uint32_t)k[j];
+    al += x * (uint32_t)k[stride_k + j];
+  }
+}
+
 // ops/fingerprint.py::combine_pairs(*PackedActorModel.packed_component_pairs)
-// of lane b.
+// of lane b. The network leaves are net_* (P == 0) or flow_* (P > 0); the
+// others are not read.
 __device__ uint2 comphash_lane(int64_t b, const CompHash& ch, const int64_t* __restrict__ rows,
                                const int64_t* __restrict__ timers,
                                const int64_t* __restrict__ net_src,
                                const int64_t* __restrict__ net_dst,
                                const int64_t* __restrict__ net_msg,
                                const int64_t* __restrict__ net_cnt,
+                               const int64_t* __restrict__ flow_msg,
+                               const int64_t* __restrict__ flow_len,
                                const int64_t* __restrict__ hist) {
-  const int N = ch.N, R = ch.R, E = ch.E, W = ch.W, H = ch.H;
-  const int M = 3 + W;
-  const int C = N + 1 + (H > 0 ? 1 : 0);
+  const int N = ch.N, R = ch.R, E = ch.E, P = ch.P, W = ch.W, H = ch.H;
+  const int QW = ch.Q * W;
+  const int NC = P > 0 ? P : 1;  // network components
+  const int C = N + NC + (H > 0 ? 1 : 0);
   const int64_t* k_act = ch.k;
-  const int64_t* k_env = k_act + 2 * (R + 1);
-  const int64_t* k_dig = k_env + 2 * M;
-  const int64_t* k_hist = k_dig + 8;
+  const int64_t* k_net = k_act + 2 * (R + 1);
+  const int64_t* k_hist = k_net + (P > 0 ? 2 * (QW + 1) : 2 * (3 + W) + 8);
   const int64_t* seed = k_hist + 2 * H;
   uint32_t acc4[4] = {0u, 0u, 0u, 0u};
   // Actor components 0..N-1: row ‖ timer word.
   for (int c = 0; c < N; ++c) {
-    const int64_t* r = rows + (b * N + c) * R;
     uint32_t ah = 0u, al = 0u;
-    for (int j = 0; j < R; ++j) {
-      const uint32_t w = (uint32_t)r[j];
-      ah += w * (uint32_t)k_act[j];
-      al += w * (uint32_t)k_act[R + 1 + j];
-    }
-    const uint32_t t = (uint32_t)timers[b * N + c];
-    ah += t * (uint32_t)k_act[R];
-    al += t * (uint32_t)k_act[2 * R + 1];
+    lin_row(rows + (b * N + c) * R, R, k_act, R + 1, ah, al);
+    lin_row(timers + b * N + c, 1, k_act + R, R + 1, ah, al);
     fold_pair(fmix32(ah ^ (uint32_t)seed[c]), fmix32(al ^ (uint32_t)seed[C + c]), acc4);
   }
-  // The network, tag N: the multiset digest of the active envelope rows,
-  // hashed as one row.
-  uint32_t dig[4] = {0u, 0u, 0u, 0u};
-  for (int e = 0; e < E; ++e) {
-    const uint32_t cnt = (uint32_t)net_cnt[b * E + e];
-    if (cnt == 0u) continue;
-    const uint32_t src = (uint32_t)net_src[b * E + e];
-    const uint32_t dst = (uint32_t)net_dst[b * E + e];
-    uint32_t ah = src * (uint32_t)k_env[0] + dst * (uint32_t)k_env[1];
-    uint32_t al = src * (uint32_t)k_env[M] + dst * (uint32_t)k_env[M + 1];
-    const int64_t* m = net_msg + (b * E + e) * W;
-    for (int j = 0; j < W; ++j) {
-      const uint32_t w = (uint32_t)m[j];
-      ah += w * (uint32_t)k_env[2 + j];
-      al += w * (uint32_t)k_env[M + 2 + j];
+  if (P > 0) {
+    // An ordered network: flow components N..N+P-1, queue ‖ length.
+    for (int p = 0; p < P; ++p) {
+      uint32_t ah = 0u, al = 0u;
+      lin_row(flow_msg + (b * P + p) * QW, QW, k_net, QW + 1, ah, al);
+      lin_row(flow_len + b * P + p, 1, k_net + QW, QW + 1, ah, al);
+      fold_pair(fmix32(ah ^ (uint32_t)seed[N + p]), fmix32(al ^ (uint32_t)seed[C + N + p]),
+                acc4);
     }
-    ah += cnt * (uint32_t)k_env[2 + W];
-    al += cnt * (uint32_t)k_env[M + 2 + W];
-    fold_pair(fmix32(ah ^ SEED_HI), fmix32(al ^ SEED_LO), dig);
+  } else {
+    // An unordered network, tag N: the multiset digest of the active
+    // envelope rows, hashed as one row.
+    const int M = 3 + W;
+    const int64_t* k_env = k_net;
+    const int64_t* k_dig = k_net + 2 * M;
+    uint32_t dig[4] = {0u, 0u, 0u, 0u};
+    for (int e = 0; e < E; ++e) {
+      const uint32_t cnt = (uint32_t)net_cnt[b * E + e];
+      if (cnt == 0u) continue;
+      const uint32_t src = (uint32_t)net_src[b * E + e];
+      const uint32_t dst = (uint32_t)net_dst[b * E + e];
+      uint32_t ah = src * (uint32_t)k_env[0] + dst * (uint32_t)k_env[1];
+      uint32_t al = src * (uint32_t)k_env[M] + dst * (uint32_t)k_env[M + 1];
+      lin_row(net_msg + (b * E + e) * W, W, k_env + 2, M, ah, al);
+      ah += cnt * (uint32_t)k_env[2 + W];
+      al += cnt * (uint32_t)k_env[M + 2 + W];
+      fold_pair(fmix32(ah ^ SEED_HI), fmix32(al ^ SEED_LO), dig);
+    }
+    uint32_t ah = 0u, al = 0u;
+    for (int j = 0; j < 4; ++j) {
+      ah += dig[j] * (uint32_t)k_dig[j];
+      al += dig[j] * (uint32_t)k_dig[4 + j];
+    }
+    fold_pair(fmix32(ah ^ (uint32_t)seed[N]), fmix32(al ^ (uint32_t)seed[C + N]), acc4);
   }
-  uint32_t ah = 0u, al = 0u;
-  for (int j = 0; j < 4; ++j) {
-    ah += dig[j] * (uint32_t)k_dig[j];
-    al += dig[j] * (uint32_t)k_dig[4 + j];
-  }
-  fold_pair(fmix32(ah ^ (uint32_t)seed[N]), fmix32(al ^ (uint32_t)seed[C + N]), acc4);
-  // The history, tag N + 1.
+  // The history, tag N + NC.
   if (H > 0) {
-    const int64_t* h = hist + b * H;
-    ah = 0u;
-    al = 0u;
-    for (int j = 0; j < H; ++j) {
-      const uint32_t w = (uint32_t)h[j];
-      ah += w * (uint32_t)k_hist[j];
-      al += w * (uint32_t)k_hist[H + j];
-    }
-    fold_pair(fmix32(ah ^ (uint32_t)seed[N + 1]), fmix32(al ^ (uint32_t)seed[C + N + 1]),
+    uint32_t ah = 0u, al = 0u;
+    lin_row(hist + b * H, H, k_hist, H, ah, al);
+    fold_pair(fmix32(ah ^ (uint32_t)seed[N + NC]), fmix32(al ^ (uint32_t)seed[C + N + NC]),
               acc4);
   }
   // acc_finalize(C), then the shared finalizer and its nudges.
@@ -455,7 +468,8 @@ __global__ void __launch_bounds__(THREADS) comphash_keys_kernel(
     int64_t B, int A, CompHash ch, const int64_t* __restrict__ rows,
     const int64_t* __restrict__ timers, const int64_t* __restrict__ net_src,
     const int64_t* __restrict__ net_dst, const int64_t* __restrict__ net_msg,
-    const int64_t* __restrict__ net_cnt, const int64_t* __restrict__ hist,
+    const int64_t* __restrict__ net_cnt, const int64_t* __restrict__ flow_msg,
+    const int64_t* __restrict__ flow_len, const int64_t* __restrict__ hist,
     const uint8_t* __restrict__ cvalid, const int64_t* __restrict__ depth,
     const uint8_t* __restrict__ mask, int64_t depth_cap, ull* __restrict__ key,
     uint32_t* __restrict__ idx, ull* __restrict__ acc) {
@@ -466,7 +480,7 @@ __global__ void __launch_bounds__(THREADS) comphash_keys_kernel(
     ull k = ~0ull;
     if (valid) {
       const uint2 fp = comphash_lane(b, ch, rows, timers, net_src, net_dst, net_msg,
-                                     net_cnt, hist);
+                                     net_cnt, flow_msg, flow_len, hist);
       k = ((ull)fp.x << 32) | fp.y;
     }
     key[b] = k;
@@ -753,24 +767,32 @@ extern "C" int fw_keys_pairs(int64_t B, int A, const void* chi, const void* clo,
 }
 
 // The leaves are the candidates' int64 arrays: rows (B, N, R), timers
-// (B, N), net_src, net_dst and net_cnt (B, E), net_msg (B, E, W) and hist
+// (B, N); for an unordered network (P == 0) net_src, net_dst and net_cnt
+// (B, E) and net_msg (B, E, W), for an ordered one (P > 0) flow_msg
+// (B, P, Q, W) and flow_len (B, P), the other network leaves null; hist
 // (B, H), null when H is 0; consts is laid out as CompHash says. depth,
 // mask and acc may be null.
-extern "C" int fw_comphash_keys(int64_t B, int A, int N, int R, int E, int W, int H,
-                                const void* rows, const void* timers, const void* net_src,
-                                const void* net_dst, const void* net_msg,
-                                const void* net_cnt, const void* hist, const void* consts,
-                                const void* cvalid, const void* depth, const void* mask,
-                                int64_t depth_cap, void* key, void* idx, void* acc,
-                                void* stream) {
-  if (N < 1 || R < 0 || E < 0 || W < 0 || H < 0 || (H > 0 && hist == nullptr))
+extern "C" int fw_comphash_keys(int64_t B, int A, int N, int R, int E, int P, int Q, int W,
+                                int H, const void* rows, const void* timers,
+                                const void* net_src, const void* net_dst,
+                                const void* net_msg, const void* net_cnt,
+                                const void* flow_msg, const void* flow_len, const void* hist,
+                                const void* consts, const void* cvalid, const void* depth,
+                                const void* mask, int64_t depth_cap, void* key, void* idx,
+                                void* acc, void* stream) {
+  const bool ordered = P > 0;
+  if (N < 1 || R < 0 || E < 0 || P < 0 || Q < 0 || W < 0 || H < 0 ||
+      (H > 0 && hist == nullptr) || (ordered && (flow_msg == nullptr || flow_len == nullptr)) ||
+      (!ordered && E > 0 && (net_src == nullptr || net_dst == nullptr ||
+                             net_msg == nullptr || net_cnt == nullptr)))
     return (int)cudaErrorInvalidValue;
-  CompHash ch{N, R, E, W, H, (const int64_t*)consts};
+  CompHash ch{N, R, ordered ? 0 : E, P, ordered ? Q : 0, W, H, (const int64_t*)consts};
   comphash_keys_kernel<<<blocks_for(B, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
       B, A, ch, (const int64_t*)rows, (const int64_t*)timers, (const int64_t*)net_src,
       (const int64_t*)net_dst, (const int64_t*)net_msg, (const int64_t*)net_cnt,
-      (const int64_t*)hist, (const uint8_t*)cvalid, (const int64_t*)depth,
-      (const uint8_t*)mask, depth_cap, (ull*)key, (uint32_t*)idx, (ull*)acc);
+      (const int64_t*)flow_msg, (const int64_t*)flow_len, (const int64_t*)hist,
+      (const uint8_t*)cvalid, (const int64_t*)depth, (const uint8_t*)mask, depth_cap,
+      (ull*)key, (uint32_t*)idx, (ull*)acc);
   return last_error(cudaSuccess);
 }
 

@@ -1,9 +1,8 @@
 """Single-copy (non-replicated) register servers — linearizable with one
 server (93 states for 2 clients), NOT linearizable with two.
 
-The port of the JAX package's ``models/single_copy_register.py``. The
-packed side takes unordered networks; an ordered one (FIFO flows) is
-refused by ``PackedActorModel`` until ordered flows are ported.
+The port of the JAX package's ``models/single_copy_register.py``, on
+unordered and ordered networks alike.
 
 Reference: ``examples/single-copy-register.rs``.
 """
@@ -139,6 +138,15 @@ class SingleCopyModelCfg:
             cfg=self,
             init_history=LinearizabilityTester(Register(DEFAULT_VALUE)),
         ).with_envelope_capacity(self.envelope_capacity)
+        if self.network.kind == "ordered":
+            # Register clients never message clients and nobody messages
+            # itself. A flow depth of 2 is a bound the protocol cannot
+            # exceed: a client sends each server at most a Put and then,
+            # only after the PutOk, a Get, and the server sends the two
+            # replies.
+            model = model.with_flow_pairs(
+                pr.register_flow_pairs(self.client_count, self.server_count)
+            ).with_flow_capacity(2)
         for _ in range(self.server_count):
             model.actor(SingleCopyActor())
         for _ in range(self.client_count):

@@ -277,7 +277,7 @@ ARGTYPES = {
     "fw_frontier": [_c_i64, _c_int, _c_i64] + [_c_ptr] * 6 + [_c_int] + [_c_ptr] * 4,
     "fw_keys": [_c_i64, _c_int, _c_int] + [_c_ptr] * 4 + [_c_i64] + [_c_ptr] * 4,
     "fw_keys_pairs": [_c_i64, _c_int] + [_c_ptr] * 5 + [_c_i64] + [_c_ptr] * 4,
-    "fw_comphash_keys": [_c_i64] + [_c_int] * 6 + [_c_ptr] * 11 + [_c_i64] + [_c_ptr] * 4,
+    "fw_comphash_keys": [_c_i64] + [_c_int] * 8 + [_c_ptr] * 13 + [_c_i64] + [_c_ptr] * 4,
     "fw_sort": [_c_i64] + [_c_ptr] * 6,
     "fw_dedup": [_c_i64] + [_c_ptr] * 3 + [_c_int] * 2 + [_c_ptr],
     "fw_sweep": [_c_ptr] * 4 + [_c_i64] + [_c_int] * 2 + [_c_ptr] * 4,
@@ -373,20 +373,26 @@ def comphash_tables(layout, device):
     """The ``"comphash"`` route's constants for a ``PackedActorModel``'s
     ``packed_comphash_layout()``: the layout and one int64 device tensor
     of the hash's coefficients and seeds, in ``csrc/fused_wave.cu``'s
-    ``CompHash`` order (actor row ‖ timer, envelope row, digest, history,
+    ``CompHash`` order (actor row ‖ timer; then an unordered network's
+    envelope row and digest, or an ordered network's flow row; the history;
     then the tags' seeds), the same ``lin_consts`` and ``component_seeds``
     as ``ops/fingerprint.py``. Made once, before any capture."""
     N, R, W, H = layout["N"], layout["R"], layout["W"], layout["H"]
+    ordered = layout["ordered"]
+    net_comps = layout["P"] if ordered else 1
     if (layout["actor_tag"], layout["network_tag"], layout["history_tag"]) != (
-        0, N, N + 1
+        0, N, N + net_comps
     ):
-        raise ValueError(f"fw_comphash_keys takes tags 0..N+1, got {layout}")
+        raise ValueError(f"fw_comphash_keys takes tags 0..N+{net_comps}, got {layout}")
+    if ordered:
+        net = ((layout["Q"] * W + 1, row_salts),)
+    else:
+        net = ((3 + W, multiset_salts), (4, row_salts))
     parts = []
-    for width, salts in ((R + 1, row_salts), (3 + W, multiset_salts), (4, row_salts),
-                         (H, row_salts)):
+    for width, salts in ((R + 1, row_salts),) + net + ((H, row_salts),):
         if width:
             parts += [lin_consts(width, salt) for salt in salts(width)]
-    C = N + 1 + (1 if H else 0)
+    C = N + net_comps + (1 if H else 0)
     parts += [x.numpy() for x in component_seeds(list(range(C)))]
     consts = np.concatenate([np.asarray(p, np.int64) for p in parts])
     return {"layout": dict(layout), "consts": torch.from_numpy(consts).to(device)}
@@ -396,29 +402,43 @@ def comphash_keys_stage(tables, cand_flat, cvalid, depth=None, depth_cap=0,
                         action_count=1, acc=None, mask=None):
     """Stage (b) on the ``"comphash"`` route: ``keys_stage`` with each
     valid lane's ``PackedActorModel.packed_fingerprint``, computed by
-    ``fw_comphash_keys`` from the candidate leaves (int64, contiguous);
-    counts one ``comphash_launches``."""
+    ``fw_comphash_keys`` from the candidate leaves (int64, contiguous): the
+    actor rows and timers, then the envelope table of an unordered network
+    or the flows of an ordered one, then the history. A leaf that is
+    missing or of another shape raises. Counts one ``comphash_launches``."""
     global comphash_launches
 
     lay = tables["layout"]
-    N, R, E, W, H = (lay[k] for k in ("N", "R", "E", "W", "H"))
-    rows_k, timers_k = lay["actors"]
-    leaves = [cand_flat[rows_k], cand_flat[timers_k]] + [cand_flat[k] for k in lay["network"]]
-    hist = cand_flat[lay["history"]] if lay["history"] else None
+    N, R, E, P, Q, W, H = (lay[k] for k in ("N", "R", "E", "P", "Q", "W", "H"))
     B = cvalid.shape[0]
-    shapes = [(B, N, R), (B, N), (B, E), (B, E), (B, E, W), (B, E)]
-    for x, shape in zip(leaves + ([hist] if hist is not None else []),
-                        shapes + [(B, H)]):
-        if x.dtype != torch.int64 or tuple(x.shape) != shape or not x.is_contiguous():
+    want = {lay["actors"][0]: (B, N, R), lay["actors"][1]: (B, N)}
+    if lay["ordered"]:
+        want.update(zip(lay["network"], [(B, P, Q, W), (B, P)]))
+    else:
+        want.update(zip(lay["network"], [(B, E), (B, E), (B, E, W), (B, E)]))
+    if H:
+        want[lay["history"]] = (B, H)
+    for k, shape in want.items():
+        x = cand_flat.get(k)
+        if x is None or x.dtype != torch.int64 or tuple(x.shape) != shape \
+                or not x.is_contiguous():
+            got = None if x is None else (tuple(x.shape), x.dtype)
             raise ValueError(
-                f"fw_comphash_keys takes contiguous int64 leaves of shape {shape}, "
-                f"got {tuple(x.shape)} {x.dtype}"
+                f"fw_comphash_keys takes the contiguous int64 leaf {k!r} of shape "
+                f"{shape}, got {got}"
             )
+
+    def leaf(k):
+        return _ptr(cand_flat[k]) if k in want else None
+
     comphash_launches += 1
     key = torch.empty(B, dtype=torch.int64, device=cvalid.device)
     idx = torch.empty(B, dtype=torch.int32, device=cvalid.device)
-    _call("fw_comphash_keys", B, action_count, N, R, E, W, H,
-          *(x.data_ptr() for x in leaves), _ptr(hist), tables["consts"].data_ptr(),
+    _call("fw_comphash_keys", B, action_count, N, R, E, P, Q, W, H,
+          *(leaf(k) for k in lay["actors"]),
+          *(leaf(k) for k in ("net_src", "net_dst", "net_msg", "net_cnt", "flow_msg",
+                              "flow_len")),
+          leaf(lay["history"]), tables["consts"].data_ptr(),
           cvalid.data_ptr(), _ptr(depth), _ptr(mask), int(depth_cap), key.data_ptr(),
           idx.data_ptr(), _ptr(acc), _stream(cvalid))
     return key, idx

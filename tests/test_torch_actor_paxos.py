@@ -217,25 +217,28 @@ def test_history_hooks_match(seed):
 
 
 def test_packed_side_refuses_what_is_not_ported():
+    """Symmetry and the fingerprint-only expansion are refused by name;
+    lossy, ordered and crash configurations pack and expand."""
     from stateright_tpu_torch.actor.network import Network
 
-    lossy = PaxosModelCfg(2, 2).into_model().lossy_network(True)
-    with pytest.raises(ValueError, match="lossy network.*ROADMAP.md Queue 1 #4"):
-        lossy.packed_action_count()
-    ordered = SingleCopyModelCfg(2, 1, network=Network.new_ordered()).into_model()
-    with pytest.raises(ValueError, match="ordered network.*Queue 1 #4"):
-        ordered.packed_init_states()
-    crashes = PaxosModelCfg(2, 2).into_model().max_crashes(1)
-    with pytest.raises(ValueError, match="crash faults.*Queue 1 #4"):
-        crashes.packed_expand(None)
     model = PaxosModelCfg(2, 2).into_model()
     for call in (model.packed_symmetry, lambda: model.packed_expand_fps(None),
                  lambda: model.packed_take(None, 0)):
         with pytest.raises(ValueError, match="Queue 1 #6"):
             call()
-    # The host side still checks a configuration the packed side refuses.
-    assert lossy.checker().spawn_bfs().join().unique_state_count() > 111
     assert isinstance(model, PackedActorModel)
+    lossy = PaxosModelCfg(2, 2).into_model().lossy_network(True)
+    ordered = SingleCopyModelCfg(2, 1, network=Network.new_ordered()).into_model()
+    crashes = PaxosModelCfg(2, 2).into_model().max_crashes(1)
+    E = 16  # PaxosModelCfg's envelope_capacity
+    for m, A, leaf in ((lossy, 2 * E, "net_cnt"), (ordered, ordered._P, "flow_len"),
+                       (crashes, E + 4, "crashed")):
+        states = m.packed_init_states()
+        assert leaf in states
+        cand, valid = m.packed_expand(states)
+        assert m.packed_action_count() == A
+        assert tuple(valid.shape) == (1, A) and valid.any()
+        assert set(cand) == set(states)
 
 
 # -- whole checks ------------------------------------------------------------------
@@ -246,9 +249,29 @@ def test_packed_side_refuses_what_is_not_ported():
 # are not linearizable differ between the two.
 LINEARIZABLE = {"value chosen"}
 NOT_LINEARIZABLE = {"linearizable", "value chosen"}
+class _Lossy:
+    """A configuration whose model runs on a lossy network."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def into_model(self):
+        return self.cfg.into_model().lossy_network(True)
+
+
 RUN_CASES = {
     "paxos_2c2s": (lambda: JaxPaxosModelCfg(2, 2), lambda: PaxosModelCfg(2, 2), 111,
                    LINEARIZABLE),
+    # A lossy network: the drop class after the deliver class.
+    "paxos_2c2s_lossy": (lambda: _Lossy(JaxPaxosModelCfg(2, 2)),
+                         lambda: _Lossy(PaxosModelCfg(2, 2)), 488, LINEARIZABLE),
+    # FIFO flows on the register_flow_pairs subset.
+    "single_copy_2c1s_ordered": (
+        lambda: JaxSingleCopyModelCfg(2, 1, network=JaxNetwork.new_ordered()),
+        lambda: SingleCopyModelCfg(2, 1, network=Network.new_ordered()),
+        93,
+        LINEARIZABLE,
+    ),
     "paxos_1c3s": (lambda: JaxPaxosModelCfg(1, 3), lambda: PaxosModelCfg(1, 3), 265,
                    LINEARIZABLE),
     "single_copy_2c1s": (lambda: JaxSingleCopyModelCfg(2, 1),

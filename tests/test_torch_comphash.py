@@ -10,7 +10,11 @@ tables, and on empty and full multisets. Then the plain twin of the fused
 wave's ``fw_comphash_keys`` (the port's torch ``packed_fingerprint`` and the
 keys stage's masking) equals ``jax.vmap(model.packed_fingerprint)`` on every
 reachable state of paxos with 2 clients and 2 servers, masked and past-cap
-lanes going to the sentinel.
+lanes going to the sentinel. On ordered networks each FIFO flow is a
+component of its own: the pairs and fingerprints equal JAX's on random
+ordered states (words at and above 2^31, empty and full flows) of the
+identity flow layout and of a ``with_flow_pairs`` subset, and the keys
+stage refuses an ordered layout whose flow leaves are missing.
 """
 
 import jax
@@ -19,10 +23,16 @@ import numpy as np
 import pytest
 import torch
 
+from stateright_tpu.actor.network import Network as JaxNetwork
+from stateright_tpu.models.linearizable_register import AbdModelCfg as JaxAbdModelCfg
 from stateright_tpu.models.paxos import PaxosModelCfg as JaxPaxosModelCfg
+from stateright_tpu.models.raft import RaftModelCfg as JaxRaftModelCfg
 from stateright_tpu.ops import fingerprint as jfp
+from stateright_tpu_torch.actor.network import Network
 from stateright_tpu_torch.interop import packed_states_from_numpy
+from stateright_tpu_torch.models.linearizable_register import AbdModelCfg
 from stateright_tpu_torch.models.paxos import PaxosModelCfg
+from stateright_tpu_torch.models.raft import RaftModelCfg
 from stateright_tpu_torch.ops import fingerprint as tfp
 from stateright_tpu_torch.ops import fused_wave as fw
 
@@ -209,3 +219,102 @@ def test_comphash_tables_hold_the_hash_constants():
 
 def test_scheme_is_shared():
     assert tfp.FP_SCHEME == jfp.FP_SCHEME == "linhash/comphash-v6"
+
+
+# -- ordered networks: one component per FIFO flow ----------------------------
+
+ORDERED_LAYOUTS = {
+    # raft with 3 servers: the identity layout, all 9 pairs, Q = 8, no history.
+    "identity": (
+        lambda: JaxRaftModelCfg(3, 1, network=JaxNetwork.new_ordered()),
+        lambda: RaftModelCfg(3, 1, network=Network.new_ordered()),
+        (3, 9, 8),
+    ),
+    # ABD with 3 clients and 2 servers: the 14 pairs of register_flow_pairs,
+    # Q = 2, with the history (abd3o's layout).
+    "flow_pairs": (
+        lambda: JaxAbdModelCfg(3, 2, network=JaxNetwork.new_ordered(), envelope_capacity=12,
+                               flow_capacity=2),
+        lambda: AbdModelCfg(3, 2, network=Network.new_ordered(), envelope_capacity=12,
+                            flow_capacity=2),
+        (5, 14, 2),
+    ),
+}
+
+
+def _random_ordered_states(model, n, seed):
+    """Random packed states of an ordered ``model``'s layout: words at and
+    above 2^31 everywhere, flow lengths from 0 to Q, the first state's
+    flows all empty and the second's all full."""
+    N, P, Q = model._N, model._P, model._Q
+    W, R, H = model.codec.msg_width, model.codec.state_width, model.codec.history_width
+    rng = np.random.default_rng(seed)
+    states = {
+        "rows": _rows(seed, (n, N, R)),
+        "timers": _rows(seed + 1, (n, N)),
+        "flow_msg": _rows(seed + 2, (n, P, Q, W)),
+        "flow_len": rng.integers(0, Q + 1, size=(n, P)).astype(np.uint32),
+    }
+    states["flow_len"][0] = 0
+    states["flow_len"][1] = Q
+    if H:
+        states["hist"] = _rows(seed + 3, (n, H))
+    return states
+
+
+@pytest.mark.parametrize("layout", list(ORDERED_LAYOUTS))
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ordered_component_pairs_match(layout, seed):
+    """Each flow is one component (queue ‖ length, tags N..N+P-1), the
+    history takes tag N + P: the pairs and the combined fingerprint equal
+    JAX's ``combine_pairs(*packed_component_pairs(s))`` bit for bit."""
+    make_jax, make_port, (N, P, Q) = ORDERED_LAYOUTS[layout]
+    jm, tm = make_jax().into_model(), make_port().into_model()
+    assert (tm._N, tm._P, tm._Q) == (N, P, Q)
+    states = _random_ordered_states(tm, 40, seed)
+    jhis, jlos = jax.vmap(jm.packed_component_pairs)(states)
+    this, tlos = tm.packed_component_pairs(packed_states_from_numpy(states))
+    C = N + P + (1 if tm.codec.history_width else 0)
+    assert tuple(this.shape) == (40, C)
+    _eq((jhis, jlos), (this, tlos))
+    want = jax.vmap(lambda h, l: jfp.combine_pairs(h, l))(jhis, jlos)
+    _eq(want, tm.packed_fingerprint(packed_states_from_numpy(states)))
+    _eq(jax.vmap(jm.packed_fingerprint)(states),
+        tm.packed_fingerprint(packed_states_from_numpy(states)))
+
+
+def test_ordered_comphash_tables_hold_the_hash_constants():
+    """abd3o's layout: actor row ‖ timer, the flow row (Q·W + 1 words), the
+    history, then the seeds of tags 0..N+P."""
+    _make_jax, make_port, _ = ORDERED_LAYOUTS["flow_pairs"]
+    model = make_port().into_model()
+    lay = model.packed_comphash_layout()
+    N, R, P, Q, W, H = (lay[k] for k in ("N", "R", "P", "Q", "W", "H"))
+    assert (N, R, P, Q, W, lay["E"]) == (5, 17, 14, 2, 5, 0) and H > 0
+    consts = fw.comphash_tables(lay, "cpu")["consts"].numpy()
+    want = []
+    for width in (R + 1, Q * W + 1, H):
+        want += [jfp._lin_consts(width, 0x48AC1 + 2 * width),
+                 jfp._lin_consts(width, 0x5B3D5 + 7 * width)]
+    want += [np.asarray(x) for x in
+             jfp.component_seeds(jnp.arange(N + P + 1, dtype=jnp.uint32))]
+    assert (consts == np.concatenate(want).astype(np.int64)).all()
+
+
+def test_comphash_keys_stage_refuses_missing_flow_leaves():
+    """An ordered layout that reaches the kernel without its flow leaves
+    raises before any launch; it does not fall back."""
+    _make_jax, make_port, _ = ORDERED_LAYOUTS["flow_pairs"]
+    model = make_port().into_model()
+    tables = fw.comphash_tables(model.packed_comphash_layout(), "cpu")
+    cand = {k: v.repeat(4, *([1] * (v.dim() - 1)))
+            for k, v in model.packed_init_states().items()}
+    cvalid = torch.ones(4, dtype=torch.bool)
+    launches = fw.comphash_launches
+    for drop in ("flow_msg", "flow_len"):
+        partial = {k: v for k, v in cand.items() if k != drop}
+        with pytest.raises(ValueError, match=drop):
+            fw.comphash_keys_stage(tables, partial, cvalid)
+    with pytest.raises(ValueError, match="flow_len"):
+        fw.comphash_keys_stage(tables, dict(cand, flow_len=cand["flow_len"][:, :3]), cvalid)
+    assert fw.comphash_launches == launches

@@ -1,0 +1,49 @@
+"""The port's named configurations (``stateright_tpu_torch/configs.py``),
+which ``chip_smoke.py`` and the profiling scripts run, against the JAX
+package's: the bench legs' spawn settings and counts (``bench.py``), raft4's
+from ``tests/test_raft5.py``, and models of the same widths (action count,
+packed leaves and their shapes, properties)."""
+
+import numpy as np
+import pytest
+
+import bench
+from stateright_tpu.models.raft import RaftModelCfg as JaxRaftModelCfg
+from stateright_tpu.models.two_phase_commit import TwoPhaseSys as JaxTwoPhaseSys
+from stateright_tpu_torch.configs import CONFIGS
+
+# Each configuration: its JAX model, spawn settings and count.
+BENCH_LEGS = {"paxos3": "paxos3", "abd3o": "abd3o", "raft5_ttc": "raft5"}
+RAFT4_LOSSY = 24_545  # tests/test_raft5.py:21
+
+
+def _reference(name):
+    if name in BENCH_LEGS:
+        leg = bench._leg_specs()[BENCH_LEGS[name]]
+        return leg["model"], leg["spawn"], leg.get("expected")
+    if name == "2pc8":
+        # bench.py's 2pc leg, at 8 resource managers.
+        leg = bench._leg_specs()["2pc"]
+        return lambda: JaxTwoPhaseSys(8), leg["spawn"], 1_745_408
+    assert name == "raft4"
+    return (lambda: JaxRaftModelCfg(server_count=4, max_term=1, lossy=True).into_model(),
+            dict(frontier_capacity=1 << 11, table_capacity=1 << 16), RAFT4_LOSSY)
+
+
+def test_every_config_has_a_reference():
+    assert set(CONFIGS) == set(BENCH_LEGS) | {"2pc8", "raft4"}
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_config_matches_the_jax_package(name):
+    make_ref, spawn, unique = _reference(name)
+    cfg = CONFIGS[name]
+    assert cfg.name == name
+    assert cfg.spawn == spawn
+    assert cfg.unique == unique
+    port, ref = cfg.make(), make_ref()
+    assert port.packed_action_count() == ref.packed_action_count()
+    assert [p.name for p in port.properties()] == [p.name for p in ref.properties()]
+    got = {k: tuple(v.shape) for k, v in port.packed_init_states().items()}
+    want = {k: tuple(np.asarray(v).shape) for k, v in ref.packed_init_states().items()}
+    assert got == want

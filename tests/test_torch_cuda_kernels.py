@@ -428,18 +428,29 @@ class _SaltedTwoPhaseSys(TwoPhaseSys):
         return hi, lo ^ 1
 
 
-def _route_model(route):
+def _route_model(case):
+    """(model, its state count) of each key-route case: the ``comphash``
+    route on an unordered network (paxos), over ordered flows (ABD) and with
+    timers, drops and crashes (raft)."""
+    from stateright_tpu_torch.actor.network import Network
+    from stateright_tpu_torch.models.linearizable_register import AbdModelCfg
     from stateright_tpu_torch.models.paxos import PaxosModelCfg
+    from stateright_tpu_torch.models.raft import RaftModelCfg
 
-    if route == "fold":
+    if case == "fold":
         return TwoPhaseSys(4), 1568
-    if route == "comphash":
+    if case == "comphash":
         return PaxosModelCfg(2, 2).into_model(), 111
+    if case == "comphash_ordered":
+        return AbdModelCfg(2, 2, network=Network.new_ordered()).into_model(), 620
+    if case == "comphash_raft_crash":
+        return RaftModelCfg(3, 1, lossy=True, max_crashes=1).into_model(), 2252
     return _SaltedTwoPhaseSys(4), 1568
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["fold", "comphash", "pairs"])
+@pytest.mark.parametrize(
+    "route", ["fold", "comphash", "comphash_ordered", "comphash_raft_crash", "pairs"])
 def test_cuda_key_routes_match_plain_twin(cuda_device, route):
     """Each key route of the fused wave on the card against the plain twin:
     the keys stage alone on a wave's candidates, then whole fused runs,
@@ -449,7 +460,7 @@ def test_cuda_key_routes_match_plain_twin(cuda_device, route):
         device=cuda_device, wave_kernel="fused", frontier_capacity=64,
         table_capacity=1 << 12, max_drain_waves=1,
     ).join()
-    assert checker.keys_route == route
+    assert checker.keys_route == route.split("_")[0]
     spec = checker._spec
     states = model.packed_init_states(cuda_device)
     F = states[next(iter(states))].shape[0]
@@ -475,10 +486,56 @@ def test_cuda_key_routes_match_plain_twin(cuda_device, route):
         fw.comphash_launches = 0
         gpu = _route_model(route)[0].checker().spawn_gpu_bfs(device=cuda_device,
                                                             **spawn).join()
-        assert (fw.comphash_launches > 0) == (route == "comphash")
+        assert (fw.comphash_launches > 0) == route.startswith("comphash")
         cpu = _route_model(route)[0].checker().spawn_gpu_bfs(device="cpu", **spawn).join()
         assert gpu.unique_state_count() == cpu.unique_state_count() == expected
         assert gpu.state_count() == cpu.state_count()
         assert gpu.max_depth() == cpu.max_depth() and gpu.waves == cpu.waves
         for name, path in cpu.discoveries().items():
             assert gpu.discoveries()[name].encode() == path.encode()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["identity", "flow_pairs"])
+def test_cuda_comphash_ordered_matches_plain_twin(cuda_device, layout):
+    """The ordered route of ``fw_comphash_keys`` on random ordered states
+    (words at and above 2^31, empty and full flows, masked and past-cap
+    lanes): the identity flow layout (raft, 9 flows of 8) and a
+    ``with_flow_pairs`` subset with a history (abd3o's layout, 14 flows of
+    2), against the plain twin bit for bit."""
+    from stateright_tpu_torch.actor.network import Network
+    from stateright_tpu_torch.interop import packed_states_from_numpy
+    from stateright_tpu_torch.models.linearizable_register import AbdModelCfg
+    from stateright_tpu_torch.models.raft import RaftModelCfg
+
+    if layout == "identity":
+        model = RaftModelCfg(3, 1, network=Network.new_ordered()).into_model()
+    else:
+        model = AbdModelCfg(3, 2, network=Network.new_ordered(), envelope_capacity=12,
+                            flow_capacity=2).into_model()
+    N, P, Q = model._N, model._P, model._Q
+    W, R, H = model.codec.msg_width, model.codec.state_width, model.codec.history_width
+    B, A = 3000, 6
+    rng = np.random.default_rng(P)
+
+    def words(*shape):
+        x = rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32)
+        return np.where(rng.random(shape) < 0.33, x | np.uint32(1 << 31), x)
+
+    states = {"rows": words(B, N, R), "timers": words(B, N), "flow_msg": words(B, P, Q, W),
+              "flow_len": rng.integers(0, Q + 1, size=(B, P)).astype(np.uint32)}
+    states["flow_len"][:A] = 0
+    states["flow_len"][A : 2 * A] = Q
+    if H:
+        states["hist"] = words(B, H)
+    cand = packed_states_from_numpy(states, cuda_device)
+    cvalid = torch.from_numpy(rng.random(B) < 0.8).to(cuda_device)
+    depth = torch.from_numpy(rng.integers(0, 6, size=B // A)).to(cuda_device)
+    mask = torch.from_numpy(rng.random(B // A) < 0.8).to(cuda_device)
+    tables = fw.comphash_tables(model.packed_comphash_layout(), cuda_device)
+    acc = torch.zeros(8, dtype=torch.int64, device=cuda_device)
+    key, idx = fw.comphash_keys_stage(tables, cand, cvalid, depth, 4, A, acc, mask)
+    chi, clo = model.packed_fingerprint(map_leaves(lambda x: x.cpu(), cand))
+    pkey, pidx = fw.keys_plain(chi, clo, cvalid.cpu(), depth.cpu(), 4, A, mask.cpu())
+    assert torch.equal(key.cpu(), pkey) and torch.equal(idx.cpu(), pidx)
+    assert int(acc[0]) == int((pkey != -1).sum()) > 0

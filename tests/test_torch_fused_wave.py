@@ -477,6 +477,9 @@ def test_import_leaves_jax_out():
         "import stateright_tpu_torch.semantics.packed_linearizability\n"
         "import stateright_tpu_torch.models.paxos\n"
         "import stateright_tpu_torch.models.single_copy_register\n"
+        "import stateright_tpu_torch.models.linearizable_register\n"
+        "import stateright_tpu_torch.models.raft\n"
+        "import stateright_tpu_torch.configs\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'stateright_tpu' or m.startswith('stateright_tpu.')]\n"
         "print(bad)\n"
