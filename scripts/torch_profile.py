@@ -1,10 +1,11 @@
 """Where the time of one GPU BFS run of the PyTorch/CUDA port goes.
 
     python scripts/torch_profile.py [--config 2pc8] [--wave-kernel staged|fused]
-        [--max-drain-waves N] [--trace TRACE.json]
+        [--max-drain-waves N] [--coverage] [--trace TRACE.json]
 
 Runs the named configuration of ``stateright_tpu_torch/configs.py``
-(``2pc8``, ``paxos3``, ``abd3o``, ``raft5_ttc``, ``raft4``): its model's
+(``2pc8``, ``paxos3``, ``abd3o``, ``raft5_ttc``, ``raft4``, ``skv4x4``;
+``--coverage`` turns the coverage ledger on): its model's
 ``checker().spawn_gpu_bfs(...)`` with the configuration's spawn settings,
 once to warm up (kernel build, allocator, library handles), then once more
 under ``torch.profiler`` with CPU and CUDA activities. Prints the device
@@ -36,6 +37,7 @@ def main() -> int:
     ap.add_argument("--config", default="2pc8", choices=sorted(CONFIGS))
     ap.add_argument("--wave-kernel", default="staged", choices=("staged", "fused"))
     ap.add_argument("--max-drain-waves", type=int, default=100_000)
+    ap.add_argument("--coverage", action="store_true", help="spawn with coverage=True")
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
     args = ap.parse_args()
 
@@ -62,6 +64,7 @@ def main() -> int:
         t0 = time.perf_counter()
         c = model.checker().spawn_gpu_bfs(
             **cfg.spawn, wave_kernel=args.wave_kernel, max_drain_waves=args.max_drain_waves,
+            coverage=args.coverage,
         ).join()
         torch.cuda.synchronize()
         return c, time.perf_counter() - t0
@@ -69,12 +72,13 @@ def main() -> int:
     warm, warm_wall = run()
     print(f"warm-up run: unique={warm.unique_state_count()} wall={warm_wall:.3f} s", flush=True)
 
-    hk.launches = fw.launches = fw.comphash_launches = 0
+    hk.launches = fw.launches = fw.comphash_launches = fw.coverage_launches = 0
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         checker, wall = run()
     launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
-                "fw_comphash_keys": fw.comphash_launches}
+                "fw_comphash_keys": fw.comphash_launches,
+                "fw_coverage": fw.coverage_launches}
 
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_name = defaultdict(lambda: [0, 0.0])
@@ -100,6 +104,7 @@ def main() -> int:
     total_ms = sum(v[1] for v in by_name.values())
     print(f"profiled run ({cfg.name}: {cfg.source}; {args.wave_kernel}, "
           f"max_drain_waves={args.max_drain_waves}): "
+          f"coverage={args.coverage} "
           f"unique={checker.unique_state_count()} waves={checker.waves} "
           f"table_growths={checker.table_growths} wall={wall:.3f} s launches={launches} "
           f"drains={checker.drains} exits={dict(checker.drain_exits)} "
@@ -125,6 +130,7 @@ def main() -> int:
         "spawn": cfg.spawn,
         "wave_kernel": args.wave_kernel,
         "max_drain_waves": args.max_drain_waves,
+        "coverage": args.coverage,
         "unique": checker.unique_state_count(),
         "waves": checker.waves,
         "noop_waves": checker.noop_waves,
@@ -144,6 +150,7 @@ def main() -> int:
         "sweep_kernel_ms": sweep_ms,
         "sweep_pass_ms": pass_ms,
         "comphash_kernel_ms": kernel_ms("comphash_keys_kernel"),
+        "coverage_kernel_ms": kernel_ms("coverage_kernel"),
         "device_busy_ms": busy_us / 1e3,
         "device_span_ms": span_us / 1e3,
         "device_idle_share_of_wall": 1.0 - (busy_us / 1e6) / wall,

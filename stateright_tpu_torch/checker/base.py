@@ -3,8 +3,9 @@
 Reference: ``Checker`` trait at ``src/checker.rs:273-557``. This is the
 compatibility surface that tests hit; every backend of the port (host BFS,
 GPU BFS) returns an object with this interface. It is the JAX package's
-``checker/base.py`` without the lazy hooks into telemetry, coverage,
-liveness and the live monitor, which the port has not taken on yet.
+``checker/base.py`` with its metrics registry and coverage ledger, and
+without the hooks into attribution, liveness and the live monitor, which
+the port has not taken on yet.
 """
 
 from __future__ import annotations
@@ -57,6 +58,74 @@ class Checker(Generic[State, Action]):
     def worker_error(self) -> Optional[BaseException]:
         """The first exception raised by a worker thread, if any."""
         return None
+
+    # -- telemetry and coverage ----------------------------------------------
+
+    _cov = None
+    _cov_layout = None
+    _cov_antecedents = None
+
+    @property
+    def _tracer(self):
+        from ..telemetry import get_tracer
+
+        return get_tracer()
+
+    def metrics(self):
+        """The telemetry metrics registry this checker records into (the
+        process-local one); ``metrics().snapshot()`` is the cheap
+        point-in-time view."""
+        from ..telemetry import metrics_registry
+
+        return metrics_registry()
+
+    def _init_coverage(self, prefix: str, coverage, action_count: int) -> None:
+        """Installs the coverage ledger, the device vector's layout and the
+        model's antecedents when requested. Falsy leaves coverage off (the
+        class default) and the waves run exactly as before."""
+        if not coverage:
+            return
+        from ..telemetry.coverage import (
+            CoverageLedger,
+            DeviceCoverage,
+            coverage_action_labels,
+        )
+
+        model = self._model
+        props = self._properties
+        self._cov = CoverageLedger(
+            prefix,
+            props,
+            action_labels=coverage_action_labels(model, action_count),
+            tracer=self._tracer,
+            registry=self.metrics(),
+        )
+        self._cov_layout = DeviceCoverage(action_count, len(props))
+        ants = list(model.packed_antecedents())
+        if len(ants) != len(props):
+            raise ValueError(
+                "packed_antecedents() must align 1:1 with properties(): "
+                f"{len(ants)} != {len(props)}"
+            )
+        self._cov_antecedents = ants
+
+    def _finalize_coverage(self, discovered) -> None:
+        """Run-end ledger finalize (summary instant + vacuity verdict)."""
+        if self._cov is not None:
+            self._cov.finalize(discovered=discovered)
+
+    @property
+    def coverage(self):
+        """The ``CoverageLedger``, or None when coverage is off."""
+        return self._cov
+
+    def coverage_report(self) -> Optional[dict]:
+        """The state-space cartography (``telemetry/coverage.py``):
+        per-action fire/fresh counts with dead-action detection,
+        per-property exercise counts (vacuity), and shape statistics.
+        None unless the run records coverage
+        (``spawn_gpu_bfs(coverage=True)``)."""
+        return self._cov.report() if self._cov is not None else None
 
     # -- shared behavior ---------------------------------------------------
 

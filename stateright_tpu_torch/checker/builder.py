@@ -56,7 +56,8 @@ class CheckerBuilder:
         wave in hand-written CUDA kernels. Runs on ``cuda`` unless
         ``device="cpu"`` is passed, which selects the plain torch twin of
         every kernel; with no CUDA device and no ``device="cpu"`` it
-        raises. See ``checker/gpu.py`` for the knobs."""
+        raises. ``coverage=True`` records the coverage ledger
+        (``coverage_report()``). See ``checker/gpu.py`` for the knobs."""
         from .gpu import GpuBfsChecker
 
         return GpuBfsChecker(self, **kwargs)

@@ -56,6 +56,15 @@ and inserts them through the same kernel, so the table layout after a
 growth is the port's own (deterministic, but not the JAX package's
 scatter layout).
 
+``coverage=True`` records the JAX package's coverage ledger
+(``telemetry/coverage.py``, ``coverage_report()``): each wave also returns
+its coverage vector (the staged wave reduces it in torch, the fused wave in
+the CUDA stage ``fw_coverage``); wave at a time the host reads it with the
+wave's stats, and a drain adds the consumed waves' vectors on the device,
+under the same ``consume`` gate as its other counters, and reads the sum
+and the final wave's vector in its one read. With coverage off no wave runs
+any of it.
+
 Semantics parity notes (mirrored from the reference): ``eventually`` bits
 propagate along paths and are not part of the fingerprint;
 ``target_state_count``/``target_max_depth`` may overshoot by up to a wave.
@@ -194,7 +203,8 @@ class GpuBfsChecker(Checker):
     to a power of two, at least one worst-case wave; it doubles when the
     host queue does not fit); ``bucket_ladder`` is the number of rungs
     below ``F_max`` a drain may run at (None: 4 from ``F_max >= 512``, else
-    none)."""
+    none). ``coverage=True`` records the coverage ledger
+    (``coverage_report()``, prefix ``gpu_bfs``)."""
 
     def __init__(
         self,
@@ -207,6 +217,7 @@ class GpuBfsChecker(Checker):
         drain_log_factor=8,
         pool_factor=16,
         bucket_ladder=None,
+        coverage=False,
     ):
         model = options.model
         if not isinstance(model, BatchableModel):
@@ -294,6 +305,7 @@ class GpuBfsChecker(Checker):
         comphash = None
         if self.keys_route == "comphash":
             comphash = comphash_tables(model.packed_comphash_layout(), self._device)
+        self._init_coverage("gpu_bfs", coverage, self._A)
         self._spec = FusedWaveSpec(
             expand=model.packed_expand,
             within_boundary=model.packed_within_boundary,
@@ -304,6 +316,8 @@ class GpuBfsChecker(Checker):
             fingerprint=model.packed_fingerprint,
             keys_route=self.keys_route,
             comphash=comphash,
+            cov_layout=self._cov_layout,
+            cov_antecedents=tuple(self._cov_antecedents or ()),
         )
 
         self._state_count = 0
@@ -409,6 +423,7 @@ class GpuBfsChecker(Checker):
                 self._explore_deep(table, queue)
             else:
                 self._explore_waves(table, queue)
+            self._finalize_coverage(set(self._discoveries_fp))
         except BaseException as e:  # noqa: BLE001 - surfaced via worker_error
             self._error = e
         finally:
@@ -432,6 +447,8 @@ class GpuBfsChecker(Checker):
             self._capacity *= 2
         self._state_count = int(valid.sum())
         self._unique_count = int(fresh.sum())
+        if self._cov is not None:
+            self._cov.record_seed(self._unique_count)
         child = _fp64(hi, lo)[valid].cpu().numpy().view(np.uint64)
         self._wave_log.append((child, np.zeros_like(child)))
 
@@ -473,13 +490,14 @@ class GpuBfsChecker(Checker):
                 )
             table, _ = self._consume_wave(table, chunk, queue)
 
-    def _consume_wave(self, table, chunk, queue, out=None, stats=None):
-        """Applies one wave host-side (counters, discoveries, log, requeue),
-        growing the table and running the same chunk again while keys
-        overflow their probe windows; each attempt's fresh states are kept.
-        ``out`` and its ``stats`` (a list), when given, are the first
+    def _consume_wave(self, table, chunk, queue, out=None, stats=None, cov=None):
+        """Applies one wave host-side (counters, discoveries, coverage, log,
+        requeue), growing the table and running the same chunk again while
+        keys overflow their probe windows; each attempt's fresh states are
+        kept. ``out`` and its ``stats`` (a list), when given, are the first
         attempt, already run (a drain's final wave; ``chunk`` holds its
-        live lanes). Returns ``(table, fresh states kept)``."""
+        live lanes; ``cov`` its coverage vector, with coverage on). Returns
+        ``(table, fresh states kept)``."""
         if chunk["hi"].shape[0] == 0 and out is None:
             return table, 0
         attempt = 0
@@ -487,8 +505,18 @@ class GpuBfsChecker(Checker):
         while True:
             if out is None:
                 table, out = self._wave(table, chunk)
-                stats = out["stats"].tolist()  # the wave's one read of its counters
+                if self._cov is None:
+                    stats = out["stats"].tolist()  # the wave's one read of its counters
+                else:
+                    read = torch.cat([out["stats"], out["cov"]]).tolist()
+                    stats, cov = read[: out["stats"].shape[0]], read[out["stats"].shape[0]:]
             self.waves += 1
+            if self._cov is not None:
+                # A table-growth retry re-expands the same frontier: only
+                # its fresh-based slices accumulate.
+                self._cov.consume_device(cov, self._cov_layout,
+                                         first_attempt=(attempt == 0),
+                                         max_depth=stats[3])
             if attempt == 0:
                 self._apply_wave_stats(stats, chunk)
             n_new = stats[1]
@@ -522,6 +550,8 @@ class GpuBfsChecker(Checker):
                         for k, v in new.items()
                     })
             if not stats[2]:
+                if self._cov is not None:
+                    self._cov.emit_wave_span()
                 return table, wave_new
             table = self._grow_table(table, self._capacity * 2)
             attempt += 1
@@ -611,7 +641,8 @@ class GpuBfsChecker(Checker):
             )
             table, summary, out, frontier = self._deep_drain(table, width, budget)
 
-            sc, stats = summary[:_N_SCALARS], summary[_N_SCALARS:]
+            P = len(props)
+            sc, stats = summary[:_N_SCALARS], summary[_N_SCALARS:_N_SCALARS + 5 + 3 * P]
             reason = sc[_REASON]
             self.drain_exits[EXIT_REASONS[(reason & -reason).bit_length() - 1]] += 1
             log_n = sc[_LOG_N]
@@ -621,6 +652,15 @@ class GpuBfsChecker(Checker):
             # The final wave is counted by _consume_wave below.
             self.waves += sc[_WAVES] - 1
             pool_count = sc[_COUNT]
+            final_cov = None
+            if self._cov is not None:
+                # The consumed waves' sum with the drain's max depth, then
+                # (in _consume_wave) the final wave's own vector.
+                size = self._cov_layout.size
+                base = _N_SCALARS + 5 + 3 * P
+                self._cov.consume_device(summary[base : base + size], self._cov_layout,
+                                         max_depth=sc[_MAX_DEPTH])
+                final_cov = summary[base + size : base + 2 * size]
             if log_n:
                 log = self._drain["log"][:, :log_n].contiguous().cpu().numpy()
                 child, parent = log.view(np.uint64)
@@ -634,16 +674,23 @@ class GpuBfsChecker(Checker):
                 if k != "mask"
             }
             table, spilled = self._consume_wave(table, chunk, queue, out=out,
-                                                stats=stats)
+                                                stats=stats, cov=final_cov)
             live_est = pool_count + spilled
 
     def _drain_state(self, capacity):
         """The drain's device state around a ring of ``capacity`` rows (and
         a trash row): the ring, the scalars, the parent log (child and
         parent fingerprints, ``(hi << 32) | lo``, and a trash column), the
-        final wave's stats and the undiscovered-property mask."""
+        final wave's stats and the undiscovered-property mask; with coverage
+        on, the consumed waves' coverage sum and the final wave's vector."""
         dev, P = self._device, len(self._properties)
+        cov = {}
+        if self._cov is not None:
+            size = self._cov_layout.size
+            cov = {"cov_acc": torch.zeros(size, dtype=torch.int64, device=dev),
+                   "final_cov": torch.zeros(size, dtype=torch.int64, device=dev)}
         return {
+            **cov,
             "capacity": capacity,
             "pool": ring_rows(self._model, capacity + 1, dev),
             "scalars": torch.zeros(_N_SCALARS, dtype=torch.int64, device=dev),
@@ -736,17 +783,26 @@ class GpuBfsChecker(Checker):
             torch.where(stop, n, sc[_FINAL_TAKE]),
         ]))
         d["final_stats"].copy_(torch.where(stop, stats, d["final_stats"]))
+        if self._cov is not None:
+            # A consumed wave's vector joins the sum; the stopping wave's is
+            # kept for the host (a no-op wave after the exit adds nothing).
+            d["cov_acc"].add_(consume * out["cov"])
+            d["final_cov"].copy_(torch.where(stop, out["cov"], d["final_cov"]))
         return table, out, frontier
 
     def _deep_drain(self, table, width, budget):
         """One drain at rung ``width``; returns ``(table, summary, out,
         frontier)``: the drain's scalars followed by the final wave's stats
-        (one read), and the final wave's output and frontier."""
+        and, with coverage on, the consumed waves' coverage sum and the
+        final wave's vector (one read), and the final wave's output and
+        frontier."""
         d = self._drain
         sc = d["scalars"]
         sc[_LOG_N:] = torch.tensor(
             [0, 0, 0, 0, budget, 0, 1, 0, 0, 0], dtype=torch.int64
         )
+        if self._cov is not None:
+            d["cov_acc"].zero_()
         d["undiscovered"].copy_(torch.tensor(
             [p.name not in self._discoveries_fp for p in self._properties],
             dtype=torch.bool,
@@ -759,7 +815,10 @@ class GpuBfsChecker(Checker):
                 if not int(sc[_GO]):
                     break
             slots = [(out, frontier)]
-        summary = torch.cat([sc, d["final_stats"]]).tolist()  # the drain's one read
+        parts = [sc, d["final_stats"]]
+        if self._cov is not None:
+            parts += [d["cov_acc"], d["final_cov"]]
+        summary = torch.cat(parts).tolist()  # the drain's one read
         out, frontier = slots[summary[_FINAL_SLOT]]
         return table, summary, out, frontier
 
@@ -784,13 +843,14 @@ class GpuBfsChecker(Checker):
         if self._go_host is None:
             self._go_host = torch.zeros(2, dtype=torch.int64, pin_memory=True)
         graphs, events, flag = entry["graphs"], entry["events"], self._go_host
-        fw_n, ch_n, hk_n = entry["launches"]
+        fw_n, ch_n, cov_n, hk_n = entry["launches"]
 
         def launch(i):
             # A replay launches every kernel of its waves, no-op waves
             # included, with no Python call of the wrappers.
             fw.launches += fw_n
             fw.comphash_launches += ch_n
+            fw.coverage_launches += cov_n
             hk.launches += hk_n
             graphs[i % 2].replay()
             flag[i % 2].copy_(d["scalars"][_GO], non_blocking=True)
@@ -827,7 +887,7 @@ class GpuBfsChecker(Checker):
         sc[_GO] = 1
         # A capture records the kernels and launches none: its counts are
         # undone here and added at every replay instead.
-        counts = fw.launches, fw.comphash_launches, hk.launches
+        counts = fw.launches, fw.comphash_launches, fw.coverage_launches, hk.launches
         graphs, slots = [], []
         for g in range(2):
             graph = torch.cuda.CUDAGraph()
@@ -841,9 +901,10 @@ class GpuBfsChecker(Checker):
         per_replay = (
             (fw.launches - counts[0]) // 2,
             (fw.comphash_launches - counts[1]) // 2,
-            (hk.launches - counts[2]) // 2,
+            (fw.coverage_launches - counts[2]) // 2,
+            (hk.launches - counts[3]) // 2,
         )
-        fw.launches, fw.comphash_launches, hk.launches = counts
+        fw.launches, fw.comphash_launches, fw.coverage_launches, hk.launches = counts
         self.graph_captures += 2
         return {
             "graphs": graphs,

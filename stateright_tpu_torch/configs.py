@@ -53,6 +53,12 @@ def _raft5_ttc():
     return model.retain_properties("stable leader")
 
 
+def _skv4x4():
+    from .models.sharded_kv import ShardedKv
+
+    return ShardedKv(4, 4, 3, guarded=True)
+
+
 def _raft4():
     from .models.raft import RaftModelCfg
 
@@ -77,4 +83,8 @@ CONFIGS = {c.name: c for c in (
     Config("raft4", "raft, 4 servers, lossy, every property: the full space "
            "(tests/test_raft5.py:71-80)", _raft4,
            dict(frontier_capacity=1 << 11, table_capacity=1 << 16), 24_545),
+    Config("skv4x4", "fixed sharded KV, 4 shards, 4 keys, versions <= 3; bench.py:2420 "
+           "ShardedKv(4, 8, 3) cut to 4 keys for an exhaustive check", _skv4x4,
+           dict(frontier_capacity=8192, table_capacity=1 << 25, drain_log_factor=128),
+           16_777_216),
 )}

@@ -24,7 +24,7 @@ for dedup and path replay).
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
@@ -79,6 +79,22 @@ class BatchableModel:
         """Batched predicates aligned with ``properties()`` (same order):
         each maps ``states[N]`` to an ``(N,)`` bool tensor."""
         raise NotImplementedError
+
+    def packed_antecedents(self) -> List[Optional[Callable[[PackedState], torch.Tensor]]]:
+        """OPTIONAL batched antecedent predicates aligned 1:1 with
+        ``properties()`` (``None`` for a property without one): each maps
+        ``states[N]`` to an ``(N,)`` bool tensor, the device analog of
+        ``Property.antecedent``. The coverage ledger counts the evaluated
+        states where an ``always`` property's antecedent held, so a vacuous
+        pass shows. Never run outside coverage mode."""
+        return [None] * len(self.packed_conditions())
+
+    def packed_action_labels(self) -> List[str]:
+        """OPTIONAL labels of the dense action ids
+        ``0..packed_action_count()``: the coverage ledger's per-action axis
+        (``<prefix>.coverage.action_fired.<label>`` counters and the
+        report's action table). Defaults to ``action_<id>``."""
+        return [f"action_{i}" for i in range(self.packed_action_count())]
 
     def packed_within_boundary(self, states: PackedState) -> torch.Tensor:
         """Batched analog of ``within_boundary``: ``(N,)`` bool."""

@@ -48,6 +48,8 @@
 //                scans) and the scatter of hi, lo, ebits, depth + 1 and the
 //                parent's hi and lo to each fresh key's slot;
 //   fw_gather    the candidate leaves of the fresh keys, as byte rows;
+//   fw_coverage  with coverage on only: the wave's coverage vector
+//                (below);
 //   fw_stats     one block: [generated, n_new, overflow, max_depth,
 //                any_hit] and (hit, hi, lo) per property, as int64.
 //
@@ -69,6 +71,32 @@
 // counters live in a small device vector that the host reads once) and the
 // launches few (about 35 a wave). What it does not yet do: prefetch the
 // sweep's windows asynchronously, or sort only the valid lanes.
+//
+// fw_coverage replaces the coverage epilogue of the same Pallas kernel
+// (pallas_wave.py:152-177, the exercise masks in the prologue; :495-507,
+// DeviceCoverage.wave_reduce in the epilogue; the cov output, :538-539,
+// :554-555, :606-633) and computes what telemetry/coverage.py::
+// DeviceCoverage.wave_reduce computes, its plain twin: one int64 vector of
+// 4 + 2A + P + succ_bins + 64 counters (evaluated, terminal, two symmetry
+// slots left 0, per-action fired and fresh counts, per-property exercise
+// counts, the successors-per-state log2 bins, the fresh-per-depth bins).
+// It reads the chain's own scratch: the model stage's valid bits, the
+// frontier's depth and mask (the eval mask and the masked valid bits are
+// recomputed, as fw_frontier and the keys stage compute them, so a masked
+// lane's stale row counts nowhere), the condition and antecedent matrices,
+// ebits_after, the sweep's outcome bytes and the sorted lanes. One launch:
+// the first blocks take one frontier lane a thread (eval, terminal,
+// successor bin, exercise by property kind), the others COV_ITEMS sorted
+// positions a thread (fired by lane % A over the masked valid bits; a fresh
+// position's action idx % A and depth bin min(depth[idx / A] + 1, 63)).
+// Counters gather in shared memory and fold into the zeroed vector with
+// integer atomics, so the result is exact in any order. Bound by bytes:
+// the frontier's depth and mask, each evaluated lane's valid bytes and the
+// condition, antecedent and ebits words its properties read, the outcome
+// byte of each sorted position holding a key, 4 B of idx at each fresh
+// position only, and the vector: about 0.65 MB, 0.2 us at 3.35 TB/s on a
+// full 2pc-8 wave (B = 344,064). It is a single small launch, so launch
+// latency sets its time.
 //
 // fw_comphash_keys (the Pallas prologue's model fingerprint,
 // pallas_wave.py:180, for a packed actor model) is bound by bytes too: each
@@ -109,6 +137,9 @@
 #define SCAN_ITEMS 4
 #define COMPACT_ITEMS 4
 #define COMPACT_TILE (THREADS * COMPACT_ITEMS)
+#define COV_ITEMS 4
+#define COV_DEPTH_BINS 64
+#define MAX_COV_WORDS 12288  // 48 KB of u32 counters in shared memory
 
 typedef unsigned long long ull;
 
@@ -683,6 +714,91 @@ __global__ void __launch_bounds__(THREADS) gather_kernel(
   }
 }
 
+// -- coverage -------------------------------------------------------------------
+
+// The coverage vector's length for A actions and P properties (telemetry/
+// coverage.py::DeviceCoverage.size): succ_bins = ceil(log2(A)) + 1.
+static int cov_succ_bins(int A) {
+  int b = 0;
+  while (A > 1 && (1 << b) < A) ++b;
+  return b + 1;
+}
+
+__global__ void __launch_bounds__(THREADS) coverage_kernel(
+    int64_t F, int A, int64_t depth_cap, const uint8_t* __restrict__ cvalid,
+    const int64_t* __restrict__ depth, const uint8_t* __restrict__ mask,
+    const uint8_t* __restrict__ cond,  // (P, F)
+    const uint8_t* __restrict__ ant,   // (P, F): the antecedent, or all ones
+    const int64_t* __restrict__ ebits_after, Props props,
+    const uint8_t* __restrict__ flag, const uint32_t* __restrict__ sidx, int succ_bins,
+    int size, unsigned f_blocks, ull* __restrict__ cov) {
+  extern __shared__ uint32_t h[];
+  for (int i = threadIdx.x; i < size; i += THREADS) h[i] = 0u;
+  __syncthreads();
+  const int P = props.n;
+  const int o_fresh = 4 + A, o_props = 4 + 2 * A;
+  const int o_succ = o_props + P, o_depth = o_succ + succ_bins;
+  if (blockIdx.x < f_blocks) {
+    // One frontier lane a thread.
+    const int64_t f = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+    unsigned ev = 0, term = 0;
+    if (f < F) {
+      ev = (mask == nullptr || mask[f] != 0) && depth[f] < depth_cap;
+      if (ev) {
+        int succ = 0;
+        const uint8_t* row = cvalid + f * A;
+        for (int a = 0; a < A; ++a) succ += row[a] != 0;
+        term = succ == 0;
+        // Bin of the successor count: 0 for <= 1, else ceil(log2(succ)).
+        atomicAdd(&h[o_succ + (succ <= 1 ? 0 : 32 - __clz(succ - 1))], 1u);
+        const int64_t eb = ebits_after[f];
+        for (int i = 0; i < P; ++i) {
+          bool ex;
+          if (props.kind[i] == KIND_ALWAYS) {
+            ex = ant[(int64_t)i * F + f] != 0;
+          } else if (props.kind[i] == KIND_SOMETIMES) {
+            ex = cond[(int64_t)i * F + f] != 0;
+          } else {  // eventually: met = the unmet bit already cleared
+            ex = ((eb >> props.ebit[i]) & 1) == 0;
+          }
+          if (ex) atomicAdd(&h[o_props + i], 1u);
+        }
+      }
+    }
+    const unsigned ne = __reduce_add_sync(FULL_MASK, ev);
+    const unsigned nt = __reduce_add_sync(FULL_MASK, term);
+    if ((threadIdx.x & 31) == 0) {
+      if (ne) atomicAdd(&h[0], ne);
+      if (nt) atomicAdd(&h[1], nt);
+    }
+  } else {
+    // COV_ITEMS sorted positions a thread, THREADS apart.
+    const int64_t B = F * A;
+    const int64_t base = (int64_t)(blockIdx.x - f_blocks) * THREADS * COV_ITEMS + threadIdx.x;
+#pragma unroll
+    for (int r = 0; r < COV_ITEMS; ++r) {
+      const int64_t i = base + (int64_t)r * THREADS;
+      if (i >= B) break;
+      // Fired: lane i is valid under the eval mask of its frontier lane.
+      const int64_t fl = i / A;
+      if (cvalid[i] != 0 && (mask == nullptr || mask[fl] != 0) && depth[fl] < depth_cap)
+        atomicAdd(&h[4 + (int)(i - fl * A)], 1u);
+      // Fresh: the claim winner at sorted position i, its lane sidx[i].
+      if (flag[i] & FLAG_FRESH) {
+        const int64_t s = sidx[i];
+        const int64_t p = s / A;
+        int64_t d = depth[p] + 1;
+        d = d < 0 ? 0 : (d > COV_DEPTH_BINS - 1 ? COV_DEPTH_BINS - 1 : d);
+        atomicAdd(&h[o_fresh + (int)(s - p * A)], 1u);
+        atomicAdd(&h[o_depth + (int)d], 1u);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < size; i += THREADS)
+    if (h[i]) atomicAdd(&cov[i], (ull)h[i]);
+}
+
 // -- stats -------------------------------------------------------------------
 
 __global__ void stats_kernel(const ull* __restrict__ acc, int P, int64_t F,
@@ -887,5 +1003,35 @@ extern "C" int fw_stats(int P, int64_t F, const void* acc, const void* hi, const
                                                           (const int64_t*)hi,
                                                           (const int64_t*)lo,
                                                           (int64_t*)stats);
+  return last_error(cudaSuccess);
+}
+
+// cov is size = 4 + 2A + P + succ_bins + 64 int64 words, zeroed here; mask
+// may be null (every lane live); cond and ant are (P, F) bytes, ant's row of
+// a property that is not `always` (or has no antecedent) all ones.
+extern "C" int fw_coverage(int64_t F, int A, int64_t depth_cap, const void* cvalid,
+                           const void* depth, const void* mask, const void* cond,
+                           const void* ant, const void* ebits_after, int P,
+                           const void* kind_host, const void* ebit_host, const void* flag,
+                           const void* sidx, int size, void* cov, void* stream) {
+  const int succ_bins = cov_succ_bins(A);
+  if (P < 0 || P > MAX_PROPS || A < 1 || F < 0 ||
+      size != 4 + 2 * A + P + succ_bins + COV_DEPTH_BINS || size > MAX_COV_WORDS)
+    return (int)cudaErrorInvalidValue;
+  Props props;
+  props.n = P;
+  for (int i = 0; i < P; ++i) {
+    props.kind[i] = ((const int*)kind_host)[i];
+    props.ebit[i] = ((const int*)ebit_host)[i];
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t e = cudaMemsetAsync(cov, 0, (size_t)size * sizeof(ull), s);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned f_blocks = blocks_for(F, THREADS);
+  const unsigned b_blocks = blocks_for(F * (int64_t)A, (int64_t)THREADS * COV_ITEMS);
+  coverage_kernel<<<f_blocks + b_blocks, THREADS, (size_t)size * sizeof(uint32_t), s>>>(
+      F, A, depth_cap, (const uint8_t*)cvalid, (const int64_t*)depth, (const uint8_t*)mask,
+      (const uint8_t*)cond, (const uint8_t*)ant, (const int64_t*)ebits_after, props,
+      (const uint8_t*)flag, (const uint32_t*)sidx, succ_bins, size, f_blocks, (ull*)cov);
   return last_error(cudaSuccess);
 }

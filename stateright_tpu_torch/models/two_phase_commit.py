@@ -147,6 +147,20 @@ class TwoPhaseSys(Model, BatchableModel):
     def packed_action_count(self) -> int:
         return 2 + 5 * self.rm_count
 
+    def packed_action_labels(self):
+        # The dense ids' labels (the coverage ledger's per-action axis),
+        # named as the host actions are.
+        labels = ["TmCommit", "TmAbort"]
+        for rm in range(self.rm_count):
+            labels += [
+                f"TmRcvPrepared_{rm}",
+                f"RmPrepare_{rm}",
+                f"RmChooseToAbort_{rm}",
+                f"RmRcvCommitMsg_{rm}",
+                f"RmRcvAbortMsg_{rm}",
+            ]
+        return labels
+
     def packed_init_states(self, device="cpu"):
         n = self.rm_count
         z = torch.zeros((1,), dtype=torch.int64, device=device)

@@ -15,7 +15,8 @@ cannot hold another program's code, so the wave splits in two:
   hits), the fingerprints (by the spec's ``keys_route``, below), a stable
   radix sort of the keys, dedup and
   tile ranges, the tile sweep shared with the insert kernel
-  (``csrc/tile_sweep.cuh``), compaction of the fresh keys, and the stats.
+  (``csrc/tile_sweep.cuh``), compaction of the fresh keys, with coverage
+  on the coverage vector (``fw_coverage``, below), and the stats.
 
 The Pallas kernel fingerprints with the model's own ``fp_fn``
 (``pallas_wave.py:180``). A model takes one of three key routes, chosen once
@@ -42,7 +43,13 @@ first hit lane (lane 0 when none hit), and B-row per-lane outputs
 ``new`` (``states``, ``hi``, ``lo``, ``ebits``, ``depth``), ``parent_hi``
 and ``parent_lo`` whose first ``n_new`` rows hold the fresh states in key
 order; the rows past ``n_new`` are unspecified. The caller reads
-``stats`` once and slices. u32 values ride in int64, as everywhere in
+``stats`` once and slices. With ``spec.cov_layout`` set (coverage on) the
+dict also holds ``cov``, the wave's int64 coverage vector in
+``telemetry/coverage.py::DeviceCoverage``'s layout: the Pallas kernel's
+coverage epilogue (``pallas_wave.py:152-177``, ``:495-507``), computed by
+``DeviceCoverage.wave_reduce`` in torch on the staged path and by the CUDA
+stage ``fw_coverage`` on the fused path. With coverage off neither the
+model's antecedents nor any coverage stage runs. u32 values ride in int64, as everywhere in
 the port. An optional ``(F,)`` bool ``mask`` marks the live frontier
 lanes (None: all live): the deep drain's fixed-width ring takes carry
 stale rows in their masked lanes, and no stage reads those unmasked.
@@ -52,12 +59,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..core.batch import map_leaves
+from ..core.batch import leaves, map_leaves
 from .fingerprint import (
     component_seeds,
     fingerprint_state,
@@ -78,8 +85,11 @@ from .hashset_kernel import (
 
 __all__ = [
     "FusedWaveSpec",
+    "antecedent_stage",
     "comphash_keys_stage",
     "comphash_tables",
+    "coverage_plain",
+    "coverage_stage",
     "fused_wave",
     "fused_wave_plain",
     "keys_input",
@@ -93,10 +103,11 @@ __all__ = [
 ]
 
 # Fused waves launched on the card in this process (each is one run of
-# ``kernel_chain``), and of them the ones whose keys stage was
-# ``fw_comphash_keys``.
+# ``kernel_chain``), of them the ones whose keys stage was
+# ``fw_comphash_keys``, and the launches of ``fw_coverage``.
 launches = 0
 comphash_launches = 0
+coverage_launches = 0
 KEY_ROUTES = ("fold", "comphash", "pairs")
 
 KINDS = {"always": 0, "sometimes": 1, "eventually": 2}
@@ -114,7 +125,10 @@ class FusedWaveSpec:
     ``conditions``), the (property index, eventually bit) pairs, the
     action count, the model's ``packed_fingerprint`` and the fused wave's
     key route (``KEY_ROUTES``; ``comphash`` holds ``comphash_tables`` on
-    the ``"comphash"`` route)."""
+    the ``"comphash"`` route). ``cov_layout`` (a ``DeviceCoverage``, or
+    None with coverage off) and ``cov_antecedents`` (the model's
+    ``packed_antecedents()``, aligned with ``conditions``) are the Pallas
+    spec's."""
 
     expand: Callable
     within_boundary: Callable
@@ -125,6 +139,8 @@ class FusedWaveSpec:
     fingerprint: Callable = fingerprint_state
     keys_route: str = "fold"
     comphash: Optional[dict] = None
+    cov_layout: Any = None
+    cov_antecedents: Tuple[Optional[Callable], ...] = ()
 
 
 # -- the model stage (torch on both paths) ---------------------------------
@@ -147,6 +163,66 @@ def model_stage(spec: FusedWaveSpec, states, F: int):
     else:
         cond = torch.zeros((0, F), dtype=torch.bool, device=cvalid.device)
     return cond.contiguous(), cvalid, cand_flat
+
+
+def antecedent_stage(spec: FusedWaveSpec, states, F: int):
+    """The model's antecedents over F frontier states, run beside the
+    conditions and only with coverage on: a ``(P, F)`` bool matrix whose
+    row of an ``always`` property with an antecedent is that antecedent,
+    and every other row all true."""
+    dev = leaves(states)[0].device
+    rows = []
+    for i, kind in enumerate(spec.expectations):
+        ant = spec.cov_antecedents[i] if spec.cov_antecedents else None
+        if kind == "always" and ant is not None:
+            rows.append(ant(states).to(torch.bool))
+        else:
+            rows.append(torch.ones(F, dtype=torch.bool, device=dev))
+    if not rows:
+        return torch.zeros((0, F), dtype=torch.bool, device=dev)
+    return torch.stack(rows).contiguous()
+
+
+def _exercised(spec, cond, ant, eval_mask, ebits_after):
+    """Each property's exercise mask over the frontier (the Pallas
+    prologue's ``ex_mat``): ``always``, the eval mask and its antecedent;
+    ``sometimes``, the eval mask and its condition; ``eventually``, the
+    eval mask and its unmet bit already cleared."""
+    ebit = dict(spec.ebit)
+    out = []
+    for i, kind in enumerate(spec.expectations):
+        if kind == "always":
+            out.append(eval_mask & ant[i])
+        elif kind == "sometimes":
+            out.append(eval_mask & cond[i])
+        else:
+            out.append(eval_mask & (((ebits_after >> ebit[i]) & 1) == 0))
+    return out
+
+
+def coverage_plain(spec, cvalid, depth, depth_cap, mask, cond, ant, ebits_after, flag,
+                   idx):
+    """A wave's coverage vector in torch (``DeviceCoverage.wave_reduce``,
+    int64): the staged wave's reduction and the plain twin of
+    ``fw_coverage`` on the same inputs. They are the model stage's valid
+    bits (not yet under the eval mask), the frontier's depth and ``mask``
+    (None: all live), the condition and antecedent matrices,
+    ``ebits_after``, and, in sorted order, the sweep's outcome bytes
+    (fresh = 1; or a bool fresh mask) and each position's lane."""
+    F, A = depth.shape[0], spec.action_count
+    eval_mask = depth < depth_cap
+    if mask is not None:
+        eval_mask = eval_mask & mask
+    valid = cvalid.view(F, A) & eval_mask[:, None]
+    sidx = idx.to(torch.int64)
+    return spec.cov_layout.wave_reduce(
+        eval_mask=eval_mask,
+        cvalid=valid,
+        fresh=flag if flag.dtype == torch.bool else (flag & 1) != 0,
+        lane_action=sidx % A,
+        new_depth=depth[sidx // A] + 1,
+        exercised=_exercised(spec, cond, ant, eval_mask, ebits_after),
+    )
 
 
 # -- the plain twin ------------------------------------------------------------
@@ -237,6 +313,13 @@ def torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None):
     )
     stats = _stats(spec, cond, eval_mask, terminal, ebits_after, hi, lo,
                    depth, cvalid.sum(), fresh, pending, mask)
+    cov = None
+    if spec.cov_layout is not None:
+        # The JAX staged wave's coverage (checker/tpu.py:1337-1380): the
+        # claim winners in sorted order, each with its lane's action and
+        # its child's depth.
+        cov = coverage_plain(spec, cvalid, depth, depth_cap, mask, cond,
+                             antecedent_stage(spec, states, F), ebits_after, fresh, sidx)
     # Cumsum compaction: fresh key i (in sorted order) goes to slot
     # rank(i); the rows past n_new are unspecified (here lane 0's).
     slot = torch.where(fresh, torch.cumsum(fresh, 0) - 1, B)
@@ -253,6 +336,8 @@ def torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None):
     }
     out = {"stats": stats, "new": new, "parent_hi": hi[parent],
            "parent_lo": lo[parent]}
+    if cov is not None:
+        out["cov"] = cov
     return table, out
 
 
@@ -284,6 +369,8 @@ ARGTYPES = {
     "fw_compact": [_c_i64, _c_int] + [_c_ptr] * 17,
     "fw_gather": [_c_i64, _c_ptr, _c_ptr, _c_int] + [_c_ptr] * 5,
     "fw_stats": [_c_int, _c_i64] + [_c_ptr] * 5,
+    "fw_coverage": [_c_i64, _c_int, _c_i64] + [_c_ptr] * 6 + [_c_int] + [_c_ptr] * 4
+    + [_c_int] + [_c_ptr] * 2,
 }
 
 
@@ -569,6 +656,34 @@ def gather_stage(src, acc, cand_flat):
     return new_states
 
 
+def coverage_stage(spec, cvalid, depth, depth_cap, mask, cond, ant, ebits_after, flag,
+                   idx):
+    """The coverage vector of a wave (int64, ``spec.cov_layout.size``
+    wide) from the chain's own scratch: the model stage's valid bits, the
+    frontier's depth and ``mask`` (None: all live), the condition and
+    antecedent matrices, ``ebits_after``, and the sweep's outcome bytes
+    and the sorted lanes. On CUDA tensors it launches ``fw_coverage`` and
+    counts one ``coverage_launches``; on CPU tensors it runs
+    ``coverage_plain``."""
+    global coverage_launches
+
+    if flag.device.type == "cpu":
+        return coverage_plain(spec, cvalid, depth, depth_cap, mask, cond, ant,
+                              ebits_after, flag, idx)
+    lay = spec.cov_layout
+    F, P = depth.shape[0], len(spec.conditions)
+    ebit = dict(spec.ebit)
+    kinds, kind_p = _host_ints([KINDS[k] for k in spec.expectations])
+    bits, bit_p = _host_ints([ebit.get(i, -1) for i in range(P)])
+    cov = torch.empty(lay.size, dtype=torch.int64, device=flag.device)
+    coverage_launches += 1
+    _call("fw_coverage", F, spec.action_count, int(depth_cap), cvalid.data_ptr(),
+          depth.data_ptr(), _ptr(mask), cond.data_ptr(), ant.data_ptr(),
+          ebits_after.data_ptr(), P, kind_p, bit_p, flag.data_ptr(), idx.data_ptr(),
+          lay.size, cov.data_ptr(), _stream(flag))
+    return cov
+
+
 def stats_stage(P, acc, hi, lo):
     """The ``(5 + 3P,)`` int64 stats vector, reduced in one block."""
     stats = torch.empty(5 + 3 * P, dtype=torch.int64, device=acc.device)
@@ -591,13 +706,16 @@ def _check_inputs(table, named):
 
 
 def kernel_chain(spec, table, hi, lo, ebits, depth, depth_cap, cond, cvalid,
-                 kin, cand_flat, mark=None, mask=None):
+                 kin, cand_flat, mark=None, mask=None, ant=None, taps=None):
     """Every kernel of the wave, launched back to back on the current
     stream over the model stage's outputs (``model_stage`` and
-    ``keys_input``); counts one launch. ``mask`` (F,) bool marks the live
-    frontier lanes (None: all). ``mark(name)``, when given, is called
-    before each stage and once after the last (``chip_smoke.py`` records
-    CUDA events there). Returns ``(table, out)``."""
+    ``keys_input``, and with coverage on ``antecedent_stage``'s ``ant``);
+    counts one launch. ``mask`` (F,) bool marks the live frontier lanes
+    (None: all). ``mark(name)``, when given, is called before each stage
+    and once after the last (``chip_smoke.py`` records CUDA events there).
+    ``taps``, a dict when given, receives the scratch the coverage stage
+    reads: ``ebits_after``, the sweep's ``flag`` and the sorted ``idx``.
+    Returns ``(table, out)``."""
     global launches
 
     mark = mark or (lambda name: None)
@@ -619,6 +737,13 @@ def kernel_chain(spec, table, hi, lo, ebits, depth, depth_cap, cond, cvalid,
     flag, _scratch = sweep_stage(table, key, active, starts, acc)
     mark("compact")
     c = compact_stage(flag, key, idx, A, ebits_after, depth, hi, lo, acc)
+    if taps is not None:
+        taps.update(ebits_after=ebits_after, flag=flag, idx=idx)
+    cov = None
+    if spec.cov_layout is not None:
+        mark("coverage")
+        cov = coverage_stage(spec, cvalid, depth, depth_cap, mask, cond, ant, ebits_after,
+                             flag, idx)
     mark("gather")
     new_states = gather_stage(c["src"], acc, cand_flat)
     mark("stats")
@@ -628,6 +753,8 @@ def kernel_chain(spec, table, hi, lo, ebits, depth, depth_cap, cond, cvalid,
     new.update((k, c[k]) for k in ("hi", "lo", "ebits", "depth"))
     out = {"stats": stats, "new": new, "parent_hi": c["parent_hi"],
            "parent_lo": c["parent_lo"]}
+    if cov is not None:
+        out["cov"] = cov
     return table, out
 
 
@@ -655,6 +782,7 @@ def fused_wave(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None):
     F = hi.shape[0]
     B = F * spec.action_count
     cond, cvalid, cand_flat = model_stage(spec, states, F)
+    ant = antecedent_stage(spec, states, F) if spec.cov_layout is not None else None
     kin = keys_input(spec, cand_flat)
     if spec.keys_route == "fold":
         keyed = [("words", kin, torch.int64, (B, kin.shape[1]))]
@@ -669,6 +797,7 @@ def fused_wave(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None):
         ("depth", depth, torch.int64, (F,)),
         ("cond", cond, torch.bool, (P, F)),
         ("cvalid", cvalid, torch.bool, (B,)),
-    ] + keyed + ([] if mask is None else [("mask", mask, torch.bool, (F,))]))
+    ] + keyed + ([] if mask is None else [("mask", mask, torch.bool, (F,))])
+      + ([] if ant is None else [("ant", ant, torch.bool, (P, F))]))
     return kernel_chain(spec, table, hi, lo, ebits, depth, depth_cap, cond,
-                        cvalid, kin, cand_flat, mask=mask)
+                        cvalid, kin, cand_flat, mask=mask, ant=ant)

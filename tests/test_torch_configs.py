@@ -1,20 +1,24 @@
 """The port's named configurations (``stateright_tpu_torch/configs.py``),
 which ``chip_smoke.py`` and the profiling scripts run, against the JAX
 package's: the bench legs' spawn settings and counts (``bench.py``), raft4's
-from ``tests/test_raft5.py``, and models of the same widths (action count,
-packed leaves and their shapes, properties)."""
+from ``tests/test_raft5.py``, skv4x4's (the swarm bench's ``ShardedKv(4, 8,
+3)``, ``bench.py:2420``, cut to 4 keys: 64 states a key, 64 ** 4 in all),
+and models of the same widths (action count, packed leaves and their
+shapes, properties)."""
 
 import numpy as np
 import pytest
 
 import bench
 from stateright_tpu.models.raft import RaftModelCfg as JaxRaftModelCfg
+from stateright_tpu.models.sharded_kv import ShardedKv as JaxShardedKv
 from stateright_tpu.models.two_phase_commit import TwoPhaseSys as JaxTwoPhaseSys
 from stateright_tpu_torch.configs import CONFIGS
 
 # Each configuration: its JAX model, spawn settings and count.
 BENCH_LEGS = {"paxos3": "paxos3", "abd3o": "abd3o", "raft5_ttc": "raft5"}
 RAFT4_LOSSY = 24_545  # tests/test_raft5.py:21
+SKV4X4_SPAWN = dict(frontier_capacity=8192, table_capacity=1 << 25, drain_log_factor=128)
 
 
 def _reference(name):
@@ -25,13 +29,15 @@ def _reference(name):
         # bench.py's 2pc leg, at 8 resource managers.
         leg = bench._leg_specs()["2pc"]
         return lambda: JaxTwoPhaseSys(8), leg["spawn"], 1_745_408
+    if name == "skv4x4":
+        return lambda: JaxShardedKv(4, 4, 3, guarded=True), SKV4X4_SPAWN, 64 ** 4
     assert name == "raft4"
     return (lambda: JaxRaftModelCfg(server_count=4, max_term=1, lossy=True).into_model(),
             dict(frontier_capacity=1 << 11, table_capacity=1 << 16), RAFT4_LOSSY)
 
 
 def test_every_config_has_a_reference():
-    assert set(CONFIGS) == set(BENCH_LEGS) | {"2pc8", "raft4"}
+    assert set(CONFIGS) == set(BENCH_LEGS) | {"2pc8", "raft4", "skv4x4"}
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -47,3 +53,5 @@ def test_config_matches_the_jax_package(name):
     got = {k: tuple(v.shape) for k, v in port.packed_init_states().items()}
     want = {k: tuple(np.asarray(v).shape) for k, v in ref.packed_init_states().items()}
     assert got == want
+    assert [a is None for a in port.packed_antecedents()] == [
+        a is None for a in ref.packed_antecedents()]

@@ -15,6 +15,8 @@ the repository root:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -539,3 +541,110 @@ def test_cuda_comphash_ordered_matches_plain_twin(cuda_device, layout):
     pkey, pidx = fw.keys_plain(chi, clo, cvalid.cpu(), depth.cpu(), 4, A, mask.cpu())
     assert torch.equal(key.cpu(), pkey) and torch.equal(idx.cpu(), pidx)
     assert int(acc[0]) == int((pkey != -1).sum()) > 0
+
+
+# -- coverage ----------------------------------------------------------------------
+
+
+def cov_spec(spec, antecedent=None):
+    """``spec`` with coverage on: its layout and, for its first property
+    (an ``always``), ``antecedent``."""
+    from stateright_tpu_torch.telemetry.coverage import DeviceCoverage
+
+    P = len(spec.conditions)
+    return dataclasses.replace(
+        spec, cov_layout=DeviceCoverage(spec.action_count, P),
+        cov_antecedents=(antecedent,) + (None,) * (P - 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["full", "masked", "depth_capped", "one_action", "empty"])
+def test_cuda_coverage_stage_matches_plain_twin(cuda_device, case):
+    """``fw_coverage`` inside the fused chain against the plain twin's
+    coverage vector (``DeviceCoverage.wave_reduce`` in ``torch_wave``):
+    in-wave duplicates, terminal lanes, every property kind with an
+    antecedent on the ``always``, masked lanes holding other states, lanes
+    past the depth cap, a single action (one successor bin) and an empty
+    frontier; bit for bit, one launch of the stage a wave."""
+    actions = 1 if case == "one_action" else 8
+    spec = cov_spec(hop_spec(5000, actions=actions, bound=4000),
+                    antecedent=lambda st: st["x"] % 3 == 0)
+    xs = [] if case == "empty" else list(range(0, 3000, 3)) + list(range(3990, 4100))
+    F = len(xs)
+    mask = None
+    depth = torch.full((F,), 2, dtype=torch.int64)
+    if case == "masked":
+        mask = torch.from_numpy(np.random.default_rng(3).random(F) < 0.5)
+        depth = torch.where(mask, 2, 9)
+    elif case == "depth_capped":
+        depth = torch.from_numpy(np.random.default_rng(4).integers(1, 80, size=F))
+    states, cols = hop_frontier(xs, depth, ebits=1)
+    table = empty_table(TILE_ROWS * 4)
+    dcap = 70 if case == "depth_capped" else 10
+    before = fw.coverage_launches
+    _pt, pout = fw.fused_wave_plain(spec, table_from_numpy(table), states, cols["hi"],
+                                    cols["lo"], cols["ebits"], cols["depth"], dcap, mask=mask)
+    _ct, cout = fw.fused_wave(
+        spec, table_from_numpy(table, cuda_device),
+        map_leaves(lambda t: t.to(cuda_device), states),
+        *(cols[k].to(cuda_device) for k in ("hi", "lo", "ebits", "depth")), dcap,
+        mask=None if mask is None else mask.to(cuda_device))
+    torch.cuda.synchronize()
+    assert fw.coverage_launches == before + 1
+    assert cout["cov"].dtype == torch.int64
+    assert cout["cov"].cpu().tolist() == pout["cov"].tolist()
+    assert cout["stats"].cpu().tolist() == pout["stats"].tolist()
+    lay = spec.cov_layout
+    vec = pout["cov"].tolist()
+    if F:
+        assert vec[0] > 0 and sum(vec[lay.s_fresh]) == pout["stats"].tolist()[1]
+
+
+COVERAGE_DRAIN_MODELS = {
+    "2pc5": (lambda: TwoPhaseSys(5), 8832),
+    "skv_4_2_3_guarded": (lambda: _sharded_kv(4, 2, 3, True), 4096),
+    "skv_2_2_1": (lambda: _sharded_kv(2, 2, 1, False), None),
+}
+
+
+def _sharded_kv(*args):
+    from stateright_tpu_torch.models.sharded_kv import ShardedKv
+
+    s, k, v, g = args
+    return ShardedKv(s, k, v, guarded=g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wave_kernel", ["staged", "fused"])
+@pytest.mark.parametrize("case", ["tiny", "default"])
+@pytest.mark.parametrize("model", list(COVERAGE_DRAIN_MODELS))
+def test_cuda_coverage_drain_matches_cpu_twin(cuda_device, wave_kernel, case, model):
+    """A coverage-on run through the captured drain on the card and the
+    uncaptured drain of the CPU twin: equal coverage reports and counts;
+    with the fused wave, every replayed wave launched ``fw_coverage``; the
+    coverage-off run on the card launches no coverage stage and keeps its
+    counts and its launches."""
+    make, expected = COVERAGE_DRAIN_MODELS[model]
+    spawn = dict(DRAIN_CASES[case], wave_kernel=wave_kernel)
+    fw.launches = fw.coverage_launches = 0
+    gpu = make().checker().spawn_gpu_bfs(device=cuda_device, coverage=True, **spawn).join()
+    on_launches, cov_launches = fw.launches, fw.coverage_launches
+    cpu = make().checker().spawn_gpu_bfs(device="cpu", coverage=True, **spawn).join()
+    fw.launches = fw.coverage_launches = 0
+    off = make().checker().spawn_gpu_bfs(device=cuda_device, **spawn).join()
+    assert gpu.worker_error() is None, gpu.worker_error()
+    assert gpu.coverage_report() == cpu.coverage_report()
+    rep = gpu.coverage_report()
+    assert sum(rep["shape"]["depth_hist"]) == rep["unique"] == gpu.unique_state_count()
+    if expected is not None:
+        assert gpu.unique_state_count() == expected
+    for c in (cpu, off):
+        assert gpu.unique_state_count() == c.unique_state_count()
+        assert gpu.state_count() == c.state_count()
+        assert gpu.max_depth() == c.max_depth()
+        assert gpu.drains == c.drains and gpu.waves == c.waves
+    assert fw.coverage_launches == 0
+    if wave_kernel == "fused":
+        assert cov_launches == on_launches == fw.launches > 0
+    else:
+        assert cov_launches == on_launches == fw.launches == 0

@@ -480,6 +480,11 @@ def test_import_leaves_jax_out():
         "import stateright_tpu_torch.models.linearizable_register\n"
         "import stateright_tpu_torch.models.raft\n"
         "import stateright_tpu_torch.configs\n"
+        "import stateright_tpu_torch.telemetry\n"
+        "import stateright_tpu_torch.telemetry.coverage\n"
+        "import stateright_tpu_torch.telemetry.metrics\n"
+        "import stateright_tpu_torch.telemetry.trace\n"
+        "import stateright_tpu_torch.models.sharded_kv\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'stateright_tpu' or m.startswith('stateright_tpu.')]\n"
         "print(bad)\n"
