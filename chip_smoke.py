@@ -39,10 +39,17 @@ full-width takes of 2pc-8 and of ``skv4x4`` (the fixed sharded KV,
 ``ShardedKv(4, 4, 3, guarded=True)``); 2pc-8 through the drain with coverage
 on both engines, equal reports, against the coverage-off runs; ``skv4x4``
 exhaustively (16,777,216 states) on both engines with coverage; and small
-coverage runs on the card against the CPU twin. Prints phase lines,
-the card's name and power limit, the fused wave's stage times, the drains'
-walls, waves, no-op and warm-up waves, exits, graph captures and replays and
-rungs, peak device memory, one ``{"kernels": [...]}`` line, and as its last
+coverage runs on the card against the CPU twin. On every timed wave
+(2pc-8, paxos3, abd3o, raft5, and 2pc-8 and skv4x4 with coverage) the
+fused sort (``fw_sort``) is held to a stable ``torch.sort`` of the wave's
+keys and the leaf gather (``fw_gather``) to ``x[src]`` over the chain's
+own compaction, and one ``{"stage_record": ...}`` line gives the chain's
+per-stage times, the keyed lanes and fresh rows, both stages' times and
+bounds, ``torch.sort``'s time and the summed per-leaf ``index_select``'s.
+Prints phase lines, the card's name and power limit, the fused wave's
+stage times, the drains' walls, waves, no-op and warm-up waves, exits,
+graph captures and replays and rungs, peak device memory, one
+``{"kernels": [...]}`` line, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
 when any phase fails, when no CUDA device is present, or when the port's
 package is not beside it. Imports nothing of JAX or of the JAX package.
@@ -491,6 +498,132 @@ def _time_on_card(fn, reps=11, reset=None):
     return statistics.median(totals), {k: statistics.median(v) for k, v in stages.items()}
 
 
+def _sort_device_ops(key0, idx0, reps=5):
+    """The device operations one ``fw_sort`` of ``key0``/``idx0`` queues
+    (kernels and memsets), counted by ``torch.profiler`` over ``reps``
+    sorts from the unsorted keys, and the mean device microseconds a sort
+    of each kind of operation (the 8 digit passes summed under one name).
+    Run once, early: the profiler's later sessions in one process drop
+    device records."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stateright_tpu_torch.ops import fused_wave as fw
+
+    key, idx = key0.clone(), idx0.clone()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            key.copy_(key0)
+            idx.copy_(idx0)
+            fw.sort_stage(key, idx)
+        torch.cuda.synchronize()
+    ops, us = 0, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("Memcpy"):
+            name = e.name.split("(")[0]
+            ops += 1
+            us[name] = us.get(name, 0.0) + (e.time_range.end - e.time_range.start) / reps
+    if ops % reps:
+        raise AssertionError(f"fw_sort queued {ops} device operations over {reps} sorts")
+    return ops // reps, us
+
+
+def _sort_gather_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cvalid, kin,
+                      cand, mask=None, ant=None, stage_ms=None, chain_ms=None):
+    """``fw_sort`` and ``fw_gather`` on one wave's own inputs, held to their
+    plain twins and timed beside their bounds and their library calls: the
+    sort on the keys stage's output against a stable ``torch.sort``
+    (``library_ms``) and ``sort_plain``; the gather on the chain's own
+    compaction (``src``, ``n_new``) against ``gather_plain`` (``x[src]``)
+    and the summed per-leaf ``index_select`` over ``src[:n_new]``
+    (``library_ms``). The sort is also timed, beside ``torch.sort``, on
+    random keys of the wave's shape (B lanes, the same count of keyed
+    lanes at random places, the rest ``~0``). Logs one ``stage_record``
+    line with the chain's per-stage times."""
+    import numpy as np
+    import torch
+
+    from stateright_tpu_torch.core.batch import leaves
+    from stateright_tpu_torch.ops import fused_wave as fw
+
+    MIN = -(1 << 63)
+    work, taps = table0.clone(), {}
+    fw.kernel_chain(spec, work, hi, lo, ebits, depth, depth_cap, cond, cvalid, kin, cand,
+                    mask=mask, ant=ant, taps=taps)
+    key0, idx0 = fw.route_keys_stage(spec, kin, cand, cvalid, depth, depth_cap, None, mask)
+    B = key0.shape[0]
+    n_live = int((key0 != -1).sum())
+    key, idx = key0.clone(), idx0.clone()
+    fw.sort_stage(key, idx)
+    skey, perm = torch.sort(key0 ^ MIN, stable=True)
+    sort_err = _max_abs_err([((skey ^ MIN).cpu(), key), (idx0[perm].cpu(), idx)])
+    reset = lambda: (key.copy_(key0), idx.copy_(idx0))  # noqa: E731
+    sort_ms, _ = _time_on_card(lambda mark: fw.sort_stage(key, idx), reset=reset)
+    sort_plain_ms, _ = _time_on_card(lambda mark: fw.sort_plain(key, idx), reset=reset)
+    signed = key0 ^ MIN
+    torch_sort_ms, _ = _time_on_card(lambda mark: torch.sort(signed, stable=True))
+
+    rng = np.random.default_rng(B)
+    rkeys = rng.integers(0, 1 << 64, size=B, dtype=np.uint64)
+    rkeys[rng.permutation(B)[n_live:]] = np.uint64(2**64 - 1)
+    rkey0 = torch.from_numpy(rkeys.view(np.int64).copy()).cuda()
+    iota = torch.arange(B, dtype=torch.int32, device="cuda")
+    key, idx = rkey0.clone(), iota.clone()
+    fw.sort_stage(key, idx)
+    skey, perm = torch.sort(rkey0 ^ MIN, stable=True)
+    sort_err = max(sort_err, _max_abs_err([((skey ^ MIN).cpu(), key), (iota[perm].cpu(), idx)]))
+    reset = lambda: (key.copy_(rkey0), idx.copy_(iota))  # noqa: E731
+    sort_random_ms, _ = _time_on_card(lambda mark: fw.sort_stage(key, idx), reset=reset)
+    rsigned = rkey0 ^ MIN
+    torch_sort_random_ms, _ = _time_on_card(lambda mark: torch.sort(rsigned, stable=True))
+
+    src, acc = taps["src"], taps["acc"]
+    n_new = int(acc[1])
+    flat = leaves(cand)
+    got, want = fw.gather_stage(src, acc, cand), fw.gather_plain(src, acc, cand)
+    torch.cuda.synchronize()
+    gather_err = _max_abs_err([(w[:n_new].cpu(), g[:n_new]) for w, g in
+                               zip(leaves(want), leaves(got))])
+    rbs = [x[0].numel() * x.element_size() for x in flat]
+    row_bytes = sum(rbs)
+    group = fw._group([rb // fw._unit(rb, x.data_ptr()) for rb, x in zip(rbs, flat)])
+    gather_ms, _ = _time_on_card(lambda mark: fw.gather_stage(src, acc, cand))
+    gather_plain_ms, _ = _time_on_card(lambda mark: fw.gather_plain(src, acc, cand))
+    sel = src[:n_new]
+    index_select_ms, _ = _time_on_card(lambda mark: [x.index_select(0, sel) for x in flat])
+
+    # The sort reads each lane's key (8 B) and idx (4 B) once and writes
+    # both once, whatever its passes move.
+    sort_bytes = B * 24
+    gather_bytes = n_new * (8 + 2 * row_bytes)
+    rec = {
+        "wave": label, "B": B, "n_live": n_live, "n_new": n_new,
+        "fused_wave_stage_ms": stage_ms, "kernel_chain_ms": chain_ms,
+        "sort_ms": sort_ms, "sort_plain_ms": sort_plain_ms, "torch_sort_ms": torch_sort_ms,
+        "sort_bound_bytes": sort_bytes, "sort_bound_ms": sort_bytes / HBM_BYTES_PER_S * 1e3,
+        "sort_max_abs_err": sort_err,
+        "sort_random_ms": sort_random_ms, "torch_sort_random_ms": torch_sort_random_ms,
+        "gather_ms": gather_ms, "gather_group": group,
+        "gather_plain_ms": gather_plain_ms, "index_select_sum_ms": index_select_ms,
+        "gather_row_bytes": row_bytes, "gather_leaves": len(flat),
+        "gather_bound_bytes": gather_bytes,
+        "gather_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
+        "gather_max_abs_err": gather_err,
+    }
+    log(json.dumps({"stage_record": rec}))
+    log(f"  fw_sort ({label}): n={B} keyed={n_live} {sort_ms:.4f} ms vs torch.sort "
+        f"{torch_sort_ms:.4f} ms (random keys {sort_random_ms:.4f} vs "
+        f"{torch_sort_random_ms:.4f} ms), bound {rec['sort_bound_ms']:.5f} ms; "
+        f"fw_gather: n_new={n_new} {gather_ms:.4f} ms (group {group}) vs "
+        f"index_select {index_select_ms:.4f} ms, bound {rec['gather_bound_ms']:.5f} ms; "
+        f"max_abs_err sort={sort_err} gather={gather_err}")
+    if sort_err or gather_err:
+        raise AssertionError(f"fw_sort or fw_gather and its plain twin disagree on {label}")
+    return rec
+
+
 @contextlib.contextmanager
 def _spy_sweeps(record):
     """Records ``(key, active, starts, scratch)`` of every fused sweep
@@ -627,22 +760,16 @@ def fused_vs_plain():
         log(f"  fingerprint stage, {width}-word rows: max_abs_err={e}")
         err = max(err, e)
 
-    # The radix sort against a stable torch.sort: the wave's own keys
-    # (the invalid lanes' sentinel repeated) and keys with many duplicates;
-    # torch.sort of the same keys on the card is the stage's yardstick.
-    key, idx = fw.keys_stage(words, cvalid, depth, depth_cap, A)
-    wave_keys = key.clone()
+    # The sort against a stable torch.sort on keys with many duplicates
+    # (each timed wave's own keys are held to it in _sort_gather_wave).
     dup = torch.from_numpy((rng.integers(0, 1000, size=B).astype(np.uint64)
                             * np.uint64(0x9E3779B97F4A7C15)).view(np.int64))
-    for label, keys in (("wave keys", wave_keys.cpu()), ("1,000 distinct keys", dup)):
-        k, i = keys.cuda(), torch.arange(B, dtype=torch.int32, device="cuda")
-        fw.sort_stage(k, i)
-        skey, sidx = torch.sort(keys ^ (-(1 << 63)), stable=True)
-        e = _max_abs_err([(skey ^ (-(1 << 63)), k), (sidx, i)])
-        log(f"  radix sort, {label}: n={B} max_abs_err={e}")
-        err = max(err, e)
-    signed = wave_keys ^ (-(1 << 63))
-    torch_sort_ms, _ = _time_on_card(lambda mark: torch.sort(signed, stable=True))
+    k, i = dup.cuda(), torch.arange(B, dtype=torch.int32, device="cuda")
+    fw.sort_stage(k, i)
+    skey, sidx = torch.sort(dup ^ (-(1 << 63)), stable=True)
+    e = _max_abs_err([(skey ^ (-(1 << 63)), k), (sidx, i)])
+    log(f"  sort, 1,000 distinct keys: n={B} max_abs_err={e}")
+    err = max(err, e)
     if err:
         raise AssertionError("a fused stage and its plain counterpart disagree")
 
@@ -662,16 +789,34 @@ def fused_vs_plain():
     log(json.dumps({"fused_wave_stage_ms": stage_ms, "kernel_chain_ms": chain_ms,
                     "sweep_pass_ms": pass_ms, "sweep_tiles_touched": touched,
                     "sweep_tiles_redone": redone,
-                    "model_stage_torch_ms": model_ms, "torch_sort_ms": torch_sort_ms,
+                    "model_stage_torch_ms": model_ms,
                     "must_move_bytes": moved, "probed_rows": probed}))
     log(f"  fused wave kernels: median {chain_ms:.4f} ms (sweep {stage_ms['sweep']:.4f} ms: "
         f"{_fmt_passes(pass_ms)}; tiles touched={touched} redone={redone}; "
-        f"radix sort {stage_ms['sort']:.4f} ms vs torch.sort {torch_sort_ms:.4f} ms); "
+        f"sort {stage_ms['sort']:.4f} ms); "
         f"model stage (torch) {model_ms:.3f} ms; bound {bound_ms:.5f} ms ({moved} B)")
-    return {"max_abs_err": err, "ms": chain_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+    rec = _sort_gather_wave("2pc8", spec, table0, hi, lo, ebits, depth, depth_cap, cond, cvalid,
+                            words, cand_flat, stage_ms=stage_ms, chain_ms=chain_ms)
+    key0, idx0 = fw.keys_stage(words, cvalid, depth, depth_cap, A)
+    ops, op_us = _sort_device_ops(key0, idx0)
+    log(f"  fw_sort device operations on the 2pc-8 wave (torch.profiler): {ops}, "
+        f"device us a sort: {op_us}; the wrapper's count {fw.sort_device_ops}")
+    if ops != fw.sort_device_ops:
+        raise AssertionError(f"fw_sort queued {ops} device operations, not {fw.sort_device_ops}")
+    rec.update(sort_device_ops=ops, sort_device_us=op_us)
+    return {"max_abs_err": err, "ms": chain_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "waves": {"2pc8": rec}}
 
 
 # -- 3. the main paths ----------------------------------------------------------
+
+
+def _check_sort_gather_launches(n):
+    """Every fused wave sorts once and gathers its leaves at least once;
+    the staged engine launches neither kernel."""
+    assert n["fw_sort"] == n["fused_wave"], n
+    assert n["fw_gather"] >= n["fused_wave"], n
+    assert (n["fw_gather"] > 0) == (n["fused_wave"] > 0), n
 
 
 def _drive_2pc8(wave_kernel, **spawn):
@@ -684,13 +829,15 @@ def _drive_2pc8(wave_kernel, **spawn):
 
     cfg = _config("2pc8")
     torch.cuda.reset_peak_memory_stats()
-    hk.launches = fw.launches = 0
+    hk.launches = fw.launches = fw.sort_launches = fw.gather_launches = 0
     t0 = time.perf_counter()
     checker = cfg.make().checker().spawn_gpu_bfs(
         **dict(cfg.spawn, wave_kernel=wave_kernel, **spawn)).join()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches}
+    launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
+                "fw_sort": fw.sort_launches, "fw_gather": fw.gather_launches}
+    _check_sort_gather_launches(launches)
     unique = checker.unique_state_count()
     mode = "drain" if checker.drains else "wave at a time"
     log(f"  2pc-8 ({wave_kernel}, {mode}): unique={unique} states={checker.state_count()} "
@@ -961,8 +1108,10 @@ def _comphash_wave(label, got):
     log(f"  fw_comphash_keys ({label}): median {ms:.4f} ms, plain twin on the card "
         f"{twin_ms:.4f} ms, bound {bound_ms:.5f} ms ({moved} B); chain {chain_ms:.4f} ms; "
         f"model stage (torch) {model_ms:.3f} ms")
+    rec = _sort_gather_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cvalid,
+                            None, cand, mask=mask, stage_ms=stage_ms, chain_ms=chain_ms)
     return {"max_abs_err": max(err, chain_err), "keys_err": err, "chain_err": chain_err,
-            "ms": ms, "plain_ms": twin_ms, "bound_ms": bound_ms}
+            "ms": ms, "plain_ms": twin_ms, "bound_ms": bound_ms, "waves": {label: rec}}
 
 
 def _insert_on_wave(label, got):
@@ -1051,12 +1200,15 @@ def _drive(name, wave_kernel):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     hk.launches = fw.launches = fw.comphash_launches = 0
+    fw.sort_launches = fw.gather_launches = 0
     t0 = time.perf_counter()
     checker = model.checker().spawn_gpu_bfs(wave_kernel=wave_kernel, **cfg.spawn).join()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
-                "fw_comphash_keys": fw.comphash_launches}
+                "fw_comphash_keys": fw.comphash_launches, "fw_sort": fw.sort_launches,
+                "fw_gather": fw.gather_launches}
+    _check_sort_gather_launches(launches)
     peak = torch.cuda.max_memory_allocated()
     unique = checker.unique_state_count()
     log(f"  {name} ({wave_kernel}, drain): unique={unique} states={checker.state_count()} "
@@ -1352,8 +1504,11 @@ def _coverage_wave(label, got, model):
     log(f"  fw_coverage ({label}): median {ms:.4f} ms, plain twin on the card {twin_ms:.4f} ms, "
         f"bound {bound_ms:.5f} ms ({moved} B); chain with coverage {chain_ms:.4f} ms "
         f"(coverage stage {stage_ms['coverage']:.4f} ms); antecedents (torch) {ant_ms:.4f} ms")
+    rec = _sort_gather_wave(f"{label}_coverage", spec, table0, hi, lo, ebits, depth, depth_cap,
+                            cond, cvalid, kin, cand, mask=mask, ant=ant, stage_ms=stage_ms,
+                            chain_ms=chain_ms)
     return {"max_abs_err": max(err, chain_err), "ms": ms, "plain_ms": twin_ms,
-            "bound_ms": bound_ms, "chain_ms": chain_ms}
+            "bound_ms": bound_ms, "chain_ms": chain_ms, "waves": {f"{label}_coverage": rec}}
 
 
 @phase("coverage_vs_plain")
@@ -1383,6 +1538,7 @@ def _drive_coverage(name, wave_kernel, coverage=True):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     hk.launches = fw.launches = fw.comphash_launches = fw.coverage_launches = 0
+    fw.sort_launches = fw.gather_launches = 0
     t0 = time.perf_counter()
     checker = model.checker().spawn_gpu_bfs(wave_kernel=wave_kernel, coverage=coverage,
                                             **cfg.spawn).join()
@@ -1390,7 +1546,9 @@ def _drive_coverage(name, wave_kernel, coverage=True):
     wall = time.perf_counter() - t0
     launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
                 "fw_comphash_keys": fw.comphash_launches,
-                "fw_coverage": fw.coverage_launches}
+                "fw_coverage": fw.coverage_launches, "fw_sort": fw.sort_launches,
+                "fw_gather": fw.gather_launches}
+    _check_sort_gather_launches(launches)
     peak = torch.cuda.max_memory_allocated()
     unique = checker.unique_state_count()
     log(f"  {name} ({wave_kernel}, drain, coverage={coverage}): unique={unique} "
@@ -1597,12 +1755,33 @@ def main() -> int:
     fused_launches = by_path("fused", "fused_wave", {"2pc8": drains, **actor_runs})
     comphash_launches = by_path("fused", "fw_comphash_keys", actor_runs)
     coverage_launches = by_path("fused", "fw_coverage", {"2pc8": cov_2pc8, "skv4x4": cov_skv})
+    main_runs = {"2pc8": drains, **actor_runs, "2pc8_coverage": cov_2pc8, "skv4x4": cov_skv}
+    sort_launches = by_path("fused", "fw_sort", main_runs)
+    gather_launches = by_path("fused", "fw_gather", main_runs)
     raft5_insert = raft5_wave["insert"]
+    # Each timed wave's sort and gather records, with the launches of the
+    # path the wave was taken from.
+    stage_waves = {}
+    for res in (fused, comphash, ordered, raft5_wave, *coverage.values()):
+        stage_waves.update(res["waves"])
+    wave_path = {"2pc8": "2pc8", "paxos3": "paxos3", "abd3o": "abd3o", "raft5": "raft5",
+                 "2pc8_coverage": "2pc8_coverage", "skv4x4_coverage": "skv4x4"}
 
     def held(res, launches):
         return {"launches": launches, "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"], "bound_by": "bytes",
                 "library_ms": None}
+
+    def stage_held(kernel, launches):
+        return {wave: {"launches": launches[wave_path[wave]],
+                       "max_abs_err": r[f"{kernel}_max_abs_err"], "ms": r[f"{kernel}_ms"],
+                       "plain_ms": r[f"{kernel}_plain_ms"], "bound_ms": r[f"{kernel}_bound_ms"],
+                       "bound_by": "bytes",
+                       "library_ms": r["torch_sort_ms" if kernel == "sort" else
+                                       "index_select_sum_ms"]}
+                for wave, r in stage_waves.items()}
+
+    sort_2pc8, gather_paxos3 = stage_waves["2pc8"], stage_waves["paxos3"]
 
     log(json.dumps({"kernels": [
         {
@@ -1670,6 +1849,39 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": None,
             "by_path": {name: held(w, coverage_launches[name]) for name, w in coverage.items()},
+        },
+        {
+            "name": "fw_sort",
+            "route": "cuda",
+            "source": "stateright_tpu_torch/csrc/fused_wave.cu",
+            "replaces": "stateright_tpu/ops/pallas_wave.py:186",
+            "launches": sum(sort_launches.values()),
+            "launches_by_path": sort_launches,
+            "device_ops_a_sort": sort_2pc8["sort_device_ops"],
+            "max_abs_err": max(r["sort_max_abs_err"] for r in stage_waves.values()),
+            # On the 2pc-8 wave's keys; each timed wave's numbers below.
+            "ms": sort_2pc8["sort_ms"],
+            "plain_ms": sort_2pc8["sort_plain_ms"],
+            "bound_ms": sort_2pc8["sort_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": sort_2pc8["torch_sort_ms"],
+            "by_path": stage_held("sort", sort_launches),
+        },
+        {
+            "name": "fw_gather",
+            "route": "cuda",
+            "source": "stateright_tpu_torch/csrc/fused_wave.cu",
+            "replaces": "stateright_tpu/ops/pallas_wave.py:465",
+            "launches": sum(gather_launches.values()),
+            "launches_by_path": gather_launches,
+            "max_abs_err": max(r["gather_max_abs_err"] for r in stage_waves.values()),
+            # On the paxos3 wave (4.3 KB rows); each timed wave's numbers below.
+            "ms": gather_paxos3["gather_ms"],
+            "plain_ms": gather_paxos3["gather_plain_ms"],
+            "bound_ms": gather_paxos3["gather_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": gather_paxos3["index_select_sum_ms"],
+            "by_path": stage_held("gather", gather_launches),
         },
     ]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -122,6 +122,12 @@ _AUTO_BUCKET_MIN_F = 512
 _GRAPH_WAVES = 4
 # The drain exits to the host before its generated counter reaches this.
 _GENERATED_CAP = 1 << 30
+# The kernels' launch counts (module, attribute) that a captured drain
+# graph adds to at every replay.
+_LAUNCH_COUNTERS = (
+    (fw, "launches"), (fw, "comphash_launches"), (fw, "coverage_launches"),
+    (fw, "sort_launches"), (fw, "gather_launches"), (hk, "launches"),
+)
 
 # The drain's device scalars (one int64 vector): the ring's head and
 # count, the consumed waves' totals, the budget left, the waves run, the
@@ -843,15 +849,13 @@ class GpuBfsChecker(Checker):
         if self._go_host is None:
             self._go_host = torch.zeros(2, dtype=torch.int64, pin_memory=True)
         graphs, events, flag = entry["graphs"], entry["events"], self._go_host
-        fw_n, ch_n, cov_n, hk_n = entry["launches"]
+        per_replay = entry["launches"]
 
         def launch(i):
             # A replay launches every kernel of its waves, no-op waves
             # included, with no Python call of the wrappers.
-            fw.launches += fw_n
-            fw.comphash_launches += ch_n
-            fw.coverage_launches += cov_n
-            hk.launches += hk_n
+            for (mod, name), n in zip(_LAUNCH_COUNTERS, per_replay):
+                setattr(mod, name, getattr(mod, name) + n)
             graphs[i % 2].replay()
             flag[i % 2].copy_(d["scalars"][_GO], non_blocking=True)
             events[i % 2].record()
@@ -887,7 +891,7 @@ class GpuBfsChecker(Checker):
         sc[_GO] = 1
         # A capture records the kernels and launches none: its counts are
         # undone here and added at every replay instead.
-        counts = fw.launches, fw.comphash_launches, fw.coverage_launches, hk.launches
+        counts = [getattr(mod, name) for mod, name in _LAUNCH_COUNTERS]
         graphs, slots = [], []
         for g in range(2):
             graph = torch.cuda.CUDAGraph()
@@ -898,13 +902,10 @@ class GpuBfsChecker(Checker):
                     )
                     slots.append((out, frontier))
             graphs.append(graph)
-        per_replay = (
-            (fw.launches - counts[0]) // 2,
-            (fw.comphash_launches - counts[1]) // 2,
-            (fw.coverage_launches - counts[2]) // 2,
-            (hk.launches - counts[3]) // 2,
-        )
-        fw.launches, fw.comphash_launches, fw.coverage_launches, hk.launches = counts
+        per_replay = []
+        for (mod, name), before in zip(_LAUNCH_COUNTERS, counts):
+            per_replay.append((getattr(mod, name) - before) // 2)
+            setattr(mod, name, before)
         self.graph_captures += 2
         return {
             "graphs": graphs,

@@ -32,13 +32,19 @@
 //   fw_keys_pairs the (hi, lo) pairs a model's own packed_fingerprint
 //                computed in torch, with fw_keys's validity and count;
 //   fw_sort      a stable LSD radix sort of the 64-bit keys carrying the
-//                lane index: per-block digit histograms, an exclusive scan
-//                in digit-major, block-minor order, and a scatter that
-//                ranks equal digits in input order (warp match + a prefix
-//                over the block's warps), 8 passes of 8 bits;
-//   fw_dedup     first occurrence of each valid key (active), and each
-//                table tile's key range by binary search over the monotone
-//                homes;
+//                lane index, over the keyed lanes only: a stable partition
+//                (keyed lanes to a dense prefix, the ~0 sentinel lanes
+//                straight to their final tail, in lane order; tile offsets
+//                by decoupled look-back; the 8 digit histograms of the
+//                keyed lanes on the way), then 8 onesweep passes of 8 bits
+//                over the prefix, one launch each: a block ranks its tile's
+//                digits in input order (warp match + per-warp counters),
+//                finds its per-digit offsets by look-back over the tiles
+//                before it, orders the tile by digit in shared memory and
+//                writes each digit's keys out as one run;
+//   fw_dedup     first occurrence of each key whose lane is valid (active),
+//                and each table tile's key range by binary search over the
+//                monotone homes;
 //   fw_sweep     the tile sweep of tile_sweep.cuh, the one the insert
 //                kernel runs (Pallas: probe_claim, shared the same way):
 //                tiles speculated in parallel, an ordered repair of the
@@ -47,7 +53,10 @@
 //                positions (block counts, one block scanning them, block
 //                scans) and the scatter of hi, lo, ebits, depth + 1 and the
 //                parent's hi and lo to each fresh key's slot;
-//   fw_gather    the candidate leaves of the fresh keys, as byte rows;
+//   fw_gather    the candidate leaves of the fresh keys, as byte rows: a
+//                group of lanes a row (a warp for a leaf row of 512 B or
+//                more), coalesced 16-byte units where alignment allows,
+//                over a persistent grid bounded by the device's n_new;
 //   fw_coverage  with coverage on only: the wave's coverage vector
 //                (below);
 //   fw_stats     one block: [generated, n_new, overflow, max_depth,
@@ -66,11 +75,27 @@
 // its inputs. The sweep moves whole windows into shared memory (one warp a
 // touched tile, on every SM) and then repairs, in one block, the few tiles
 // whose predecessor spilled into their apron. The other stages are
-// bandwidth-shaped passes over B lanes; the sort makes 8 passes over 12 B a
-// lane. The design keeps every stage off the host (no sync inside a wave;
-// counters live in a small device vector that the host reads once) and the
-// launches few (about 35 a wave). What it does not yet do: prefetch the
-// sweep's windows asynchronously, or sort only the valid lanes.
+// bandwidth-shaped passes over B lanes. The sort, as a function, must read
+// each lane's key and idx once and write them once: n * 24 B, 8.3 MB on a
+// 2pc-8 wave (344,064 lanes), 0.0025 ms at 3.35 TB/s. This design moves
+// more: 12 B a lane in and out in the partition, then 12 B a keyed lane in
+// and out in each of its 8 passes (82,156 keyed lanes at 2pc-8; 76-91% of
+// the lanes are sentinels and never enter a pass). Its time is launch and
+// latency: 10 device operations (a memset, the partition, 8 passes;
+// the former sort took 24, three a pass, one of them a one-block scan),
+// tickets so a block waits only on tiles whose owners run, look-backs
+// that read 16 (a digit pass) or 32 (the partition) status words at once
+// with relaxed loads, every key of a tile loaded before its first barrier,
+// a ranking with no block barrier a round, and a tile's keys leaving in
+// runs of one digit rather than one scattered store each.
+// The gather is bound by n_new * (8 + 2 * row bytes); a group of lanes a
+// row with 16-byte units makes its loads coalesce. The design keeps every
+// stage off the host (no sync inside a wave; counters live in a small
+// device vector that the host reads once) and the launches few (about 25
+// a wave). What it does not yet do: prefetch the sweep's windows
+// asynchronously, or sort with fewer, wider digit passes (each pass costs
+// a launch and a chain of dependent round trips, 7-8 us even on a few
+// tiles).
 //
 // fw_coverage replaces the coverage epilogue of the same Pallas kernel
 // (pallas_wave.py:152-177, the exercise masks in the prologue; :495-507,
@@ -133,6 +158,8 @@
 
 #define SORT_ROUNDS 8
 #define SORT_TILE (THREADS * SORT_ROUNDS)
+#define PART_ITEMS 8
+#define PART_TILE (THREADS * PART_ITEMS)
 #define SCAN_THREADS 1024
 #define SCAN_ITEMS 4
 #define COMPACT_ITEMS 4
@@ -154,7 +181,7 @@ struct Leaves {
   const uint8_t* src[MAX_LEAVES];
   uint8_t* dst[MAX_LEAVES];
   int64_t row_bytes[MAX_LEAVES];
-  int unit[MAX_LEAVES];  // copy width in bytes: 8, 4, 2 or 1
+  int unit[MAX_LEAVES];  // copy width in bytes: 16, 8, 4, 2 or 1
 };
 
 static unsigned blocks_for(int64_t n, int64_t per_block) {
@@ -522,80 +549,312 @@ __global__ void __launch_bounds__(THREADS) comphash_keys_kernel(
 }
 
 // -- (c) stable LSD radix sort ----------------------------------------------
+//
+// Scratch (uint32 words, fw_sort): a ticket per launch, the
+// keyed-lane count n_live, the 8 digit histograms of the keyed lanes, the
+// partition's tile status words, and two arrays of per-tile, per-digit
+// status words that the digit passes use in turn. A status word packs a
+// flag (bits 30-31: ST_AGG, the tile's own count; ST_INC, the count of the
+// tile and of every tile before it in the scan's order) and a count (bits
+// 0-29); zero means not published yet.
 
-// hist[digit * nb + block] = count of the digit among the block's keys.
-__global__ void __launch_bounds__(THREADS) radix_hist_kernel(
-    const ull* __restrict__ key, int64_t n, int shift, uint32_t* __restrict__ hist,
-    int64_t nb) {
-  __shared__ uint32_t h[256];
-  h[threadIdx.x] = 0;
-  __syncthreads();
-  const int64_t base = (int64_t)blockIdx.x * SORT_TILE;
-#pragma unroll
-  for (int r = 0; r < SORT_ROUNDS; ++r) {
-    const int64_t i = base + r * THREADS + threadIdx.x;
-    if (i < n) atomicAdd(&h[(key[i] >> shift) & 255u], 1u);
-  }
-  __syncthreads();
-  hist[(int64_t)threadIdx.x * nb + blockIdx.x] = h[threadIdx.x];
+#define SC_TICKET 0  // + launch: 0 the partition, 1 + p the digit pass p
+#define SC_NLIVE 15
+#define SC_HIST 16   // + 256 * p + digit
+#define SC_PSTAT (SC_HIST + 8 * 256)
+#define ST_AGG (1u << 30)
+#define ST_INC (2u << 30)
+#define ST_COUNT 0x3FFFFFFFu
+#define LOOKBACK 16  // status words a thread reads at once in a pass's look-back
+
+// Status words are read and written relaxed, at device scope: a word
+// carries its own count, so a digit pass needs no other ordering, and an
+// acquire load would hold back the loads after it (a look-back's window of
+// words would be read one round trip at a time). The partition, whose
+// sentinel lanes overwrite lanes other tiles have read, orders those
+// reads before its writes with fences around the words.
+__device__ __forceinline__ uint32_t ld_relaxed(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// Moves each key (and its value) to its slot for this digit: the scanned
-// histogram gives the block's first slot for each digit; within the block,
-// rounds of THREADS keys go in order, and within a round a key's rank is
-// the count of equal digits before it (lower warps, then lower lanes).
-__global__ void __launch_bounds__(THREADS) radix_scatter_kernel(
-    const ull* __restrict__ key_in, const uint32_t* __restrict__ val_in,
-    ull* __restrict__ key_out, uint32_t* __restrict__ val_out, int64_t n,
-    int shift, const uint32_t* __restrict__ hist, int64_t nb) {
-  __shared__ uint32_t s_base[256];
-  __shared__ uint32_t s_warp[THREADS / 32][256];
+__device__ __forceinline__ void st_relaxed(uint32_t* p, uint32_t v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// The sum of the counts of the tiles after t (t + 1, t + 2, ... < nt) in
+// the partition's status words, by warp 0: each lane reads one tile's
+// word, 32 tiles a step, until a tile's inclusive count ends the walk.
+// Those tiles took their tickets earlier, so every one of them publishes
+// without waiting on this one.
+__device__ uint32_t lookback_after(const uint32_t* st, int64_t t, int64_t nt) {
+  const int lane = threadIdx.x & 31;
+  uint32_t sum = 0;
+  for (int64_t u0 = t + 1;; u0 += 32) {
+    const int64_t u = u0 + lane;
+    uint32_t s = u < nt ? ld_relaxed(st + u) : ST_INC;  // past the end: 0
+    while (__any_sync(FULL_MASK, s == 0u)) {
+      if (s == 0u) s = ld_relaxed(st + u);
+    }
+    const unsigned inc = __ballot_sync(FULL_MASK, (s & ST_INC) != 0u);
+    const int stop = inc ? __ffs(inc) - 1 : 31;
+    sum += __reduce_add_sync(FULL_MASK, lane <= stop ? (s & ST_COUNT) : 0u);
+    if (inc) return sum;
+  }
+}
+
+// The sum of the counts of the tiles before t at one digit (st[u * stride]
+// for u < t), by one thread, LOOKBACK words at a time, until a tile's
+// inclusive count ends the walk.
+__device__ uint32_t lookback_before(const uint32_t* st, int64_t t, int stride) {
+  uint32_t sum = 0;
+  int64_t u = t - 1;
+  while (true) {
+    uint32_t s[LOOKBACK];
+#pragma unroll
+    for (int w = 0; w < LOOKBACK; ++w) s[w] = u - w >= 0 ? ld_relaxed(st + (u - w) * stride) : ST_INC;
+    bool stop = false;
+    int used = 0;
+#pragma unroll
+    for (int w = 0; w < LOOKBACK; ++w) {
+      if (!stop) {
+        if (s[w] == 0u) {
+          stop = true;
+        } else {
+          sum += s[w] & ST_COUNT;
+          ++used;
+          if (s[w] & ST_INC) return sum;
+        }
+      }
+    }
+    u -= used;
+  }
+}
+
+// The stable partition: every lane whose key is not ~0 goes, in lane
+// order, to live_key/live_idx[n - n_live, n) (right-aligned: its slot is
+// n minus the keyed lanes at or after it, known from the tiles after its
+// own); every other lane goes, in lane order, to key/idx[n_live, n), its
+// final place (n minus the sentinel lanes at or after it), in place.
+// Tiles are taken from the last one down by ticket, so a tile's sentinel
+// lanes, which only move up, land in its own tile or in tiles that have
+// published their counts, and so have read their lanes already. Also
+// counts the 8 digit histograms of the keyed lanes and, in the block of
+// tile 0, n_live.
+__global__ void __launch_bounds__(THREADS) sort_partition_kernel(
+    ull* key, uint32_t* idx, int64_t n, ull* __restrict__ live_key,
+    uint32_t* __restrict__ live_idx, uint32_t* __restrict__ sc, int64_t nt) {
+  __shared__ uint32_t s_hist[8][256];
+  __shared__ uint32_t s_tile, s_after;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int p = 0; p < 8; ++p) s_hist[p][tid] = 0u;
+  if (tid == 0) s_tile = atomicAdd(&sc[SC_TICKET], 1u);
+  __syncthreads();
+  const int64_t t = nt - 1 - (int64_t)s_tile;
+  const int64_t base = t * PART_TILE;
+  const int64_t m = n - base < PART_TILE ? n - base : PART_TILE;
+  const int first = tid * PART_ITEMS;
+  // Every lane of the thread is loaded before the first shared-memory
+  // atomic, so the loads are in flight together.
+  ull k[PART_ITEMS];
+  uint32_t v[PART_ITEMS];
+#pragma unroll
+  for (int j = 0; j < PART_ITEMS; ++j) {
+    k[j] = first + j < m ? key[base + first + j] : ~0ull;
+    v[j] = first + j < m ? idx[base + first + j] : 0u;
+  }
+  unsigned in = 0u, live = 0u;
+#pragma unroll
+  for (int j = 0; j < PART_ITEMS; ++j) {
+    if (first + j < m) {
+      in |= 1u << j;
+      if (k[j] != ~0ull) {
+        live |= 1u << j;
+#pragma unroll
+        for (int p = 0; p < 8; ++p) atomicAdd(&s_hist[p][(k[j] >> (8 * p)) & 255u], 1u);
+      }
+    }
+  }
+  uint32_t ltot;
+  const uint32_t lpre = block_exclusive_scan<THREADS>(__popc(live), &ltot);
+  if (tid < 32) {
+    // The block's reads of its tile (before the scan's barriers) come
+    // before its words; the words it reads come before its writes.
+    uint32_t* my = sc + SC_PSTAT + t;
+    uint32_t after = 0u;
+    __threadfence();
+    if (t == nt - 1) {
+      if (tid == 0) st_relaxed(my, ST_INC | ltot);
+    } else {
+      if (tid == 0) st_relaxed(my, ST_AGG | ltot);
+      after = lookback_after(sc + SC_PSTAT, t, nt);
+      if (tid == 0) st_relaxed(my, ST_INC | (after + ltot));
+    }
+    if (tid == 0) {
+      s_after = after;
+      if (t == 0) sc[SC_NLIVE] = after + ltot;
+    }
+    __threadfence();
+  }
+  __syncthreads();
+  const int64_t after = s_after;
+  const int64_t dead_after = (n - base - m) - after;
+  const int64_t dtot = m - ltot;
+  const int64_t dpre = (first < m ? first : m) - lpre;
+  int64_t lp = n - after - ltot + lpre;
+  int64_t dp = n - dead_after - dtot + dpre;
+#pragma unroll
+  for (int j = 0; j < PART_ITEMS; ++j) {
+    if (live >> j & 1u) {
+      live_key[lp] = k[j];
+      live_idx[lp] = v[j];
+      ++lp;
+    } else if (in >> j & 1u) {
+      key[dp] = ~0ull;
+      idx[dp] = v[j];
+      ++dp;
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const uint32_t c = s_hist[p][tid];
+    if (c) atomicAdd(&sc[SC_HIST + 256 * p + tid], c);
+  }
+}
+
+// One digit pass of the onesweep LSD sort over the keyed prefix
+// [0, n_live): a block takes a ticket for its tile (blocks past n_live
+// exit) and loads it, each warp SORT_TILE / 8 neighbouring keys. A warp
+// ranks its keys' digits in input order, 32 at a time, with no block
+// barrier: equal digits find one another with a warp match, and the
+// lowest of them adds their count to the warp's counter of that digit in
+// shared memory. The warps' counters then give each digit's offset of a
+// warp within the tile (lower warps first) and the tile's counts, which
+// the block publishes before it reads the counts of the tiles before it by
+// look-back. Each key's slot is its digit's global start (the exclusive
+// scan of the pass's histogram, made here in shared memory) + the tiles
+// before + the warps before + its rank in its warp; the block first orders
+// its keys by digit in shared memory and then writes them out in that
+// order, so a digit's keys leave as one run. The first pass reads the
+// partition's right-aligned prefix. Each block also clears its tile's
+// words in next_status, the array the next pass uses.
+__global__ void __launch_bounds__(THREADS) sort_pass_kernel(
+    const ull* __restrict__ kin, const uint32_t* __restrict__ vin, ull* __restrict__ kout,
+    uint32_t* __restrict__ vout, int64_t n, int first_pass, int pass,
+    uint32_t* __restrict__ sc, uint32_t* __restrict__ status,
+    uint32_t* __restrict__ next_status) {
+  __shared__ uint32_t s_cnt[THREADS / 32][256];  // per warp: counts, then offsets
+  __shared__ uint32_t s_base[256];  // per digit: its first slot in kout for the tile
+  __shared__ uint32_t s_first[256];  // per digit: its first slot in the tile's order
+  __shared__ ull s_key[SORT_TILE];
+  __shared__ uint32_t s_val[SORT_TILE];
+  __shared__ uint32_t s_tile;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const unsigned lanes_below = (1u << lane) - 1u;
-  s_base[tid] = hist[(int64_t)tid * nb + blockIdx.x];
-  const int64_t base = (int64_t)blockIdx.x * SORT_TILE;
+  const int shift = 8 * pass;
+  // The ticket, n_live and the pass's histogram do not depend on one
+  // another: their loads are in flight together.
+  if (tid == 0) s_tile = atomicAdd(&sc[SC_TICKET + 1 + pass], 1u);
+  const int64_t nl = sc[SC_NLIVE];
+  const uint32_t hist = sc[SC_HIST + 256 * pass + tid];
+#pragma unroll
+  for (int w = 0; w < THREADS / 32; ++w) s_cnt[w][tid] = 0u;
+  __syncthreads();
+  const int64_t tile = s_tile;
+  const int64_t base = tile * SORT_TILE;
+  if (base >= nl) return;
+  if (first_pass) {
+    kin += n - nl;
+    vin += n - nl;
+  }
+  const int64_t wbase = base + (int64_t)warp * (SORT_TILE / (THREADS / 32));
+  ull k[SORT_ROUNDS];
+  uint32_t v[SORT_ROUNDS], off[SORT_ROUNDS];
+#pragma unroll
   for (int r = 0; r < SORT_ROUNDS; ++r) {
+    const int64_t i = wbase + r * 32 + lane;
+    k[r] = i < nl ? kin[i] : 0ull;
+    v[r] = i < nl ? vin[i] : 0u;
+  }
+  if (next_status != nullptr) next_status[tile * 256 + tid] = 0u;
+  const unsigned lanes_below = (1u << lane) - 1u;
 #pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) s_warp[w][tid] = 0;
-    __syncthreads();
-    const int64_t i = base + r * THREADS + tid;
-    const bool ok = i < n;
-    const ull k = ok ? key_in[i] : 0ull;
-    const uint32_t v = ok ? val_in[i] : 0u;
-    const unsigned d = ok ? (unsigned)((k >> shift) & 255u) : 256u;
+  for (int r = 0; r < SORT_ROUNDS; ++r) {
+    const bool ok = wbase + r * 32 + lane < nl;
+    const unsigned d = ok ? (unsigned)((k[r] >> shift) & 255u) : 256u;
     const unsigned peers = __match_any_sync(FULL_MASK, d);
-    const unsigned rank = __popc(peers & lanes_below);
-    if (ok && rank == 0) s_warp[warp][d] = __popc(peers);
-    __syncthreads();
-    uint32_t run = 0;
+    const int leader = __ffs(peers) - 1;
+    uint32_t before_here = 0u;
+    if (ok && lane == leader) {
+      before_here = s_cnt[warp][d];
+      s_cnt[warp][d] = before_here + __popc(peers);
+    }
+    off[r] = __shfl_sync(FULL_MASK, before_here, leader) + __popc(peers & lanes_below);
+    __syncwarp();
+  }
+  uint32_t total;
+  const uint32_t start = block_exclusive_scan<THREADS>(hist, &total);  // its barriers end the ranking
+  uint32_t cnt = 0u;
 #pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) {
-      const uint32_t c = s_warp[w][tid];
-      s_warp[w][tid] = run;
-      run += c;
+  for (int w = 0; w < THREADS / 32; ++w) {
+    const uint32_t c = s_cnt[w][tid];
+    s_cnt[w][tid] = cnt;
+    cnt += c;
+  }
+  uint32_t before = 0u;
+  if (tile == 0) {
+    st_relaxed(status + tid, ST_INC | cnt);
+  } else {
+    st_relaxed(status + tile * 256 + tid, ST_AGG | cnt);
+    before = lookback_before(status + tid, tile, 256);
+    st_relaxed(status + tile * 256 + tid, ST_INC | (before + cnt));
+  }
+  s_base[tid] = start + before;
+  // The tile is sorted by digit in shared memory first, so that the keys
+  // of one digit leave as a run of neighbouring slots.
+  uint32_t tile_total;
+  s_first[tid] = block_exclusive_scan<THREADS>(cnt, &tile_total);
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < SORT_ROUNDS; ++r) {
+    if (wbase + r * 32 + lane < nl) {
+      const unsigned d = (unsigned)((k[r] >> shift) & 255u);
+      const uint32_t at = s_first[d] + s_cnt[warp][d] + off[r];
+      s_key[at] = k[r];
+      s_val[at] = v[r];
     }
-    __syncthreads();
-    if (ok) {
-      const uint32_t dst = s_base[d] + s_warp[warp][d] + rank;
-      key_out[dst] = k;
-      val_out[dst] = v;
-    }
-    __syncthreads();
-    s_base[tid] += run;
+  }
+  __syncthreads();
+  for (int i = tid; i < (int)tile_total; i += THREADS) {
+    const ull key = s_key[i];
+    const unsigned d = (unsigned)((key >> shift) & 255u);
+    const uint32_t dst = s_base[d] + (uint32_t)i - s_first[d];
+    kout[dst] = key;
+    vout[dst] = s_val[i];
   }
 }
 
 // -- (d) dedup and tile ranges -----------------------------------------------
 
+// active[i]: sorted position i holds the first occurrence of its key and
+// its lane is valid (the reference's cvalid[sidx] & uniq). A key other than
+// ~0 comes only from a valid lane; the first ~0 position may hold a valid
+// lane whose fingerprint is (MAX, MAX) or an invalid lane, so its validity
+// is recomputed as the keys stage computed it.
 __global__ void __launch_bounds__(THREADS) dedup_kernel(
-    const ull* __restrict__ skey, int64_t B, uint8_t* __restrict__ active,
+    const ull* __restrict__ skey, const uint32_t* __restrict__ sidx, int64_t B, int A,
+    const uint8_t* __restrict__ cvalid, const int64_t* __restrict__ depth,
+    const uint8_t* __restrict__ mask, int64_t depth_cap, uint8_t* __restrict__ active,
     int64_t* __restrict__ starts, int n_tiles, int cap_bits) {
   const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (i < B) {
     const ull k = skey[i];
-    active[i] = k != ~0ull && (i == 0 || k != skey[i - 1]);
+    bool a = i == 0 || k != skey[i - 1];
+    if (a && k == ~0ull) a = lane_valid(sidx[i], A, cvalid, depth, mask, depth_cap);
+    active[i] = a;
   }
   if (i <= n_tiles) {
     // starts[t] = the first sorted position whose home is at or past the
@@ -687,29 +946,45 @@ __global__ void __launch_bounds__(THREADS) compact_kernel(
   }
 }
 
-// Copies each leaf's row src_out[pos] to row pos, for pos < n_new.
+// Copies each leaf's row src_out[pos] to row pos, for pos < n_new (read
+// on the device). A group of `group` lanes (a power of two, at most 32)
+// copies one row of every leaf, its lanes on neighbouring units of the
+// leaf's width (16 B when the row and both base pointers allow it), so a
+// group's loads coalesce; a grid of GATHER_BLOCKS_PER_SM blocks an SM walks
+// the rows grid-stride.
+#define GATHER_BLOCKS_PER_SM 4
+
+template <typename U>
+__device__ __forceinline__ void copy_row(const uint8_t* __restrict__ src,
+                                         uint8_t* __restrict__ dst, int64_t row_bytes,
+                                         int lane, int group) {
+  const U* s = (const U*)src;
+  U* d = (U*)dst;
+  const int64_t units = row_bytes / (int64_t)sizeof(U);
+#pragma unroll 4
+  for (int64_t o = lane; o < units; o += group) d[o] = s[o];
+}
+
 __global__ void __launch_bounds__(THREADS) gather_kernel(
     int64_t B, const int64_t* __restrict__ src_out, const ull* __restrict__ acc,
-    Leaves leaves) {
-  const int64_t pos = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (pos >= B || pos >= (int64_t)acc[ACC_N_NEW]) return;
-  const int64_t s = src_out[pos];
-  for (int l = 0; l < leaves.n; ++l) {
-    const int64_t rb = leaves.row_bytes[l];
-    const uint8_t* src = leaves.src[l] + s * rb;
-    uint8_t* dst = leaves.dst[l] + pos * rb;
-    switch (leaves.unit[l]) {
-      case 8:
-        for (int64_t o = 0; o < rb; o += 8) *(uint64_t*)(dst + o) = *(const uint64_t*)(src + o);
-        break;
-      case 4:
-        for (int64_t o = 0; o < rb; o += 4) *(uint32_t*)(dst + o) = *(const uint32_t*)(src + o);
-        break;
-      case 2:
-        for (int64_t o = 0; o < rb; o += 2) *(uint16_t*)(dst + o) = *(const uint16_t*)(src + o);
-        break;
-      default:
-        for (int64_t o = 0; o < rb; ++o) dst[o] = src[o];
+    Leaves leaves, int group) {
+  const int64_t n_new = (int64_t)acc[ACC_N_NEW] < B ? (int64_t)acc[ACC_N_NEW] : B;
+  const int lane = threadIdx.x & (group - 1);
+  const int64_t groups = (int64_t)gridDim.x * (THREADS / group);
+  for (int64_t pos = ((int64_t)blockIdx.x * THREADS + threadIdx.x) / group; pos < n_new;
+       pos += groups) {
+    const int64_t s = src_out[pos];
+    for (int l = 0; l < leaves.n; ++l) {
+      const int64_t rb = leaves.row_bytes[l];
+      const uint8_t* src = leaves.src[l] + s * rb;
+      uint8_t* dst = leaves.dst[l] + pos * rb;
+      switch (leaves.unit[l]) {
+        case 16: copy_row<uint4>(src, dst, rb, lane, group); break;
+        case 8: copy_row<uint64_t>(src, dst, rb, lane, group); break;
+        case 4: copy_row<uint32_t>(src, dst, rb, lane, group); break;
+        case 2: copy_row<uint16_t>(src, dst, rb, lane, group); break;
+        default: copy_row<uint8_t>(src, dst, rb, lane, group);
+      }
     }
   }
 }
@@ -912,39 +1187,53 @@ extern "C" int fw_comphash_keys(int64_t B, int A, int N, int R, int E, int P, in
   return last_error(cudaSuccess);
 }
 
-// Sorts key[0, n) (with idx) in place; key_tmp, idx_tmp are n long and
-// hist is 256 * ceil(n / SORT_TILE) long.
+// Sorts key[0, n) (with idx) in place, stably, as unsigned values:
+// key_tmp and idx_tmp are 2n long, scratch is SC_PSTAT + nt + 2 * nb * 256
+// words (nt partition tiles of PART_TILE lanes, nb pass tiles of
+// SORT_TILE). *launches_host gets the device operations queued (a memset,
+// the partition and eight digit passes).
 extern "C" int fw_sort(int64_t n, void* key, void* idx, void* key_tmp, void* idx_tmp,
-                       void* hist, void* stream) {
+                       void* scratch, int* launches_host, void* stream) {
+  *launches_host = 0;
   if (n <= 0) return last_error(cudaSuccess);
-  if (n > 0xFFFFFFFFll) return (int)cudaErrorInvalidValue;
+  if (n > (int64_t)ST_COUNT) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const int64_t nt = (n + PART_TILE - 1) / PART_TILE;
   const int64_t nb = (n + SORT_TILE - 1) / SORT_TILE;
-  ull* kin = (ull*)key;
-  ull* kout = (ull*)key_tmp;
-  uint32_t* vin = (uint32_t*)idx;
-  uint32_t* vout = (uint32_t*)idx_tmp;
-  for (int shift = 0; shift < 64; shift += 8) {
-    radix_hist_kernel<<<(unsigned)nb, THREADS, 0, s>>>(kin, n, shift, (uint32_t*)hist, nb);
-    scan_one_block_kernel<<<1, SCAN_THREADS, 0, s>>>((uint32_t*)hist, 256 * nb, nullptr);
-    radix_scatter_kernel<<<(unsigned)nb, THREADS, 0, s>>>(kin, vin, kout, vout, n, shift,
-                                                          (uint32_t*)hist, nb);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    ull* kt = kin; kin = kout; kout = kt;
-    uint32_t* vt = vin; vin = vout; vout = vt;
+  uint32_t* sc = (uint32_t*)scratch;
+  uint32_t* status[2] = {sc + SC_PSTAT + nt, sc + SC_PSTAT + nt + nb * 256};
+  // Tickets, n_live, histograms, the partition's words and the first
+  // pass's; each pass clears the next pass's words of its own tile.
+  cudaError_t e = cudaMemsetAsync(sc, 0, (size_t)(SC_PSTAT + nt + nb * 256) * 4, s);
+  if (e != cudaSuccess) return (int)e;
+  ull* k[3] = {(ull*)key, (ull*)key_tmp, (ull*)key_tmp + n};
+  uint32_t* v[3] = {(uint32_t*)idx, (uint32_t*)idx_tmp, (uint32_t*)idx_tmp + n};
+  // The partition writes the keyed lanes to buffer 1 and the sentinel
+  // tail into buffer 0; pass 0 goes 1 -> 2, then 2 -> 0, 0 -> 2, ...,
+  // so the eighth pass ends in buffer 0.
+  sort_partition_kernel<<<(unsigned)nt, THREADS, 0, s>>>(k[0], v[0], n, k[1], v[1], sc, nt);
+  for (int p = 0; p < 8; ++p) {
+    const int src = p == 0 ? 1 : (p & 1 ? 2 : 0);
+    const int dst = p & 1 ? 0 : 2;
+    sort_pass_kernel<<<(unsigned)nb, THREADS, 0, s>>>(
+        k[src], v[src], k[dst], v[dst], n, p == 0, p, sc, status[p & 1],
+        p < 7 ? status[(p + 1) & 1] : nullptr);
   }
-  return last_error(cudaSuccess);  // 8 passes: the result is back in key, idx
-}
-
-extern "C" int fw_dedup(int64_t B, const void* skey, void* active, void* starts,
-                        int n_tiles, int cap_bits, void* stream) {
-  const int64_t n = B > n_tiles + 1 ? B : n_tiles + 1;
-  dedup_kernel<<<blocks_for(n, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
-      (const ull*)skey, B, (uint8_t*)active, (int64_t*)starts, n_tiles, cap_bits);
+  *launches_host = 10;
   return last_error(cudaSuccess);
 }
 
+extern "C" int fw_dedup(int64_t B, const void* skey, const void* sidx, int A,
+                        const void* cvalid, const void* depth, const void* mask,
+                        int64_t depth_cap, void* active, void* starts, int n_tiles,
+                        int cap_bits, void* stream) {
+  const int64_t n = B > n_tiles + 1 ? B : n_tiles + 1;
+  dedup_kernel<<<blocks_for(n, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
+      (const ull*)skey, (const uint32_t*)sidx, B, A, (const uint8_t*)cvalid,
+      (const int64_t*)depth, (const uint8_t*)mask, depth_cap, (uint8_t*)active,
+      (int64_t*)starts, n_tiles, cap_bits);
+  return last_error(cudaSuccess);
+}
 // scratch holds 8 + 9 * n_tiles + B bytes (tile_sweep.cuh).
 extern "C" int fw_sweep(void* table, const void* skey, const void* active,
                         const void* starts, int64_t B, int n_tiles, int cap_bits,
@@ -974,11 +1263,26 @@ extern "C" int fw_compact(int64_t B, int A, const void* flag, const void* skey,
   return last_error(cudaSuccess);
 }
 
-// The leaf tables are host arrays of n_leaves entries each.
+// The leaf tables are host arrays of n_leaves entries each; group is the
+// lanes a row (1, 2, 4, 8, 16 or 32). One launch for every MAX_LEAVES
+// leaves; *launches_host gets their count.
 extern "C" int fw_gather(int64_t B, const void* src_out, const void* acc, int n_leaves,
                          const void* src_host, const void* dst_host,
-                         const void* row_bytes_host, const void* unit_host,
-                         void* stream) {
+                         const void* row_bytes_host, const void* unit_host, int group,
+                         int* launches_host, void* stream) {
+  *launches_host = 0;
+  if (group < 1 || group > 32 || (group & (group - 1))) return (int)cudaErrorInvalidValue;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int64_t rows_per_block = THREADS / group;
+  const int64_t cap = (int64_t)sms * GATHER_BLOCKS_PER_SM;
+  const int64_t want = (B + rows_per_block - 1) / rows_per_block;
+  const unsigned grid = (unsigned)(want < 1 ? 1 : (want < cap ? want : cap));
   for (int l0 = 0; l0 < n_leaves; l0 += MAX_LEAVES) {
     Leaves leaves;
     leaves.n = n_leaves - l0 < MAX_LEAVES ? n_leaves - l0 : MAX_LEAVES;
@@ -988,10 +1292,11 @@ extern "C" int fw_gather(int64_t B, const void* src_out, const void* acc, int n_
       leaves.row_bytes[l] = ((const int64_t*)row_bytes_host)[l0 + l];
       leaves.unit[l] = ((const int*)unit_host)[l0 + l];
     }
-    gather_kernel<<<blocks_for(B, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
-        B, (const int64_t*)src_out, (const ull*)acc, leaves);
+    gather_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(B, (const int64_t*)src_out,
+                                                             (const ull*)acc, leaves, group);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
+    ++*launches_host;
   }
   return last_error(cudaSuccess);
 }

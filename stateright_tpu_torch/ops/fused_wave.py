@@ -92,28 +92,40 @@ __all__ = [
     "coverage_stage",
     "fused_wave",
     "fused_wave_plain",
+    "gather_plain",
+    "gather_stage",
     "keys_input",
     "keys_pairs_stage",
     "keys_plain",
     "kernel_chain",
     "launches",
     "model_stage",
+    "sort_plain",
+    "sort_stage",
     "sorted_dedup",
     "torch_wave",
 ]
 
 # Fused waves launched on the card in this process (each is one run of
 # ``kernel_chain``), of them the ones whose keys stage was
-# ``fw_comphash_keys``, and the launches of ``fw_coverage``.
+# ``fw_comphash_keys``, the launches of ``fw_coverage``, the sorts
+# (``fw_sort``: each queues ``sort_device_ops`` device operations) and the
+# leaf-gather kernel launches (``fw_gather``: one for every 16 leaves).
 launches = 0
 comphash_launches = 0
 coverage_launches = 0
+sort_launches = 0
+gather_launches = 0
+sort_device_ops = 0
 KEY_ROUTES = ("fold", "comphash", "pairs")
 
 KINDS = {"always": 0, "sometimes": 1, "eventually": 2}
 MAX_PROPS = 64  # csrc/fused_wave.cu: MAX_PROPS
 _SORT_TILE = 2048  # csrc/fused_wave.cu: SORT_TILE
+_PART_TILE = 2048  # csrc/fused_wave.cu: PART_TILE
+_SORT_SCRATCH_HEAD = 16 + 8 * 256  # csrc/fused_wave.cu: SC_PSTAT
 _COMPACT_TILE = 1024  # csrc/fused_wave.cu: COMPACT_TILE
+_INT64_MIN = -(1 << 63)
 _SENTINEL = (1 << 63) - 1  # sort_key of the (MAX, MAX) invalid-lane key
 
 
@@ -363,11 +375,12 @@ ARGTYPES = {
     "fw_keys": [_c_i64, _c_int, _c_int] + [_c_ptr] * 4 + [_c_i64] + [_c_ptr] * 4,
     "fw_keys_pairs": [_c_i64, _c_int] + [_c_ptr] * 5 + [_c_i64] + [_c_ptr] * 4,
     "fw_comphash_keys": [_c_i64] + [_c_int] * 8 + [_c_ptr] * 13 + [_c_i64] + [_c_ptr] * 4,
-    "fw_sort": [_c_i64] + [_c_ptr] * 6,
-    "fw_dedup": [_c_i64] + [_c_ptr] * 3 + [_c_int] * 2 + [_c_ptr],
+    "fw_sort": [_c_i64] + [_c_ptr] * 7,
+    "fw_dedup": [_c_i64, _c_ptr, _c_ptr, _c_int] + [_c_ptr] * 3 + [_c_i64] + [_c_ptr] * 2
+    + [_c_int] * 2 + [_c_ptr],
     "fw_sweep": [_c_ptr] * 4 + [_c_i64] + [_c_int] * 2 + [_c_ptr] * 4,
     "fw_compact": [_c_i64, _c_int] + [_c_ptr] * 17,
-    "fw_gather": [_c_i64, _c_ptr, _c_ptr, _c_int] + [_c_ptr] * 5,
+    "fw_gather": [_c_i64, _c_ptr, _c_ptr, _c_int] + [_c_ptr] * 4 + [_c_int] + [_c_ptr] * 2,
     "fw_stats": [_c_int, _c_i64] + [_c_ptr] * 5,
     "fw_coverage": [_c_i64, _c_int, _c_i64] + [_c_ptr] * 6 + [_c_int] + [_c_ptr] * 4
     + [_c_int] + [_c_ptr] * 2,
@@ -571,25 +584,48 @@ def route_keys_stage(spec, kin, cand_flat, cvalid, depth, depth_cap, acc, mask=N
                                acc, mask)
 
 
-def sort_stage(key, idx):
-    """Stage (c): sorts ``key`` as unsigned 64-bit values, stably, carrying
-    ``idx``, in place."""
-    n = key.shape[0]
-    nb = max(1, -(-n // _SORT_TILE))
-    key_tmp, idx_tmp = torch.empty_like(key), torch.empty_like(idx)
-    hist = torch.empty(256 * nb, dtype=torch.int32, device=key.device)
-    _call("fw_sort", n, key.data_ptr(), idx.data_ptr(), key_tmp.data_ptr(),
-          idx_tmp.data_ptr(), hist.data_ptr(), _stream(key))
+def sort_plain(key, idx):
+    """The plain twin of ``sort_stage``: a stable ``torch.sort`` of ``key``
+    as unsigned 64-bit values, carrying ``idx``, in place."""
+    skey, perm = torch.sort(key ^ _INT64_MIN, stable=True)
+    idx.copy_(idx[perm])
+    key.copy_(skey ^ _INT64_MIN)
     return key, idx
 
 
-def dedup_stage(key, capacity):
-    """Stage (d): ``(active, starts)``, the first occurrence of each valid
-    sorted key, and the ``(n_tiles + 1,)`` bounds of each tile's keys."""
+def sort_stage(key, idx):
+    """Stage (c): sorts ``key`` (int64 bits of u64 values) as unsigned
+    64-bit values, stably, carrying ``idx`` (int32), in place: ``fw_sort``
+    (a partition that sends the ``~0`` sentinel lanes to their final tail,
+    then 8 digit passes over the keyed lanes only), counting one
+    ``sort_launches``."""
+    global sort_launches, sort_device_ops
+
+    n = key.shape[0]
+    nt, nb = -(-n // _PART_TILE), -(-n // _SORT_TILE)
+    key_tmp = torch.empty(2 * n, dtype=key.dtype, device=key.device)
+    idx_tmp = torch.empty(2 * n, dtype=idx.dtype, device=key.device)
+    scratch = torch.empty(max(1, _SORT_SCRATCH_HEAD + nt + 2 * nb * 256), dtype=torch.int32,
+                          device=key.device)
+    ops = ctypes.c_int(0)
+    sort_launches += 1
+    _call("fw_sort", n, key.data_ptr(), idx.data_ptr(), key_tmp.data_ptr(),
+          idx_tmp.data_ptr(), scratch.data_ptr(), ctypes.addressof(ops), _stream(key))
+    sort_device_ops = ops.value
+    return key, idx
+
+
+def dedup_stage(key, idx, capacity, cvalid, action_count, depth, depth_cap, mask):
+    """Stage (d): ``(active, starts)``: each sorted position holding the
+    first occurrence of its key whose lane (``idx``) is valid, as the keys
+    stage decides it from ``cvalid``, ``depth`` and ``mask`` (the
+    reference's ``cvalid[sidx] & uniq``; ``mask`` None: all live), and the
+    ``(n_tiles + 1,)`` bounds of each tile's keys."""
     B, n_tiles = key.shape[0], capacity // TILE_ROWS
     active = torch.empty(B, dtype=torch.bool, device=key.device)
     starts = torch.empty(n_tiles + 1, dtype=torch.int64, device=key.device)
-    _call("fw_dedup", B, key.data_ptr(), active.data_ptr(), starts.data_ptr(),
+    _call("fw_dedup", B, key.data_ptr(), idx.data_ptr(), action_count, cvalid.data_ptr(),
+          _ptr(depth), _ptr(mask), int(depth_cap), active.data_ptr(), starts.data_ptr(),
           n_tiles, capacity.bit_length() - 1, _stream(key))
     return active, starts
 
@@ -627,15 +663,41 @@ def compact_stage(flag, key, idx, action_count, ebits_after, depth, hi, lo, acc)
 
 
 def _unit(row_bytes, *ptrs):
-    u = 8
+    u = 16
     while u > 1 and (row_bytes % u or any(p % u for p in ptrs)):
         u //= 2
     return u
 
 
+def _group(units):
+    """The lanes that copy one row: the smallest power of two holding the
+    widest leaf's units a row, between 4 and 32."""
+    g = 4
+    while g < 32 and g < max(units, default=1):
+        g *= 2
+    return g
+
+
+def gather_plain(src, acc, cand_flat):
+    """The plain twin of ``gather_stage``: row ``pos < n_new`` of each leaf
+    is the candidates' row ``src[pos]``; B rows each, the rest undefined."""
+    n = min(int(acc[1]), src.shape[0])
+
+    def take(x):
+        out = torch.empty_like(x)
+        out[:n] = x[src[:n]]
+        return out
+
+    return map_leaves(take, cand_flat)
+
+
 def gather_stage(src, acc, cand_flat):
-    """Stage (f), leaves: the first ``n_new`` rows of each candidate leaf,
-    gathered by ``src`` as byte rows (any dtype); B rows each."""
+    """Stage (f), leaves: the first ``n_new`` (``acc[1]``, read on the
+    device) rows of each candidate leaf, gathered by ``src`` as byte rows
+    (any dtype); B rows each: ``fw_gather`` (``_group`` of the leaves'
+    widths lanes a row), counting its launches in ``gather_launches``."""
+    global gather_launches
+
     pairs = []
 
     def alloc(x):
@@ -645,14 +707,16 @@ def gather_stage(src, acc, cand_flat):
 
     new_states = map_leaves(alloc, cand_flat)
     rows = [x[0].numel() * x.element_size() if x.shape[0] else 0 for x, _ in pairs]
+    unit_list = [_unit(rb, x.data_ptr(), d.data_ptr()) for rb, (x, d) in zip(rows, pairs)]
+    group = _group([rb // u for rb, u in zip(rows, unit_list)])
     srcs, src_p = _host_ints([x.data_ptr() for x, _ in pairs], ctypes.c_uint64)
     dsts, dst_p = _host_ints([d.data_ptr() for _, d in pairs], ctypes.c_uint64)
     rbs, rb_p = _host_ints(rows, ctypes.c_int64)
-    units, unit_p = _host_ints(
-        [_unit(rb, x.data_ptr(), d.data_ptr()) for rb, (x, d) in zip(rows, pairs)]
-    )
+    units, unit_p = _host_ints(unit_list)
+    n_launched = ctypes.c_int(0)
     _call("fw_gather", src.shape[0], src.data_ptr(), acc.data_ptr(), len(pairs),
-          src_p, dst_p, rb_p, unit_p, _stream(src))
+          src_p, dst_p, rb_p, unit_p, group, ctypes.addressof(n_launched), _stream(src))
+    gather_launches += n_launched.value
     return new_states
 
 
@@ -714,7 +778,8 @@ def kernel_chain(spec, table, hi, lo, ebits, depth, depth_cap, cond, cvalid,
     (None: all). ``mark(name)``, when given, is called before each stage
     and once after the last (``chip_smoke.py`` records CUDA events there).
     ``taps``, a dict when given, receives the scratch the coverage stage
-    reads: ``ebits_after``, the sweep's ``flag`` and the sorted ``idx``.
+    reads (``ebits_after``, the sweep's ``flag`` and the sorted ``idx``) and
+    the gather's (``src``, ``acc``).
     Returns ``(table, out)``."""
     global launches
 
@@ -732,13 +797,13 @@ def kernel_chain(spec, table, hi, lo, ebits, depth, depth_cap, cond, cvalid,
     mark("sort")
     sort_stage(key, idx)
     mark("dedup")
-    active, starts = dedup_stage(key, cap)
+    active, starts = dedup_stage(key, idx, cap, cvalid, A, depth, depth_cap, mask)
     mark("sweep")
     flag, _scratch = sweep_stage(table, key, active, starts, acc)
     mark("compact")
     c = compact_stage(flag, key, idx, A, ebits_after, depth, hi, lo, acc)
     if taps is not None:
-        taps.update(ebits_after=ebits_after, flag=flag, idx=idx)
+        taps.update(ebits_after=ebits_after, flag=flag, idx=idx, src=c["src"], acc=acc)
     cov = None
     if spec.cov_layout is not None:
         mark("coverage")

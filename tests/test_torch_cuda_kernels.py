@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from stateright_tpu_torch.checker.gpu import _GRAPH_WAVES
-from stateright_tpu_torch.core.batch import map_leaves
+from stateright_tpu_torch.core.batch import leaves, map_leaves
 from stateright_tpu_torch.interop import keys_from_numpy, table_from_numpy, table_to_numpy
 from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 from stateright_tpu_torch.ops import fused_wave as fw
@@ -324,6 +324,203 @@ def test_cuda_radix_sort_matches_stable_torch_sort(cuda_device, n):
     fw.sort_stage(key, idx)
     assert torch.equal(key.cpu(), skey ^ (-(1 << 63)))
     assert torch.equal(idx.cpu().to(torch.int64), sidx)
+
+
+def sort_keys(n, sentinels, placement, seed=0):
+    """u64 keys (repeats, values at and above 2^63) with a share of ~0
+    sentinel lanes placed first, last or interleaved."""
+    rng = np.random.default_rng(seed + n)
+    keys = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
+    keys[rng.integers(0, n, size=n // 2)] = keys[rng.integers(0, n, size=n // 2)]
+    k = int(round(n * sentinels))
+    if placement == "first":
+        where = np.arange(k)
+    elif placement == "last":
+        where = np.arange(n - k, n)
+    else:
+        where = rng.permutation(n)[:k]
+    keys[where] = np.uint64(2**64 - 1)
+    return keys
+
+
+def check_sort(keys, dev):
+    n = keys.shape[0]
+    key = torch.from_numpy(keys.view(np.int64).copy()).to(dev)
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    before = fw.sort_launches
+    fw.sort_stage(key, idx)
+    torch.cuda.synchronize()
+    assert fw.sort_launches == before + 1 and fw.sort_device_ops == 10
+    order = np.argsort(keys, kind="stable")
+    assert np.array_equal(key.cpu().numpy().view(np.uint64), keys[order])
+    assert np.array_equal(idx.cpu().numpy(), order.astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["first", "last", "interleaved"])
+@pytest.mark.parametrize("sentinels", [0.0, 0.1, 0.76, 1.0])
+@pytest.mark.parametrize("n", [1, 2047, 2049, 50000, 344064])
+def test_cuda_onesweep_sort_matches_stable_torch_sort(cuda_device, n, sentinels, placement):
+    """``fw_sort`` (the partition, then 8 onesweep passes over the keyed
+    lanes) against a stable sort of the u64 keys, at the tile edges and at
+    2pc-8's width, with 0 to 100% sentinel lanes anywhere."""
+    check_sort(sort_keys(n, sentinels, placement), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["no_keyed_lane", "all_ones_among_keys", "top_bit",
+                                  "one_digit_value"])
+def test_cuda_onesweep_sort_edge_cases(cuda_device, case):
+    """No keyed lane (n_live = 0); keys next to the sentinel
+    (0xFFFF...FFFE, (MAX, 0)) among sentinels; keys with the top bit set
+    (negative as int64) that must sort above the others; every key equal
+    in all but one byte."""
+    rng = np.random.default_rng(7)
+    n = 70000
+    if case == "no_keyed_lane":
+        keys = np.full(n, 2**64 - 1, dtype=np.uint64)
+    elif case == "all_ones_among_keys":
+        keys = rng.choice(np.array([2**64 - 1, 2**64 - 2, 0xFFFFFFFF00000000, 1, 0],
+                                   dtype=np.uint64), size=n)
+    elif case == "top_bit":
+        keys = rng.integers(0, 1 << 63, size=n, dtype=np.uint64)
+        keys[rng.random(n) < 0.5] |= np.uint64(1 << 63)
+    else:
+        keys = np.full(n, 0x0123456789ABCDEF, dtype=np.uint64)
+        keys ^= rng.integers(0, 256, size=n, dtype=np.uint64) << np.uint64(40)
+    check_sort(keys, cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_onesweep_sort_replays_in_a_cuda_graph(cuda_device):
+    """The sort captured in a CUDA Graph and replayed twice over new keys:
+    its tickets, histograms and look-back words are reset on the stream
+    inside the graph, so each replay sorts its own keys."""
+    n = 50000
+    key = torch.zeros(n, dtype=torch.int64, device=cuda_device)
+    idx = torch.zeros(n, dtype=torch.int32, device=cuda_device)
+    iota = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    first = sort_keys(n, 0.3, "interleaved", seed=1)
+    key.copy_(torch.from_numpy(first.view(np.int64)))
+    idx.copy_(iota)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fw.sort_stage(key, idx)  # warm-up: builds and loads the kernels
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fw.sort_stage(key, idx)
+    for seed, sentinels in ((2, 0.76), (3, 0.0)):
+        keys = sort_keys(n, sentinels, "interleaved", seed=seed)
+        key.copy_(torch.from_numpy(keys.view(np.int64)))
+        idx.copy_(iota)
+        graph.replay()
+        torch.cuda.synchronize()
+        order = np.argsort(keys, kind="stable")
+        assert np.array_equal(key.cpu().numpy().view(np.uint64), keys[order])
+        assert np.array_equal(idx.cpu().numpy(), order.astype(np.int32))
+
+
+def gather_leaves(rng, Bn, case):
+    """Candidate leaves of many dtypes and widths (rows of 1 to 4,304 B,
+    some not a multiple of 16 B), or more than 16 leaves."""
+    ints = lambda shape, dt: torch.from_numpy(  # noqa: E731
+        rng.integers(-(1 << 30), 1 << 30, size=shape).astype(dt))
+    if case == "many_leaves":
+        return {f"l{i}": ints((Bn,) + (i % 5 + 1,), np.int64 if i % 2 else np.int32)
+                for i in range(20)}
+    if case == "narrow":
+        return {"bytes3": ints((Bn, 3), np.int8), "int3": ints((Bn, 3), np.int32),
+                "flag": torch.from_numpy(rng.random(Bn) < 0.5)}
+    if case == "medium":
+        return {"long11": ints((Bn, 11), np.int64), "short5": ints((Bn, 5), np.int16)}
+    return {
+        "bytes3": ints((Bn, 3), np.int8),
+        "short5": ints((Bn, 5), np.int16),
+        "int3": ints((Bn, 3), np.int32),
+        "long3": ints((Bn, 3), np.int64),
+        "long6": ints((Bn, 2, 3), np.int64),
+        "flag": torch.from_numpy(rng.random(Bn) < 0.5),
+        "wide": ints((Bn, 538), np.int64),
+    }
+
+
+# The lanes a row that ``_group`` gives each case's widest leaf: 3 units
+# (narrow), 5 (many_leaves: 40-byte rows of 8-byte units), 11 (medium:
+# 2pc-8's 88-byte rows) and 269 (widths: paxos3's 4,304-byte rows).
+GATHER_GROUPS = {"narrow": 4, "many_leaves": 8, "medium": 16, "widths": 32}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_new", ["zero", "some", "all"])
+@pytest.mark.parametrize("case", list(GATHER_GROUPS))
+def test_cuda_gather_matches_plain_twin(cuda_device, case, n_new):
+    """``fw_gather`` against ``gather_plain`` (``x[src]`` over the first
+    ``n_new`` rows): 1-, 2-, 4-, 8- and 16-byte units, rows that are not a
+    multiple of 16 B, more than 16 leaves (two launches), n_new of 0 and of
+    B, and each group of lanes a row, 4 to 32, reached through the leaves'
+    widths."""
+    rng = np.random.default_rng(len(case) + len(n_new))
+    Bn = 3000
+    cand = gather_leaves(rng, Bn, case)
+    n = {"zero": 0, "some": 1234, "all": Bn}[n_new]
+    src = torch.from_numpy(rng.integers(0, Bn, size=Bn).astype(np.int64))
+    acc = torch.tensor([0, n, 0, 0], dtype=torch.int64)
+    want = fw.gather_plain(src, acc, cand)
+    dev = map_leaves(lambda x: x.to(cuda_device), cand)
+    rbs = [x[0].numel() * x.element_size() for x in leaves(dev)]
+    units = [rb // fw._unit(rb, x.data_ptr()) for rb, x in zip(rbs, leaves(dev))]
+    assert fw._group(units) == GATHER_GROUPS[case]
+    before = fw.gather_launches
+    got = fw.gather_stage(src.to(cuda_device), acc.to(cuda_device), dev)
+    torch.cuda.synchronize()
+    assert fw.gather_launches == before + (2 if case == "many_leaves" else 1)
+    for k, x in want.items():
+        assert got[k].shape == x.shape and got[k].dtype == x.dtype, k
+        assert torch.equal(got[k][:n].cpu(), x[:n]), k
+
+
+def ones_spec(n, actions, target):
+    """A wave over states x in [0, n) whose every action is valid (x to
+    (x + a + 1) % n) and whose fingerprint, on the ``"pairs"`` key route,
+    is (MAX, MAX) for the candidate ``target``."""
+    base = hop_spec(n, actions=actions)
+
+    def expand(st):
+        x = (st["x"][:, None] + 1 + torch.arange(actions, device=st["x"].device)) % n
+        cand = {"x": x, "tag": torch.stack([x, x * 3, x * 7], dim=-1).to(torch.int16),
+                "odd": (x % 2) == 1}
+        return cand, torch.ones_like(x, dtype=torch.bool)
+
+    def fingerprint(cand):
+        hi, lo = fingerprint_state(cand)
+        ones = cand["x"] == target
+        return torch.where(ones, 0xFFFFFFFF, hi), torch.where(ones, 0xFFFFFFFF, lo)
+
+    return dataclasses.replace(base, expand=expand, fingerprint=fingerprint,
+                               keys_route="pairs")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["valid_first", "after_invalid"])
+def test_cuda_all_ones_fingerprint_matches_plain_twin(cuda_device, order):
+    """A valid candidate whose fingerprint is (MAX, MAX): where it is the
+    lowest lane holding that key, the plain twin (and the reference,
+    ``cvalid[sidx] & uniq``) inserts it, and so must the chain on the card;
+    where a masked lane's sentinel sorts before it, neither does."""
+    spec = ones_spec(5000, 4, target=101)
+    states, cols = hop_frontier(list(range(100, 400)), 2)
+    mask = None
+    if order == "after_invalid":
+        mask = torch.ones(300, dtype=torch.bool)
+        mask[0] = False  # lanes 0..3 sink to the sentinel, below lane 4 (x = 102)
+        spec = ones_spec(5000, 4, target=102)
+    stats, after = fused_both(spec, empty_table(TILE_ROWS * 4), states, cols, 10, cuda_device,
+                              mask=mask)
+    has_ones = bool(((after[:, 0] == 0xFFFFFFFF) & (after[:, 1] == 0xFFFFFFFF)).any())
+    assert has_ones == (order == "valid_first")
+    assert stats[1] > 0
 
 
 @pytest.mark.cuda
