@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --stage-ab [--root DIR] [--out FILE]
 
 Builds every CUDA kernel of the port from the sources in this checkout (one
 ``nvcc`` per source, all at once), holds each kernel against its plain torch
@@ -42,10 +43,14 @@ exhaustively (16,777,216 states) on both engines with coverage; and small
 coverage runs on the card against the CPU twin. On every timed wave
 (2pc-8, paxos3, abd3o, raft5, and 2pc-8 and skv4x4 with coverage) the
 fused sort (``fw_sort``) is held to a stable ``torch.sort`` of the wave's
-keys and the leaf gather (``fw_gather``) to ``x[src]`` over the chain's
-own compaction, and one ``{"stage_record": ...}`` line gives the chain's
-per-stage times, the keyed lanes and fresh rows, both stages' times and
-bounds, ``torch.sort``'s time and the summed per-leaf ``index_select``'s.
+keys, the compaction (``fw_compact``) to ``compact_plain`` and the leaf
+gather (``fw_gather``) to ``x[src]`` over the chain's own compaction; last,
+one ``torch.profiler`` session gives each wave's chain, captured in a CUDA
+Graph and replayed, its device time by stage, and one
+``{"stage_record": ...}`` line a wave gives the chain's per-stage times
+(event marks and in-graph device time), the keyed lanes and fresh rows,
+the three stages' times and bounds, ``torch.sort``'s time, ``torch.nonzero``'s
+and the summed per-leaf ``index_select``'s.
 Prints phase lines, the card's name and power limit, the fused wave's
 stage times, the drains' walls, waves, no-op and warm-up waves, exits,
 graph captures and replays and rungs, peak device memory, one
@@ -53,13 +58,21 @@ graph captures and replays and rungs, peak device memory, one
 line ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
 when any phase fails, when no CUDA device is present, or when the port's
 package is not beside it. Imports nothing of JAX or of the JAX package.
+
+``--stage-ab`` runs none of that: it times the keys stage and the
+compaction alone, and every chain stage inside a CUDA Graph, on the timed
+waves, with the package of ``--root`` (default: beside this script); see
+``stage_ab``. Run it for two checkouts in one call on the card, in turns
+(parent, change, change, parent).
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -498,54 +511,39 @@ def _time_on_card(fn, reps=11, reset=None):
     return statistics.median(totals), {k: statistics.median(v) for k, v in stages.items()}
 
 
-def _sort_device_ops(key0, idx0, reps=5):
-    """The device operations one ``fw_sort`` of ``key0``/``idx0`` queues
-    (kernels and memsets), counted by ``torch.profiler`` over ``reps``
-    sorts from the unsorted keys, and the mean device microseconds a sort
-    of each kind of operation (the 8 digit passes summed under one name).
-    Run once, early: the profiler's later sessions in one process drop
-    device records."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from stateright_tpu_torch.ops import fused_wave as fw
-
-    key, idx = key0.clone(), idx0.clone()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            key.copy_(key0)
-            idx.copy_(idx0)
-            fw.sort_stage(key, idx)
-        torch.cuda.synchronize()
-    ops, us = 0, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not e.name.startswith("Memcpy"):
-            name = e.name.split("(")[0]
-            ops += 1
-            us[name] = us.get(name, 0.0) + (e.time_range.end - e.time_range.start) / reps
-    if ops % reps:
-        raise AssertionError(f"fw_sort queued {ops} device operations over {reps} sorts")
-    return ops // reps, us
+def _compact_must_move(B, n_new):
+    """Bytes ``fw_compact`` must move on this wave, u32 values at 4 B: the
+    B outcome bytes; at each fresh position its key (8 B) and lane (4 B)
+    and the parent's ebits, depth, hi and lo read (16 B), and the seven
+    per-slot outputs written (28 B)."""
+    return B + 56 * n_new
 
 
-def _sort_gather_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cvalid, kin,
-                      cand, mask=None, ant=None, stage_ms=None, chain_ms=None):
-    """``fw_sort`` and ``fw_gather`` on one wave's own inputs, held to their
-    plain twins and timed beside their bounds and their library calls: the
-    sort on the keys stage's output against a stable ``torch.sort``
-    (``library_ms``) and ``sort_plain``; the gather on the chain's own
+# Each timed wave's inputs (on the host) and its stage record, for
+# stage_device_profile.
+STAGE_WAVES = []
+
+
+def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cvalid, kin,
+                cand, mask=None, ant=None, stage_ms=None, chain_ms=None):
+    """``fw_sort``, ``fw_compact`` and ``fw_gather`` on one wave's own
+    inputs, held to their plain twins and timed beside their bounds and
+    their library calls: the sort on the keys stage's output against a
+    stable ``torch.sort`` (``library_ms``) and ``sort_plain``; the
+    compaction on the chain's own sorted keys and outcome bytes against
+    ``compact_plain`` (``torch.nonzero`` of the fresh flags timed for
+    context: it finds the slots alone); the gather on the chain's own
     compaction (``src``, ``n_new``) against ``gather_plain`` (``x[src]``)
     and the summed per-leaf ``index_select`` over ``src[:n_new]``
     (``library_ms``). The sort is also timed, beside ``torch.sort``, on
     random keys of the wave's shape (B lanes, the same count of keyed
-    lanes at random places, the rest ``~0``). Logs one ``stage_record``
-    line with the chain's per-stage times."""
+    lanes at random places, the rest ``~0``). Keeps the wave's inputs on
+    the host and returns its ``stage_record``, which
+    ``stage_device_profile`` completes and logs."""
     import numpy as np
     import torch
 
-    from stateright_tpu_torch.core.batch import leaves
+    from stateright_tpu_torch.core.batch import leaves, map_leaves
     from stateright_tpu_torch.ops import fused_wave as fw
 
     MIN = -(1 << 63)
@@ -581,6 +579,19 @@ def _sort_gather_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond
 
     src, acc = taps["src"], taps["acc"]
     n_new = int(acc[1])
+    A = spec.action_count
+    cargs = (taps["flag"], taps["key"], taps["idx"], A, taps["ebits_after"], depth, hi, lo)
+    cacc = torch.zeros_like(acc)
+    got_c = fw.compact_stage(*cargs, cacc)
+    want_c, want_n = fw.compact_plain(*cargs)
+    torch.cuda.synchronize()
+    compact_err = _max_abs_err([(want_n.view(1).cpu(), cacc[1:2]), (want_n.view(1).cpu(), acc[1:2])]
+                               + [(want_c[k][:n_new].cpu(), got_c[k][:n_new]) for k in want_c])
+    compact_ms, _ = _time_on_card(lambda mark: fw.compact_stage(*cargs, cacc))
+    compact_plain_ms, _ = _time_on_card(lambda mark: fw.compact_plain(*cargs))
+    fresh = (taps["flag"] & 1) != 0
+    nonzero_ms, _ = _time_on_card(lambda mark: torch.nonzero(fresh))
+    compact_bytes = _compact_must_move(B, n_new)
     flat = leaves(cand)
     got, want = fw.gather_stage(src, acc, cand), fw.gather_plain(src, acc, cand)
     torch.cuda.synchronize()
@@ -611,16 +622,31 @@ def _sort_gather_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond
         "gather_bound_bytes": gather_bytes,
         "gather_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
         "gather_max_abs_err": gather_err,
+        "compact_ms": compact_ms, "compact_plain_ms": compact_plain_ms,
+        "torch_nonzero_ms": nonzero_ms, "compact_bound_bytes": compact_bytes,
+        "compact_bound_ms": compact_bytes / HBM_BYTES_PER_S * 1e3,
+        "compact_max_abs_err": compact_err,
     }
-    log(json.dumps({"stage_record": rec}))
     log(f"  fw_sort ({label}): n={B} keyed={n_live} {sort_ms:.4f} ms vs torch.sort "
         f"{torch_sort_ms:.4f} ms (random keys {sort_random_ms:.4f} vs "
         f"{torch_sort_random_ms:.4f} ms), bound {rec['sort_bound_ms']:.5f} ms; "
-        f"fw_gather: n_new={n_new} {gather_ms:.4f} ms (group {group}) vs "
+        f"fw_compact: n_new={n_new} {compact_ms:.4f} ms vs torch.nonzero {nonzero_ms:.4f} ms, "
+        f"bound {rec['compact_bound_ms']:.5f} ms; "
+        f"fw_gather: {gather_ms:.4f} ms (group {group}) vs "
         f"index_select {index_select_ms:.4f} ms, bound {rec['gather_bound_ms']:.5f} ms; "
-        f"max_abs_err sort={sort_err} gather={gather_err}")
-    if sort_err or gather_err:
-        raise AssertionError(f"fw_sort or fw_gather and its plain twin disagree on {label}")
+        f"max_abs_err sort={sort_err} compact={compact_err} gather={gather_err}")
+    if sort_err or gather_err or compact_err:
+        raise AssertionError(f"fw_sort, fw_compact or fw_gather and its plain twin disagree "
+                             f"on {label}")
+    host = lambda x: None if x is None else x.cpu()  # noqa: E731
+    STAGE_WAVES.append({
+        "rec": rec, "spec": spec, "depth_cap": depth_cap,
+        "table": table0.cpu(), "cand": map_leaves(host, cand),
+        "kin": kin.cpu() if torch.is_tensor(kin) else
+        (None if kin is None else tuple(x.cpu() for x in kin)),
+        **{k: host(v) for k, v in dict(hi=hi, lo=lo, ebits=ebits, depth=depth, cond=cond,
+                                        cvalid=cvalid, mask=mask, ant=ant).items()},
+    })
     return rec
 
 
@@ -761,7 +787,7 @@ def fused_vs_plain():
         err = max(err, e)
 
     # The sort against a stable torch.sort on keys with many duplicates
-    # (each timed wave's own keys are held to it in _sort_gather_wave).
+    # (each timed wave's own keys are held to it in _stage_wave).
     dup = torch.from_numpy((rng.integers(0, 1000, size=B).astype(np.uint64)
                             * np.uint64(0x9E3779B97F4A7C15)).view(np.int64))
     k, i = dup.cuda(), torch.arange(B, dtype=torch.int32, device="cuda")
@@ -795,15 +821,8 @@ def fused_vs_plain():
         f"{_fmt_passes(pass_ms)}; tiles touched={touched} redone={redone}; "
         f"sort {stage_ms['sort']:.4f} ms); "
         f"model stage (torch) {model_ms:.3f} ms; bound {bound_ms:.5f} ms ({moved} B)")
-    rec = _sort_gather_wave("2pc8", spec, table0, hi, lo, ebits, depth, depth_cap, cond, cvalid,
-                            words, cand_flat, stage_ms=stage_ms, chain_ms=chain_ms)
-    key0, idx0 = fw.keys_stage(words, cvalid, depth, depth_cap, A)
-    ops, op_us = _sort_device_ops(key0, idx0)
-    log(f"  fw_sort device operations on the 2pc-8 wave (torch.profiler): {ops}, "
-        f"device us a sort: {op_us}; the wrapper's count {fw.sort_device_ops}")
-    if ops != fw.sort_device_ops:
-        raise AssertionError(f"fw_sort queued {ops} device operations, not {fw.sort_device_ops}")
-    rec.update(sort_device_ops=ops, sort_device_us=op_us)
+    rec = _stage_wave("2pc8", spec, table0, hi, lo, ebits, depth, depth_cap, cond, cvalid,
+                      words, cand_flat, stage_ms=stage_ms, chain_ms=chain_ms)
     return {"max_abs_err": err, "ms": chain_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "waves": {"2pc8": rec}}
 
@@ -812,9 +831,9 @@ def fused_vs_plain():
 
 
 def _check_sort_gather_launches(n):
-    """Every fused wave sorts once and gathers its leaves at least once;
-    the staged engine launches neither kernel."""
-    assert n["fw_sort"] == n["fused_wave"], n
+    """Every fused wave sorts and compacts once and gathers its leaves at
+    least once; the staged engine launches none of these kernels."""
+    assert n["fw_sort"] == n["fw_compact"] == n["fused_wave"], n
     assert n["fw_gather"] >= n["fused_wave"], n
     assert (n["fw_gather"] > 0) == (n["fused_wave"] > 0), n
 
@@ -829,14 +848,16 @@ def _drive_2pc8(wave_kernel, **spawn):
 
     cfg = _config("2pc8")
     torch.cuda.reset_peak_memory_stats()
-    hk.launches = fw.launches = fw.sort_launches = fw.gather_launches = 0
+    hk.launches = fw.launches = fw.sort_launches = fw.compact_launches = 0
+    fw.gather_launches = 0
     t0 = time.perf_counter()
     checker = cfg.make().checker().spawn_gpu_bfs(
         **dict(cfg.spawn, wave_kernel=wave_kernel, **spawn)).join()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
-                "fw_sort": fw.sort_launches, "fw_gather": fw.gather_launches}
+                "fw_sort": fw.sort_launches, "fw_compact": fw.compact_launches,
+                "fw_gather": fw.gather_launches}
     _check_sort_gather_launches(launches)
     unique = checker.unique_state_count()
     mode = "drain" if checker.drains else "wave at a time"
@@ -1108,7 +1129,7 @@ def _comphash_wave(label, got):
     log(f"  fw_comphash_keys ({label}): median {ms:.4f} ms, plain twin on the card "
         f"{twin_ms:.4f} ms, bound {bound_ms:.5f} ms ({moved} B); chain {chain_ms:.4f} ms; "
         f"model stage (torch) {model_ms:.3f} ms")
-    rec = _sort_gather_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cvalid,
+    rec = _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cvalid,
                             None, cand, mask=mask, stage_ms=stage_ms, chain_ms=chain_ms)
     return {"max_abs_err": max(err, chain_err), "keys_err": err, "chain_err": chain_err,
             "ms": ms, "plain_ms": twin_ms, "bound_ms": bound_ms, "waves": {label: rec}}
@@ -1200,14 +1221,14 @@ def _drive(name, wave_kernel):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     hk.launches = fw.launches = fw.comphash_launches = 0
-    fw.sort_launches = fw.gather_launches = 0
+    fw.sort_launches = fw.compact_launches = fw.gather_launches = 0
     t0 = time.perf_counter()
     checker = model.checker().spawn_gpu_bfs(wave_kernel=wave_kernel, **cfg.spawn).join()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
                 "fw_comphash_keys": fw.comphash_launches, "fw_sort": fw.sort_launches,
-                "fw_gather": fw.gather_launches}
+                "fw_compact": fw.compact_launches, "fw_gather": fw.gather_launches}
     _check_sort_gather_launches(launches)
     peak = torch.cuda.max_memory_allocated()
     unique = checker.unique_state_count()
@@ -1504,7 +1525,7 @@ def _coverage_wave(label, got, model):
     log(f"  fw_coverage ({label}): median {ms:.4f} ms, plain twin on the card {twin_ms:.4f} ms, "
         f"bound {bound_ms:.5f} ms ({moved} B); chain with coverage {chain_ms:.4f} ms "
         f"(coverage stage {stage_ms['coverage']:.4f} ms); antecedents (torch) {ant_ms:.4f} ms")
-    rec = _sort_gather_wave(f"{label}_coverage", spec, table0, hi, lo, ebits, depth, depth_cap,
+    rec = _stage_wave(f"{label}_coverage", spec, table0, hi, lo, ebits, depth, depth_cap,
                             cond, cvalid, kin, cand, mask=mask, ant=ant, stage_ms=stage_ms,
                             chain_ms=chain_ms)
     return {"max_abs_err": max(err, chain_err), "ms": ms, "plain_ms": twin_ms,
@@ -1538,7 +1559,7 @@ def _drive_coverage(name, wave_kernel, coverage=True):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     hk.launches = fw.launches = fw.comphash_launches = fw.coverage_launches = 0
-    fw.sort_launches = fw.gather_launches = 0
+    fw.sort_launches = fw.compact_launches = fw.gather_launches = 0
     t0 = time.perf_counter()
     checker = model.checker().spawn_gpu_bfs(wave_kernel=wave_kernel, coverage=coverage,
                                             **cfg.spawn).join()
@@ -1547,7 +1568,7 @@ def _drive_coverage(name, wave_kernel, coverage=True):
     launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
                 "fw_comphash_keys": fw.comphash_launches,
                 "fw_coverage": fw.coverage_launches, "fw_sort": fw.sort_launches,
-                "fw_gather": fw.gather_launches}
+                "fw_compact": fw.compact_launches, "fw_gather": fw.gather_launches}
     _check_sort_gather_launches(launches)
     peak = torch.cuda.max_memory_allocated()
     unique = checker.unique_state_count()
@@ -1696,7 +1717,282 @@ def replay_coverage_small():
                     f"vacuous={rep['vacuous']} (cuda == cpu twin)")
 
 
+# The fused chain's kernels by stage (csrc/fused_wave.cu), matched in this
+# order; a memset belongs to the stage of the kernel after it. The
+# compaction's kernels before its one-pass design (fresh_count_kernel,
+# scan_one_block_kernel) are listed so that stage_ab (--stage-ab) can
+# profile an earlier checkout.
+STAGE_KERNELS = (
+    ("frontier_kernel", "frontier"), ("comphash_keys_kernel", "keys"),
+    ("keys_pairs_kernel", "keys"), ("keys_kernel", "keys"),
+    ("sort_partition_kernel", "sort"), ("sort_pass_kernel", "sort"),
+    ("dedup_kernel", "dedup"), ("sweep_", "sweep"), ("compact_kernel", "compact"),
+    ("fresh_count_kernel", "compact"), ("scan_one_block_kernel", "compact"),
+    ("coverage_kernel", "coverage"), ("gather_kernel", "gather"), ("stats_kernel", "stats"),
+)
+PROFILE_GAP_S = 0.5  # host sleep between profiled blocks; splits the device timeline
+
+
+def _stages_of(names):
+    """The stage of each device operation of one chain, by kernel name."""
+    stages, nxt = [None] * len(names), None
+    for i in range(len(names) - 1, -1, -1):
+        if names[i].startswith("Memset"):
+            if nxt is None:
+                raise AssertionError(f"a memset with no kernel after it: {names}")
+            stages[i] = nxt
+            continue
+        nxt = next((st for part, st in STAGE_KERNELS if part in names[i]), None)
+        if nxt is None:
+            raise AssertionError(f"a device operation of no chain stage: {names[i]} in {names}")
+        stages[i] = nxt
+    return stages
+
+
+def _device_blocks(prof):
+    """The profiled device operations (memcpys left out) in start order,
+    as ``(name, us)`` lists split where the device idled for more than half
+    of ``PROFILE_GAP_S``."""
+    from torch.autograd import DeviceType
+
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not e.name.startswith("Memcpy")),
+                 key=lambda e: e.time_range.start)
+    blocks, last = [], None
+    for e in evs:
+        if last is None or e.time_range.start - last > PROFILE_GAP_S * 0.5e6:
+            blocks.append([])
+        blocks[-1].append((e.name, e.time_range.end - e.time_range.start))
+        last = e.time_range.end
+    return blocks
+
+
+def _profile_chains(waves, sort_keys=None, reps=5):
+    """One ``torch.profiler`` session over ``reps`` sorts of ``sort_keys``
+    (``(key0, idx0)``, each sort from the unsorted keys; or none) and then
+    each wave's kernel chain captured in a CUDA Graph (all captured first)
+    and replayed ``reps`` times, each over a fresh copy of its table. A wave
+    is a dict of the chain's inputs on the card (``spec``, ``table0``,
+    ``hi``, ``lo``, ``ebits``, ``depth``, ``depth_cap``, ``cond``, ``cvalid``,
+    ``kin``, ``cand``, ``mask``, ``ant``). Returns the sort's ``(name, us)``
+    operations of one sort, and for each wave its stages' device ms and
+    device operations a replay (every operation mapped to a stage by
+    ``_stages_of``; the replays must agree)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stateright_tpu_torch.ops import fused_wave as fw
+
+    graphs = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if sort_keys is not None:
+            key, idx = (x.clone() for x in sort_keys)
+            for _ in range(reps):
+                key.copy_(sort_keys[0])
+                idx.copy_(sort_keys[1])
+                fw.sort_stage(key, idx)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_GAP_S)
+        for w in waves:
+            work = w["table0"].clone()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                fw.kernel_chain(w["spec"], work, w["hi"], w["lo"], w["ebits"], w["depth"],
+                                w["depth_cap"], w["cond"], w["cvalid"], w["kin"], w["cand"],
+                                mask=w["mask"], ant=w["ant"])
+            graphs.append((graph, work))
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_GAP_S)
+        for w, (graph, work) in zip(waves, graphs):
+            for _ in range(reps):
+                work.copy_(w["table0"])
+                graph.replay()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_GAP_S)
+    blocks = _device_blocks(prof)
+    n_sort = 1 if sort_keys is not None else 0
+    if len(blocks) < n_sort + len(waves):
+        raise AssertionError(f"the profile holds {len(blocks)} blocks of device operations, "
+                             f"fewer than {n_sort + len(waves)}: {[len(b) for b in blocks]}")
+    sort_ops = []
+    if sort_keys is not None:
+        if len(blocks[0]) % reps:
+            raise AssertionError(f"{len(blocks[0])} sort operations over {reps} sorts")
+        per = len(blocks[0]) // reps
+        sort_ops = [(name, sum(us for _n, us in blocks[0][i::per]) / reps)
+                    for i, (name, _us) in enumerate(blocks[0][:per])]
+    out = []
+    for w, block in zip(waves, blocks[len(blocks) - len(waves):]):
+        # A memset's name says where its memory lies ("Device", "Unknown"),
+        # and not always alike in every replay.
+        block = [("Memset" if n.startswith("Memset") else n.split("(")[0], us)
+                 for n, us in block]
+        k = len(block) // reps
+        names = [n for n, _us in block[:k]]
+        if len(block) % reps or any([n for n, _us in block[r * k:(r + 1) * k]] != names
+                                    for r in range(reps)):
+            raise AssertionError(f"the replays of a chain differ: {len(block)} operations over "
+                                 f"{reps} replays: {[n for n, _us in block]}")
+        stage_us, stage_ops = {}, {}
+        for (_name, us), st in zip(block, _stages_of(names) * reps):
+            stage_us[st] = stage_us.get(st, 0.0) + us / reps
+            stage_ops[st] = stage_ops.get(st, 0) + 1
+        out.append(({st: us / 1e3 for st, us in stage_us.items()},
+                    {st: n // reps for st, n in stage_ops.items()}))
+    del graphs
+    return sort_ops, out
+
+
+def _waves_on_card(stage_waves):
+    """The chain inputs of each kept wave, back on the card."""
+    import torch
+
+    from stateright_tpu_torch.core.batch import map_leaves
+
+    dev = lambda x: None if x is None else x.cuda()  # noqa: E731
+    out = []
+    for w in stage_waves:
+        kin = w["kin"]
+        kin = kin.cuda() if torch.is_tensor(kin) else (None if kin is None else
+                                                        tuple(x.cuda() for x in kin))
+        cols = {k: dev(w[k]) for k in ("hi", "lo", "ebits", "depth", "cond", "cvalid", "mask",
+                                       "ant")}
+        out.append(dict(w, table0=w["table"].cuda(), kin=kin, cand=map_leaves(dev, w["cand"]),
+                        **cols))
+    return out
+
+
+@phase("stage_device_profile")
+def stage_device_profile(reps=5):
+    """``_profile_chains`` over every timed wave, in this process's only
+    ``torch.profiler`` session (a later session in one process dropped
+    device records): ``fw_sort``'s device operations on the 2pc-8 wave's
+    keys, and each wave's chain replayed in a CUDA Graph. Completes each
+    wave's ``stage_record`` with ``fused_wave_stage_device_ms`` (each
+    stage's device ms a wave inside the graph: no host gaps, unlike the
+    event marks of ``fused_wave_stage_ms``), ``fused_wave_stage_device_ops``,
+    ``fused_wave_device_ms`` and ``compact_device_ops``, and logs it."""
+    from stateright_tpu_torch.ops import fused_wave as fw
+
+    waves = _waves_on_card(STAGE_WAVES)
+    first = waves[0]
+    assert first["rec"]["wave"] == "2pc8", first["rec"]["wave"]
+    key0, idx0 = fw.route_keys_stage(first["spec"], first["kin"], first["cand"],
+                                     first["cvalid"], first["depth"], first["depth_cap"], None,
+                                     first["mask"])
+    sort_ops, stages = _profile_chains(waves, (key0, idx0), reps)
+    if len(sort_ops) != fw.sort_device_ops:
+        raise AssertionError(f"fw_sort queued {len(sort_ops)} device operations, not "
+                             f"{fw.sort_device_ops}")
+    sort_us = {}
+    for name, us in sort_ops:
+        sort_us[name.split("(")[0]] = sort_us.get(name.split("(")[0], 0.0) + us
+    first["rec"].update(sort_device_ops=len(sort_ops), sort_device_us=sort_us)
+    log(f"  fw_sort device operations on the 2pc-8 wave (torch.profiler): {len(sort_ops)}, "
+        f"device us a sort: {sort_us}")
+    for w, (stage_ms, stage_ops) in zip(waves, stages):
+        rec = w["rec"]
+        rec["fused_wave_stage_device_ms"] = stage_ms
+        rec["fused_wave_stage_device_ops"] = stage_ops
+        rec["fused_wave_device_ms"] = sum(stage_ms.values())
+        rec["compact_device_ops"] = stage_ops["compact"]
+        if stage_ops["compact"] != fw.compact_device_ops:
+            raise AssertionError(f"{rec['wave']}: fw_compact ran {stage_ops['compact']} device "
+                                 f"operations, not {fw.compact_device_ops}")
+        log(json.dumps({"stage_record": rec}))
+        log(f"  {rec['wave']} in-graph device ms a wave (torch.profiler): " + " ".join(
+            f"{st}={ms:.4f}" for st, ms in stage_ms.items())
+            + f"; chain {rec['fused_wave_device_ms']:.4f} ms")
+
+
+def stage_ab(root, out=None):
+    """The keys stage and the compaction alone, for the package of ``root``:
+    the timed waves of this script (a full-width 2pc-8 wave, full-width
+    takes of the paxos3, abd3o and raft5 drains, the coverage takes of 2pc-8
+    and skv4x4); on each, the keys stage and the sort as the chain runs them
+    and the chain on a copy of the table for the sweep's outcome bytes, then
+    the keys stage (``comphash_keys_stage``, actor waves) and the compaction
+    (``compact_stage``) timed alone with CUDA events (``_time_on_card``),
+    and last every wave's chain in-graph (``_profile_chains``). Both stages
+    keep their Python signatures across the checkouts compared, so a parent
+    and a change run the same code around them. Prints one ``{"stage_ab":
+    ...}`` line a wave and appends them to ``out``."""
+    import stateright_tpu_torch
+    from stateright_tpu_torch.ops import _build
+    from stateright_tpu_torch.ops import fused_wave as fw
+
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(stateright_tpu_torch.__file__)))
+    if pkg != root:
+        raise AssertionError(f"stateright_tpu_torch came from {pkg}, not {root}")
+    card = card_line()
+    _build.build_all(KERNEL_SOURCES)
+    waves = {"2pc8": _capture_2pc8_wave()}
+    waves["2pc8"]["frontier"] = dict(waves["2pc8"]["chunk"], mask=None)
+    for label, name, min_unique, live in (("paxos3", "paxos3", 300_000, 1),
+                                          ("abd3o", "abd3o", 10_000, 2),
+                                          ("raft5", "raft5_ttc", 10_000, 1)):
+        waves[label] = _capture_take(name, min_unique,
+                                     _config(name).spawn["frontier_capacity"] // live)
+    for name, min_unique in (("2pc8", 200_000), ("skv4x4", 2_000_000)):
+        cfg = _config(name)
+        got = _capture_take(name, min_unique, cfg.spawn["frontier_capacity"])
+        got["spec"] = _with_coverage(got["spec"], cfg.make())
+        waves[f"{name}_coverage"] = got
+
+    recs, chains = [], []
+    for label, got in waves.items():
+        spec, table0, front, depth_cap = (got[k] for k in ("spec", "table", "frontier",
+                                                           "depth_cap"))
+        mask = front["mask"]
+        hi, lo, ebits, depth = (front[k] for k in ("hi", "lo", "ebits", "depth"))
+        F, A = hi.shape[0], spec.action_count
+        cond, cvalid, cand = fw.model_stage(spec, front["states"], F)
+        ant = (fw.antecedent_stage(spec, front["states"], F) if spec.cov_layout is not None
+               else None)
+        kin = fw.keys_input(spec, cand)
+        key, idx = fw.route_keys_stage(spec, kin, cand, cvalid, depth, depth_cap, None, mask)
+        fw.sort_stage(key, idx)
+        work, taps = table0.clone(), {}
+        fw.kernel_chain(spec, work, hi, lo, ebits, depth, depth_cap, cond, cvalid, kin, cand,
+                        mask=mask, ant=ant, taps=taps)
+        acc = taps["acc"].clone()
+        cargs = (taps["flag"], key, idx, A, taps["ebits_after"], depth, hi, lo)
+        compact_ms, _ = _time_on_card(lambda mark: fw.compact_stage(*cargs, acc))
+        rec = {"wave": label, "root": root, "card": card, "B": F * A, "n_new": int(acc[1]),
+               "compact_ms": compact_ms}
+        if spec.keys_route == "comphash":
+            rec["comphash_keys_ms"], _ = _time_on_card(lambda mark: fw.comphash_keys_stage(
+                spec.comphash, cand, cvalid, depth, depth_cap, A, None, mask))
+            rec["valid_lanes"] = int((key != -1).sum())
+        log(json.dumps({"stage_ab_events": rec}))
+        recs.append(rec)
+        chains.append(dict(spec=spec, table0=table0, hi=hi, lo=lo, ebits=ebits, depth=depth,
+                           depth_cap=depth_cap, cond=cond, cvalid=cvalid, kin=kin, cand=cand,
+                           mask=mask, ant=ant))
+    _sort_ops, stages = _profile_chains(chains)
+    lines = []
+    for rec, (stage_ms, stage_ops) in zip(recs, stages):
+        rec.update(stage_device_ms=stage_ms, stage_device_ops=stage_ops)
+        lines.append(json.dumps({"stage_ab": rec}))
+        log(lines[-1])
+    if out:
+        with open(out, "a") as f:
+            f.write("\n".join(lines) + "\n")
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--stage-ab", action="store_true",
+                    help="time the keys stage and the compaction alone (see stage_ab)")
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
+                    help="with --stage-ab: the checkout whose package is timed")
+    ap.add_argument("--out", default=None, help="with --stage-ab: JSON lines output path")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    if args.stage_ab:
+        sys.path.insert(0, root)
     try:
         import torch
     except ImportError as e:
@@ -1711,6 +2007,8 @@ def main() -> int:
         print(f"chip_smoke: the port's package is not beside this script: {e}",
               file=sys.stderr)
         return 2
+    if args.stage_ab:
+        return stage_ab(root, args.out)
 
     t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1738,6 +2036,8 @@ def main() -> int:
     cov_skv = main_path_skv4x4_coverage() if not FAILED else None
     if not FAILED:
         replay_coverage_small()
+    if not FAILED:
+        stage_device_profile()
     if FAILED:
         log(f"FAILED phases: {FAILED}")
         return 1
@@ -1757,6 +2057,7 @@ def main() -> int:
     coverage_launches = by_path("fused", "fw_coverage", {"2pc8": cov_2pc8, "skv4x4": cov_skv})
     main_runs = {"2pc8": drains, **actor_runs, "2pc8_coverage": cov_2pc8, "skv4x4": cov_skv}
     sort_launches = by_path("fused", "fw_sort", main_runs)
+    compact_launches = by_path("fused", "fw_compact", main_runs)
     gather_launches = by_path("fused", "fw_gather", main_runs)
     raft5_insert = raft5_wave["insert"]
     # Each timed wave's sort and gather records, with the launches of the
@@ -1772,16 +2073,17 @@ def main() -> int:
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"], "bound_by": "bytes",
                 "library_ms": None}
 
+    library = {"sort": "torch_sort_ms", "gather": "index_select_sum_ms", "compact": None}
+
     def stage_held(kernel, launches):
         return {wave: {"launches": launches[wave_path[wave]],
                        "max_abs_err": r[f"{kernel}_max_abs_err"], "ms": r[f"{kernel}_ms"],
                        "plain_ms": r[f"{kernel}_plain_ms"], "bound_ms": r[f"{kernel}_bound_ms"],
                        "bound_by": "bytes",
-                       "library_ms": r["torch_sort_ms" if kernel == "sort" else
-                                       "index_select_sum_ms"]}
+                       "library_ms": r[library[kernel]] if library[kernel] else None}
                 for wave, r in stage_waves.items()}
 
-    sort_2pc8, gather_paxos3 = stage_waves["2pc8"], stage_waves["paxos3"]
+    rec_2pc8, gather_paxos3 = stage_waves["2pc8"], stage_waves["paxos3"]
 
     log(json.dumps({"kernels": [
         {
@@ -1857,15 +2159,34 @@ def main() -> int:
             "replaces": "stateright_tpu/ops/pallas_wave.py:186",
             "launches": sum(sort_launches.values()),
             "launches_by_path": sort_launches,
-            "device_ops_a_sort": sort_2pc8["sort_device_ops"],
+            "device_ops_a_sort": rec_2pc8["sort_device_ops"],
             "max_abs_err": max(r["sort_max_abs_err"] for r in stage_waves.values()),
             # On the 2pc-8 wave's keys; each timed wave's numbers below.
-            "ms": sort_2pc8["sort_ms"],
-            "plain_ms": sort_2pc8["sort_plain_ms"],
-            "bound_ms": sort_2pc8["sort_bound_ms"],
+            "ms": rec_2pc8["sort_ms"],
+            "plain_ms": rec_2pc8["sort_plain_ms"],
+            "bound_ms": rec_2pc8["sort_bound_ms"],
             "bound_by": "bytes",
-            "library_ms": sort_2pc8["torch_sort_ms"],
+            "library_ms": rec_2pc8["torch_sort_ms"],
             "by_path": stage_held("sort", sort_launches),
+        },
+        {
+            "name": "fw_compact",
+            "route": "cuda",
+            "source": "stateright_tpu_torch/csrc/fused_wave.cu",
+            "replaces": "stateright_tpu/ops/pallas_wave.py:444",
+            "launches": sum(compact_launches.values()),
+            "launches_by_path": compact_launches,
+            "device_ops_a_wave": rec_2pc8["compact_device_ops"],
+            "max_abs_err": max(r["compact_max_abs_err"] for r in stage_waves.values()),
+            # On the 2pc-8 wave; each timed wave's numbers below.
+            # torch.nonzero of the fresh flags (the slots alone) is in
+            # each stage_record as torch_nonzero_ms, for context.
+            "ms": rec_2pc8["compact_ms"],
+            "plain_ms": rec_2pc8["compact_plain_ms"],
+            "bound_ms": rec_2pc8["compact_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "by_path": stage_held("compact", compact_launches),
         },
         {
             "name": "fw_gather",

@@ -126,7 +126,8 @@ _GENERATED_CAP = 1 << 30
 # graph adds to at every replay.
 _LAUNCH_COUNTERS = (
     (fw, "launches"), (fw, "comphash_launches"), (fw, "coverage_launches"),
-    (fw, "sort_launches"), (fw, "gather_launches"), (hk, "launches"),
+    (fw, "sort_launches"), (fw, "compact_launches"), (fw, "gather_launches"),
+    (hk, "launches"),
 )
 
 # The drain's device scalars (one int64 vector): the ring's head and

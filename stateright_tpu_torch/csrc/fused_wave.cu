@@ -23,7 +23,7 @@
 //                model's fp_fn traced into the prologue, pallas_wave.py:180):
 //   fw_comphash_keys  the component hash of a packed actor state
 //                (actor/packed.py::PackedActorModel.packed_fingerprint),
-//                one thread a lane, read straight from the candidate
+//                a warp a valid lane, read straight from the candidate
 //                leaves: each actor row and timer word hashed
 //                multilinearly and seeded by its tag, the envelope table's
 //                multiset digest (sum and xor of its active rows' hashes)
@@ -49,10 +49,11 @@
 //                kernel runs (Pallas: probe_claim, shared the same way):
 //                tiles speculated in parallel, an ordered repair of the
 //                tiles whose predecessor spilled, a parallel commit;
-//   fw_compact   an exclusive scan of the fresh flags over the sorted
-//                positions (block counts, one block scanning them, block
-//                scans) and the scatter of hi, lo, ebits, depth + 1 and the
-//                parent's hi and lo to each fresh key's slot;
+//   fw_compact   one pass over the sorted positions: a block takes a
+//                tile by ticket, counts its fresh flags, finds the fresh
+//                keys before it by decoupled look-back, and writes hi, lo,
+//                ebits, depth + 1, the parent's hi and lo and the lane of
+//                each fresh key to its slot (its rank among the fresh keys);
 //   fw_gather    the candidate leaves of the fresh keys, as byte rows: a
 //                group of lanes a row (a warp for a leaf row of 512 B or
 //                more), coalesced 16-byte units where alignment allows,
@@ -127,9 +128,26 @@
 // pallas_wave.py:180, for a packed actor model) is bound by bytes too: each
 // valid lane's actor rows, timers, envelope counts, active envelopes and
 // history (538 u32 words a lane at paxos check 3) read once, 12 B a lane
-// written; an invalid lane reads only its valid bit. One thread walks one
-// lane, so a warp's loads hit 32 rows 4.3 KB apart and do not coalesce; a
-// warp a lane would (a later change).
+// written; an invalid lane reads only its valid bit. Only 9-13% of the
+// lanes are valid on the main paths, and a lane's words lie together, so a
+// block first sorts out its span's valid lanes and then hands each to a
+// whole warp: the warp's lanes take neighbouring words of a component (its
+// loads coalesce), a group of components' loads are in flight together,
+// and the coefficients sit in shared memory as u32 (a thread a lane would
+// read 32 rows 4.3 KB apart in each load instruction). A warp takes its
+// lanes one after another, a few round trips each (the actor sweeps, the
+// envelope table, the history), so the stage waits on memory and its time
+// follows the warps in flight: 64 registers a thread keep four blocks on
+// an SM (loading all of a lane's words at once needs more and was slower).
+//
+// fw_compact (the Pallas epilogue's pos = cumsum(fresh) - 1 and its
+// scatters, pallas_wave.py:444-463) is bound by bytes: the B outcome bytes
+// and, at each fresh position, its key and lane and the parent's ebits,
+// depth, hi and lo read and seven outputs written (56 B at u32 width). One
+// kernel and a memset of its status words: tiles in ticket order publish
+// their fresh counts, each finds its offset by look-back, 4 tiles' words a
+// lane, 128 a round, while its fresh rows load, and writes them to
+// consecutive slots; no block scans for the others.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -160,10 +178,11 @@
 #define SORT_TILE (THREADS * SORT_ROUNDS)
 #define PART_ITEMS 8
 #define PART_TILE (THREADS * PART_ITEMS)
-#define SCAN_THREADS 1024
-#define SCAN_ITEMS 4
-#define COMPACT_ITEMS 4
+#define COMPACT_ITEMS 8
 #define COMPACT_TILE (THREADS * COMPACT_ITEMS)
+#define CH_SPAN 128  // lanes a block of comphash_keys_kernel sorts out
+#define CH_GROUP 4   // components a warp sums in one sweep
+#define MAX_CH_CONSTS 8192  // u32 coefficients and seeds in shared memory
 #define COV_ITEMS 4
 #define COV_DEPTH_BINS 64
 #define MAX_COV_WORDS 12288  // 48 KB of u32 counters in shared memory
@@ -220,32 +239,6 @@ __device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t v, uint32_t* t
   *total = s_warp[NT / 32 - 1];
   __syncthreads();  // s_warp free for the next call
   return before + x - v;
-}
-
-// In-place exclusive scan of data[0, m) by one block of SCAN_THREADS
-// threads; *total_out (when given) gets the sum.
-__global__ void __launch_bounds__(SCAN_THREADS) scan_one_block_kernel(
-    uint32_t* __restrict__ data, int64_t m, ull* __restrict__ total_out) {
-  uint32_t carry = 0;
-  for (int64_t base = 0; base < m; base += (int64_t)SCAN_THREADS * SCAN_ITEMS) {
-    const int64_t i0 = base + (int64_t)threadIdx.x * SCAN_ITEMS;
-    uint32_t v[SCAN_ITEMS];
-    uint32_t sum = 0;
-#pragma unroll
-    for (int j = 0; j < SCAN_ITEMS; ++j) {
-      v[j] = i0 + j < m ? data[i0 + j] : 0u;
-      sum += v[j];
-    }
-    uint32_t tot;
-    uint32_t run = carry + block_exclusive_scan<SCAN_THREADS>(sum, &tot);
-#pragma unroll
-    for (int j = 0; j < SCAN_ITEMS; ++j) {
-      if (i0 + j < m) data[i0 + j] = run;
-      run += v[j];
-    }
-    carry += tot;
-  }
-  if (threadIdx.x == 0 && total_out != nullptr) *total_out = carry;
 }
 
 // -- (a) frontier lanes --------------------------------------------------
@@ -427,22 +420,115 @@ __device__ __forceinline__ void fold_pair(uint32_t h, uint32_t l, uint32_t* acc4
   acc4[3] ^= l;
 }
 
-// The (hi, lo) multilinear sums of n words at stride 1 under the
-// coefficient vectors k (hi) and k + stride_k (lo), added to (ah, al).
-__device__ __forceinline__ void lin_row(const int64_t* __restrict__ w, int n,
-                                        const int64_t* k, int stride_k, uint32_t& ah,
-                                        uint32_t& al) {
-  for (int j = 0; j < n; ++j) {
-    const uint32_t x = (uint32_t)w[j];
-    ah += x * (uint32_t)k[j];
-    al += x * (uint32_t)k[stride_k + j];
+// The number of u32 coefficients and seeds of a layout, in CompHash order.
+static int64_t comphash_consts(const CompHash& ch) {
+  const int64_t QW = (int64_t)ch.Q * ch.W;
+  const int64_t C = ch.N + (ch.P > 0 ? ch.P : 1) + (ch.H > 0 ? 1 : 0);
+  return 2 * ((int64_t)ch.R + 1) + (ch.P > 0 ? 2 * (QW + 1) : 2 * (3 + (int64_t)ch.W) + 8) +
+         2 * (int64_t)ch.H + 2 * C;
+}
+
+// n components of one lane, summed by the whole warp: component c is the L
+// words rows[c * L, (c + 1) * L) followed, when tail is given, by tail[c],
+// under the coefficients kh (hi lane) and kl (lo lane) of its L (+ 1)
+// words. Each component's sums are finished with fmix32 of its tag's seeds
+// (sh[c], sl[c]) and folded into acc4. The warp's lanes stride over a
+// component's words, so one load instruction reads neighbouring words, and
+// CH_GROUP components are swept together, so their loads are in flight at
+// once. Every lane ends with the same acc4.
+__device__ void warp_components(const int64_t* __restrict__ rows,
+                                const int64_t* __restrict__ tail, int n, int L,
+                                const uint32_t* kh, const uint32_t* kl, const uint32_t* sh,
+                                const uint32_t* sl, uint32_t* acc4) {
+  const int lane = threadIdx.x & 31;
+  const int Lt = L + (tail != nullptr ? 1 : 0);
+  for (int c0 = 0; c0 < n; c0 += CH_GROUP) {
+    uint32_t ph[CH_GROUP], pl[CH_GROUP];
+#pragma unroll
+    for (int i = 0; i < CH_GROUP; ++i) ph[i] = pl[i] = 0u;
+#pragma unroll 2
+    for (int r = lane; r < Lt; r += 32) {
+      const uint32_t ah = kh[r], al = kl[r];
+#pragma unroll
+      for (int i = 0; i < CH_GROUP; ++i) {
+        const int c = c0 + i;
+        if (c < n) {
+          const uint32_t x = (uint32_t)(r < L ? rows[(int64_t)c * L + r] : tail[c]);
+          ph[i] += x * ah;
+          pl[i] += x * al;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < CH_GROUP; ++i) {
+      if (c0 + i < n) {
+        const uint32_t h = __reduce_add_sync(FULL_MASK, ph[i]);
+        const uint32_t l = __reduce_add_sync(FULL_MASK, pl[i]);
+        fold_pair(fmix32(h ^ sh[c0 + i]), fmix32(l ^ sl[c0 + i]), acc4);
+      }
+    }
   }
 }
 
+// The multiset digest of one lane's active envelope rows [src, dst, msg,
+// cnt] by the whole warp, a lane an envelope (E may exceed 32): each active
+// row hashed multilinearly under k_env (3 + W coefficients a lane of the
+// hash) and finished with fmix32 of the row seeds, its (sum, xor, sum, xor)
+// reduced over the warp into dig. Two envelopes a lane are in flight at
+// once, every word of them loaded before the count decides whether the row
+// counts, so a lane's envelope table costs one round trip a 64 slots.
+__device__ void warp_envelopes(const int64_t* __restrict__ src, const int64_t* __restrict__ dst,
+                               const int64_t* __restrict__ msg, const int64_t* __restrict__ cnt,
+                               int E, int W, const uint32_t* k_env, uint32_t* dig) {
+  const int lane = threadIdx.x & 31;
+  const int M = 3 + W;
+  uint32_t d[4] = {0u, 0u, 0u, 0u};
+  for (int e0 = lane; e0 < E; e0 += 64) {
+    uint32_t n[2], ah[2], al[2];
+    const int64_t* m[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = e0 + 32 * u < E ? e0 + 32 * u : e0;
+      n[u] = e0 + 32 * u < E ? (uint32_t)cnt[e] : 0u;
+      const uint32_t s = (uint32_t)src[e], t = (uint32_t)dst[e];
+      ah[u] = s * k_env[0] + t * k_env[1];
+      al[u] = s * k_env[M] + t * k_env[M + 1];
+      m[u] = msg + (int64_t)e * W;
+    }
+#pragma unroll 4
+    for (int w = 0; w < W; ++w) {
+      const uint32_t x0 = (uint32_t)m[0][w], x1 = (uint32_t)m[1][w];
+      const uint32_t kh = k_env[2 + w], kl = k_env[M + 2 + w];
+      ah[0] += x0 * kh;
+      al[0] += x0 * kl;
+      ah[1] += x1 * kh;
+      al[1] += x1 * kl;
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (n[u] == 0u) continue;
+      ah[u] += n[u] * k_env[2 + W];
+      al[u] += n[u] * k_env[M + 2 + W];
+      fold_pair(fmix32(ah[u] ^ SEED_HI), fmix32(al[u] ^ SEED_LO), d);
+    }
+  }
+  dig[0] = __reduce_add_sync(FULL_MASK, d[0]);
+  dig[1] = __reduce_xor_sync(FULL_MASK, d[1]);
+  dig[2] = __reduce_add_sync(FULL_MASK, d[2]);
+  dig[3] = __reduce_xor_sync(FULL_MASK, d[3]);
+}
+
 // ops/fingerprint.py::combine_pairs(*PackedActorModel.packed_component_pairs)
-// of lane b. The network leaves are net_* (P == 0) or flow_* (P > 0); the
-// others are not read.
-__device__ uint2 comphash_lane(int64_t b, const CompHash& ch, const int64_t* __restrict__ rows,
+// of lane b, by the whole warp; k holds the layout's coefficients and seeds
+// as u32 (shared memory). The network leaves are net_* (P == 0) or flow_*
+// (P > 0); the others are not read.
+//
+// Every component's hash is a sum of u32 products mod 2^32 finished by one
+// fmix32 of the whole sum, and fold_pair adds and xors: both associative
+// and commutative. So the warp's order of words, envelopes and components
+// gives the bits of the serial walk (actor/packed.py's order).
+__device__ uint2 comphash_warp(int64_t b, const CompHash& ch, const uint32_t* k,
+                               const int64_t* __restrict__ rows,
                                const int64_t* __restrict__ timers,
                                const int64_t* __restrict__ net_src,
                                const int64_t* __restrict__ net_dst,
@@ -455,60 +541,38 @@ __device__ uint2 comphash_lane(int64_t b, const CompHash& ch, const int64_t* __r
   const int QW = ch.Q * W;
   const int NC = P > 0 ? P : 1;  // network components
   const int C = N + NC + (H > 0 ? 1 : 0);
-  const int64_t* k_act = ch.k;
-  const int64_t* k_net = k_act + 2 * (R + 1);
-  const int64_t* k_hist = k_net + (P > 0 ? 2 * (QW + 1) : 2 * (3 + W) + 8);
-  const int64_t* seed = k_hist + 2 * H;
+  const uint32_t* k_act = k;
+  const uint32_t* k_net = k_act + 2 * (R + 1);
+  const uint32_t* k_hist = k_net + (P > 0 ? 2 * (QW + 1) : 2 * (3 + W) + 8);
+  const uint32_t* seed = k_hist + 2 * H;
   uint32_t acc4[4] = {0u, 0u, 0u, 0u};
   // Actor components 0..N-1: row ‖ timer word.
-  for (int c = 0; c < N; ++c) {
-    uint32_t ah = 0u, al = 0u;
-    lin_row(rows + (b * N + c) * R, R, k_act, R + 1, ah, al);
-    lin_row(timers + b * N + c, 1, k_act + R, R + 1, ah, al);
-    fold_pair(fmix32(ah ^ (uint32_t)seed[c]), fmix32(al ^ (uint32_t)seed[C + c]), acc4);
-  }
+  warp_components(rows + b * N * R, timers + b * N, N, R, k_act, k_act + R + 1, seed, seed + C,
+                  acc4);
   if (P > 0) {
     // An ordered network: flow components N..N+P-1, queue ‖ length.
-    for (int p = 0; p < P; ++p) {
-      uint32_t ah = 0u, al = 0u;
-      lin_row(flow_msg + (b * P + p) * QW, QW, k_net, QW + 1, ah, al);
-      lin_row(flow_len + b * P + p, 1, k_net + QW, QW + 1, ah, al);
-      fold_pair(fmix32(ah ^ (uint32_t)seed[N + p]), fmix32(al ^ (uint32_t)seed[C + N + p]),
-                acc4);
-    }
+    warp_components(flow_msg + b * P * QW, flow_len + b * P, P, QW, k_net, k_net + QW + 1,
+                    seed + N, seed + C + N, acc4);
   } else {
     // An unordered network, tag N: the multiset digest of the active
     // envelope rows, hashed as one row.
     const int M = 3 + W;
-    const int64_t* k_env = k_net;
-    const int64_t* k_dig = k_net + 2 * M;
-    uint32_t dig[4] = {0u, 0u, 0u, 0u};
-    for (int e = 0; e < E; ++e) {
-      const uint32_t cnt = (uint32_t)net_cnt[b * E + e];
-      if (cnt == 0u) continue;
-      const uint32_t src = (uint32_t)net_src[b * E + e];
-      const uint32_t dst = (uint32_t)net_dst[b * E + e];
-      uint32_t ah = src * (uint32_t)k_env[0] + dst * (uint32_t)k_env[1];
-      uint32_t al = src * (uint32_t)k_env[M] + dst * (uint32_t)k_env[M + 1];
-      lin_row(net_msg + (b * E + e) * W, W, k_env + 2, M, ah, al);
-      ah += cnt * (uint32_t)k_env[2 + W];
-      al += cnt * (uint32_t)k_env[M + 2 + W];
-      fold_pair(fmix32(ah ^ SEED_HI), fmix32(al ^ SEED_LO), dig);
-    }
+    const uint32_t* k_dig = k_net + 2 * M;
+    uint32_t dig[4];
+    warp_envelopes(net_src + b * E, net_dst + b * E, net_msg + b * E * W, net_cnt + b * E, E, W,
+                   k_net, dig);
     uint32_t ah = 0u, al = 0u;
+#pragma unroll
     for (int j = 0; j < 4; ++j) {
-      ah += dig[j] * (uint32_t)k_dig[j];
-      al += dig[j] * (uint32_t)k_dig[4 + j];
+      ah += dig[j] * k_dig[j];
+      al += dig[j] * k_dig[4 + j];
     }
-    fold_pair(fmix32(ah ^ (uint32_t)seed[N]), fmix32(al ^ (uint32_t)seed[C + N]), acc4);
+    fold_pair(fmix32(ah ^ seed[N]), fmix32(al ^ seed[C + N]), acc4);
   }
   // The history, tag N + NC.
-  if (H > 0) {
-    uint32_t ah = 0u, al = 0u;
-    lin_row(hist + b * H, H, k_hist, H, ah, al);
-    fold_pair(fmix32(ah ^ (uint32_t)seed[N + NC]), fmix32(al ^ (uint32_t)seed[C + N + NC]),
-              acc4);
-  }
+  if (H > 0)
+    warp_components(hist + b * H, nullptr, 1, H, k_hist, k_hist + H, seed + N + NC,
+                    seed + C + N + NC, acc4);
   // acc_finalize(C), then the shared finalizer and its nudges.
   const uint32_t c = (uint32_t)C;
   uint32_t hi = fmix32(acc4[0] ^ rotl32(acc4[1], 16) ^ (c * 0x9E3779B9u));
@@ -521,9 +585,16 @@ __device__ uint2 comphash_lane(int64_t b, const CompHash& ch, const int64_t* __r
 }
 
 // keys_kernel with the component hash of each valid lane's packed actor
-// state in place of the default fold.
-__global__ void __launch_bounds__(THREADS) comphash_keys_kernel(
-    int64_t B, int A, CompHash ch, const int64_t* __restrict__ rows,
+// state in place of the default fold. A block takes CH_SPAN lanes: a thread
+// a lane writes idx, the sentinel key of an invalid lane and the valid
+// count, and lists the valid lanes in shared memory; then its warps take
+// the listed lanes one at a time (comphash_warp). The layout's n_consts
+// coefficients and seeds are staged in shared memory as u32 while the
+// valid bits load. At most 64 registers a thread (no spill at CH_GROUP 4)
+// keep four blocks on an SM: the stage waits on memory, and more warps in
+// flight hide more of it.
+__global__ void __launch_bounds__(THREADS, 4) comphash_keys_kernel(
+    int64_t B, int A, CompHash ch, int n_consts, const int64_t* __restrict__ rows,
     const int64_t* __restrict__ timers, const int64_t* __restrict__ net_src,
     const int64_t* __restrict__ net_dst, const int64_t* __restrict__ net_msg,
     const int64_t* __restrict__ net_cnt, const int64_t* __restrict__ flow_msg,
@@ -531,21 +602,43 @@ __global__ void __launch_bounds__(THREADS) comphash_keys_kernel(
     const uint8_t* __restrict__ cvalid, const int64_t* __restrict__ depth,
     const uint8_t* __restrict__ mask, int64_t depth_cap, ull* __restrict__ key,
     uint32_t* __restrict__ idx, ull* __restrict__ acc) {
-  const int64_t b = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  unsigned valid = 0;
-  if (b < B) {
-    valid = lane_valid(b, A, cvalid, depth, mask, depth_cap);
-    ull k = ~0ull;
-    if (valid) {
-      const uint2 fp = comphash_lane(b, ch, rows, timers, net_src, net_dst, net_msg,
-                                     net_cnt, flow_msg, flow_len, hist);
-      k = ((ull)fp.x << 32) | fp.y;
-    }
-    key[b] = k;
+  extern __shared__ uint32_t s_k[];
+  __shared__ uint32_t s_lane[CH_SPAN];
+  __shared__ uint32_t s_n;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t base = (int64_t)blockIdx.x * CH_SPAN;
+  const int64_t b = base + tid;
+  // lane_valid's three reads, issued together.
+  const bool in = tid < CH_SPAN && b < B;
+  const uint8_t cv = in ? cvalid[b] : 0;
+  const uint8_t mk = in && mask != nullptr ? mask[b / A] : 1;
+  const int64_t dp = in && depth != nullptr ? depth[b / A] : 0;
+  for (int i = tid; i < n_consts; i += THREADS) s_k[i] = (uint32_t)ch.k[i];
+  if (tid == 0) s_n = 0u;
+  const unsigned valid = cv != 0 && mk != 0 && (depth == nullptr || dp < depth_cap);
+  if (in) {
+    if (!valid) key[b] = ~0ull;
     idx[b] = (uint32_t)b;
   }
-  const unsigned n = __reduce_add_sync(FULL_MASK, valid);
-  if (acc != nullptr && (threadIdx.x & 31) == 0 && n) atomicAdd(&acc[ACC_GENERATED], (ull)n);
+  __syncthreads();
+  const unsigned bal = __ballot_sync(FULL_MASK, valid);
+  uint32_t at = 0u;
+  if (lane == 0 && bal) {
+    at = atomicAdd(&s_n, (uint32_t)__popc(bal));
+    if (acc != nullptr) atomicAdd(&acc[ACC_GENERATED], (ull)__popc(bal));
+  }
+  at = __shfl_sync(FULL_MASK, at, 0);
+  if (valid) s_lane[at + __popc(bal & ((1u << lane) - 1u))] = (uint32_t)tid;
+  __syncthreads();
+  const int n = (int)s_n;
+  for (int v = warp; v < n; v += THREADS / 32) {
+    const int64_t lb = base + s_lane[v];
+    const uint2 fp = comphash_warp(lb, ch, s_k, rows, timers, net_src, net_dst, net_msg, net_cnt,
+                                   flow_msg, flow_len, hist);
+    if (lane == 0) key[lb] = ((ull)fp.x << 32) | fp.y;
+  }
 }
 
 // -- (c) stable LSD radix sort ----------------------------------------------
@@ -583,23 +676,48 @@ __device__ __forceinline__ void st_relaxed(uint32_t* p, uint32_t v) {
   asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
-// The sum of the counts of the tiles after t (t + 1, t + 2, ... < nt) in
-// the partition's status words, by warp 0: each lane reads one tile's
-// word, 32 tiles a step, until a tile's inclusive count ends the walk.
-// Those tiles took their tickets earlier, so every one of them publishes
-// without waiting on this one.
-__device__ uint32_t lookback_after(const uint32_t* st, int64_t t, int64_t nt) {
+// The sum of the counts in the status words st[u] of the tiles u = from,
+// from + step, from + 2 * step, ... (step +1 or -1) within [0, nt), by one
+// warp: lane l reads the words of the WORDS tiles WORDS * l .. WORDS * l +
+// WORDS - 1 steps away, 32 * WORDS tiles a round, until a tile's inclusive
+// count ends the walk (the range's end counts 0). Those tiles took their
+// tickets earlier, so every one of them publishes without waiting on the
+// caller's.
+template <int WORDS>
+__device__ uint32_t warp_lookback(const uint32_t* st, int64_t from, int step, int64_t nt) {
   const int lane = threadIdx.x & 31;
   uint32_t sum = 0;
-  for (int64_t u0 = t + 1;; u0 += 32) {
-    const int64_t u = u0 + lane;
-    uint32_t s = u < nt ? ld_relaxed(st + u) : ST_INC;  // past the end: 0
-    while (__any_sync(FULL_MASK, s == 0u)) {
-      if (s == 0u) s = ld_relaxed(st + u);
+  for (int64_t u0 = from;; u0 += 32 * WORDS * step) {
+    uint32_t s[WORDS];
+    int64_t u[WORDS];
+    bool wait = false;
+#pragma unroll
+    for (int q = 0; q < WORDS; ++q) {
+      u[q] = u0 + (int64_t)step * (WORDS * lane + q);
+      s[q] = u[q] >= 0 && u[q] < nt ? ld_relaxed(st + u[q]) : ST_INC;  // past the end: 0
+      wait |= s[q] == 0u;
     }
-    const unsigned inc = __ballot_sync(FULL_MASK, (s & ST_INC) != 0u);
+    while (__any_sync(FULL_MASK, wait)) {
+      wait = false;
+#pragma unroll
+      for (int q = 0; q < WORDS; ++q) {
+        if (s[q] == 0u) s[q] = ld_relaxed(st + u[q]);
+        wait |= s[q] == 0u;
+      }
+    }
+    // The lane's counts up to its nearest inclusive word, if it has one.
+    uint32_t part = 0u;
+    bool has_inc = false;
+#pragma unroll
+    for (int q = 0; q < WORDS; ++q) {
+      if (!has_inc) {
+        part += s[q] & ST_COUNT;
+        has_inc = (s[q] & ST_INC) != 0u;
+      }
+    }
+    const unsigned inc = __ballot_sync(FULL_MASK, has_inc);
     const int stop = inc ? __ffs(inc) - 1 : 31;
-    sum += __reduce_add_sync(FULL_MASK, lane <= stop ? (s & ST_COUNT) : 0u);
+    sum += __reduce_add_sync(FULL_MASK, lane <= stop ? part : 0u);
     if (inc) return sum;
   }
 }
@@ -689,7 +807,7 @@ __global__ void __launch_bounds__(THREADS) sort_partition_kernel(
       if (tid == 0) st_relaxed(my, ST_INC | ltot);
     } else {
       if (tid == 0) st_relaxed(my, ST_AGG | ltot);
-      after = lookback_after(sc + SC_PSTAT, t, nt);
+      after = warp_lookback<1>(sc + SC_PSTAT, t + 1, 1, nt);
       if (tid == 0) st_relaxed(my, ST_INC | (after + ltot));
     }
     if (tid == 0) {
@@ -894,55 +1012,98 @@ struct WaveBatch {
 
 // -- (f) compaction ------------------------------------------------------------
 
-// bsum[block] = fresh keys among the block's COMPACT_TILE positions.
-__global__ void __launch_bounds__(THREADS) fresh_count_kernel(
-    const uint8_t* __restrict__ flag, int64_t B, uint32_t* __restrict__ bsum) {
-  const int64_t i0 = (int64_t)blockIdx.x * COMPACT_TILE + (int64_t)threadIdx.x * COMPACT_ITEMS;
-  uint32_t c = 0;
-#pragma unroll
-  for (int j = 0; j < COMPACT_ITEMS; ++j) c += i0 + j < B && (flag[i0 + j] & FLAG_FRESH);
-  uint32_t tot;
-  block_exclusive_scan<THREADS>(c, &tot);
-  if (threadIdx.x == 0) bsum[blockIdx.x] = tot;
-}
-
-// Each fresh key's slot is its rank among the fresh keys in sorted order
-// (bsum holds the blocks' exclusive offsets); writes the per-lane outputs
-// of the slot and the key's lane for the leaf gather.
+// One pass: a block takes the next tile of COMPACT_TILE sorted positions by
+// ticket (sc[0]), reads its outcome bytes (COMPACT_ITEMS neighbouring ones
+// a thread, one 8-byte load), publishes its fresh count in its status word
+// sc[1 + t] and lists its fresh positions in order in shared memory. Then
+// warp 0 adds up the fresh keys of the tiles before it by look-back, 128
+// tiles' words a round, and publishes the inclusive count, while every
+// thread loads the first fresh row it writes: the key and lane, then the
+// parent's ebits, depth, hi and lo. Each fresh key's slot is its rank among
+// the fresh keys in sorted order; the block writes its fresh rows to
+// consecutive slots: the per-lane outputs of the slot and the key's lane
+// for the leaf gather. The last tile writes n_new into acc.
 __global__ void __launch_bounds__(THREADS) compact_kernel(
-    const uint8_t* __restrict__ flag, int64_t B, int A,
-    const uint32_t* __restrict__ bsum, const ull* __restrict__ skey,
+    const uint8_t* __restrict__ flag, int64_t B, int A, const ull* __restrict__ skey,
     const uint32_t* __restrict__ sidx, const int64_t* __restrict__ ebits_after,
     const int64_t* __restrict__ depth, const int64_t* __restrict__ hi,
     const int64_t* __restrict__ lo, int64_t* __restrict__ new_hi,
     int64_t* __restrict__ new_lo, int64_t* __restrict__ new_ebits,
     int64_t* __restrict__ new_depth, int64_t* __restrict__ parent_hi,
-    int64_t* __restrict__ parent_lo, int64_t* __restrict__ src_out) {
-  const int64_t i0 = (int64_t)blockIdx.x * COMPACT_TILE + (int64_t)threadIdx.x * COMPACT_ITEMS;
-  uint8_t fresh[COMPACT_ITEMS];
-  uint32_t c = 0;
+    int64_t* __restrict__ parent_lo, int64_t* __restrict__ src_out,
+    uint32_t* __restrict__ sc, ull* __restrict__ acc, int64_t nt) {
+  __shared__ uint16_t s_pos[COMPACT_TILE];
+  __shared__ uint32_t s_tile, s_before;
+  const int tid = threadIdx.x;
+  if (tid == 0) s_tile = atomicAdd(&sc[0], 1u);
+  __syncthreads();
+  const int64_t t = s_tile;
+  const int64_t base = t * COMPACT_TILE;
+  const int64_t m = B - base < COMPACT_TILE ? B - base : COMPACT_TILE;
+  const int first = tid * COMPACT_ITEMS;
+  unsigned bits = 0u;
+  if (first + COMPACT_ITEMS <= m && ((uintptr_t)(flag + base + first) & 7u) == 0) {
+    const uint2 v = *(const uint2*)(flag + base + first);
 #pragma unroll
-  for (int j = 0; j < COMPACT_ITEMS; ++j) {
-    fresh[j] = i0 + j < B && (flag[i0 + j] & FLAG_FRESH);
-    c += fresh[j];
+    for (int j = 0; j < 4; ++j) {
+      bits |= (((v.x >> (8 * j)) & FLAG_FRESH) != 0u) << j;
+      bits |= (((v.y >> (8 * j)) & FLAG_FRESH) != 0u) << (4 + j);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < COMPACT_ITEMS; ++j)
+      if (first + j < m && (flag[base + first + j] & FLAG_FRESH)) bits |= 1u << j;
   }
   uint32_t tot;
-  int64_t pos = (int64_t)bsum[blockIdx.x] + block_exclusive_scan<THREADS>(c, &tot);
-#pragma unroll
-  for (int j = 0; j < COMPACT_ITEMS; ++j) {
-    if (!fresh[j]) continue;
-    const int64_t i = i0 + j;
-    const ull k = skey[i];
-    const int64_t src = sidx[i];
-    const int64_t parent = src / A;
+  uint32_t pre = block_exclusive_scan<THREADS>(__popc(bits), &tot);
+  if (tid == 0) st_relaxed(sc + 1 + t, (t == 0 ? ST_INC : ST_AGG) | tot);
+  for (unsigned r = bits; r; r &= r - 1u) s_pos[pre++] = (uint16_t)(first + __ffs(r) - 1);
+  __syncthreads();
+  if (tid < 32) {
+    uint32_t before = 0u;
+    if (t > 0) {
+      before = warp_lookback<4>(sc + 1, t - 1, -1, nt);
+      if (tid == 0) st_relaxed(sc + 1 + t, ST_INC | (before + tot));
+    }
+    if (tid == 0) {
+      s_before = before;
+      if (t == nt - 1) acc[ACC_N_NEW] = (ull)before + tot;
+    }
+  }
+  // The thread's first row loads while warp 0 looks back.
+  ull k = 0ull;
+  int64_t src = 0, eb = 0, dp = 0, ph = 0, pl = 0;
+  if (tid < (int)tot) {
+    const int64_t i = base + s_pos[tid];
+    k = skey[i];
+    src = sidx[i];
+    const int64_t parent = (uint32_t)src / (uint32_t)A;
+    eb = ebits_after[parent];
+    dp = depth[parent];
+    ph = hi[parent];
+    pl = lo[parent];
+  }
+  __syncthreads();
+  const int64_t before = s_before;
+  for (int j = tid; j < (int)tot; j += THREADS) {
+    if (j != tid) {
+      const int64_t i = base + s_pos[j];
+      k = skey[i];
+      src = sidx[i];
+      const int64_t parent = (uint32_t)src / (uint32_t)A;
+      eb = ebits_after[parent];
+      dp = depth[parent];
+      ph = hi[parent];
+      pl = lo[parent];
+    }
+    const int64_t pos = before + j;
     new_hi[pos] = (int64_t)(k >> 32);
     new_lo[pos] = (int64_t)(k & 0xFFFFFFFFull);
-    new_ebits[pos] = ebits_after[parent];
-    new_depth[pos] = depth[parent] + 1;
-    parent_hi[pos] = hi[parent];
-    parent_lo[pos] = lo[parent];
+    new_ebits[pos] = eb;
+    new_depth[pos] = dp + 1;
+    parent_hi[pos] = ph;
+    parent_lo[pos] = pl;
     src_out[pos] = src;
-    ++pos;
   }
 }
 
@@ -1161,8 +1322,8 @@ extern "C" int fw_keys_pairs(int64_t B, int A, const void* chi, const void* clo,
 // (B, N); for an unordered network (P == 0) net_src, net_dst and net_cnt
 // (B, E) and net_msg (B, E, W), for an ordered one (P > 0) flow_msg
 // (B, P, Q, W) and flow_len (B, P), the other network leaves null; hist
-// (B, H), null when H is 0; consts is laid out as CompHash says. depth,
-// mask and acc may be null.
+// (B, H), null when H is 0; consts is laid out as CompHash says, at most
+// MAX_CH_CONSTS words. depth, mask and acc may be null.
 extern "C" int fw_comphash_keys(int64_t B, int A, int N, int R, int E, int P, int Q, int W,
                                 int H, const void* rows, const void* timers,
                                 const void* net_src, const void* net_dst,
@@ -1178,8 +1339,11 @@ extern "C" int fw_comphash_keys(int64_t B, int A, int N, int R, int E, int P, in
                              net_msg == nullptr || net_cnt == nullptr)))
     return (int)cudaErrorInvalidValue;
   CompHash ch{N, R, ordered ? 0 : E, P, ordered ? Q : 0, W, H, (const int64_t*)consts};
-  comphash_keys_kernel<<<blocks_for(B, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
-      B, A, ch, (const int64_t*)rows, (const int64_t*)timers, (const int64_t*)net_src,
+  const int64_t n_consts = comphash_consts(ch);
+  if (n_consts > MAX_CH_CONSTS) return (int)cudaErrorInvalidValue;
+  comphash_keys_kernel<<<blocks_for(B, CH_SPAN), THREADS, (size_t)n_consts * sizeof(uint32_t),
+                         (cudaStream_t)stream>>>(
+      B, A, ch, (int)n_consts, (const int64_t*)rows, (const int64_t*)timers, (const int64_t*)net_src,
       (const int64_t*)net_dst, (const int64_t*)net_msg, (const int64_t*)net_cnt,
       (const int64_t*)flow_msg, (const int64_t*)flow_len, (const int64_t*)hist,
       (const uint8_t*)cvalid, (const int64_t*)depth, (const uint8_t*)mask, depth_cap,
@@ -1243,23 +1407,28 @@ extern "C" int fw_sweep(void* table, const void* skey, const void* active,
                                cap_bits, scratch, (cudaStream_t)stream));
 }
 
-// bsum is ceil(B / COMPACT_TILE) long (at least 1).
+// scratch is 1 + ceil(B / COMPACT_TILE) words (at least 2): the ticket and
+// the tiles' status words, zeroed here. *launches_host gets the device
+// operations queued (the memset and the kernel).
 extern "C" int fw_compact(int64_t B, int A, const void* flag, const void* skey,
                           const void* sidx, const void* ebits_after, const void* depth,
-                          const void* hi, const void* lo, void* bsum, void* acc,
+                          const void* hi, const void* lo, void* scratch, void* acc,
                           void* new_hi, void* new_lo, void* new_ebits, void* new_depth,
-                          void* parent_hi, void* parent_lo, void* src_out, void* stream) {
+                          void* parent_hi, void* parent_lo, void* src_out,
+                          int* launches_host, void* stream) {
+  *launches_host = 0;
+  if (B < 0 || B > (int64_t)ST_COUNT || A < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const unsigned nb = blocks_for(B, COMPACT_TILE);
-  fresh_count_kernel<<<nb, THREADS, 0, s>>>((const uint8_t*)flag, B, (uint32_t*)bsum);
-  scan_one_block_kernel<<<1, SCAN_THREADS, 0, s>>>((uint32_t*)bsum, nb,
-                                                   (ull*)acc + ACC_N_NEW);
-  compact_kernel<<<nb, THREADS, 0, s>>>(
-      (const uint8_t*)flag, B, A, (const uint32_t*)bsum, (const ull*)skey,
-      (const uint32_t*)sidx, (const int64_t*)ebits_after, (const int64_t*)depth,
-      (const int64_t*)hi, (const int64_t*)lo, (int64_t*)new_hi, (int64_t*)new_lo,
-      (int64_t*)new_ebits, (int64_t*)new_depth, (int64_t*)parent_hi,
-      (int64_t*)parent_lo, (int64_t*)src_out);
+  const unsigned nt = blocks_for(B, COMPACT_TILE);
+  const cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)(1 + nt) * sizeof(uint32_t), s);
+  if (e != cudaSuccess) return (int)e;
+  compact_kernel<<<nt, THREADS, 0, s>>>(
+      (const uint8_t*)flag, B, A, (const ull*)skey, (const uint32_t*)sidx,
+      (const int64_t*)ebits_after, (const int64_t*)depth, (const int64_t*)hi,
+      (const int64_t*)lo, (int64_t*)new_hi, (int64_t*)new_lo, (int64_t*)new_ebits,
+      (int64_t*)new_depth, (int64_t*)parent_hi, (int64_t*)parent_lo, (int64_t*)src_out,
+      (uint32_t*)scratch, (ull*)acc, (int64_t)nt);
+  *launches_host = 2;
   return last_error(cudaSuccess);
 }
 

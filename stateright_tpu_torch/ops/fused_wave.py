@@ -88,6 +88,8 @@ __all__ = [
     "antecedent_stage",
     "comphash_keys_stage",
     "comphash_tables",
+    "compact_plain",
+    "compact_stage",
     "coverage_plain",
     "coverage_stage",
     "fused_wave",
@@ -109,14 +111,17 @@ __all__ = [
 # Fused waves launched on the card in this process (each is one run of
 # ``kernel_chain``), of them the ones whose keys stage was
 # ``fw_comphash_keys``, the launches of ``fw_coverage``, the sorts
-# (``fw_sort``: each queues ``sort_device_ops`` device operations) and the
+# (``fw_sort``: each queues ``sort_device_ops`` device operations), the
+# compactions (``fw_compact``: each queues ``compact_device_ops``) and the
 # leaf-gather kernel launches (``fw_gather``: one for every 16 leaves).
 launches = 0
 comphash_launches = 0
 coverage_launches = 0
 sort_launches = 0
+compact_launches = 0
 gather_launches = 0
 sort_device_ops = 0
+compact_device_ops = 0
 KEY_ROUTES = ("fold", "comphash", "pairs")
 
 KINDS = {"always": 0, "sometimes": 1, "eventually": 2}
@@ -124,7 +129,7 @@ MAX_PROPS = 64  # csrc/fused_wave.cu: MAX_PROPS
 _SORT_TILE = 2048  # csrc/fused_wave.cu: SORT_TILE
 _PART_TILE = 2048  # csrc/fused_wave.cu: PART_TILE
 _SORT_SCRATCH_HEAD = 16 + 8 * 256  # csrc/fused_wave.cu: SC_PSTAT
-_COMPACT_TILE = 1024  # csrc/fused_wave.cu: COMPACT_TILE
+_COMPACT_TILE = 2048  # csrc/fused_wave.cu: COMPACT_TILE
 _INT64_MIN = -(1 << 63)
 _SENTINEL = (1 << 63) - 1  # sort_key of the (MAX, MAX) invalid-lane key
 
@@ -313,7 +318,6 @@ def torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None):
     the live lanes; None means every lane is live. Masked lanes may hold
     stale rows: nothing of them reaches the outputs."""
     F, A = hi.shape[0], spec.action_count
-    B = F * A
     cond, cvalid, cand_flat = model_stage(spec, states, F)
     eval_mask, ebits_after, cvalid, terminal = _frontier_plain(
         spec, cond, cvalid, ebits, depth, depth_cap, mask
@@ -332,22 +336,14 @@ def torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None):
         # its child's depth.
         cov = coverage_plain(spec, cvalid, depth, depth_cap, mask, cond,
                              antecedent_stage(spec, states, F), ebits_after, fresh, sidx)
-    # Cumsum compaction: fresh key i (in sorted order) goes to slot
-    # rank(i); the rows past n_new are unspecified (here lane 0's).
-    slot = torch.where(fresh, torch.cumsum(fresh, 0) - 1, B)
-    src = torch.zeros(B + 1, dtype=torch.int64, device=hi.device)
-    src[slot] = sidx
-    src = src[:B]
-    parent = src // A
-    new = {
-        "states": map_leaves(lambda x: x[src], cand_flat),
-        "hi": chi[src],
-        "lo": clo[src],
-        "ebits": ebits_after[parent],
-        "depth": depth[parent] + 1,
-    }
-    out = {"stats": stats, "new": new, "parent_hi": hi[parent],
-           "parent_lo": lo[parent]}
+    # The JAX staged wave's cumsum compaction (the Pallas epilogue's,
+    # pallas_wave.py:444-463); the leaves' rows past n_new are lane 0's.
+    c, _n_new = compact_plain(fresh, (shi << 32) | slo, sidx, A, ebits_after, depth, hi, lo)
+    src = c["src"]
+    new = {"states": map_leaves(lambda x: x[src], cand_flat)}
+    new.update((k, c[k]) for k in ("hi", "lo", "ebits", "depth"))
+    out = {"stats": stats, "new": new, "parent_hi": c["parent_hi"],
+           "parent_lo": c["parent_lo"]}
     if cov is not None:
         out["cov"] = cov
     return table, out
@@ -379,7 +375,7 @@ ARGTYPES = {
     "fw_dedup": [_c_i64, _c_ptr, _c_ptr, _c_int] + [_c_ptr] * 3 + [_c_i64] + [_c_ptr] * 2
     + [_c_int] * 2 + [_c_ptr],
     "fw_sweep": [_c_ptr] * 4 + [_c_i64] + [_c_int] * 2 + [_c_ptr] * 4,
-    "fw_compact": [_c_i64, _c_int] + [_c_ptr] * 17,
+    "fw_compact": [_c_i64, _c_int] + [_c_ptr] * 18,
     "fw_gather": [_c_i64, _c_ptr, _c_ptr, _c_int] + [_c_ptr] * 4 + [_c_int] + [_c_ptr] * 2,
     "fw_stats": [_c_int, _c_i64] + [_c_ptr] * 5,
     "fw_coverage": [_c_i64, _c_int, _c_i64] + [_c_ptr] * 6 + [_c_int] + [_c_ptr] * 4
@@ -645,20 +641,58 @@ def sweep_stage(table, key, active, starts, acc):
     return flag, scratch
 
 
+_COMPACT_OUTS = ("hi", "lo", "ebits", "depth", "parent_hi", "parent_lo", "src")
+
+
+def compact_plain(flag, key, idx, action_count, ebits_after, depth, hi, lo):
+    """The compaction in plain torch, as the JAX epilogue writes it
+    (``pallas_wave.py:444-463``): each fresh sorted position (``flag``, the
+    sweep's outcome bytes, fresh = 1, or a bool fresh mask) goes to slot
+    ``cumsum(fresh) - 1``, its rank among the fresh positions. Returns the
+    B-row int64 outputs of ``compact_stage`` (the key's hi and lo halves,
+    the parent's ``ebits_after``, ``depth + 1``, hi and lo, and the lane
+    ``idx`` in ``src``; 0 past ``n_new``) and ``n_new``, a 0-d int64
+    tensor. ``fw_compact``'s plain twin and the staged wave's compaction."""
+    fresh = flag if flag.dtype == torch.bool else (flag & 1) != 0
+    B = fresh.shape[0]
+    slot = torch.where(fresh, torch.cumsum(fresh, 0) - 1, B)
+    sidx = idx.to(torch.int64)
+    parent = sidx // action_count
+    vals = ((key >> 32) & 0xFFFFFFFF, key & 0xFFFFFFFF, ebits_after[parent],
+            depth[parent] + 1, hi[parent], lo[parent], sidx)
+    out = {}
+    for name, v in zip(_COMPACT_OUTS, vals):
+        x = torch.zeros(B + 1, dtype=torch.int64, device=fresh.device)
+        x[slot] = v
+        out[name] = x[:B]
+    return out, fresh.sum()
+
+
 def compact_stage(flag, key, idx, action_count, ebits_after, depth, hi, lo, acc):
     """Stage (f): writes ``n_new`` into ``acc`` and returns the B-row
-    per-lane outputs and ``src``, each slot's candidate lane."""
+    per-lane outputs and ``src``, each slot's candidate lane (rows past
+    ``n_new`` unspecified). On CUDA tensors it launches ``fw_compact`` (a
+    memset and one kernel, ``compact_device_ops``) and counts one
+    ``compact_launches``; on CPU tensors it runs ``compact_plain``."""
+    global compact_launches, compact_device_ops
+
+    if flag.device.type == "cpu":
+        out, n_new = compact_plain(flag, key, idx, action_count, ebits_after, depth, hi, lo)
+        acc[1:2].copy_(n_new.view(1))
+        return out
     B = key.shape[0]
-    bsum = torch.empty(max(1, -(-B // _COMPACT_TILE)), dtype=torch.int32,
-                       device=key.device)
-    out = {k: torch.empty(B, dtype=torch.int64, device=key.device)
-           for k in ("hi", "lo", "ebits", "depth", "parent_hi", "parent_lo", "src")}
+    scratch = torch.empty(1 + max(1, -(-B // _COMPACT_TILE)), dtype=torch.int32,
+                          device=key.device)
+    out = {k: torch.empty(B, dtype=torch.int64, device=key.device) for k in _COMPACT_OUTS}
+    ops = ctypes.c_int(0)
+    compact_launches += 1
     _call("fw_compact", B, action_count, flag.data_ptr(), key.data_ptr(),
           idx.data_ptr(), ebits_after.data_ptr(), depth.data_ptr(), hi.data_ptr(),
-          lo.data_ptr(), bsum.data_ptr(), acc.data_ptr(), out["hi"].data_ptr(),
+          lo.data_ptr(), scratch.data_ptr(), acc.data_ptr(), out["hi"].data_ptr(),
           out["lo"].data_ptr(), out["ebits"].data_ptr(), out["depth"].data_ptr(),
           out["parent_hi"].data_ptr(), out["parent_lo"].data_ptr(),
-          out["src"].data_ptr(), _stream(key))
+          out["src"].data_ptr(), ctypes.addressof(ops), _stream(key))
+    compact_device_ops = ops.value
     return out
 
 
@@ -778,8 +812,9 @@ def kernel_chain(spec, table, hi, lo, ebits, depth, depth_cap, cond, cvalid,
     (None: all). ``mark(name)``, when given, is called before each stage
     and once after the last (``chip_smoke.py`` records CUDA events there).
     ``taps``, a dict when given, receives the scratch the coverage stage
-    reads (``ebits_after``, the sweep's ``flag`` and the sorted ``idx``) and
-    the gather's (``src``, ``acc``).
+    reads (``ebits_after``, the sweep's ``flag`` and the sorted ``idx``), the
+    sorted ``key`` the compaction reads, and the gather's (``src``,
+    ``acc``).
     Returns ``(table, out)``."""
     global launches
 
@@ -803,7 +838,8 @@ def kernel_chain(spec, table, hi, lo, ebits, depth, depth_cap, cond, cvalid,
     mark("compact")
     c = compact_stage(flag, key, idx, A, ebits_after, depth, hi, lo, acc)
     if taps is not None:
-        taps.update(ebits_after=ebits_after, flag=flag, idx=idx, src=c["src"], acc=acc)
+        taps.update(ebits_after=ebits_after, flag=flag, key=key, idx=idx, src=c["src"],
+                    acc=acc)
     cov = None
     if spec.cov_layout is not None:
         mark("coverage")

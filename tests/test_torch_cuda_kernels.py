@@ -740,6 +740,189 @@ def test_cuda_comphash_ordered_matches_plain_twin(cuda_device, layout):
     assert int(acc[0]) == int((pkey != -1).sum()) > 0
 
 
+UNORDERED_LAYOUTS = ("paxos_e24", "raft_e60", "abd_ordered")
+
+
+def comphash_model(layout):
+    """A packed actor model of each layout: paxos check 3 (an unordered
+    network of 24 envelope slots, a history), raft with 5 servers (60 slots,
+    more than a warp's lanes, no history) and abd3o's ordered flows."""
+    from stateright_tpu_torch.actor.network import Network
+    from stateright_tpu_torch.models.linearizable_register import AbdModelCfg
+    from stateright_tpu_torch.models.paxos import PaxosModelCfg
+    from stateright_tpu_torch.models.raft import RaftModelCfg
+
+    if layout == "paxos_e24":
+        return PaxosModelCfg(3, 3, envelope_capacity=24).into_model()
+    if layout == "raft_e60":
+        return RaftModelCfg(server_count=5, max_term=1, lossy=True).into_model()
+    return AbdModelCfg(3, 2, network=Network.new_ordered(), envelope_capacity=12,
+                       flow_capacity=2).into_model()
+
+
+def random_actor_states(model, B, rng):
+    """Random packed states of ``model``'s layout: words at and above 2^31;
+    on an unordered network about half the envelope slots empty and lanes
+    with no active envelope at all; on an ordered one empty and full
+    flows."""
+    lay = model.packed_comphash_layout()
+    N, R, E, P, Q, W, H = (lay[k] for k in ("N", "R", "E", "P", "Q", "W", "H"))
+
+    def words(*shape):
+        x = rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32)
+        return np.where(rng.random(shape) < 0.33, x | np.uint32(1 << 31), x)
+
+    states = {"rows": words(B, N, R), "timers": words(B, N)}
+    if lay["ordered"]:
+        states["flow_msg"] = words(B, P, Q, W)
+        states["flow_len"] = rng.integers(0, Q + 1, size=(B, P)).astype(np.uint32)
+        states["flow_len"][::7] = 0
+        states["flow_len"][1::7] = Q
+    else:
+        states.update(net_src=words(B, E), net_dst=words(B, E), net_msg=words(B, E, W))
+        cnt = rng.integers(1, 4, size=(B, E)).astype(np.uint32)
+        cnt[rng.random((B, E)) < 0.5] = 0
+        cnt[::5] = 0  # lanes with no active envelope
+        states["net_cnt"] = cnt
+    if H:
+        states["hist"] = words(B, H)
+    return states
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed", "all_valid", "no_valid_block"])
+@pytest.mark.parametrize("layout", UNORDERED_LAYOUTS)
+def test_cuda_comphash_warp_lanes_match_plain_twin(cuda_device, layout, case):
+    """``fw_comphash_keys`` (a warp a valid lane) on random states of each
+    layout against the model's torch ``packed_fingerprint`` through
+    ``keys_plain``, bit for bit: ``mixed`` has invalid, masked and
+    depth-capped lanes; ``all_valid`` every lane valid, with no mask or
+    depth; ``no_valid_block`` no valid lane in its first blocks' spans. The
+    kernel's valid count is the twin's."""
+    from stateright_tpu_torch.interop import packed_states_from_numpy
+
+    model = comphash_model(layout)
+    B, A = 5000, 10
+    rng = np.random.default_rng(len(layout) * 10 + len(case))
+    cand = packed_states_from_numpy(random_actor_states(model, B, rng), cuda_device)
+    if case == "all_valid":
+        cvalid = torch.ones(B, dtype=torch.bool, device=cuda_device)
+        depth = mask = None
+    else:
+        cvalid = torch.from_numpy(rng.random(B) < 0.8).to(cuda_device)
+        depth = torch.from_numpy(rng.integers(0, 6, size=B // A)).to(cuda_device)
+        mask = torch.from_numpy(rng.random(B // A) < 0.8).to(cuda_device)
+        if case == "no_valid_block":
+            cvalid[:1000] = False
+    tables = fw.comphash_tables(model.packed_comphash_layout(), cuda_device)
+    acc = torch.zeros(8, dtype=torch.int64, device=cuda_device)
+    before = fw.comphash_launches
+    key, idx = fw.comphash_keys_stage(tables, cand, cvalid, depth, 4, A, acc, mask)
+    assert fw.comphash_launches == before + 1
+    chi, clo = model.packed_fingerprint(map_leaves(lambda x: x.cpu(), cand))
+    cpu = lambda x: None if x is None else x.cpu()  # noqa: E731
+    pkey, pidx = fw.keys_plain(chi, clo, cvalid.cpu(), cpu(depth), 4, A, cpu(mask))
+    assert torch.equal(key.cpu(), pkey) and torch.equal(idx.cpu(), pidx)
+    n_valid = int((pkey != -1).sum())
+    assert int(acc[0]) == n_valid
+    if case == "all_valid":
+        assert n_valid == B
+    elif case == "no_valid_block":
+        assert not (pkey[:1000] != -1).any() and n_valid > 0
+
+
+def compact_inputs(n, pattern, dev, seed=0):
+    """The compaction's inputs over n sorted positions: outcome bytes
+    (fresh = 1, found 2, pending 4, inactive 0) in ``pattern``, random keys
+    and lanes, and the frontier columns of F = ceil(n / A) lanes."""
+    rng = np.random.default_rng(seed + n)
+    A = 7
+    F = -(-n // A)
+    flag = rng.choice(np.array([0, 2, 4], np.uint8), size=n)
+    if pattern == "all":
+        flag[:] = 1
+    elif pattern == "alternate":
+        flag[::2] = 1
+    elif pattern == "tail":
+        flag[-min(n, 300):] = 1
+    elif pattern == "random":
+        flag[rng.random(n) < 0.06] = 1
+    key = rng.integers(-(1 << 63), (1 << 63) - 1, size=n, dtype=np.int64)
+    idx = rng.integers(0, n, size=n).astype(np.int32)
+    cols = [rng.integers(0, 1 << 32, size=F, dtype=np.int64) for _ in range(4)]
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return (t(flag), t(key), t(idx), A) + tuple(t(c) for c in cols)
+
+
+def check_compact(args, acc, out):
+    want, n_new = fw.compact_plain(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    n = int(n_new)
+    assert int(acc[1]) == n
+    for k, v in want.items():
+        assert torch.equal(out[k][:n].cpu(), v[:n]), k
+    return n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["none", "all", "alternate", "tail"])
+@pytest.mark.parametrize("n", [1, 2048, 2049, (1 << 20) + 3])
+def test_cuda_compact_matches_plain_twin(cuda_device, n, pattern):
+    """``fw_compact`` (one look-back pass) against ``compact_plain`` on one
+    lane, one tile, one tile and a lane, and more than 2^20 lanes: the
+    first ``n_new`` rows of every output and ``n_new`` in ``acc[1]``; two
+    device operations, one launch counted."""
+    args = compact_inputs(n, pattern, cuda_device)
+    acc = torch.full((6,), -1, dtype=torch.int64, device=cuda_device)
+    before = fw.compact_launches
+    out = fw.compact_stage(*args, acc)
+    torch.cuda.synchronize()
+    assert fw.compact_launches == before + 1 and fw.compact_device_ops == 2
+    got = check_compact(args, acc, out)
+    assert got == {"none": 0, "all": n}.get(pattern, got)
+    assert acc[0].item() == acc[2].item() == -1
+
+
+@pytest.mark.cuda
+def test_cuda_compact_reads_unaligned_flags(cuda_device):
+    """Outcome bytes that do not start on an 8-byte boundary are read a
+    byte at a time, with the same result."""
+    flag, *rest = compact_inputs(50001, "random", cuda_device)
+    wide = torch.zeros(flag.shape[0] + 1, dtype=torch.uint8, device=cuda_device)
+    wide[1:] = flag
+    args = (wide[1:],) + tuple(rest)
+    assert args[0].data_ptr() % 8
+    acc = torch.zeros(6, dtype=torch.int64, device=cuda_device)
+    out = fw.compact_stage(*args, acc)
+    torch.cuda.synchronize()
+    assert check_compact(args, acc, out) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_compact_replays_in_a_cuda_graph(cuda_device):
+    """The compaction captured in a CUDA Graph and replayed twice over new
+    outcome bytes: its ticket and status words are reset on the stream
+    inside the graph, so each replay compacts its own flags."""
+    n = 300000
+    args = list(compact_inputs(n, "random", cuda_device))
+    flag = args[0]
+    acc = torch.zeros(6, dtype=torch.int64, device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fw.compact_stage(*args, acc)  # warm-up: builds and loads the kernels
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fw.compact_stage(*args, acc)
+    seen = []
+    for seed, pattern in ((2, "alternate"), (3, "random"), (4, "none")):
+        flag.copy_(compact_inputs(n, pattern, cuda_device, seed=seed)[0])
+        graph.replay()
+        torch.cuda.synchronize()
+        seen.append(check_compact(args, acc, out))
+    assert seen[0] == n // 2 and seen[1] > 0 and seen[2] == 0
+
+
 # -- coverage ----------------------------------------------------------------------
 
 
