@@ -43,8 +43,12 @@ exhaustively (16,777,216 states) on both engines with coverage; and small
 coverage runs on the card against the CPU twin. On every timed wave
 (2pc-8, paxos3, abd3o, raft5, and 2pc-8 and skv4x4 with coverage) the
 fused sort (``fw_sort``) is held to a stable ``torch.sort`` of the wave's
-keys, the compaction (``fw_compact``) to ``compact_plain`` and the leaf
-gather (``fw_gather``) to ``x[src]`` over the chain's own compaction; last,
+keys, the compaction (``fw_compact``) to ``compact_plain``, the leaf
+gather (``fw_gather``) to ``x[src]`` over the chain's own compaction, the
+frontier (``fw_frontier``) to ``frontier_plain`` and, on the fold route's
+waves, the keys stage (``fw_keys``, reading the candidate leaves in place)
+to ``keys_plain`` over ``fingerprint_state``, timed beside the
+``state_words`` copy an earlier fold route made first; last,
 one ``torch.profiler`` session gives each wave's chain, captured in a CUDA
 Graph and replayed, its device time by stage, and one
 ``{"stage_record": ...}`` line a wave gives the chain's per-stage times
@@ -59,8 +63,8 @@ line ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
 when any phase fails, when no CUDA device is present, or when the port's
 package is not beside it. Imports nothing of JAX or of the JAX package.
 
-``--stage-ab`` runs none of that: it times the keys stage and the
-compaction alone, and every chain stage inside a CUDA Graph, on the timed
+``--stage-ab`` runs none of that: it times the keys stage, the frontier and
+the compaction alone, and every chain stage inside a CUDA Graph, on the timed
 waves, with the package of ``--root`` (default: beside this script); see
 ``stage_ab``. Run it for two checkouts in one call on the card, in turns
 (parent, change, change, parent).
@@ -511,6 +515,26 @@ def _time_on_card(fn, reps=11, reset=None):
     return statistics.median(totals), {k: statistics.median(v) for k, v in stages.items()}
 
 
+def _keys_must_move(B, W, F, masked, n_valid):
+    """Bytes the fold route's keys stage must move on this wave, u32
+    values at 4 B: the W words of each of the ``n_valid`` valid lanes (an
+    invalid lane's key does not depend on its row), every lane's valid
+    byte, the frontier's depth and mask bytes, and each lane's key (8 B)
+    and idx (4 B) written. Reading int64 leaves in place moves each word's
+    8 B: about twice the words' share."""
+    return n_valid * W * 4 + B * (1 + 12) + F * (4 + (1 if masked else 0))
+
+
+def _frontier_must_move(spec, F, masked):
+    """Bytes ``fw_frontier`` must move, u32 values at 4 B: each frontier
+    lane's depth and ebits read and ``ebits_after`` written, its mask byte
+    and condition bytes, its A valid bytes only when an eventually property
+    needs the terminal test, and the (4 + P) int64 counters written."""
+    P = len(spec.conditions)
+    ev = spec.action_count if "eventually" in spec.expectations else 0
+    return F * (12 + (1 if masked else 0) + P + ev) + (4 + P) * 8
+
+
 def _compact_must_move(B, n_new):
     """Bytes ``fw_compact`` must move on this wave, u32 values at 4 B: the
     B outcome bytes; at each fresh position its key (8 B) and lane (4 B)
@@ -545,6 +569,7 @@ def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cval
 
     from stateright_tpu_torch.core.batch import leaves, map_leaves
     from stateright_tpu_torch.ops import fused_wave as fw
+    from stateright_tpu_torch.ops.fingerprint import fingerprint_state, state_words
 
     MIN = -(1 << 63)
     work, taps = table0.clone(), {}
@@ -605,6 +630,52 @@ def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cval
     sel = src[:n_new]
     index_select_ms, _ = _time_on_card(lambda mark: [x.index_select(0, sel) for x in flat])
 
+    # The frontier stage alone against frontier_plain (on the card), and,
+    # on the fold route, the keys stage reading the leaves in place against
+    # keys_plain over fingerprint_state, beside what the parent's fold
+    # did first: state_words' copy.
+    F, P = depth.shape[0], len(spec.conditions)
+    facc, pacc = (torch.zeros(4 + P, dtype=torch.int64, device="cuda") for _ in range(2))
+    fargs = (spec, cond, cvalid, ebits, depth, depth_cap)
+    feb = fw.frontier_stage(*fargs, facc, mask)
+    peb = fw.frontier_plain(*fargs, pacc, mask)
+    torch.cuda.synchronize()
+    frontier_err = _max_abs_err([(peb.cpu(), feb), (pacc.cpu(), facc)])
+    frontier_ms, _ = _time_on_card(lambda mark: fw.frontier_stage(*fargs, facc, mask))
+    frontier_plain_ms, _ = _time_on_card(lambda mark: fw.frontier_plain(*fargs, pacc, mask))
+    frontier_bytes = _frontier_must_move(spec, F, mask is not None)
+    keys = {}
+    if spec.keys_route == "fold":
+        kargs = (cvalid, depth, depth_cap, A)
+        kacc = torch.zeros(4 + P, dtype=torch.int64, device="cuda")
+        kkey, kidx = fw.keys_stage(kin, *kargs, kacc, mask)
+        pkey, pidx = fw.keys_plain(*fingerprint_state(cand), *kargs, mask)
+        torch.cuda.synchronize()
+        n_keyed = (pkey != -1).sum().view(1).cpu()
+        keys_err = _max_abs_err([((pkey >> 32).cpu(), kkey >> 32),
+                                 ((pkey & 0xFFFFFFFF).cpu(), kkey & 0xFFFFFFFF),
+                                 (pidx.cpu(), kidx), (n_keyed, kacc[0:1])])
+        W = state_words(cand).shape[1]
+        keys_ms, _ = _time_on_card(lambda mark: fw.keys_stage(kin, *kargs, None, mask))
+        keys_plain_ms, _ = _time_on_card(
+            lambda mark: fw.keys_plain(*fingerprint_state(cand), *kargs, mask))
+        state_words_ms, _ = _time_on_card(lambda mark: state_words(cand))
+        n_valid = int(n_keyed)
+        keys_bytes = _keys_must_move(B, W, F, mask is not None, n_valid)
+        keys = {"keys_ms": keys_ms, "keys_plain_ms": keys_plain_ms, "keys_words": W,
+                "keys_valid_lanes": n_valid, "keys_bound_bytes": keys_bytes,
+                "keys_bound_ms": keys_bytes / HBM_BYTES_PER_S * 1e3,
+                "keys_max_abs_err": keys_err, "state_words_ms": state_words_ms}
+        log(f"  fw_keys ({label}, fold from the leaves): {keys_ms:.4f} ms, bound "
+            f"{keys['keys_bound_ms']:.5f} ms ({keys_bytes} B, W={W}, {n_valid} valid lanes); "
+            f"the parent's state_words {state_words_ms:.4f} ms; plain {keys_plain_ms:.4f} ms; "
+            f"max_abs_err={keys_err}")
+    log(f"  fw_frontier ({label}): {frontier_ms:.4f} ms, bound "
+        f"{frontier_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({frontier_bytes} B); plain "
+        f"{frontier_plain_ms:.4f} ms; max_abs_err={frontier_err}")
+    if frontier_err or keys.get("keys_max_abs_err"):
+        raise AssertionError(f"fw_frontier or fw_keys and its plain twin disagree on {label}")
+
     # The sort reads each lane's key (8 B) and idx (4 B) once and writes
     # both once, whatever its passes move.
     sort_bytes = B * 24
@@ -626,6 +697,11 @@ def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cval
         "torch_nonzero_ms": nonzero_ms, "compact_bound_bytes": compact_bytes,
         "compact_bound_ms": compact_bytes / HBM_BYTES_PER_S * 1e3,
         "compact_max_abs_err": compact_err,
+        "frontier_ms": frontier_ms, "frontier_plain_ms": frontier_plain_ms,
+        "frontier_bound_bytes": frontier_bytes,
+        "frontier_bound_ms": frontier_bytes / HBM_BYTES_PER_S * 1e3,
+        "frontier_max_abs_err": frontier_err,
+        **keys,
     }
     log(f"  fw_sort ({label}): n={B} keyed={n_live} {sort_ms:.4f} ms vs torch.sort "
         f"{torch_sort_ms:.4f} ms (random keys {sort_random_ms:.4f} vs "
@@ -642,8 +718,6 @@ def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cval
     STAGE_WAVES.append({
         "rec": rec, "spec": spec, "depth_cap": depth_cap,
         "table": table0.cpu(), "cand": map_leaves(host, cand),
-        "kin": kin.cpu() if torch.is_tensor(kin) else
-        (None if kin is None else tuple(x.cpu() for x in kin)),
         **{k: host(v) for k, v in dict(hi=hi, lo=lo, ebits=ebits, depth=depth, cond=cond,
                                         cvalid=cvalid, mask=mask, ant=ant).items()},
     })
@@ -757,20 +831,23 @@ def fused_vs_plain():
         if e or sub_redone != to_redo:
             raise AssertionError(f"fused sweep case {kind}: kernels and plain twin disagree")
 
-    # The stages alone at this shape: the model stage (torch), then the
-    # kernel chain with an event between stages.
+    # The stages alone at this shape: the model stage (torch) with what
+    # the keys stage reads, then the kernel chain with an event between
+    # stages.
     cond, cvalid, cand_flat = fw.model_stage(spec, states, F)
+    kin = fw.keys_input(spec, cand_flat)
     words = state_words(cand_flat)
-    model_ms, _ = _time_on_card(lambda mark: state_words(fw.model_stage(spec, states, F)[2]))
+    model_ms, _ = _time_on_card(
+        lambda mark: fw.keys_input(spec, fw.model_stage(spec, states, F)[2]))
     work = table0.clone()
     chain_ms, stage_ms = _time_on_card(
         lambda mark: fw.kernel_chain(spec, work, hi, lo, ebits, depth, depth_cap, cond,
-                                     cvalid, words, cand_flat, mark=mark),
+                                     cvalid, kin, cand_flat, mark=mark),
         reset=lambda: work.copy_(table0),
     )
     pass_ms = _sweep_pass_ms(
         lambda: fw.kernel_chain(spec, work, hi, lo, ebits, depth, depth_cap, cond,
-                                cvalid, words, cand_flat),
+                                cvalid, kin, cand_flat),
         reset=lambda: work.copy_(table0),
     )
 
@@ -822,7 +899,7 @@ def fused_vs_plain():
         f"sort {stage_ms['sort']:.4f} ms); "
         f"model stage (torch) {model_ms:.3f} ms; bound {bound_ms:.5f} ms ({moved} B)")
     rec = _stage_wave("2pc8", spec, table0, hi, lo, ebits, depth, depth_cap, cond, cvalid,
-                      words, cand_flat, stage_ms=stage_ms, chain_ms=chain_ms)
+                      kin, cand_flat, stage_ms=stage_ms, chain_ms=chain_ms)
     return {"max_abs_err": err, "ms": chain_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "waves": {"2pc8": rec}}
 
@@ -831,9 +908,12 @@ def fused_vs_plain():
 
 
 def _check_sort_gather_launches(n):
-    """Every fused wave sorts and compacts once and gathers its leaves at
-    least once; the staged engine launches none of these kernels."""
-    assert n["fw_sort"] == n["fw_compact"] == n["fused_wave"], n
+    """Every fused wave runs the frontier, one keys stage (the fold's
+    ``fw_keys`` or ``fw_comphash_keys``), the sort and the compaction once
+    and gathers its leaves at least once; the staged engine launches none
+    of these kernels."""
+    assert n["fw_frontier"] == n["fw_sort"] == n["fw_compact"] == n["fused_wave"], n
+    assert n["fw_keys"] + n.get("fw_comphash_keys", 0) == n["fused_wave"], n
     assert n["fw_gather"] >= n["fused_wave"], n
     assert (n["fw_gather"] > 0) == (n["fused_wave"] > 0), n
 
@@ -849,13 +929,14 @@ def _drive_2pc8(wave_kernel, **spawn):
     cfg = _config("2pc8")
     torch.cuda.reset_peak_memory_stats()
     hk.launches = fw.launches = fw.sort_launches = fw.compact_launches = 0
-    fw.gather_launches = 0
+    fw.gather_launches = fw.frontier_launches = fw.keys_launches = 0
     t0 = time.perf_counter()
     checker = cfg.make().checker().spawn_gpu_bfs(
         **dict(cfg.spawn, wave_kernel=wave_kernel, **spawn)).join()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
+                "fw_frontier": fw.frontier_launches, "fw_keys": fw.keys_launches,
                 "fw_sort": fw.sort_launches, "fw_compact": fw.compact_launches,
                 "fw_gather": fw.gather_launches}
     _check_sort_gather_launches(launches)
@@ -1222,11 +1303,13 @@ def _drive(name, wave_kernel):
     torch.cuda.reset_peak_memory_stats()
     hk.launches = fw.launches = fw.comphash_launches = 0
     fw.sort_launches = fw.compact_launches = fw.gather_launches = 0
+    fw.frontier_launches = fw.keys_launches = 0
     t0 = time.perf_counter()
     checker = model.checker().spawn_gpu_bfs(wave_kernel=wave_kernel, **cfg.spawn).join()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
+                "fw_frontier": fw.frontier_launches, "fw_keys": fw.keys_launches,
                 "fw_comphash_keys": fw.comphash_launches, "fw_sort": fw.sort_launches,
                 "fw_compact": fw.compact_launches, "fw_gather": fw.gather_launches}
     _check_sort_gather_launches(launches)
@@ -1560,12 +1643,14 @@ def _drive_coverage(name, wave_kernel, coverage=True):
     torch.cuda.reset_peak_memory_stats()
     hk.launches = fw.launches = fw.comphash_launches = fw.coverage_launches = 0
     fw.sort_launches = fw.compact_launches = fw.gather_launches = 0
+    fw.frontier_launches = fw.keys_launches = 0
     t0 = time.perf_counter()
     checker = model.checker().spawn_gpu_bfs(wave_kernel=wave_kernel, coverage=coverage,
                                             **cfg.spawn).join()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
+                "fw_frontier": fw.frontier_launches, "fw_keys": fw.keys_launches,
                 "fw_comphash_keys": fw.comphash_launches,
                 "fw_coverage": fw.coverage_launches, "fw_sort": fw.sort_launches,
                 "fw_compact": fw.compact_launches, "fw_gather": fw.gather_launches}
@@ -1721,7 +1806,9 @@ def replay_coverage_small():
 # order; a memset belongs to the stage of the kernel after it. The
 # compaction's kernels before its one-pass design (fresh_count_kernel,
 # scan_one_block_kernel) are listed so that stage_ab (--stage-ab) can
-# profile an earlier checkout.
+# profile an earlier checkout. The device operations before the chain's
+# first kernel are ``keys_input``'s (an earlier checkout's fold route built
+# its words matrix there with torch kernels).
 STAGE_KERNELS = (
     ("frontier_kernel", "frontier"), ("comphash_keys_kernel", "keys"),
     ("keys_pairs_kernel", "keys"), ("keys_kernel", "keys"),
@@ -1734,7 +1821,14 @@ PROFILE_GAP_S = 0.5  # host sleep between profiled blocks; splits the device tim
 
 
 def _stages_of(names):
-    """The stage of each device operation of one chain, by kernel name."""
+    """The stage of each device operation of ``keys_input`` and one chain,
+    by kernel name: the operations before the chain's first kernel are
+    ``keys_input``'s, and any later one of no chain stage raises."""
+    kinds = [None if n.startswith("Memset") else
+             next((st for part, st in STAGE_KERNELS if part in n), None) for n in names]
+    first = next((i for i, st in enumerate(kinds) if st is not None), None)
+    if first is None:
+        raise AssertionError(f"no kernel of the chain: {names}")
     stages, nxt = [None] * len(names), None
     for i in range(len(names) - 1, -1, -1):
         if names[i].startswith("Memset"):
@@ -1742,9 +1836,11 @@ def _stages_of(names):
                 raise AssertionError(f"a memset with no kernel after it: {names}")
             stages[i] = nxt
             continue
-        nxt = next((st for part, st in STAGE_KERNELS if part in names[i]), None)
+        nxt = kinds[i]
         if nxt is None:
-            raise AssertionError(f"a device operation of no chain stage: {names[i]} in {names}")
+            if i > first:
+                raise AssertionError(f"a device operation of no chain stage: {names[i]} in {names}")
+            nxt = "keys_input"
         stages[i] = nxt
     return stages
 
@@ -1770,14 +1866,16 @@ def _device_blocks(prof):
 def _profile_chains(waves, sort_keys=None, reps=5):
     """One ``torch.profiler`` session over ``reps`` sorts of ``sort_keys``
     (``(key0, idx0)``, each sort from the unsorted keys; or none) and then
-    each wave's kernel chain captured in a CUDA Graph (all captured first)
-    and replayed ``reps`` times, each over a fresh copy of its table. A wave
-    is a dict of the chain's inputs on the card (``spec``, ``table0``,
-    ``hi``, ``lo``, ``ebits``, ``depth``, ``depth_cap``, ``cond``, ``cvalid``,
-    ``kin``, ``cand``, ``mask``, ``ant``). Returns the sort's ``(name, us)``
-    operations of one sort, and for each wave its stages' device ms and
-    device operations a replay (every operation mapped to a stage by
-    ``_stages_of``; the replays must agree)."""
+    each wave's ``keys_input`` and kernel chain captured in a CUDA Graph
+    (all captured first) and replayed ``reps`` times, each over a fresh copy
+    of its table. A wave is a dict of the chain's inputs on the card
+    (``spec``, ``table0``, ``hi``, ``lo``, ``ebits``, ``depth``,
+    ``depth_cap``, ``cond``, ``cvalid``, ``cand``, ``mask``, ``ant``).
+    Returns the sort's ``(name, us)`` operations of one sort, and for each
+    wave its stages' device ms and device operations a replay (every
+    operation mapped to a stage by ``_stages_of``; the replays must agree)
+    and the ``(name, us, stage)`` of each operation of the frontier, keys
+    and stats stages and of ``keys_input``, averaged over the replays."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1798,8 +1896,9 @@ def _profile_chains(waves, sort_keys=None, reps=5):
             work = w["table0"].clone()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
+                kin = fw.keys_input(w["spec"], w["cand"])
                 fw.kernel_chain(w["spec"], work, w["hi"], w["lo"], w["ebits"], w["depth"],
-                                w["depth_cap"], w["cond"], w["cvalid"], w["kin"], w["cand"],
+                                w["depth_cap"], w["cond"], w["cvalid"], kin, w["cand"],
                                 mask=w["mask"], ant=w["ant"])
             graphs.append((graph, work))
         torch.cuda.synchronize()
@@ -1834,32 +1933,30 @@ def _profile_chains(waves, sort_keys=None, reps=5):
                                     for r in range(reps)):
             raise AssertionError(f"the replays of a chain differ: {len(block)} operations over "
                                  f"{reps} replays: {[n for n, _us in block]}")
+        stages = _stages_of(names)
         stage_us, stage_ops = {}, {}
-        for (_name, us), st in zip(block, _stages_of(names) * reps):
+        for (_name, us), st in zip(block, stages * reps):
             stage_us[st] = stage_us.get(st, 0.0) + us / reps
             stage_ops[st] = stage_ops.get(st, 0) + 1
+        op_us = [(names[i][:48], sum(block[r * k + i][1] for r in range(reps)) / reps, st)
+                 for i, st in enumerate(stages)
+                 if st in ("keys_input", "frontier", "keys", "stats")]
         out.append(({st: us / 1e3 for st, us in stage_us.items()},
-                    {st: n // reps for st, n in stage_ops.items()}))
+                    {st: n // reps for st, n in stage_ops.items()}, op_us))
     del graphs
     return sort_ops, out
 
 
 def _waves_on_card(stage_waves):
     """The chain inputs of each kept wave, back on the card."""
-    import torch
-
     from stateright_tpu_torch.core.batch import map_leaves
 
     dev = lambda x: None if x is None else x.cuda()  # noqa: E731
     out = []
     for w in stage_waves:
-        kin = w["kin"]
-        kin = kin.cuda() if torch.is_tensor(kin) else (None if kin is None else
-                                                        tuple(x.cuda() for x in kin))
         cols = {k: dev(w[k]) for k in ("hi", "lo", "ebits", "depth", "cond", "cvalid", "mask",
                                        "ant")}
-        out.append(dict(w, table0=w["table"].cuda(), kin=kin, cand=map_leaves(dev, w["cand"]),
-                        **cols))
+        out.append(dict(w, table0=w["table"].cuda(), cand=map_leaves(dev, w["cand"]), **cols))
     return out
 
 
@@ -1872,15 +1969,19 @@ def stage_device_profile(reps=5):
     wave's ``stage_record`` with ``fused_wave_stage_device_ms`` (each
     stage's device ms a wave inside the graph: no host gaps, unlike the
     event marks of ``fused_wave_stage_ms``), ``fused_wave_stage_device_ops``,
-    ``fused_wave_device_ms`` and ``compact_device_ops``, and logs it."""
+    ``fused_wave_op_device_us`` (each device operation of ``keys_input``,
+    the frontier, keys and stats stages), ``fused_wave_device_ms``,
+    ``compact_device_ops`` and ``frontier_device_ops``, and logs it. Raises
+    unless the compaction and the frontier ran their stated device
+    operations and a fold wave's ``keys_input`` ran none."""
     from stateright_tpu_torch.ops import fused_wave as fw
 
     waves = _waves_on_card(STAGE_WAVES)
     first = waves[0]
     assert first["rec"]["wave"] == "2pc8", first["rec"]["wave"]
-    key0, idx0 = fw.route_keys_stage(first["spec"], first["kin"], first["cand"],
-                                     first["cvalid"], first["depth"], first["depth_cap"], None,
-                                     first["mask"])
+    key0, idx0 = fw.route_keys_stage(first["spec"], fw.keys_input(first["spec"], first["cand"]),
+                                     first["cand"], first["cvalid"], first["depth"],
+                                     first["depth_cap"], None, first["mask"])
     sort_ops, stages = _profile_chains(waves, (key0, idx0), reps)
     if len(sort_ops) != fw.sort_device_ops:
         raise AssertionError(f"fw_sort queued {len(sort_ops)} device operations, not "
@@ -1891,15 +1992,23 @@ def stage_device_profile(reps=5):
     first["rec"].update(sort_device_ops=len(sort_ops), sort_device_us=sort_us)
     log(f"  fw_sort device operations on the 2pc-8 wave (torch.profiler): {len(sort_ops)}, "
         f"device us a sort: {sort_us}")
-    for w, (stage_ms, stage_ops) in zip(waves, stages):
+    for w, (stage_ms, stage_ops, op_us) in zip(waves, stages):
         rec = w["rec"]
         rec["fused_wave_stage_device_ms"] = stage_ms
         rec["fused_wave_stage_device_ops"] = stage_ops
+        rec["fused_wave_op_device_us"] = op_us
         rec["fused_wave_device_ms"] = sum(stage_ms.values())
         rec["compact_device_ops"] = stage_ops["compact"]
+        rec["frontier_device_ops"] = stage_ops["frontier"]
         if stage_ops["compact"] != fw.compact_device_ops:
             raise AssertionError(f"{rec['wave']}: fw_compact ran {stage_ops['compact']} device "
                                  f"operations, not {fw.compact_device_ops}")
+        if stage_ops["frontier"] != fw.frontier_device_ops:
+            raise AssertionError(f"{rec['wave']}: fw_frontier ran {stage_ops['frontier']} device "
+                                 f"operations, not {fw.frontier_device_ops}")
+        if "keys_ms" in rec and "keys_input" in stage_ops:
+            raise AssertionError(f"{rec['wave']}: the fold route's keys_input ran "
+                                 f"{stage_ops['keys_input']} device operations in the graph")
         log(json.dumps({"stage_record": rec}))
         log(f"  {rec['wave']} in-graph device ms a wave (torch.profiler): " + " ".join(
             f"{st}={ms:.4f}" for st, ms in stage_ms.items())
@@ -1907,16 +2016,19 @@ def stage_device_profile(reps=5):
 
 
 def stage_ab(root, out=None):
-    """The keys stage and the compaction alone, for the package of ``root``:
-    the timed waves of this script (a full-width 2pc-8 wave, full-width
-    takes of the paxos3, abd3o and raft5 drains, the coverage takes of 2pc-8
-    and skv4x4); on each, the keys stage and the sort as the chain runs them
-    and the chain on a copy of the table for the sweep's outcome bytes, then
-    the keys stage (``comphash_keys_stage``, actor waves) and the compaction
-    (``compact_stage``) timed alone with CUDA events (``_time_on_card``),
-    and last every wave's chain in-graph (``_profile_chains``). Both stages
-    keep their Python signatures across the checkouts compared, so a parent
-    and a change run the same code around them. Prints one ``{"stage_ab":
+    """The keys stage, the frontier and the compaction alone, for the
+    package of ``root``: the timed waves of this script (a full-width 2pc-8
+    wave, full-width takes of the paxos3, abd3o and raft5 drains, the
+    coverage takes of 2pc-8 and skv4x4); on each, the keys stage and the
+    sort as the chain runs them and the chain on a copy of the table for the
+    sweep's outcome bytes, then timed alone with CUDA events
+    (``_time_on_card``): the compaction (``compact_stage``), the frontier
+    (``frontier_stage``), the keys stage (``comphash_keys_stage`` on actor
+    waves; on fold waves ``route_keys_stage`` over ``keys_input``'s output,
+    and the two together), and last every wave's ``keys_input`` and chain
+    in-graph (``_profile_chains``). These stages keep their Python
+    signatures across the checkouts compared, so a parent and a change run
+    the same code around them. Prints one ``{"stage_ab":
     ...}`` line a wave and appends them to ``out``."""
     import stateright_tpu_torch
     from stateright_tpu_torch.ops import _build
@@ -1959,21 +2071,32 @@ def stage_ab(root, out=None):
         acc = taps["acc"].clone()
         cargs = (taps["flag"], key, idx, A, taps["ebits_after"], depth, hi, lo)
         compact_ms, _ = _time_on_card(lambda mark: fw.compact_stage(*cargs, acc))
+        facc = acc.clone()
+        frontier_ms, _ = _time_on_card(lambda mark: fw.frontier_stage(
+            spec, cond, cvalid, ebits, depth, depth_cap, facc, mask))
         rec = {"wave": label, "root": root, "card": card, "B": F * A, "n_new": int(acc[1]),
-               "compact_ms": compact_ms}
+               "compact_ms": compact_ms, "frontier_ms": frontier_ms}
         if spec.keys_route == "comphash":
             rec["comphash_keys_ms"], _ = _time_on_card(lambda mark: fw.comphash_keys_stage(
                 spec.comphash, cand, cvalid, depth, depth_cap, A, None, mask))
             rec["valid_lanes"] = int((key != -1).sum())
+        if spec.keys_route == "fold":
+            # The keys stage alone on what keys_input gave it, and the
+            # whole fold keys work: keys_input and the keys stage.
+            rec["fold_keys_ms"], _ = _time_on_card(lambda mark: fw.route_keys_stage(
+                spec, kin, cand, cvalid, depth, depth_cap, None, mask))
+            rec["fold_keys_work_ms"], _ = _time_on_card(lambda mark: fw.route_keys_stage(
+                spec, fw.keys_input(spec, cand), cand, cvalid, depth, depth_cap, None, mask))
+            rec["valid_lanes"] = int((key != -1).sum())
         log(json.dumps({"stage_ab_events": rec}))
         recs.append(rec)
         chains.append(dict(spec=spec, table0=table0, hi=hi, lo=lo, ebits=ebits, depth=depth,
-                           depth_cap=depth_cap, cond=cond, cvalid=cvalid, kin=kin, cand=cand,
+                           depth_cap=depth_cap, cond=cond, cvalid=cvalid, cand=cand,
                            mask=mask, ant=ant))
     _sort_ops, stages = _profile_chains(chains)
     lines = []
-    for rec, (stage_ms, stage_ops) in zip(recs, stages):
-        rec.update(stage_device_ms=stage_ms, stage_device_ops=stage_ops)
+    for rec, (stage_ms, stage_ops, op_us) in zip(recs, stages):
+        rec.update(stage_device_ms=stage_ms, stage_device_ops=stage_ops, op_device_us=op_us)
         lines.append(json.dumps({"stage_ab": rec}))
         log(lines[-1])
     if out:
@@ -1985,7 +2108,8 @@ def stage_ab(root, out=None):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stage-ab", action="store_true",
-                    help="time the keys stage and the compaction alone (see stage_ab)")
+                    help="time the keys stage, the frontier and the compaction alone "
+                         "(see stage_ab)")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                     help="with --stage-ab: the checkout whose package is timed")
     ap.add_argument("--out", default=None, help="with --stage-ab: JSON lines output path")
@@ -2059,6 +2183,8 @@ def main() -> int:
     sort_launches = by_path("fused", "fw_sort", main_runs)
     compact_launches = by_path("fused", "fw_compact", main_runs)
     gather_launches = by_path("fused", "fw_gather", main_runs)
+    frontier_launches = by_path("fused", "fw_frontier", main_runs)
+    keys_launches = by_path("fused", "fw_keys", main_runs)
     raft5_insert = raft5_wave["insert"]
     # Each timed wave's sort and gather records, with the launches of the
     # path the wave was taken from.
@@ -2073,7 +2199,8 @@ def main() -> int:
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"], "bound_by": "bytes",
                 "library_ms": None}
 
-    library = {"sort": "torch_sort_ms", "gather": "index_select_sum_ms", "compact": None}
+    library = {"sort": "torch_sort_ms", "gather": "index_select_sum_ms", "compact": None,
+               "frontier": None, "keys": None}
 
     def stage_held(kernel, launches):
         return {wave: {"launches": launches[wave_path[wave]],
@@ -2081,9 +2208,10 @@ def main() -> int:
                        "plain_ms": r[f"{kernel}_plain_ms"], "bound_ms": r[f"{kernel}_bound_ms"],
                        "bound_by": "bytes",
                        "library_ms": r[library[kernel]] if library[kernel] else None}
-                for wave, r in stage_waves.items()}
+                for wave, r in stage_waves.items() if f"{kernel}_ms" in r}
 
     rec_2pc8, gather_paxos3 = stage_waves["2pc8"], stage_waves["paxos3"]
+    fold_waves = [r for r in stage_waves.values() if "keys_ms" in r]
 
     log(json.dumps({"kernels": [
         {
@@ -2135,6 +2263,43 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": None,
             "by_path": {name: held(w, comphash_launches[name]) for name, w in waves.items()},
+        },
+        {
+            "name": "fw_keys",
+            "route": "cuda",
+            "source": "stateright_tpu_torch/csrc/fused_wave.cu",
+            "replaces": "stateright_tpu/ops/pallas_wave.py:180",
+            "launches": sum(keys_launches.values()),
+            "launches_by_path": keys_launches,
+            "max_abs_err": max(r["keys_max_abs_err"] for r in fold_waves),
+            # The default fold route from the candidate leaves, on the 2pc-8
+            # wave; each fold wave's numbers below (the parent's state_words
+            # copy beside them as state_words_ms).
+            "ms": rec_2pc8["keys_ms"],
+            "plain_ms": rec_2pc8["keys_plain_ms"],
+            "bound_ms": rec_2pc8["keys_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "by_path": stage_held("keys", keys_launches),
+        },
+        {
+            "name": "fw_frontier",
+            "route": "cuda",
+            "source": "stateright_tpu_torch/csrc/fused_wave.cu",
+            "replaces": "stateright_tpu/ops/pallas_wave.py:131",
+            "launches": sum(frontier_launches.values()),
+            "launches_by_path": frontier_launches,
+            "device_ops_a_wave": rec_2pc8["frontier_device_ops"],
+            "max_abs_err": max(r["frontier_max_abs_err"] for r in stage_waves.values()),
+            # The prologue's eval mask, eventually bits and terminal lanes
+            # (:131-143) and the epilogue's max depth and first hits
+            # (:470-489), on the 2pc-8 wave; each timed wave's below.
+            "ms": rec_2pc8["frontier_ms"],
+            "plain_ms": rec_2pc8["frontier_plain_ms"],
+            "bound_ms": rec_2pc8["frontier_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "by_path": stage_held("frontier", frontier_launches),
         },
         {
             "name": "fw_coverage",

@@ -73,10 +73,12 @@ def main() -> int:
     print(f"warm-up run: unique={warm.unique_state_count()} wall={warm_wall:.3f} s", flush=True)
 
     hk.launches = fw.launches = fw.comphash_launches = fw.coverage_launches = 0
+    fw.frontier_launches = fw.keys_launches = 0
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         checker, wall = run()
     launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
+                "fw_frontier": fw.frontier_launches, "fw_keys": fw.keys_launches,
                 "fw_comphash_keys": fw.comphash_launches,
                 "fw_coverage": fw.coverage_launches}
 

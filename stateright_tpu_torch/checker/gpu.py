@@ -125,7 +125,8 @@ _GENERATED_CAP = 1 << 30
 # The kernels' launch counts (module, attribute) that a captured drain
 # graph adds to at every replay.
 _LAUNCH_COUNTERS = (
-    (fw, "launches"), (fw, "comphash_launches"), (fw, "coverage_launches"),
+    (fw, "launches"), (fw, "frontier_launches"), (fw, "keys_launches"),
+    (fw, "comphash_launches"), (fw, "coverage_launches"),
     (fw, "sort_launches"), (fw, "compact_launches"), (fw, "gather_launches"),
     (hk, "launches"),
 )

@@ -6,21 +6,26 @@
 // A Pallas kernel traces the model's expand, boundary and conditions into
 // its prologue; a CUDA kernel cannot hold another program's code, so the
 // caller runs that stage in torch (ops/fused_wave.py::model_stage) and
-// hands over the condition matrix, the candidates' valid bits and their
-// u32 words. The stages here are launched back to back on one stream,
-// each through its own C entry point:
+// hands over the condition matrix, the candidates' valid bits and the
+// candidate leaves. The stages here are launched back to back on one
+// stream, each through its own C entry point:
 //
 //   fw_frontier  eval mask (a live lane under depth_cap; the frontier mask
 //                is optional, and a masked lane may hold a stale row that
 //                no stage reads unmasked), eventually bits cleared by their
 //                conditions, terminal lanes, the first hit lane of every
-//                property, the max depth of the live lanes;
-//   fw_keys      the (hi, lo) fingerprint of every candidate, one thread a
-//                lane, bit-identical to ops/fingerprint.py::
-//                fingerprint_words; invalid lanes (and the lanes of masked
-//                frontier lanes) sink to (MAX, MAX). Two variants take its
-//                place for a model with its own fingerprint (Pallas: the
-//                model's fp_fn traced into the prologue, pallas_wave.py:180):
+//                property, the max depth of the live lanes (Pallas: the
+//                prologue's pallas_wave.py:131-143 and the epilogue's
+//                :470-489); a memset of the counters and one kernel whose
+//                blocks take a span of candidate lanes each (below);
+//   fw_keys      the (hi, lo) fingerprint of every candidate on the default
+//                fold route, read in place from the candidate leaves of any
+//                dtype ops/fingerprint.py::_leaf_words converts, bit-identical
+//                to fingerprint_words(state_words(...)) (Pallas: the model's
+//                fp_fn traced into the prologue, pallas_wave.py:180);
+//                invalid lanes (and the lanes of masked frontier lanes)
+//                sink to (MAX, MAX). Two variants take its place for a
+//                model with its own fingerprint:
 //   fw_comphash_keys  the component hash of a packed actor state
 //                (actor/packed.py::PackedActorModel.packed_fingerprint),
 //                a warp a valid lane, read straight from the candidate
@@ -68,9 +73,10 @@
 // with the first n_new rows defined, as the Pallas outputs are.
 //
 // What bounds it on an H100. The bytes a wave must move, u32 values at
-// 4 B though the port carries them in int64: the words (B * W * 4 B), the
-// valid bits, the frontier arrays and conditions, the distinct table rows
-// the probes read, the claimed rows, the fresh rows' outputs and leaves.
+// 4 B though the port carries them in int64: the candidates' words (B * W
+// * 4 B), the valid bits, the frontier arrays and conditions, the distinct
+// table rows the probes read, the claimed rows, the fresh rows' outputs and
+// leaves.
 // At 2pc-8's main-path shape (F = 8,192, A = 42, B = 344,064, W = 11) that
 // is about 20 MB, about 6 us at 3.35 TB/s; chip_smoke.py computes it from
 // its inputs. The sweep moves whole windows into shared memory (one warp a
@@ -90,7 +96,20 @@
 // a ranking with no block barrier a round, and a tile's keys leaving in
 // runs of one digit rather than one scattered store each.
 // The gather is bound by n_new * (8 + 2 * row bytes); a group of lanes a
-// row with 16-byte units makes its loads coalesce. The design keeps every
+// row with 16-byte units makes its loads coalesce. The fold keys stage is
+// bound by the valid lanes' words (an invalid lane's key does not depend on
+// its row), every lane's valid byte and its 12 B a lane written (8.1 MB at
+// 2pc-8, 82,156 of 344,064 lanes valid: 2.4 us); reading int64 leaves in
+// place moves 8 B a word, which makes that 11.7 MB (3.5 us). It reads the
+// leaves where the model
+// stage left them, so no words matrix is built (that copy, a pass a leaf
+// and a cat, moved several times the stage's bytes). A thread a lane
+// reading its rows in place beat staging a block's rows through shared
+// memory with coalesced 16-byte copies: the staging's barriers, unit
+// bookkeeping and conversion cost more than the strided loads it saved
+// (PERF.md, section 6). The frontier is bound by well under 1 MB a wave
+// and by its launches and round trips: a memset and one kernel, every SM
+// busy, one global atomic a block and quantity. The design keeps every
 // stage off the host (no sync inside a wave; counters live in a small
 // device vector that the host reads once) and the launches few (about 25
 // a wave). What it does not yet do: prefetch the sweep's windows
@@ -168,7 +187,7 @@
 #define ACC_N_NEW 1
 #define ACC_OVERFLOW 2
 #define ACC_MAX_DEPTH 3
-#define ACC_FIRST_HIT 4  // + property index; all ones while no lane hit
+#define ACC_FIRST_HIT 4  // + property index: ~(first hit lane), 0 while no lane hit
 
 #define SEED_HI 0x9747B28Cu
 #define SEED_LO 0x3C6EF372u
@@ -243,48 +262,101 @@ __device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t v, uint32_t* t
 
 // -- (a) frontier lanes --------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS) frontier_kernel(
-    int64_t F, int A, int64_t depth_cap,
+// A block takes FT consecutive frontier lanes (FT from the host: about
+// FRONTIER_SPAN candidate lanes a block, at most FRONTIER_THREADS), so
+// even a narrow frontier (2,048 lanes of 125 actions) fills the SMs. The
+// terminal test (no valid candidate) reads the block's candidate bytes,
+// one contiguous span of cvalid, in aligned 16-byte units spread over the
+// block's threads, and only when an eventually property needs it
+// (need_terminal). Each property's first hit lane and the max depth are
+// reduced in the block, then one atomic each: the first hit is stored as
+// ~lane under atomicMax, so the zeroed acc means "no hit" and one memset
+// resets the whole vector.
+#define FRONTIER_THREADS 128
+#define FRONTIER_SPAN 1024
+
+__global__ void __launch_bounds__(FRONTIER_THREADS) frontier_kernel(
+    int64_t F, int A, int FT, int64_t depth_cap,
     const uint8_t* __restrict__ cond,    // (P, F) 0/1
     const uint8_t* __restrict__ cvalid,  // (F * A,) expand & boundary
     const int64_t* __restrict__ depth, const int64_t* __restrict__ ebits,
     const uint8_t* __restrict__ mask,  // (F,) live lanes, or null: all
-    int64_t* __restrict__ ebits_after, Props props, ull* __restrict__ acc) {
-  const int64_t f = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  ull d = 0;
-  if (f < F) {
-    const int64_t dep = depth[f];
-    const bool live = mask == nullptr || mask[f] != 0;
-    const bool ev = live && dep < depth_cap;
-    int64_t eb = ebits[f];
+    int64_t* __restrict__ ebits_after, Props props, int need_terminal,
+    ull* __restrict__ acc) {
+  __shared__ uint8_t s_any[FRONTIER_THREADS];
+  __shared__ uint32_t s_first[MAX_PROPS];
+  __shared__ ull s_depth;
+  const int t = threadIdx.x;
+  const int64_t f0 = (int64_t)blockIdx.x * FT;
+  const int nf = (int)(F - f0 < FT ? F - f0 : FT);
+  const int64_t f = f0 + t;
+  const bool in = t < nf;
+  int64_t dep = 0, eb = 0;
+  bool live = false;
+  uint64_t cbits = 0;
+  if (in) {
+    dep = depth[f];
+    eb = ebits[f];
+    live = mask == nullptr || mask[f] != 0;
+#pragma unroll 4
     for (int i = 0; i < props.n; ++i) {
-      if (props.ebit[i] >= 0 && cond[(int64_t)i * F + f]) eb &= ~(1LL << props.ebit[i]);
+      if (cond[(int64_t)i * F + f]) cbits |= 1ull << i;
+    }
+  }
+  s_any[t] = 0;
+  if (t < MAX_PROPS) s_first[t] = 0xFFFFFFFFu;
+  if (t == 0) s_depth = 0;
+  __syncthreads();
+  if (need_terminal) {
+    const uintptr_t s = (uintptr_t)(cvalid + f0 * A);
+    const int n = nf * A;
+    const uintptr_t a = s & ~(uintptr_t)15;
+    const int units = n ? (int)((s + n - a + 15) >> 4) : 0;
+    for (int u = t; u < units; u += FRONTIER_THREADS) {
+      const uint4 v = __ldg((const uint4*)(a + ((uintptr_t)u << 4)));
+      if ((v.x | v.y | v.z | v.w) == 0u) continue;
+      const uint32_t q[4] = {v.x, v.y, v.z, v.w};
+      const int o0 = (int)((int64_t)(a + ((uintptr_t)u << 4)) - (int64_t)s);
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const int o = o0 + k;
+        if (o >= 0 && o < n && ((q[k >> 2] >> ((k & 3) * 8)) & 0xFFu)) s_any[o / A] = 1;
+      }
+    }
+    __syncthreads();
+  }
+  if (in) {
+    for (int i = 0; i < props.n; ++i) {
+      if (props.ebit[i] >= 0 && ((cbits >> i) & 1)) eb &= ~(1LL << props.ebit[i]);
     }
     ebits_after[f] = eb;
-    bool any = false;
-    const uint8_t* row = cvalid + f * A;
-    for (int a = 0; a < A; ++a) any |= row[a] != 0;
-    const bool terminal = ev && !any;
-    for (int i = 0; i < props.n; ++i) {
-      const bool c = cond[(int64_t)i * F + f] != 0;
-      bool hit;
-      if (props.kind[i] == KIND_ALWAYS) {
-        hit = ev && !c;
-      } else if (props.kind[i] == KIND_SOMETIMES) {
-        hit = ev && c;
-      } else {  // eventually: unmet bit at a terminal state
-        hit = terminal && ((eb >> props.ebit[i]) & 1);
-      }
-      if (hit) atomicMin(&acc[ACC_FIRST_HIT + i], (ull)f);
-    }
-    d = live ? (ull)dep : 0ull;  // max(where(mask, depth, 0))
   }
+  const bool ev = in && live && dep < depth_cap;
+  const bool terminal = ev && !s_any[t];
+  for (int i = 0; i < props.n; ++i) {
+    const bool c = (cbits >> i) & 1;
+    bool hit;
+    if (props.kind[i] == KIND_ALWAYS) {
+      hit = ev && !c;
+    } else if (props.kind[i] == KIND_SOMETIMES) {
+      hit = ev && c;
+    } else {  // eventually: unmet bit at a terminal state
+      hit = terminal && ((eb >> props.ebit[i]) & 1);
+    }
+    const uint32_t m = __reduce_min_sync(FULL_MASK, hit ? (uint32_t)f : 0xFFFFFFFFu);
+    if ((t & 31) == 0 && m != 0xFFFFFFFFu) atomicMin(&s_first[i], m);
+  }
+  ull d = in && live ? (ull)dep : 0ull;  // max(where(mask, depth, 0))
 #pragma unroll
   for (int o = 16; o; o >>= 1) {
     const ull y = __shfl_down_sync(FULL_MASK, d, o);
     d = y > d ? y : d;
   }
-  if ((threadIdx.x & 31) == 0 && d) atomicMax(&acc[ACC_MAX_DEPTH], d);
+  if ((t & 31) == 0 && d) atomicMax(&s_depth, d);
+  __syncthreads();
+  if (t < props.n && s_first[t] != 0xFFFFFFFFu)
+    atomicMax(&acc[ACC_FIRST_HIT + t], ~(ull)s_first[t]);
+  if (t == 0 && s_depth) atomicMax(&acc[ACC_MAX_DEPTH], s_depth);
 }
 
 // -- (b) keys --------------------------------------------------------------
@@ -310,40 +382,50 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-// ops/fingerprint.py::fingerprint_words for one row of n words (the low 32
-// bits of each int64): a serial fold up to 64 words, FP_CHUNKS independent
-// chunk digests folded in order above that, then the shared finalizer and
-// the (0, 0) and (MAX, MAX) nudges.
-__device__ uint2 fingerprint_row(const int64_t* __restrict__ row, int n) {
-  uint32_t hi = SEED_HI;
-  uint32_t lo = SEED_LO;
-  if (n <= 64) {
-    for (int i = 0; i < n; ++i) {
-      const uint32_t w = (uint32_t)row[i];
+// ops/fingerprint.py::fingerprint_words over one row of n u32 words fed
+// in order (push): a serial fold up to 64 words; above that, FP_CHUNKS
+// consecutive chunks of L words (zero past n), each folded from its own
+// seeds and its digest folded in order; then the shared finalizer and the
+// (0, 0) and (MAX, MAX) nudges (finish).
+struct RowFold {
+  uint32_t hi, lo, chi, clo;
+  int n, L, j, k;
+
+  __device__ explicit RowFold(int n_)
+      : hi(SEED_HI), lo(SEED_LO), chi(0u), clo(0u), n(n_),
+        L((n_ + FP_CHUNKS - 1) / FP_CHUNKS), j(0), k(0) {}
+
+  __device__ __forceinline__ void push(uint32_t w) {
+    if (n <= 64) {
       hi = mm3_round(hi, w);
       lo = mm3_round(lo, w ^ 0xA5A5A5A5u);
+      return;
     }
-  } else {
-    const int L = (n + FP_CHUNKS - 1) / FP_CHUNKS;
-    for (int k = 0; k < FP_CHUNKS; ++k) {
-      uint32_t chi = SEED_HI ^ ((uint32_t)k * 0x9E3779B9u);
-      uint32_t clo = SEED_LO ^ ((uint32_t)k * 0x85EBCA6Bu);
-      for (int j = 0; j < L; ++j) {
-        const int c = k * L + j;
-        const uint32_t w = c < n ? (uint32_t)row[c] : 0u;
-        chi = mm3_round(chi, w);
-        clo = mm3_round(clo, w ^ 0xA5A5A5A5u);
-      }
+    if (j == 0) {
+      chi = SEED_HI ^ ((uint32_t)k * 0x9E3779B9u);
+      clo = SEED_LO ^ ((uint32_t)k * 0x85EBCA6Bu);
+    }
+    chi = mm3_round(chi, w);
+    clo = mm3_round(clo, w ^ 0xA5A5A5A5u);
+    if (++j == L) {
       hi = mm3_round(hi, chi);
       lo = mm3_round(lo, clo);
+      j = 0;
+      ++k;
     }
   }
-  hi = fmix32(hi ^ (uint32_t)(n * 4));
-  lo = fmix32(lo ^ (uint32_t)(n * 4 + 1));
-  if (hi == 0u && lo == 0u) lo = 1u;
-  if (hi == 0xFFFFFFFFu && lo == 0xFFFFFFFFu) lo = 0xFFFFFFFEu;
-  return make_uint2(hi, lo);
-}
+
+  __device__ uint2 finish() {
+    if (n > 64) {
+      while (k < FP_CHUNKS) push(0u);
+    }
+    uint32_t h = fmix32(hi ^ (uint32_t)(n * 4));
+    uint32_t l = fmix32(lo ^ (uint32_t)(n * 4 + 1));
+    if (h == 0u && l == 0u) l = 1u;
+    if (h == 0xFFFFFFFFu && l == 0xFFFFFFFFu) l = 0xFFFFFFFEu;
+    return make_uint2(h, l);
+  }
+};
 
 // A candidate lane is valid when cvalid holds, its frontier lane is live
 // (mask[b / A], when mask is given) and under depth_cap (when depth is).
@@ -352,26 +434,89 @@ __device__ __forceinline__ unsigned lane_valid(int64_t b, int A,
                                                const int64_t* __restrict__ depth,
                                                const uint8_t* __restrict__ mask,
                                                int64_t depth_cap) {
-  return cvalid[b] != 0 && (mask == nullptr || mask[b / A] != 0) &&
-         (depth == nullptr || depth[b / A] < depth_cap);
+  const uint32_t f = (uint32_t)b / (uint32_t)A;  // lanes are u32, as idx is
+  return cvalid[b] != 0 && (mask == nullptr || mask[f] != 0) &&
+         (depth == nullptr || depth[f] < depth_cap);
+}
+
+// The candidate leaves of the fold route, in ops/fingerprint.py::_leaves
+// order (dict keys sorted), so that word c of a row is word c of
+// state_words: each leaf's base pointer (contiguous, one row a lane), its
+// u32 words a row and its element kind. Each element becomes one word as
+// _leaf_words converts it: bool and small ints widen (signed ones wrap),
+// int32 and float32 keep their bits, int64 keeps its low 32 bits.
+#define LEAF_U8 0   // bool, uint8
+#define LEAF_I8 1   // int8
+#define LEAF_U16 2  // uint16
+#define LEAF_I16 3  // int16
+#define LEAF_B32 4  // int32, float32
+#define LEAF_I64 5  // int64
+#define MAX_FOLD_LEAVES 64
+
+struct FoldLeaves {
+  int n;
+  int words;  // W: u32 words a row over all leaves
+  const uint8_t* ptr[MAX_FOLD_LEAVES];
+  int width[MAX_FOLD_LEAVES];
+  int kind[MAX_FOLD_LEAVES];
+};
+
+__device__ __forceinline__ int leaf_bytes(int kind) {
+  return kind <= LEAF_I8 ? 1 : (kind <= LEAF_I16 ? 2 : (kind == LEAF_B32 ? 4 : 8));
+}
+
+// Folds the w elements of one leaf row at p, each as its u32 word.
+template <int KIND>
+__device__ __forceinline__ void fold_leaf_row(RowFold& fold, const uint8_t* __restrict__ p,
+                                              int w) {
+  for (int j = 0; j < w; ++j) {
+    uint32_t x;
+    if (KIND == LEAF_U8) {
+      x = p[j];
+    } else if (KIND == LEAF_I8) {
+      x = (uint32_t)(int32_t)((const int8_t*)p)[j];
+    } else if (KIND == LEAF_U16) {
+      x = ((const uint16_t*)p)[j];
+    } else if (KIND == LEAF_I16) {
+      x = (uint32_t)(int32_t)((const int16_t*)p)[j];
+    } else if (KIND == LEAF_B32) {
+      x = ((const uint32_t*)p)[j];
+    } else {
+      x = ((const uint32_t*)p)[2 * j];  // the low half, little-endian
+    }
+    fold.push(x);
+  }
 }
 
 // key[b] = (hi << 32) | lo of lane b, or all ones when the lane is not
 // valid (cvalid, when mask is given mask[b / A], and when depth is given
 // depth[b / A] < depth_cap); idx[b] = b. Counts the valid lanes into acc
-// (when given).
+// (when given). A thread a lane folds its row's words in place, leaf by
+// leaf; an invalid lane reads no leaf.
 __global__ void __launch_bounds__(THREADS) keys_kernel(
-    int64_t B, int A, int W, const int64_t* __restrict__ words,
-    const uint8_t* __restrict__ cvalid, const int64_t* __restrict__ depth,
-    const uint8_t* __restrict__ mask, int64_t depth_cap, ull* __restrict__ key,
-    uint32_t* __restrict__ idx, ull* __restrict__ acc) {
+    int64_t B, int A, FoldLeaves leaves, const uint8_t* __restrict__ cvalid,
+    const int64_t* __restrict__ depth, const uint8_t* __restrict__ mask, int64_t depth_cap,
+    ull* __restrict__ key, uint32_t* __restrict__ idx, ull* __restrict__ acc) {
   const int64_t b = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   unsigned valid = 0;
   if (b < B) {
     valid = lane_valid(b, A, cvalid, depth, mask, depth_cap);
     ull k = ~0ull;
     if (valid) {
-      const uint2 fp = fingerprint_row(words + b * W, W);
+      RowFold fold(leaves.words);
+      for (int l = 0; l < leaves.n; ++l) {
+        const int w = leaves.width[l], kind = leaves.kind[l];
+        const uint8_t* p = leaves.ptr[l] + b * w * leaf_bytes(kind);
+        switch (kind) {
+          case LEAF_U8: fold_leaf_row<LEAF_U8>(fold, p, w); break;
+          case LEAF_I8: fold_leaf_row<LEAF_I8>(fold, p, w); break;
+          case LEAF_U16: fold_leaf_row<LEAF_U16>(fold, p, w); break;
+          case LEAF_I16: fold_leaf_row<LEAF_I16>(fold, p, w); break;
+          case LEAF_B32: fold_leaf_row<LEAF_B32>(fold, p, w); break;
+          default: fold_leaf_row<LEAF_I64>(fold, p, w);
+        }
+      }
+      const uint2 fp = fold.finish();
       k = ((ull)fp.x << 32) | fp.y;
     }
     key[b] = k;
@@ -1243,7 +1388,7 @@ __global__ void stats_kernel(const ull* __restrict__ acc, int P, int64_t F,
                              int64_t* __restrict__ stats) {
   const int t = threadIdx.x;
   if (t < P) {
-    const ull first = acc[ACC_FIRST_HIT + t];
+    const ull first = ~acc[ACC_FIRST_HIT + t];
     const bool hit = first != ~0ull;
     // The first hit lane, or lane 0 when there is none (jnp.argmax).
     const int64_t f = hit ? (int64_t)first : 0;
@@ -1253,7 +1398,7 @@ __global__ void stats_kernel(const ull* __restrict__ acc, int P, int64_t F,
   }
   if (t == 0) {
     bool any = false;
-    for (int i = 0; i < P; ++i) any |= acc[ACC_FIRST_HIT + i] != ~0ull;
+    for (int i = 0; i < P; ++i) any |= acc[ACC_FIRST_HIT + i] != 0ull;
     for (int i = 0; i < 4; ++i) stats[i] = (int64_t)acc[i];
     stats[4] = any;
   }
@@ -1271,38 +1416,66 @@ static int last_error(cudaError_t e) {
   return (int)(e != cudaSuccess ? e : l);
 }
 
-// mask may be null (every lane live).
+// mask may be null (every lane live); acc is ACC_FIRST_HIT + P words,
+// zeroed here. *launches_host gets the device operations queued (the
+// memset and the kernel).
 extern "C" int fw_frontier(int64_t F, int A, int64_t depth_cap, const void* cond,
                            const void* cvalid, const void* depth, const void* ebits,
                            const void* mask, void* ebits_after, int P,
                            const void* kind_host, const void* ebit_host, void* acc,
-                           void* stream) {
-  if (P < 0 || P > MAX_PROPS) return (int)cudaErrorInvalidValue;
+                           int* launches_host, void* stream) {
+  *launches_host = 0;
+  if (P < 0 || P > MAX_PROPS || A < 1 || F < 0 || F > (int64_t)0xFFFFFFFE)
+    return (int)cudaErrorInvalidValue;
   Props props;
   props.n = P;
+  int need_terminal = 0;
   for (int i = 0; i < P; ++i) {
     props.kind[i] = ((const int*)kind_host)[i];
     props.ebit[i] = ((const int*)ebit_host)[i];
+    need_terminal |= props.kind[i] == KIND_EVENTUALLY;
   }
+  // Without an eventually property no stage reads the terminal lanes, and
+  // a block takes FRONTIER_THREADS lanes.
+  int FT = FRONTIER_THREADS;
+  if (need_terminal) FT = FRONTIER_SPAN / A < 1 ? 1 : (FRONTIER_SPAN / A < FT ? FRONTIER_SPAN / A : FT);
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = cudaMemsetAsync(acc, 0, ACC_FIRST_HIT * sizeof(ull), s);
-  if (e == cudaSuccess && P)
-    e = cudaMemsetAsync((ull*)acc + ACC_FIRST_HIT, 0xFF, P * sizeof(ull), s);
+  const cudaError_t e = cudaMemsetAsync(acc, 0, (size_t)(ACC_FIRST_HIT + P) * sizeof(ull), s);
   if (e != cudaSuccess) return (int)e;
-  frontier_kernel<<<blocks_for(F, THREADS), THREADS, 0, s>>>(
-      F, A, depth_cap, (const uint8_t*)cond, (const uint8_t*)cvalid,
+  frontier_kernel<<<blocks_for(F, FT), FRONTIER_THREADS, 0, s>>>(
+      F, A, FT, depth_cap, (const uint8_t*)cond, (const uint8_t*)cvalid,
       (const int64_t*)depth, (const int64_t*)ebits, (const uint8_t*)mask,
-      (int64_t*)ebits_after, props, (ull*)acc);
+      (int64_t*)ebits_after, props, need_terminal, (ull*)acc);
+  *launches_host = 2;
   return last_error(cudaSuccess);
 }
 
-// depth, mask and acc may be null.
-extern "C" int fw_keys(int64_t B, int A, int W, const void* words, const void* cvalid,
-                       const void* depth, const void* mask, int64_t depth_cap,
-                       void* key, void* idx, void* acc, void* stream) {
+// The fold route's keys from the candidate leaves: n_leaves host entries
+// each of ptr_host (device pointers), width_host (u32 words a row) and
+// kind_host (LEAF_*), at most MAX_FOLD_LEAVES, every leaf contiguous with
+// B rows. depth, mask and acc may be null.
+extern "C" int fw_keys(int64_t B, int A, int n_leaves, const void* ptr_host,
+                       const void* width_host, const void* kind_host, const void* cvalid,
+                       const void* depth, const void* mask, int64_t depth_cap, void* key,
+                       void* idx, void* acc, void* stream) {
+  if (B < 0 || B > (int64_t)0xFFFFFFFF || A < 1 || n_leaves < 0 || n_leaves > MAX_FOLD_LEAVES)
+    return (int)cudaErrorInvalidValue;
+  FoldLeaves leaves;
+  leaves.n = 0;
+  leaves.words = 0;
+  for (int l = 0; l < n_leaves; ++l) {
+    const int w = ((const int*)width_host)[l], kind = ((const int*)kind_host)[l];
+    if (w < 0 || kind < LEAF_U8 || kind > LEAF_I64) return (int)cudaErrorInvalidValue;
+    if (w == 0) continue;
+    leaves.ptr[leaves.n] = (const uint8_t*)((const uint64_t*)ptr_host)[l];
+    leaves.width[leaves.n] = w;
+    leaves.kind[leaves.n] = kind;
+    leaves.words += w;
+    ++leaves.n;
+  }
   keys_kernel<<<blocks_for(B, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
-      B, A, W, (const int64_t*)words, (const uint8_t*)cvalid, (const int64_t*)depth,
-      (const uint8_t*)mask, depth_cap, (ull*)key, (uint32_t*)idx, (ull*)acc);
+      B, A, leaves, (const uint8_t*)cvalid, (const int64_t*)depth, (const uint8_t*)mask,
+      depth_cap, (ull*)key, (uint32_t*)idx, (ull*)acc);
   return last_error(cudaSuccess);
 }
 

@@ -23,7 +23,8 @@ The Pallas kernel fingerprints with the model's own ``fp_fn``
 by the checker (``keys_route``), none falling back to another:
 
 - ``"fold"``: the model keeps the default fold; ``fw_keys`` hashes the
-  candidates' u32 words (``state_words``);
+  candidate leaves in place, word for word as ``state_words`` lays them
+  out (``keys_input`` hands it the leaves, and no words matrix is built);
 - ``"comphash"``: the model is a ``PackedActorModel``; ``fw_comphash_keys``
   computes its component hash from the candidate leaves, with the layout
   and constants of ``comphash_tables`` (made once, before any capture);
@@ -59,6 +60,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
@@ -66,12 +68,12 @@ import torch
 
 from ..core.batch import leaves, map_leaves
 from .fingerprint import (
+    _leaves,
     component_seeds,
     fingerprint_state,
     lin_consts,
     multiset_salts,
     row_salts,
-    state_words,
 )
 from .hashset import u32_to_i32
 from .hashset_kernel import (
@@ -92,6 +94,9 @@ __all__ = [
     "compact_stage",
     "coverage_plain",
     "coverage_stage",
+    "fold_leaves",
+    "frontier_plain",
+    "frontier_stage",
     "fused_wave",
     "fused_wave_plain",
     "gather_plain",
@@ -99,6 +104,7 @@ __all__ = [
     "keys_input",
     "keys_pairs_stage",
     "keys_plain",
+    "keys_stage",
     "kernel_chain",
     "launches",
     "model_stage",
@@ -109,23 +115,33 @@ __all__ = [
 ]
 
 # Fused waves launched on the card in this process (each is one run of
-# ``kernel_chain``), of them the ones whose keys stage was
-# ``fw_comphash_keys``, the launches of ``fw_coverage``, the sorts
-# (``fw_sort``: each queues ``sort_device_ops`` device operations), the
-# compactions (``fw_compact``: each queues ``compact_device_ops``) and the
-# leaf-gather kernel launches (``fw_gather``: one for every 16 leaves).
+# ``kernel_chain``), the frontier stages (``fw_frontier``: each queues
+# ``frontier_device_ops`` device operations), the keys stages on the fold
+# route (``fw_keys``) and on the comphash route (``fw_comphash_keys``), the
+# launches of ``fw_coverage``, the sorts (``fw_sort``: each queues
+# ``sort_device_ops`` device operations), the compactions (``fw_compact``:
+# each queues ``compact_device_ops``) and the leaf-gather kernel launches
+# (``fw_gather``: one for every 16 leaves).
 launches = 0
+frontier_launches = 0
+keys_launches = 0
 comphash_launches = 0
 coverage_launches = 0
 sort_launches = 0
 compact_launches = 0
 gather_launches = 0
+frontier_device_ops = 0
 sort_device_ops = 0
 compact_device_ops = 0
 KEY_ROUTES = ("fold", "comphash", "pairs")
 
 KINDS = {"always": 0, "sometimes": 1, "eventually": 2}
 MAX_PROPS = 64  # csrc/fused_wave.cu: MAX_PROPS
+MAX_FOLD_LEAVES = 64  # csrc/fused_wave.cu: MAX_FOLD_LEAVES
+# The element kinds of fw_keys (csrc/fused_wave.cu: LEAF_*) by dtype: the
+# dtypes ``ops/fingerprint.py::_leaf_words`` converts.
+_LEAF_KINDS = {torch.bool: 0, torch.uint8: 0, torch.int8: 1, torch.uint16: 2, torch.int16: 3,
+               torch.int32: 4, torch.float32: 4, torch.int64: 5}
 _SORT_TILE = 2048  # csrc/fused_wave.cu: SORT_TILE
 _PART_TILE = 2048  # csrc/fused_wave.cu: PART_TILE
 _SORT_SCRATCH_HEAD = 16 + 8 * 256  # csrc/fused_wave.cu: SC_PSTAT
@@ -275,6 +291,42 @@ def _frontier_plain(spec, cond, cvalid, ebits, depth, depth_cap, mask=None):
     return eval_mask, ebits_after, cvalid, terminal
 
 
+def _hit_lanes(spec, cond, eval_mask, terminal, ebits_after):
+    """Each property's (F,) bool hit lanes: ``always``, an evaluated lane
+    where its condition fails; ``sometimes``, where it holds;
+    ``eventually``, a terminal lane whose unmet bit is still set."""
+    ebit = dict(spec.ebit)
+    out = []
+    for i, kind in enumerate(spec.expectations):
+        if kind == "always":
+            out.append(eval_mask & ~cond[i])
+        elif kind == "sometimes":
+            out.append(eval_mask & cond[i])
+        else:
+            out.append(terminal & (((ebits_after >> ebit[i]) & 1) == 1))
+    return out
+
+
+def frontier_plain(spec, cond, cvalid, ebits, depth, depth_cap, acc, mask=None):
+    """The plain twin of ``frontier_stage``: returns ``ebits_after`` and
+    writes ``acc`` as ``fw_frontier`` does, its counters 0, then the max
+    depth of the live lanes, then each property's first hit lane ``f`` as
+    the int64 bits of ``~f`` (0 when no lane hit)."""
+    eval_mask, ebits_after, _cvalid, terminal = _frontier_plain(
+        spec, cond, cvalid, ebits, depth, depth_cap, mask
+    )
+    F, dev = depth.shape[0], depth.device
+    sentinel = torch.full((1,), F, dtype=torch.int64, device=dev)
+    lane = torch.arange(F, dtype=torch.int64, device=dev)
+    live = depth if mask is None else torch.where(mask, depth, 0)
+    acc.zero_()
+    acc[3:4].copy_(torch.cat([live, torch.zeros_like(sentinel)]).max().view(1))
+    for i, h in enumerate(_hit_lanes(spec, cond, eval_mask, terminal, ebits_after)):
+        first = torch.cat([torch.where(h, lane, F), sentinel]).min()
+        acc[4 + i:5 + i].copy_(torch.where(first < F, ~first, 0).view(1))
+    return ebits_after
+
+
 def _stats(spec, cond, eval_mask, terminal, ebits_after, hi, lo, depth,
            generated, fresh, pending, mask=None):
     """The stats vector: counts (the max depth over the live lanes), then
@@ -282,15 +334,8 @@ def _stats(spec, cond, eval_mask, terminal, ebits_after, hi, lo, depth,
     when none hit, as ``jnp.argmax``)."""
     zero = torch.zeros((), dtype=torch.int64, device=hi.device)
     F = hi.shape[0]
-    ebit = dict(spec.ebit)
     hits, props = [], []
-    for i, kind in enumerate(spec.expectations):
-        if kind == "always":
-            h = eval_mask & ~cond[i]
-        elif kind == "sometimes":
-            h = eval_mask & cond[i]
-        else:  # eventually: unmet bit at a terminal state
-            h = terminal & (((ebits_after >> ebit[i]) & 1) == 1)
+    for h in _hit_lanes(spec, cond, eval_mask, terminal, ebits_after):
         hits.append(h.any())
         if F:
             idx = h.to(torch.uint8).argmax().view(1)
@@ -367,8 +412,8 @@ _c_ptr, _c_int, _c_i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # The C entry points of csrc/fused_wave.cu and their parameter types
 # (c_void_p for every pointer and the stream).
 ARGTYPES = {
-    "fw_frontier": [_c_i64, _c_int, _c_i64] + [_c_ptr] * 6 + [_c_int] + [_c_ptr] * 4,
-    "fw_keys": [_c_i64, _c_int, _c_int] + [_c_ptr] * 4 + [_c_i64] + [_c_ptr] * 4,
+    "fw_frontier": [_c_i64, _c_int, _c_i64] + [_c_ptr] * 6 + [_c_int] + [_c_ptr] * 5,
+    "fw_keys": [_c_i64, _c_int, _c_int] + [_c_ptr] * 6 + [_c_i64] + [_c_ptr] * 4,
     "fw_keys_pairs": [_c_i64, _c_int] + [_c_ptr] * 5 + [_c_i64] + [_c_ptr] * 4,
     "fw_comphash_keys": [_c_i64] + [_c_int] * 8 + [_c_ptr] * 13 + [_c_i64] + [_c_ptr] * 4,
     "fw_sort": [_c_i64] + [_c_ptr] * 7,
@@ -423,32 +468,73 @@ def _ptr(x):
 def frontier_stage(spec, cond, cvalid, ebits, depth, depth_cap, acc, mask=None):
     """Stage (a): resets ``acc`` and returns ``ebits_after``; ``acc``
     gathers the max depth of the live lanes (``mask``; None: all) and each
-    property's first hit lane."""
+    property's first hit lane (as ``frontier_plain`` writes them). Launches
+    ``fw_frontier`` (a memset and one kernel, ``frontier_device_ops``) and
+    counts one ``frontier_launches``."""
+    global frontier_launches, frontier_device_ops
+
     F, P = depth.shape[0], len(spec.conditions)
     ebit = dict(spec.ebit)
     kinds, kind_p = _host_ints([KINDS[k] for k in spec.expectations])
     bits, bit_p = _host_ints([ebit.get(i, -1) for i in range(P)])
     ebits_after = torch.empty_like(ebits)
+    ops = ctypes.c_int(0)
+    frontier_launches += 1
     _call("fw_frontier", F, spec.action_count, int(depth_cap), cond.data_ptr(),
           cvalid.data_ptr(), depth.data_ptr(), ebits.data_ptr(), _ptr(mask),
-          ebits_after.data_ptr(), P, kind_p, bit_p, acc.data_ptr(),
+          ebits_after.data_ptr(), P, kind_p, bit_p, acc.data_ptr(), ctypes.addressof(ops),
           _stream(depth))
+    frontier_device_ops = ops.value
     return ebits_after
 
 
-def keys_stage(words, cvalid, depth=None, depth_cap=0, action_count=1, acc=None,
+def fold_leaves(state, B, device):
+    """The leaves ``fw_keys`` reads for a packed ``state`` of B lanes, in
+    ``state_words``' order: a dtype that ``_leaf_words`` does not convert
+    raises ``TypeError``; a leaf that is not contiguous, not B rows long or
+    not on ``device``, or more than ``MAX_FOLD_LEAVES`` leaves, raise
+    ``ValueError``."""
+    out = _leaves(state)
+    if not out:
+        raise ValueError("packed state has no array leaves")
+    for x in out:
+        if x.dtype not in _LEAF_KINDS:
+            raise TypeError(f"cannot fingerprint leaf dtype {x.dtype}")
+        if x.dim() == 0 or x.shape[0] != B or x.device != device or not x.is_contiguous():
+            raise ValueError(
+                f"fw_keys takes contiguous leaves of {B} rows on {device}, got "
+                f"{tuple(x.shape)} on {x.device}, contiguous={x.is_contiguous()}"
+            )
+    if len(out) > MAX_FOLD_LEAVES:
+        raise ValueError(f"fw_keys takes at most {MAX_FOLD_LEAVES} leaves, got {len(out)}")
+    return out
+
+
+def keys_stage(state, cvalid, depth=None, depth_cap=0, action_count=1, acc=None,
                mask=None):
-    """Stage (b): ``(key, idx)``, each lane's fingerprint as the int64 bits
-    of ``(hi << 32) | lo`` (all ones for a lane that is not valid: not
+    """Stage (b) on the ``"fold"`` route: ``(key, idx)``, each lane's
+    ``fingerprint_state`` of the packed ``state`` (its leaves, B rows each;
+    a ``(B, W)`` words tensor is a one-leaf state) as the int64 bits of
+    ``(hi << 32) | lo`` (all ones for a lane that is not valid: not
     ``cvalid``, with ``mask`` a lane of a frontier lane that is not live,
     or, with ``depth``, at or past ``depth_cap``) and the lane index
-    (int32). Counts the valid lanes into ``acc`` when given."""
-    B, W = words.shape
-    key = torch.empty(B, dtype=torch.int64, device=words.device)
-    idx = torch.empty(B, dtype=torch.int32, device=words.device)
-    _call("fw_keys", B, action_count, W, words.data_ptr(), cvalid.data_ptr(),
-          _ptr(depth), _ptr(mask), int(depth_cap), key.data_ptr(),
-          idx.data_ptr(), _ptr(acc), _stream(words))
+    (int32). Counts the valid lanes into ``acc`` when given. Launches
+    ``fw_keys``, which reads the leaves in place, and counts one
+    ``keys_launches``; its plain twin is ``keys_plain`` over
+    ``fingerprint_state``."""
+    global keys_launches
+
+    B = cvalid.shape[0]
+    xs = fold_leaves(state, B, cvalid.device)
+    ptrs, ptr_p = _host_ints([x.data_ptr() for x in xs], ctypes.c_uint64)
+    widths, width_p = _host_ints([math.prod(x.shape[1:]) for x in xs])
+    kinds, kind_p = _host_ints([_LEAF_KINDS[x.dtype] for x in xs])
+    key = torch.empty(B, dtype=torch.int64, device=cvalid.device)
+    idx = torch.empty(B, dtype=torch.int32, device=cvalid.device)
+    keys_launches += 1
+    _call("fw_keys", B, action_count, len(xs), ptr_p, width_p, kind_p, cvalid.data_ptr(),
+          _ptr(depth), _ptr(mask), int(depth_cap), key.data_ptr(), idx.data_ptr(), _ptr(acc),
+          _stream(cvalid))
     return key, idx
 
 
@@ -556,12 +642,13 @@ def keys_plain(chi, clo, cvalid, depth=None, depth_cap=0, action_count=1, mask=N
 
 
 def keys_input(spec, cand_flat):
-    """What the keys stage reads, by ``spec.keys_route``: the candidates'
-    u32 words (``"fold"``), the model's own (hi, lo) pairs, computed here
-    in torch (``"pairs"``), or nothing (``"comphash"``: the kernel reads
-    the candidate leaves)."""
+    """What the keys stage reads, by ``spec.keys_route``: the candidate
+    leaves in ``state_words``' order, a tuple, read in place by ``fw_keys``
+    (``"fold"``: no words matrix is built), the model's own (hi, lo) pairs,
+    computed here in torch (``"pairs"``), or nothing (``"comphash"``: the
+    kernel reads the candidate leaves)."""
     if spec.keys_route == "fold":
-        return state_words(cand_flat)
+        return tuple(_leaves(cand_flat))
     if spec.keys_route == "pairs":
         return tuple(x.contiguous() for x in spec.fingerprint(cand_flat))
     if spec.keys_route == "comphash":
@@ -885,9 +972,7 @@ def fused_wave(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None):
     cond, cvalid, cand_flat = model_stage(spec, states, F)
     ant = antecedent_stage(spec, states, F) if spec.cov_layout is not None else None
     kin = keys_input(spec, cand_flat)
-    if spec.keys_route == "fold":
-        keyed = [("words", kin, torch.int64, (B, kin.shape[1]))]
-    elif spec.keys_route == "pairs":
+    if spec.keys_route == "pairs":
         keyed = [("chi", kin[0], torch.int64, (B,)), ("clo", kin[1], torch.int64, (B,))]
     else:
         keyed = []

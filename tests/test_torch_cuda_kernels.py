@@ -16,6 +16,7 @@ the repository root:
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -304,6 +305,283 @@ def test_cuda_fingerprint_stage_matches_fingerprint_words(cuda_device, width):
     assert torch.equal((key >> 32) & 0xFFFFFFFF, hi)
     assert torch.equal(key & 0xFFFFFFFF, lo)
     assert torch.equal(idx.cpu(), torch.arange(3000, dtype=torch.int32))
+
+
+# Two-word rows whose fold, before the nudges, is (0, 0) and (MAX, MAX):
+# found by a search over the first word, the second solving the hi lane.
+NUDGED_ROWS = [[1689074672, 2638689674], [3058510183, 416712412]]
+
+# Element dtypes of the fold route's leaves (every dtype ``_leaf_words``
+# converts), taken in turn by ``fold_state``.
+FOLD_DTYPES = (torch.int64, torch.int8, torch.int16, torch.bool, torch.uint8, torch.uint16,
+               torch.int32, torch.float32)
+
+
+def fold_leaf(rng, B, w, dtype):
+    """B rows of w elements of ``dtype``: negative small ints, int64 with
+    its high bits set, float32 NaN, -0.0 and infinities among them."""
+    if dtype == torch.bool:
+        x = rng.random((B, w)) < 0.5
+    elif dtype == torch.float32:
+        x = rng.standard_normal((B, w)).astype(np.float32)
+        x.reshape(-1)[::5] = np.nan
+        x.reshape(-1)[1::5] = -0.0
+        x.reshape(-1)[2::7] = -np.inf
+    elif dtype == torch.int64:
+        x = rng.integers(-(1 << 63), (1 << 63) - 1, (B, w), dtype=np.int64)
+    else:
+        info = torch.iinfo(dtype)
+        x = rng.integers(info.min, info.max + 1, (B, w), dtype=np.int64)
+        return torch.from_numpy(x).to(dtype)
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def all_ones(x):
+    """Every element of x with all its bits set, in place."""
+    if x.dtype == torch.bool:
+        x.fill_(True)
+    elif x.dtype == torch.float32:
+        x.view(torch.int32).fill_(-1)
+    else:
+        x.fill_(-1 if torch.iinfo(x.dtype).min < 0 else torch.iinfo(x.dtype).max)
+
+
+def fold_state(rng, B, W):
+    """A packed state of B lanes whose rows are W words: leaves of odd
+    widths (1, 3, 5, ...), the last taking what is left, their dtypes in
+    turn from ``FOLD_DTYPES``; lanes 0-1 hold all-zero words, lanes 2-3
+    all-ones words (every element -1, or true)."""
+    state, left, i = {}, W, 0
+    while left:
+        w = min(2 * i + 1, left)
+        dtype = FOLD_DTYPES[i % len(FOLD_DTYPES)]
+        x = fold_leaf(rng, B, w, dtype)
+        x[:2] = 0
+        all_ones(x[2:4])
+        state[f"leaf{i:02d}"] = x if w > 1 or i % 2 else x.reshape(B)
+        left -= w
+        i += 1
+    return state
+
+
+def check_fold_keys(state, B, dev, masked, seed=0, dstate=None):
+    """``keys_stage`` on the card (over ``dstate``, or ``state`` copied to
+    ``dev``) against ``keys_plain`` over ``fingerprint_state``
+    (``fingerprint_words(state_words(...))``) of ``state``, bit for bit,
+    with its count of valid lanes; returns the valid count."""
+    rng = np.random.default_rng(seed)
+    A = 7
+    cvalid = torch.from_numpy(rng.random(B) < 0.6)
+    cvalid[:4] = True
+    depth = mask = None
+    if masked:
+        F = -(-B // A)
+        depth = torch.from_numpy(rng.integers(0, 6, F, dtype=np.int64))
+        mask = torch.from_numpy(rng.random(F) < 0.8)
+        depth[0] = 0
+        mask[0] = True
+    acc = torch.full((5,), 0, dtype=torch.int64, device=dev)
+    on = lambda x: None if x is None else x.to(dev)  # noqa: E731
+    before = fw.keys_launches
+    dstate = map_leaves(on, state) if dstate is None else dstate
+    key, idx = fw.keys_stage(dstate, cvalid.to(dev), on(depth), 4, A, acc, on(mask))
+    torch.cuda.synchronize()
+    assert fw.keys_launches == before + 1
+    chi, clo = fingerprint_state(state)
+    pkey, pidx = fw.keys_plain(chi, clo, cvalid, depth, 4, A, mask)
+    assert torch.equal(key.cpu(), pkey)
+    assert torch.equal(idx.cpu(), pidx)
+    n_valid = int((pkey != -1).sum())
+    assert int(acc[0]) == n_valid
+    return n_valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("W", [1, 11, 16, 64, 65, 391])
+def test_cuda_fold_keys_read_leaves_in_place(cuda_device, W, masked):
+    """The fold route's keys stage over leaves of every dtype that
+    ``_leaf_words`` converts, in odd widths summing to W words a row (the
+    serial fold up to 64 words, the chunked fold above), at B = 3,001
+    lanes (not a multiple of a block), with and without the frontier's
+    depth cap and mask."""
+    state = fold_state(np.random.default_rng(W), 3001, W)
+    assert sum(math.prod(x.shape[1:]) for x in leaves(state)) == W
+    assert check_fold_keys(state, 3001, cuda_device, masked, seed=W) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["unaligned", "empty", "no_valid_lane", "nudged"])
+def test_cuda_fold_keys_edge_cases(cuda_device, case):
+    """Leaf views at odd offsets (base addresses not 16-byte aligned), no
+    lane, a batch with no valid lane, and rows whose fold
+    before the nudges is (0, 0) or (MAX, MAX) (found by a search; the
+    nudges make them (0, 1) and (MAX, MAX - 1))."""
+    rng = np.random.default_rng(7)
+    B = 1000
+    if case == "unaligned":
+        big = {k: fold_leaf(rng, B + 4, 5, dt) for k, dt in
+               (("a", torch.int8), ("b", torch.int64), ("c", torch.int16), ("d", torch.bool))}
+        dbig = map_leaves(lambda x: x.to(cuda_device), big)
+        dstate = {k: x[i + 1:i + 1 + B] for i, (k, x) in enumerate(dbig.items())}
+        assert sorted(x.data_ptr() % 16 for x in leaves(dstate)) == [0, 4, 5, 14]
+        state = {k: x[i + 1:i + 1 + B] for i, (k, x) in enumerate(big.items())}
+        check_fold_keys(state, B, cuda_device, True, dstate=dstate)
+    elif case == "empty":
+        state = {"a": torch.zeros((0, 3), dtype=torch.int64), "b": torch.zeros(0, dtype=torch.int8)}
+        assert check_fold_keys(state, 0, cuda_device, False) == 0
+    elif case == "no_valid_lane":
+        state = fold_state(rng, B, 11)
+        cvalid = torch.zeros(B, dtype=torch.bool, device=cuda_device)
+        acc = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+        key, idx = fw.keys_stage(map_leaves(lambda x: x.to(cuda_device), state), cvalid, acc=acc)
+        assert (key.cpu() == -1).all() and int(acc[0]) == 0
+        assert torch.equal(idx.cpu(), torch.arange(B, dtype=torch.int32))
+    else:
+        words = torch.tensor(NUDGED_ROWS, dtype=torch.int64)
+        hi, lo = fingerprint_words(words)
+        assert hi.tolist() == [0, 0xFFFFFFFF] and lo.tolist() == [1, 0xFFFFFFFE]
+        state = {"w": torch.cat([words, torch.zeros((B - 2, 2), dtype=torch.int64)])}
+        check_fold_keys(state, B, cuda_device, False)
+
+
+@pytest.mark.cuda
+def test_cuda_fold_keys_replay_in_a_cuda_graph(cuda_device):
+    """The fold keys stage captured in a CUDA Graph and replayed over new
+    leaf contents written in place (the drain's replays read the leaves the
+    model stage rewrote), equal to the plain twin each time."""
+    rng = np.random.default_rng(11)
+    B = 20000
+    state = map_leaves(lambda x: x.to(cuda_device), fold_state(rng, B, 16))
+    cvalid = torch.from_numpy(rng.random(B) < 0.3).to(cuda_device)
+    acc = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fw.keys_stage(state, cvalid, acc=acc)  # warm-up: builds and loads the kernels
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        acc.zero_()
+        key, idx = fw.keys_stage(state, cvalid, acc=acc)
+    for seed in (1, 2, 3):
+        fresh = fold_state(np.random.default_rng(seed), B, 16)
+        for x, y in zip(leaves(state), leaves(fresh)):
+            x.copy_(y)
+        cvalid.copy_(torch.from_numpy(np.random.default_rng(seed).random(B) < 0.5))
+        graph.replay()
+        torch.cuda.synchronize()
+        chi, clo = fingerprint_state(fresh)
+        pkey, _ = fw.keys_plain(chi, clo, cvalid.cpu())
+        assert torch.equal(key.cpu(), pkey)
+        assert int(acc[0]) == int(cvalid.sum())
+
+
+def frontier_inputs(F, A, P, masked, seed=0):
+    """A frontier stage's inputs (CPU): properties of all three kinds in
+    turn, dense conditions (many hits per property, so the first hit is
+    the lowest of many), eventually bits, depths around the cap, a fifth of
+    the lanes with no valid candidate, and a mask when ``masked``."""
+    rng = np.random.default_rng(seed)
+    kinds = tuple(("always", "sometimes", "eventually")[i % 3] for i in range(P))
+    ev = [i for i, k in enumerate(kinds) if k == "eventually"]
+    spec = fw.FusedWaveSpec(expand=None, within_boundary=None,
+                            conditions=tuple(None for _ in range(P)), expectations=kinds,
+                            ebit=tuple((pi, b % 32) for b, pi in enumerate(ev)),
+                            action_count=A)
+    cond = torch.from_numpy(rng.random((P, F)) < np.where(np.arange(P) % 3 == 0, 0.9, 0.3)[:, None])
+    cvalid = torch.from_numpy(((rng.random((F, A)) < 0.2) & (rng.random(F) < 0.8)[:, None])
+                              .reshape(-1))
+    ebits = torch.from_numpy(rng.integers(0, 1 << 32, F, dtype=np.int64))
+    depth = torch.from_numpy(rng.integers(0, 12, F, dtype=np.int64))
+    mask = torch.from_numpy(rng.random(F) < 0.7) if masked else None
+    return spec, cond, cvalid, ebits, depth, mask
+
+
+def check_frontier(spec, ins, dev, depth_cap=9):
+    """``frontier_stage`` on the card against ``frontier_plain`` on the
+    CPU: ``ebits_after``, every ``acc`` slot and the stats vector."""
+    P = len(spec.conditions)
+    on = lambda x: None if x is None else x.to(dev)  # noqa: E731
+    cond, cvalid, ebits, depth, mask = ins
+    pacc = torch.zeros(4 + P, dtype=torch.int64)
+    peb = fw.frontier_plain(spec, cond, cvalid, ebits, depth, depth_cap, pacc, mask)
+    acc = torch.full((4 + P,), -5, dtype=torch.int64, device=dev)  # reset by the stage
+    before = fw.frontier_launches
+    eb = fw.frontier_stage(spec, *map(on, ins[:4]), depth_cap, acc, on(mask))
+    F = depth.shape[0]
+    hi = torch.arange(F, dtype=torch.int64, device=dev) * 3 + 1
+    stats = fw.stats_stage(P, acc, hi, hi + 1)
+    torch.cuda.synchronize()
+    assert fw.frontier_launches == before + 1 and fw.frontier_device_ops == 2
+    assert torch.equal(eb.cpu(), peb)
+    assert torch.equal(acc.cpu(), pacc)
+    first = [~x if x else 0 for x in pacc[4:].tolist()]
+    want = [0, 0, 0, int(pacc[3]), int(any(pacc[4:].tolist()))]
+    for f, x in zip(first, pacc[4:].tolist()):
+        want += [int(x != 0), 3 * f + 1 if F else 0, 3 * f + 2 if F else 0]
+    assert stats.cpu().tolist() == want
+    return pacc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("P", [0, 1, fw.MAX_PROPS])
+@pytest.mark.parametrize("A", [1, 42, 125])
+def test_cuda_frontier_matches_plain_twin(cuda_device, A, P, masked):
+    """``fw_frontier`` (a memset and one kernel a wave) against its plain
+    twin, F = 2,049 frontier lanes (not a multiple of a block's), A
+    actions, P properties of all three kinds, with masked lanes and depth
+    caps."""
+    spec, *ins = frontier_inputs(2049, A, P, masked, seed=A + P)
+    acc = check_frontier(spec, ins, cuda_device)
+    if P:
+        assert (acc[4:] != 0).any()
+
+
+@pytest.mark.cuda
+def test_cuda_frontier_edge_cases(cuda_device):
+    """No frontier lane, every lane past the cap, a single lane, and a
+    wider frontier (9,001 lanes)."""
+    spec, *ins = frontier_inputs(0, 5, 3, True)
+    check_frontier(spec, ins, cuda_device)
+    spec, *ins = frontier_inputs(300, 5, 3, False, seed=1)
+    acc = check_frontier(spec, ins, cuda_device, depth_cap=0)
+    assert acc[4:].tolist() == [0, 0, 0]
+    spec, *ins = frontier_inputs(1, 125, fw.MAX_PROPS, False, seed=2)
+    check_frontier(spec, ins, cuda_device)
+    spec, *ins = frontier_inputs(9001, 3, 3, True, seed=3)
+    acc = check_frontier(spec, ins, cuda_device)
+    assert (acc[4:] != 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_frontier_replays_in_a_cuda_graph(cuda_device):
+    """The frontier stage and the stats captured in a CUDA Graph and
+    replayed over new conditions, valid bits and depths: the memset inside
+    the graph resets the counters each replay."""
+    F, A, P = 8192, 42, 6
+    spec, *ins = frontier_inputs(F, A, P, True)
+    dev_ins = [x.to(cuda_device) for x in ins]
+    acc = torch.zeros(4 + P, dtype=torch.int64, device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fw.frontier_stage(spec, *dev_ins[:4], 9, acc, dev_ins[4])  # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        eb = fw.frontier_stage(spec, *dev_ins[:4], 9, acc, dev_ins[4])
+    for seed in (3, 4, 5):
+        _spec, *new = frontier_inputs(F, A, P, True, seed=seed)
+        for x, y in zip(dev_ins, new):
+            x.copy_(y)
+        graph.replay()
+        torch.cuda.synchronize()
+        pacc = torch.zeros(4 + P, dtype=torch.int64)
+        peb = fw.frontier_plain(spec, *new[:4], 9, pacc, new[4])
+        assert torch.equal(eb.cpu(), peb) and torch.equal(acc.cpu(), pacc)
+        assert (pacc[4:] != 0).any()
 
 
 @pytest.mark.cuda
