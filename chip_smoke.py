@@ -34,8 +34,9 @@ leader`` counterexample, the time to it (``ttc_s``) and the unique count at
 the exit, the path replayed on the host; raft with 4 servers, lossy (24,545
 states, timers, drops); and small paxos, single-copy, ordered ABD and
 raft-with-a-crash runs on the card against the CPU twin. Then coverage
-(``spawn_gpu_bfs(coverage=True)``): the CUDA coverage stage ``fw_coverage``
-and the whole chain with coverage on held against their plain twins on
+(``spawn_gpu_bfs(coverage=True)``): the coverage epilogue, which
+``fw_frontier`` and ``fw_compact`` add with no kernel of their own, and the
+whole chain with coverage on held against their plain twins on
 full-width takes of 2pc-8 and of ``skv4x4`` (the fixed sharded KV,
 ``ShardedKv(4, 4, 3, guarded=True)``); 2pc-8 through the drain with coverage
 on both engines, equal reports, against the coverage-off runs; ``skv4x4``
@@ -43,18 +44,22 @@ exhaustively (16,777,216 states) on both engines with coverage; and small
 coverage runs on the card against the CPU twin. On every timed wave
 (2pc-8, paxos3, abd3o, raft5, and 2pc-8 and skv4x4 with coverage) the
 fused sort (``fw_sort``) is held to a stable ``torch.sort`` of the wave's
-keys, the compaction (``fw_compact``) to ``compact_plain``, the leaf
-gather (``fw_gather``) to ``x[src]`` over the chain's own compaction, the
-frontier (``fw_frontier``) to ``frontier_plain`` and, on the fold route's
-waves, the keys stage (``fw_keys``, reading the candidate leaves in place)
-to ``keys_plain`` over ``fingerprint_state``, timed beside the
-``state_words`` copy an earlier fold route made first; last,
-one ``torch.profiler`` session gives each wave's chain, captured in a CUDA
-Graph and replayed, its device time by stage, and one
+keys, the dedup (``fw_dedup``) to ``dedup_plain`` on the chain's own
+sorted keys (``active`` and the tile ``starts``), the compaction
+(``fw_compact``) to ``compact_plain``, the leaf gather (``fw_gather``) to
+``x[src]`` over the chain's own compaction, the frontier (``fw_frontier``)
+to ``frontier_plain`` and, on the fold route's waves, the keys stage
+(``fw_keys``, reading the candidate leaves in place) to ``keys_plain`` over
+``fingerprint_state``; the dedup also on two sparse waves of skv4x4's width
+into its 2^25-row table (at most 64 keyed lanes: ``{"dedup_sparse_wave":
+...}`` lines); last, one ``torch.profiler`` session gives each wave's
+chain, captured in a CUDA Graph and replayed, its device time by stage
+(each coverage wave beside its coverage-off twin: the epilogue's in-graph
+time and proof that it adds no device operation), and one
 ``{"stage_record": ...}`` line a wave gives the chain's per-stage times
 (event marks and in-graph device time), the keyed lanes and fresh rows,
-the three stages' times and bounds, ``torch.sort``'s time, ``torch.nonzero``'s
-and the summed per-leaf ``index_select``'s.
+the stages' times and bounds, ``torch.sort``'s, ``torch.searchsorted``'s,
+``torch.nonzero``'s and the summed per-leaf ``index_select``'s times.
 Prints phase lines, the card's name and power limit, the fused wave's
 stage times, the drains' walls, waves, no-op and warm-up waves, exits,
 graph captures and replays and rungs, peak device memory, one
@@ -63,9 +68,11 @@ line ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
 when any phase fails, when no CUDA device is present, or when the port's
 package is not beside it. Imports nothing of JAX or of the JAX package.
 
-``--stage-ab`` runs none of that: it times the keys stage, the frontier and
-the compaction alone, and every chain stage inside a CUDA Graph, on the timed
-waves, with the package of ``--root`` (default: beside this script); see
+``--stage-ab`` runs none of that: it times the keys stage, the frontier, the
+dedup and the compaction alone, the dedup on the sparse waves, and every
+chain stage inside a CUDA Graph, on the timed waves (the coverage waves also
+with coverage off), with the package of ``--root`` (default: beside this
+script); see
 ``stage_ab``. Run it for two checkouts in one call on the card, in turns
 (parent, change, change, parent).
 """
@@ -76,6 +83,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -535,6 +543,45 @@ def _frontier_must_move(spec, F, masked):
     return F * (12 + (1 if masked else 0) + P + ev) + (4 + P) * 8
 
 
+def _dedup_must_move(B, n_tiles):
+    """Bytes ``fw_dedup`` must move: each sorted position's key (8 B) read
+    and its active byte written, and the ``n_tiles + 1`` int64 starts
+    written (a first ``~0`` position's lane and valid byte are a few bytes
+    more, left out)."""
+    return B * 9 + (n_tiles + 1) * 8
+
+
+def _time_dedup(key, idx, capacity, cvalid, A, depth, depth_cap, mask, chain=()):
+    """``fw_dedup`` on these sorted keys against ``dedup_plain`` (both on
+    the card): max_abs_err over ``active`` and ``starts`` (and over the
+    chain's own, ``chain``, when given), and each timed
+    alone with CUDA events beside ``torch.searchsorted`` of the tiles'
+    first rows over the homes (the one PyTorch call that computes the
+    starts; ``library_ms``) and the ``skey[1:] != skey[:-1]`` pass (the
+    uniq mask's own pass, for context), with the stage's bound."""
+    import torch
+
+    from stateright_tpu_torch.ops import fused_wave as fw
+    from stateright_tpu_torch.ops.hashset_kernel import TILE_ROWS
+
+    args = (key, idx, capacity, cvalid, A, depth, depth_cap, mask)
+    got, want = fw.dedup_stage(*args), fw.dedup_plain(*args)
+    torch.cuda.synchronize()
+    err = _max_abs_err([(w.cpu(), g) for w, g in zip(want + want, got + tuple(chain))])
+    B, n_tiles = key.shape[0], capacity // TILE_ROWS
+    homes = ((key >> 32) & 0xFFFFFFFF) >> (32 - (capacity.bit_length() - 1))
+    bounds = torch.arange(n_tiles + 1, dtype=torch.int64, device=key.device) * TILE_ROWS
+    ms, _ = _time_on_card(lambda mark: fw.dedup_stage(*args))
+    plain_ms, _ = _time_on_card(lambda mark: fw.dedup_plain(*args))
+    searchsorted_ms, _ = _time_on_card(lambda mark: torch.searchsorted(homes, bounds))
+    neighbours_ms, _ = _time_on_card(lambda mark: key[1:] != key[:-1])
+    moved = _dedup_must_move(B, n_tiles)
+    return {"dedup_ms": ms, "dedup_plain_ms": plain_ms, "torch_searchsorted_ms": searchsorted_ms,
+            "dedup_neighbours_ms": neighbours_ms, "dedup_bound_bytes": moved,
+            "dedup_bound_ms": moved / HBM_BYTES_PER_S * 1e3, "dedup_max_abs_err": err,
+            "dedup_tiles": n_tiles, "dedup_active": int(want[0].sum())}
+
+
 def _compact_must_move(B, n_new):
     """Bytes ``fw_compact`` must move on this wave, u32 values at 4 B: the
     B outcome bytes; at each fresh position its key (8 B) and lane (4 B)
@@ -550,11 +597,13 @@ STAGE_WAVES = []
 
 def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cvalid, kin,
                 cand, mask=None, ant=None, stage_ms=None, chain_ms=None):
-    """``fw_sort``, ``fw_compact`` and ``fw_gather`` on one wave's own
-    inputs, held to their plain twins and timed beside their bounds and
-    their library calls: the sort on the keys stage's output against a
-    stable ``torch.sort`` (``library_ms``) and ``sort_plain``; the
-    compaction on the chain's own sorted keys and outcome bytes against
+    """``fw_sort``, ``fw_dedup``, ``fw_compact`` and ``fw_gather`` on one
+    wave's own inputs, held to their plain twins and timed beside their
+    bounds and their library calls: the sort on the keys stage's output
+    against a stable ``torch.sort`` (``library_ms``) and ``sort_plain``; the
+    dedup on the chain's own sorted keys against ``dedup_plain`` (the
+    chain's own ``active`` and ``starts`` too), beside ``torch.searchsorted``
+    (``_time_dedup``); the compaction on the chain's own sorted keys and outcome bytes against
     ``compact_plain`` (``torch.nonzero`` of the fresh flags timed for
     context: it finds the slots alone); the gather on the chain's own
     compaction (``src``, ``n_new``) against ``gather_plain`` (``x[src]``)
@@ -569,7 +618,8 @@ def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cval
 
     from stateright_tpu_torch.core.batch import leaves, map_leaves
     from stateright_tpu_torch.ops import fused_wave as fw
-    from stateright_tpu_torch.ops.fingerprint import fingerprint_state, state_words
+    from stateright_tpu_torch.ops import hashset_kernel as hk
+    from stateright_tpu_torch.ops.fingerprint import fingerprint_state
 
     MIN = -(1 << 63)
     work, taps = table0.clone(), {}
@@ -602,9 +652,20 @@ def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cval
     rsigned = rkey0 ^ MIN
     torch_sort_random_ms, _ = _time_on_card(lambda mark: torch.sort(rsigned, stable=True))
 
+    A = spec.action_count
+    capacity = hk._check_capacity(table0)
+    dedup = _time_dedup(taps["key"], taps["idx"], capacity, cvalid, A, depth, depth_cap, mask,
+                        chain=(taps["active"], taps["starts"]))
+    log(f"  fw_dedup ({label}): B={B} tiles={dedup['dedup_tiles']} active="
+        f"{dedup['dedup_active']} {dedup['dedup_ms']:.4f} ms vs torch.searchsorted "
+        f"{dedup['torch_searchsorted_ms']:.4f} ms (neighbour pass "
+        f"{dedup['dedup_neighbours_ms']:.4f} ms), plain {dedup['dedup_plain_ms']:.4f} ms, bound "
+        f"{dedup['dedup_bound_ms']:.5f} ms; max_abs_err={dedup['dedup_max_abs_err']}")
+    if dedup["dedup_max_abs_err"]:
+        raise AssertionError(f"fw_dedup and its plain twin disagree on {label}")
+
     src, acc = taps["src"], taps["acc"]
     n_new = int(acc[1])
-    A = spec.action_count
     cargs = (taps["flag"], taps["key"], taps["idx"], A, taps["ebits_after"], depth, hi, lo)
     cacc = torch.zeros_like(acc)
     got_c = fw.compact_stage(*cargs, cacc)
@@ -632,8 +693,7 @@ def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cval
 
     # The frontier stage alone against frontier_plain (on the card), and,
     # on the fold route, the keys stage reading the leaves in place against
-    # keys_plain over fingerprint_state, beside what the parent's fold
-    # did first: state_words' copy.
+    # keys_plain over fingerprint_state.
     F, P = depth.shape[0], len(spec.conditions)
     facc, pacc = (torch.zeros(4 + P, dtype=torch.int64, device="cuda") for _ in range(2))
     fargs = (spec, cond, cvalid, ebits, depth, depth_cap)
@@ -655,21 +715,19 @@ def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cval
         keys_err = _max_abs_err([((pkey >> 32).cpu(), kkey >> 32),
                                  ((pkey & 0xFFFFFFFF).cpu(), kkey & 0xFFFFFFFF),
                                  (pidx.cpu(), kidx), (n_keyed, kacc[0:1])])
-        W = state_words(cand).shape[1]
+        W = sum(math.prod(x.shape[1:]) for x in kin)
         keys_ms, _ = _time_on_card(lambda mark: fw.keys_stage(kin, *kargs, None, mask))
         keys_plain_ms, _ = _time_on_card(
             lambda mark: fw.keys_plain(*fingerprint_state(cand), *kargs, mask))
-        state_words_ms, _ = _time_on_card(lambda mark: state_words(cand))
         n_valid = int(n_keyed)
         keys_bytes = _keys_must_move(B, W, F, mask is not None, n_valid)
         keys = {"keys_ms": keys_ms, "keys_plain_ms": keys_plain_ms, "keys_words": W,
                 "keys_valid_lanes": n_valid, "keys_bound_bytes": keys_bytes,
                 "keys_bound_ms": keys_bytes / HBM_BYTES_PER_S * 1e3,
-                "keys_max_abs_err": keys_err, "state_words_ms": state_words_ms}
+                "keys_max_abs_err": keys_err}
         log(f"  fw_keys ({label}, fold from the leaves): {keys_ms:.4f} ms, bound "
             f"{keys['keys_bound_ms']:.5f} ms ({keys_bytes} B, W={W}, {n_valid} valid lanes); "
-            f"the parent's state_words {state_words_ms:.4f} ms; plain {keys_plain_ms:.4f} ms; "
-            f"max_abs_err={keys_err}")
+            f"plain {keys_plain_ms:.4f} ms; max_abs_err={keys_err}")
     log(f"  fw_frontier ({label}): {frontier_ms:.4f} ms, bound "
         f"{frontier_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({frontier_bytes} B); plain "
         f"{frontier_plain_ms:.4f} ms; max_abs_err={frontier_err}")
@@ -701,6 +759,7 @@ def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cval
         "frontier_bound_bytes": frontier_bytes,
         "frontier_bound_ms": frontier_bytes / HBM_BYTES_PER_S * 1e3,
         "frontier_max_abs_err": frontier_err,
+        **dedup,
         **keys,
     }
     log(f"  fw_sort ({label}): n={B} keyed={n_live} {sort_ms:.4f} ms vs torch.sort "
@@ -904,15 +963,73 @@ def fused_vs_plain():
             "waves": {"2pc8": rec}}
 
 
+def _sparse_waves(seed=2026):
+    """Sorted waves of skv4x4's width into its table (``configs.py``: F =
+    8,192 lanes of 24 actions, 2^25 rows, 16,384 tiles) with at most 64
+    keyed lanes, as a drain's last waves have: ``(label, dedup_stage's
+    arguments)`` of 64 lanes over all tiles (about 256 tiles between two
+    keys) and of 40 lanes in one tile (runs of thousands of tiles before
+    and after it), the rest sentinels, made with numpy from ``seed`` on the
+    card."""
+    import numpy as np
+    import torch
+
+    from stateright_tpu_torch.ops import fused_wave as fw
+    from stateright_tpu_torch.ops.hashset_kernel import TILE_ROWS
+
+    cfg = _config("skv4x4")
+    F, capacity = cfg.spawn["frontier_capacity"], cfg.spawn["table_capacity"]
+    A = cfg.make().packed_action_count()
+    B, shift = F * A, 32 - (capacity.bit_length() - 1)
+    rng = np.random.default_rng(seed)
+    out = []
+    for label, n_keyed, tile in (("sparse_64_lanes", 64, None), ("sparse_one_tile", 40, 7000)):
+        lanes = rng.choice(B, size=n_keyed, replace=False)
+        home = (rng.integers(0, capacity, size=n_keyed) if tile is None
+                else tile * TILE_ROWS + rng.integers(0, TILE_ROWS, size=n_keyed))
+        hi = (home << shift) | rng.integers(0, 1 << shift, size=n_keyed)
+        keys = np.full(B, -1, np.int64)
+        keys[lanes] = ((hi.astype(np.uint64) << np.uint64(32))
+                       | rng.integers(0, 1 << 32, size=n_keyed, dtype=np.uint64)).view(np.int64)
+        cvalid = np.zeros(B, bool)
+        cvalid[lanes] = True
+        key = torch.from_numpy(keys).cuda()
+        idx = torch.arange(B, dtype=torch.int32, device="cuda")
+        fw.sort_stage(key, idx)
+        depth = torch.zeros(F, dtype=torch.int64, device="cuda")
+        out.append((label, (key, idx, capacity, torch.from_numpy(cvalid).cuda(), A, depth, 1,
+                            None)))
+    return out
+
+
+@phase("dedup_sparse_vs_plain")
+def dedup_sparse_vs_plain():
+    """``fw_dedup`` on the sparse waves of ``_sparse_waves`` against
+    ``dedup_plain``, timed beside ``torch.searchsorted`` and the bound."""
+    out = {}
+    for label, args in _sparse_waves():
+        rec = _time_dedup(*args)
+        log(f"  fw_dedup ({label}): B={args[0].shape[0]} tiles={rec['dedup_tiles']} active="
+            f"{rec['dedup_active']} {rec['dedup_ms']:.4f} ms vs torch.searchsorted "
+            f"{rec['torch_searchsorted_ms']:.4f} ms, plain {rec['dedup_plain_ms']:.4f} ms, "
+            f"bound {rec['dedup_bound_ms']:.5f} ms; max_abs_err={rec['dedup_max_abs_err']}")
+        if rec["dedup_max_abs_err"] or not 0 < rec["dedup_active"] <= 64:
+            raise AssertionError(f"fw_dedup and its plain twin disagree on {label}: {rec}")
+        log(json.dumps({"dedup_sparse_wave": dict(rec, wave=label)}))
+        out[label] = rec
+    return out
+
+
 # -- 3. the main paths ----------------------------------------------------------
 
 
 def _check_sort_gather_launches(n):
     """Every fused wave runs the frontier, one keys stage (the fold's
-    ``fw_keys`` or ``fw_comphash_keys``), the sort and the compaction once
-    and gathers its leaves at least once; the staged engine launches none
-    of these kernels."""
-    assert n["fw_frontier"] == n["fw_sort"] == n["fw_compact"] == n["fused_wave"], n
+    ``fw_keys`` or ``fw_comphash_keys``), the sort, the dedup and the
+    compaction once and gathers its leaves at least once; the staged engine
+    launches none of these kernels."""
+    assert n["fw_frontier"] == n["fw_sort"] == n["fw_dedup"] == n["fw_compact"] \
+        == n["fused_wave"], n
     assert n["fw_keys"] + n.get("fw_comphash_keys", 0) == n["fused_wave"], n
     assert n["fw_gather"] >= n["fused_wave"], n
     assert (n["fw_gather"] > 0) == (n["fused_wave"] > 0), n
@@ -929,7 +1046,7 @@ def _drive_2pc8(wave_kernel, **spawn):
     cfg = _config("2pc8")
     torch.cuda.reset_peak_memory_stats()
     hk.launches = fw.launches = fw.sort_launches = fw.compact_launches = 0
-    fw.gather_launches = fw.frontier_launches = fw.keys_launches = 0
+    fw.gather_launches = fw.frontier_launches = fw.keys_launches = fw.dedup_launches = 0
     t0 = time.perf_counter()
     checker = cfg.make().checker().spawn_gpu_bfs(
         **dict(cfg.spawn, wave_kernel=wave_kernel, **spawn)).join()
@@ -937,8 +1054,8 @@ def _drive_2pc8(wave_kernel, **spawn):
     wall = time.perf_counter() - t0
     launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
                 "fw_frontier": fw.frontier_launches, "fw_keys": fw.keys_launches,
-                "fw_sort": fw.sort_launches, "fw_compact": fw.compact_launches,
-                "fw_gather": fw.gather_launches}
+                "fw_sort": fw.sort_launches, "fw_dedup": fw.dedup_launches,
+                "fw_compact": fw.compact_launches, "fw_gather": fw.gather_launches}
     _check_sort_gather_launches(launches)
     unique = checker.unique_state_count()
     mode = "drain" if checker.drains else "wave at a time"
@@ -1303,7 +1420,7 @@ def _drive(name, wave_kernel):
     torch.cuda.reset_peak_memory_stats()
     hk.launches = fw.launches = fw.comphash_launches = 0
     fw.sort_launches = fw.compact_launches = fw.gather_launches = 0
-    fw.frontier_launches = fw.keys_launches = 0
+    fw.frontier_launches = fw.keys_launches = fw.dedup_launches = 0
     t0 = time.perf_counter()
     checker = model.checker().spawn_gpu_bfs(wave_kernel=wave_kernel, **cfg.spawn).join()
     torch.cuda.synchronize()
@@ -1311,7 +1428,8 @@ def _drive(name, wave_kernel):
     launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
                 "fw_frontier": fw.frontier_launches, "fw_keys": fw.keys_launches,
                 "fw_comphash_keys": fw.comphash_launches, "fw_sort": fw.sort_launches,
-                "fw_compact": fw.compact_launches, "fw_gather": fw.gather_launches}
+                "fw_dedup": fw.dedup_launches, "fw_compact": fw.compact_launches,
+                "fw_gather": fw.gather_launches}
     _check_sort_gather_launches(launches)
     peak = torch.cuda.max_memory_allocated()
     unique = checker.unique_state_count()
@@ -1522,8 +1640,8 @@ def _with_coverage(spec, model):
 
 
 def _coverage_must_move(spec, F, n_eval, n_valid, n_new, masked):
-    """Bytes ``fw_coverage`` must move on this wave, each input at the
-    width it is stored in: each frontier lane's int64 depth and, when
+    """Bytes the coverage epilogue must move on this wave, each input at
+    the width it is stored in: each frontier lane's int64 depth and, when
     masked, its mask byte; for each of the ``n_eval`` evaluated lanes its
     A valid bytes, its int64 ``ebits_after`` when a property is
     ``eventually``, and a byte for each ``sometimes`` condition and each
@@ -1540,12 +1658,16 @@ def _coverage_must_move(spec, F, n_eval, n_valid, n_new, masked):
 
 
 def _coverage_wave(label, got, model):
-    """``fw_coverage`` and the whole fused chain with coverage on against
-    their plain twins on a full-width wave taken from the fused drain with
-    its table: the chain against ``fused_wave_plain`` on the host, the stage
-    alone against ``coverage_plain`` on the card, on the chain's own
-    scratch (the sweep's outcome bytes and sorted lanes). Their times and
-    the stage's bound."""
+    """The fused chain with coverage on against its plain twin on a
+    full-width wave taken from the fused drain with its table: the chain
+    against ``fused_wave_plain`` on the host; on the card, the chain's own
+    coverage vector (added by ``fw_frontier`` and ``fw_compact``) against
+    ``coverage_plain`` on the chain's own scratch, and each kernel's half
+    alone against ``coverage_frontier_plain`` and ``coverage_fresh_plain``.
+    Times: the frontier and the compaction alone with coverage on and off
+    (CUDA events), ``coverage_plain`` on the card, and the chain; the
+    epilogue's in-graph time (on minus off) comes from
+    ``stage_device_profile``, which gets the wave's coverage-off twin."""
     import torch
 
     from stateright_tpu_torch.ops import fused_wave as fw
@@ -1554,8 +1676,8 @@ def _coverage_wave(label, got, model):
     table0, front, depth_cap = got["table"], got["frontier"], got["depth_cap"]
     states, mask = front["states"], front["mask"]
     hi, lo, ebits, depth = (front[k] for k in ("hi", "lo", "ebits", "depth"))
-    F = hi.shape[0]
-    B = F * spec.action_count
+    F, A, P = hi.shape[0], spec.action_count, len(spec.conditions)
+    B = F * A
 
     chain_err, pout, plain_ms, _pt, _sweeps = _compare_fused(spec, table0, front, depth_cap,
                                                              mask=mask)
@@ -1569,28 +1691,45 @@ def _coverage_wave(label, got, model):
     if not stats[1] or cov[0] != got["live"]:
         raise AssertionError(f"the {label} wave is not a live full-width wave: {stats} {cov[:2]}")
 
-    # The chain on a copy of the table, tapping the scratch fw_coverage
-    # reads; the stage alone against coverage_plain on those inputs.
+    # The chain on a copy of the table, tapping its scratch and its vector;
+    # coverage_plain on those inputs, and each half alone.
     cond, cvalid, cand = fw.model_stage(spec, states, F)
     ant = fw.antecedent_stage(spec, states, F)
     kin = fw.keys_input(spec, cand)
     work, taps = table0.clone(), {}
     _t, cout = fw.kernel_chain(spec, work, hi, lo, ebits, depth, depth_cap, cond, cvalid, kin,
                                cand, mask=mask, ant=ant, taps=taps)
-    args = (spec, cvalid, depth, depth_cap, mask, cond, ant, taps["ebits_after"],
-            taps["flag"], taps["idx"])
-    kvec = fw.coverage_stage(*args)
+    eb_after, flag, idx = taps["ebits_after"], taps["flag"], taps["idx"]
+    args = (spec, cvalid, depth, depth_cap, mask, cond, ant, eb_after, flag, idx)
     pvec = fw.coverage_plain(*args)
+    fargs = (spec, cond, cvalid, ebits, depth, depth_cap)
+    facc = torch.zeros(4 + P + spec.cov_layout.size, dtype=torch.int64, device="cuda")
+    fw.frontier_stage(*fargs, facc, mask, ant)
+    front_want = fw.coverage_frontier_plain(spec, cvalid, depth, depth_cap, mask, cond, ant,
+                                            eb_after)
+    cargs = (flag, taps["key"], idx, A, eb_after, depth, hi, lo)
+    cacc, cvec = taps["acc"].clone(), torch.zeros_like(pvec)
+    fw.compact_stage(*cargs, cacc, cvec)
+    fresh_want = fw.coverage_fresh_plain(spec, depth, flag, idx)
     torch.cuda.synchronize()
-    err = _max_abs_err([(pvec.cpu(), kvec), (pout["cov"], kvec), (pout["cov"], cout["cov"])])
-    n_new = sum(kvec[spec.cov_layout.s_fresh].tolist())
-    log(f"  fw_coverage ({label}): size={spec.cov_layout.size} max_abs_err={err} "
-        f"fresh={n_new}")
+    err = _max_abs_err([(pvec.cpu(), taps["cov"]), (pout["cov"], taps["cov"]),
+                        (pout["cov"], cout["cov"]), (front_want.cpu(), facc[4 + P:]),
+                        (fresh_want.cpu(), cvec)])
+    n_new = sum(pvec[spec.cov_layout.s_fresh].tolist())
+    log(f"  coverage epilogue ({label}): size={spec.cov_layout.size} max_abs_err={err} "
+        f"fresh={n_new} (the chain's vector, fw_frontier's half, fw_compact's half)")
     if err:
-        raise AssertionError(f"fw_coverage and its plain twin disagree on {label}")
-    ms, _ = _time_on_card(lambda mark: fw.coverage_stage(*args))
+        raise AssertionError(f"the coverage epilogue and its plain twin disagree on {label}")
     twin_ms, _ = _time_on_card(lambda mark: fw.coverage_plain(*args))
     ant_ms, _ = _time_on_card(lambda mark: fw.antecedent_stage(spec, states, F))
+    alone = {
+        "frontier_cov_ms": _time_on_card(lambda mark: fw.frontier_stage(*fargs, facc, mask,
+                                                                        ant))[0],
+        "frontier_nocov_ms": _time_on_card(lambda mark: fw.frontier_stage(*fargs, facc,
+                                                                          mask))[0],
+        "compact_cov_ms": _time_on_card(lambda mark: fw.compact_stage(*cargs, cacc, cvec))[0],
+        "compact_nocov_ms": _time_on_card(lambda mark: fw.compact_stage(*cargs, cacc))[0],
+    }
     chain_ms, stage_ms = _time_on_card(
         lambda mark: fw.kernel_chain(spec, work, hi, lo, ebits, depth, depth_cap, cond, cvalid,
                                      kin, cand, mark=mark, mask=mask, ant=ant),
@@ -1599,26 +1738,33 @@ def _coverage_wave(label, got, model):
     moved = _coverage_must_move(spec, F, cov[0], stats[0], n_new, mask is not None)
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     log(json.dumps({f"{label}_coverage_wave": {
-        "fw_coverage_ms": ms, "coverage_plain_on_card_ms": twin_ms,
+        "coverage_plain_on_card_ms": twin_ms, **alone,
         "antecedent_stage_torch_ms": ant_ms, "kernel_chain_ms": chain_ms,
         "fused_wave_stage_ms": stage_ms, "coverage_must_move_bytes": moved,
         "coverage_bound_ms": bound_ms, "B": B, "evaluated": cov[0], "n_new": n_new,
         "chain_plain_host_ms": plain_ms,
     }}))
-    log(f"  fw_coverage ({label}): median {ms:.4f} ms, plain twin on the card {twin_ms:.4f} ms, "
-        f"bound {bound_ms:.5f} ms ({moved} B); chain with coverage {chain_ms:.4f} ms "
-        f"(coverage stage {stage_ms['coverage']:.4f} ms); antecedents (torch) {ant_ms:.4f} ms")
+    log(f"  coverage epilogue ({label}): alone, fw_frontier {alone['frontier_cov_ms']:.4f} ms "
+        f"(off {alone['frontier_nocov_ms']:.4f}), fw_compact {alone['compact_cov_ms']:.4f} ms "
+        f"(off {alone['compact_nocov_ms']:.4f}); plain twin on the card {twin_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms ({moved} B); chain with coverage {chain_ms:.4f} ms; "
+        f"antecedents (torch) {ant_ms:.4f} ms")
     rec = _stage_wave(f"{label}_coverage", spec, table0, hi, lo, ebits, depth, depth_cap,
-                            cond, cvalid, kin, cand, mask=mask, ant=ant, stage_ms=stage_ms,
-                            chain_ms=chain_ms)
-    return {"max_abs_err": max(err, chain_err), "ms": ms, "plain_ms": twin_ms,
-            "bound_ms": bound_ms, "chain_ms": chain_ms, "waves": {f"{label}_coverage": rec}}
+                      cond, cvalid, kin, cand, mask=mask, ant=ant, stage_ms=stage_ms,
+                      chain_ms=chain_ms)
+    rec.update(coverage_alone_ms=alone, coverage_plain_ms=twin_ms, coverage_bound_ms=bound_ms,
+               coverage_max_abs_err=err)
+    # The same wave with coverage off, profiled beside it.
+    STAGE_WAVES.append(dict(STAGE_WAVES[-1], rec={"wave": f"{label}_coverage_off"},
+                            spec=got["spec"], ant=None))
+    return {"max_abs_err": max(err, chain_err), "plain_ms": twin_ms, "bound_ms": bound_ms,
+            "chain_ms": chain_ms, "waves": {f"{label}_coverage": rec}}
 
 
 @phase("coverage_vs_plain")
 def coverage_vs_plain():
-    """``fw_coverage`` and the chain on full-width takes of 2pc-8 and of
-    skv4x4."""
+    """The chain with its coverage epilogue on full-width takes of 2pc-8
+    and of skv4x4."""
     out = {}
     for name, min_unique in (("2pc8", 200_000), ("skv4x4", 2_000_000)):
         cfg = _config(name)
@@ -1643,7 +1789,8 @@ def _drive_coverage(name, wave_kernel, coverage=True):
     torch.cuda.reset_peak_memory_stats()
     hk.launches = fw.launches = fw.comphash_launches = fw.coverage_launches = 0
     fw.sort_launches = fw.compact_launches = fw.gather_launches = 0
-    fw.frontier_launches = fw.keys_launches = 0
+    fw.frontier_launches = fw.keys_launches = fw.dedup_launches = 0
+    fw.coverage_fresh_launches = 0
     t0 = time.perf_counter()
     checker = model.checker().spawn_gpu_bfs(wave_kernel=wave_kernel, coverage=coverage,
                                             **cfg.spawn).join()
@@ -1652,7 +1799,9 @@ def _drive_coverage(name, wave_kernel, coverage=True):
     launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
                 "fw_frontier": fw.frontier_launches, "fw_keys": fw.keys_launches,
                 "fw_comphash_keys": fw.comphash_launches,
-                "fw_coverage": fw.coverage_launches, "fw_sort": fw.sort_launches,
+                "coverage_epilogue": fw.coverage_launches,
+                "coverage_epilogue_fresh": fw.coverage_fresh_launches,
+                "fw_sort": fw.sort_launches, "fw_dedup": fw.dedup_launches,
                 "fw_compact": fw.compact_launches, "fw_gather": fw.gather_launches}
     _check_sort_gather_launches(launches)
     peak = torch.cuda.max_memory_allocated()
@@ -1669,12 +1818,16 @@ def _drive_coverage(name, wave_kernel, coverage=True):
     assert checker.worker_error() is None, checker.worker_error()
     assert unique == cfg.unique, unique
     n = launches
+    # The coverage epilogue rides in fw_frontier (frontier half) and
+    # fw_compact (fresh half), one launch of each a wave with coverage on.
     if wave_kernel == "staged":
-        assert n["fused_wave"] == n["fw_coverage"] == 0, n
+        assert n["fused_wave"] == n["coverage_epilogue"] == 0, n
     elif coverage:
-        assert n["fw_coverage"] == n["fused_wave"] >= checker.waves > 0, n
+        assert n["coverage_epilogue"] == n["coverage_epilogue_fresh"] == n["fused_wave"] \
+            >= checker.waves > 0, n
     else:
-        assert n["fw_coverage"] == 0 and n["fused_wave"] >= checker.waves > 0, n
+        assert n["coverage_epilogue"] == n["coverage_epilogue_fresh"] == 0, n
+        assert n["fused_wave"] >= checker.waves > 0, n
     run = {"launches": launches, "wall_s": wall, "waves": checker.waves,
            "noop_waves": checker.noop_waves, "drains": checker.drains,
            "exits": dict(checker.drain_exits), "unique": unique,
@@ -1717,8 +1870,9 @@ def main_path_2pc8_coverage(drains):
     assert runs["staged"]["report"] == runs["fused"]["report"]
     assert runs["staged"]["discoveries"] == runs["fused"]["discoveries"]
     n_on, n_off = runs["fused"]["launches"], drains["fused"]["launches"]
-    log(f"  2pc-8 fused launches: coverage on {n_on['fused_wave']} (fw_coverage "
-        f"{n_on['fw_coverage']}), coverage off {n_off['fused_wave']}")
+    log(f"  2pc-8 fused launches: coverage on {n_on['fused_wave']} (the coverage epilogue in "
+        f"fw_frontier {n_on['coverage_epilogue']}, in fw_compact "
+        f"{n_on['coverage_epilogue_fresh']}), coverage off {n_off['fused_wave']}")
     assert n_on["fused_wave"] == n_off["fused_wave"], (n_on, n_off)
     _log_report("2pc-8", runs["fused"]["report"])
     for wave_kernel in ("staged", "fused"):
@@ -1803,29 +1957,36 @@ def replay_coverage_small():
 
 
 # The fused chain's kernels by stage (csrc/fused_wave.cu), matched in this
-# order; a memset belongs to the stage of the kernel after it. The
-# compaction's kernels before its one-pass design (fresh_count_kernel,
-# scan_one_block_kernel) are listed so that stage_ab (--stage-ab) can
-# profile an earlier checkout. The device operations before the chain's
-# first kernel are ``keys_input``'s (an earlier checkout's fold route built
-# its words matrix there with torch kernels).
+# order; a memset belongs to the stage of the kernel after it. The device
+# operations before the chain's first kernel are ``keys_input``'s (an
+# earlier checkout's fold route built its words matrix there with torch
+# kernels). The coverage epilogue has no kernel of its own: a device
+# operation of no stage (the former coverage_kernel among them) raises.
 STAGE_KERNELS = (
     ("frontier_kernel", "frontier"), ("comphash_keys_kernel", "keys"),
     ("keys_pairs_kernel", "keys"), ("keys_kernel", "keys"),
     ("sort_partition_kernel", "sort"), ("sort_pass_kernel", "sort"),
     ("dedup_kernel", "dedup"), ("sweep_", "sweep"), ("compact_kernel", "compact"),
+    ("gather_kernel", "gather"), ("stats_kernel", "stats"),
+)
+# Kernels of earlier checkouts, which stage_ab (--stage-ab) also profiles:
+# the compaction's before its one-pass design, and the coverage stage's
+# (a memset and coverage_kernel) before it moved into the frontier and the
+# compaction.
+EARLIER_STAGE_KERNELS = STAGE_KERNELS + (
     ("fresh_count_kernel", "compact"), ("scan_one_block_kernel", "compact"),
-    ("coverage_kernel", "coverage"), ("gather_kernel", "gather"), ("stats_kernel", "stats"),
+    ("coverage_kernel", "coverage"),
 )
 PROFILE_GAP_S = 0.5  # host sleep between profiled blocks; splits the device timeline
 
 
-def _stages_of(names):
+def _stages_of(names, kernels=STAGE_KERNELS):
     """The stage of each device operation of ``keys_input`` and one chain,
-    by kernel name: the operations before the chain's first kernel are
-    ``keys_input``'s, and any later one of no chain stage raises."""
+    by kernel name (``kernels``): the operations before the chain's first
+    kernel are ``keys_input``'s, and any later one of no chain stage
+    raises."""
     kinds = [None if n.startswith("Memset") else
-             next((st for part, st in STAGE_KERNELS if part in n), None) for n in names]
+             next((st for part, st in kernels if part in n), None) for n in names]
     first = next((i for i, st in enumerate(kinds) if st is not None), None)
     if first is None:
         raise AssertionError(f"no kernel of the chain: {names}")
@@ -1863,7 +2024,7 @@ def _device_blocks(prof):
     return blocks
 
 
-def _profile_chains(waves, sort_keys=None, reps=5):
+def _profile_chains(waves, sort_keys=None, reps=5, kernels=STAGE_KERNELS):
     """One ``torch.profiler`` session over ``reps`` sorts of ``sort_keys``
     (``(key0, idx0)``, each sort from the unsorted keys; or none) and then
     each wave's ``keys_input`` and kernel chain captured in a CUDA Graph
@@ -1873,8 +2034,9 @@ def _profile_chains(waves, sort_keys=None, reps=5):
     ``depth_cap``, ``cond``, ``cvalid``, ``cand``, ``mask``, ``ant``).
     Returns the sort's ``(name, us)`` operations of one sort, and for each
     wave its stages' device ms and device operations a replay (every
-    operation mapped to a stage by ``_stages_of``; the replays must agree)
-    and the ``(name, us, stage)`` of each operation of the frontier, keys
+    operation mapped to a stage of ``kernels`` by ``_stages_of``; the
+    replays must agree) and the ``(name, us, stage)`` of each operation of
+    the frontier, keys, dedup, compaction, coverage (an earlier checkout's)
     and stats stages and of ``keys_input``, averaged over the replays."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1933,14 +2095,15 @@ def _profile_chains(waves, sort_keys=None, reps=5):
                                     for r in range(reps)):
             raise AssertionError(f"the replays of a chain differ: {len(block)} operations over "
                                  f"{reps} replays: {[n for n, _us in block]}")
-        stages = _stages_of(names)
+        stages = _stages_of(names, kernels)
         stage_us, stage_ops = {}, {}
         for (_name, us), st in zip(block, stages * reps):
             stage_us[st] = stage_us.get(st, 0.0) + us / reps
             stage_ops[st] = stage_ops.get(st, 0) + 1
         op_us = [(names[i][:48], sum(block[r * k + i][1] for r in range(reps)) / reps, st)
                  for i, st in enumerate(stages)
-                 if st in ("keys_input", "frontier", "keys", "stats")]
+                 if st in ("keys_input", "frontier", "keys", "dedup", "compact", "coverage",
+                           "stats")]
         out.append(({st: us / 1e3 for st, us in stage_us.items()},
                     {st: n // reps for st, n in stage_ops.items()}, op_us))
     del graphs
@@ -1965,15 +2128,20 @@ def stage_device_profile(reps=5):
     """``_profile_chains`` over every timed wave, in this process's only
     ``torch.profiler`` session (a later session in one process dropped
     device records): ``fw_sort``'s device operations on the 2pc-8 wave's
-    keys, and each wave's chain replayed in a CUDA Graph. Completes each
-    wave's ``stage_record`` with ``fused_wave_stage_device_ms`` (each
-    stage's device ms a wave inside the graph: no host gaps, unlike the
-    event marks of ``fused_wave_stage_ms``), ``fused_wave_stage_device_ops``,
+    keys, and each wave's chain replayed in a CUDA Graph, each coverage
+    wave beside its coverage-off twin. Completes each wave's
+    ``stage_record`` with ``fused_wave_stage_device_ms`` (each stage's
+    device ms a wave inside the graph: no host gaps, unlike the event marks
+    of ``fused_wave_stage_ms``), ``fused_wave_stage_device_ops``,
     ``fused_wave_op_device_us`` (each device operation of ``keys_input``,
-    the frontier, keys and stats stages), ``fused_wave_device_ms``,
-    ``compact_device_ops`` and ``frontier_device_ops``, and logs it. Raises
-    unless the compaction and the frontier ran their stated device
-    operations and a fold wave's ``keys_input`` ran none."""
+    the frontier, keys, dedup, compaction and stats stages),
+    ``fused_wave_device_ms``, ``compact_device_ops`` and
+    ``frontier_device_ops``, and on a coverage wave the twin's stages and
+    ``coverage_epilogue_device_ms``, the frontier's and the compaction's
+    in-graph ms with coverage on less with it off; logs it. Raises unless
+    the compaction and the frontier ran their stated device operations,
+    the dedup one, a fold wave's ``keys_input`` none, and a coverage wave
+    no stage and no device operation more than its coverage-off twin."""
     from stateright_tpu_torch.ops import fused_wave as fw
 
     waves = _waves_on_card(STAGE_WAVES)
@@ -1992,8 +2160,11 @@ def stage_device_profile(reps=5):
     first["rec"].update(sort_device_ops=len(sort_ops), sort_device_us=sort_us)
     log(f"  fw_sort device operations on the 2pc-8 wave (torch.profiler): {len(sort_ops)}, "
         f"device us a sort: {sort_us}")
+    by_wave = {w["rec"]["wave"]: st for w, st in zip(waves, stages)}
     for w, (stage_ms, stage_ops, op_us) in zip(waves, stages):
         rec = w["rec"]
+        if rec["wave"].endswith("_coverage_off"):
+            continue
         rec["fused_wave_stage_device_ms"] = stage_ms
         rec["fused_wave_stage_device_ops"] = stage_ops
         rec["fused_wave_op_device_us"] = op_us
@@ -2006,9 +2177,29 @@ def stage_device_profile(reps=5):
         if stage_ops["frontier"] != fw.frontier_device_ops:
             raise AssertionError(f"{rec['wave']}: fw_frontier ran {stage_ops['frontier']} device "
                                  f"operations, not {fw.frontier_device_ops}")
+        if stage_ops["dedup"] != 1:
+            raise AssertionError(f"{rec['wave']}: fw_dedup ran {stage_ops['dedup']} device "
+                                 f"operations, not 1")
         if "keys_ms" in rec and "keys_input" in stage_ops:
             raise AssertionError(f"{rec['wave']}: the fold route's keys_input ran "
                                  f"{stage_ops['keys_input']} device operations in the graph")
+        off = by_wave.get(f"{rec['wave']}_off")
+        if off is not None:
+            off_ms, off_ops, _off_us = off
+            if "coverage" in stage_ops or sum(stage_ops.values()) != sum(off_ops.values()):
+                raise AssertionError(f"{rec['wave']}: coverage on ran {stage_ops}, coverage off "
+                                     f"{off_ops}")
+            rec["coverage_off_stage_device_ms"] = off_ms
+            rec["coverage_off_stage_device_ops"] = off_ops
+            rec["coverage_epilogue_device_ms"] = (
+                stage_ms["frontier"] + stage_ms["compact"] - off_ms["frontier"]
+                - off_ms["compact"])
+            log(f"  {rec['wave']}: coverage epilogue in the graph "
+                f"{rec['coverage_epilogue_device_ms'] * 1e3:.2f} us a wave (frontier "
+                f"{stage_ms['frontier'] * 1e3:.2f} us, off {off_ms['frontier'] * 1e3:.2f}; "
+                f"compact {stage_ms['compact'] * 1e3:.2f} us, off "
+                f"{off_ms['compact'] * 1e3:.2f}); device operations on "
+                f"{sum(stage_ops.values())}, off {sum(off_ops.values())}")
         log(json.dumps({"stage_record": rec}))
         log(f"  {rec['wave']} in-graph device ms a wave (torch.profiler): " + " ".join(
             f"{st}={ms:.4f}" for st, ms in stage_ms.items())
@@ -2016,23 +2207,27 @@ def stage_device_profile(reps=5):
 
 
 def stage_ab(root, out=None):
-    """The keys stage, the frontier and the compaction alone, for the
-    package of ``root``: the timed waves of this script (a full-width 2pc-8
-    wave, full-width takes of the paxos3, abd3o and raft5 drains, the
-    coverage takes of 2pc-8 and skv4x4); on each, the keys stage and the
-    sort as the chain runs them and the chain on a copy of the table for the
-    sweep's outcome bytes, then timed alone with CUDA events
+    """The keys stage, the frontier, the dedup and the compaction alone,
+    for the package of ``root``: the timed waves of this script (a
+    full-width 2pc-8 wave, full-width takes of the paxos3, abd3o and raft5
+    drains, the coverage takes of 2pc-8 and skv4x4); on each, the keys
+    stage and the sort as the chain runs them and the chain on a copy of the
+    table for the sweep's outcome bytes, then timed alone with CUDA events
     (``_time_on_card``): the compaction (``compact_stage``), the frontier
-    (``frontier_stage``), the keys stage (``comphash_keys_stage`` on actor
-    waves; on fold waves ``route_keys_stage`` over ``keys_input``'s output,
-    and the two together), and last every wave's ``keys_input`` and chain
-    in-graph (``_profile_chains``). These stages keep their Python
+    (``frontier_stage``), the dedup (``dedup_stage``), the keys stage
+    (``comphash_keys_stage`` on actor waves; on fold waves
+    ``route_keys_stage`` over ``keys_input``'s output, and the two
+    together); the dedup alone on the sparse waves of ``_sparse_waves``;
+    and last every wave's ``keys_input`` and chain in-graph
+    (``_profile_chains``, kernels of earlier checkouts included), each
+    coverage wave also with coverage off. These stages keep their Python
     signatures across the checkouts compared, so a parent and a change run
-    the same code around them. Prints one ``{"stage_ab":
-    ...}`` line a wave and appends them to ``out``."""
+    the same code around them. Prints one ``{"stage_ab": ...}`` line a
+    wave and appends them to ``out``."""
     import stateright_tpu_torch
     from stateright_tpu_torch.ops import _build
     from stateright_tpu_torch.ops import fused_wave as fw
+    from stateright_tpu_torch.ops import hashset_kernel as hk
 
     pkg = os.path.dirname(os.path.dirname(os.path.abspath(stateright_tpu_torch.__file__)))
     if pkg != root:
@@ -2049,6 +2244,7 @@ def stage_ab(root, out=None):
     for name, min_unique in (("2pc8", 200_000), ("skv4x4", 2_000_000)):
         cfg = _config(name)
         got = _capture_take(name, min_unique, cfg.spawn["frontier_capacity"])
+        got["spec_off"] = got["spec"]
         got["spec"] = _with_coverage(got["spec"], cfg.make())
         waves[f"{name}_coverage"] = got
 
@@ -2074,8 +2270,10 @@ def stage_ab(root, out=None):
         facc = acc.clone()
         frontier_ms, _ = _time_on_card(lambda mark: fw.frontier_stage(
             spec, cond, cvalid, ebits, depth, depth_cap, facc, mask))
+        dargs = (key, idx, hk._check_capacity(table0), cvalid, A, depth, depth_cap, mask)
+        dedup_ms, _ = _time_on_card(lambda mark: fw.dedup_stage(*dargs))
         rec = {"wave": label, "root": root, "card": card, "B": F * A, "n_new": int(acc[1]),
-               "compact_ms": compact_ms, "frontier_ms": frontier_ms}
+               "compact_ms": compact_ms, "frontier_ms": frontier_ms, "dedup_ms": dedup_ms}
         if spec.keys_route == "comphash":
             rec["comphash_keys_ms"], _ = _time_on_card(lambda mark: fw.comphash_keys_stage(
                 spec.comphash, cand, cvalid, depth, depth_cap, A, None, mask))
@@ -2093,12 +2291,18 @@ def stage_ab(root, out=None):
         chains.append(dict(spec=spec, table0=table0, hi=hi, lo=lo, ebits=ebits, depth=depth,
                            depth_cap=depth_cap, cond=cond, cvalid=cvalid, cand=cand,
                            mask=mask, ant=ant))
-    _sort_ops, stages = _profile_chains(chains)
-    lines = []
+        if ant is not None:
+            recs.append({"wave": f"{label}_off", "root": root, "card": card, "B": F * A})
+            chains.append(dict(chains[-1], spec=got["spec_off"], ant=None))
+    sparse = [{"wave": label, "root": root, "card": card, "B": args[0].shape[0],
+               "dedup_ms": _time_on_card(lambda mark: fw.dedup_stage(*args))[0]}
+              for label, args in _sparse_waves()]
+    _sort_ops, stages = _profile_chains(chains, kernels=EARLIER_STAGE_KERNELS)
     for rec, (stage_ms, stage_ops, op_us) in zip(recs, stages):
         rec.update(stage_device_ms=stage_ms, stage_device_ops=stage_ops, op_device_us=op_us)
-        lines.append(json.dumps({"stage_ab": rec}))
-        log(lines[-1])
+    lines = [json.dumps({"stage_ab": rec}) for rec in recs + sparse]
+    for line in lines:
+        log(line)
     if out:
         with open(out, "a") as f:
             f.write("\n".join(lines) + "\n")
@@ -2108,7 +2312,7 @@ def stage_ab(root, out=None):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stage-ab", action="store_true",
-                    help="time the keys stage, the frontier and the compaction alone "
+                    help="time the keys stage, the frontier, the dedup and the compaction alone "
                          "(see stage_ab)")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                     help="with --stage-ab: the checkout whose package is timed")
@@ -2141,6 +2345,7 @@ def main() -> int:
     build_kernels()
     insert = kernel_vs_plain() if not FAILED else None
     fused = fused_vs_plain() if not FAILED else None
+    sparse = dedup_sparse_vs_plain() if not FAILED else None
     staged = main_path() if not FAILED else None
     fused_run = main_path_fused(staged) if not FAILED else None
     drains = main_path_drain((staged, fused_run)) if not FAILED else None
@@ -2178,9 +2383,12 @@ def main() -> int:
                               {"2pc8": drains, **actor_runs})
     fused_launches = by_path("fused", "fused_wave", {"2pc8": drains, **actor_runs})
     comphash_launches = by_path("fused", "fw_comphash_keys", actor_runs)
-    coverage_launches = by_path("fused", "fw_coverage", {"2pc8": cov_2pc8, "skv4x4": cov_skv})
+    cov_runs = {"2pc8": cov_2pc8, "skv4x4": cov_skv}
+    coverage_launches = by_path("fused", "coverage_epilogue", cov_runs)
+    coverage_fresh_launches = by_path("fused", "coverage_epilogue_fresh", cov_runs)
     main_runs = {"2pc8": drains, **actor_runs, "2pc8_coverage": cov_2pc8, "skv4x4": cov_skv}
     sort_launches = by_path("fused", "fw_sort", main_runs)
+    dedup_launches = by_path("fused", "fw_dedup", main_runs)
     compact_launches = by_path("fused", "fw_compact", main_runs)
     gather_launches = by_path("fused", "fw_gather", main_runs)
     frontier_launches = by_path("fused", "fw_frontier", main_runs)
@@ -2200,7 +2408,7 @@ def main() -> int:
                 "library_ms": None}
 
     library = {"sort": "torch_sort_ms", "gather": "index_select_sum_ms", "compact": None,
-               "frontier": None, "keys": None}
+               "frontier": None, "keys": None, "dedup": "torch_searchsorted_ms"}
 
     def stage_held(kernel, launches):
         return {wave: {"launches": launches[wave_path[wave]],
@@ -2211,6 +2419,7 @@ def main() -> int:
                 for wave, r in stage_waves.items() if f"{kernel}_ms" in r}
 
     rec_2pc8, gather_paxos3 = stage_waves["2pc8"], stage_waves["paxos3"]
+    rec_cov = stage_waves["2pc8_coverage"]
     fold_waves = [r for r in stage_waves.values() if "keys_ms" in r]
 
     log(json.dumps({"kernels": [
@@ -2273,8 +2482,7 @@ def main() -> int:
             "launches_by_path": keys_launches,
             "max_abs_err": max(r["keys_max_abs_err"] for r in fold_waves),
             # The default fold route from the candidate leaves, on the 2pc-8
-            # wave; each fold wave's numbers below (the parent's state_words
-            # copy beside them as state_words_ms).
+            # wave; each fold wave's numbers below.
             "ms": rec_2pc8["keys_ms"],
             "plain_ms": rec_2pc8["keys_plain_ms"],
             "bound_ms": rec_2pc8["keys_bound_ms"],
@@ -2302,20 +2510,56 @@ def main() -> int:
             "by_path": stage_held("frontier", frontier_launches),
         },
         {
-            "name": "fw_coverage",
+            "name": "coverage_epilogue",
             "route": "cuda",
             "source": "stateright_tpu_torch/csrc/fused_wave.cu",
             "replaces": "stateright_tpu/ops/pallas_wave.py:495",
+            # No kernel of its own: fw_frontier adds the frontier half and
+            # fw_compact the fresh half; a launch is a wave that ran both.
             "launches": sum(coverage_launches.values()),
             "launches_by_path": coverage_launches,
+            "launches_fresh_by_path": coverage_fresh_launches,
             "max_abs_err": max(w["max_abs_err"] for w in coverage.values()),
-            # On the 2pc-8 take; the skv4x4 take's numbers below.
-            "ms": coverage["2pc8"]["ms"],
-            "plain_ms": coverage["2pc8"]["plain_ms"],
-            "bound_ms": coverage["2pc8"]["bound_ms"],
+            # On the 2pc-8 take: fw_frontier's and fw_compact's in-graph
+            # ms with coverage on less with it off; the skv4x4 take's below.
+            "ms": rec_cov["coverage_epilogue_device_ms"],
+            "plain_ms": rec_cov["coverage_plain_ms"],
+            "bound_ms": rec_cov["coverage_bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
-            "by_path": {name: held(w, coverage_launches[name]) for name, w in coverage.items()},
+            "by_path": {
+                name: {"launches": coverage_launches[name],
+                       "max_abs_err": r["coverage_max_abs_err"],
+                       "ms": r["coverage_epilogue_device_ms"],
+                       "plain_ms": r["coverage_plain_ms"], "bound_ms": r["coverage_bound_ms"],
+                       "bound_by": "bytes", "library_ms": None,
+                       "alone_ms": r["coverage_alone_ms"]}
+                for name, r in (("2pc8", rec_cov), ("skv4x4", stage_waves["skv4x4_coverage"]))},
+        },
+        {
+            "name": "fw_dedup",
+            "route": "cuda",
+            "source": "stateright_tpu_torch/csrc/fused_wave.cu",
+            "replaces": "stateright_tpu/ops/pallas_wave.py:189",
+            "launches": sum(dedup_launches.values()),
+            "launches_by_path": dedup_launches,
+            "max_abs_err": max([r["dedup_max_abs_err"] for r in stage_waves.values()]
+                               + [r["dedup_max_abs_err"] for r in sparse.values()]),
+            # On the 2pc-8 wave; each timed wave's below, and the sparse
+            # skv4x4-width waves (at most 64 keyed lanes, 16,384 tiles).
+            # The skey[1:] != skey[:-1] pass is in each record as
+            # dedup_neighbours_ms, for context.
+            "ms": rec_2pc8["dedup_ms"],
+            "plain_ms": rec_2pc8["dedup_plain_ms"],
+            "bound_ms": rec_2pc8["dedup_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": rec_2pc8["torch_searchsorted_ms"],
+            "by_path": stage_held("dedup", dedup_launches),
+            "sparse_waves": {label: {"max_abs_err": r["dedup_max_abs_err"], "ms": r["dedup_ms"],
+                                     "plain_ms": r["dedup_plain_ms"],
+                                     "bound_ms": r["dedup_bound_ms"], "bound_by": "bytes",
+                                     "library_ms": r["torch_searchsorted_ms"]}
+                             for label, r in sparse.items()},
         },
         {
             "name": "fw_sort",

@@ -73,14 +73,14 @@ def main() -> int:
     print(f"warm-up run: unique={warm.unique_state_count()} wall={warm_wall:.3f} s", flush=True)
 
     hk.launches = fw.launches = fw.comphash_launches = fw.coverage_launches = 0
-    fw.frontier_launches = fw.keys_launches = 0
+    fw.frontier_launches = fw.keys_launches = fw.dedup_launches = 0
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         checker, wall = run()
     launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
                 "fw_frontier": fw.frontier_launches, "fw_keys": fw.keys_launches,
-                "fw_comphash_keys": fw.comphash_launches,
-                "fw_coverage": fw.coverage_launches}
+                "fw_comphash_keys": fw.comphash_launches, "fw_dedup": fw.dedup_launches,
+                "coverage_epilogue": fw.coverage_launches}
 
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_name = defaultdict(lambda: [0, 0.0])
@@ -152,7 +152,7 @@ def main() -> int:
         "sweep_kernel_ms": sweep_ms,
         "sweep_pass_ms": pass_ms,
         "comphash_kernel_ms": kernel_ms("comphash_keys_kernel"),
-        "coverage_kernel_ms": kernel_ms("coverage_kernel"),
+        "dedup_kernel_ms": kernel_ms("dedup_kernel"),
         "device_busy_ms": busy_us / 1e3,
         "device_span_ms": span_us / 1e3,
         "device_idle_share_of_wall": 1.0 - (busy_us / 1e6) / wall,

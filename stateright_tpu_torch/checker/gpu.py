@@ -58,12 +58,12 @@ scatter layout).
 
 ``coverage=True`` records the JAX package's coverage ledger
 (``telemetry/coverage.py``, ``coverage_report()``): each wave also returns
-its coverage vector (the staged wave reduces it in torch, the fused wave in
-the CUDA stage ``fw_coverage``); wave at a time the host reads it with the
-wave's stats, and a drain adds the consumed waves' vectors on the device,
-under the same ``consume`` gate as its other counters, and reads the sum
-and the final wave's vector in its one read. With coverage off no wave runs
-any of it.
+its coverage vector (the staged wave reduces it in torch, the fused wave
+adds it inside ``fw_frontier`` and ``fw_compact``); wave at a time the host
+reads it with the wave's stats, and a drain adds the consumed waves'
+vectors on the device, under the same ``consume`` gate as its other
+counters, and reads the sum and the final wave's vector in its one read.
+With coverage off no wave runs any of it.
 
 Semantics parity notes (mirrored from the reference): ``eventually`` bits
 propagate along paths and are not part of the fingerprint;
@@ -126,8 +126,9 @@ _GENERATED_CAP = 1 << 30
 # graph adds to at every replay.
 _LAUNCH_COUNTERS = (
     (fw, "launches"), (fw, "frontier_launches"), (fw, "keys_launches"),
-    (fw, "comphash_launches"), (fw, "coverage_launches"),
-    (fw, "sort_launches"), (fw, "compact_launches"), (fw, "gather_launches"),
+    (fw, "comphash_launches"), (fw, "coverage_launches"), (fw, "coverage_fresh_launches"),
+    (fw, "sort_launches"), (fw, "dedup_launches"), (fw, "compact_launches"),
+    (fw, "gather_launches"),
     (hk, "launches"),
 )
 

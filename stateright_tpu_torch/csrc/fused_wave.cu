@@ -48,8 +48,8 @@
 //                before it, orders the tile by digit in shared memory and
 //                writes each digit's keys out as one run;
 //   fw_dedup     first occurrence of each key whose lane is valid (active),
-//                and each table tile's key range by binary search over the
-//                monotone homes;
+//                and each table tile's key range from the run boundaries
+//                of the monotone homes, in one pass over the positions;
 //   fw_sweep     the tile sweep of tile_sweep.cuh, the one the insert
 //                kernel runs (Pallas: probe_claim, shared the same way):
 //                tiles speculated in parallel, an ordered repair of the
@@ -63,8 +63,6 @@
 //                group of lanes a row (a warp for a leaf row of 512 B or
 //                more), coalesced 16-byte units where alignment allows,
 //                over a persistent grid bounded by the device's n_new;
-//   fw_coverage  with coverage on only: the wave's coverage vector
-//                (below);
 //   fw_stats     one block: [generated, n_new, overflow, max_depth,
 //                any_hit] and (hit, hi, lo) per property, as int64.
 //
@@ -117,31 +115,36 @@
 // a launch and a chain of dependent round trips, 7-8 us even on a few
 // tiles).
 //
-// fw_coverage replaces the coverage epilogue of the same Pallas kernel
-// (pallas_wave.py:152-177, the exercise masks in the prologue; :495-507,
-// DeviceCoverage.wave_reduce in the epilogue; the cov output, :538-539,
-// :554-555, :606-633) and computes what telemetry/coverage.py::
-// DeviceCoverage.wave_reduce computes, its plain twin: one int64 vector of
-// 4 + 2A + P + succ_bins + 64 counters (evaluated, terminal, two symmetry
-// slots left 0, per-action fired and fresh counts, per-property exercise
-// counts, the successors-per-state log2 bins, the fresh-per-depth bins).
-// It reads the chain's own scratch: the model stage's valid bits, the
-// frontier's depth and mask (the eval mask and the masked valid bits are
-// recomputed, as fw_frontier and the keys stage compute them, so a masked
-// lane's stale row counts nowhere), the condition and antecedent matrices,
-// ebits_after, the sweep's outcome bytes and the sorted lanes. One launch:
-// the first blocks take one frontier lane a thread (eval, terminal,
-// successor bin, exercise by property kind), the others COV_ITEMS sorted
-// positions a thread (fired by lane % A over the masked valid bits; a fresh
-// position's action idx % A and depth bin min(depth[idx / A] + 1, 63)).
-// Counters gather in shared memory and fold into the zeroed vector with
-// integer atomics, so the result is exact in any order. Bound by bytes:
-// the frontier's depth and mask, each evaluated lane's valid bytes and the
+// The coverage epilogue of the same Pallas kernel (pallas_wave.py:152-177,
+// the exercise masks in the prologue; :495-507, DeviceCoverage.wave_reduce
+// in the epilogue; the cov output, :538-539, :554-555, :606-633) has no
+// kernel of its own: with coverage on, fw_frontier and fw_compact add the
+// wave's coverage vector (telemetry/coverage.py::DeviceCoverage's layout,
+// int64: evaluated, terminal, two symmetry slots left 0, per-action fired
+// and fresh counts, per-property exercise counts, the successors-per-state
+// log2 bins, the fresh-per-depth bins) from what they read anyway. The
+// vector follows the counters in acc, so fw_frontier's one memset zeroes
+// both. fw_frontier adds the frontier half (evaluated, terminal, fired,
+// exercised, successor bins: it already decides the eval mask and the
+// terminal lanes and reads each block's cvalid span, the conditions and
+// ebits), fw_compact the fresh half (a fresh row's action lane % A and its
+// child's depth bin min(depth[parent] + 1, 63): it already loads both).
+// Counters gather in shared memory and fold into the vector with integer
+// atomics, so the result is exact in any order. Bound by bytes: the
+// frontier's depth and mask, each evaluated lane's valid bytes and the
 // condition, antecedent and ebits words its properties read, the outcome
 // byte of each sorted position holding a key, 4 B of idx at each fresh
 // position only, and the vector: about 0.65 MB, 0.2 us at 3.35 TB/s on a
-// full 2pc-8 wave (B = 344,064). It is a single small launch, so launch
-// latency sets its time.
+// full 2pc-8 wave (B = 344,064). A kernel of its own (and its memset) took
+// about 8 us in a graph, set by launch latency; inside the two kernels it
+// costs their extra arithmetic and the antecedent bytes.
+//
+// fw_dedup (the Pallas prologue's uniq/active mask and per-tile starts,
+// pallas_wave.py:189-206) is bound by bytes: each position's 8 B key read
+// and 1 B active written, and the (n_tiles + 1) * 8 B of starts (3.1 MB,
+// 0.93 us at 2pc-8). The starts come from the run boundaries of the sorted
+// homes in the same pass, not from a binary search a tile (log2(B)
+// dependent loads a thread, which bound the former stage by latency).
 //
 // fw_comphash_keys (the Pallas prologue's model fingerprint,
 // pallas_wave.py:180, for a packed actor model) is bound by bytes too: each
@@ -202,7 +205,6 @@
 #define CH_SPAN 128  // lanes a block of comphash_keys_kernel sorts out
 #define CH_GROUP 4   // components a warp sums in one sweep
 #define MAX_CH_CONSTS 8192  // u32 coefficients and seeds in shared memory
-#define COV_ITEMS 4
 #define COV_DEPTH_BINS 64
 #define MAX_COV_WORDS 12288  // 48 KB of u32 counters in shared memory
 
@@ -272,9 +274,29 @@ __device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t v, uint32_t* t
 // reduced in the block, then one atomic each: the first hit is stored as
 // ~lane under atomicMax, so the zeroed acc means "no hit" and one memset
 // resets the whole vector.
+//
+// With COV (coverage on) the kernel also adds the frontier half of the
+// wave's coverage vector (the layout of telemetry/coverage.py::
+// DeviceCoverage; the vector follows acc in one buffer, so the same memset
+// zeroes it): evaluated and terminal lanes, each evaluated lane's
+// successor-count bin and each property's exercised count, and the fired
+// count of every action over the valid candidates of evaluated lanes. It
+// then always reads the block's cvalid span and keeps a copy of its
+// 16-byte units in shared memory; in the same pass it counts each lane's
+// valid candidates (a thread sums a unit's bytes of one lane in a register
+// before one shared atomic). Then a thread an action sums its column of
+// the copy over the evaluated lanes (the fired counts; a shared atomic a
+// byte was slower), the lane counts gather in shared memory by warp sums
+// and a warp match, and a block flushes each non-zero counter with one
+// global atomic.
 #define FRONTIER_THREADS 128
 #define FRONTIER_SPAN 1024
+#define COV_MAX_SUCC_BINS 33  // succ_bins = ceil(log2(A)) + 1 for any int A
+// The frontier half's counters a block gathers: evaluated, terminal, the
+// properties' exercised counts and the successor bins.
+#define COV_FRONT_WORDS (2 + MAX_PROPS + COV_MAX_SUCC_BINS)
 
+template <bool COV>
 __global__ void __launch_bounds__(FRONTIER_THREADS) frontier_kernel(
     int64_t F, int A, int FT, int64_t depth_cap,
     const uint8_t* __restrict__ cond,    // (P, F) 0/1
@@ -282,10 +304,16 @@ __global__ void __launch_bounds__(FRONTIER_THREADS) frontier_kernel(
     const int64_t* __restrict__ depth, const int64_t* __restrict__ ebits,
     const uint8_t* __restrict__ mask,  // (F,) live lanes, or null: all
     int64_t* __restrict__ ebits_after, Props props, int need_terminal,
-    ull* __restrict__ acc) {
+    ull* __restrict__ acc,
+    const uint8_t* __restrict__ ant,  // COV: (P, F) antecedents (all ones but `always`)
+    int succ_bins, ull* __restrict__ cov) {
   __shared__ uint8_t s_any[FRONTIER_THREADS];
   __shared__ uint32_t s_first[MAX_PROPS];
   __shared__ ull s_depth;
+  __shared__ uint32_t s_succ[COV ? FRONTIER_THREADS : 1];  // valid candidates a lane
+  __shared__ uint8_t s_ev[COV ? FRONTIER_THREADS : 1];
+  __shared__ uint32_t s_cov[COV ? COV_FRONT_WORDS : 1];
+  extern __shared__ uint4 s_span[];  // COV: the block's cvalid units
   const int t = threadIdx.x;
   const int64_t f0 = (int64_t)blockIdx.x * FT;
   const int nf = (int)(F - f0 < FT ? F - f0 : FT);
@@ -293,7 +321,7 @@ __global__ void __launch_bounds__(FRONTIER_THREADS) frontier_kernel(
   const bool in = t < nf;
   int64_t dep = 0, eb = 0;
   bool live = false;
-  uint64_t cbits = 0;
+  uint64_t cbits = 0, abits = 0;
   if (in) {
     dep = depth[f];
     eb = ebits[f];
@@ -301,26 +329,54 @@ __global__ void __launch_bounds__(FRONTIER_THREADS) frontier_kernel(
 #pragma unroll 4
     for (int i = 0; i < props.n; ++i) {
       if (cond[(int64_t)i * F + f]) cbits |= 1ull << i;
+      if (COV && props.kind[i] == KIND_ALWAYS && ant[(int64_t)i * F + f]) abits |= 1ull << i;
     }
   }
   s_any[t] = 0;
   if (t < MAX_PROPS) s_first[t] = 0xFFFFFFFFu;
   if (t == 0) s_depth = 0;
+  if constexpr (COV) {
+    s_succ[t] = 0;
+    s_ev[t] = in && live && dep < depth_cap;
+    for (int j = t; j < COV_FRONT_WORDS; j += FRONTIER_THREADS) s_cov[j] = 0u;
+  }
   __syncthreads();
-  if (need_terminal) {
+  if (COV || need_terminal) {
     const uintptr_t s = (uintptr_t)(cvalid + f0 * A);
     const int n = nf * A;
     const uintptr_t a = s & ~(uintptr_t)15;
     const int units = n ? (int)((s + n - a + 15) >> 4) : 0;
     for (int u = t; u < units; u += FRONTIER_THREADS) {
       const uint4 v = __ldg((const uint4*)(a + ((uintptr_t)u << 4)));
+      if (COV) s_span[u] = v;
       if ((v.x | v.y | v.z | v.w) == 0u) continue;
       const uint32_t q[4] = {v.x, v.y, v.z, v.w};
       const int o0 = (int)((int64_t)(a + ((uintptr_t)u << 4)) - (int64_t)s);
+      if constexpr (COV) {
+        // The unit's bytes in order: lane ln, action rem; one division.
+        const int first = o0 > 0 ? o0 : 0;
+        int ln = first / A, rem = first - ln * A;
+        uint32_t run = 0;
 #pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const int o = o0 + k;
-        if (o >= 0 && o < n && ((q[k >> 2] >> ((k & 3) * 8)) & 0xFFu)) s_any[o / A] = 1;
+        for (int k = 0; k < 16; ++k) {
+          const int o = o0 + k;
+          if (o >= 0 && o < n) {
+            if ((q[k >> 2] >> ((k & 3) * 8)) & 0xFFu) ++run;
+            if (++rem == A) {
+              if (run) atomicAdd(&s_succ[ln], run);
+              run = 0;
+              ++ln;
+              rem = 0;
+            }
+          }
+        }
+        if (run) atomicAdd(&s_succ[ln], run);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          const int o = o0 + k;
+          if (o >= 0 && o < n && ((q[k >> 2] >> ((k & 3) * 8)) & 0xFFu)) s_any[o / A] = 1;
+        }
       }
     }
     __syncthreads();
@@ -332,7 +388,41 @@ __global__ void __launch_bounds__(FRONTIER_THREADS) frontier_kernel(
     ebits_after[f] = eb;
   }
   const bool ev = in && live && dep < depth_cap;
-  const bool terminal = ev && !s_any[t];
+  const bool terminal = ev && (COV ? s_succ[t] == 0u : !s_any[t]);
+  if constexpr (COV) {
+    const int lane = t & 31;
+    const unsigned ne = __reduce_add_sync(FULL_MASK, ev ? 1u : 0u);
+    const unsigned nterm = __reduce_add_sync(FULL_MASK, terminal ? 1u : 0u);
+    if (lane == 0) {
+      if (ne) atomicAdd(&s_cov[0], ne);
+      if (nterm) atomicAdd(&s_cov[1], nterm);
+    }
+    // Bin of the successor count: 0 for <= 1, else ceil(log2(succ)).
+    const uint32_t succ = s_succ[t];
+    const int bin = succ <= 1u ? 0 : 32 - __clz(succ - 1u);
+    const unsigned peers = __match_any_sync(FULL_MASK, ev ? bin : -1);
+    if (ev && lane == __ffs(peers) - 1) atomicAdd(&s_cov[2 + MAX_PROPS + bin], __popc(peers));
+    for (int i = 0; i < props.n; ++i) {
+      bool ex;
+      if (props.kind[i] == KIND_ALWAYS) {
+        ex = (abits >> i) & 1;
+      } else if (props.kind[i] == KIND_SOMETIMES) {
+        ex = (cbits >> i) & 1;
+      } else {  // eventually: met = the unmet bit already cleared
+        ex = ((eb >> props.ebit[i]) & 1) == 0;
+      }
+      const unsigned nx = __reduce_add_sync(FULL_MASK, ev && ex ? 1u : 0u);
+      if (lane == 0 && nx) atomicAdd(&s_cov[2 + i], nx);
+    }
+    // Fired: a thread an action sums its column of the span's copy.
+    const uint8_t* span = (const uint8_t*)s_span + ((uintptr_t)(cvalid + f0 * A) & 15);
+    for (int c = t; c < A; c += FRONTIER_THREADS) {
+      uint32_t fired = 0;
+#pragma unroll 8
+      for (int j = 0; j < nf; ++j) fired += s_ev[j] & (span[j * A + c] != 0);
+      if (fired) atomicAdd(&cov[4 + c], (ull)fired);
+    }
+  }
   for (int i = 0; i < props.n; ++i) {
     const bool c = (cbits >> i) & 1;
     bool hit;
@@ -357,6 +447,13 @@ __global__ void __launch_bounds__(FRONTIER_THREADS) frontier_kernel(
   if (t < props.n && s_first[t] != 0xFFFFFFFFu)
     atomicMax(&acc[ACC_FIRST_HIT + t], ~(ull)s_first[t]);
   if (t == 0 && s_depth) atomicMax(&acc[ACC_MAX_DEPTH], s_depth);
+  if constexpr (COV) {
+    const int o_props = 4 + 2 * A, o_succ = o_props + props.n;
+    if (t < 2 && s_cov[t]) atomicAdd(&cov[t], (ull)s_cov[t]);
+    if (t < props.n && s_cov[2 + t]) atomicAdd(&cov[o_props + t], (ull)s_cov[2 + t]);
+    if (t < succ_bins && s_cov[2 + MAX_PROPS + t])
+      atomicAdd(&cov[o_succ + t], (ull)s_cov[2 + MAX_PROPS + t]);
+  }
 }
 
 // -- (b) keys --------------------------------------------------------------
@@ -1107,30 +1204,94 @@ __global__ void __launch_bounds__(THREADS) sort_pass_kernel(
 // ~0 comes only from a valid lane; the first ~0 position may hold a valid
 // lane whose fingerprint is (MAX, MAX) or an invalid lane, so its validity
 // is recomputed as the keys stage computed it.
+//
+// starts[t] is the first sorted position whose home is at or past tile t's
+// first row (the reference's searchsorted, side left; starts[0] = 0).
+// Homes are monotone in the sorted keys (the (MAX, MAX) sentinels home
+// into the last tile), so with tile(i) the tile of position i's home,
+// starts[t] = i for every t in (tile(i - 1), tile(i)], 0 for t <= tile(0)
+// and B for t > tile(B - 1): one pass over the positions writes every
+// entry once, with no search, no race and no memset. A thread takes one
+// position; its predecessor's key comes from a shuffle (a warp's first
+// lane from shared memory, a block's first thread from one more load,
+// issued beside its own). A run of at most DEDUP_RUN_ALONE tiles is filled
+// by its thread; a longer one (a sparse wave: few keys over many tiles)
+// goes to a list in shared memory, whose runs of fewer than DEDUP_RUN_BLOCK
+// tiles the block's warps then fill, a run a warp in turn, and whose longer
+// runs the whole block fills, run by run. A single SM writes most of a
+// sparse wave's starts this way (128 KB at 2^25 rows), and each run in the
+// list costs a round of shared loads, so the warps share the runs out
+// rather than the block taking each in turn.
+#define DEDUP_RUN_ALONE 64
+#define DEDUP_RUN_BLOCK 2048
+
 __global__ void __launch_bounds__(THREADS) dedup_kernel(
     const ull* __restrict__ skey, const uint32_t* __restrict__ sidx, int64_t B, int A,
     const uint8_t* __restrict__ cvalid, const int64_t* __restrict__ depth,
     const uint8_t* __restrict__ mask, int64_t depth_cap, uint8_t* __restrict__ active,
     int64_t* __restrict__ starts, int n_tiles, int cap_bits) {
+  __shared__ ull s_last[THREADS / 32];
+  // The block's long runs: tiles [from, to] start at val (a thread has at
+  // most one, but for the last position's second).
+  __shared__ uint32_t s_from[THREADS + 1], s_to[THREADS + 1], s_val[THREADS + 1];
+  __shared__ uint32_t s_runs;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i < B) {
-    const ull k = skey[i];
-    bool a = i == 0 || k != skey[i - 1];
+  const bool in = i < B;
+  const ull k = in ? skey[i] : ~0ull;
+  const ull k_block = threadIdx.x == 0 && in && i > 0 ? skey[i - 1] : 0ull;
+  ull prev = __shfl_up_sync(FULL_MASK, k, 1);
+  if (lane == 31) s_last[warp] = k;
+  if (threadIdx.x == 0) s_runs = 0u;
+  __syncthreads();
+  if (lane == 0) prev = warp ? s_last[warp - 1] : k_block;
+  const unsigned shift = 32u - (unsigned)cap_bits;
+  // Run 1: tiles [from, to] start at i; run 2 (the last position, or
+  // position 0 of an empty batch): tiles [from2, n_tiles] start at B.
+  int64_t from = 0, to = -1, from2 = 0, to2 = -1;
+  if (in) {
+    bool a = i == 0 || k != prev;
     if (a && k == ~0ull) a = lane_valid(sidx[i], A, cvalid, depth, mask, depth_cap);
     active[i] = a;
-  }
-  if (i <= n_tiles) {
-    // starts[t] = the first sorted position whose home is at or past the
-    // tile's first row (searchsorted, side left); starts[0] = 0.
-    const int64_t bound = i * TILE_ROWS;
-    const unsigned shift = 32u - (unsigned)cap_bits;
-    int64_t lo = 0, hi = i == 0 ? 0 : B;
-    while (lo < hi) {
-      const int64_t mid = (lo + hi) >> 1;
-      const int64_t home = (int64_t)((uint32_t)(skey[mid] >> 32) >> shift);
-      if (home < bound) lo = mid + 1; else hi = mid;
+    const int64_t tile = ((uint32_t)(k >> 32) >> shift) / TILE_ROWS;
+    from = i == 0 ? 0 : (int64_t)(((uint32_t)(prev >> 32) >> shift) / TILE_ROWS) + 1;
+    to = tile;
+    if (i == B - 1) {
+      from2 = tile + 1;
+      to2 = n_tiles;
     }
-    starts[i] = lo;
+  } else if (i == 0) {
+    to2 = n_tiles;
+  }
+  if (to - from < DEDUP_RUN_ALONE) {
+    for (int64_t t = from; t <= to; ++t) starts[t] = i;
+  } else {
+    const uint32_t r = atomicAdd(&s_runs, 1u);
+    s_from[r] = (uint32_t)from;
+    s_to[r] = (uint32_t)to;
+    s_val[r] = (uint32_t)i;
+  }
+  if (to2 - from2 < DEDUP_RUN_ALONE) {
+    for (int64_t t = from2; t <= to2; ++t) starts[t] = B;
+  } else {
+    const uint32_t r = atomicAdd(&s_runs, 1u);
+    s_from[r] = (uint32_t)from2;
+    s_to[r] = (uint32_t)to2;
+    s_val[r] = (uint32_t)B;
+  }
+  __syncthreads();
+  const uint32_t runs = s_runs;
+  for (uint32_t r = 0; r < runs; ++r) {
+    const int f = (int)s_from[r], e = (int)s_to[r];
+    if (e - f < DEDUP_RUN_BLOCK) continue;
+    const int64_t v = s_val[r];
+    for (int t = f + (int)threadIdx.x; t <= e; t += THREADS) starts[t] = v;
+  }
+  for (uint32_t r = warp; r < runs; r += THREADS / 32) {
+    const int f = (int)s_from[r], e = (int)s_to[r];
+    if (e - f >= DEDUP_RUN_BLOCK) continue;
+    const int64_t v = s_val[r];
+    for (int t = f + lane; t <= e; t += 32) starts[t] = v;
   }
 }
 
@@ -1168,6 +1329,14 @@ struct WaveBatch {
 // the fresh keys in sorted order; the block writes its fresh rows to
 // consecutive slots: the per-lane outputs of the slot and the key's lane
 // for the leaf gather. The last tile writes n_new into acc.
+//
+// With COV (coverage on) each fresh row also counts into the fresh half of
+// the wave's coverage vector, which fw_frontier zeroed: its action bin
+// (lane % A) and the depth bin of its child (clamped to COV_DEPTH_BINS - 1).
+// Rows group by a warp match before each shared atomic (a wave's parents
+// mostly share one depth); a block flushes each non-zero bin with one
+// global atomic.
+template <bool COV>
 __global__ void __launch_bounds__(THREADS) compact_kernel(
     const uint8_t* __restrict__ flag, int64_t B, int A, const ull* __restrict__ skey,
     const uint32_t* __restrict__ sidx, const int64_t* __restrict__ ebits_after,
@@ -1176,11 +1345,15 @@ __global__ void __launch_bounds__(THREADS) compact_kernel(
     int64_t* __restrict__ new_lo, int64_t* __restrict__ new_ebits,
     int64_t* __restrict__ new_depth, int64_t* __restrict__ parent_hi,
     int64_t* __restrict__ parent_lo, int64_t* __restrict__ src_out,
-    uint32_t* __restrict__ sc, ull* __restrict__ acc, int64_t nt) {
+    uint32_t* __restrict__ sc, ull* __restrict__ acc, int64_t nt,
+    int cov_size, ull* __restrict__ cov) {
   __shared__ uint16_t s_pos[COMPACT_TILE];
   __shared__ uint32_t s_tile, s_before;
+  extern __shared__ uint32_t s_hist[];  // COV: A action bins, then the depth bins
   const int tid = threadIdx.x;
   if (tid == 0) s_tile = atomicAdd(&sc[0], 1u);
+  if constexpr (COV)
+    for (int j = tid; j < A + COV_DEPTH_BINS; j += THREADS) s_hist[j] = 0u;
   __syncthreads();
   const int64_t t = s_tile;
   const int64_t base = t * COMPACT_TILE;
@@ -1218,11 +1391,12 @@ __global__ void __launch_bounds__(THREADS) compact_kernel(
   // The thread's first row loads while warp 0 looks back.
   ull k = 0ull;
   int64_t src = 0, eb = 0, dp = 0, ph = 0, pl = 0;
+  uint32_t parent = 0;
   if (tid < (int)tot) {
     const int64_t i = base + s_pos[tid];
     k = skey[i];
     src = sidx[i];
-    const int64_t parent = (uint32_t)src / (uint32_t)A;
+    parent = (uint32_t)src / (uint32_t)A;
     eb = ebits_after[parent];
     dp = depth[parent];
     ph = hi[parent];
@@ -1230,25 +1404,49 @@ __global__ void __launch_bounds__(THREADS) compact_kernel(
   }
   __syncthreads();
   const int64_t before = s_before;
-  for (int j = tid; j < (int)tot; j += THREADS) {
-    if (j != tid) {
-      const int64_t i = base + s_pos[j];
-      k = skey[i];
-      src = sidx[i];
-      const int64_t parent = (uint32_t)src / (uint32_t)A;
-      eb = ebits_after[parent];
-      dp = depth[parent];
-      ph = hi[parent];
-      pl = lo[parent];
+  // Every thread runs every round (tot is the block's), so a round's
+  // warp match sees the whole warp.
+  for (int j0 = 0; j0 < (int)tot; j0 += THREADS) {
+    const int j = j0 + tid;
+    const bool has = j < (int)tot;
+    if (has) {
+      if (j != tid) {
+        const int64_t i = base + s_pos[j];
+        k = skey[i];
+        src = sidx[i];
+        parent = (uint32_t)src / (uint32_t)A;
+        eb = ebits_after[parent];
+        dp = depth[parent];
+        ph = hi[parent];
+        pl = lo[parent];
+      }
+      const int64_t pos = before + j;
+      new_hi[pos] = (int64_t)(k >> 32);
+      new_lo[pos] = (int64_t)(k & 0xFFFFFFFFull);
+      new_ebits[pos] = eb;
+      new_depth[pos] = dp + 1;
+      parent_hi[pos] = ph;
+      parent_lo[pos] = pl;
+      src_out[pos] = src;
     }
-    const int64_t pos = before + j;
-    new_hi[pos] = (int64_t)(k >> 32);
-    new_lo[pos] = (int64_t)(k & 0xFFFFFFFFull);
-    new_ebits[pos] = eb;
-    new_depth[pos] = dp + 1;
-    parent_hi[pos] = ph;
-    parent_lo[pos] = pl;
-    src_out[pos] = src;
+    if constexpr (COV) {
+      const int lane = tid & 31;
+      const int act = (int)((uint32_t)src - parent * (uint32_t)A);
+      const int64_t d = dp + 1;
+      const int dbin = d < 0 ? 0 : (d > COV_DEPTH_BINS - 1 ? COV_DEPTH_BINS - 1 : (int)d);
+      const unsigned pa = __match_any_sync(FULL_MASK, has ? act : -1);
+      if (has && lane == __ffs(pa) - 1) atomicAdd(&s_hist[act], __popc(pa));
+      const unsigned pd = __match_any_sync(FULL_MASK, has ? dbin : -1);
+      if (has && lane == __ffs(pd) - 1) atomicAdd(&s_hist[A + dbin], __popc(pd));
+    }
+  }
+  if constexpr (COV) {
+    __syncthreads();
+    const int o_fresh = 4 + A, o_depth = cov_size - COV_DEPTH_BINS;
+    for (int j = tid; j < A + COV_DEPTH_BINS; j += THREADS) {
+      const uint32_t v = s_hist[j];
+      if (v) atomicAdd(&cov[j < A ? o_fresh + j : o_depth + (j - A)], (ull)v);
+    }
   }
 }
 
@@ -1305,81 +1503,6 @@ static int cov_succ_bins(int A) {
   return b + 1;
 }
 
-__global__ void __launch_bounds__(THREADS) coverage_kernel(
-    int64_t F, int A, int64_t depth_cap, const uint8_t* __restrict__ cvalid,
-    const int64_t* __restrict__ depth, const uint8_t* __restrict__ mask,
-    const uint8_t* __restrict__ cond,  // (P, F)
-    const uint8_t* __restrict__ ant,   // (P, F): the antecedent, or all ones
-    const int64_t* __restrict__ ebits_after, Props props,
-    const uint8_t* __restrict__ flag, const uint32_t* __restrict__ sidx, int succ_bins,
-    int size, unsigned f_blocks, ull* __restrict__ cov) {
-  extern __shared__ uint32_t h[];
-  for (int i = threadIdx.x; i < size; i += THREADS) h[i] = 0u;
-  __syncthreads();
-  const int P = props.n;
-  const int o_fresh = 4 + A, o_props = 4 + 2 * A;
-  const int o_succ = o_props + P, o_depth = o_succ + succ_bins;
-  if (blockIdx.x < f_blocks) {
-    // One frontier lane a thread.
-    const int64_t f = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-    unsigned ev = 0, term = 0;
-    if (f < F) {
-      ev = (mask == nullptr || mask[f] != 0) && depth[f] < depth_cap;
-      if (ev) {
-        int succ = 0;
-        const uint8_t* row = cvalid + f * A;
-        for (int a = 0; a < A; ++a) succ += row[a] != 0;
-        term = succ == 0;
-        // Bin of the successor count: 0 for <= 1, else ceil(log2(succ)).
-        atomicAdd(&h[o_succ + (succ <= 1 ? 0 : 32 - __clz(succ - 1))], 1u);
-        const int64_t eb = ebits_after[f];
-        for (int i = 0; i < P; ++i) {
-          bool ex;
-          if (props.kind[i] == KIND_ALWAYS) {
-            ex = ant[(int64_t)i * F + f] != 0;
-          } else if (props.kind[i] == KIND_SOMETIMES) {
-            ex = cond[(int64_t)i * F + f] != 0;
-          } else {  // eventually: met = the unmet bit already cleared
-            ex = ((eb >> props.ebit[i]) & 1) == 0;
-          }
-          if (ex) atomicAdd(&h[o_props + i], 1u);
-        }
-      }
-    }
-    const unsigned ne = __reduce_add_sync(FULL_MASK, ev);
-    const unsigned nt = __reduce_add_sync(FULL_MASK, term);
-    if ((threadIdx.x & 31) == 0) {
-      if (ne) atomicAdd(&h[0], ne);
-      if (nt) atomicAdd(&h[1], nt);
-    }
-  } else {
-    // COV_ITEMS sorted positions a thread, THREADS apart.
-    const int64_t B = F * A;
-    const int64_t base = (int64_t)(blockIdx.x - f_blocks) * THREADS * COV_ITEMS + threadIdx.x;
-#pragma unroll
-    for (int r = 0; r < COV_ITEMS; ++r) {
-      const int64_t i = base + (int64_t)r * THREADS;
-      if (i >= B) break;
-      // Fired: lane i is valid under the eval mask of its frontier lane.
-      const int64_t fl = i / A;
-      if (cvalid[i] != 0 && (mask == nullptr || mask[fl] != 0) && depth[fl] < depth_cap)
-        atomicAdd(&h[4 + (int)(i - fl * A)], 1u);
-      // Fresh: the claim winner at sorted position i, its lane sidx[i].
-      if (flag[i] & FLAG_FRESH) {
-        const int64_t s = sidx[i];
-        const int64_t p = s / A;
-        int64_t d = depth[p] + 1;
-        d = d < 0 ? 0 : (d > COV_DEPTH_BINS - 1 ? COV_DEPTH_BINS - 1 : d);
-        atomicAdd(&h[o_fresh + (int)(s - p * A)], 1u);
-        atomicAdd(&h[o_depth + (int)d], 1u);
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < size; i += THREADS)
-    if (h[i]) atomicAdd(&cov[i], (ull)h[i]);
-}
-
 // -- stats -------------------------------------------------------------------
 
 __global__ void stats_kernel(const ull* __restrict__ acc, int P, int64_t F,
@@ -1417,15 +1540,23 @@ static int last_error(cudaError_t e) {
 }
 
 // mask may be null (every lane live); acc is ACC_FIRST_HIT + P words,
-// zeroed here. *launches_host gets the device operations queued (the
-// memset and the kernel).
+// zeroed here, followed with coverage on (cov_size > 0) by the wave's
+// coverage vector of cov_size = 4 + 2A + P + succ_bins + COV_DEPTH_BINS
+// words, zeroed by the same memset, whose frontier half the kernel adds
+// (ant is then the (P, F) antecedent bytes, the row of a property that is
+// not `always`, or has no antecedent, all ones; null only when empty).
+// *launches_host gets the device operations queued (the memset and the
+// kernel).
 extern "C" int fw_frontier(int64_t F, int A, int64_t depth_cap, const void* cond,
                            const void* cvalid, const void* depth, const void* ebits,
                            const void* mask, void* ebits_after, int P,
                            const void* kind_host, const void* ebit_host, void* acc,
-                           int* launches_host, void* stream) {
+                           const void* ant, int cov_size, int* launches_host, void* stream) {
   *launches_host = 0;
-  if (P < 0 || P > MAX_PROPS || A < 1 || F < 0 || F > (int64_t)0xFFFFFFFE)
+  const int succ_bins = cov_succ_bins(A);
+  if (P < 0 || P > MAX_PROPS || A < 1 || F < 0 || F > (int64_t)0xFFFFFFFE ||
+      (cov_size != 0 && ((ant == nullptr && P > 0 && F > 0) || A > MAX_COV_WORDS ||
+                         cov_size != 4 + 2 * A + P + succ_bins + COV_DEPTH_BINS)))
     return (int)cudaErrorInvalidValue;
   Props props;
   props.n = P;
@@ -1435,17 +1566,27 @@ extern "C" int fw_frontier(int64_t F, int A, int64_t depth_cap, const void* cond
     props.ebit[i] = ((const int*)ebit_host)[i];
     need_terminal |= props.kind[i] == KIND_EVENTUALLY;
   }
-  // Without an eventually property no stage reads the terminal lanes, and
-  // a block takes FRONTIER_THREADS lanes.
+  // Without an eventually property or coverage no stage reads the
+  // candidates' valid bytes here, and a block takes FRONTIER_THREADS lanes.
   int FT = FRONTIER_THREADS;
-  if (need_terminal) FT = FRONTIER_SPAN / A < 1 ? 1 : (FRONTIER_SPAN / A < FT ? FRONTIER_SPAN / A : FT);
+  if (need_terminal || cov_size)
+    FT = FRONTIER_SPAN / A < 1 ? 1 : (FRONTIER_SPAN / A < FT ? FRONTIER_SPAN / A : FT);
   cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e = cudaMemsetAsync(acc, 0, (size_t)(ACC_FIRST_HIT + P) * sizeof(ull), s);
+  const cudaError_t e =
+      cudaMemsetAsync(acc, 0, (size_t)(ACC_FIRST_HIT + P + cov_size) * sizeof(ull), s);
   if (e != cudaSuccess) return (int)e;
-  frontier_kernel<<<blocks_for(F, FT), FRONTIER_THREADS, 0, s>>>(
-      F, A, FT, depth_cap, (const uint8_t*)cond, (const uint8_t*)cvalid,
-      (const int64_t*)depth, (const int64_t*)ebits, (const uint8_t*)mask,
-      (int64_t*)ebits_after, props, need_terminal, (ull*)acc);
+  ull* cov = cov_size ? (ull*)acc + ACC_FIRST_HIT + P : nullptr;
+  if (cov_size)
+    frontier_kernel<true><<<blocks_for(F, FT), FRONTIER_THREADS, ((size_t)FT * A + 47) / 16 * 16, s>>>(
+        F, A, FT, depth_cap, (const uint8_t*)cond, (const uint8_t*)cvalid,
+        (const int64_t*)depth, (const int64_t*)ebits, (const uint8_t*)mask,
+        (int64_t*)ebits_after, props, need_terminal, (ull*)acc, (const uint8_t*)ant,
+        succ_bins, cov);
+  else
+    frontier_kernel<false><<<blocks_for(F, FT), FRONTIER_THREADS, 0, s>>>(
+        F, A, FT, depth_cap, (const uint8_t*)cond, (const uint8_t*)cvalid,
+        (const int64_t*)depth, (const int64_t*)ebits, (const uint8_t*)mask,
+        (int64_t*)ebits_after, props, need_terminal, (ull*)acc, nullptr, succ_bins, nullptr);
   *launches_host = 2;
   return last_error(cudaSuccess);
 }
@@ -1560,12 +1701,16 @@ extern "C" int fw_sort(int64_t n, void* key, void* idx, void* key_tmp, void* idx
   return last_error(cudaSuccess);
 }
 
+// starts is n_tiles + 1 words; one thread a sorted position (one block
+// for an empty batch), so the launch shape depends on B alone.
 extern "C" int fw_dedup(int64_t B, const void* skey, const void* sidx, int A,
                         const void* cvalid, const void* depth, const void* mask,
                         int64_t depth_cap, void* active, void* starts, int n_tiles,
                         int cap_bits, void* stream) {
-  const int64_t n = B > n_tiles + 1 ? B : n_tiles + 1;
-  dedup_kernel<<<blocks_for(n, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
+  if (B < 0 || B > (int64_t)0xFFFFFFFF || A < 1 || n_tiles < 1 || cap_bits < 1 || cap_bits > 32 ||
+      (int64_t)n_tiles * TILE_ROWS != ((int64_t)1 << cap_bits))
+    return (int)cudaErrorInvalidValue;
+  dedup_kernel<<<blocks_for(B, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
       (const ull*)skey, (const uint32_t*)sidx, B, A, (const uint8_t*)cvalid,
       (const int64_t*)depth, (const uint8_t*)mask, depth_cap, (uint8_t*)active,
       (int64_t*)starts, n_tiles, cap_bits);
@@ -1581,26 +1726,39 @@ extern "C" int fw_sweep(void* table, const void* skey, const void* active,
 }
 
 // scratch is 1 + ceil(B / COMPACT_TILE) words (at least 2): the ticket and
-// the tiles' status words, zeroed here. *launches_host gets the device
-// operations queued (the memset and the kernel).
+// the tiles' status words, zeroed here. With coverage on, cov is the
+// wave's coverage vector of cov_size words (fw_frontier zeroed it), whose
+// fresh half the kernel adds; null and 0 with it off. *launches_host gets
+// the device operations queued (the memset and the kernel).
 extern "C" int fw_compact(int64_t B, int A, const void* flag, const void* skey,
                           const void* sidx, const void* ebits_after, const void* depth,
                           const void* hi, const void* lo, void* scratch, void* acc,
                           void* new_hi, void* new_lo, void* new_ebits, void* new_depth,
-                          void* parent_hi, void* parent_lo, void* src_out,
-                          int* launches_host, void* stream) {
+                          void* parent_hi, void* parent_lo, void* src_out, void* cov,
+                          int cov_size, int* launches_host, void* stream) {
   *launches_host = 0;
-  if (B < 0 || B > (int64_t)ST_COUNT || A < 1) return (int)cudaErrorInvalidValue;
+  if (B < 0 || B > (int64_t)ST_COUNT || A < 1 ||
+      (cov != nullptr && (cov_size < 4 + 2 * A + 1 + COV_DEPTH_BINS ||
+                          A + COV_DEPTH_BINS > MAX_COV_WORDS)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned nt = blocks_for(B, COMPACT_TILE);
   const cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)(1 + nt) * sizeof(uint32_t), s);
   if (e != cudaSuccess) return (int)e;
-  compact_kernel<<<nt, THREADS, 0, s>>>(
-      (const uint8_t*)flag, B, A, (const ull*)skey, (const uint32_t*)sidx,
-      (const int64_t*)ebits_after, (const int64_t*)depth, (const int64_t*)hi,
-      (const int64_t*)lo, (int64_t*)new_hi, (int64_t*)new_lo, (int64_t*)new_ebits,
-      (int64_t*)new_depth, (int64_t*)parent_hi, (int64_t*)parent_lo, (int64_t*)src_out,
-      (uint32_t*)scratch, (ull*)acc, (int64_t)nt);
+  if (cov != nullptr)
+    compact_kernel<true><<<nt, THREADS, (size_t)(A + COV_DEPTH_BINS) * sizeof(uint32_t), s>>>(
+        (const uint8_t*)flag, B, A, (const ull*)skey, (const uint32_t*)sidx,
+        (const int64_t*)ebits_after, (const int64_t*)depth, (const int64_t*)hi,
+        (const int64_t*)lo, (int64_t*)new_hi, (int64_t*)new_lo, (int64_t*)new_ebits,
+        (int64_t*)new_depth, (int64_t*)parent_hi, (int64_t*)parent_lo, (int64_t*)src_out,
+        (uint32_t*)scratch, (ull*)acc, (int64_t)nt, cov_size, (ull*)cov);
+  else
+    compact_kernel<false><<<nt, THREADS, 0, s>>>(
+        (const uint8_t*)flag, B, A, (const ull*)skey, (const uint32_t*)sidx,
+        (const int64_t*)ebits_after, (const int64_t*)depth, (const int64_t*)hi,
+        (const int64_t*)lo, (int64_t*)new_hi, (int64_t*)new_lo, (int64_t*)new_ebits,
+        (int64_t*)new_depth, (int64_t*)parent_hi, (int64_t*)parent_lo, (int64_t*)src_out,
+        (uint32_t*)scratch, (ull*)acc, (int64_t)nt, 0, nullptr);
   *launches_host = 2;
   return last_error(cudaSuccess);
 }
@@ -1650,35 +1808,5 @@ extern "C" int fw_stats(int P, int64_t F, const void* acc, const void* hi, const
                                                           (const int64_t*)hi,
                                                           (const int64_t*)lo,
                                                           (int64_t*)stats);
-  return last_error(cudaSuccess);
-}
-
-// cov is size = 4 + 2A + P + succ_bins + 64 int64 words, zeroed here; mask
-// may be null (every lane live); cond and ant are (P, F) bytes, ant's row of
-// a property that is not `always` (or has no antecedent) all ones.
-extern "C" int fw_coverage(int64_t F, int A, int64_t depth_cap, const void* cvalid,
-                           const void* depth, const void* mask, const void* cond,
-                           const void* ant, const void* ebits_after, int P,
-                           const void* kind_host, const void* ebit_host, const void* flag,
-                           const void* sidx, int size, void* cov, void* stream) {
-  const int succ_bins = cov_succ_bins(A);
-  if (P < 0 || P > MAX_PROPS || A < 1 || F < 0 ||
-      size != 4 + 2 * A + P + succ_bins + COV_DEPTH_BINS || size > MAX_COV_WORDS)
-    return (int)cudaErrorInvalidValue;
-  Props props;
-  props.n = P;
-  for (int i = 0; i < P; ++i) {
-    props.kind[i] = ((const int*)kind_host)[i];
-    props.ebit[i] = ((const int*)ebit_host)[i];
-  }
-  cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e = cudaMemsetAsync(cov, 0, (size_t)size * sizeof(ull), s);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned f_blocks = blocks_for(F, THREADS);
-  const unsigned b_blocks = blocks_for(F * (int64_t)A, (int64_t)THREADS * COV_ITEMS);
-  coverage_kernel<<<f_blocks + b_blocks, THREADS, (size_t)size * sizeof(uint32_t), s>>>(
-      F, A, depth_cap, (const uint8_t*)cvalid, (const int64_t*)depth, (const uint8_t*)mask,
-      (const uint8_t*)cond, (const uint8_t*)ant, (const int64_t*)ebits_after, props,
-      (const uint8_t*)flag, (const uint32_t*)sidx, succ_bins, size, f_blocks, (ull*)cov);
   return last_error(cudaSuccess);
 }

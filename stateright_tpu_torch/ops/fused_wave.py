@@ -13,10 +13,10 @@ cannot hold another program's code, so the wave splits in two:
   ``csrc/fused_wave.cu``, launched back to back with no host sync: the
   frontier lanes (eval mask, ``eventually`` bits, terminal lanes, property
   hits), the fingerprints (by the spec's ``keys_route``, below), a stable
-  radix sort of the keys, dedup and
-  tile ranges, the tile sweep shared with the insert kernel
-  (``csrc/tile_sweep.cuh``), compaction of the fresh keys, with coverage
-  on the coverage vector (``fw_coverage``, below), and the stats.
+  radix sort of the keys, dedup and tile ranges, the tile sweep shared
+  with the insert kernel (``csrc/tile_sweep.cuh``), compaction of the
+  fresh keys, and the stats; with coverage on, the frontier and compaction
+  kernels also add the wave's coverage vector (below).
 
 The Pallas kernel fingerprints with the model's own ``fp_fn``
 (``pallas_wave.py:180``). A model takes one of three key routes, chosen once
@@ -48,9 +48,10 @@ order; the rows past ``n_new`` are unspecified. The caller reads
 dict also holds ``cov``, the wave's int64 coverage vector in
 ``telemetry/coverage.py::DeviceCoverage``'s layout: the Pallas kernel's
 coverage epilogue (``pallas_wave.py:152-177``, ``:495-507``), computed by
-``DeviceCoverage.wave_reduce`` in torch on the staged path and by the CUDA
-stage ``fw_coverage`` on the fused path. With coverage off neither the
-model's antecedents nor any coverage stage runs. u32 values ride in int64, as everywhere in
+``DeviceCoverage.wave_reduce`` in torch on the staged path and, on the
+fused path, inside ``fw_frontier`` (the frontier half) and ``fw_compact``
+(the fresh half), with no kernel or memset of its own. With coverage off
+neither the model's antecedents nor any coverage work runs. u32 values ride in int64, as everywhere in
 the port. An optional ``(F,)`` bool ``mask`` marks the live frontier
 lanes (None: all live): the deep drain's fixed-width ring takes carry
 stale rows in their masked lanes, and no stage reads those unmasked.
@@ -92,8 +93,12 @@ __all__ = [
     "comphash_tables",
     "compact_plain",
     "compact_stage",
+    "coverage_fresh_plain",
+    "coverage_frontier_plain",
     "coverage_plain",
     "coverage_stage",
+    "dedup_plain",
+    "dedup_stage",
     "fold_leaves",
     "frontier_plain",
     "frontier_stage",
@@ -118,16 +123,20 @@ __all__ = [
 # ``kernel_chain``), the frontier stages (``fw_frontier``: each queues
 # ``frontier_device_ops`` device operations), the keys stages on the fold
 # route (``fw_keys``) and on the comphash route (``fw_comphash_keys``), the
-# launches of ``fw_coverage``, the sorts (``fw_sort``: each queues
-# ``sort_device_ops`` device operations), the compactions (``fw_compact``:
-# each queues ``compact_device_ops``) and the leaf-gather kernel launches
-# (``fw_gather``: one for every 16 leaves).
+# sorts (``fw_sort``: each queues ``sort_device_ops`` device operations),
+# the dedups (``fw_dedup``), the compactions (``fw_compact``: each queues
+# ``compact_device_ops``), the leaf-gather kernel launches (``fw_gather``:
+# one for every 16 leaves), and the launches of ``fw_frontier`` and of
+# ``fw_compact`` that carry the coverage epilogue (``coverage_launches``
+# and ``coverage_fresh_launches``: one each a wave with coverage on).
 launches = 0
 frontier_launches = 0
 keys_launches = 0
 comphash_launches = 0
 coverage_launches = 0
+coverage_fresh_launches = 0
 sort_launches = 0
+dedup_launches = 0
 compact_launches = 0
 gather_launches = 0
 frontier_device_ops = 0
@@ -233,29 +242,62 @@ def _exercised(spec, cond, ant, eval_mask, ebits_after):
     return out
 
 
-def coverage_plain(spec, cvalid, depth, depth_cap, mask, cond, ant, ebits_after, flag,
-                   idx):
-    """A wave's coverage vector in torch (``DeviceCoverage.wave_reduce``,
-    int64): the staged wave's reduction and the plain twin of
-    ``fw_coverage`` on the same inputs. They are the model stage's valid
-    bits (not yet under the eval mask), the frontier's depth and ``mask``
-    (None: all live), the condition and antecedent matrices,
-    ``ebits_after``, and, in sorted order, the sweep's outcome bytes
-    (fresh = 1; or a bool fresh mask) and each position's lane."""
-    F, A = depth.shape[0], spec.action_count
+def _eval_mask(depth, depth_cap, mask):
     eval_mask = depth < depth_cap
-    if mask is not None:
-        eval_mask = eval_mask & mask
-    valid = cvalid.view(F, A) & eval_mask[:, None]
-    sidx = idx.to(torch.int64)
+    return eval_mask if mask is None else eval_mask & mask
+
+
+def coverage_frontier_plain(spec, cvalid, depth, depth_cap, mask, cond, ant, ebits_after):
+    """The frontier half of a wave's coverage vector, the part
+    ``fw_frontier`` adds: ``DeviceCoverage.wave_reduce`` of the wave's
+    frontier with no fresh lane (evaluated, terminal, fired, exercised,
+    successor bins; the fresh and depth bins 0). The inputs are
+    ``coverage_plain``'s."""
+    F, A = depth.shape[0], spec.action_count
+    eval_mask = _eval_mask(depth, depth_cap, mask)
+    none = torch.zeros(0, dtype=torch.int64, device=depth.device)
     return spec.cov_layout.wave_reduce(
         eval_mask=eval_mask,
-        cvalid=valid,
+        cvalid=cvalid.view(F, A) & eval_mask[:, None],
+        fresh=none.bool(),
+        lane_action=none,
+        new_depth=none,
+        exercised=_exercised(spec, cond, ant, eval_mask, ebits_after),
+    )
+
+
+def coverage_fresh_plain(spec, depth, flag, idx):
+    """The fresh half of a wave's coverage vector, the part ``fw_compact``
+    adds: ``DeviceCoverage.wave_reduce`` of the sorted positions (``flag``,
+    the sweep's outcome bytes, fresh = 1, or a bool fresh mask; ``idx``,
+    each position's lane) over an empty frontier: each fresh lane's action
+    and its child's depth bin, every other counter 0."""
+    A, dev = spec.action_count, depth.device
+    sidx = idx.to(torch.int64)
+    return spec.cov_layout.wave_reduce(
+        eval_mask=torch.zeros(0, dtype=torch.bool, device=dev),
+        cvalid=torch.zeros((0, A), dtype=torch.bool, device=dev),
         fresh=flag if flag.dtype == torch.bool else (flag & 1) != 0,
         lane_action=sidx % A,
         new_depth=depth[sidx // A] + 1,
-        exercised=_exercised(spec, cond, ant, eval_mask, ebits_after),
+        exercised=[torch.zeros(0, dtype=torch.bool, device=dev)] * len(spec.expectations),
     )
+
+
+def coverage_plain(spec, cvalid, depth, depth_cap, mask, cond, ant, ebits_after, flag,
+                   idx):
+    """A wave's coverage vector in torch (``DeviceCoverage.wave_reduce``,
+    int64): the staged wave's reduction and the plain twin of the fused
+    chain's coverage epilogue on the same inputs, the sum of its frontier
+    half (``coverage_frontier_plain``, ``fw_frontier``'s) and its fresh half
+    (``coverage_fresh_plain``, ``fw_compact``'s). The inputs are the model
+    stage's valid bits (not yet under the eval mask), the frontier's depth
+    and ``mask`` (None: all live), the condition and antecedent matrices,
+    ``ebits_after``, and, in sorted order, the sweep's outcome bytes (fresh
+    = 1; or a bool fresh mask) and each position's lane."""
+    return (coverage_frontier_plain(spec, cvalid, depth, depth_cap, mask, cond, ant,
+                                    ebits_after)
+            + coverage_fresh_plain(spec, depth, flag, idx))
 
 
 # -- the plain twin ------------------------------------------------------------
@@ -280,9 +322,7 @@ def _frontier_plain(spec, cond, cvalid, ebits, depth, depth_cap, mask=None):
     bits under the eval mask, and the terminal lanes (evaluated, with no
     valid candidate). ``mask`` marks the live lanes (None: all)."""
     F, A = depth.shape[0], spec.action_count
-    eval_mask = depth < depth_cap
-    if mask is not None:
-        eval_mask = eval_mask & mask
+    eval_mask = _eval_mask(depth, depth_cap, mask)
     ebits_after = ebits
     for pi, b in spec.ebit:
         ebits_after = torch.where(cond[pi], ebits_after & ~(1 << b), ebits_after)
@@ -412,7 +452,8 @@ _c_ptr, _c_int, _c_i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # The C entry points of csrc/fused_wave.cu and their parameter types
 # (c_void_p for every pointer and the stream).
 ARGTYPES = {
-    "fw_frontier": [_c_i64, _c_int, _c_i64] + [_c_ptr] * 6 + [_c_int] + [_c_ptr] * 5,
+    "fw_frontier": [_c_i64, _c_int, _c_i64] + [_c_ptr] * 6 + [_c_int] + [_c_ptr] * 4 + [_c_int]
+    + [_c_ptr] * 2,
     "fw_keys": [_c_i64, _c_int, _c_int] + [_c_ptr] * 6 + [_c_i64] + [_c_ptr] * 4,
     "fw_keys_pairs": [_c_i64, _c_int] + [_c_ptr] * 5 + [_c_i64] + [_c_ptr] * 4,
     "fw_comphash_keys": [_c_i64] + [_c_int] * 8 + [_c_ptr] * 13 + [_c_i64] + [_c_ptr] * 4,
@@ -420,11 +461,9 @@ ARGTYPES = {
     "fw_dedup": [_c_i64, _c_ptr, _c_ptr, _c_int] + [_c_ptr] * 3 + [_c_i64] + [_c_ptr] * 2
     + [_c_int] * 2 + [_c_ptr],
     "fw_sweep": [_c_ptr] * 4 + [_c_i64] + [_c_int] * 2 + [_c_ptr] * 4,
-    "fw_compact": [_c_i64, _c_int] + [_c_ptr] * 18,
+    "fw_compact": [_c_i64, _c_int] + [_c_ptr] * 17 + [_c_int] + [_c_ptr] * 2,
     "fw_gather": [_c_i64, _c_ptr, _c_ptr, _c_int] + [_c_ptr] * 4 + [_c_int] + [_c_ptr] * 2,
     "fw_stats": [_c_int, _c_i64] + [_c_ptr] * 5,
-    "fw_coverage": [_c_i64, _c_int, _c_i64] + [_c_ptr] * 6 + [_c_int] + [_c_ptr] * 4
-    + [_c_int] + [_c_ptr] * 2,
 }
 
 
@@ -465,25 +504,37 @@ def _ptr(x):
     return x.data_ptr() if x is not None else None
 
 
-def frontier_stage(spec, cond, cvalid, ebits, depth, depth_cap, acc, mask=None):
+def frontier_stage(spec, cond, cvalid, ebits, depth, depth_cap, acc, mask=None, ant=None):
     """Stage (a): resets ``acc`` and returns ``ebits_after``; ``acc``
     gathers the max depth of the live lanes (``mask``; None: all) and each
-    property's first hit lane (as ``frontier_plain`` writes them). Launches
-    ``fw_frontier`` (a memset and one kernel, ``frontier_device_ops``) and
+    property's first hit lane (as ``frontier_plain`` writes them). With
+    ``ant`` (coverage on: ``antecedent_stage``'s matrix) ``acc`` holds
+    ``4 + P + spec.cov_layout.size`` words, and its tail, the wave's
+    coverage vector, gets the frontier half (``coverage_frontier_plain``)
+    and counts one ``coverage_launches``. Launches ``fw_frontier`` (a
+    memset of all of ``acc`` and one kernel, ``frontier_device_ops``) and
     counts one ``frontier_launches``."""
-    global frontier_launches, frontier_device_ops
+    global frontier_launches, frontier_device_ops, coverage_launches
 
     F, P = depth.shape[0], len(spec.conditions)
+    cov_size = 0
+    if ant is not None:
+        cov_size = spec.cov_layout.size
+        if acc.shape[0] != 4 + P + cov_size:
+            raise ValueError(f"acc must hold {4 + P + cov_size} words with coverage on, "
+                             f"got {acc.shape[0]}")
     ebit = dict(spec.ebit)
     kinds, kind_p = _host_ints([KINDS[k] for k in spec.expectations])
     bits, bit_p = _host_ints([ebit.get(i, -1) for i in range(P)])
     ebits_after = torch.empty_like(ebits)
     ops = ctypes.c_int(0)
     frontier_launches += 1
+    if ant is not None:
+        coverage_launches += 1
     _call("fw_frontier", F, spec.action_count, int(depth_cap), cond.data_ptr(),
           cvalid.data_ptr(), depth.data_ptr(), ebits.data_ptr(), _ptr(mask),
-          ebits_after.data_ptr(), P, kind_p, bit_p, acc.data_ptr(), ctypes.addressof(ops),
-          _stream(depth))
+          ebits_after.data_ptr(), P, kind_p, bit_p, acc.data_ptr(), _ptr(ant), cov_size,
+          ctypes.addressof(ops), _stream(depth))
     frontier_device_ops = ops.value
     return ebits_after
 
@@ -698,15 +749,46 @@ def sort_stage(key, idx):
     return key, idx
 
 
+def dedup_plain(key, idx, capacity, cvalid, action_count, depth, depth_cap, mask):
+    """The plain twin of ``dedup_stage``, as the reference computes it
+    (``pallas_wave.py:189-206``): ``active``, the first sorted occurrence
+    of each key whose lane ``idx`` is valid (``cvalid``, under ``depth_cap``
+    with ``depth``, live under ``mask``; the reference's ``cvalid[sidx] &
+    uniq``), and the ``(n_tiles + 1,)`` int64 ``starts``, 0 and then each
+    tile's first row searched (side left) among the homes of the sorted
+    keys (int64 bits of u64 values)."""
+    B, n_tiles = key.shape[0], capacity // TILE_ROWS
+    uniq = torch.ones(B, dtype=torch.bool, device=key.device)
+    uniq[1:] = key[1:] != key[:-1]
+    lane = idx.to(torch.int64)
+    parent = lane // action_count
+    valid = cvalid[lane]
+    if mask is not None:
+        valid = valid & mask[parent]
+    if depth is not None:
+        valid = valid & (depth[parent] < depth_cap)
+    homes = ((key >> 32) & 0xFFFFFFFF) >> (32 - (capacity.bit_length() - 1))
+    bounds = torch.arange(n_tiles + 1, dtype=torch.int64, device=key.device) * TILE_ROWS
+    return valid & uniq, torch.searchsorted(homes, bounds)
+
+
 def dedup_stage(key, idx, capacity, cvalid, action_count, depth, depth_cap, mask):
     """Stage (d): ``(active, starts)``: each sorted position holding the
     first occurrence of its key whose lane (``idx``) is valid, as the keys
     stage decides it from ``cvalid``, ``depth`` and ``mask`` (the
     reference's ``cvalid[sidx] & uniq``; ``mask`` None: all live), and the
-    ``(n_tiles + 1,)`` bounds of each tile's keys."""
+    ``(n_tiles + 1,)`` bounds of each tile's keys. On CUDA tensors it
+    launches ``fw_dedup`` (one pass over the positions, the tile bounds
+    from the homes' run boundaries) and counts one ``dedup_launches``; on
+    CPU tensors it runs ``dedup_plain``."""
+    global dedup_launches
+
+    if key.device.type == "cpu":
+        return dedup_plain(key, idx, capacity, cvalid, action_count, depth, depth_cap, mask)
     B, n_tiles = key.shape[0], capacity // TILE_ROWS
     active = torch.empty(B, dtype=torch.bool, device=key.device)
     starts = torch.empty(n_tiles + 1, dtype=torch.int64, device=key.device)
+    dedup_launches += 1
     _call("fw_dedup", B, key.data_ptr(), idx.data_ptr(), action_count, cvalid.data_ptr(),
           _ptr(depth), _ptr(mask), int(depth_cap), active.data_ptr(), starts.data_ptr(),
           n_tiles, capacity.bit_length() - 1, _stream(key))
@@ -755,15 +837,21 @@ def compact_plain(flag, key, idx, action_count, ebits_after, depth, hi, lo):
     return out, fresh.sum()
 
 
-def compact_stage(flag, key, idx, action_count, ebits_after, depth, hi, lo, acc):
+def compact_stage(flag, key, idx, action_count, ebits_after, depth, hi, lo, acc, cov=None):
     """Stage (f): writes ``n_new`` into ``acc`` and returns the B-row
     per-lane outputs and ``src``, each slot's candidate lane (rows past
     ``n_new`` unspecified). On CUDA tensors it launches ``fw_compact`` (a
     memset and one kernel, ``compact_device_ops``) and counts one
-    ``compact_launches``; on CPU tensors it runs ``compact_plain``."""
-    global compact_launches, compact_device_ops
+    ``compact_launches``; with ``cov`` (coverage on: the wave's coverage
+    vector, which ``frontier_stage`` zeroed) the kernel adds its fresh half
+    (``coverage_fresh_plain``) and counts one ``coverage_fresh_launches``.
+    On CPU tensors it runs ``compact_plain`` (and takes no ``cov``)."""
+    global compact_launches, compact_device_ops, coverage_fresh_launches
 
     if flag.device.type == "cpu":
+        if cov is not None:
+            raise ValueError("compact_stage adds coverage on the card only; "
+                             "coverage_fresh_plain is its twin")
         out, n_new = compact_plain(flag, key, idx, action_count, ebits_after, depth, hi, lo)
         acc[1:2].copy_(n_new.view(1))
         return out
@@ -773,12 +861,15 @@ def compact_stage(flag, key, idx, action_count, ebits_after, depth, hi, lo, acc)
     out = {k: torch.empty(B, dtype=torch.int64, device=key.device) for k in _COMPACT_OUTS}
     ops = ctypes.c_int(0)
     compact_launches += 1
+    if cov is not None:
+        coverage_fresh_launches += 1
     _call("fw_compact", B, action_count, flag.data_ptr(), key.data_ptr(),
           idx.data_ptr(), ebits_after.data_ptr(), depth.data_ptr(), hi.data_ptr(),
           lo.data_ptr(), scratch.data_ptr(), acc.data_ptr(), out["hi"].data_ptr(),
           out["lo"].data_ptr(), out["ebits"].data_ptr(), out["depth"].data_ptr(),
           out["parent_hi"].data_ptr(), out["parent_lo"].data_ptr(),
-          out["src"].data_ptr(), ctypes.addressof(ops), _stream(key))
+          out["src"].data_ptr(), _ptr(cov), 0 if cov is None else cov.shape[0],
+          ctypes.addressof(ops), _stream(key))
     compact_device_ops = ops.value
     return out
 
@@ -843,30 +934,14 @@ def gather_stage(src, acc, cand_flat):
 
 def coverage_stage(spec, cvalid, depth, depth_cap, mask, cond, ant, ebits_after, flag,
                    idx):
-    """The coverage vector of a wave (int64, ``spec.cov_layout.size``
-    wide) from the chain's own scratch: the model stage's valid bits, the
-    frontier's depth and ``mask`` (None: all live), the condition and
-    antecedent matrices, ``ebits_after``, and the sweep's outcome bytes
-    and the sorted lanes. On CUDA tensors it launches ``fw_coverage`` and
-    counts one ``coverage_launches``; on CPU tensors it runs
-    ``coverage_plain``."""
-    global coverage_launches
-
-    if flag.device.type == "cpu":
-        return coverage_plain(spec, cvalid, depth, depth_cap, mask, cond, ant,
-                              ebits_after, flag, idx)
-    lay = spec.cov_layout
-    F, P = depth.shape[0], len(spec.conditions)
-    ebit = dict(spec.ebit)
-    kinds, kind_p = _host_ints([KINDS[k] for k in spec.expectations])
-    bits, bit_p = _host_ints([ebit.get(i, -1) for i in range(P)])
-    cov = torch.empty(lay.size, dtype=torch.int64, device=flag.device)
-    coverage_launches += 1
-    _call("fw_coverage", F, spec.action_count, int(depth_cap), cvalid.data_ptr(),
-          depth.data_ptr(), _ptr(mask), cond.data_ptr(), ant.data_ptr(),
-          ebits_after.data_ptr(), P, kind_p, bit_p, flag.data_ptr(), idx.data_ptr(),
-          lay.size, cov.data_ptr(), _stream(flag))
-    return cov
+    """The coverage vector of a wave on CPU tensors: ``coverage_plain``. On
+    the card no stage of its own computes it: ``kernel_chain`` has
+    ``fw_frontier`` and ``fw_compact`` add it, so a CUDA tensor raises."""
+    if flag.device.type != "cpu":
+        raise ValueError("the fused chain's coverage runs inside fw_frontier and fw_compact; "
+                         "coverage_stage takes CPU tensors only")
+    return coverage_plain(spec, cvalid, depth, depth_cap, mask, cond, ant, ebits_after,
+                          flag, idx)
 
 
 def stats_stage(P, acc, hi, lo):
@@ -896,23 +971,33 @@ def kernel_chain(spec, table, hi, lo, ebits, depth, depth_cap, cond, cvalid,
     stream over the model stage's outputs (``model_stage`` and
     ``keys_input``, and with coverage on ``antecedent_stage``'s ``ant``);
     counts one launch. ``mask`` (F,) bool marks the live frontier lanes
-    (None: all). ``mark(name)``, when given, is called before each stage
-    and once after the last (``chip_smoke.py`` records CUDA events there).
-    ``taps``, a dict when given, receives the scratch the coverage stage
-    reads (``ebits_after``, the sweep's ``flag`` and the sorted ``idx``), the
-    sorted ``key`` the compaction reads, and the gather's (``src``,
-    ``acc``).
+    (None: all). With ``spec.cov_layout`` set (coverage on; ``ant`` then
+    required) the wave's coverage vector rides in the counters' buffer,
+    after them: ``fw_frontier`` zeroes it with the counters and adds its
+    frontier half, ``fw_compact`` its fresh half. ``mark(name)``, when
+    given, is called before each stage and once after the last
+    (``chip_smoke.py`` records CUDA events there). ``taps``, a dict when
+    given, receives the scratch the coverage halves read (``ebits_after``,
+    the sweep's ``flag`` and the sorted ``idx``), the sorted ``key`` the
+    dedup and the compaction read, the dedup's ``active`` and ``starts``,
+    the gather's (``src``, ``acc``) and ``cov``.
     Returns ``(table, out)``."""
     global launches
 
     mark = mark or (lambda name: None)
     cap = _check_capacity(table)
     F, A, P = hi.shape[0], spec.action_count, len(spec.conditions)
+    cov_size = 0
+    if spec.cov_layout is not None:
+        if ant is None:
+            raise ValueError("a wave with coverage on needs the antecedent matrix (ant)")
+        cov_size = spec.cov_layout.size
     launches += 1
-    acc = torch.empty(4 + P, dtype=torch.int64, device=table.device)
+    acc = torch.empty(4 + P + cov_size, dtype=torch.int64, device=table.device)
+    cov = acc[4 + P:] if cov_size else None
     mark("frontier")
     ebits_after = frontier_stage(spec, cond, cvalid, ebits, depth, depth_cap, acc,
-                                 mask)
+                                 mask, ant if cov_size else None)
     mark("keys")
     key, idx = route_keys_stage(spec, kin, cand_flat, cvalid, depth, depth_cap, acc,
                                 mask)
@@ -923,15 +1008,10 @@ def kernel_chain(spec, table, hi, lo, ebits, depth, depth_cap, cond, cvalid,
     mark("sweep")
     flag, _scratch = sweep_stage(table, key, active, starts, acc)
     mark("compact")
-    c = compact_stage(flag, key, idx, A, ebits_after, depth, hi, lo, acc)
+    c = compact_stage(flag, key, idx, A, ebits_after, depth, hi, lo, acc, cov)
     if taps is not None:
-        taps.update(ebits_after=ebits_after, flag=flag, key=key, idx=idx, src=c["src"],
-                    acc=acc)
-    cov = None
-    if spec.cov_layout is not None:
-        mark("coverage")
-        cov = coverage_stage(spec, cvalid, depth, depth_cap, mask, cond, ant, ebits_after,
-                             flag, idx)
+        taps.update(ebits_after=ebits_after, flag=flag, key=key, idx=idx, active=active,
+                    starts=starts, src=c["src"], acc=acc, cov=cov)
     mark("gather")
     new_states = gather_stage(c["src"], acc, cand_flat)
     mark("stats")

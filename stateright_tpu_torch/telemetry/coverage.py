@@ -20,9 +20,9 @@ TLC-style coverage questions too:
 
 Each wave reduces these into one integer vector on the device
 (``DeviceCoverage``'s layout): the staged wave in torch
-(``DeviceCoverage.wave_reduce``), the fused wave in the CUDA stage
-``fw_coverage`` (``csrc/fused_wave.cu``), of which ``wave_reduce`` is the
-plain twin. The deep drain adds the consumed waves' vectors on the device
+(``DeviceCoverage.wave_reduce``), the fused wave inside its CUDA kernels
+``fw_frontier`` and ``fw_compact`` (``csrc/fused_wave.cu``), of which
+``wave_reduce`` is the plain twin. The deep drain adds the consumed waves' vectors on the device
 and the host reads the sum in the drain's one read. ``CoverageLedger``
 consumes the vectors at the host exits, records ``<prefix>.coverage.*``
 registry metrics, one cumulative ``<prefix>.coverage`` trace span per

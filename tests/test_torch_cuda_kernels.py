@@ -33,6 +33,11 @@ from stateright_tpu_torch.ops.hashset import MAX_PROBES
 from stateright_tpu_torch.ops.fingerprint import state_words
 from stateright_tpu_torch.testing import SWEEP_CASES, sweep_case, sweep_table, tiles_to_redo
 
+from torch_dedup_cases import A as DEDUP_A
+from torch_dedup_cases import CASES as DEDUP_CASES
+from torch_dedup_cases import DEPTH_CAP as DEDUP_DEPTH_CAP
+from torch_dedup_cases import sorted_wave, wave_lanes
+
 TILE_ROWS = hk.TILE_ROWS
 
 
@@ -1109,6 +1114,72 @@ def test_cuda_comphash_warp_lanes_match_plain_twin(cuda_device, layout, case):
         assert not (pkey[:1000] != -1).any() and n_valid > 0
 
 
+def check_dedup(case, dev, seed=0):
+    """``fw_dedup`` on the card against ``dedup_plain`` on the CPU on one
+    sorted wave of ``torch_dedup_cases``; returns the twin's output."""
+    hi, lo, cvalid, depth, mask, capacity = wave_lanes(case, seed)
+    ins = sorted_wave(hi, lo, cvalid, depth, mask)
+    key, idx, cv, dp, mk = ins
+    A = DEDUP_A
+    want = fw.dedup_plain(key, idx, capacity, cv, A, dp, DEDUP_DEPTH_CAP, mk)
+    on = lambda x: None if x is None else x.to(dev)  # noqa: E731
+    before = fw.dedup_launches
+    got = fw.dedup_stage(*map(on, (key, idx)), capacity, on(cv), A, on(dp), DEDUP_DEPTH_CAP,
+                         on(mk))
+    torch.cuda.synchronize()
+    assert fw.dedup_launches == before + 1
+    assert got[0].dtype == torch.bool and got[1].dtype == torch.int64
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DEDUP_CASES))
+def test_cuda_dedup_matches_plain_twin(cuda_device, case):
+    """``fw_dedup`` (one pass; each tile's start from the run boundaries of
+    the sorted homes, long runs filled by a warp) against ``dedup_plain``:
+    empty tile runs at the start, in the middle and at the end, only
+    sentinels, one keyed lane, keys in the last tile only, a one-tile
+    table, a valid all-ones fingerprint, an empty wave, and sparse waves of
+    skv4x4's width (at most 64 keyed lanes) into a 2^25-row table, spread
+    over its tiles or in one."""
+    active, starts = check_dedup(case, cuda_device)
+    if case.startswith("sparse"):
+        assert 0 < int(active.sum()) <= 64 and starts.shape[0] == (1 << 25) // TILE_ROWS + 1
+
+
+@pytest.mark.cuda
+def test_cuda_dedup_replays_in_a_cuda_graph(cuda_device):
+    """``fw_dedup`` captured once in a CUDA Graph (its launch shape depends
+    on B alone) and replayed over a dense wave and a sparse one of the same
+    width, each equal to ``dedup_plain``."""
+    waves = []
+    for case in ("sparse_64_lanes_2p25", "sparse_one_tile_2p25"):
+        hi, lo, cvalid, depth, mask, capacity = wave_lanes(case, 1)
+        waves.append(sorted_wave(hi, lo, cvalid, depth, mask))
+    hi, lo, cvalid, depth, mask, capacity = wave_lanes("sparse_64_lanes_2p25", 2)
+    cvalid[:] = np.random.default_rng(5).random(cvalid.shape[0]) < 0.5
+    waves.append(sorted_wave(hi, lo, cvalid, depth, mask))
+    A = DEDUP_A
+    key, idx, cv, dp = (x.to(cuda_device) for x in waves[0][:4])
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fw.dedup_stage(key, idx, capacity, cv, A, dp, DEDUP_DEPTH_CAP, None)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        active, starts = fw.dedup_stage(key, idx, capacity, cv, A, dp, DEDUP_DEPTH_CAP, None)
+    for wk, wi, wcv, wdp, _m in waves[::-1]:
+        for dst, src in ((key, wk), (idx, wi), (cv, wcv), (dp, wdp)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = fw.dedup_plain(wk, wi, capacity, wcv, A, wdp, DEDUP_DEPTH_CAP, None)
+        assert torch.equal(active.cpu(), want[0]) and torch.equal(starts.cpu(), want[1])
+
+
 def compact_inputs(n, pattern, dev, seed=0):
     """The compaction's inputs over n sorted positions: outcome bytes
     (fresh = 1, found 2, pending 4, inactive 0) in ``pattern``, random keys
@@ -1218,12 +1289,15 @@ def cov_spec(spec, antecedent=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["full", "masked", "depth_capped", "one_action", "empty"])
 def test_cuda_coverage_stage_matches_plain_twin(cuda_device, case):
-    """``fw_coverage`` inside the fused chain against the plain twin's
-    coverage vector (``DeviceCoverage.wave_reduce`` in ``torch_wave``):
-    in-wave duplicates, terminal lanes, every property kind with an
-    antecedent on the ``always``, masked lanes holding other states, lanes
-    past the depth cap, a single action (one successor bin) and an empty
-    frontier; bit for bit, one launch of the stage a wave."""
+    """The fused chain's coverage vector, which ``fw_frontier`` and
+    ``fw_compact`` add with no stage of their own, against the plain twin's
+    (``coverage_plain``, as ``torch_wave`` computes it): in-wave
+    duplicates, terminal lanes, every property kind with an antecedent on
+    the ``always``, masked lanes holding other states, lanes past the depth
+    cap, a single action (one successor bin) and an empty frontier; bit for
+    bit, against the whole wave's twin and against ``coverage_plain`` on the
+    chain's own scratch; one coverage launch of each kernel a wave, and
+    ``coverage_stage`` refuses a CUDA tensor."""
     actions = 1 if case == "one_action" else 8
     spec = cov_spec(hop_spec(5000, actions=actions, bound=4000),
                     antecedent=lambda st: st["x"] % 3 == 0)
@@ -1239,16 +1313,17 @@ def test_cuda_coverage_stage_matches_plain_twin(cuda_device, case):
     states, cols = hop_frontier(xs, depth, ebits=1)
     table = empty_table(TILE_ROWS * 4)
     dcap = 70 if case == "depth_capped" else 10
-    before = fw.coverage_launches
+    before = (fw.coverage_launches, fw.coverage_fresh_launches, fw.frontier_launches)
     _pt, pout = fw.fused_wave_plain(spec, table_from_numpy(table), states, cols["hi"],
                                     cols["lo"], cols["ebits"], cols["depth"], dcap, mask=mask)
-    _ct, cout = fw.fused_wave(
-        spec, table_from_numpy(table, cuda_device),
-        map_leaves(lambda t: t.to(cuda_device), states),
-        *(cols[k].to(cuda_device) for k in ("hi", "lo", "ebits", "depth")), dcap,
-        mask=None if mask is None else mask.to(cuda_device))
+    dstates = map_leaves(lambda t: t.to(cuda_device), states)
+    dcols = [cols[k].to(cuda_device) for k in ("hi", "lo", "ebits", "depth")]
+    dmask = None if mask is None else mask.to(cuda_device)
+    _ct, cout = fw.fused_wave(spec, table_from_numpy(table, cuda_device), dstates, *dcols,
+                              dcap, mask=dmask)
     torch.cuda.synchronize()
-    assert fw.coverage_launches == before + 1
+    assert (fw.coverage_launches, fw.coverage_fresh_launches, fw.frontier_launches) == tuple(
+        b + 1 for b in before)
     assert cout["cov"].dtype == torch.int64
     assert cout["cov"].cpu().tolist() == pout["cov"].tolist()
     assert cout["stats"].cpu().tolist() == pout["stats"].tolist()
@@ -1256,6 +1331,80 @@ def test_cuda_coverage_stage_matches_plain_twin(cuda_device, case):
     vec = pout["cov"].tolist()
     if F:
         assert vec[0] > 0 and sum(vec[lay.s_fresh]) == pout["stats"].tolist()[1]
+    cond, cvalid, cand = fw.model_stage(spec, dstates, F)
+    ant = fw.antecedent_stage(spec, dstates, F)
+    taps = {}
+    fw.kernel_chain(spec, table_from_numpy(table, cuda_device), *dcols, dcap, cond, cvalid,
+                    fw.keys_input(spec, cand), cand, mask=dmask, ant=ant, taps=taps)
+    args = (spec, cvalid, dcols[3], dcap, dmask, cond, ant, taps["ebits_after"], taps["flag"],
+            taps["idx"])
+    want = fw.coverage_plain(*args)
+    torch.cuda.synchronize()
+    assert taps["cov"].cpu().tolist() == want.cpu().tolist() == vec
+    with pytest.raises(ValueError, match="fw_frontier and fw_compact"):
+        fw.coverage_stage(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("P", [0, 1, fw.MAX_PROPS])
+@pytest.mark.parametrize("A", [1, 42, 125])
+def test_cuda_frontier_coverage_half_matches_plain_twin(cuda_device, A, P, masked):
+    """``fw_frontier`` with coverage on: the counters as with it off
+    (``frontier_plain``) and, in the vector after them (zeroed by the same
+    memset), the frontier half (``coverage_frontier_plain``): evaluated,
+    terminal, fired, exercised and successor bins, the rest 0; still two
+    device operations."""
+    from stateright_tpu_torch.telemetry.coverage import DeviceCoverage
+
+    spec, cond, cvalid, ebits, depth, mask = frontier_inputs(2049, A, P, masked, seed=A + P)
+    spec = dataclasses.replace(spec, cov_layout=DeviceCoverage(A, P))
+    rng = np.random.default_rng(A * P + 1)
+    ant = torch.from_numpy(np.where(
+        np.array([k == "always" for k in spec.expectations], bool)[:, None],
+        rng.random((P, 2049)) < 0.5, True))
+    on = lambda x: None if x is None else x.to(cuda_device)  # noqa: E731
+    pacc = torch.zeros(4 + P, dtype=torch.int64)
+    peb = fw.frontier_plain(spec, cond, cvalid, ebits, depth, 9, pacc, mask)
+    want = fw.coverage_frontier_plain(spec, cvalid, depth, 9, mask, cond, ant, peb)
+    acc = torch.full((4 + P + spec.cov_layout.size,), -5, dtype=torch.int64, device=cuda_device)
+    before = fw.coverage_launches
+    eb = fw.frontier_stage(spec, *map(on, (cond, cvalid, ebits, depth)), 9, acc, on(mask),
+                           on(ant))
+    torch.cuda.synchronize()
+    assert fw.coverage_launches == before + 1 and fw.frontier_device_ops == 2
+    assert torch.equal(eb.cpu(), peb)
+    assert acc[:4 + P].cpu().tolist() == pacc.tolist()
+    assert acc[4 + P:].cpu().tolist() == want.tolist()
+    assert want[0] > 0 and want[1] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["none", "all", "random", "tail"])
+@pytest.mark.parametrize("n", [1, 2049, (1 << 20) + 3])
+def test_cuda_compact_coverage_half_matches_plain_twin(cuda_device, n, pattern):
+    """``fw_compact`` with coverage on: its outputs as with it off
+    (``compact_plain``) and, added to the vector ``fw_frontier`` zeroed, the
+    fresh half (``coverage_fresh_plain``): each fresh row's action bin and
+    its child's depth bin (depths past 63 saturate), the rest untouched."""
+    from stateright_tpu_torch.telemetry.coverage import DeviceCoverage
+
+    args = compact_inputs(n, pattern, cuda_device)
+    flag, _key, idx, A, _eb, depth = args[:6]
+    depth.copy_(torch.from_numpy(np.random.default_rng(n).integers(0, 90, depth.shape[0])))
+    spec = fw.FusedWaveSpec(expand=None, within_boundary=None, conditions=(None,) * 2,
+                            expectations=("always", "sometimes"), ebit=(), action_count=A,
+                            cov_layout=DeviceCoverage(A, 2))
+    cov = torch.zeros(spec.cov_layout.size, dtype=torch.int64, device=cuda_device)
+    acc = torch.full((6,), -1, dtype=torch.int64, device=cuda_device)
+    before = fw.coverage_fresh_launches
+    out = fw.compact_stage(*args, acc, cov)
+    torch.cuda.synchronize()
+    assert fw.coverage_fresh_launches == before + 1 and fw.compact_device_ops == 2
+    got = check_compact(args, acc, out)
+    want = fw.coverage_fresh_plain(spec, depth.cpu(), flag.cpu(), idx.cpu())
+    assert cov.cpu().tolist() == want.tolist()
+    assert int(want[spec.cov_layout.s_fresh].sum()) == got
 
 
 COVERAGE_DRAIN_MODELS = {
@@ -1279,16 +1428,17 @@ def _sharded_kv(*args):
 def test_cuda_coverage_drain_matches_cpu_twin(cuda_device, wave_kernel, case, model):
     """A coverage-on run through the captured drain on the card and the
     uncaptured drain of the CPU twin: equal coverage reports and counts;
-    with the fused wave, every replayed wave launched ``fw_coverage``; the
-    coverage-off run on the card launches no coverage stage and keeps its
-    counts and its launches."""
+    with the fused wave, every replayed wave ran the coverage epilogue in
+    ``fw_frontier`` and ``fw_compact``; the coverage-off run on the card
+    runs no coverage epilogue and keeps its counts and its launches."""
     make, expected = COVERAGE_DRAIN_MODELS[model]
     spawn = dict(DRAIN_CASES[case], wave_kernel=wave_kernel)
-    fw.launches = fw.coverage_launches = 0
+    fw.launches = fw.coverage_launches = fw.coverage_fresh_launches = 0
     gpu = make().checker().spawn_gpu_bfs(device=cuda_device, coverage=True, **spawn).join()
     on_launches, cov_launches = fw.launches, fw.coverage_launches
+    assert fw.coverage_fresh_launches == cov_launches
     cpu = make().checker().spawn_gpu_bfs(device="cpu", coverage=True, **spawn).join()
-    fw.launches = fw.coverage_launches = 0
+    fw.launches = fw.coverage_launches = fw.coverage_fresh_launches = 0
     off = make().checker().spawn_gpu_bfs(device=cuda_device, **spawn).join()
     assert gpu.worker_error() is None, gpu.worker_error()
     assert gpu.coverage_report() == cpu.coverage_report()
@@ -1301,7 +1451,7 @@ def test_cuda_coverage_drain_matches_cpu_twin(cuda_device, wave_kernel, case, mo
         assert gpu.state_count() == c.state_count()
         assert gpu.max_depth() == c.max_depth()
         assert gpu.drains == c.drains and gpu.waves == c.waves
-    assert fw.coverage_launches == 0
+    assert fw.coverage_launches == fw.coverage_fresh_launches == 0
     if wave_kernel == "fused":
         assert cov_launches == on_launches == fw.launches > 0
     else:
