@@ -31,9 +31,15 @@ stage and the chain held against their twins on a full-width wave of raft
 with 5 servers (256,000 lanes: no history, timers, drops), and the insert
 kernel on that wave's keys; raft5 on a lossy network until its ``stable
 leader`` counterexample, the time to it (``ttc_s``) and the unique count at
-the exit, the path replayed on the host; raft with 4 servers, lossy (24,545
-states, timers, drops); and small paxos, single-copy, ordered ABD and
-raft-with-a-crash runs on the card against the CPU twin. Then coverage
+the exit, the path replayed on the host, staged with the fingerprint-only wave
+(the default for actor models), fused, and staged with ``expand_fps=False``
+in the same call; raft with 4 servers, lossy (24,545 states, timers,
+drops); the fingerprint-only expansion against the materializing one on
+full-width waves of paxos3, abd3o, raft5 and raft4 (``fps_vs_materialize``:
+fingerprints, validity and ``packed_take`` to ``max_abs_err`` 0, and both
+staged waves timed, with their peak device bytes); and small paxos,
+single-copy, ordered ABD and raft-with-a-crash runs on the card against the
+CPU twin. The actor models' staged runs take the fingerprint-only wave. Then coverage
 (``spawn_gpu_bfs(coverage=True)``): the coverage epilogue, which
 ``fw_frontier`` and ``fw_compact`` add with no kernel of their own, and the
 whole chain with coverage on held against their plain twins on
@@ -46,7 +52,8 @@ coverage runs on the card against the CPU twin. On every timed wave
 fused sort (``fw_sort``) is held to a stable ``torch.sort`` of the wave's
 keys, the dedup (``fw_dedup``) to ``dedup_plain`` on the chain's own
 sorted keys (``active`` and the tile ``starts``), the compaction
-(``fw_compact``) to ``compact_plain``, the leaf gather (``fw_gather``) to
+(``fw_compact``) to ``compact_plain`` and the stats vector it
+writes to the plain wave's ``_stats``, the leaf gather (``fw_gather``) to
 ``x[src]`` over the chain's own compaction, the frontier (``fw_frontier``)
 to ``frontier_plain`` and, on the fold route's waves, the keys stage
 (``fw_keys``, reading the candidate leaves in place) to ``keys_plain`` over
@@ -623,8 +630,25 @@ def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cval
 
     MIN = -(1 << 63)
     work, taps = table0.clone(), {}
-    fw.kernel_chain(spec, work, hi, lo, ebits, depth, depth_cap, cond, cvalid, kin, cand,
-                    mask=mask, ant=ant, taps=taps)
+    _t, chain_out = fw.kernel_chain(spec, work, hi, lo, ebits, depth, depth_cap, cond, cvalid,
+                                    kin, cand, mask=mask, ant=ant, taps=taps)
+    # The stats vector fw_compact wrote, against the plain
+    # wave's _stats over the chain's own sweep outcome.
+    eval_mask, _eb, valid, terminal = fw._frontier_plain(spec, cond, cvalid, ebits, depth,
+                                                         depth_cap, mask)
+    want_stats = fw._stats(spec, cond, eval_mask, terminal, taps["ebits_after"], hi, lo, depth,
+                           valid.sum(), (taps["flag"] & 1) != 0, (taps["flag"] & 4) != 0, mask)
+    stats_err = _max_abs_err([(want_stats.cpu(), chain_out["stats"])])
+    stats_plain_ms, _ = _time_on_card(lambda mark: fw._stats(
+        spec, cond, eval_mask, terminal, taps["ebits_after"], hi, lo, depth, valid.sum(),
+        (taps["flag"] & 1) != 0, (taps["flag"] & 4) != 0, mask))
+    # The stats' bound: the counters read, each hit's (hi, lo) read, the
+    # vector written.
+    P = len(spec.conditions)
+    stats_bytes = (4 + P) * 8 + 2 * P * 8 + (5 + 3 * P) * 8
+    if stats_err:
+        raise AssertionError(f"{label}: fw_compact's stats vector and _stats disagree: "
+                             f"{chain_out['stats'].tolist()} != {want_stats.tolist()}")
     key0, idx0 = fw.route_keys_stage(spec, kin, cand, cvalid, depth, depth_cap, None, mask)
     B = key0.shape[0]
     n_live = int((key0 != -1).sum())
@@ -666,6 +690,14 @@ def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cval
 
     src, acc = taps["src"], taps["acc"]
     n_new = int(acc[1])
+    # The sweep's bound: the sorted keys (8 B), active bytes and tile
+    # starts read, the distinct table rows its probes read, and the outcome
+    # bytes and claimed rows written.
+    from stateright_tpu_torch.interop import table_to_numpy
+
+    act_keys = taps["key"][taps["active"]].cpu().numpy().view(np.uint64)
+    probed = _probed_rows(table_to_numpy(work), act_keys)
+    sweep_bytes = (B * 8 + B + taps["starts"].shape[0] * 8 + probed * 8 + B + n_new * 8)
     cargs = (taps["flag"], taps["key"], taps["idx"], A, taps["ebits_after"], depth, hi, lo)
     cacc = torch.zeros_like(acc)
     got_c = fw.compact_stage(*cargs, cacc)
@@ -754,7 +786,11 @@ def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cval
         "compact_ms": compact_ms, "compact_plain_ms": compact_plain_ms,
         "torch_nonzero_ms": nonzero_ms, "compact_bound_bytes": compact_bytes,
         "compact_bound_ms": compact_bytes / HBM_BYTES_PER_S * 1e3,
-        "compact_max_abs_err": compact_err,
+        "compact_max_abs_err": compact_err, "stats_max_abs_err": stats_err,
+        "stats_plain_ms": stats_plain_ms, "stats_bound_bytes": stats_bytes,
+        "stats_bound_ms": stats_bytes / HBM_BYTES_PER_S * 1e3,
+        "sweep_probed_rows": probed, "sweep_bound_bytes": sweep_bytes,
+        "sweep_bound_ms": sweep_bytes / HBM_BYTES_PER_S * 1e3,
         "frontier_ms": frontier_ms, "frontier_plain_ms": frontier_plain_ms,
         "frontier_bound_bytes": frontier_bytes,
         "frontier_bound_ms": frontier_bytes / HBM_BYTES_PER_S * 1e3,
@@ -1329,6 +1365,7 @@ def _comphash_wave(label, got):
         f"model stage (torch) {model_ms:.3f} ms")
     rec = _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cvalid,
                             None, cand, mask=mask, stage_ms=stage_ms, chain_ms=chain_ms)
+    _keep_fps_wave(label, got)
     return {"max_abs_err": max(err, chain_err), "keys_err": err, "chain_err": chain_err,
             "ms": ms, "plain_ms": twin_ms, "bound_ms": bound_ms, "waves": {label: rec}}
 
@@ -1400,11 +1437,179 @@ def comphash_raft5_vs_plain():
     return res
 
 
-def _drive(name, wave_kernel):
+# The frontiers and tables of the actor waves taken from the drains (on the
+# host), for fps_vs_materialize.
+FPS_WAVES = {}
+
+
+def _keep_fps_wave(label, got):
+    from stateright_tpu_torch.core.batch import map_leaves
+
+    host = lambda x: None if x is None else x.cpu()  # noqa: E731
+    FPS_WAVES[label] = {"spec": got["spec"], "depth_cap": got["depth_cap"],
+                        "table": got["table"].cpu(),
+                        "frontier": map_leaves(host, got["frontier"])}
+
+
+def _peak_bytes(fn):
+    """The device bytes ``fn`` allocates at its peak above what was held
+    before it."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _graph_ms(fn, reset):
+    """Median device ms of a replay of ``fn`` captured in a CUDA Graph,
+    ``reset`` before each replay (outside the timing)."""
+    import torch
+
+    reset()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms, _ = _time_on_card(lambda mark: graph.replay(), reset=reset)
+    del graph
+    return ms
+
+
+def _fps_wave(label, w):
+    """The fingerprint-only expansion against the materializing one on a
+    wave taken from a drain (its live lanes masked in): ``packed_expand_fps``
+    against ``packed_fingerprint`` of the ``model_stage`` candidates and
+    their validity, and ``packed_take`` of every valid lane against its
+    candidate, each to ``max_abs_err`` 0; the staged wave both ways on
+    copies of the table (``torch_wave_fps`` and the take of its fresh
+    lanes against ``torch_wave``: the same stats, table and fresh rows).
+    Times (CUDA events): the materializing model stage, with and without
+    the candidates' torch fingerprints; ``packed_expand_fps``; the take of
+    the wave's fresh lanes and of the drain's take width; each staged wave,
+    called and replayed from a CUDA Graph as the drain runs it; and the
+    peak device bytes of each staged wave."""
+    import dataclasses
+
+    import torch
+
+    from stateright_tpu_torch.checker.gpu import take_width
+    from stateright_tpu_torch.core.batch import leaves, map_leaves
+    from stateright_tpu_torch.ops import fused_wave as fw
+
+    dev = lambda x: None if x is None else x.cuda()  # noqa: E731
+    spec, depth_cap = w["spec"], w["depth_cap"]
+    front, table0 = map_leaves(dev, w["frontier"]), w["table"].cuda()
+    model = spec.expand.__self__
+    fps = dataclasses.replace(spec, expand_fps=model.packed_expand_fps, take=model.packed_take)
+    states, mask = front["states"], front["mask"]
+    hi, lo, ebits, depth = (front[k] for k in ("hi", "lo", "ebits", "depth"))
+    F, A = hi.shape[0], spec.action_count
+    B, S = F * A, take_width(F, A)
+
+    cond, cvalid, cand = fw.model_stage(spec, states, F)
+    chi, clo = spec.fingerprint(cand)
+    fhi, flo, fvalid = model.packed_expand_fps(states)
+    fhi, flo, fvalid = fhi.reshape(B), flo.reshape(B), fvalid.reshape(B)
+    valid_err = int((fvalid != cvalid).sum())
+    fp_err = _max_abs_err([(chi[cvalid].cpu(), fhi[cvalid]), (clo[cvalid].cpu(), flo[cvalid])])
+    lanes = cvalid.nonzero().squeeze(1)
+    taken = fw.take_children(fps, states, lanes)
+    take_err = _max_abs_err([(cand[k][lanes].cpu(), taken[k]) for k in cand])
+
+    work_f, work_m = table0.clone(), table0.clone()
+    _t, out = fw.torch_wave_fps(fps, work_f, states, hi, lo, ebits, depth, depth_cap, mask)
+    _t, mout = fw.torch_wave(spec, work_m, states, hi, lo, ebits, depth, depth_cap, mask)
+    n_new = int(out["stats"][1])
+    src = out["new"]["src"][:n_new]
+    fresh_rows = fw.take_children(fps, states, src)
+    wave_err = _max_abs_err(
+        [(mout["stats"].cpu(), out["stats"]), (work_m.cpu(), work_f)]
+        + [(mout["new"][k][:n_new].cpu(), out["new"][k][:n_new])
+           for k in ("hi", "lo", "ebits", "depth")]
+        + [(x[:n_new].cpu(), y) for x, y in zip(leaves(mout["new"]["states"]),
+                                                leaves(fresh_rows))])
+    err = max(valid_err, fp_err, take_err, wave_err)
+    log(f"  fps_vs_materialize ({label}): F={F} B={B} valid lanes={lanes.numel()} "
+        f"n_new={n_new} take width={S} max_abs_err={err} (validity {valid_err}, "
+        f"fingerprints {fp_err}, take {take_err}, wave {wave_err})")
+    if err:
+        raise AssertionError(f"{label}: the fps expansion and the materializing one disagree")
+    if not lanes.numel() or not n_new:
+        raise AssertionError(f"{label}: the wave has no valid or no fresh lane")
+
+    reset = lambda: work_f.copy_(table0)  # noqa: E731
+    model_ms, _ = _time_on_card(lambda mark: fw.model_stage(spec, states, F))
+    materialize_ms, _ = _time_on_card(
+        lambda mark: spec.fingerprint(fw.model_stage(spec, states, F)[2]))
+    fps_ms, _ = _time_on_card(lambda mark: model.packed_expand_fps(states))
+    take_ms, _ = _time_on_card(lambda mark: fw.take_children(fps, states, src))
+    take_width_ms, _ = _time_on_card(
+        lambda mark: fw.take_children(fps, states, out["new"]["src"][:S]))
+    staged_ms, _ = _time_on_card(lambda mark: fw.torch_wave(
+        spec, work_f, states, hi, lo, ebits, depth, depth_cap, mask), reps=5, reset=reset)
+    def fps_wave_and_take():
+        _t, fout = fw.torch_wave_fps(fps, work_f, states, hi, lo, ebits, depth, depth_cap,
+                                     mask)
+        return fw.take_children(fps, states, fout["new"]["src"][:S])
+
+    staged_fps_ms, _ = _time_on_card(lambda mark: fps_wave_and_take(), reps=5, reset=reset)
+    # Each staged wave as the drain runs it, captured in a CUDA Graph and
+    # replayed: device time with no host launches.
+    staged_graph_ms = _graph_ms(lambda: fw.torch_wave(
+        spec, work_f, states, hi, lo, ebits, depth, depth_cap, mask), reset)
+    fps_graph_ms = _graph_ms(fps_wave_and_take, reset)
+    fps_only_graph_ms = _graph_ms(lambda: fw.torch_wave_fps(
+        fps, work_f, states, hi, lo, ebits, depth, depth_cap, mask), reset)
+    reset()
+    staged_peak = _peak_bytes(lambda: fw.torch_wave(
+        spec, work_f, states, hi, lo, ebits, depth, depth_cap, mask))
+    reset()
+    fps_peak = _peak_bytes(fps_wave_and_take)
+    rec = {"wave": label, "F": F, "B": B, "valid_lanes": lanes.numel(), "n_new": n_new,
+           "take_width": S, "max_abs_err": err,
+           "model_stage_torch_ms": model_ms, "materialize_fingerprint_ms": materialize_ms,
+           "expand_fps_ms": fps_ms, "take_fresh_ms": take_ms, "take_width_ms": take_width_ms,
+           "staged_wave_ms": staged_ms, "staged_fps_wave_and_take_ms": staged_fps_ms,
+           "staged_wave_graph_ms": staged_graph_ms, "fps_wave_graph_ms": fps_only_graph_ms,
+           "fps_wave_and_take_graph_ms": fps_graph_ms,
+           "staged_wave_peak_bytes": staged_peak, "staged_fps_wave_peak_bytes": fps_peak}
+    log(json.dumps({"fps_vs_materialize": rec}))
+    log(f"  {label}: model stage {model_ms:.3f} ms (+ fingerprints {materialize_ms:.3f}) vs "
+        f"packed_expand_fps {fps_ms:.3f} ms; take of {n_new} fresh {take_ms:.3f} ms, of {S} "
+        f"{take_width_ms:.3f} ms; staged wave {staged_ms:.3f} ms vs fps wave + take "
+        f"{staged_fps_ms:.3f} ms (in a graph {staged_graph_ms:.3f} vs {fps_graph_ms:.3f} ms, "
+        f"the fps wave alone {fps_only_graph_ms:.3f}); peak {staged_peak} vs {fps_peak} B")
+    return rec
+
+
+@phase("fps_vs_materialize")
+def fps_vs_materialize():
+    """The fingerprint-only expansion on a full-width wave of paxos3, abd3o
+    and raft5 taken from the fused drains (kept by the comphash phases) and
+    of raft4, against the materializing expansion: ``_fps_wave``."""
+    got = _capture_take("raft4", 4_000, _config("raft4").spawn["frontier_capacity"])
+    _keep_fps_wave("raft4", got)
+    del got
+    res = {}
+    for label in ("paxos3", "abd3o", "raft5", "raft4"):
+        res[label] = _fps_wave(label, FPS_WAVES.pop(label))
+    return res
+
+
+def _drive(name, wave_kernel, expand_fps=None):
     """Drives the configuration ``name`` through ``spawn_gpu_bfs`` and the
-    deep drain, every kernel count set to 0 just before and read just
-    after; returns the model, the checker and the run's numbers (``wall_s`` from spawn to the end of
-    ``join()``, the kernels already built)."""
+    deep drain (``expand_fps`` as given: None is the default, the
+    fingerprint-only wave on a staged actor run), every kernel count set to
+    0 just before and read just after; returns the model, the checker and
+    the run's numbers (``wall_s`` from spawn to the end of ``join()``, the
+    kernels already built; ``use_fps``; the drains' exits, ``take full``
+    among them; the children the host made, ``host_take_rows``, and the
+    device's take width a rung)."""
     import torch
 
     from stateright_tpu_torch.ops import fused_wave as fw
@@ -1422,7 +1627,8 @@ def _drive(name, wave_kernel):
     fw.sort_launches = fw.compact_launches = fw.gather_launches = 0
     fw.frontier_launches = fw.keys_launches = fw.dedup_launches = 0
     t0 = time.perf_counter()
-    checker = model.checker().spawn_gpu_bfs(wave_kernel=wave_kernel, **cfg.spawn).join()
+    checker = model.checker().spawn_gpu_bfs(wave_kernel=wave_kernel, expand_fps=expand_fps,
+                                            **cfg.spawn).join()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
@@ -1433,19 +1639,30 @@ def _drive(name, wave_kernel):
     _check_sort_gather_launches(launches)
     peak = torch.cuda.max_memory_allocated()
     unique = checker.unique_state_count()
-    log(f"  {name} ({wave_kernel}, drain): unique={unique} states={checker.state_count()} "
+    from stateright_tpu_torch.checker.gpu import take_width
+
+    takes = ({w: take_width(w, model.packed_action_count()) for w in checker.rungs}
+             if checker._use_fps else {})
+    label = f"{wave_kernel}, fps" if checker._use_fps else wave_kernel
+    log(f"  {name} ({label}, drain): unique={unique} states={checker.state_count()} "
         f"depth={checker.max_depth()} wall={wall:.3f} s unique_states_per_s={unique / wall:.0f} "
         f"waves={checker.waves} noop_waves={checker.noop_waves} "
         f"warmup_waves={checker.warmup_waves} drains={checker.drains} "
         f"exits={dict(checker.drain_exits)} rungs={dict(checker.rungs)} "
         f"graph_captures={checker.graph_captures} graph_replays={checker.graph_replays} "
+        f"capture_s={checker.capture_s:.3f} "
         f"table_growths={checker.table_growths} table_capacity={checker.table_capacity()} "
-        f"launches={launches} peak_device_bytes={peak} keys_route={checker.keys_route}")
+        f"launches={launches} peak_device_bytes={peak} keys_route={checker.keys_route} "
+        f"use_fps={checker._use_fps} take_width={takes} max_fresh={checker.max_fresh} "
+        f"take_full_exits={checker.drain_exits.get('take full', 0)} "
+        f"host_takes={checker.host_takes} host_take_rows={checker.host_take_rows}")
     assert checker.device.type == "cuda" and checker.drains > 0
     assert checker.worker_error() is None, checker.worker_error()
     assert checker.keys_route == "comphash", checker.keys_route
     if cfg.unique is not None:
         assert unique == cfg.unique, unique
+    assert checker._use_fps is (wave_kernel == "staged" and expand_fps is not False), (
+        checker._use_fps)
     n = launches
     if wave_kernel == "staged":
         assert n["hashset_insert_sorted"] >= checker.waves > 0, n
@@ -1456,9 +1673,13 @@ def _drive(name, wave_kernel):
         assert n["hashset_insert_sorted"] >= 1, n  # the seed
     run = {"launches": launches, "wall_s": wall, "waves": checker.waves,
            "noop_waves": checker.noop_waves, "drains": checker.drains,
+           "graph_captures": checker.graph_captures, "capture_s": checker.capture_s,
            "exits": dict(checker.drain_exits), "unique": unique,
            "state_count": checker.state_count(), "max_depth": checker.max_depth(),
-           "peak_device_bytes": peak}
+           "peak_device_bytes": peak, "use_fps": checker._use_fps,
+           "take_width": takes, "max_fresh": checker.max_fresh,
+           "take_full_exits": checker.drain_exits.get("take full", 0),
+           "host_takes": checker.host_takes, "host_take_rows": checker.host_take_rows}
     return model, checker, run
 
 
@@ -1527,21 +1748,29 @@ def main_path_abd3o():
 def main_path_raft5_ttc():
     """Raft with 5 servers on a lossy network, only ``stable leader``
     kept: the time from spawn to its discovery (``ttc_s``), the unique
-    count at the exit, and the counterexample replayed on the host."""
+    count at the exit, and the counterexample replayed on the host; staged
+    with the fingerprint-only wave (the default), fused, and staged with
+    ``expand_fps=False`` (the materializing wave), in this one call."""
     runs = {}
-    for wave_kernel in ("staged", "fused"):
-        model, checker, run = _drive("raft5_ttc", wave_kernel)
+    for key, wave_kernel, fps in (("staged", "staged", None), ("fused", "fused", None),
+                                  ("staged_materialize", "staged", False)):
+        model, checker, run = _drive("raft5_ttc", wave_kernel, expand_fps=fps)
         assert set(checker.discoveries()) == {"stable leader"}, checker.discoveries()
         path = checker.discoveries()["stable leader"]
         steps = _stuck_without_leader(model, path)
         run["ttc_s"] = run["wall_s"]
-        log(f"  raft5 ({wave_kernel}): ttc_s={run['ttc_s']:.3f} unique at exit={run['unique']} "
+        log(f"  raft5 ({key}): ttc_s={run['ttc_s']:.3f} unique at exit={run['unique']} "
             f"(the JAX package's CPU runs: {RAFT5_JAX_CPU_UNIQUE_AT_EXIT}) drains={run['drains']} "
             f"exits={run['exits']} waves={run['waves']} noop_waves={run['noop_waves']} "
             f"peak_device_bytes={run['peak_device_bytes']}; stable leader path of {steps} "
             f"actions replayed on the host: no live leader, nothing enabled within the "
             f"boundary")
-        runs[wave_kernel] = run
+        runs[key] = run
+    log(json.dumps({"raft5_ttc_within_call": {
+        k: {f: r[f] for f in ("ttc_s", "unique", "waves", "drains", "exits", "use_fps",
+                              "peak_device_bytes", "host_take_rows", "graph_captures",
+                              "capture_s")}
+        for k, r in runs.items()}}))
     return runs
 
 
@@ -1830,6 +2059,7 @@ def _drive_coverage(name, wave_kernel, coverage=True):
         assert n["fused_wave"] >= checker.waves > 0, n
     run = {"launches": launches, "wall_s": wall, "waves": checker.waves,
            "noop_waves": checker.noop_waves, "drains": checker.drains,
+           "graph_captures": checker.graph_captures, "capture_s": checker.capture_s,
            "exits": dict(checker.drain_exits), "unique": unique,
            "state_count": checker.state_count(), "max_depth": checker.max_depth(),
            "discoveries": {k: v.encode() for k, v in checker.discoveries().items()},
@@ -1967,15 +2197,15 @@ STAGE_KERNELS = (
     ("keys_pairs_kernel", "keys"), ("keys_kernel", "keys"),
     ("sort_partition_kernel", "sort"), ("sort_pass_kernel", "sort"),
     ("dedup_kernel", "dedup"), ("sweep_", "sweep"), ("compact_kernel", "compact"),
-    ("gather_kernel", "gather"), ("stats_kernel", "stats"),
+    ("gather_kernel", "gather"),
 )
 # Kernels of earlier checkouts, which stage_ab (--stage-ab) also profiles:
-# the compaction's before its one-pass design, and the coverage stage's
-# (a memset and coverage_kernel) before it moved into the frontier and the
-# compaction.
+# the compaction's before its one-pass design, the coverage stage's (a
+# memset and coverage_kernel) before it moved into the frontier and the
+# compaction, and the stats stage's before it moved into the compaction.
 EARLIER_STAGE_KERNELS = STAGE_KERNELS + (
     ("fresh_count_kernel", "compact"), ("scan_one_block_kernel", "compact"),
-    ("coverage_kernel", "coverage"),
+    ("coverage_kernel", "coverage"), ("stats_kernel", "stats"),
 )
 PROFILE_GAP_S = 0.5  # host sleep between profiled blocks; splits the device timeline
 
@@ -2358,6 +2588,7 @@ def main() -> int:
     raft5_wave = comphash_raft5_vs_plain() if not FAILED else None
     raft5 = main_path_raft5_ttc() if not FAILED else None
     raft4 = main_path_raft4() if not FAILED else None
+    fps_waves = fps_vs_materialize() if not FAILED else None
     if not FAILED:
         replay_actor_small()
     coverage = coverage_vs_plain() if not FAILED else None
@@ -2587,6 +2818,12 @@ def main() -> int:
             "launches_by_path": compact_launches,
             "device_ops_a_wave": rec_2pc8["compact_device_ops"],
             "max_abs_err": max(r["compact_max_abs_err"] for r in stage_waves.values()),
+            # It writes the wave's stats vector (the Pallas
+            # epilogue's :470-489, :510-514): held to _stats on every
+            # timed wave; no stats kernel is left.
+            "stats_max_abs_err": max(r["stats_max_abs_err"] for r in stage_waves.values()),
+            "stats_plain_ms": rec_2pc8["stats_plain_ms"],
+            "stats_bound_ms": rec_2pc8["stats_bound_ms"],
             # On the 2pc-8 wave; each timed wave's numbers below.
             # torch.nonzero of the fresh flags (the slots alone) is in
             # each stage_record as torch_nonzero_ms, for context.

@@ -1,11 +1,14 @@
 """Where the time of one GPU BFS run of the PyTorch/CUDA port goes.
 
     python scripts/torch_profile.py [--config 2pc8] [--wave-kernel staged|fused]
-        [--max-drain-waves N] [--coverage] [--trace TRACE.json]
+        [--expand-fps auto|on|off] [--max-drain-waves N] [--coverage]
+        [--trace TRACE.json]
 
 Runs the named configuration of ``stateright_tpu_torch/configs.py``
 (``2pc8``, ``paxos3``, ``abd3o``, ``raft5_ttc``, ``raft4``, ``skv4x4``;
-``--coverage`` turns the coverage ledger on): its model's
+``--coverage`` turns the coverage ledger on; ``--expand-fps`` passes
+``expand_fps`` None, True or False, so ``off`` runs an actor model's staged
+wave materializing): its model's
 ``checker().spawn_gpu_bfs(...)`` with the configuration's spawn settings,
 once to warm up (kernel build, allocator, library handles), then once more
 under ``torch.profiler`` with CPU and CUDA activities. Prints the device
@@ -38,6 +41,8 @@ def main() -> int:
     ap.add_argument("--wave-kernel", default="staged", choices=("staged", "fused"))
     ap.add_argument("--max-drain-waves", type=int, default=100_000)
     ap.add_argument("--coverage", action="store_true", help="spawn with coverage=True")
+    ap.add_argument("--expand-fps", default="auto", choices=("auto", "on", "off"),
+                    help="spawn with expand_fps None, True or False")
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
     args = ap.parse_args()
 
@@ -65,6 +70,7 @@ def main() -> int:
         c = model.checker().spawn_gpu_bfs(
             **cfg.spawn, wave_kernel=args.wave_kernel, max_drain_waves=args.max_drain_waves,
             coverage=args.coverage,
+            expand_fps={"auto": None, "on": True, "off": False}[args.expand_fps],
         ).join()
         torch.cuda.synchronize()
         return c, time.perf_counter() - t0
@@ -106,7 +112,7 @@ def main() -> int:
     total_ms = sum(v[1] for v in by_name.values())
     print(f"profiled run ({cfg.name}: {cfg.source}; {args.wave_kernel}, "
           f"max_drain_waves={args.max_drain_waves}): "
-          f"coverage={args.coverage} "
+          f"coverage={args.coverage} use_fps={checker._use_fps} "
           f"unique={checker.unique_state_count()} waves={checker.waves} "
           f"table_growths={checker.table_growths} wall={wall:.3f} s launches={launches} "
           f"drains={checker.drains} exits={dict(checker.drain_exits)} "
@@ -133,6 +139,9 @@ def main() -> int:
         "wave_kernel": args.wave_kernel,
         "max_drain_waves": args.max_drain_waves,
         "coverage": args.coverage,
+        "expand_fps": args.expand_fps,
+        "use_fps": checker._use_fps,
+        "host_take_rows": checker.host_take_rows,
         "unique": checker.unique_state_count(),
         "waves": checker.waves,
         "noop_waves": checker.noop_waves,

@@ -39,8 +39,13 @@ callback's timer commands, the lowest free slot for a new envelope), so
 packed and host checkers agree on exact state counts, and the port's
 candidates equal the JAX package's lane for lane.
 
-Not ported yet, and refused by name with a ``ValueError``: symmetry and the
-fingerprint-only expansion ``packed_expand_fps``/``packed_take`` (ROADMAP
+The fingerprint-only expansion is here too: ``packed_expand_fps`` gives
+every candidate's fingerprint and validity from its parent's component
+pairs and the components its transition touches, with no candidate state
+made, and ``packed_take`` makes the children of chosen (row, action) pairs
+only (the staged wave's default for these models, as in the JAX package).
+
+Not ported yet, and refused by name with a ``ValueError``: symmetry (ROADMAP
 Queue 1 #6). Nothing falls back to anything.
 
 Everything the device checker runs here is capturable in a CUDA Graph: no
@@ -59,7 +64,17 @@ import numpy as np
 import torch
 
 from ..core.batch import BatchableModel
-from ..ops.fingerprint import U32, combine_pairs, hash_rows, multiset_digest
+from ..ops.fingerprint import (
+    U32,
+    _xor_reduce,
+    acc_finalize,
+    combine_pairs,
+    hash_rows,
+    hash_rows_of,
+    multiset_digest,
+    multiset_row_pairs,
+    pairs_acc,
+)
 from .actor import Id
 from .model import ActorModel
 from .model_state import ActorModelState
@@ -162,10 +177,9 @@ class ActorPackedCodec:
         """The boundary of single ``(L, R)`` actor rows: a codec whose
         ``packed_within_boundary`` is a per-row predicate (raft's term cap)
         states it here too, so that ``packed_within_boundary(states)`` equals
-        every row passing this (the JAX package's fingerprint-only wave
-        checks only the row a transition changed). Staged for that wave
-        (``packed_expand_fps``, ROADMAP.md Queue 1 #6): no code of the port
-        reads it yet."""
+        every row passing this: the fingerprint-only wave
+        (``PackedActorModel.packed_expand_fps``) checks only the row a
+        transition changed."""
         return torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
 
 
@@ -561,12 +575,6 @@ class PackedActorModel(ActorModel, BatchableModel):
     def packed_symmetry(self):
         _refuse("symmetry reduction of packed actor systems", "Queue 1 #6")
 
-    def packed_expand_fps(self, states):
-        _refuse("the fingerprint-only expansion (packed_expand_fps)", "Queue 1 #6")
-
-    def packed_take(self, states, action_id):
-        _refuse("the single-child materializer (packed_take)", "Queue 1 #6")
-
     # -- batched transition --------------------------------------------------------
 
     def _net_send(self, state, src, dst, msg, active):
@@ -713,16 +721,36 @@ class PackedActorModel(ActorModel, BatchableModel):
         own = torch.arange(self._N, device=actor.device) == actor[:, None]
         return ((st["crashed"] * own).sum(dim=1)) == 1
 
+    def _crashed_rows(self, par, actor, states):
+        """Whether ``actor`` is crashed in parent row ``par`` of ``states``,
+        lane by lane."""
+        if not self._max_crashes:
+            return torch.zeros_like(actor, dtype=torch.bool)
+        return states["crashed"][par, actor] == 1
+
     def _slot_onehot(self, F, D, device):
         return torch.eye(D, dtype=torch.bool, device=device).repeat(F, 1)
 
-    def _expand_deliver(self, states):
+    def _env_of(self, st, slot):
+        """``(present, src, dst, msg)`` of each lane's own deliver/drop
+        ``slot`` (``(L,)``, in ``0..D-1``) over the lanes' states ``st``: the
+        head of that flow of an ordered network, or that envelope slot of an
+        unordered one."""
+        lane = torch.arange(slot.shape[0], device=slot.device)
+        if self._ordered:
+            _, psrc, pdst = self._flow_tables(slot.device)
+            return (st["flow_len"][lane, slot] > 0, psrc[slot], pdst[slot],
+                    st["flow_msg"][lane, slot, 0])
+        return (st["net_cnt"][lane, slot] > 0, st["net_src"][lane, slot],
+                st["net_dst"][lane, slot], st["net_msg"][lane, slot])
+
+    def _deliver(self, st, present, env_src, env_dst, env_msg, at):
+        """The deliver class over L lanes: each lane's state ``st``, the
+        envelope it delivers (``present``, ``env_src``, ``env_dst``,
+        ``env_msg``) and ``at``, the ``(L, D)`` one-hot of its slot. Returns
+        ``(children, valid)``."""
         codec = self.codec
-        N, D = self._N, self._D
-        F = states["rows"].shape[0]
-        dev = states["rows"].device
-        st = self._lanes(states, D)
-        present, env_src, env_dst, env_msg = self._env_at(states)
+        N = self._N
         actor = env_dst.clamp(0, N - 1)
         row = st["rows"].gather(1, actor[:, None, None].expand(-1, 1, codec.state_width))[:, 0]
         row_new, sends, set_bits, cancel_bits, changed = self._select(
@@ -734,7 +762,7 @@ class PackedActorModel(ActorModel, BatchableModel):
             out["hist"] = codec.history_on_deliver(self, st["hist"], env_src, env_dst,
                                                    env_msg)
         if self._ordered or not self._dup:
-            out = self._consume(out, self._slot_onehot(F, D, dev))
+            out = self._consume(out, at)
         # A no-op delivery on an ordered network still consumes the message
         # but applies no other effect (the host skips the callback result).
         out, ov = self._apply_callback(
@@ -750,26 +778,19 @@ class PackedActorModel(ActorModel, BatchableModel):
             valid = valid & ~is_no_op
         return out, valid
 
-    def _expand_drop(self, states):
-        F, D = states["rows"].shape[0], self._D
-        st = self._lanes(states, D)
-        present = self._env_at(states)[0]
-        at = self._slot_onehot(F, D, states["rows"].device)
+    def _drop(self, st, at):
+        """The drop class over L lanes: each lane's message at its slot
+        (``at``, ``(L, D)`` one-hot) lost; its children."""
         if self._dup:
             out = dict(st)
             out["net_cnt"] = torch.where(at, 0, st["net_cnt"])
-        else:
-            out = self._consume(st, at)
-        return out, present
+            return out
+        return self._consume(st, at)
 
-    def _expand_timeout(self, states):
+    def _timeout(self, st, actor, bit):
+        """The timeout class over L lanes: timer ``bit`` of ``actor`` fires
+        in each lane's state ``st``. Returns ``(children, valid)``."""
         codec = self.codec
-        N, T = self._N, self._T
-        F = states["rows"].shape[0]
-        dev = states["rows"].device
-        st = self._lanes(states, N * T)
-        k = torch.arange(N * T, device=dev).repeat(F)
-        actor, bit = k // T, k % T
         row = st["rows"].gather(1, actor[:, None, None].expand(-1, 1, codec.state_width))[:, 0]
         row_new, sends, set_bits, cancel_bits, changed = self._select(
             [fn(actor, row, bit) for fn in codec.on_timeout_branches(self)], actor)
@@ -779,23 +800,392 @@ class PackedActorModel(ActorModel, BatchableModel):
             & (cancel_bits == 0)
             & (set_bits == _bit(bit))
         )
-        own = torch.arange(N, device=dev) == actor[:, None]
+        own = torch.arange(self._N, device=actor.device) == actor[:, None]
         timer_set = (((st["timers"] * own).sum(dim=1) >> bit) & 1) == 1
         out, ov = self._apply_callback(st, actor, row_new, sends, set_bits, cancel_bits,
                                        fired_bit=bit)
         return out, timer_set & ~renews_only & ~ov
 
-    def _expand_crash(self, states):
-        N = self._N
-        F = states["rows"].shape[0]
-        st = self._lanes(states, N)
-        own = torch.eye(N, dtype=torch.bool, device=states["rows"].device).repeat(F, 1)
+    def _crash(self, st, own):
+        """The crash class over L lanes: the actor of each lane's ``own``
+        (``(L, N)`` one-hot) crashes, its timers cleared; its children."""
         out = dict(st)
         out["crashed"] = torch.where(own, 1, st["crashed"])
         out["timers"] = torch.where(own, 0, st["timers"])
+        return out
+
+    def _expand_deliver(self, states):
+        F, D = states["rows"].shape[0], self._D
+        return self._deliver(self._lanes(states, D), *self._env_at(states),
+                             self._slot_onehot(F, D, states["rows"].device))
+
+    def _expand_drop(self, states):
+        F, D = states["rows"].shape[0], self._D
+        at = self._slot_onehot(F, D, states["rows"].device)
+        return self._drop(self._lanes(states, D), at), self._env_at(states)[0]
+
+    def _expand_timeout(self, states):
+        N, T = self._N, self._T
+        F = states["rows"].shape[0]
+        k = torch.arange(N * T, device=states["rows"].device).repeat(F)
+        return self._timeout(self._lanes(states, N * T), k // T, k % T)
+
+    def _expand_crash(self, states):
+        N = self._N
+        F = states["rows"].shape[0]
+        own = torch.eye(N, dtype=torch.bool, device=states["rows"].device).repeat(F, 1)
         crashed = states["crashed"]
         valid = (crashed.sum(dim=1) < self._max_crashes)[:, None] & (crashed == 0)
-        return out, valid.reshape(F * N)
+        return self._crash(self._lanes(states, N), own), valid.reshape(F * N)
+
+    def _class_bounds(self):
+        """The action classes in id order, each ``(name, first id, ids)``:
+        deliver, drop (lossy networks), timeout, crash (``max_crashes``)."""
+        D, N, T = self._D, self._N, self._T
+        out, off = [("deliver", 0, D)], D
+        if self._lossy_network:
+            out.append(("drop", off, D))
+            off += D
+        if T:
+            out.append(("timeout", off, N * T))
+            off += N * T
+        if self._max_crashes:
+            out.append(("crash", off, N))
+        return out
+
+    def packed_take(self, states, action_ids):
+        """One child for each row: row ``l``'s child by action
+        ``action_ids[l]``, exactly the candidate ``packed_expand`` gives it
+        there (the JAX package's ``packed_take``, written over a batch).
+        Each class's code runs once over the rows, with the ids clamped to
+        its range, and each row keeps its own class's child: its cost is the
+        classes times the rows, which the checker keeps to the fresh lanes
+        of a wave (never the F × A grid)."""
+        self._packed_check()
+        N, T, D = self._N, self._T, self._D
+        aid = action_ids.to(torch.int64)
+        dev = aid.device
+        out = None
+        for name, first, n in self._class_bounds():
+            k = (aid - first).clamp(0, n - 1)
+            if name == "deliver":
+                at = torch.arange(D, device=dev) == k[:, None]
+                child = self._deliver(states, *self._env_of(states, k), at)[0]
+            elif name == "drop":
+                child = self._drop(states, torch.arange(D, device=dev) == k[:, None])
+            elif name == "timeout":
+                child = self._timeout(states, k // T, k % T)[0]
+            else:
+                child = self._crash(states, torch.arange(N, device=dev) == k[:, None])
+            if out is None:
+                out = child
+                continue
+            mine = aid >= first
+            out = {key: torch.where(mine.view((-1,) + (1,) * (v.dim() - 1)), child[key], v)
+                   for key, v in out.items()}
+        return {key: out[key] for key in states}
+
+    def packed_expand_fps_supported(self) -> bool:
+        """The fingerprint-only wave checks the boundary only on the row a
+        transition changed: a codec that states its own
+        ``packed_within_boundary`` must state ``packed_row_within_boundary``
+        too, or the fps wave would admit children outside the boundary
+        (the JAX package's veto)."""
+        codec_cls = type(self.codec)
+        wb_custom = (codec_cls.packed_within_boundary
+                     is not ActorPackedCodec.packed_within_boundary)
+        row_custom = (codec_cls.packed_row_within_boundary
+                      is not ActorPackedCodec.packed_row_within_boundary)
+        return (not wb_custom) or row_custom
+
+    def packed_expand_fps(self, states):
+        """The fingerprints and validity of all ``A`` children of each of F
+        states, without making the children: ``(hi, lo, valid)``, each
+        ``(F, A)``, ``(hi, lo)`` equal to ``packed_fingerprint`` of the
+        ``packed_expand`` candidate on every valid lane and ``valid`` equal
+        to its validity and ``packed_within_boundary`` of the child (the
+        JAX package's ``packed_expand_fps``). Each child's fingerprint is
+        its parent's component-pair accumulator (``packed_component_pairs``)
+        with the components its transition touches swapped: the changed
+        actor row, the consumed and appended flows of an ordered network or
+        the multiset digest of an unordered one, adjusted by the rows it
+        removes and adds, and the history. The boundary is checked on the
+        changed row (``packed_row_within_boundary``)."""
+        self._packed_check()
+        codec = self.codec
+        N, T, W, D = self._N, self._T, codec.msg_width, self._D
+        ordered, dup = self._ordered, self._dup
+        S = codec.send_capacity
+        K = 1 + S  # working-set slots: the consumed row and one a send
+        hist_w = codec.history_width
+        net_comps = self._P if ordered else 1
+        hist_tag = N + net_comps
+        C = N + net_comps + (1 if hist_w else 0)
+        F = states["rows"].shape[0]
+        dev = states["rows"].device
+        phis, plos = self.packed_component_pairs(states)
+        parent_acc = pairs_acc(phis, plos)
+        parent_digest = None
+        if not ordered:
+            parent_digest = multiset_digest(self._net_rows(states), states["net_cnt"] > 0)
+
+        def lanes_of(k):
+            """Each lane's parent row, ``k`` lanes a parent."""
+            return torch.arange(F, device=dev).repeat_interleave(k)
+
+        def row_pair(words, tags):
+            return hash_rows_of(words[:, None, :], tags[:, None], C)
+
+        def actor_pair(actor, row, tmr):
+            h, l = row_pair(torch.cat([row, tmr[:, None]], dim=1), actor)
+            return h[:, 0], l[:, 0]
+
+        def flow_pair(pid, q, ln):
+            words = torch.cat([q.reshape(q.shape[0], -1), ln[:, None]], dim=1)
+            h, l = row_pair(words, N + pid)
+            return h[:, 0], l[:, 0]
+
+        def tagged_pair(row, tag):
+            h, l = hash_rows(row[:, None, :], (tag,))
+            return h[:, 0], l[:, 0]
+
+        def final_fp(par, subs):
+            """The parent's accumulator with each candidate's components
+            swapped; ``subs`` are ``(component, hi, lo, enabled)`` (enabled
+            None: always), each ``(L,)`` or ``(L, K)`` for K components a
+            lane, distinct components for one lane."""
+            acc = parent_acc[par]
+            sh, xh, sl, xl = acc.unbind(dim=1)
+            for ci, nh, nl, en in subs:
+                rows = par if nh.dim() == 1 else par[:, None]
+                oh, ol = phis[rows, ci], plos[rows, ci]
+                dh = nh if en is None else torch.where(en, nh, oh)
+                dl = nl if en is None else torch.where(en, nl, ol)
+                dsh, dxh, dsl, dxl = dh - oh, dh ^ oh, dl - ol, dl ^ ol
+                if nh.dim() == 2:
+                    dsh, dxh = dsh.sum(dim=1), _xor_reduce(dxh)
+                    dsl, dxl = dsl.sum(dim=1), _xor_reduce(dxl)
+                sh, xh, sl, xl = sh + dsh, xh ^ dxh, sl + dsl, xl ^ dxl
+            return acc_finalize(torch.stack([sh & U32, xh, sl & U32, xl], dim=1), C)
+
+        def digest_adjust(digest, src, dst, msg, old_cnt, new_cnt, en):
+            """The digest less the old contributions of K rows a lane plus
+            their new ones, as ``multiset_digest`` folds active rows:
+            ``src``, ``dst``, the counts and ``en`` are ``(L, K)``, ``msg``
+            ``(L, K, W)``; all 2K row hashes in one ``multiset_row_pairs``."""
+            ends = torch.stack([src, dst], dim=2)[:, None].expand(-1, 2, -1, -1)
+            cnt = torch.stack([old_cnt, new_cnt], dim=1)
+            rows = torch.cat([ends, msg[:, None].expand(-1, 2, -1, -1), cnt[..., None]], dim=3)
+            h, l = multiset_row_pairs(rows)
+            on = en[:, None] & (cnt > 0)
+            h, l = torch.where(on, h, 0), torch.where(on, l, 0)
+            L = h.shape[0]
+            return torch.stack([
+                (digest[:, 0] - h[:, 0].sum(dim=1) + h[:, 1].sum(dim=1)) & U32,
+                digest[:, 1] ^ _xor_reduce(h.reshape(L, -1)),
+                (digest[:, 2] - l[:, 0].sum(dim=1) + l[:, 1].sum(dim=1)) & U32,
+                digest[:, 3] ^ _xor_reduce(l.reshape(L, -1)),
+            ], dim=1)
+
+        def pick(x, j):
+            """Row ``j[l]`` of each lane's ``x[l]``."""
+            return x[torch.arange(x.shape[0], device=dev), j]
+
+        def flows_apply(par, init, sends, src):
+            """The sends applied in order to a working set of the K flow
+            rows a transition touches (``_flow_send``, with its overflow
+            and excluded-pair pruning), without copying the flow table."""
+            L, P, Q = par.shape[0], self._P, self._Q
+            lookup, _, _ = self._flow_tables(dev)
+            ids = torch.full((L, K), -1, dtype=torch.int64, device=dev)
+            qs = torch.zeros((L, K, Q, W), dtype=torch.int64, device=dev)
+            lns = torch.zeros((L, K), dtype=torch.int64, device=dev)
+            if init is not None:
+                slot, q0, ln0 = init
+                ids[:, 0], qs[:, 0], lns[:, 0] = slot, q0, ln0
+            ov = torch.zeros(L, dtype=torch.bool, device=dev)
+            slots = torch.arange(K, device=dev)
+            for si in range(S):
+                dst, msg = sends[:, si, 0], sends[:, si, 1:]
+                active = dst != codec.SEND_NONE
+                p = lookup[(src * N + dst).clamp(0, N * N - 1)]
+                allowed = p >= 0
+                p = p.clamp(0, P - 1)
+                match = ids == p[:, None]
+                found = match.any(dim=1)
+                j = torch.where(found, _first_true(match), _first_true(ids < 0))
+                base_q = torch.where(found[:, None, None], pick(qs, j),
+                                     states["flow_msg"][par, p])
+                base_ln = torch.where(found, pick(lns, j), states["flow_len"][par, p])
+                ok = active & allowed & (base_ln < Q)
+                row_at = torch.arange(Q, device=dev) == base_ln.clamp(0, Q - 1)[:, None]
+                nq = torch.where((row_at & ok[:, None])[:, :, None], msg[:, None, :], base_q)
+                nln = base_ln + ok.to(torch.int64)
+                sel = (slots == j[:, None]) & (active & allowed)[:, None]
+                ids = torch.where(sel, p[:, None], ids)
+                qs = torch.where(sel[:, :, None, None], nq[:, None], qs)
+                lns = torch.where(sel, nln[:, None], lns)
+                ov = ov | (active & (~allowed | (base_ln >= Q)))
+            words = torch.cat([qs.reshape(L, K, Q * W), lns[:, :, None]], dim=2)
+            h, l = hash_rows_of(words, N + ids, C)
+            return [(N + ids, h, l, ids >= 0)], ov
+
+        def net_apply(par, cons_slot, sends, src):
+            """The sends applied in order to the parent's multiset digest
+            through a working set of the K (src, dst, msg) rows a
+            transition touches (``_net_send``: a duplicating network keeps
+            one copy, a non-duplicating one counts; only the count of empty
+            slots matters for overflow). ``cons_slot``, when given, is the
+            slot whose message is consumed first. Returns the digest's
+            component substitution and the overflow."""
+            L = par.shape[0]
+            cnt, psrc = states["net_cnt"][par], states["net_src"][par]
+            pdst, pmsg = states["net_dst"][par], states["net_msg"][par]
+            esrc = torch.zeros((L, K), dtype=torch.int64, device=dev)
+            edst, eold, enew = (torch.zeros_like(esrc) for _ in range(3))
+            emsg = torch.zeros((L, K, W), dtype=torch.int64, device=dev)
+            eused = torch.zeros((L, K), dtype=torch.bool, device=dev)
+            empties = (cnt == 0).sum(dim=1)
+            if cons_slot is not None:
+                c0 = pick(cnt, cons_slot)
+                esrc[:, 0], edst[:, 0] = pick(psrc, cons_slot), pick(pdst, cons_slot)
+                emsg[:, 0] = pick(pmsg, cons_slot)
+                eold[:, 0], enew[:, 0], eused[:, 0] = c0, (c0 - 1) & U32, True
+                empties = empties + (c0 == 1).to(torch.int64)
+            ov = torch.zeros(L, dtype=torch.bool, device=dev)
+            slots = torch.arange(K, device=dev)
+            # Each send's envelope among the parent's active ones, for all
+            # sends at once: (L, S, E).
+            pmatch = ((psrc == src[:, None])[:, None] & (pdst[:, None] == sends[:, :, :1])
+                      & (pmsg[:, None] == sends[:, :, None, 1:]).all(dim=3)
+                      & (cnt > 0)[:, None])
+            pfounds = pmatch.any(dim=2)
+            pcnts = cnt.gather(1, _first_true(pmatch))
+            for si in range(S):
+                dst, msg = sends[:, si, 0], sends[:, si, 1:]
+                active = dst != codec.SEND_NONE
+                wmatch = (eused & (esrc == src[:, None]) & (edst == dst[:, None])
+                          & (emsg == msg[:, None, :]).all(dim=2))
+                wfound = wmatch.any(dim=1)
+                wj = _first_true(wmatch)
+                pfound, pcnt = pfounds[:, si], pcnts[:, si]
+                cur = torch.where(wfound, pick(enew, wj), torch.where(pfound, pcnt, 0))
+                old0 = torch.where(pfound, pcnt, 0)
+                exists = cur > 0
+                has_empty = empties > 0
+                add = (~exists).to(torch.int64) if dup else 1
+                ok = active & (exists | has_empty)
+                ncnt = cur + torch.where(ok, add, 0)
+                j = torch.where(wfound, wj, _first_true(~eused))
+                sel = (slots == j[:, None]) & ok[:, None]
+                esrc = torch.where(sel, src[:, None], esrc)
+                edst = torch.where(sel, dst[:, None], edst)
+                emsg = torch.where(sel[:, :, None], msg[:, None, :], emsg)
+                eold = torch.where(sel & ~wfound[:, None], old0[:, None], eold)
+                enew = torch.where(sel, ncnt[:, None], enew)
+                eused = eused | sel
+                empties = empties - (ok & ~exists).to(torch.int64)
+                ov = ov | (active & ~exists & ~has_empty)
+            digest = digest_adjust(parent_digest[par], esrc, edst, emsg, eold, enew, eused)
+            return [(N, *tagged_pair(digest, N), None)], ov
+
+        def network_subs(par, cons_slot, shifted, sends, src):
+            if ordered:
+                init = None
+                if cons_slot is not None:
+                    ln = (states["flow_len"][par, cons_slot] - 1) & U32
+                    init = (cons_slot, shifted, ln)
+                return flows_apply(par, init, sends, src)
+            return net_apply(par, cons_slot if not dup else None, sends, src)
+
+        def hist_subs(hist, sends, src):
+            if not hist_w:
+                return []
+            for si in range(S):
+                dst, msg = sends[:, si, 0], sends[:, si, 1:]
+                hn = codec.history_on_send(self, hist, src, dst, msg)
+                hist = torch.where((dst != codec.SEND_NONE)[:, None], hn, hist)
+            return [(hist_tag, *tagged_pair(hist, hist_tag), None)]
+
+        def shifted_head(par, slot):
+            q = states["flow_msg"][par, slot]
+            return torch.cat([q[:, 1:], torch.zeros_like(q[:, :1])], dim=1)
+
+        parts = []
+        # Deliver: a lane a (parent, slot).
+        par, slot = lanes_of(D), torch.arange(D, device=dev).repeat(F)
+        present, env_src, env_dst, env_msg = self._env_at(states)
+        actor = env_dst.clamp(0, N - 1)
+        row = states["rows"][par, actor]
+        row_new, sends, set_bits, cancel_bits, changed = self._select(
+            [fn(actor, row, env_src, env_msg) for fn in codec.on_msg_branches(self)], actor)
+        is_no_op = (~changed & (sends[:, :, 0] == codec.SEND_NONE).all(dim=1)
+                    & (set_bits == 0) & (cancel_bits == 0))
+        row_eff = torch.where(is_no_op[:, None], row, row_new)
+        sends_eff = torch.where(is_no_op[:, None, None], codec.SEND_NONE, sends)
+        set_eff = torch.where(is_no_op, 0, set_bits)
+        cancel_eff = torch.where(is_no_op, 0, cancel_bits)
+        t_new = (states["timers"][par, actor] | set_eff) & (~cancel_eff & U32)
+        subs = [(actor, *actor_pair(actor, row_eff, t_new), None)]
+        net, ov = network_subs(par, slot, shifted_head(par, slot) if ordered else None,
+                               sends_eff, actor)
+        subs += net
+        if hist_w:
+            hist = codec.history_on_deliver(self, states["hist"][par], env_src, env_dst,
+                                            env_msg)
+            subs += hist_subs(hist, sends_eff, actor)
+        valid = (present & (env_dst < N) & ~self._crashed_rows(par, actor, states) & ~ov
+                 & codec.packed_row_within_boundary(self, row_eff))
+        if not ordered:
+            valid = valid & ~is_no_op
+        parts.append((*final_fp(par, subs), valid))
+
+        if self._lossy_network:
+            # Drop: the message at (parent, slot) lost.
+            if ordered:
+                ln = (states["flow_len"][par, slot] - 1) & U32
+                subs = [(N + slot, *flow_pair(slot, shifted_head(par, slot), ln), None)]
+            else:
+                c0 = states["net_cnt"][par, slot]
+                new_cnt = torch.zeros_like(c0) if dup else (c0 - 1) & U32
+                digest = digest_adjust(parent_digest[par], env_src[:, None], env_dst[:, None],
+                                       env_msg[:, None], c0[:, None], new_cnt[:, None],
+                                       torch.ones_like(present)[:, None])
+                subs = [(N, *tagged_pair(digest, N), None)]
+            parts.append((*final_fp(par, subs), present))
+
+        if T:
+            # Timeout: lane (parent, i·T + t) fires actor i's timer t.
+            k = torch.arange(N * T, device=dev).repeat(F)
+            par, t_actor, t_bit = lanes_of(N * T), k // T, k % T
+            row = states["rows"][par, t_actor]
+            row_new, sends, set_bits, cancel_bits, changed = self._select(
+                [fn(t_actor, row, t_bit) for fn in codec.on_timeout_branches(self)], t_actor)
+            renews_only = (~changed & (sends[:, :, 0] == codec.SEND_NONE).all(dim=1)
+                           & (cancel_bits == 0) & (set_bits == _bit(t_bit)))
+            timers = states["timers"][par, t_actor]
+            timer_set = ((timers >> t_bit) & 1) == 1
+            t_new = ((timers & (~_bit(t_bit) & U32)) | set_bits) & (~cancel_bits & U32)
+            subs = [(t_actor, *actor_pair(t_actor, row_new, t_new), None)]
+            net, ov = network_subs(par, None, None, sends, t_actor)
+            subs += net
+            if hist_w:
+                subs += hist_subs(states["hist"][par], sends, t_actor)
+            valid = (timer_set & ~renews_only & ~ov
+                     & codec.packed_row_within_boundary(self, row_new))
+            parts.append((*final_fp(par, subs), valid))
+
+        if self._max_crashes:
+            # Crash: lane (parent, i) crashes actor i (its timers cleared).
+            i = torch.arange(N, device=dev).repeat(F)
+            par = lanes_of(N)
+            subs = [(i, *actor_pair(i, states["rows"][par, i], torch.zeros_like(i)), None)]
+            crashed = states["crashed"]
+            valid = ((crashed.sum(dim=1) < self._max_crashes)[par]
+                     & (crashed[par, i] == 0))
+            parts.append((*final_fp(par, subs), valid))
+
+        return tuple(torch.cat([p[n].view(F, -1) for p in parts], dim=1) for n in range(3))
 
     def packed_expand(self, states):
         """All ``A`` candidates of each of F states, in the JAX package's
@@ -806,13 +1196,8 @@ class PackedActorModel(ActorModel, BatchableModel):
         and ``valid`` ``(F, A)``."""
         self._packed_check()
         F = states["rows"].shape[0]
-        parts = [self._expand_deliver(states)]
-        if self._lossy_network:
-            parts.append(self._expand_drop(states))
-        if self._T:
-            parts.append(self._expand_timeout(states))
-        if self._max_crashes:
-            parts.append(self._expand_crash(states))
+        parts = [getattr(self, f"_expand_{name}")(states)
+                 for name, _first, _n in self._class_bounds()]
 
         def grid(x):
             return x.reshape((F, -1) + x.shape[1:])

@@ -16,7 +16,11 @@ Each wave takes at most ``frontier_capacity`` frontier states and
          and logs (child, parent) fingerprints for path replay.
 
 ``wave_kernel="staged"`` (the default) runs that wave in torch with the
-CUDA insert (``ops/fused_wave.py::torch_wave``); ``wave_kernel="fused"``
+CUDA insert (``ops/fused_wave.py::torch_wave``); for a model with the
+fingerprint-only expansion (``core/batch.py::supports_expand_fps``, the
+packed actor models) the staged wave takes the candidates' fingerprints
+from ``packed_expand_fps`` and makes only its fresh children with
+``packed_take`` (``torch_wave_fps``; ``expand_fps``, below); ``wave_kernel="fused"``
 runs the model's stage in torch and every other stage in the hand-written
 kernels of ``csrc/fused_wave.cu`` (``ops/fused_wave.py::fused_wave``). The
 two give the same results bit for bit, and both take every model: the
@@ -65,6 +69,22 @@ vectors on the device, under the same ``consume`` gate as its other
 counters, and reads the sum and the final wave's vector in its one read.
 With coverage off no wave runs any of it.
 
+``expand_fps`` (the JAX package's knob and resolution): None turns the
+fingerprint-only wave on for a staged run of a model that supports it;
+True requires it and raises with ``wave_kernel="fused"`` (the fused chain
+gathers the candidates' leaves) or for a model without it (2pc); False
+forces the materializing wave. ``_use_fps`` holds the choice. Wave at a
+time the host makes exactly a wave's ``n_new`` children in one take and
+queues them ``F_max`` rows a chunk. A drain's captured wave has fixed
+shapes, so at rung width F it makes a fixed count S of children and
+pushes those: ``take_width(F)`` (``_TAKE_FACTOR`` times F, at most the
+wave's F x A lanes) to start. A wave with more fresh lanes than S stops
+the drain ("take full"); the host makes its children exactly, as it
+finishes any drain's final wave, S for that rung grows to the power of two
+at or past twice that wave's fresh count (a new capture), and the next
+drain keeps the rung, so the ring holds the same rows in the same order
+either way.
+
 Semantics parity notes (mirrored from the reference): ``eventually`` bits
 propagate along paths and are not part of the fingerprint;
 ``target_state_count``/``target_max_depth`` may overshoot by up to a wave.
@@ -72,7 +92,9 @@ propagate along paths and are not part of the fingerprint;
 
 from __future__ import annotations
 
+import math
 import threading
+import time
 from collections import Counter, deque
 from typing import Dict, List, Optional
 
@@ -80,7 +102,7 @@ import numpy as np
 import torch
 
 from ..actor.packed import PackedActorModel
-from ..core.batch import BatchableModel, map_leaves
+from ..core.batch import BatchableModel, map_leaves, supports_expand_fps
 from ..core.model import Expectation
 from ..core.path import Path
 from ..native import make_fingerprint_store
@@ -92,7 +114,9 @@ from ..ops.fused_wave import (
     comphash_tables,
     fused_wave,
     sorted_dedup,
+    take_children,
     torch_wave,
+    torch_wave_fps,
 )
 from ..ops.hashset import hashset_new, i32_to_u32, u32_to_i32
 from ..ops.hashset_kernel import (
@@ -122,6 +146,9 @@ _AUTO_BUCKET_MIN_F = 512
 _GRAPH_WAVES = 4
 # The drain exits to the host before its generated counter reaches this.
 _GENERATED_CAP = 1 << 30
+# With the fingerprint-only wave, a drain wave of rung width F first makes
+# this many times F fresh children on the device (``take_width``).
+_TAKE_FACTOR = 4
 # The kernels' launch counts (module, attribute) that a captured drain
 # graph adds to at every replay.
 _LAUNCH_COUNTERS = (
@@ -134,17 +161,26 @@ _LAUNCH_COUNTERS = (
 
 # The drain's device scalars (one int64 vector): the ring's head and
 # count, the consumed waves' totals, the budget left, the waves run, the
-# go flag, and what the exit recorded.
+# go flag, what the exit recorded, and the most fresh lanes of one of its
+# waves.
 (_HEAD, _COUNT, _LOG_N, _GENERATED, _CONSUMED, _MAX_DEPTH, _BUDGET, _WAVES,
- _GO, _REASON, _FINAL_SLOT, _FINAL_TAKE) = range(12)
-_N_SCALARS = 12
+ _GO, _REASON, _FINAL_SLOT, _FINAL_TAKE, _MAX_FRESH) = range(13)
+_N_SCALARS = 13
 # Why a drain exits, by bit of ``_REASON``, in the order of the
 # reference's loop condition; ``drain_exits`` counts a drain under the
 # first of its reasons.
 EXIT_REASONS = (
     "nothing left", "probe overflow", "property hit", "log full", "ring full",
-    "promote", "budget", "max waves", "generated cap",
+    "promote", "budget", "max waves", "generated cap", "take full",
 )
+_TAKE_FULL = 1 << EXIT_REASONS.index("take full")
+
+
+def take_width(width: int, action_count: int) -> int:
+    """The fresh children a drain wave of rung ``width`` makes on the device
+    with the fingerprint-only wave: ``_TAKE_FACTOR`` times the width, at
+    least one and at most the wave's lanes."""
+    return max(1, min(width * action_count, math.ceil(_TAKE_FACTOR * width)))
 
 
 def _pow2ceil(n: int) -> int:
@@ -213,7 +249,8 @@ class GpuBfsChecker(Checker):
     host queue does not fit); ``bucket_ladder`` is the number of rungs
     below ``F_max`` a drain may run at (None: 4 from ``F_max >= 512``, else
     none). ``coverage=True`` records the coverage ledger
-    (``coverage_report()``, prefix ``gpu_bfs``)."""
+    (``coverage_report()``, prefix ``gpu_bfs``). ``expand_fps`` chooses
+    the fingerprint-only wave (module docstring)."""
 
     def __init__(
         self,
@@ -227,6 +264,7 @@ class GpuBfsChecker(Checker):
         pool_factor=16,
         bucket_ladder=None,
         coverage=False,
+        expand_fps=None,
     ):
         model = options.model
         if not isinstance(model, BatchableModel):
@@ -240,6 +278,27 @@ class GpuBfsChecker(Checker):
                 f"wave_kernel must be 'staged' or 'fused', got {wave_kernel!r}"
             )
         self._wave_kernel = wave_kernel
+        # The fingerprint-only wave (the JAX package's resolution). There is
+        # no symmetry reduction to veto it yet: with it, None would turn it
+        # off and True raise, as under the fused wave.
+        has_fps = supports_expand_fps(model)
+        if expand_fps is None:
+            self._use_fps = has_fps and wave_kernel != "fused"
+        elif expand_fps:
+            if wave_kernel == "fused":
+                raise ValueError(
+                    "expand_fps=True is incompatible with wave_kernel='fused' (the "
+                    "fused chain gathers the candidates' leaves); use "
+                    "wave_kernel='staged'"
+                )
+            if not has_fps:
+                raise ValueError(
+                    "expand_fps=True requires the model to implement packed_expand_fps "
+                    "and packed_take (and packed_expand_fps_supported() to allow them)"
+                )
+            self._use_fps = True
+        else:
+            self._use_fps = False
         self._device = resolve_device(device)
         self._model = model
         self._properties = model.properties()
@@ -327,6 +386,8 @@ class GpuBfsChecker(Checker):
             comphash=comphash,
             cov_layout=self._cov_layout,
             cov_antecedents=tuple(self._cov_antecedents or ()),
+            expand_fps=model.packed_expand_fps if self._use_fps else None,
+            take=model.packed_take if self._use_fps else None,
         )
 
         self._state_count = 0
@@ -344,8 +405,12 @@ class GpuBfsChecker(Checker):
         # with live lanes, table growths, drains, drains by exit reason and
         # by rung width, and, on the card, the no-op waves after the exits,
         # the warm-up waves before the captures (both take no lanes but
-        # launch the wave's kernels) and the drain graphs captured and
-        # replayed.
+        # launch the wave's kernels), the drain graphs captured and
+        # replayed and the host seconds the captures took (their warm-up
+        # waves included); with the fingerprint-only wave, the children the host
+        # made for the waves it finished (``host_take_rows``, in
+        # ``host_takes`` takes, one a wave); and the most fresh lanes of one
+        # drain wave, by rung width (``max_fresh``).
         self.waves = 0
         self.table_growths = 0
         self.drains = 0
@@ -355,6 +420,12 @@ class GpuBfsChecker(Checker):
         self.warmup_waves = 0
         self.graph_captures = 0
         self.graph_replays = 0
+        self.capture_s = 0.0
+        self.host_takes = 0
+        self.host_take_rows = 0
+        # The fresh children a drain wave makes on the device, by rung.
+        self._take_widths: Dict[int, int] = {}
+        self.max_fresh: Dict[int, int] = {}
         self._drain = None
         self._graphs: Dict = {}
         self._go_host = None
@@ -385,6 +456,8 @@ class GpuBfsChecker(Checker):
         )
         if self._wave_kernel == "fused":
             return fused_wave(*args, mask=mask)
+        if self._use_fps:
+            return torch_wave_fps(*args, mask=mask)
         return torch_wave(*args, mask=mask)
 
     def _rehash(self, table, capacity):
@@ -534,15 +607,16 @@ class GpuBfsChecker(Checker):
             if n_new:
                 # Copies of the fresh rows: the queued chunks are views of
                 # these, so the wave's B-row outputs are freed now rather
-                # than held until its last chunk runs.
-                new = {
-                    k: (
-                        map_leaves(lambda x: x[:n_new].clone(), v)
-                        if k == "states"
-                        else v[:n_new].clone()
-                    )
-                    for k, v in out["new"].items()
-                }
+                # than held until its last chunk runs. The fingerprint-only
+                # wave makes its n_new fresh children here, in one take.
+                new = {k: out["new"][k][:n_new].clone() for k in ("hi", "lo", "ebits", "depth")}
+                if self._use_fps:
+                    states = take_children(self._spec, chunk["states"],
+                                           out["new"]["src"][:n_new])
+                    self.host_takes += 1
+                    self.host_take_rows += n_new
+                else:
+                    states = map_leaves(lambda x: x[:n_new].clone(), out["new"]["states"])
                 log = torch.stack([
                     _fp64(new["hi"], new["lo"]),
                     _fp64(out["parent_hi"][:n_new], out["parent_lo"][:n_new]),
@@ -550,14 +624,9 @@ class GpuBfsChecker(Checker):
                 child, parent = log.cpu().numpy().view(np.uint64)
                 self._wave_log.append((child, parent))
                 for s in range(0, n_new, self._F_max):
-                    queue.append({
-                        k: (
-                            map_leaves(lambda x: x[s : s + self._F_max], v)
-                            if k == "states"
-                            else v[s : s + self._F_max]
-                        )
-                        for k, v in new.items()
-                    })
+                    piece = {k: v[s : s + self._F_max] for k, v in new.items()}
+                    piece["states"] = map_leaves(lambda x: x[s : s + self._F_max], states)
+                    queue.append(piece)
             if not stats[2]:
                 if self._cov is not None:
                     self._cov.emit_wave_span()
@@ -606,6 +675,9 @@ class GpuBfsChecker(Checker):
         # rung is entered only when two drains in a row select it.
         rung_votes: Dict[int, int] = {}
         entered = set()
+        # A drain that stopped only because its wave had more fresh lanes
+        # than the device makes: the next drain runs at its rung.
+        keep_width = None
         while True:
             if len(self._discoveries_fp) == len(props):
                 break
@@ -628,7 +700,9 @@ class GpuBfsChecker(Checker):
                     table, _pow2ceil(int((self._unique_count + B) / _MAX_LOAD))
                 )
             width = F_max
-            if live_est is not None and len(self._buckets) > 1:
+            if keep_width is not None:
+                width = keep_width
+            elif live_est is not None and len(self._buckets) > 1:
                 want = bucket_for(self._buckets, max(1, min(live_est, F_max)))
                 if want in entered or want == F_max:
                     width = want
@@ -654,6 +728,12 @@ class GpuBfsChecker(Checker):
             sc, stats = summary[:_N_SCALARS], summary[_N_SCALARS:_N_SCALARS + 5 + 3 * P]
             reason = sc[_REASON]
             self.drain_exits[EXIT_REASONS[(reason & -reason).bit_length() - 1]] += 1
+            keep_width = width if reason == _TAKE_FULL else None
+            if reason & _TAKE_FULL:
+                # The device's take was too narrow for this wave: widen it
+                # for the rung's next capture, with room for growth.
+                self._take_widths[width] = min(width * self._A, _pow2ceil(2 * stats[1]))
+            self.max_fresh[width] = max(self.max_fresh.get(width, 0), sc[_MAX_FRESH])
             log_n = sc[_LOG_N]
             self._state_count += sc[_GENERATED]
             self._unique_count += sc[_CONSUMED]
@@ -731,6 +811,12 @@ class GpuBfsChecker(Checker):
                                self._pool_capacity)
         sc[_HEAD] = 0
 
+    def _take_width(self, width):
+        """The fresh children a drain wave of rung ``width`` makes on the
+        device with the fingerprint-only wave (``take_width`` until a
+        ``take full`` exit widens it)."""
+        return self._take_widths.setdefault(width, take_width(width, self._A))
+
     def _drain_step(self, table, width, slot):
         """One wave of a drain, every shape fixed and no value read back:
         takes ``n = go * min(count, width)`` lanes from the ring, runs the
@@ -739,7 +825,9 @@ class GpuBfsChecker(Checker):
         consumes it: its fresh rows are logged and pushed at the ring tail.
         The wave that fails the check stops the drain: ``go`` falls, and
         the exit's reasons, the wave's ``slot`` and its take are recorded.
-        Returns ``(table, out, frontier)``."""
+        With the fingerprint-only wave it makes the rung's take width of
+        children of the wave's fresh lanes and pushes those (more fresh
+        lanes stop the drain). Returns ``(table, out, frontier)``."""
         d = self._drain
         sc = d["scalars"]
         PC, L, F = d["capacity"], self._drain_log_capacity, width
@@ -765,17 +853,25 @@ class GpuBfsChecker(Checker):
             waves >= self._max_drain_waves,
             sc[_GENERATED] >= _GENERATED_CAP,
         ]
+        new, parent_hi, parent_lo = out["new"], out["parent_hi"], out["parent_lo"]
+        if self._use_fps:
+            # The device makes the first S fresh children; a wave with
+            # more stops the drain and the host makes them all.
+            S = self._take_width(F)
+            fails.append(n_new > S)
+            rows = {k: new[k][:S] for k in ("hi", "lo", "ebits", "depth")}
+            rows["states"] = take_children(self._spec, frontier["states"], new["src"][:S])
+            new, parent_hi, parent_lo = rows, parent_hi[:S], parent_lo[:S]
         reason = sum(f.to(torch.int64) << i for i, f in enumerate(fails))
         ok = (reason == 0).to(torch.int64)
         consume = go * ok
         stop = (go * (1 - ok)).to(torch.bool)
 
-        lanes = torch.arange(B, dtype=torch.int64, device=stats.device)
+        lanes = torch.arange(new["hi"].shape[0], dtype=torch.int64, device=stats.device)
         fresh = (lanes < n_new) & (consume == 1)
-        new = out["new"]
         dest = torch.where(fresh, log_n + lanes, L)
         d["log"][0][dest] = (new["hi"] << 32) | new["lo"]
-        d["log"][1][dest] = (out["parent_hi"] << 32) | out["parent_lo"]
+        d["log"][1][dest] = (parent_hi << 32) | parent_lo
         count = ring_push(d["pool"], head, count, new, fresh, PC)
         sc.copy_(torch.stack([
             head,
@@ -790,6 +886,7 @@ class GpuBfsChecker(Checker):
             torch.where(stop, reason, sc[_REASON]),
             torch.where(stop, slot, sc[_FINAL_SLOT]),
             torch.where(stop, n, sc[_FINAL_TAKE]),
+            torch.maximum(sc[_MAX_FRESH], go * n_new),
         ]))
         d["final_stats"].copy_(torch.where(stop, stats, d["final_stats"]))
         if self._cov is not None:
@@ -808,7 +905,7 @@ class GpuBfsChecker(Checker):
         d = self._drain
         sc = d["scalars"]
         sc[_LOG_N:] = torch.tensor(
-            [0, 0, 0, 0, budget, 0, 1, 0, 0, 0], dtype=torch.int64
+            [0, 0, 0, 0, budget, 0, 1, 0, 0, 0, 0], dtype=torch.int64
         )
         if self._cov is not None:
             d["cov_acc"].zero_()
@@ -840,15 +937,18 @@ class GpuBfsChecker(Checker):
         of its last replay was consumed, so the final wave is never
         overwritten. Returns the graphs' (out, frontier) slots."""
         d = self._drain
-        key = (width, self._capacity, d["capacity"])
+        key = (width, self._capacity, d["capacity"],
+               self._take_width(width) if self._use_fps else None)
         entry = self._graphs.get(key)
         if entry is None or entry["table"] != table.data_ptr():
             # Capacities only grow: graphs of other capacities are done.
             self._graphs = {
-                k: v for k, v in self._graphs.items() if k[1:] == key[1:]
-                and v["table"] == table.data_ptr()
+                k: v for k, v in self._graphs.items() if k[1:3] == key[1:3]
+                and k[0] != width and v["table"] == table.data_ptr()
             }
+            t0 = time.perf_counter()
             entry = self._graphs[key] = self._capture_drain(table, width)
+            self.capture_s += time.perf_counter() - t0
         if self._go_host is None:
             self._go_host = torch.zeros(2, dtype=torch.int64, pin_memory=True)
         graphs, events, flag = entry["graphs"], entry["events"], self._go_host

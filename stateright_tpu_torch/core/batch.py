@@ -14,7 +14,11 @@ transition relation in fixed-width, batched form:
   once, written batched rather than through ``vmap`` because that is the
   form the wave consumes;
 - ``packed_conditions`` are batched predicates aligned 1:1 with
-  ``properties()``.
+  ``properties()``;
+- optionally, the fingerprint-only expansion: ``packed_expand_fps`` gives
+  the F x A candidates' fingerprints and validity without making them, and
+  ``packed_take`` makes the children of chosen (row, action) pairs; the
+  staged wave then makes only its fresh children (``supports_expand_fps``).
 
 Packed and host representations must agree: ``pack_state``/``unpack_state``
 convert one state between them, and two host states are equal iff their
@@ -107,6 +111,30 @@ class BatchableModel:
         parent log, replay). The default hashes every leaf."""
         return fingerprint_state(states)
 
+    def packed_expand_fps(self, states: PackedState):
+        """OPTIONAL: the fingerprints and validity of all ``A`` children of
+        each of F states, without making the children: ``(hi, lo, valid)``,
+        each ``(F, A)``. ``(hi, lo)`` must equal ``packed_fingerprint`` of
+        the ``packed_expand`` candidate on every valid lane, and ``valid``
+        must equal ``packed_expand``'s validity and
+        ``packed_within_boundary`` of the child. A model supports the
+        fingerprint-only wave by implementing this and ``packed_take``."""
+        raise NotImplementedError
+
+    def packed_take(self, states: PackedState, action_ids: torch.Tensor) -> PackedState:
+        """OPTIONAL companion of ``packed_expand_fps``: one child for each
+        of L rows, row ``l``'s child by action ``action_ids[l]`` (``(L,)``),
+        exactly ``packed_expand``'s candidate there on valid actions. The
+        checker calls it on the fresh lanes of a wave only."""
+        raise NotImplementedError
+
+    def packed_expand_fps_supported(self) -> bool:
+        """Whether the two hooks above are safe for this model instance: a
+        model may veto the fingerprint-only wave although its class
+        implements them. The checker consults it before turning the wave
+        on; ``expand_fps=True`` against a veto raises."""
+        return True
+
     def pack_state(self, host_state: Any) -> PackedState:
         """Packs one host state into tensors WITHOUT the lane axis."""
         raise NotImplementedError
@@ -115,3 +143,14 @@ class BatchableModel:
         """Unpacks one packed state (no lane axis) into a host state."""
         raise NotImplementedError
 
+
+
+def supports_expand_fps(model) -> bool:
+    """Whether ``model`` implements the fingerprint-only expansion
+    (``packed_expand_fps`` and ``packed_take``) and allows it: the checker's
+    test for the fps wave."""
+    return (
+        type(model).packed_expand_fps is not BatchableModel.packed_expand_fps
+        and type(model).packed_take is not BatchableModel.packed_take
+        and model.packed_expand_fps_supported()
+    )

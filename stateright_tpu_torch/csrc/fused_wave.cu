@@ -59,12 +59,15 @@
 //                keys before it by decoupled look-back, and writes hi, lo,
 //                ebits, depth + 1, the parent's hi and lo and the lane of
 //                each fresh key to its slot (its rank among the fresh keys);
+//                its last tile also writes the wave's stats vector,
+//                [generated, n_new, overflow, max_depth, any_hit] and
+//                (hit, hi, lo) per property, as int64 (Pallas: the
+//                epilogue's pallas_wave.py:470-489 and :510-514), from the
+//                counters, which are final by then;
 //   fw_gather    the candidate leaves of the fresh keys, as byte rows: a
 //                group of lanes a row (a warp for a leaf row of 512 B or
 //                more), coalesced 16-byte units where alignment allows,
-//                over a persistent grid bounded by the device's n_new;
-//   fw_stats     one block: [generated, n_new, overflow, max_depth,
-//                any_hit] and (hit, hi, lo) per property, as int64.
+//                over a persistent grid bounded by the device's n_new.
 //
 // Every output equals the plain torch twin's (ops/fused_wave.py::
 // fused_wave_plain) bit for bit, and the per-lane outputs are B rows long
@@ -185,7 +188,7 @@
 #define KIND_EVENTUALLY 2
 
 // The wave's device counters (unsigned long long): written by the stages,
-// read by fw_stats.
+// read by fw_compact, which writes the stats vector.
 #define ACC_GENERATED 0
 #define ACC_N_NEW 1
 #define ACC_OVERFLOW 2
@@ -1328,7 +1331,11 @@ struct WaveBatch {
 // parent's ebits, depth, hi and lo. Each fresh key's slot is its rank among
 // the fresh keys in sorted order; the block writes its fresh rows to
 // consecutive slots: the per-lane outputs of the slot and the key's lane
-// for the leaf gather. The last tile writes n_new into acc.
+// for the leaf gather. The last tile writes n_new into acc and, with
+// stats, the wave's stats vector: the counters (every stage before it has
+// run), n_new, any_hit, and each property's hit with the (hi, lo) of its
+// first hit lane (lane 0 when none hit, as jnp.argmax gives). There is
+// always a last tile: a wave of no lanes runs one block.
 //
 // With COV (coverage on) each fresh row also counts into the fresh half of
 // the wave's coverage vector, which fw_frontier zeroed: its action bin
@@ -1346,7 +1353,7 @@ __global__ void __launch_bounds__(THREADS) compact_kernel(
     int64_t* __restrict__ new_depth, int64_t* __restrict__ parent_hi,
     int64_t* __restrict__ parent_lo, int64_t* __restrict__ src_out,
     uint32_t* __restrict__ sc, ull* __restrict__ acc, int64_t nt,
-    int cov_size, ull* __restrict__ cov) {
+    int cov_size, ull* __restrict__ cov, int64_t* __restrict__ stats, int P) {
   __shared__ uint16_t s_pos[COMPACT_TILE];
   __shared__ uint32_t s_tile, s_before;
   extern __shared__ uint32_t s_hist[];  // COV: A action bins, then the depth bins
@@ -1404,6 +1411,25 @@ __global__ void __launch_bounds__(THREADS) compact_kernel(
   }
   __syncthreads();
   const int64_t before = s_before;
+  if (stats != nullptr && t == nt - 1) {
+    const int any = __syncthreads_or(tid < P && acc[ACC_FIRST_HIT + tid] != 0ull);
+    const int64_t F = B / A;
+    if (tid < P) {
+      const ull first = ~acc[ACC_FIRST_HIT + tid];
+      const bool hit = first != ~0ull;
+      const int64_t f = hit ? (int64_t)first : 0;
+      stats[5 + 3 * tid] = hit;
+      stats[6 + 3 * tid] = F ? hi[f] : 0;
+      stats[7 + 3 * tid] = F ? lo[f] : 0;
+    }
+    if (tid == 0) {
+      stats[0] = (int64_t)acc[ACC_GENERATED];
+      stats[1] = before + tot;
+      stats[2] = (int64_t)acc[ACC_OVERFLOW];
+      stats[3] = (int64_t)acc[ACC_MAX_DEPTH];
+      stats[4] = any != 0;
+    }
+  }
   // Every thread runs every round (tot is the block's), so a round's
   // warp match sees the whole warp.
   for (int j0 = 0; j0 < (int)tot; j0 += THREADS) {
@@ -1501,30 +1527,6 @@ static int cov_succ_bins(int A) {
   int b = 0;
   while (A > 1 && (1 << b) < A) ++b;
   return b + 1;
-}
-
-// -- stats -------------------------------------------------------------------
-
-__global__ void stats_kernel(const ull* __restrict__ acc, int P, int64_t F,
-                             const int64_t* __restrict__ hi,
-                             const int64_t* __restrict__ lo,
-                             int64_t* __restrict__ stats) {
-  const int t = threadIdx.x;
-  if (t < P) {
-    const ull first = ~acc[ACC_FIRST_HIT + t];
-    const bool hit = first != ~0ull;
-    // The first hit lane, or lane 0 when there is none (jnp.argmax).
-    const int64_t f = hit ? (int64_t)first : 0;
-    stats[5 + 3 * t] = hit;
-    stats[6 + 3 * t] = F ? hi[f] : 0;
-    stats[7 + 3 * t] = F ? lo[f] : 0;
-  }
-  if (t == 0) {
-    bool any = false;
-    for (int i = 0; i < P; ++i) any |= acc[ACC_FIRST_HIT + i] != 0ull;
-    for (int i = 0; i < 4; ++i) stats[i] = (int64_t)acc[i];
-    stats[4] = any;
-  }
 }
 
 // -- C entry points (loaded with ctypes) ----------------------------------------
@@ -1728,16 +1730,19 @@ extern "C" int fw_sweep(void* table, const void* skey, const void* active,
 // scratch is 1 + ceil(B / COMPACT_TILE) words (at least 2): the ticket and
 // the tiles' status words, zeroed here. With coverage on, cov is the
 // wave's coverage vector of cov_size words (fw_frontier zeroed it), whose
-// fresh half the kernel adds; null and 0 with it off. *launches_host gets
-// the device operations queued (the memset and the kernel).
+// fresh half the kernel adds; null and 0 with it off. stats, when not
+// null, gets the wave's (5 + 3P,) int64 stats vector (acc holds
+// ACC_FIRST_HIT + P counters). *launches_host gets the device
+// operations queued (the memset and the kernel).
 extern "C" int fw_compact(int64_t B, int A, const void* flag, const void* skey,
                           const void* sidx, const void* ebits_after, const void* depth,
                           const void* hi, const void* lo, void* scratch, void* acc,
                           void* new_hi, void* new_lo, void* new_ebits, void* new_depth,
                           void* parent_hi, void* parent_lo, void* src_out, void* cov,
-                          int cov_size, int* launches_host, void* stream) {
+                          int cov_size, void* stats, int P, int* launches_host,
+                          void* stream) {
   *launches_host = 0;
-  if (B < 0 || B > (int64_t)ST_COUNT || A < 1 ||
+  if (B < 0 || B > (int64_t)ST_COUNT || A < 1 || P < 0 || P > MAX_PROPS ||
       (cov != nullptr && (cov_size < 4 + 2 * A + 1 + COV_DEPTH_BINS ||
                           A + COV_DEPTH_BINS > MAX_COV_WORDS)))
     return (int)cudaErrorInvalidValue;
@@ -1751,14 +1756,14 @@ extern "C" int fw_compact(int64_t B, int A, const void* flag, const void* skey,
         (const int64_t*)ebits_after, (const int64_t*)depth, (const int64_t*)hi,
         (const int64_t*)lo, (int64_t*)new_hi, (int64_t*)new_lo, (int64_t*)new_ebits,
         (int64_t*)new_depth, (int64_t*)parent_hi, (int64_t*)parent_lo, (int64_t*)src_out,
-        (uint32_t*)scratch, (ull*)acc, (int64_t)nt, cov_size, (ull*)cov);
+        (uint32_t*)scratch, (ull*)acc, (int64_t)nt, cov_size, (ull*)cov, (int64_t*)stats, P);
   else
     compact_kernel<false><<<nt, THREADS, 0, s>>>(
         (const uint8_t*)flag, B, A, (const ull*)skey, (const uint32_t*)sidx,
         (const int64_t*)ebits_after, (const int64_t*)depth, (const int64_t*)hi,
         (const int64_t*)lo, (int64_t*)new_hi, (int64_t*)new_lo, (int64_t*)new_ebits,
         (int64_t*)new_depth, (int64_t*)parent_hi, (int64_t*)parent_lo, (int64_t*)src_out,
-        (uint32_t*)scratch, (ull*)acc, (int64_t)nt, 0, nullptr);
+        (uint32_t*)scratch, (ull*)acc, (int64_t)nt, 0, nullptr, (int64_t*)stats, P);
   *launches_host = 2;
   return last_error(cudaSuccess);
 }
@@ -1798,15 +1803,5 @@ extern "C" int fw_gather(int64_t B, const void* src_out, const void* acc, int n_
     if (e != cudaSuccess) return (int)e;
     ++*launches_host;
   }
-  return last_error(cudaSuccess);
-}
-
-extern "C" int fw_stats(int P, int64_t F, const void* acc, const void* hi, const void* lo,
-                        void* stats, void* stream) {
-  if (P < 0 || P > MAX_PROPS) return (int)cudaErrorInvalidValue;
-  stats_kernel<<<1, MAX_PROPS, 0, (cudaStream_t)stream>>>((const ull*)acc, P, F,
-                                                          (const int64_t*)hi,
-                                                          (const int64_t*)lo,
-                                                          (int64_t*)stats);
   return last_error(cudaSuccess);
 }

@@ -290,12 +290,24 @@ def hash_rows(rows: torch.Tensor, tags):
     ``tags[r]``: ``fmix(Σ_j w_j · K_j ⊕ seed)`` under independent odd
     constants per lane — the component hash. ``tags`` is a sequence of R
     ints (their seeds are made once per device) or an ``(R,)`` tensor."""
-    W = rows.shape[-1]
-    khi, klo = (_consts(W, salt, rows.device) for salt in row_salts(W))
     if isinstance(tags, torch.Tensor):
         thi, tlo = component_seeds(tags)
     else:
         thi, tlo = _seeds(tuple(int(t) for t in tags), rows.device)
+    return _seeded_rows(rows, thi, tlo)
+
+
+def hash_rows_of(rows: torch.Tensor, tags: torch.Tensor, n_tags: int):
+    """``hash_rows`` with a tensor of tags in ``0..n_tags-1`` (any shape
+    of ``rows``' leading axes), their seeds gathered from the table of all
+    ``n_tags`` made once per device."""
+    thi, tlo = _seeds(tuple(range(n_tags)), rows.device)
+    return _seeded_rows(rows, thi[tags], tlo[tags])
+
+
+def _seeded_rows(rows, thi, tlo):
+    W = rows.shape[-1]
+    khi, klo = (_consts(W, salt, rows.device) for salt in row_salts(W))
     return (_fmix(_lin_sum(rows, khi) ^ thi), _fmix(_lin_sum(rows, klo) ^ tlo))
 
 

@@ -15,8 +15,9 @@ cannot hold another program's code, so the wave splits in two:
   hits), the fingerprints (by the spec's ``keys_route``, below), a stable
   radix sort of the keys, dedup and tile ranges, the tile sweep shared
   with the insert kernel (``csrc/tile_sweep.cuh``), compaction of the
-  fresh keys, and the stats; with coverage on, the frontier and compaction
-  kernels also add the wave's coverage vector (below).
+  fresh keys, which also writes the stats vector; with coverage
+  on, the frontier and compaction kernels also add the wave's coverage
+  vector (below).
 
 The Pallas kernel fingerprints with the model's own ``fp_fn``
 (``pallas_wave.py:180``). A model takes one of three key routes, chosen once
@@ -116,7 +117,10 @@ __all__ = [
     "sort_plain",
     "sort_stage",
     "sorted_dedup",
+    "stats_from_acc",
+    "take_children",
     "torch_wave",
+    "torch_wave_fps",
 ]
 
 # Fused waves launched on the card in this process (each is one run of
@@ -170,7 +174,9 @@ class FusedWaveSpec:
     the ``"comphash"`` route). ``cov_layout`` (a ``DeviceCoverage``, or
     None with coverage off) and ``cov_antecedents`` (the model's
     ``packed_antecedents()``, aligned with ``conditions``) are the Pallas
-    spec's."""
+    spec's. ``expand_fps`` and ``take`` are the model's
+    ``packed_expand_fps`` and ``packed_take`` (``torch_wave_fps``; None
+    where the checker runs the materializing wave)."""
 
     expand: Callable
     within_boundary: Callable
@@ -183,6 +189,8 @@ class FusedWaveSpec:
     comphash: Optional[dict] = None
     cov_layout: Any = None
     cov_antecedents: Tuple[Optional[Callable], ...] = ()
+    expand_fps: Optional[Callable] = None
+    take: Optional[Callable] = None
 
 
 # -- the model stage (torch on both paths) ---------------------------------
@@ -200,11 +208,14 @@ def model_stage(spec: FusedWaveSpec, states, F: int):
         lambda x: x.reshape((B,) + x.shape[2:]).contiguous(), cand
     )
     cvalid = (valid.reshape(B) & spec.within_boundary(cand_flat)).contiguous()
+    return _conditions(spec, states, F, cvalid.device), cvalid, cand_flat
+
+
+def _conditions(spec, states, F, device):
+    """The ``(P, F)`` bool condition matrix of the frontier, contiguous."""
     if spec.conditions:
-        cond = torch.stack([c(states).to(torch.bool) for c in spec.conditions])
-    else:
-        cond = torch.zeros((0, F), dtype=torch.bool, device=cvalid.device)
-    return cond.contiguous(), cvalid, cand_flat
+        return torch.stack([c(states).to(torch.bool) for c in spec.conditions]).contiguous()
+    return torch.zeros((0, F), dtype=torch.bool, device=device)
 
 
 def antecedent_stage(spec: FusedWaveSpec, states, F: int):
@@ -371,7 +382,8 @@ def _stats(spec, cond, eval_mask, terminal, ebits_after, hi, lo, depth,
            generated, fresh, pending, mask=None):
     """The stats vector: counts (the max depth over the live lanes), then
     each property's hit and the fingerprint of its first hit lane (lane 0
-    when none hit, as ``jnp.argmax``)."""
+    when none hit, as ``jnp.argmax``). The plain twin of what
+    ``fw_compact`` writes on the card."""
     zero = torch.zeros((), dtype=torch.int64, device=hi.device)
     F = hi.shape[0]
     hits, props = [], []
@@ -402,36 +414,70 @@ def torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None):
     and, on a CPU table, ``fused_wave_plain``. ``mask`` (F,) bool marks
     the live lanes; None means every lane is live. Masked lanes may hold
     stale rows: nothing of them reaches the outputs."""
-    F, A = hi.shape[0], spec.action_count
+    F = hi.shape[0]
     cond, cvalid, cand_flat = model_stage(spec, states, F)
+    chi, clo = spec.fingerprint(cand_flat)
+    table, out = _staged_wave(spec, table, states, cond, cvalid, chi, clo, hi, lo, ebits,
+                              depth, depth_cap, mask)
+    # The leaves' rows past n_new are lane 0's.
+    src = out["new"].pop("src")
+    out["new"]["states"] = map_leaves(lambda x: x[src], cand_flat)
+    return table, out
+
+
+def torch_wave_fps(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None):
+    """``torch_wave`` with the fingerprint-only expansion (the JAX staged
+    wave with ``expand_fps`` on): the candidates' fingerprints and validity
+    come from ``spec.expand_fps`` with no candidate state made, then the
+    same sort, dedup, insert, compaction, stats and coverage. ``new`` holds
+    no ``states``: it holds ``src``, each slot's candidate lane (parent
+    ``src // A``, action ``src % A``; 0 past ``n_new``), and the caller
+    makes the fresh children it keeps with ``take_children``."""
+    F = hi.shape[0]
+    B = F * spec.action_count
+    cond = _conditions(spec, states, F, hi.device)
+    chi, clo, valid = spec.expand_fps(states)
+    return _staged_wave(spec, table, states, cond, valid.reshape(B), chi.reshape(B),
+                        clo.reshape(B), hi, lo, ebits, depth, depth_cap, mask)
+
+
+def _staged_wave(spec, table, states, cond, cvalid, chi, clo, hi, lo, ebits, depth,
+                 depth_cap, mask):
+    """The staged wave from the candidates' valid bits and fingerprints on:
+    the frontier, the sort and dedup, the insert, the stats, the coverage
+    and the JAX staged wave's cumsum compaction (the Pallas epilogue's,
+    ``pallas_wave.py:444-463``); ``new`` holds ``src``, each slot's
+    candidate lane, and no ``states``."""
+    F, A = hi.shape[0], spec.action_count
     eval_mask, ebits_after, cvalid, terminal = _frontier_plain(
         spec, cond, cvalid, ebits, depth, depth_cap, mask
     )
-    chi, clo = spec.fingerprint(cand_flat)
     shi, slo, sidx, unique = sorted_dedup(chi, clo, cvalid)
     table, fresh, _found, pending = hashset_insert_sorted(
         table, u32_to_i32(shi), u32_to_i32(slo), unique
     )
     stats = _stats(spec, cond, eval_mask, terminal, ebits_after, hi, lo,
                    depth, cvalid.sum(), fresh, pending, mask)
-    cov = None
+    c, _n_new = compact_plain(fresh, (shi << 32) | slo, sidx, A, ebits_after, depth, hi, lo)
+    out = {"stats": stats, "new": {k: c[k] for k in ("src", "hi", "lo", "ebits", "depth")},
+           "parent_hi": c["parent_hi"], "parent_lo": c["parent_lo"]}
     if spec.cov_layout is not None:
         # The JAX staged wave's coverage (checker/tpu.py:1337-1380): the
         # claim winners in sorted order, each with its lane's action and
         # its child's depth.
-        cov = coverage_plain(spec, cvalid, depth, depth_cap, mask, cond,
-                             antecedent_stage(spec, states, F), ebits_after, fresh, sidx)
-    # The JAX staged wave's cumsum compaction (the Pallas epilogue's,
-    # pallas_wave.py:444-463); the leaves' rows past n_new are lane 0's.
-    c, _n_new = compact_plain(fresh, (shi << 32) | slo, sidx, A, ebits_after, depth, hi, lo)
-    src = c["src"]
-    new = {"states": map_leaves(lambda x: x[src], cand_flat)}
-    new.update((k, c[k]) for k in ("hi", "lo", "ebits", "depth"))
-    out = {"stats": stats, "new": new, "parent_hi": c["parent_hi"],
-           "parent_lo": c["parent_lo"]}
-    if cov is not None:
-        out["cov"] = cov
+        out["cov"] = coverage_plain(spec, cvalid, depth, depth_cap, mask, cond,
+                                    antecedent_stage(spec, states, F), ebits_after, fresh,
+                                    sidx)
     return table, out
+
+
+def take_children(spec, states, src):
+    """The children of candidate lanes ``src`` (``(L,)``) of a wave over the
+    frontier ``states``: ``spec.take`` of parent row ``src // A`` and action
+    ``src % A``, one row each."""
+    A = spec.action_count
+    parents = map_leaves(lambda x: x[src // A], states)
+    return spec.take(parents, src % A)
 
 
 def fused_wave_plain(spec, table, states, hi, lo, ebits, depth, depth_cap,
@@ -461,9 +507,8 @@ ARGTYPES = {
     "fw_dedup": [_c_i64, _c_ptr, _c_ptr, _c_int] + [_c_ptr] * 3 + [_c_i64] + [_c_ptr] * 2
     + [_c_int] * 2 + [_c_ptr],
     "fw_sweep": [_c_ptr] * 4 + [_c_i64] + [_c_int] * 2 + [_c_ptr] * 4,
-    "fw_compact": [_c_i64, _c_int] + [_c_ptr] * 17 + [_c_int] + [_c_ptr] * 2,
+    "fw_compact": [_c_i64, _c_int] + [_c_ptr] * 17 + [_c_int, _c_ptr, _c_int] + [_c_ptr] * 2,
     "fw_gather": [_c_i64, _c_ptr, _c_ptr, _c_int] + [_c_ptr] * 4 + [_c_int] + [_c_ptr] * 2,
-    "fw_stats": [_c_int, _c_i64] + [_c_ptr] * 5,
 }
 
 
@@ -837,23 +882,53 @@ def compact_plain(flag, key, idx, action_count, ebits_after, depth, hi, lo):
     return out, fresh.sum()
 
 
-def compact_stage(flag, key, idx, action_count, ebits_after, depth, hi, lo, acc, cov=None):
+def stats_from_acc(acc, P, hi, lo):
+    """The ``(5 + 3P,)`` stats vector decoded from the wave's counters
+    ``acc`` (``frontier_plain``'s layout, ``n_new`` in ``acc[1]``) and the
+    frontier's ``hi`` and ``lo``, as ``fw_compact`` writes it:
+    ``compact_stage``'s stats on CPU tensors."""
+    F = hi.shape[0]
+    zero = torch.zeros(1, dtype=torch.int64, device=acc.device)
+    first = acc[4:4 + P]
+    hit = first != 0
+    lane = torch.where(hit, ~first, 0)
+    props = [hit.to(torch.int64),
+             hi[lane] if F else zero.expand(P), lo[lane] if F else zero.expand(P)]
+    any_hit = hit.any().view(1).to(torch.int64)
+    return torch.cat([acc[:4], any_hit, torch.stack(props, dim=1).reshape(3 * P)])
+
+
+def compact_stage(flag, key, idx, action_count, ebits_after, depth, hi, lo, acc, cov=None,
+                  stats=None):
     """Stage (f): writes ``n_new`` into ``acc`` and returns the B-row
     per-lane outputs and ``src``, each slot's candidate lane (rows past
-    ``n_new`` unspecified). On CUDA tensors it launches ``fw_compact`` (a
-    memset and one kernel, ``compact_device_ops``) and counts one
-    ``compact_launches``; with ``cov`` (coverage on: the wave's coverage
-    vector, which ``frontier_stage`` zeroed) the kernel adds its fresh half
+    ``n_new`` unspecified). With ``stats``, a ``(5 + 3P,)`` int64 tensor
+    for ``acc``'s P properties, the kernel also writes the wave's stats
+    vector from the counters, which every stage before it has finished
+    (``stats_from_acc``; the wave's ``_stats``). On CUDA tensors it
+    launches ``fw_compact`` (a memset and one kernel,
+    ``compact_device_ops``) and counts one ``compact_launches``; with
+    ``cov`` (coverage on: the wave's coverage vector, which
+    ``frontier_stage`` zeroed) the kernel adds its fresh half
     (``coverage_fresh_plain``) and counts one ``coverage_fresh_launches``.
-    On CPU tensors it runs ``compact_plain`` (and takes no ``cov``)."""
+    On CPU tensors it runs ``compact_plain`` and ``stats_from_acc`` (and
+    takes no ``cov``)."""
     global compact_launches, compact_device_ops, coverage_fresh_launches
 
+    P = 0
+    if stats is not None:
+        P = (stats.shape[0] - 5) // 3
+        if stats.dtype != torch.int64 or stats.shape[0] != 5 + 3 * P or acc.shape[0] < 4 + P:
+            raise ValueError(f"stats must be a (5 + 3P,) int64 tensor for acc's P properties, "
+                             f"got {tuple(stats.shape)} {stats.dtype} and acc of {acc.shape[0]}")
     if flag.device.type == "cpu":
         if cov is not None:
             raise ValueError("compact_stage adds coverage on the card only; "
                              "coverage_fresh_plain is its twin")
         out, n_new = compact_plain(flag, key, idx, action_count, ebits_after, depth, hi, lo)
         acc[1:2].copy_(n_new.view(1))
+        if stats is not None:
+            stats.copy_(stats_from_acc(acc, P, hi, lo))
         return out
     B = key.shape[0]
     scratch = torch.empty(1 + max(1, -(-B // _COMPACT_TILE)), dtype=torch.int32,
@@ -869,7 +944,7 @@ def compact_stage(flag, key, idx, action_count, ebits_after, depth, hi, lo, acc,
           out["lo"].data_ptr(), out["ebits"].data_ptr(), out["depth"].data_ptr(),
           out["parent_hi"].data_ptr(), out["parent_lo"].data_ptr(),
           out["src"].data_ptr(), _ptr(cov), 0 if cov is None else cov.shape[0],
-          ctypes.addressof(ops), _stream(key))
+          _ptr(stats), P, ctypes.addressof(ops), _stream(key))
     compact_device_ops = ops.value
     return out
 
@@ -944,14 +1019,6 @@ def coverage_stage(spec, cvalid, depth, depth_cap, mask, cond, ant, ebits_after,
                           flag, idx)
 
 
-def stats_stage(P, acc, hi, lo):
-    """The ``(5 + 3P,)`` int64 stats vector, reduced in one block."""
-    stats = torch.empty(5 + 3 * P, dtype=torch.int64, device=acc.device)
-    _call("fw_stats", P, hi.shape[0], acc.data_ptr(), hi.data_ptr(),
-          lo.data_ptr(), stats.data_ptr(), _stream(acc))
-    return stats
-
-
 def _check_inputs(table, named):
     for name, x, dtype, shape in named:
         if x.dtype != dtype or tuple(x.shape) != shape:
@@ -1008,14 +1075,13 @@ def kernel_chain(spec, table, hi, lo, ebits, depth, depth_cap, cond, cvalid,
     mark("sweep")
     flag, _scratch = sweep_stage(table, key, active, starts, acc)
     mark("compact")
-    c = compact_stage(flag, key, idx, A, ebits_after, depth, hi, lo, acc, cov)
+    stats = torch.empty(5 + 3 * P, dtype=torch.int64, device=table.device)
+    c = compact_stage(flag, key, idx, A, ebits_after, depth, hi, lo, acc, cov, stats)
     if taps is not None:
         taps.update(ebits_after=ebits_after, flag=flag, key=key, idx=idx, active=active,
                     starts=starts, src=c["src"], acc=acc, cov=cov)
     mark("gather")
     new_states = gather_stage(c["src"], acc, cand_flat)
-    mark("stats")
-    stats = stats_stage(P, acc, hi, lo)
     mark(None)
     new = {"states": new_states}
     new.update((k, c[k]) for k in ("hi", "lo", "ebits", "depth"))

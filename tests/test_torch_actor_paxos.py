@@ -14,8 +14,10 @@ Then whole checks: the port's host ``spawn_bfs`` and its
 ``spawn_gpu_bfs(device="cpu")`` with both wave engines, wave at a time and
 drained, against the JAX package's ``spawn_bfs`` and
 ``spawn_tpu_bfs(hashset_impl="xla", wave_dedup="sort", expand_fps=False)``
-at the same settings (``expand_fps`` off: the JAX default turns it on for
-actor models, and the port runs the materializing wave): unique and
+at the same settings, the port's staged engine with its default (the
+fingerprint-only wave) and with ``expand_fps=False``, and the port's
+default staged engine against the JAX checker with its default
+(``expand_fps`` on for both): unique and
 generated counts, max depth, discoveries, the ``encode()`` of each
 discovery path and the golden reporter lines. ``SingleCopyModelCfg(2, 2)``
 is not linearizable, so its ``always`` counterexample path is replayed
@@ -217,15 +219,13 @@ def test_history_hooks_match(seed):
 
 
 def test_packed_side_refuses_what_is_not_ported():
-    """Symmetry and the fingerprint-only expansion are refused by name;
-    lossy, ordered and crash configurations pack and expand."""
+    """Symmetry is refused by name; lossy, ordered and crash configurations
+    pack and expand."""
     from stateright_tpu_torch.actor.network import Network
 
     model = PaxosModelCfg(2, 2).into_model()
-    for call in (model.packed_symmetry, lambda: model.packed_expand_fps(None),
-                 lambda: model.packed_take(None, 0)):
-        with pytest.raises(ValueError, match="Queue 1 #6"):
-            call()
+    with pytest.raises(ValueError, match="Queue 1 #6"):
+        model.packed_symmetry()
     assert isinstance(model, PackedActorModel)
     lossy = PaxosModelCfg(2, 2).into_model().lossy_network(True)
     ordered = SingleCopyModelCfg(2, 1, network=Network.new_ordered()).into_model()
@@ -303,10 +303,16 @@ def runs(request):
         out[("jax", mode)] = make_jax().into_model().checker().spawn_tpu_bfs(
             hashset_impl="xla", wave_dedup="sort", expand_fps=False, **SPAWN, **options
         ).join()
+        out[("jax_fps", mode)] = make_jax().into_model().checker().spawn_tpu_bfs(
+            hashset_impl="xla", wave_dedup="sort", **SPAWN, **options
+        ).join()
         for engine in ("staged", "fused"):
             out[(engine, mode)] = make_port().into_model().checker().spawn_gpu_bfs(
                 device="cpu", wave_kernel=engine, **SPAWN, **options
             ).join()
+        out[("staged_materialize", mode)] = make_port().into_model().checker().spawn_gpu_bfs(
+            device="cpu", expand_fps=False, **SPAWN, **options
+        ).join()
     return out
 
 
@@ -332,12 +338,22 @@ def test_host_oracle_matches_jax_host(runs):
     _same_run(runs["host"], runs["jax_host"], WriteReporter, JaxWriteReporter)
 
 
-@pytest.mark.parametrize("engine", ["staged", "fused"])
+# The port's run and the JAX run it is held to: the JAX checker with
+# expand_fps off, or (staged_vs_jax_fps) with its default, fps on.
+ENGINES = {"staged": ("staged", "jax"), "fused": ("fused", "jax"),
+           "staged_materialize": ("staged_materialize", "jax"),
+           "staged_vs_jax_fps": ("staged", "jax_fps")}
+
+
+@pytest.mark.parametrize("engine", list(ENGINES))
 @pytest.mark.parametrize("mode", list(MODES))
 def test_gpu_checker_matches_jax(runs, engine, mode):
-    port = runs[(engine, mode)]
+    port_key, jax_key = ENGINES[engine]
+    port, ref = runs[(port_key, mode)], runs[(jax_key, mode)]
     assert port.keys_route == "comphash"
-    _same_run(port, runs[("jax", mode)], WriteReporter, JaxWriteReporter)
+    assert port._use_fps is (port_key == "staged")
+    assert ref._use_fps is (jax_key == "jax_fps")
+    _same_run(port, ref, WriteReporter, JaxWriteReporter)
     if mode == "drain":
         assert port.drains > 0
 

@@ -505,7 +505,8 @@ def frontier_inputs(F, A, P, masked, seed=0):
 
 def check_frontier(spec, ins, dev, depth_cap=9):
     """``frontier_stage`` on the card against ``frontier_plain`` on the
-    CPU: ``ebits_after``, every ``acc`` slot and the stats vector."""
+    CPU: ``ebits_after``, every ``acc`` slot and the stats vector that
+    ``fw_compact`` then writes from them."""
     P = len(spec.conditions)
     on = lambda x: None if x is None else x.to(dev)  # noqa: E731
     cond, cvalid, ebits, depth, mask = ins
@@ -516,7 +517,14 @@ def check_frontier(spec, ins, dev, depth_cap=9):
     eb = fw.frontier_stage(spec, *map(on, ins[:4]), depth_cap, acc, on(mask))
     F = depth.shape[0]
     hi = torch.arange(F, dtype=torch.int64, device=dev) * 3 + 1
-    stats = fw.stats_stage(P, acc, hi, hi + 1)
+    # The stats vector as fw_compact writes it, over a wave
+    # with no fresh key.
+    B = F * spec.action_count
+    stats = torch.empty(5 + 3 * P, dtype=torch.int64, device=dev)
+    fw.compact_stage(torch.zeros(B, dtype=torch.uint8, device=dev),
+                     torch.full((B,), -1, dtype=torch.int64, device=dev),
+                     torch.arange(B, dtype=torch.int32, device=dev), spec.action_count, eb,
+                     on(depth), hi, hi + 1, acc, stats=stats)
     torch.cuda.synchronize()
     assert fw.frontier_launches == before + 1 and fw.frontier_device_ops == 2
     assert torch.equal(eb.cpu(), peb)
@@ -853,6 +861,73 @@ def test_cuda_masked_fused_wave_matches_plain_twin(cuda_device, pattern):
         assert stats[:5] == [0, 0, 0, 0, 0]
 
 
+def two_phase_frontier(n, waves):
+    """The spec of ``TwoPhaseSys(n)`` with every property, and its frontier
+    after ``waves`` waves of the plain wave from the initial states with
+    the table it ran on."""
+    from stateright_tpu_torch.core.model import Expectation
+
+    model = TwoPhaseSys(n)
+    props = model.properties()
+    ebit = [i for i, p in enumerate(props) if p.expectation == Expectation.EVENTUALLY]
+    spec = fw.FusedWaveSpec(
+        expand=model.packed_expand, within_boundary=model.packed_within_boundary,
+        conditions=tuple(model.packed_conditions()),
+        expectations=tuple(p.expectation.value for p in props),
+        ebit=tuple((pi, b) for b, pi in enumerate(ebit)),
+        action_count=model.packed_action_count())
+    states = model.packed_init_states()
+    hi, lo = model.packed_fingerprint(states)
+    F = hi.shape[0]
+    cols = {"hi": hi, "lo": lo,
+            "ebits": torch.full((F,), sum(1 << b for b in range(len(ebit))), dtype=torch.int64),
+            "depth": torch.ones(F, dtype=torch.int64)}
+    table = table_from_numpy(empty_table(1 << 16))
+    for _ in range(waves):
+        table, out = fw.fused_wave_plain(spec, table, states, cols["hi"], cols["lo"],
+                                         cols["ebits"], cols["depth"], 1 << 20)
+        n_new = int(out["stats"][1])
+        states = map_leaves(lambda x: x[:n_new].clone(), out["new"]["states"])
+        cols = {k: out["new"][k][:n_new].clone() for k in ("hi", "lo", "ebits", "depth")}
+    return spec, table_to_numpy(table), states, cols
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["2pc8", "property_hit", "zero_lane_drain_wave",
+                                  "no_property"])
+def test_cuda_compact_writes_the_stats_vector(cuda_device, case):
+    """The wave's stats vector, written by ``fw_compact``'s last tile with
+    no stage of its own (no ``stats_stage``, no ``stats_kernel``), equals
+    the plain wave's ``_stats`` bit for bit: on a 2pc-8 wave, on a wave
+    where every property hits, on a drain wave that takes no lane, and on a
+    spec with no property (P = 0)."""
+    assert not hasattr(fw, "stats_stage")
+    if case == "2pc8":
+        spec, table, states, cols = two_phase_frontier(8, 5)
+        before = fw.compact_launches
+        stats, _ = fused_both(spec, table, states, cols, 1 << 20, cuda_device)
+        assert fw.compact_launches == before + 1
+        assert stats[1] > 0 and len(stats) == 5 + 3 * len(spec.conditions)
+        return
+    spec = hop_spec(5000, actions=8, bound=2590)
+    states, cols = hop_frontier(list(range(2000, 2600)), 3)
+    mask = None
+    if case == "zero_lane_drain_wave":
+        mask = torch.zeros(600, dtype=torch.bool)
+    elif case == "no_property":
+        spec = dataclasses.replace(spec, conditions=(), expectations=(), ebit=())
+    stats, _ = fused_both(spec, empty_table(TILE_ROWS * 2), states, cols, 10, cuda_device,
+                          mask=mask)
+    if case == "property_hit":
+        assert stats[4] == 1 and stats[5] == stats[8] == stats[11] == 1
+    elif case == "zero_lane_drain_wave":
+        # No lane hits: each property's (hi, lo) is lane 0's, as jnp.argmax.
+        assert stats[:5] == [0, 0, 0, 0, 0] and stats[5::3] == [0, 0, 0]
+        assert stats[6::3] == [int(cols["hi"][0])] * 3 and stats[7::3] == [int(cols["lo"][0])] * 3
+    else:
+        assert len(stats) == 5 and stats[1] == 589 and stats[4] == 0
+
+
 DRAIN_CASES = {
     # Ring growth, ring-full, budget and max-waves exits, many drains.
     "tiny": dict(frontier_capacity=32, table_capacity=2048, drain_log_factor=1,
@@ -900,6 +975,41 @@ def test_cuda_captured_drain_matches_cpu_drain(cuda_device, wave_kernel, case):
     for name, path in cpu.discoveries().items():
         assert gpu.discoveries()[name].encode() == path.encode()
     gpu.assert_properties()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("take_factor", [1 / 32, 4])
+@pytest.mark.parametrize("model", ["paxos_2c2s", "raft_crash"])
+def test_cuda_fps_drain_matches_cpu_drain(cuda_device, model, take_factor, monkeypatch):
+    """The staged engine's fingerprint-only wave through the captured drain
+    on the card and the uncaptured drain of the CPU twin, with a take
+    width of 2 lanes that some waves exceed (``take full`` exits, finished
+    on the host, the width then grown and the graphs captured again) and
+    the default one: the same counts, paths, drains, exits and rungs, and
+    the host's takes alike."""
+    from stateright_tpu_torch.checker import gpu as gpu_mod
+    from stateright_tpu_torch.models.paxos import PaxosModelCfg
+    from stateright_tpu_torch.models.raft import RaftModelCfg
+
+    make = {"paxos_2c2s": lambda: PaxosModelCfg(2, 2).into_model(),
+            "raft_crash": lambda: RaftModelCfg(3, 1, lossy=True, max_crashes=1).into_model()}
+    monkeypatch.setattr(gpu_mod, "_TAKE_FACTOR", take_factor)
+    spawn = dict(frontier_capacity=64, table_capacity=1 << 12)
+    gpu = make[model]().checker().spawn_gpu_bfs(device=cuda_device, **spawn).join()
+    cpu = make[model]().checker().spawn_gpu_bfs(device="cpu", **spawn).join()
+    assert gpu.worker_error() is None, gpu.worker_error()
+    assert gpu._use_fps and cpu._use_fps
+    assert gpu.unique_state_count() == cpu.unique_state_count()
+    assert gpu.state_count() == cpu.state_count()
+    assert gpu.max_depth() == cpu.max_depth()
+    assert gpu.waves == cpu.waves and gpu.drains == cpu.drains
+    assert gpu.drain_exits == cpu.drain_exits and gpu.rungs == cpu.rungs
+    assert gpu.host_takes == cpu.host_takes and gpu.host_take_rows == cpu.host_take_rows
+    if take_factor < 1:
+        assert gpu.drain_exits["take full"] > 0
+    assert gpu.graph_replays >= 2 * gpu.drains
+    for name, path in cpu.discoveries().items():
+        assert gpu.discoveries()[name].encode() == path.encode()
 
 
 class _SaltedTwoPhaseSys(TwoPhaseSys):

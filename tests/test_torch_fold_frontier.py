@@ -213,3 +213,49 @@ def test_frontier_plain_matches_reference(A, P, masked):
         assert (got[4 + i] != 0) == hits[i], i
         assert (~got[4 + i] if hits[i] else 0) == (lanes[i] if hits[i] else 0), i
     assert any(hits) or P == 0
+
+
+@pytest.mark.parametrize("A,P,masked", [(1, 0, False), (42, 1, True), (125, 64, True),
+                                        (42, 64, False), (3, 3, True)])
+def test_compact_stage_stats_match_the_wave_stats(A, P, masked):
+    """The stats vector ``compact_stage`` writes from the wave's counters
+    (``fw_compact`` on the card, ``stats_from_acc`` here) equals
+    the plain wave's ``_stats`` over the same frontier: the counters, the
+    fresh count, any hit, and each property's hit with the fingerprint of
+    its first hit lane (lane 0 when none hit)."""
+    rng = np.random.default_rng(A * 10 + P)
+    F = 301
+    kinds = [("always", "sometimes", "eventually")[i % 3] for i in range(P)]
+    ev = [i for i, k in enumerate(kinds) if k == "eventually"]
+    spec = fw.FusedWaveSpec(expand=None, within_boundary=None,
+                            conditions=tuple(None for _ in range(P)),
+                            expectations=tuple(kinds),
+                            ebit=tuple((pi, b % 32) for b, pi in enumerate(ev)),
+                            action_count=A)
+    cond = torch.from_numpy(rng.random((P, F)) < 0.3)
+    cvalid = torch.from_numpy(((rng.random((F, A)) < 0.2) & (rng.random(F) < 0.8)[:, None])
+                              .reshape(-1))
+    ebits = torch.from_numpy(rng.integers(0, 1 << 32, F, dtype=np.int64))
+    depth = torch.from_numpy(rng.integers(0, 12, F, dtype=np.int64))
+    mask = torch.from_numpy(rng.random(F) < 0.7) if masked else None
+    hi = torch.from_numpy(rng.integers(0, 1 << 32, F, dtype=np.int64))
+    lo = torch.from_numpy(rng.integers(0, 1 << 32, F, dtype=np.int64))
+    B = F * A
+    acc = torch.zeros(4 + P, dtype=torch.int64)
+    ebits_after = fw.frontier_plain(spec, cond, cvalid, ebits, depth, 9, acc, mask)
+    eval_mask, _eb, valid, terminal = fw._frontier_plain(spec, cond, cvalid, ebits, depth, 9,
+                                                         mask)
+    flag = torch.from_numpy(rng.choice(np.array([0, 1, 2, 4], np.uint8), size=B))
+    fresh, pending = (flag & 1) != 0, (flag & 4) != 0
+    acc[0], acc[2] = valid.sum(), pending.sum()  # the keys stage's and the sweep's counts
+    stats = torch.full((5 + 3 * P,), -3, dtype=torch.int64)
+    fw.compact_stage(flag, torch.arange(B, dtype=torch.int64), torch.arange(B, dtype=torch.int32),
+                     A, ebits_after, depth, hi, lo, acc, stats=stats)
+    want = fw._stats(spec, cond, eval_mask, terminal, ebits_after, hi, lo, depth, valid.sum(),
+                     fresh, pending, mask)
+    assert stats.tolist() == want.tolist()
+    assert stats[1] == fresh.sum() and acc[1] == fresh.sum()
+    with pytest.raises(ValueError, match="stats must be"):
+        fw.compact_stage(flag, torch.arange(B, dtype=torch.int64),
+                         torch.arange(B, dtype=torch.int32), A, ebits_after, depth, hi, lo, acc,
+                         stats=torch.zeros(6 + 3 * P, dtype=torch.int64))
