@@ -67,6 +67,15 @@ time and proof that it adds no device operation), and one
 (event marks and in-graph device time), the keyed lanes and fresh rows,
 the stages' times and bounds, ``torch.sort``'s, ``torch.searchsorted``'s,
 ``torch.nonzero``'s and the summed per-leaf ``index_select``'s times.
+Then symmetry reduction (``.symmetry()``, the staged engine and its insert
+kernel): a 2pc-9 drain take's canonical keys through the insert kernel
+against its plain twin; 2pc-9 (2,232 orbits) through the captured drain;
+2pc-5 (314) wave at a time and drained, the counter models, raft with 3
+servers on a lossy duplicating network (464) and a drain stopped at every
+wave by "orbit fallback" exits (a refine hook that says nothing), each
+against the CPU twin; raft5 to its ``stable leader`` counterexample beside
+the unreduced run; and the key stage's device ms a wave on the widest
+drain take of each path (eager and in a CUDA Graph).
 Prints phase lines, the card's name and power limit, the fused wave's
 stage times, the drains' walls, waves, no-op and warm-up waves, exits,
 graph captures and replays and rungs, peak device memory, one
@@ -2186,6 +2195,368 @@ def replay_coverage_small():
                     f"vacuous={rep['vacuous']} (cuda == cpu twin)")
 
 
+# -- 6. symmetry reduction ----------------------------------------------------------
+
+
+def _sym_counts_zero():
+    from stateright_tpu_torch.ops import fused_wave as fw
+    from stateright_tpu_torch.ops import hashset_kernel as hk
+
+    hk.launches = fw.launches = 0
+
+
+def _sym_launches():
+    from stateright_tpu_torch.ops import fused_wave as fw
+    from stateright_tpu_torch.ops import hashset_kernel as hk
+
+    return {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches}
+
+
+def _drive_symmetry(label, make, spawn, device="cuda"):
+    """``make().checker().symmetry().spawn_gpu_bfs(**spawn)`` on ``device``
+    with every kernel count set to 0 just before and read just after;
+    returns the checker and the run's numbers (the wall from spawn to the
+    end of ``join()``, the drains' exits, the "orbit fallback" exits and
+    the lanes keyed on the orbit minimum, captures and their host seconds,
+    the insert's launches, peak device bytes)."""
+    import torch
+
+    model = make()
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _sym_counts_zero()
+    t0 = time.perf_counter()
+    checker = model.checker().symmetry().spawn_gpu_bfs(device=device, **spawn).join()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _sym_launches()
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    assert checker.worker_error() is None, checker.worker_error()
+    sym = checker._sym
+    run = {"wall_s": wall, "unique": checker.unique_state_count(),
+           "state_count": checker.state_count(), "max_depth": checker.max_depth(),
+           "waves": checker.waves, "drains": checker.drains,
+           "exits": dict(checker.drain_exits),
+           "fallback_exits": checker.drain_exits.get("orbit fallback", 0),
+           "fallback_lanes": sym.fallback_lanes, "graph_captures": checker.graph_captures,
+           "capture_s": checker.capture_s, "noop_waves": checker.noop_waves,
+           "launches": launches, "peak_device_bytes": peak, "route": sym.route}
+    if device == "cuda":
+        assert checker.device.type == "cuda" and not checker._use_fps
+        # The staged engine: every live wave inserts through the kernel.
+        assert launches["fused_wave"] == 0, launches
+        assert launches["hashset_insert_sorted"] >= checker.waves > 0, launches
+        log(f"  {label} (staged, symmetry, {'drain' if checker.drains else 'wave at a time'}): "
+            f"unique={run['unique']} states={run['state_count']} depth={run['max_depth']} "
+            f"wall={wall:.3f} s waves={checker.waves} noop_waves={checker.noop_waves} "
+            f"drains={checker.drains} exits={run['exits']} "
+            f"fallback_exits={run['fallback_exits']} fallback_lanes={run['fallback_lanes']} "
+            f"graph_captures={checker.graph_captures} capture_s={checker.capture_s:.3f} "
+            f"table_capacity={checker.table_capacity()} launches={launches} "
+            f"peak_device_bytes={peak} key_route={sym.route}")
+    return model, checker, run
+
+
+def _same_as_cpu(label, card, make, spawn):
+    """The CPU twin of a card run: the same counts, depth, drains, exits and
+    paths."""
+    _model, cpu, _run = _drive_symmetry(label, make, spawn, device="cpu")
+    assert card.unique_state_count() == cpu.unique_state_count()
+    assert card.state_count() == cpu.state_count()
+    assert card.max_depth() == cpu.max_depth()
+    assert card.drains == cpu.drains and card.drain_exits == cpu.drain_exits
+    gd, cd = card.discoveries(), cpu.discoveries()
+    assert set(gd) == set(cd), (set(gd), set(cd))
+    for name in gd:
+        assert gd[name].encode() == cd[name].encode(), name
+    return cpu
+
+
+def _spy_widest_take(make, spawn):
+    """Runs ``make()`` with ``.symmetry()`` through the drain and keeps the
+    take at the start of the drain whose ring held the most states (the
+    drain's frontier at its rung width, the live lanes masked in), with a
+    copy of the table the drain ran on, the checker's wave spec and its
+    symmetry keys."""
+    import torch
+
+    from stateright_tpu_torch.checker import gpu
+    from stateright_tpu_torch.core.batch import map_leaves
+    from stateright_tpu_torch.ops.ring import ring_take
+
+    got = {}
+    deep_drain = gpu.GpuBfsChecker._deep_drain
+
+    def spy(self, table, width, budget):
+        d = self._drain
+        count = d["scalars"][gpu._COUNT]
+        if int(count) > got.get("live", 0):
+            frontier = ring_take(d["pool"], d["scalars"][gpu._HEAD], count, d["capacity"],
+                                 width)[0]
+            got.update(live=min(int(count), width), width=width, table=table.clone(),
+                       frontier={k: map_leaves(torch.clone, v) for k, v in frontier.items()},
+                       spec=self._spec, sym=self._sym, depth_cap=self._depth_cap)
+        return deep_drain(self, table, width, budget)
+
+    gpu.GpuBfsChecker._deep_drain = spy
+    try:
+        checker = make().checker().symmetry().spawn_gpu_bfs(**spawn).join()
+    finally:
+        gpu.GpuBfsChecker._deep_drain = deep_drain
+    assert checker.worker_error() is None, checker.worker_error()
+    assert got, "no drain ran"
+    return got
+
+
+def _key_stage_ms(label, got):
+    """The key stage (``SymmetryKeys.wave_keys``, capturable: no host read)
+    on a drain's take, eager under CUDA events and replayed in a CUDA
+    Graph, as the drain runs it: its device ms a wave."""
+    from stateright_tpu_torch.ops import fused_wave as fw
+
+    spec, front, sym = got["spec"], got["frontier"], got["sym"]
+    F = front["hi"].shape[0]
+    cond, cvalid, cand = fw.model_stage(spec, front["states"], F)
+    cvalid = fw._frontier_plain(spec, cond, cvalid, front["ebits"], front["depth"],
+                                got["depth_cap"], front["mask"])[2]
+
+    def keys():
+        return sym.wave_keys(cand, cvalid, exact=False)
+
+    keys()  # constants to the device, before the capture
+    eager, _ = _time_on_card(lambda mark: keys())
+    graph = _graph_ms(keys, reset=lambda: None)
+    out = {"width": F, "lanes": F * spec.action_count, "live": got["live"],
+           "valid": int(cvalid.sum()), "eager_ms": eager, "graph_ms": graph}
+    log(f"  {label}: key stage ({sym.route}) on a drain take of {F} lanes ({got['live']} live, "
+        f"B={out['lanes']}, {out['valid']} valid): {eager:.4f} ms eager, {graph:.4f} ms "
+        f"in a CUDA Graph a wave")
+    return out
+
+
+@phase("symmetry_insert_vs_plain")
+def symmetry_insert_vs_plain():
+    """2pc-9 with ``.symmetry()``: the widest take of its drain, keyed on the
+    card (the exact keys: the refined ones, and the orbit minimum on a lane
+    whose check fails), sorted and deduplicated as the staged wave hands
+    them over, then through ``hashset_insert_sorted`` on the card and its
+    plain twin into the table that drain held: the table, fresh, found and
+    pending bit-identical. Also the key stage's device ms a wave."""
+    from stateright_tpu_torch.interop import table_to_numpy
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+    from stateright_tpu_torch.ops import fused_wave as fw
+
+    got = _spy_widest_take(lambda: TwoPhaseSys(9), SYM_2PC9_SPAWN)
+    timing = _key_stage_ms("2pc-9", got)
+    spec, front, sym = got["spec"], got["frontier"], got["sym"]
+    F = front["hi"].shape[0]
+    cond, cvalid, cand = fw.model_stage(spec, front["states"], F)
+    cvalid = fw._frontier_plain(spec, cond, cvalid, front["ebits"], front["depth"],
+                                got["depth_cap"], front["mask"])[2]
+    khi, klo, _ = sym.wave_keys(cand, cvalid)
+    shi, slo, _sidx, unique = fw.sorted_dedup(khi, klo, cvalid)
+    hi, lo = (x.cpu().numpy().astype("uint32") for x in (shi, slo))
+    active = unique.cpu().numpy()
+    r = _compare_insert(table_to_numpy(got["table"]), hi, lo, active, timing=True)
+    moved = _must_move_bytes(r["after"], hi, lo, active, r["fresh"])
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    log(f"  hashset_insert_sorted (2pc-9 canonical keys): B={hi.shape[0]} "
+        f"active={int(active.sum())} fresh={int(r['fresh'].sum())} tiles={r['touched']} "
+        f"redone={r['redone']} (to redo {r['to_redo']}) max_abs_err={r['err']} median "
+        f"{r['ms']:.4f} ms plain={r['plain_ms']:.1f} ms (host CPU) bound={bound_ms:.5f} ms "
+        f"({moved} B)")
+    if r["err"]:
+        raise AssertionError("hashset_insert_sorted and its plain twin disagree on the "
+                             "2pc-9 canonical keys")
+    if r["redone"] != r["to_redo"]:
+        raise AssertionError(f"the repair redid {r['redone']} tiles, not {r['to_redo']}")
+    if not active.any() or not r["fresh"].any():
+        raise AssertionError("the 2pc-9 take has no fresh canonical key")
+    return {"max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": bound_ms, "key_stage": timing}
+
+
+# 2pc-9 under symmetry at the JAX package's test settings
+# (tests/test_device_symmetry.py::test_2pc9_device_orbit_count).
+SYM_2PC9_SPAWN = dict(frontier_capacity=1 << 13, table_capacity=1 << 21, drain_log_factor=48)
+TWO_PC_9_ORBITS = 2232
+
+
+@phase("symmetry_2pc9_drain")
+def symmetry_2pc9_drain(insert):
+    """2pc-9 (10,340,352 states) with ``.symmetry()`` through the captured
+    drain: 2,232 orbits, every property holding."""
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    _model, checker, run = _drive_symmetry("2pc-9", lambda: TwoPhaseSys(9), SYM_2PC9_SPAWN)
+    assert run["unique"] == TWO_PC_9_ORBITS, run["unique"]
+    assert checker.drains > 0 and checker.graph_replays > 0
+    checker.assert_properties()
+    run["key_stage"] = insert["key_stage"]
+    log(json.dumps({"symmetry_2pc9": {k: run[k] for k in (
+        "unique", "state_count", "max_depth", "wall_s", "waves", "drains", "exits",
+        "fallback_exits", "fallback_lanes", "graph_captures", "capture_s", "launches",
+        "peak_device_bytes", "key_stage")}}))
+    return run
+
+
+@phase("symmetry_2pc5_waves")
+def symmetry_2pc5_waves():
+    """2pc-5 with ``.symmetry()``, wave at a time and drained: 314 orbits each
+    with both agreement discoveries, equal to the CPU twin's counts and
+    paths; the paths replay to their agreement states."""
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    runs = {}
+    for mode, options in (("wave", dict(max_drain_waves=1)), ("drain", {})):
+        spawn = dict(frontier_capacity=256, table_capacity=1 << 14, **options)
+        _model, checker, run = _drive_symmetry(f"2pc-5 {mode}", lambda: TwoPhaseSys(5), spawn)
+        assert run["unique"] == 314, run["unique"]
+        found = checker.discoveries()
+        assert set(found) == {"abort agreement", "commit agreement"}, set(found)
+        for name, want in (("abort agreement", "Aborted"), ("commit agreement", "Committed")):
+            assert all(s == want for s in found[name].last_state().rm_state), name
+        _same_as_cpu(f"2pc-5 {mode}", checker, lambda: TwoPhaseSys(5), spawn)
+        runs[mode] = run
+    assert runs["wave"]["state_count"] == runs["drain"]["state_count"]
+    runs["drain"]["key_stage"] = _key_stage_ms(
+        "2pc-5", _spy_widest_take(lambda: TwoPhaseSys(5), spawn))
+    return runs
+
+
+@phase("symmetry_increment")
+def symmetry_increment():
+    """The counter models on the card: ``IncrementLock(3)`` with
+    ``.symmetry()`` (13 orbits, both properties holding) and ``Increment(3)``
+    with ``.symmetry()`` (the lost update found, its path replaying), each
+    against the CPU twin; and both without symmetry on the fused engine's
+    fold route and the staged engine (``Increment(3)`` has 84 states with a
+    property that always holds, ``IncrementLock(2)`` 17)."""
+    from stateright_tpu_torch import Property
+    from stateright_tpu_torch.models import Increment, IncrementLock
+
+    spawn = dict(frontier_capacity=32, table_capacity=1 << 11)
+    _m, lock, run = _drive_symmetry("IncrementLock(3)", lambda: IncrementLock(3), spawn)
+    assert run["unique"] == 13, run["unique"]
+    lock.assert_properties()
+    _same_as_cpu("IncrementLock(3)", lock, lambda: IncrementLock(3), spawn)
+    _key_stage_ms("IncrementLock(3)", _spy_widest_take(lambda: IncrementLock(3), spawn))
+    _m, inc, run = _drive_symmetry("Increment(3)", lambda: Increment(3), spawn)
+    path = inc.assert_any_discovery("fin")
+    last = path.last_state()
+    assert sum(1 for _t, pc in last.s if pc == 3) != last.i, last
+    _same_as_cpu("Increment(3)", inc, lambda: Increment(3), spawn)
+    log(f"  Increment(3): fin violated by a path of {len(path.into_actions())} actions, "
+        f"replayed on the host: {path.encode()}")
+
+    import torch
+
+    class Full(Increment):
+        def properties(self):
+            return [Property.always("true", lambda _m, _s: True)]
+
+        def packed_conditions(self):
+            return [lambda st: torch.ones(st["i"].shape[0], dtype=torch.bool,
+                                          device=st["i"].device)]
+
+    for make, unique in ((lambda: Full(3), 84), (lambda: IncrementLock(2), 17)):
+        for wave_kernel in ("staged", "fused"):
+            c = make().checker().spawn_gpu_bfs(wave_kernel=wave_kernel, **spawn).join()
+            assert c.worker_error() is None, c.worker_error()
+            assert c.unique_state_count() == unique, (wave_kernel, c.unique_state_count())
+            if wave_kernel == "fused":
+                assert c.keys_route == "fold", c.keys_route
+            log(f"  {type(make()).__name__} ({wave_kernel}): unique={c.unique_state_count()} "
+                f"states={c.state_count()} depth={c.max_depth()} keys_route={c.keys_route}")
+    sym = _drive_symmetry("Increment(2), full", lambda: Full(2), spawn)[2]
+    assert sym["unique"] == 8, sym["unique"]
+    return run
+
+
+@phase("symmetry_raft3_dup")
+def symmetry_raft3_dup():
+    """Raft, 3 servers, ``max_term=1``, lossy, unordered duplicating network,
+    with ``.symmetry()``: 464 orbits, ``leader elected`` and ``stable
+    leader`` found, wave at a time and drained, equal to the CPU twin."""
+    from stateright_tpu_torch.actor.network import Network
+    from stateright_tpu_torch.models.raft import RaftModelCfg
+
+    def make():
+        return RaftModelCfg(server_count=3, max_term=1, lossy=True,
+                            network=Network.new_unordered_duplicating()).into_model()
+
+    runs = {}
+    for mode, options in (("wave", dict(max_drain_waves=1)), ("drain", {})):
+        spawn = dict(frontier_capacity=256, table_capacity=1 << 12, **options)
+        model, checker, run = _drive_symmetry(f"raft3 dup {mode}", make, spawn)
+        assert run["unique"] == 464, run["unique"]
+        found = checker.discoveries()
+        assert set(found) == {"leader elected", "stable leader"}, set(found)
+        _stuck_without_leader(model, found["stable leader"])
+        _same_as_cpu(f"raft3 dup {mode}", checker, make, spawn)
+        runs[mode] = run
+    runs["drain"]["key_stage"] = _key_stage_ms("raft3 dup", _spy_widest_take(make, spawn))
+    return runs
+
+
+@phase("symmetry_raft5_ttc")
+def symmetry_raft5_ttc(unreduced):
+    """The ``raft5_ttc`` configuration (5 servers, lossy, only ``stable
+    leader``; B = 256,000 lanes) with ``.symmetry()`` on the staged engine:
+    ``stable leader`` found and its path replayed on the host; ``ttc_s``,
+    the unique count at the exit and the fallback exits beside the
+    unreduced staged run of this call; and the key stage's device ms a
+    wave on the widest take of a drain."""
+    cfg = _config("raft5_ttc")
+    model, checker, run = _drive_symmetry("raft5_ttc", cfg.make, cfg.spawn)
+    found = checker.discoveries()
+    assert set(found) == {"stable leader"}, set(found)
+    steps = _stuck_without_leader(model, found["stable leader"])
+    run["ttc_s"] = run["wall_s"]
+    run["key_stage"] = _key_stage_ms("raft5", _spy_widest_take(cfg.make, cfg.spawn))
+    base = {k: unreduced[k] for k in ("ttc_s", "unique", "drains", "exits",
+                                       "peak_device_bytes", "capture_s")}
+    log(f"  raft5 (staged, symmetry): ttc_s={run['ttc_s']:.3f} unique at exit={run['unique']} "
+        f"fallback_exits={run['fallback_exits']} fallback_lanes={run['fallback_lanes']}; "
+        f"stable leader path of {steps} actions replayed on the host; the unreduced staged "
+        f"run of this call: ttc_s={base['ttc_s']:.3f} unique at exit={base['unique']}")
+    log(json.dumps({"raft5_symmetry_within_call": {
+        "symmetry": {k: run[k] for k in ("ttc_s", "unique", "waves", "drains", "exits",
+                                          "fallback_exits", "fallback_lanes",
+                                          "graph_captures", "capture_s",
+                                          "peak_device_bytes", "launches", "key_stage")},
+        "unreduced_staged": base}}))
+    return run
+
+
+@phase("symmetry_drain_vs_cpu")
+def symmetry_drain_vs_cpu():
+    """2pc-5 with a refine hook that says nothing: every wave with an
+    unverified lane stops its captured drain ("orbit fallback") and the host
+    runs it with the orbit minimum; counts, depths, exits and paths equal
+    the CPU twin's, 314 orbits."""
+    import torch
+
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    class WeakRefine2pc(TwoPhaseSys):
+        def packed_refine_colors(self, states, colors):
+            return torch.zeros_like(colors)
+
+    spawn = dict(frontier_capacity=64, table_capacity=1 << 14)
+    _model, checker, run = _drive_symmetry("2pc-5 weak refine", lambda: WeakRefine2pc(5), spawn)
+    assert run["unique"] == 314, run["unique"]
+    assert run["fallback_exits"] > 0 and checker.graph_replays > 0, run
+    assert checker._sym.fallback_waves == run["fallback_exits"]
+    _same_as_cpu("2pc-5 weak refine", checker, lambda: WeakRefine2pc(5), spawn)
+    run["key_stage"] = _key_stage_ms("2pc-5 weak refine",
+                                     _spy_widest_take(lambda: WeakRefine2pc(5), spawn))
+    return run
+
+
 # The fused chain's kernels by stage (csrc/fused_wave.cu), matched in this
 # order; a memset belongs to the stage of the kernel after it. The device
 # operations before the chain's first kernel are ``keys_input``'s (an
@@ -2596,6 +2967,14 @@ def main() -> int:
     cov_skv = main_path_skv4x4_coverage() if not FAILED else None
     if not FAILED:
         replay_coverage_small()
+    sym_insert = symmetry_insert_vs_plain() if not FAILED else None
+    sym_2pc9 = symmetry_2pc9_drain(sym_insert) if not FAILED else None
+    sym_2pc5 = symmetry_2pc5_waves() if not FAILED else None
+    if not FAILED:
+        symmetry_increment()
+    sym_raft3 = symmetry_raft3_dup() if not FAILED else None
+    sym_raft5 = symmetry_raft5_ttc(raft5["staged"]) if not FAILED else None
+    sym_fallback = symmetry_drain_vs_cpu() if not FAILED else None
     if not FAILED:
         stage_device_profile()
     if FAILED:
@@ -2612,6 +2991,14 @@ def main() -> int:
 
     insert_launches = by_path("staged", "hashset_insert_sorted",
                               {"2pc8": drains, **actor_runs})
+    # The symmetry paths run the staged engine only: every wave's canonical
+    # keys go through the insert kernel.
+    sym_runs = {"symmetry_2pc9": sym_2pc9, "symmetry_2pc5_wave": sym_2pc5["wave"],
+                "symmetry_2pc5_drain": sym_2pc5["drain"],
+                "symmetry_raft3_dup_drain": sym_raft3["drain"], "symmetry_raft5": sym_raft5,
+                "symmetry_fallback_drain": sym_fallback}
+    insert_launches.update({name: run["launches"]["hashset_insert_sorted"]
+                            for name, run in sym_runs.items()})
     fused_launches = by_path("fused", "fused_wave", {"2pc8": drains, **actor_runs})
     comphash_launches = by_path("fused", "fw_comphash_keys", actor_runs)
     cov_runs = {"2pc8": cov_2pc8, "skv4x4": cov_skv}
@@ -2661,15 +3048,18 @@ def main() -> int:
             "replaces": "stateright_tpu/ops/pallas_hashset.py:193",
             "launches": sum(insert_launches.values()),
             "launches_by_path": insert_launches,
-            "max_abs_err": max(insert["max_abs_err"], raft5_insert["max_abs_err"]),
+            "max_abs_err": max(insert["max_abs_err"], raft5_insert["max_abs_err"],
+                               sym_insert["max_abs_err"]),
             # On a random 344,064-key batch into a 2^22-row table at load
-            # 0.4; on the keys of a raft5 wave, below.
+            # 0.4; on the keys of a raft5 wave and on a 2pc-9 drain take's
+            # canonical (symmetry) keys, below.
             "ms": insert["ms"],
             "plain_ms": insert["plain_ms"],
             "bound_ms": insert["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
-            "by_path": {"raft5": held(raft5_insert, insert_launches["raft5"])},
+            "by_path": {"raft5": held(raft5_insert, insert_launches["raft5"]),
+                        "symmetry_2pc9": held(sym_insert, insert_launches["symmetry_2pc9"])},
         },
         {
             "name": "fused_wave",

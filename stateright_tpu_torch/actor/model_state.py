@@ -6,9 +6,9 @@ reference's manual ``Hash``/``PartialEq`` impls
 (``src/actor/model_state.rs:86-112``). A Crash transition with
 no set timers therefore fingerprints identically to its parent state.
 
-The symmetry group action of the JAX package's copy (``_permuted``,
-``representative``, ``orbit_representative``) is not ported: the port has
-no symmetry reduction yet.
+The symmetry group action (``_permuted``, ``representative``,
+``orbit_representative``, ``rewrite_network``) is the JAX package's: the
+host twin of ``PackedActorModel.packed_apply_permutation``.
 """
 
 from __future__ import annotations
@@ -70,6 +70,38 @@ class ActorModelState:
 
         return stable_hash(self.__stable_fields__())
 
+    def _permuted(self, plan) -> "ActorModelState":
+        """The symmetry group action: permute actor-indexed vectors and
+        rewrite every embedded Id per ``plan``."""
+        from ..utils.rewrite import rewrite_value
+
+        return ActorModelState(
+            actor_states=plan.reindex(self.actor_states),
+            network=rewrite_network(self.network, plan),
+            timers_set=plan.reindex(self.timers_set),
+            crashed=plan.reindex(self.crashed),
+            history=rewrite_value(self.history, plan),
+        )
+
+    def representative(self) -> "ActorModelState":
+        """Sort-heuristic member of this state's symmetry equivalence class
+        (the reference's, ``src/actor/model_state.rs:115-132``).
+
+        NOT a canonical form: id rewriting changes the sorted rows, so
+        symmetry-reduced counts under this heuristic depend on traversal
+        order. ``orbit_representative`` is the proper alternative."""
+        from ..utils.rewrite import RewritePlan
+
+        return self._permuted(RewritePlan.from_values_to_sort(self.actor_states))
+
+    def orbit_representative(self) -> "ActorModelState":
+        """True orbit canonical form (``utils.rewrite.orbit_min``): the
+        semantics of the GPU checker's symmetry keys, so host and device
+        symmetry-reduced counts agree exactly."""
+        from ..utils.rewrite import orbit_min
+
+        return orbit_min(len(self.actor_states), self._permuted)
+
     def __repr__(self) -> str:
         return (
             "ActorModelState { "
@@ -78,3 +110,20 @@ class ActorModelState:
             f"is_timer_set: {self.timers_set!r}, "
             f"network: {self.network!r} }}"
         )
+
+
+def rewrite_network(network: Network, plan) -> Network:
+    """Rewrites all actor Ids in a network per a RewritePlan."""
+    from ..utils.rewrite import rewrite_value
+    from .network import Envelope
+
+    rewritten = Network(network.kind)
+    for env in network.iter_all():
+        rewritten.send(
+            Envelope(
+                src=plan.rewrite_id(env.src),
+                dst=plan.rewrite_id(env.dst),
+                msg=rewrite_value(env.msg, plan),
+            )
+        )
+    return rewritten

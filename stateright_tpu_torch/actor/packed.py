@@ -45,8 +45,14 @@ pairs and the components its transition touches, with no candidate state
 made, and ``packed_take`` makes the children of chosen (row, action) pairs
 only (the staged wave's default for these models, as in the JAX package).
 
-Not ported yet, and refused by name with a ``ValueError``: symmetry (ROADMAP
-Queue 1 #6). Nothing falls back to anything.
+Symmetry reduction is here too, as in the JAX package: the group action
+``packed_apply_permutation`` (actor rows through the codec's
+``rewrite_actor_row``, envelope ids and messages through
+``rewrite_msg_ids``, flows re-indexed) and the generic equivariant color
+refinement ``packed_refine_colors``, both batched with a permutation (or a
+color vector) a lane. ``packed_symmetry`` refuses, as the JAX package does,
+an auxiliary history (its client identities are not interchangeable) and
+restricted ``flow_pairs`` (the pair set is not closed under permutations).
 
 Everything the device checker runs here is capturable in a CUDA Graph: no
 value is read back, no shape depends on data, and the constant tables
@@ -63,11 +69,12 @@ from typing import Any, Callable, Dict, List, Sequence
 import numpy as np
 import torch
 
-from ..core.batch import BatchableModel
+from ..core.batch import BatchableModel, gather_actors, lane_permutation
 from ..ops.fingerprint import (
     U32,
     _xor_reduce,
     acc_finalize,
+    avalanche32,
     combine_pairs,
     hash_rows,
     hash_rows_of,
@@ -164,6 +171,24 @@ class ActorPackedCodec:
         """Timer-free codecs (empty ``timer_values``) may return []."""
         return []
 
+    # -- batched symmetry hooks (symmetry reduction only) ----------------------
+
+    def rewrite_actor_row(self, model, rows, old_to_new):
+        """Rewrites the actor ids embedded in packed rows under a relabeling:
+        ``rows`` ``(L, N, R)``, ``old_to_new`` ``(L, n)``, lane ``l``'s actor
+        ``i`` renamed ``old_to_new[l, i]``. The batched twin of the host
+        ``rewrite_value`` over the actor state. The default is the identity,
+        right ONLY for rows with no embedded ids. The refinement also calls
+        it with colors (arbitrary u32 names), so an override must be
+        value-wise and shift-safe for those."""
+        return rows
+
+    def rewrite_msg_ids(self, model, msgs, old_to_new):
+        """The same for the ids embedded in packed messages: ``msgs``
+        ``(L, ..., W)`` (envelope slots, or flows and queue slots),
+        ``old_to_new`` ``(L, n)``."""
+        return msgs
+
     # -- batched model hooks --------------------------------------------------
 
     def packed_conditions(self, model) -> List[Callable]:
@@ -181,13 +206,6 @@ class ActorPackedCodec:
         (``PackedActorModel.packed_expand_fps``) checks only the row a
         transition changed."""
         return torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
-
-
-def _refuse(what: str, item: str):
-    raise ValueError(
-        f"{what} is not ported to stateright_tpu_torch yet (ROADMAP.md "
-        f"{item}); the JAX package stateright_tpu runs it"
-    )
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
@@ -570,10 +588,140 @@ class PackedActorModel(ActorModel, BatchableModel):
             "H": self.codec.history_width,
         }
 
-    # -- refused by name ---------------------------------------------------------
+    # -- symmetry (orbit-proper; see core/batch.py) ------------------------------
 
     def packed_symmetry(self):
-        _refuse("symmetry reduction of packed actor systems", "Queue 1 #6")
+        from ..core.batch import permutation_tables
+
+        if self.codec.history_width:
+            raise NotImplementedError(
+                "symmetry with packed auxiliary history is unsupported (histories "
+                "carry client identities that are not interchangeable)"
+            )
+        if self.flow_pairs is not None:
+            raise NotImplementedError(
+                "full-group symmetry with restricted flow_pairs is unsupported (the "
+                "pair set is generally not closed under actor permutations)"
+            )
+        return permutation_tables(self._N)
+
+    def packed_apply_permutation(self, states, new_to_old, old_to_new):
+        """The symmetry group action on a batch of packed system states:
+        gather the actor-indexed leaves by ``new_to_old`` and rewrite the
+        embedded ids through the codec's hooks (the host
+        ``ActorModelState._permuted``), a permutation a lane or one shared.
+        The envelope table needs no re-sort: the fingerprint digests it
+        order-insensitively."""
+        codec = self.codec
+        n = self._N
+        L = states["rows"].shape[0]
+        n2o = lane_permutation(new_to_old, L)
+        o2n = lane_permutation(old_to_new, L)
+        rows = codec.rewrite_actor_row(self, gather_actors(states["rows"], n2o), o2n)
+        out = dict(states, rows=rows, timers=gather_actors(states["timers"], n2o))
+        if "crashed" in states:
+            out["crashed"] = gather_actors(states["crashed"], n2o)
+        if self._ordered:
+            if self.flow_pairs is not None:
+                raise NotImplementedError(
+                    "permutation action with restricted flow_pairs is unsupported"
+                )
+            # Flow (a, b) of the permuted state held flow
+            # (new_to_old[a], new_to_old[b]); queue order is kept, so the
+            # gathered table stays positionally canonical.
+            flow = (n2o[:, :, None] * n + n2o[:, None, :]).reshape(L, n * n)
+            fmsg = codec.rewrite_msg_ids(self, gather_actors(states["flow_msg"], flow), o2n)
+            flen = gather_actors(states["flow_len"], flow)
+            # Queue padding re-zeroed, so id rewrites of dead slots cannot
+            # perturb the canonical array.
+            slot = torch.arange(fmsg.shape[2], device=fmsg.device)
+            fmsg = torch.where(slot[None, None, :, None] < flen[:, :, None, None], fmsg, 0)
+            out.update(flow_msg=fmsg, flow_len=flen)
+        else:
+            occ = states["net_cnt"] > 0
+            src = torch.where(occ, torch.gather(o2n, 1, states["net_src"]), 0)
+            dst = torch.where(occ, torch.gather(o2n, 1, states["net_dst"]), 0)
+            msg = codec.rewrite_msg_ids(self, states["net_msg"], o2n)
+            msg = torch.where(occ[:, :, None], msg, 0)
+            out.update(net_src=src, net_dst=dst, net_msg=msg)
+        return out
+
+    def packed_refine_colors(self, states, colors):
+        """The generic equivariant WL round of packed actor systems (see
+        ``core/batch.py``), batched: each actor's new color hashes its own
+        row (embedded ids replaced by their colors through the codec's
+        ``rewrite_actor_row``/``rewrite_msg_ids``), its timer bits, the
+        actors whose rows reference it, and commutative digests of its
+        incoming and outgoing envelopes tagged with the peer's color.
+        ``crashed`` is left out, as the fingerprint leaves it out."""
+        codec = self.codec
+        n = self._N
+        rows = states["rows"]
+
+        def rows_under(c):
+            return codec.rewrite_actor_row(self, rows, c)
+
+        rows_c = rows_under(colors)
+        acc = (colors * 0x9E3779B1 + 0x7F4A7C15) & U32
+        for j in range(rows_c.shape[2]):
+            acc = ((acc * 0x01000193) & U32) ^ rows_c[:, :, j]
+        acc = avalanche32(((acc * 0x01000193) & U32) ^ states["timers"])
+
+        # Reverse row-references: a row that embeds actor j's id informs
+        # only the referrer's color, so actor j also learns who references
+        # it (else WL leaves non-automorphic actors tied and each such tie
+        # pays the fallback). Rewrites gather by index, so perturbing j's
+        # name changes exactly the rows that reference j.
+        hcol = avalanche32((colors * 0x27D4EB2F + 0x165667B1) & U32)
+        rev = []
+        for j in range(n):
+            cj = colors.clone()
+            cj[:, j] = colors[:, j] ^ 0x80000001
+            refs = (rows_under(cj) != rows_c).any(dim=2)
+            rev.append(torch.where(refs, hcol, 0).sum(dim=1) & U32)
+        acc = avalanche32(acc ^ ((torch.stack(rev, dim=1) * 0x9E3779B7) & U32))
+
+        def tagged(h, peer, mult, add):
+            return avalanche32(h ^ ((peer * mult + add) & U32))
+
+        L = colors.shape[0]
+        if self._ordered:
+            Q = self._Q
+            fmsg_c = codec.rewrite_msg_ids(self, states["flow_msg"], colors)
+            flen = states["flow_len"]
+            live = torch.arange(Q, device=flen.device)[None, None, :] < flen[:, :, None]
+            h = torch.full_like(flen, 0x811C9DC5)
+            for q in range(Q):
+                hq = h
+                for w in range(fmsg_c.shape[3]):
+                    hq = ((hq * 0x01000193) & U32) ^ fmsg_c[:, :, q, w]
+                h = torch.where(live[:, :, q], hq, h)
+            h = avalanche32(h ^ ((flen * 0x9E3779B9) & U32))
+            _, psrc, pdst = self._flow_tables(flen.device)
+            out_c = tagged(h, colors[:, pdst], 0xCC9E2D51, 0x52DCE729)
+            in_c = tagged(h, colors[:, psrc], 0x1B873593, 0x38495AB5)
+            zero = torch.zeros((L, n), dtype=torch.int64, device=flen.device)
+            out_sum = zero.index_add(1, psrc, out_c) & U32
+            in_sum = zero.index_add(1, pdst, in_c) & U32
+        else:
+            msg_c = codec.rewrite_msg_ids(self, states["net_msg"], colors)
+            cnt = states["net_cnt"]
+            occ = cnt > 0
+            h = torch.full_like(cnt, 0x811C9DC5)
+            for w in range(msg_c.shape[2]):
+                h = ((h * 0x01000193) & U32) ^ msg_c[:, :, w]
+            h = avalanche32(h ^ ((cnt * 0x9E3779B9) & U32))
+            src, dst = states["net_src"], states["net_dst"]
+            out_c = torch.where(occ, tagged(h, torch.gather(colors, 1, dst), 0xCC9E2D51,
+                                            0x52DCE729), 0)
+            in_c = torch.where(occ, tagged(h, torch.gather(colors, 1, src), 0x1B873593,
+                                           0x38495AB5), 0)
+            zero = torch.zeros((L, n), dtype=torch.int64, device=cnt.device)
+            out_sum = zero.scatter_add(1, src, out_c) & U32
+            in_sum = zero.scatter_add(1, dst, in_c) & U32
+        return avalanche32(
+            acc ^ ((out_sum * 0x85EBCA6B) & U32) ^ ((in_sum * 0xC2B2AE35) & U32)
+        )
 
     # -- batched transition --------------------------------------------------------
 

@@ -79,9 +79,11 @@ class Checker(Generic[State, Action]):
 
         return metrics_registry()
 
-    def _init_coverage(self, prefix: str, coverage, action_count: int) -> None:
+    def _init_coverage(self, prefix: str, coverage, action_count: int,
+                       symmetry: bool = False) -> None:
         """Installs the coverage ledger, the device vector's layout and the
-        model's antecedents when requested. Falsy leaves coverage off (the
+        model's antecedents when requested (``symmetry``: the ledger keeps
+        the orbit-compression counts). Falsy leaves coverage off (the
         class default) and the waves run exactly as before."""
         if not coverage:
             return
@@ -99,6 +101,7 @@ class Checker(Generic[State, Action]):
             action_labels=coverage_action_labels(model, action_count),
             tracer=self._tracer,
             registry=self.metrics(),
+            symmetry=symmetry,
         )
         self._cov_layout = DeviceCoverage(action_count, len(props))
         ants = list(model.packed_antecedents())

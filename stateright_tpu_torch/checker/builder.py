@@ -7,19 +7,41 @@ host oracle) and ``spawn_gpu_bfs`` (the breadth-first search on the GPU).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 from ..core.visitor import CheckerVisitor, FnVisitor
+
+
+def default_representative(state):
+    """The ``symmetry()`` default. A named sentinel so the GPU checker can
+    tell it apart from a user-supplied ``symmetry_fn``, whose custom
+    equivalence it honors only through the model's
+    ``packed_representative``."""
+    return state.representative()
 
 
 class CheckerBuilder:
     def __init__(self, model):
         self.model = model
+        self._symmetry: Optional[Callable] = None
         self._target_state_count: Optional[int] = None
         self._target_max_depth: Optional[int] = None
         self._visitor: Optional[CheckerVisitor] = None
 
     # -- configuration -----------------------------------------------------
+
+    def symmetry(self) -> "CheckerBuilder":
+        """Enables symmetry reduction: the GPU checker keys its visited set
+        on orbit-proper canonical fingerprints (``checker/symmetry.py``).
+        The one-thread host oracle ``spawn_bfs`` ignores it, as the JAX
+        package's host BFS does."""
+        return self.symmetry_fn(default_representative)
+
+    def symmetry_fn(self, representative: Callable) -> "CheckerBuilder":
+        """Symmetry reduction by a custom representative: the GPU checker
+        keys on ``packed_representative`` and refuses a model without it."""
+        self._symmetry = representative
+        return self
 
     def target_state_count(self, count: int) -> "CheckerBuilder":
         """The checker may exceed this number, but will never generate fewer
@@ -57,7 +79,10 @@ class CheckerBuilder:
         ``device="cpu"`` is passed, which selects the plain torch twin of
         every kernel; with no CUDA device and no ``device="cpu"`` it
         raises. ``coverage=True`` records the coverage ledger
-        (``coverage_report()``). See ``checker/gpu.py`` for the knobs."""
+        (``coverage_report()``). With ``symmetry()`` or ``symmetry_fn()``
+        the visited set is keyed on canonical fingerprints of the orbits;
+        that runs on the staged engine only (``wave_kernel="fused"`` raises,
+        as in the JAX package). See ``checker/gpu.py`` for the knobs."""
         from .gpu import GpuBfsChecker
 
         return GpuBfsChecker(self, **kwargs)

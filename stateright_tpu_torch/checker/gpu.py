@@ -85,6 +85,20 @@ at or past twice that wave's fresh count (a new capture), and the next
 drain keeps the rung, so the ring holds the same rows in the same order
 either way.
 
+Symmetry reduction (``.symmetry()`` / ``.symmetry_fn(f)``, the JAX
+package's semantics; ``checker/symmetry.py``) runs on the staged engine
+only: ``wave_kernel="fused"`` raises, and ``expand_fps`` resolves to off
+(True raises: the keys need the candidate states). The visited set is keyed
+on orbit-proper canonical fingerprints (the seed, every wave, every
+rehash); the frontier, the parent log, discoveries and paths keep the
+original fingerprints, and ``_key_log`` gathers the keys each wave claimed.
+Wave at a time the host reads which valid lanes failed the refined key's
+check and keys them on the orbit minimum, as the JAX package's ``lax.cond``
+does. A captured drain wave cannot branch: one with such a lane inserts
+nothing and stops the drain ("orbit fallback", the last bit of
+``EXIT_REASONS``); the host runs that wave exactly, and the next drain
+keeps the rung.
+
 Semantics parity notes (mirrored from the reference): ``eventually`` bits
 propagate along paths and are not part of the fingerprint;
 ``target_state_count``/``target_max_depth`` may overshoot by up to a wave.
@@ -128,6 +142,7 @@ from ..ops.hashset_kernel import (
 )
 from ..ops.ring import ring_export, ring_push, ring_rows, ring_take
 from .base import Checker
+from .symmetry import make_key_fn, sym_key_scheme
 
 _DEPTH_INF = (1 << 31) - 1
 # Grow the visited set before its load factor can pass this.
@@ -171,9 +186,12 @@ _N_SCALARS = 13
 # first of its reasons.
 EXIT_REASONS = (
     "nothing left", "probe overflow", "property hit", "log full", "ring full",
-    "promote", "budget", "max waves", "generated cap", "take full",
+    "promote", "budget", "max waves", "generated cap", "take full", "orbit fallback",
 )
 _TAKE_FULL = 1 << EXIT_REASONS.index("take full")
+# A drain wave under symmetry whose refined keys failed their check on a
+# valid lane inserts nothing and records this reason alone.
+_ORBIT_FALLBACK = 1 << EXIT_REASONS.index("orbit fallback")
 
 
 def take_width(width: int, action_count: int) -> int:
@@ -250,7 +268,9 @@ class GpuBfsChecker(Checker):
     below ``F_max`` a drain may run at (None: 4 from ``F_max >= 512``, else
     none). ``coverage=True`` records the coverage ledger
     (``coverage_report()``, prefix ``gpu_bfs``). ``expand_fps`` chooses
-    the fingerprint-only wave (module docstring)."""
+    the fingerprint-only wave (module docstring). Symmetry reduction
+    (``.symmetry()``, ``.symmetry_fn(f)``) runs on the staged engine only
+    (module docstring)."""
 
     def __init__(
         self,
@@ -278,12 +298,24 @@ class GpuBfsChecker(Checker):
                 f"wave_kernel must be 'staged' or 'fused', got {wave_kernel!r}"
             )
         self._wave_kernel = wave_kernel
-        # The fingerprint-only wave (the JAX package's resolution). There is
-        # no symmetry reduction to veto it yet: with it, None would turn it
-        # off and True raise, as under the fused wave.
+        self._device = resolve_device(device)
+        # Dedup keys: the fingerprints, or under symmetry the orbit keys of
+        # checker/symmetry.py (the permutation tables go to the device now).
+        symmetry = options._symmetry is not None
+        if wave_kernel == "fused" and symmetry:
+            raise ValueError(
+                "wave_kernel='fused' does not support symmetry reduction (the orbit "
+                "keys run in torch over the candidate states); use wave_kernel='staged'"
+            )
+        self._sym_scheme = sym_key_scheme(options._symmetry)
+        self._sym = make_key_fn(model, model.packed_fingerprint, options._symmetry,
+                                self._device)
+        # The fingerprint-only wave (the JAX package's resolution): off
+        # under the fused wave and under symmetry, whose keys need the
+        # candidate states.
         has_fps = supports_expand_fps(model)
         if expand_fps is None:
-            self._use_fps = has_fps and wave_kernel != "fused"
+            self._use_fps = has_fps and wave_kernel != "fused" and not symmetry
         elif expand_fps:
             if wave_kernel == "fused":
                 raise ValueError(
@@ -296,10 +328,14 @@ class GpuBfsChecker(Checker):
                     "expand_fps=True requires the model to implement packed_expand_fps "
                     "and packed_take (and packed_expand_fps_supported() to allow them)"
                 )
+            if symmetry:
+                raise ValueError(
+                    "expand_fps is incompatible with symmetry reduction (orbit keys "
+                    "need candidate states)"
+                )
             self._use_fps = True
         else:
             self._use_fps = False
-        self._device = resolve_device(device)
         self._model = model
         self._properties = model.properties()
         self._conditions = model.packed_conditions()
@@ -373,7 +409,7 @@ class GpuBfsChecker(Checker):
         comphash = None
         if self.keys_route == "comphash":
             comphash = comphash_tables(model.packed_comphash_layout(), self._device)
-        self._init_coverage("gpu_bfs", coverage, self._A)
+        self._init_coverage("gpu_bfs", coverage, self._A, symmetry=symmetry)
         self._spec = FusedWaveSpec(
             expand=model.packed_expand,
             within_boundary=model.packed_within_boundary,
@@ -388,6 +424,7 @@ class GpuBfsChecker(Checker):
             cov_antecedents=tuple(self._cov_antecedents or ()),
             expand_fps=model.packed_expand_fps if self._use_fps else None,
             take=model.packed_take if self._use_fps else None,
+            symmetry=self._sym,
         )
 
         self._state_count = 0
@@ -397,6 +434,10 @@ class GpuBfsChecker(Checker):
         # (child fps, parent fps — 0 encodes "init state") per wave, as
         # u64 numpy arrays, ingested lazily into the parent-pointer store.
         self._wave_log: List = []
+        # Under symmetry: the visited-set keys claimed so far (u64 numpy
+        # arrays a wave; first the seed's valid lanes), as the JAX package
+        # keeps them.
+        self._key_log: List = []
         self._store = make_fingerprint_store()
         self._ingested = 0
         self._ingest_lock = threading.Lock()
@@ -445,11 +486,12 @@ class GpuBfsChecker(Checker):
         )
         return table, sidx, fresh, pending
 
-    def _wave(self, table, chunk, mask=None):
+    def _wave(self, table, chunk, mask=None, exact=True):
         """One wave over a frontier chunk (its live lanes marked by
         ``mask``; None: all); returns ``(table, out)``, the output of
         ``ops/fused_wave.py`` (a device stats vector and B-row outputs
-        whose first ``n_new`` rows are the fresh states)."""
+        whose first ``n_new`` rows are the fresh states). Under symmetry
+        ``exact=False`` keys it with no host read (``out["hold"]``)."""
         args = (
             self._spec, table, chunk["states"], chunk["hi"], chunk["lo"],
             chunk["ebits"], chunk["depth"], self._depth_cap,
@@ -458,7 +500,7 @@ class GpuBfsChecker(Checker):
             return fused_wave(*args, mask=mask)
         if self._use_fps:
             return torch_wave_fps(*args, mask=mask)
-        return torch_wave(*args, mask=mask)
+        return torch_wave(*args, mask=mask, exact=exact)
 
     def _rehash(self, table, capacity):
         """The old table's live rows, sorted, inserted into an empty table
@@ -521,9 +563,10 @@ class GpuBfsChecker(Checker):
         states = model.packed_init_states(self._device)
         valid = model.packed_within_boundary(states)
         hi, lo = model.packed_fingerprint(states)
+        khi, klo = (hi, lo) if self._sym is None else self._sym.keys(states)
         while True:
             table = hashset_new(self._capacity, self._device)
-            table, _sidx, fresh, pending = self._dedup_insert(table, hi, lo, valid)
+            table, _sidx, fresh, pending = self._dedup_insert(table, khi, klo, valid)
             if not int(pending.sum()):
                 break
             self._capacity *= 2
@@ -533,6 +576,8 @@ class GpuBfsChecker(Checker):
             self._cov.record_seed(self._unique_count)
         child = _fp64(hi, lo)[valid].cpu().numpy().view(np.uint64)
         self._wave_log.append((child, np.zeros_like(child)))
+        if self._sym is not None:
+            self._key_log.append(_fp64(khi, klo)[valid].cpu().numpy().view(np.uint64))
 
         # Chunks of F_max lanes over all init lanes, each keeping its valid
         # lanes (the reference masks the others out).
@@ -617,12 +662,14 @@ class GpuBfsChecker(Checker):
                     self.host_take_rows += n_new
                 else:
                     states = map_leaves(lambda x: x[:n_new].clone(), out["new"]["states"])
-                log = torch.stack([
-                    _fp64(new["hi"], new["lo"]),
-                    _fp64(out["parent_hi"][:n_new], out["parent_lo"][:n_new]),
-                ])
-                child, parent = log.cpu().numpy().view(np.uint64)
-                self._wave_log.append((child, parent))
+                rows = [_fp64(new["hi"], new["lo"]),
+                        _fp64(out["parent_hi"][:n_new], out["parent_lo"][:n_new])]
+                if self._sym is not None:
+                    rows.append(_fp64(out["key_hi"][:n_new], out["key_lo"][:n_new]))
+                log = torch.stack(rows).cpu().numpy().view(np.uint64)
+                self._wave_log.append((log[0], log[1]))
+                if self._sym is not None:
+                    self._key_log.append(log[2])
                 for s in range(0, n_new, self._F_max):
                     piece = {k: v[s : s + self._F_max] for k, v in new.items()}
                     piece["states"] = map_leaves(lambda x: x[s : s + self._F_max], states)
@@ -728,7 +775,7 @@ class GpuBfsChecker(Checker):
             sc, stats = summary[:_N_SCALARS], summary[_N_SCALARS:_N_SCALARS + 5 + 3 * P]
             reason = sc[_REASON]
             self.drain_exits[EXIT_REASONS[(reason & -reason).bit_length() - 1]] += 1
-            keep_width = width if reason == _TAKE_FULL else None
+            keep_width = width if reason in (_TAKE_FULL, _ORBIT_FALLBACK) else None
             if reason & _TAKE_FULL:
                 # The device's take was too narrow for this wave: widen it
                 # for the rung's next capture, with room for growth.
@@ -751,9 +798,10 @@ class GpuBfsChecker(Checker):
                                          max_depth=sc[_MAX_DEPTH])
                 final_cov = summary[base + size : base + 2 * size]
             if log_n:
-                log = self._drain["log"][:, :log_n].contiguous().cpu().numpy()
-                child, parent = log.view(np.uint64)
-                self._wave_log.append((child, parent))
+                log = self._drain["log"][:, :log_n].contiguous().cpu().numpy().view(np.uint64)
+                self._wave_log.append((log[0], log[1]))
+                if self._sym is not None:
+                    self._key_log.append(log[2])
             # The final wave, which the device could not consume: its live
             # lanes are the prefix it took.
             n = sc[_FINAL_TAKE]
@@ -762,6 +810,10 @@ class GpuBfsChecker(Checker):
                 for k, v in frontier.items()
                 if k != "mask"
             }
+            if reason == _ORBIT_FALLBACK:
+                # The wave inserted nothing: the host runs it again, keying
+                # its failed lanes on the orbit minimum.
+                out = stats = final_cov = None
             table, spilled = self._consume_wave(table, chunk, queue, out=out,
                                                 stats=stats, cov=final_cov)
             live_est = pool_count + spilled
@@ -771,7 +823,8 @@ class GpuBfsChecker(Checker):
         a trash row): the ring, the scalars, the parent log (child and
         parent fingerprints, ``(hi << 32) | lo``, and a trash column), the
         final wave's stats and the undiscovered-property mask; with coverage
-        on, the consumed waves' coverage sum and the final wave's vector."""
+        on, the consumed waves' coverage sum and the final wave's vector.
+        Under symmetry the log has a third row, the claimed keys."""
         dev, P = self._device, len(self._properties)
         cov = {}
         if self._cov is not None:
@@ -783,8 +836,8 @@ class GpuBfsChecker(Checker):
             "capacity": capacity,
             "pool": ring_rows(self._model, capacity + 1, dev),
             "scalars": torch.zeros(_N_SCALARS, dtype=torch.int64, device=dev),
-            "log": torch.zeros((2, self._drain_log_capacity + 1), dtype=torch.int64,
-                               device=dev),
+            "log": torch.zeros((2 if self._sym is None else 3,
+                                self._drain_log_capacity + 1), dtype=torch.int64, device=dev),
             "final_stats": torch.zeros(5 + 3 * P, dtype=torch.int64, device=dev),
             "undiscovered": torch.zeros(P, dtype=torch.bool, device=dev),
         }
@@ -827,7 +880,10 @@ class GpuBfsChecker(Checker):
         the exit's reasons, the wave's ``slot`` and its take are recorded.
         With the fingerprint-only wave it makes the rung's take width of
         children of the wave's fresh lanes and pushes those (more fresh
-        lanes stop the drain). Returns ``(table, out, frontier)``."""
+        lanes stop the drain). Under symmetry the wave keys its lanes with no
+        host read; one whose refined keys failed on a valid lane inserts
+        nothing and stops the drain with the "orbit fallback" reason alone.
+        Returns ``(table, out, frontier)``."""
         d = self._drain
         sc = d["scalars"]
         PC, L, F = d["capacity"], self._drain_log_capacity, width
@@ -835,7 +891,7 @@ class GpuBfsChecker(Checker):
         go = sc[_GO]
         frontier, head, count, n = ring_take(d["pool"], sc[_HEAD], sc[_COUNT], PC, F,
                                              go)
-        table, out = self._wave(table, frontier, frontier["mask"])
+        table, out = self._wave(table, frontier, frontier["mask"], exact=False)
         stats = out["stats"]
         generated, n_new, overflow, depth = stats[0], stats[1], stats[2], stats[3]
         waves = sc[_WAVES] + go
@@ -863,6 +919,8 @@ class GpuBfsChecker(Checker):
             rows["states"] = take_children(self._spec, frontier["states"], new["src"][:S])
             new, parent_hi, parent_lo = rows, parent_hi[:S], parent_lo[:S]
         reason = sum(f.to(torch.int64) << i for i, f in enumerate(fails))
+        if "hold" in out:
+            reason = torch.where(out["hold"], _ORBIT_FALLBACK, reason)
         ok = (reason == 0).to(torch.int64)
         consume = go * ok
         stop = (go * (1 - ok)).to(torch.bool)
@@ -872,6 +930,8 @@ class GpuBfsChecker(Checker):
         dest = torch.where(fresh, log_n + lanes, L)
         d["log"][0][dest] = (new["hi"] << 32) | new["lo"]
         d["log"][1][dest] = (parent_hi << 32) | parent_lo
+        if self._sym is not None:
+            d["log"][2][dest] = (out["key_hi"] << 32) | out["key_lo"]
         count = ring_push(d["pool"], head, count, new, fresh, PC)
         sc.copy_(torch.stack([
             head,

@@ -259,8 +259,26 @@ class RaftPackedCodec(ActorPackedCodec):
 
         return [on_timeout]
 
-    # The symmetry hook ``rewrite_actor_row`` is not ported:
-    # ``PackedActorModel.packed_symmetry`` refuses symmetry (ROADMAP Queue 1 #6).
+    # -- batched symmetry hooks -------------------------------------------------
+
+    def rewrite_actor_row(self, model, rows, old_to_new):
+        """``voted_for`` (stored +1, 0 = None) maps through the relabeling;
+        the ``votes`` bitmask moves bit ``b`` to bit ``old_to_new[b]``.
+        Messages carry no ids (the envelope src is the vote's identity).
+        The shift is masked to stay defined when ``old_to_new`` carries
+        refinement colors (arbitrary u32 names) instead of a permutation: a
+        no-op for real permutations (ids < n <= 32), and under colors the
+        bitmask becomes a commutative digest of the voters' (masked)
+        colors, which is all refinement needs."""
+        voted = rows[:, :, 2]
+        safe = torch.where(voted == 0, 0, voted - 1)
+        new_voted = torch.where(voted == 0, voted,
+                                (torch.gather(old_to_new, 1, safe) + 1) & U32)
+        bit = torch.arange(self.n, device=rows.device)
+        bits = (rows[:, :, 3, None] >> bit) & 1  # (L, N, n)
+        new_votes = (bits << (old_to_new[:, None, :] & 31)).sum(dim=2) & U32
+        return torch.cat([rows[:, :, :2], new_voted[:, :, None], new_votes[:, :, None],
+                          rows[:, :, 4:]], dim=2)
 
     # -- batched model hooks ---------------------------------------------------
 

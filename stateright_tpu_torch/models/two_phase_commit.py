@@ -3,12 +3,14 @@ Commit" TLA+ spec).
 
 State: per-RM states + transaction-manager state + prepared flags + a message
 set. Exact oracle counts: 3 RMs = 288 states, 5 RMs = 8,832, 8 RMs =
-1,745,408.
+1,745,408; under symmetry (orbits of the RM permutations) 5 RMs = 314,
+9 RMs = 2,232.
 
 Reference: ``examples/2pc.rs``. The host side is the JAX package's
 ``models/two_phase_commit.py`` as it is (same state class, so host
-fingerprints and the reporter's golden strings agree); the packed side is
-written batched in torch. The symmetry hooks are not ported yet.
+fingerprints and the reporter's golden strings agree, with its host group
+action); the packed side, the symmetry hooks included, is written batched
+in torch.
 """
 
 from __future__ import annotations
@@ -18,8 +20,10 @@ from typing import FrozenSet, List, Tuple
 
 import torch
 
-from ..core.batch import BatchableModel
+from ..core.batch import BatchableModel, gather_actors, lane_permutation
 from ..core.model import Model, Property
+from ..ops.fingerprint import U32, avalanche32
+from ..utils.rewrite import RewritePlan
 
 # RM states
 WORKING, PREPARED, COMMITTED, ABORTED = "Working", "Prepared", "Committed", "Aborted"
@@ -40,6 +44,30 @@ class TwoPhaseState:
     tm_state: str
     tm_prepared: Tuple[bool, ...]
     msgs: FrozenSet[Tuple]
+
+    def _permuted(self, plan: RewritePlan) -> "TwoPhaseState":
+        return TwoPhaseState(
+            rm_state=tuple(plan.reindex(self.rm_state)),
+            tm_state=self.tm_state,
+            tm_prepared=tuple(plan.reindex(self.tm_prepared)),
+            msgs=frozenset(
+                ("Prepared", plan.mapping[m[1]]) if m[0] == "Prepared" else m
+                for m in self.msgs
+            ),
+        )
+
+    def representative(self) -> "TwoPhaseState":
+        # The reference's sort heuristic (``examples/2pc.rs:203-228``): NOT a
+        # canonical form, see orbit_representative.
+        return self._permuted(RewritePlan.from_values_to_sort(self.rm_state))
+
+    def orbit_representative(self) -> "TwoPhaseState":
+        """True orbit canonical form (``utils.rewrite.orbit_min``):
+        traversal-order-independent, the semantics of the GPU checker's
+        symmetry keys."""
+        from ..utils.rewrite import orbit_min
+
+        return orbit_min(len(self.rm_state), self._permuted)
 
 
 # Packed codes. Order matters only for the packed representation.
@@ -239,6 +267,51 @@ class TwoPhaseSys(Model, BatchableModel):
                 (st["rm"] == 3).any(dim=1) & (st["rm"] == 2).any(dim=1)
             ),
         ]
+
+    # -- symmetry (orbit-proper; see core/batch.py) ------------------------
+
+    def packed_symmetry(self):
+        from ..core.batch import permutation_tables
+
+        return permutation_tables(self.rm_count)
+
+    def packed_apply_permutation(self, states, new_to_old, old_to_new):
+        """The RM-permutation group action on a batch: permute the per-RM
+        codes and the RM-indexed bits of the prepared and message bitmasks
+        (the device analog of the host ``TwoPhaseState._permuted``)."""
+        n = self.rm_count
+        L = states["tm"].shape[0]
+        n2o = lane_permutation(new_to_old, L)
+        shift = torch.arange(n, device=n2o.device)
+
+        def permute_bits(mask):
+            bits = (mask[:, None] >> n2o) & 1
+            return (bits << shift).sum(dim=1)
+
+        low_mask = (1 << n) - 1
+        return {
+            "rm": gather_actors(states["rm"], n2o),
+            "tm": states["tm"],
+            "prepared": permute_bits(states["prepared"]),
+            "msgs": permute_bits(states["msgs"] & low_mask)
+            | (states["msgs"] & (U32 ^ low_mask)),
+        }
+
+    def packed_refine_colors(self, states, colors):
+        """Equivariant WL round (see ``core/batch.py``): each RM's view is
+        fully local (its code, its ``prepared`` bit and its ``Prepared{rm}``
+        message bit), so one round separates every non-automorphic pair and
+        color ties are always automorphisms. The TM's fields are
+        permutation-invariant and add nothing."""
+        idx = torch.arange(self.rm_count, device=colors.device)
+        prep = (states["prepared"][:, None] >> idx) & 1
+        msg = (states["msgs"][:, None] >> idx) & 1
+        return avalanche32(
+            ((colors * 0x9E3779B1) & U32)
+            ^ ((states["rm"] * 0x01000193) & U32)
+            ^ (prep * 0xCC9E2D51)
+            ^ (msg * 0x1B873593)
+        )
 
     def pack_state(self, host_state: TwoPhaseState):
         n = self.rm_count

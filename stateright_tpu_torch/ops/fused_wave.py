@@ -176,7 +176,10 @@ class FusedWaveSpec:
     ``packed_antecedents()``, aligned with ``conditions``) are the Pallas
     spec's. ``expand_fps`` and ``take`` are the model's
     ``packed_expand_fps`` and ``packed_take`` (``torch_wave_fps``; None
-    where the checker runs the materializing wave)."""
+    where the checker runs the materializing wave). ``symmetry`` is the
+    checker's ``checker/symmetry.py::SymmetryKeys`` under symmetry
+    reduction (None: the keys are the fingerprints); only ``torch_wave``
+    takes it."""
 
     expand: Callable
     within_boundary: Callable
@@ -191,6 +194,7 @@ class FusedWaveSpec:
     cov_antecedents: Tuple[Optional[Callable], ...] = ()
     expand_fps: Optional[Callable] = None
     take: Optional[Callable] = None
+    symmetry: Any = None
 
 
 # -- the model stage (torch on both paths) ---------------------------------
@@ -406,19 +410,31 @@ def _stats(spec, cond, eval_mask, terminal, ebits_after, hi, lo, depth,
     return torch.stack([x.to(torch.int64) for x in items])
 
 
-def torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None):
+def torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None,
+               exact=True):
     """The whole wave in torch, fingerprinting with ``spec.fingerprint``
     (the model's ``packed_fingerprint``), with the visited-set insert
     through ``hashset_insert_sorted`` (the CUDA kernel on a CUDA table, its
     plain twin on a CPU table). It is the staged path of ``checker/gpu.py``
     and, on a CPU table, ``fused_wave_plain``. ``mask`` (F,) bool marks
     the live lanes; None means every lane is live. Masked lanes may hold
-    stale rows: nothing of them reaches the outputs."""
+    stale rows: nothing of them reaches the outputs.
+
+    Under symmetry (``spec.symmetry``) the sort, dedup and insert run on
+    the candidates' orbit keys, the fresh rows and parent pointers keep
+    the original fingerprints, and ``out`` also holds the fresh lanes'
+    keys (``key_hi``, ``key_lo``). ``exact=False`` computes the keys with
+    no host read (``SymmetryKeys.wave_keys``): ``out["hold"]`` is then a
+    0-d bool tensor, and a wave that holds inserts nothing."""
     F = hi.shape[0]
     cond, cvalid, cand_flat = model_stage(spec, states, F)
     chi, clo = spec.fingerprint(cand_flat)
+    keys = None
+    if spec.symmetry is not None:
+        def keys(valid):
+            return spec.symmetry.wave_keys(cand_flat, valid, exact)
     table, out = _staged_wave(spec, table, states, cond, cvalid, chi, clo, hi, lo, ebits,
-                              depth, depth_cap, mask)
+                              depth, depth_cap, mask, keys)
     # The leaves' rows past n_new are lane 0's.
     src = out["new"].pop("src")
     out["new"]["states"] = map_leaves(lambda x: x[src], cand_flat)
@@ -442,32 +458,55 @@ def torch_wave_fps(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=No
 
 
 def _staged_wave(spec, table, states, cond, cvalid, chi, clo, hi, lo, ebits, depth,
-                 depth_cap, mask):
+                 depth_cap, mask, keys=None):
     """The staged wave from the candidates' valid bits and fingerprints on:
     the frontier, the sort and dedup, the insert, the stats, the coverage
     and the JAX staged wave's cumsum compaction (the Pallas epilogue's,
     ``pallas_wave.py:444-463``); ``new`` holds ``src``, each slot's
-    candidate lane, and no ``states``."""
+    candidate lane, and no ``states``. ``keys``, under symmetry, maps the
+    valid bits under the eval mask to ``(khi, klo, hold)``
+    (``SymmetryKeys.wave_keys``): the dedup and insert run on those keys,
+    none of them when ``hold`` is true."""
     F, A = hi.shape[0], spec.action_count
     eval_mask, ebits_after, cvalid, terminal = _frontier_plain(
         spec, cond, cvalid, ebits, depth, depth_cap, mask
     )
-    shi, slo, sidx, unique = sorted_dedup(chi, clo, cvalid)
+    khi, klo, hold = chi, clo, None
+    if keys is not None:
+        khi, klo, hold = keys(cvalid)
+    insert_valid = cvalid if hold is None else cvalid & ~hold
+    shi, slo, sidx, unique = sorted_dedup(khi, klo, insert_valid)
     table, fresh, _found, pending = hashset_insert_sorted(
         table, u32_to_i32(shi), u32_to_i32(slo), unique
     )
     stats = _stats(spec, cond, eval_mask, terminal, ebits_after, hi, lo,
                    depth, cvalid.sum(), fresh, pending, mask)
     c, _n_new = compact_plain(fresh, (shi << 32) | slo, sidx, A, ebits_after, depth, hi, lo)
-    out = {"stats": stats, "new": {k: c[k] for k in ("src", "hi", "lo", "ebits", "depth")},
-           "parent_hi": c["parent_hi"], "parent_lo": c["parent_lo"]}
+    new = {k: c[k] for k in ("src", "hi", "lo", "ebits", "depth")}
+    out = {"stats": stats, "new": new, "parent_hi": c["parent_hi"],
+           "parent_lo": c["parent_lo"]}
+    if keys is not None:
+        # The keys the fresh lanes claimed are the table's rows (the JAX
+        # wave's ``key_hi``/``key_lo``); the fresh rows keep the
+        # candidates' own fingerprints, so paths replay through them.
+        out["key_hi"], out["key_lo"] = new["hi"], new["lo"]
+        new["hi"], new["lo"] = chi[new["src"]], clo[new["src"]]
+        if hold is not None:
+            out["hold"] = hold
     if spec.cov_layout is not None:
         # The JAX staged wave's coverage (checker/tpu.py:1337-1380): the
         # claim winners in sorted order, each with its lane's action and
-        # its child's depth.
-        out["cov"] = coverage_plain(spec, cvalid, depth, depth_cap, mask, cond,
-                                    antecedent_stage(spec, states, F), ebits_after, fresh,
-                                    sidx)
+        # its child's depth; under symmetry also the wave's distinct
+        # fingerprints and distinct orbit keys (uniq_fp, uniq_key).
+        cov = coverage_plain(spec, cvalid, depth, depth_cap, mask, cond,
+                             antecedent_stage(spec, states, F), ebits_after, fresh, sidx)
+        if keys is not None:
+            lay = spec.cov_layout
+            head = torch.zeros_like(cov)
+            head[2:4] = torch.stack([lay.count_distinct(chi, clo, cvalid),
+                                     lay.count_distinct(khi, klo, cvalid)])
+            cov = cov + head
+        out["cov"] = cov
     return table, out
 
 

@@ -16,7 +16,9 @@ TLC-style coverage questions too:
   ``eventually``, the evaluated states whose condition had already held on
   their path.
 - **Shape statistics** — new-unique-per-depth histogram, successors-per-
-  state log2 histogram, terminal-state count, revisit rate.
+  state log2 histogram, terminal-state count, revisit rate, and — under
+  symmetry — the orbit compression ratio (in-wave distinct plain
+  fingerprints over distinct orbit keys).
 
 Each wave reduces these into one integer vector on the device
 (``DeviceCoverage``'s layout): the staged wave in torch
@@ -99,7 +101,8 @@ class DeviceCoverage:
     (recorded once per logical wave: a table-growth retry re-expands the
     same frontier); action-fresh/depth are *fresh-based* and accumulate
     across retries (only previously-pending lanes come back fresh).
-    ``uniq_fp`` and ``uniq_key`` stay 0: the port has no symmetry yet.
+    ``uniq_fp`` and ``uniq_key`` count a wave's distinct fingerprints and
+    distinct orbit keys under symmetry (0 without it).
     """
 
     def __init__(self, action_count: int, property_count: int):
@@ -162,7 +165,8 @@ class DeviceCoverage:
         per-lane action id and child depth; ``exercised`` — list of
         (F,) bool vectors aligned with properties (may be empty);
         ``uniq_fp``/``uniq_key`` — optional 0-dim in-wave distinct
-        counts. Scatter-adds into zeroed vectors, so it runs inside a
+        counts (symmetry's orbit-compression numerator/denominator).
+        Scatter-adds into zeroed vectors, so it runs inside a
         captured CUDA Graph.
         """
         import torch
@@ -216,6 +220,7 @@ class CoverageLedger:
         action_labels: Optional[List[str]] = None,
         registry: MetricsRegistry = None,
         tracer: Tracer = None,
+        symmetry: bool = False,
     ):
         self.prefix = prefix
         self._p = f"{prefix}.coverage"
@@ -252,6 +257,10 @@ class CoverageLedger:
         self._generated = 0
         self._unique = 0
         self._seed_unique = 0
+        # Symmetry-only: in-wave distinct plain fps / orbit keys.
+        self._uniq_fp = 0
+        self._uniq_key = 0
+        self._symmetry = bool(symmetry)
         self._depth_hist = [0] * DEPTH_BINS
         self._succ_bins: Dict[int, int] = {}
         self._revisits_reported = 0
@@ -263,6 +272,9 @@ class CoverageLedger:
         self._c_revisit = reg.counter(f"{self._p}.revisits")
         self._g_revisit = reg.gauge(f"{self._p}.revisit_rate")
         self._g_action_cov = reg.gauge(f"{self._p}.action_coverage")
+        self._g_orbit = (
+            reg.gauge(f"{self._p}.orbit_compression") if symmetry else None
+        )
         self._h_depth = reg.histogram(f"{self._p}.depth")
         self._h_succ = reg.histogram(f"{self._p}.successors")
         self._c_action_fired: Dict[str, object] = {}
@@ -331,6 +343,8 @@ class CoverageLedger:
             if first_attempt:
                 self._evaluated += int(v[0])
                 self._terminals += int(v[1])
+                self._uniq_fp += int(v[2])
+                self._uniq_key += int(v[3])
                 self._generated += int(fired_by_action.sum())
                 for i, label in enumerate(labels):
                     self._fired[label] = self._fired.get(label, 0) + int(
@@ -404,6 +418,8 @@ class CoverageLedger:
         if self.action_labels:
             fired = sum(1 for x in self._fired.values() if x > 0)
             self._g_action_cov.set(fired / len(self.action_labels))
+        if self._g_orbit is not None and self._uniq_key:
+            self._g_orbit.set(self._uniq_fp / self._uniq_key)
 
     # -- surfacing -----------------------------------------------------------
 
@@ -445,6 +461,8 @@ class CoverageLedger:
         if total is not None:
             args["actions_total"] = total
             args["dead_actions"] = total - fired
+        if self._symmetry and self._uniq_key:
+            args["orbit_compression"] = self._uniq_fp / self._uniq_key
         return args
 
     def finalize(self, discovered=None) -> None:
@@ -569,4 +587,14 @@ class CoverageLedger:
                 "vacuity": vac,
                 "vacuous": bool(any(vac.values())),
             }
+            if self._symmetry:
+                out["symmetry"] = {
+                    "wave_distinct_fps": self._uniq_fp,
+                    "wave_distinct_orbits": self._uniq_key,
+                    "orbit_compression": (
+                        self._uniq_fp / self._uniq_key
+                        if self._uniq_key
+                        else None
+                    ),
+                }
         return out

@@ -219,13 +219,29 @@ def test_history_hooks_match(seed):
 
 
 def test_packed_side_refuses_what_is_not_ported():
-    """Symmetry is refused by name; lossy, ordered and crash configurations
-    pack and expand."""
+    """Symmetry is refused where the JAX package refuses it: paxos's
+    auxiliary history (``NotImplementedError``; the checker raises
+    ``TypeError``) and restricted flow pairs, while raft passes; lossy,
+    ordered and crash configurations pack and expand."""
+    from stateright_tpu.models.raft import RaftModelCfg as JaxRaftModelCfg
     from stateright_tpu_torch.actor.network import Network
+    from stateright_tpu_torch.models.raft import RaftModelCfg
 
     model = PaxosModelCfg(2, 2).into_model()
-    with pytest.raises(ValueError, match="Queue 1 #6"):
-        model.packed_symmetry()
+    for m in (model, JaxPaxosModelCfg(2, 2).into_model()):
+        with pytest.raises(NotImplementedError, match="history"):
+            m.packed_symmetry()
+    with pytest.raises(TypeError):
+        model.checker().symmetry().spawn_gpu_bfs(device="cpu")
+    for cfg in (RaftModelCfg, JaxRaftModelCfg):
+        raft = cfg(server_count=3, max_term=1).into_model()
+        n2o, o2n = raft.packed_symmetry()
+        assert n2o.shape == o2n.shape == (6, 3)
+    ordered = RaftModelCfg(server_count=3, max_term=1,
+                           network=Network.new_ordered()).into_model()
+    ordered.with_flow_pairs([(0, 1), (1, 0)])
+    with pytest.raises(NotImplementedError, match="flow_pairs"):
+        ordered.packed_symmetry()
     assert isinstance(model, PackedActorModel)
     lossy = PaxosModelCfg(2, 2).into_model().lossy_network(True)
     ordered = SingleCopyModelCfg(2, 1, network=Network.new_ordered()).into_model()

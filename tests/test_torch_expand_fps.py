@@ -224,8 +224,18 @@ def test_expand_fps_resolves_and_refuses_as_jax():
 
 
 def test_symmetry_is_still_refused_by_name():
-    with pytest.raises(ValueError, match="Queue 1 #6"):
+    """Symmetry of a model with an auxiliary history is refused as in the
+    JAX package (``NotImplementedError`` naming the history; the checker's
+    ``TypeError``), and symmetry turns the fingerprint-only wave off."""
+    with pytest.raises(NotImplementedError, match="history"):
         PaxosModelCfg(2, 2).into_model().packed_symmetry()
+    with pytest.raises(TypeError, match="history"):
+        PaxosModelCfg(2, 2).into_model().checker().symmetry().spawn_gpu_bfs(device="cpu")
+    raft = RaftModelCfg(server_count=3, max_term=1).into_model()
+    c = raft.checker().symmetry().spawn_gpu_bfs(device="cpu", frontier_capacity=64,
+                                                table_capacity=4096).join()
+    assert supports_expand_fps(raft) and not c._use_fps
+    assert c.unique_state_count() == 121
 
 
 @pytest.mark.parametrize("mode", ["wave", "drain"])
