@@ -76,6 +76,14 @@ wave by "orbit fallback" exits (a refine hook that says nothing), each
 against the CPU twin; raft5 to its ``stable leader`` counterexample beside
 the unreduced run; and the key stage's device ms a wave on the widest
 drain take of each path (eager and in a CUDA Graph).
+Then the host engines (``host_engines_and_lasso``): 2pc-5 through
+``spawn_bfs().threads(4)``, ``spawn_dfs()`` (and with the reference's
+symmetry heuristic, 665), ``spawn_on_demand()`` and the default
+``spawn_gpu_bfs()`` (8,832 each); 2pc-8 through ``spawn_gpu_bfs()`` with no
+``wave_kernel``, which resolves to the fused engine (1,745,408, its launches
+counted as the other paths'); and ``complete_liveness()`` on the card for a
+cycler and for raft-3 lossy "stable leader", each path equal to the CPU
+twin's with the condition false along it.
 Prints phase lines, the card's name and power limit, the fused wave's
 stage times, the drains' walls, waves, no-op and warm-up waves, exits,
 graph captures and replays and rungs, peak device memory, one
@@ -417,7 +425,8 @@ def _capture_2pc8_wave():
 
     gpu.GpuBfsChecker._consume_wave = spy
     try:
-        cfg.make().checker().spawn_gpu_bfs(**dict(cfg.spawn, max_drain_waves=1)).join()
+        cfg.make().checker().spawn_gpu_bfs(
+            wave_kernel="staged", **dict(cfg.spawn, max_drain_waves=1)).join()
     finally:
         gpu.GpuBfsChecker._consume_wave = consume
     if not got:
@@ -1104,14 +1113,15 @@ def _drive_2pc8(wave_kernel, **spawn):
     _check_sort_gather_launches(launches)
     unique = checker.unique_state_count()
     mode = "drain" if checker.drains else "wave at a time"
-    log(f"  2pc-8 ({wave_kernel}, {mode}): unique={unique} states={checker.state_count()} "
+    engine = checker._wave_kernel if wave_kernel else f"default: {checker._wave_kernel}"
+    log(f"  2pc-8 ({engine}, {mode}): unique={unique} states={checker.state_count()} "
         f"depth={checker.max_depth()} waves={checker.waves} "
         f"table_growths={checker.table_growths} "
         f"table_capacity={checker.table_capacity()} wall={wall:.3f} s "
         f"unique_states_per_s={unique / wall:.0f} launches={launches} "
         f"peak_device_bytes={torch.cuda.max_memory_allocated()}")
     if checker.drains:
-        log(f"  2pc-8 ({wave_kernel}, drain): wall={wall:.3f} s waves={checker.waves} "
+        log(f"  2pc-8 ({engine}, drain): wall={wall:.3f} s waves={checker.waves} "
             f"noop_waves={checker.noop_waves} warmup_waves={checker.warmup_waves} "
             f"drains={checker.drains} exits={dict(checker.drain_exits)} "
             f"graph_captures={checker.graph_captures} "
@@ -1120,6 +1130,7 @@ def _drive_2pc8(wave_kernel, **spawn):
     assert unique == cfg.unique, unique
     checker.assert_properties()
     return {"launches": launches, "wall_s": wall, "waves": checker.waves,
+            "engine": checker._wave_kernel, "config_notes": list(checker.config_notes),
             "state_count": checker.state_count(), "max_depth": checker.max_depth(),
             "drains": checker.drains, "noop_waves": checker.noop_waves,
             "warmup_waves": checker.warmup_waves,
@@ -2563,6 +2574,109 @@ def symmetry_drain_vs_cpu():
 # earlier checkout's fold route built its words matrix there with torch
 # kernels). The coverage epilogue has no kernel of its own: a device
 # operation of no stage (the former coverage_kernel among them) raises.
+# -- 7. the host engines, the default engine and the lasso pass -------------
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _raft3_stable_leader():
+    from stateright_tpu_torch.models.raft import RaftModelCfg
+
+    return (RaftModelCfg(server_count=3, max_term=1, lossy=True).into_model()
+            .retain_properties("stable leader"))
+
+
+@phase("host_engines_and_lasso")
+def host_engines_and_lasso(drains):
+    """The host engines (the JAX package's, copied) and the GPU checker's
+    default engine on 2pc-5 (8,832 each; DFS with the reference's symmetry
+    heuristic 665); 2pc-8 through ``spawn_gpu_bfs()`` with no
+    ``wave_kernel``, which must resolve to the fused engine and count
+    1,745,408 with every kernel count set to 0 just before it and read just
+    after; and ``complete_liveness()`` on the card for the cycler and for
+    raft-3 lossy "stable leader", each path equal to the CPU twin's with the
+    condition false along it."""
+    import torch
+
+    from stateright_tpu_torch.core.fingerprint import fingerprint
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+    from stateright_tpu_torch.testing import Cycler
+
+    def joined(checker, timeout=300):
+        handles = checker.handles()
+        for h in handles:
+            h.join(timeout)
+        assert not any(h.is_alive() for h in handles), "host engine still running"
+        assert checker.worker_error() is None, checker.worker_error()
+        return checker
+
+    def on_demand():
+        c = TwoPhaseSys(5).checker().spawn_on_demand()
+        c.run_to_completion()
+        return joined(c)
+
+    runs = {
+        "bfs_threads4": lambda: joined(TwoPhaseSys(5).checker().threads(4).spawn_bfs()),
+        "dfs": lambda: joined(TwoPhaseSys(5).checker().spawn_dfs()),
+        "on_demand": on_demand,
+        "gpu_default": lambda: TwoPhaseSys(5).checker().spawn_gpu_bfs().join(),
+        "dfs_symmetry": lambda: joined(TwoPhaseSys(5).checker().symmetry().spawn_dfs()),
+    }
+    out = {}
+    for name, run in runs.items():
+        checker, wall = _timed(run)
+        want = 665 if name == "dfs_symmetry" else 8832
+        assert checker.unique_state_count() == want, (name, checker.unique_state_count())
+        checker.assert_properties()
+        out[name] = {"unique": checker.unique_state_count(),
+                     "states": checker.state_count(), "wall_s": wall}
+        if name == "gpu_default":
+            assert checker.device.type == "cuda" and checker._wave_kernel == "fused"
+            out[name]["engine"] = checker._wave_kernel
+        log(f"  2pc-5 {name}: {out[name]}")
+
+    default_2pc8 = _drive_2pc8(None)
+    assert default_2pc8["engine"] == "fused", default_2pc8["engine"]
+    assert default_2pc8["config_notes"][0].startswith("wave_kernel resolved to 'fused'")
+    n = default_2pc8["launches"]
+    assert n["fused_wave"] >= default_2pc8["waves"] > 0 and n["hashset_insert_sorted"] >= 1, n
+    for k in ("state_count", "max_depth", "waves"):
+        assert default_2pc8[k] == drains["fused"][k], (k, default_2pc8[k], drains["fused"][k])
+    out["gpu_default_2pc8"] = {k: default_2pc8[k] for k in (
+        "engine", "wall_s", "waves", "state_count", "drains", "launches")}
+
+    lassos = {}
+    for name, make, prop, spawn in (
+        ("cycler", Cycler, "three", dict(frontier_capacity=16, table_capacity=2048)),
+        ("raft3_lossy", _raft3_stable_leader, "stable leader",
+         dict(frontier_capacity=256, table_capacity=1 << 12)),
+    ):
+        card, wall = _timed(
+            lambda: make().checker().complete_liveness().spawn_gpu_bfs(**spawn).join())
+        torch.cuda.synchronize()
+        cpu = make().checker().complete_liveness().spawn_gpu_bfs(device="cpu", **spawn).join()
+        assert card.device.type == "cuda" and card._wave_kernel == "fused"
+        path, cpu_path = card.discoveries()[prop], cpu.discoveries()[prop]
+        states = path.into_states()
+        fps = [fingerprint(s) for s in states]
+        assert fps == [fingerprint(s) for s in cpu_path.into_states()], name
+        model, p = card.model(), card.model().property(prop)
+        assert not any(p.condition(model, s) for s in states), name
+        assert card.liveness_report() == cpu.liveness_report() == {"mode": "host_pass"}
+        assert card.unique_state_count() == cpu.unique_state_count()
+        lassos[name] = {"unique": card.unique_state_count(), "path_len": len(states),
+                        "lasso": states[-1] in states[:-1], "wall_s": wall}
+        log(f"  complete_liveness {name}: {lassos[name]}")
+    assert lassos["cycler"]["lasso"]
+    out["complete_liveness"] = lassos
+    log(json.dumps({"host_engines_and_lasso": out}))
+    return out
+
+
 STAGE_KERNELS = (
     ("frontier_kernel", "frontier"), ("comphash_keys_kernel", "keys"),
     ("keys_pairs_kernel", "keys"), ("keys_kernel", "keys"),
@@ -2975,6 +3089,7 @@ def main() -> int:
     sym_raft3 = symmetry_raft3_dup() if not FAILED else None
     sym_raft5 = symmetry_raft5_ttc(raft5["staged"]) if not FAILED else None
     sym_fallback = symmetry_drain_vs_cpu() if not FAILED else None
+    host = host_engines_and_lasso(drains) if not FAILED else None
     if not FAILED:
         stage_device_profile()
     if FAILED:
@@ -3011,6 +3126,14 @@ def main() -> int:
     gather_launches = by_path("fused", "fw_gather", main_runs)
     frontier_launches = by_path("fused", "fw_frontier", main_runs)
     keys_launches = by_path("fused", "fw_keys", main_runs)
+    # 2pc-8 through the default engine (fused) in host_engines_and_lasso.
+    default_runs = {"2pc8_default": host["gpu_default_2pc8"]}
+    for kernel, counts in (("hashset_insert_sorted", insert_launches),
+                           ("fused_wave", fused_launches), ("fw_sort", sort_launches),
+                           ("fw_dedup", dedup_launches), ("fw_compact", compact_launches),
+                           ("fw_gather", gather_launches), ("fw_frontier", frontier_launches),
+                           ("fw_keys", keys_launches)):
+        counts.update({name: run["launches"][kernel] for name, run in default_runs.items()})
     raft5_insert = raft5_wave["insert"]
     # Each timed wave's sort and gather records, with the launches of the
     # path the wave was taken from.

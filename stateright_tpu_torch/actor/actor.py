@@ -22,7 +22,7 @@ State = TypeVar("State")
 
 class Id(int):
     """Uniquely identifies an actor. An index for model-checked actors; encodes
-    a socket address for spawned actors (not ported)."""
+    a socket address for spawned actors (see ``actor/spawn.py``)."""
 
     def __repr__(self) -> str:
         return f"Id({int(self)})"

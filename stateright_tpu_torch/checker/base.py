@@ -1,11 +1,12 @@
 """The post-spawn checker handle: counts, discoveries, joins, assertions.
 
 Reference: ``Checker`` trait at ``src/checker.rs:273-557``. This is the
-compatibility surface that tests hit; every backend of the port (host BFS,
-GPU BFS) returns an object with this interface. It is the JAX package's
-``checker/base.py`` with its metrics registry and coverage ledger, and
-without the hooks into attribution, liveness and the live monitor, which
-the port has not taken on yet.
+compatibility surface that tests hit; every backend of the port (host
+BFS/DFS, on-demand, simulation, GPU BFS) returns an object with this
+interface. It is the JAX package's ``checker/base.py`` with its metrics
+registry, coverage ledger and the ``complete_liveness()`` lasso pass, and
+without the hooks into attribution, device liveness, preemption and the
+live monitor, which the port has not taken on yet.
 """
 
 from __future__ import annotations
@@ -58,6 +59,12 @@ class Checker(Generic[State, Action]):
     def worker_error(self) -> Optional[BaseException]:
         """The first exception raised by a worker thread, if any."""
         return None
+
+    def check_fingerprint(self, fp: int) -> None:
+        """Ask the checker to check the given fingerprint (on-demand only)."""
+
+    def run_to_completion(self) -> None:
+        """Ask the checker to run to completion (on-demand only)."""
 
     # -- telemetry and coverage ----------------------------------------------
 
@@ -130,6 +137,78 @@ class Checker(Generic[State, Action]):
         (``spawn_gpu_bfs(coverage=True)``)."""
         return self._cov.report() if self._cov is not None else None
 
+    # -- liveness surfaces (the host post-pass) -------------------------------
+
+    @property
+    def liveness_mode(self) -> str:
+        """How this run's ``eventually`` verdicts were produced:
+        ``"host_pass"`` (the opt-in O(region) post-pass of
+        ``complete_liveness()``) or ``"default"`` (reference parity: the
+        documented DAG-join/cycle false negatives). The JAX package's
+        ``"device"`` mode waits for the port's device liveness."""
+        if getattr(self, "_complete_liveness", False):
+            return "host_pass"
+        return "default"
+
+    def liveness_report(self) -> dict:
+        """The per-property liveness evidence: mode, host-pass
+        inconclusive names, and whether a crashed run skipped the pass."""
+        out: dict = {"mode": self.liveness_mode}
+        inconclusive = getattr(self, "_lasso_inconclusive", None)
+        if inconclusive:
+            out["inconclusive"] = sorted(inconclusive)
+        if getattr(self, "_liveness_skipped_crashed", False):
+            out["skipped_crashed_run"] = True
+        return out
+
+    def _signal_liveness_skip(self) -> None:
+        """Crashed-run skip evidence: the ``liveness.skipped_crashed_run``
+        counter plus a flag the reporter turns into a warning line."""
+        if getattr(self, "_liveness_skipped_crashed", False):
+            return
+        self._liveness_skipped_crashed = True
+        try:
+            self.metrics().counter("liveness.skipped_crashed_run").inc()
+        except Exception:  # noqa: BLE001 - signal, never a new failure
+            pass
+
+    # -- complete-liveness plumbing (shared by every spawning checker) ------
+
+    def _setup_lasso(self, options) -> None:
+        """Initializes the opt-in lasso-pass state (see checker/liveness.py)
+        from the builder options. Refuses capped runs up front: the lasso
+        search explores the whole condition-false region regardless of
+        ``target_state_count``/``target_max_depth``, so on a model whose
+        space is finite only because of the caps it would never terminate,
+        and even when it did, its certificates could exceed the caps."""
+        self._complete_liveness: bool = options._complete_liveness
+        if self._complete_liveness and (
+            options._target_state_count is not None
+            or options._target_max_depth is not None
+        ):
+            raise ValueError(
+                "complete_liveness() requires an uncapped run: the lasso "
+                "search ignores target_state_count/target_max_depth and "
+                "would search the full condition-false region"
+            )
+        self._lassos: Optional[Dict[str, Path]] = None
+        self._lasso_lock = threading.Lock()
+        # Bounded-pass knobs (builder) + the honest third outcome the
+        # bounded pass fills (see checker/liveness.py).
+        self._lasso_budget_states = options._liveness_budget_states
+        self._lasso_deadline_s = options._liveness_deadline_s
+        self._lasso_inconclusive: List[str] = []
+
+    def _with_lassos(self, out: Dict[str, Path], done: bool, have):
+        """Merges lasso counterexamples into ``out`` WITHOUT overriding
+        existing entries — a terminal-state discovery recorded after the
+        pass was cached must keep precedence."""
+        from .liveness import checker_lasso_pass
+
+        for name, path in checker_lasso_pass(self, done, have).items():
+            out.setdefault(name, path)
+        return out
+
     # -- shared behavior ---------------------------------------------------
 
     def join(self) -> "Checker":
@@ -175,6 +254,12 @@ class Checker(Generic[State, Action]):
             poll()
         err = self.worker_error()
         if err is not None:
+            # Crashed run with the liveness pass armed: the pass was
+            # skipped, so absence of a counterexample proves nothing —
+            # say so before surfacing the crash.
+            if getattr(self, "_complete_liveness", False):
+                self._signal_liveness_skip()
+                reporter.report_liveness(skipped_crashed=True)
             raise RuntimeError("checker worker thread failed") from err
 
         reporter.report_checking(
@@ -209,6 +294,12 @@ class Checker(Generic[State, Action]):
             ]
             if undiscovered:
                 reporter.report_undiscovered(undiscovered)
+            # Bounded host-pass honesty: the discoveries() call above
+            # already ran (and cached) the lasso pass, so the
+            # inconclusive set is final here.
+            inconclusive = getattr(self, "_lasso_inconclusive", None)
+            if inconclusive:
+                reporter.report_liveness(inconclusive=inconclusive)
         return self
 
     def discovery(self, name: str) -> Optional[Path]:

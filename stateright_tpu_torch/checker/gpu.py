@@ -15,7 +15,7 @@ Each wave takes at most ``frontier_capacity`` frontier states and
       -> compacts the fresh lanes, in key order, into the next frontier,
          and logs (child, parent) fingerprints for path replay.
 
-``wave_kernel="staged"`` (the default) runs that wave in torch with the
+``wave_kernel="staged"`` runs that wave in torch with the
 CUDA insert (``ops/fused_wave.py::torch_wave``); for a model with the
 fingerprint-only expansion (``core/batch.py::supports_expand_fps``, the
 packed actor models) the staged wave takes the candidates' fingerprints
@@ -23,6 +23,10 @@ from ``packed_expand_fps`` and makes only its fresh children with
 ``packed_take`` (``torch_wave_fps``; ``expand_fps``, below); ``wave_kernel="fused"``
 runs the model's stage in torch and every other stage in the hand-written
 kernels of ``csrc/fused_wave.cu`` (``ops/fused_wave.py::fused_wave``). The
+default, ``wave_kernel=None``, resolves to ``"fused"``, or to ``"staged"``
+under symmetry or with ``expand_fps=True``, which the fused wave refuses
+(the JAX package's default is ``"staged"``); ``config_notes`` names the
+engine it chose. The
 two give the same results bit for bit, and both take every model: the
 fused wave fingerprints the default fold in ``fw_keys``, a
 ``PackedActorModel``'s component hash in ``fw_comphash_keys``, and any other
@@ -70,7 +74,9 @@ counters, and reads the sum and the final wave's vector in its one read.
 With coverage off no wave runs any of it.
 
 ``expand_fps`` (the JAX package's knob and resolution): None turns the
-fingerprint-only wave on for a staged run of a model that supports it;
+fingerprint-only wave on for a staged run of a model that supports it
+(under the default engine None resolves for the engine picked: off on the
+fused wave, and off on the staged wave that symmetry picks);
 True requires it and raises with ``wave_kernel="fused"`` (the fused chain
 gathers the candidates' leaves) or for a model without it (2pc); False
 forces the materializing wave. ``_use_fps`` holds the choice. Wave at a
@@ -98,6 +104,13 @@ does. A captured drain wave cannot branch: one with such a lane inserts
 nothing and stops the drain ("orbit fallback", the last bit of
 ``EXIT_REASONS``); the host runs that wave exactly, and the next drain
 keeps the rung.
+
+``complete_liveness()`` (``checker/liveness.py``, as ``TpuBfsChecker``
+honors it) refuses a capped run and, once the device run is done, searches
+the condition-false region of each ``eventually`` property still without a
+discovery for a lasso or a masked terminal path, on the model's host
+``actions``/``next_state``; ``discoveries()`` merges those paths in. A
+crashed run skips the pass and says so (``liveness_report()``).
 
 Semantics parity notes (mirrored from the reference): ``eventually`` bits
 propagate along paths and are not part of the fingerprint;
@@ -254,10 +267,11 @@ class GpuBfsChecker(Checker):
     ``frontier_capacity`` caps lanes per wave (larger frontiers split into
     chunks); ``table_capacity`` is the initial visited-set size, a power
     of two and a multiple of ``TILE_ROWS`` (grows by doubling + rehash;
-    ``wave_kernel="fused"`` rounds it up instead, and says so in
-    ``config_notes``); ``device`` is ``"cuda"`` (the default) or
-    ``"cpu"``; ``wave_kernel`` is ``"staged"`` (the default) or
-    ``"fused"``.
+    ``wave_kernel="fused"`` rounds it up to a tile-aligned power of two
+    instead, and says so in ``config_notes``); ``device`` is ``"cuda"``
+    (the default) or ``"cpu"``; ``wave_kernel`` is ``"fused"``,
+    ``"staged"`` or None (the default: ``"fused"``, or ``"staged"`` under
+    symmetry or ``expand_fps=True``; ``config_notes`` names the choice).
 
     The deep drain's options are the JAX package's, with its defaults:
     ``max_drain_waves`` caps the waves of one drain (1 runs wave at a
@@ -278,7 +292,7 @@ class GpuBfsChecker(Checker):
         frontier_capacity=1 << 13,
         table_capacity=1 << 16,
         device=None,
-        wave_kernel="staged",
+        wave_kernel=None,
         max_drain_waves=100_000,
         drain_log_factor=8,
         pool_factor=16,
@@ -293,15 +307,29 @@ class GpuBfsChecker(Checker):
                 "does not implement the packed protocol (see "
                 "stateright_tpu_torch.core.batch)"
             )
-        if wave_kernel not in ("staged", "fused"):
+        if wave_kernel not in (None, "staged", "fused"):
             raise ValueError(
-                f"wave_kernel must be 'staged' or 'fused', got {wave_kernel!r}"
+                f"wave_kernel must be 'staged' or 'fused' (None: the default), got "
+                f"{wave_kernel!r}"
             )
+        symmetry = options._symmetry is not None
+        # The default engine: fused, unless the run asks for what only the
+        # staged wave does (symmetry keys, the fingerprint-only expansion).
+        engine_note = None
+        if wave_kernel is None:
+            if symmetry:
+                wave_kernel, why = "staged", "symmetry reduction runs on the staged wave"
+            elif expand_fps:
+                wave_kernel, why = "staged", "expand_fps=True runs on the staged wave"
+            else:
+                wave_kernel = "fused"
+                why = "it rounds table_capacity up to a tile-aligned power of two"
+            engine_note = f"wave_kernel resolved to '{wave_kernel}' ({why})"
         self._wave_kernel = wave_kernel
         self._device = resolve_device(device)
+        self._setup_lasso(options)
         # Dedup keys: the fingerprints, or under symmetry the orbit keys of
         # checker/symmetry.py (the permutation tables go to the device now).
-        symmetry = options._symmetry is not None
         if wave_kernel == "fused" and symmetry:
             raise ValueError(
                 "wave_kernel='fused' does not support symmetry reduction (the orbit "
@@ -373,7 +401,7 @@ class GpuBfsChecker(Checker):
         )
         # Run-configuration notes, reported once at run end
         # (``Reporter.report_config_notes``).
-        self.config_notes: List[str] = []
+        self.config_notes: List[str] = [engine_note] if engine_note else []
         cap = int(table_capacity)
         if wave_kernel == "fused":
             # The fused wave's sweep grids over TILE_ROWS-row tiles: round
@@ -1127,10 +1155,13 @@ class GpuBfsChecker(Checker):
         return self._max_depth
 
     def discoveries(self) -> Dict[str, Path]:
-        return {
+        out = {
             name: self._reconstruct(fp)
             for name, fp in list(self._discoveries_fp.items())
         }
+        return self._with_lassos(
+            out, self._done_event.is_set(), set(self._discoveries_fp)
+        )
 
     def handles(self) -> List[threading.Thread]:
         handles, self._handles = self._handles, []

@@ -41,6 +41,14 @@ class Reporter:
         without the coverage ledger (upstream-parity: see MIGRATING.md).
         Default no-op keeps existing reporters source-compatible."""
 
+    def report_liveness(self, inconclusive=(), skipped_crashed=False,
+                        ) -> None:
+        """Liveness-pass honesty lines: properties the bounded host
+        post-pass could not certify within its budget, and the
+        crashed-run warning (a missing counterexample must never be
+        mistaken for certified absence). Default no-op keeps existing
+        reporters source-compatible."""
+
     def report_config_notes(self, notes) -> None:
         """Called once per report with the configuration adjustments the
         checker made on the user's behalf (e.g. the tile-sweep kernels
@@ -86,6 +94,20 @@ class WriteReporter(Reporter):
             kind = getattr(p.expectation, "value", str(p.expectation))
             self.writer.write(
                 f'Property "{p.name}" not discovered ({kind})\n'
+            )
+
+    def report_liveness(self, inconclusive=(), skipped_crashed=False,
+                        ) -> None:
+        for name in sorted(inconclusive):
+            self.writer.write(
+                f'Liveness "{name}" inconclusive '
+                "(host post-pass budget exhausted; absence NOT "
+                "certified)\n"
+            )
+        if skipped_crashed:
+            self.writer.write(
+                "Liveness pass skipped: run crashed; absence of "
+                "counterexamples NOT certified\n"
             )
 
     def report_config_notes(self, notes) -> None:

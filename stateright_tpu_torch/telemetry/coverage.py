@@ -2,8 +2,8 @@
 
 The port's copy of the JAX package's ``telemetry/coverage.py``. A green
 check answers "did any property fail?" and says nothing about *what was
-explored*; with ``spawn_gpu_bfs(coverage=True)`` a run answers the
-TLC-style coverage questions too:
+explored*; with ``spawn_gpu_bfs(coverage=True)``, and always on the host
+engines, a run answers the TLC-style coverage questions too:
 
 - **Action coverage** — how often each action fired (produced a valid
   candidate) and how often it discovered a fresh state. An action that
@@ -30,7 +30,8 @@ consumes the vectors at the host exits, records ``<prefix>.coverage.*``
 registry metrics, one cumulative ``<prefix>.coverage`` trace span per
 host-visible wave and a ``<prefix>.coverage.summary`` instant carrying the
 full report at run end. With ``coverage=False`` (the default) a wave runs
-nothing of this.
+nothing of this. The host engines (``bfs``, ``dfs``, ``on_demand``) feed
+the ledger per-block aggregates through ``BlockCoverage`` instead.
 """
 
 from __future__ import annotations
@@ -204,13 +205,85 @@ class DeviceCoverage:
         return torch.cat([head, act_fired, act_fresh, prop_ex, succ_hist, depth_hist])
 
 
+class BlockCoverage:
+    """Per-block accumulator for the host engines' ``_check_block``
+    loops: plain dict bumps in the hot loop, one ``record_block`` flush
+    per ≤BLOCK_SIZE block (the same once-per-block shape as their
+    telemetry spans). Actions are keyed by the action object itself
+    (``repr`` fallback for unhashables) and converted to labels only at
+    flush — distinct actions per block are few."""
+
+    __slots__ = (
+        "ledger", "model", "evaluated", "terminals",
+        "fired", "fresh", "exercised", "succ", "depth",
+    )
+
+    def __init__(self, ledger: "CoverageLedger", model):
+        self.ledger = ledger
+        self.model = model
+        self.evaluated = 0
+        self.terminals = 0
+        self.fired: Dict[object, int] = {}
+        self.fresh: Dict[object, int] = {}
+        self.exercised: Dict[int, int] = {}
+        self.succ: Dict[int, int] = {}
+        self.depth: Dict[int, int] = {}
+
+    def action(self, action, fresh: bool) -> None:
+        """One valid transition via ``action`` (``fresh``: it claimed a
+        brand-new state)."""
+        try:
+            self.fired[action] = self.fired.get(action, 0) + 1
+        except TypeError:
+            action = repr(action)
+            self.fired[action] = self.fired.get(action, 0) + 1
+        if fresh:
+            self.fresh[action] = self.fresh.get(action, 0) + 1
+
+    def exercise(self, index: int) -> None:
+        self.exercised[index] = self.exercised.get(index, 0) + 1
+
+    def _label(self, action) -> str:
+        if isinstance(action, str):
+            return action
+        if isinstance(action, tuple) and all(
+            isinstance(x, (str, int, bool)) for x in action
+        ):
+            # The common host-action shape ("RmPrepare", 2) reads as
+            # RmPrepare_2 — matching the packed_action_labels idiom —
+            # instead of repr's quote-and-paren noise.
+            return "_".join(str(x) for x in action)
+        try:
+            return self.model.format_action(action)
+        except Exception:  # noqa: BLE001 - labels are advisory
+            return repr(action)
+
+    def flush(self, max_depth: Optional[int] = None) -> None:
+        if not self.evaluated and not self.fired:
+            return
+        self.ledger.record_block(
+            evaluated=self.evaluated,
+            terminals=self.terminals,
+            fired={self._label(k): v for k, v in self.fired.items()},
+            fresh={self._label(k): v for k, v in self.fresh.items()},
+            exercised=self.exercised,
+            succ_counts=self.succ,
+            depth_counts=self.depth,
+            max_depth=max_depth,
+        )
+        # One cumulative `.coverage` span per block (same cadence as the
+        # engines' block spans).
+        self.ledger.emit_wave_span()
+
+
 class CoverageLedger:
     """The per-run coverage accumulator one checker owns.
 
     The device checker feeds it ``consume_device`` vectors (see
-    ``DeviceCoverage``) at its host exits, which update the
-    ``<prefix>.coverage.*`` registry instruments; ``emit_wave_span`` and
-    ``finalize`` surface the cumulative state into the trace stream.
+    ``DeviceCoverage``) at its host exits; the host engines feed
+    ``record_block`` aggregates once per ≤1500-state block. Both update
+    the ``<prefix>.coverage.*`` registry instruments; ``emit_wave_span``
+    and ``finalize`` surface the cumulative state into the trace stream.
     """
 
     def __init__(
@@ -387,6 +460,56 @@ class CoverageLedger:
                 )
         self._refresh_gauges(revisits, rev_delta)
 
+    def record_block(self, *, evaluated: int, terminals: int,
+                     fired: Dict[str, int], fresh: Dict[str, int],
+                     exercised: Dict[int, int],
+                     succ_counts: Dict[int, int],
+                     depth_counts: Dict[int, int],
+                     max_depth: Optional[int] = None) -> None:
+        """One host-engine block's aggregates (labels are already
+        strings; ``exercised`` maps property index -> count;
+        ``depth_counts`` maps fresh-state depth -> count)."""
+        generated = sum(fired.values())
+        block_fresh = sum(fresh.values())
+        with self._lock:
+            self._evaluated += int(evaluated)
+            self._terminals += int(terminals)
+            self._generated += int(generated)
+            self._unique += int(block_fresh)
+            for label, n in fired.items():
+                self._fired[label] = self._fired.get(label, 0) + int(n)
+            for label, n in fresh.items():
+                self._fresh[label] = self._fresh.get(label, 0) + int(n)
+            for i, n in exercised.items():
+                if 0 <= i < len(self._exercised):
+                    self._exercised[i] += int(n)
+            for s, n in succ_counts.items():
+                b = _log2_bin(int(s))
+                self._succ_bins[b] = self._succ_bins.get(b, 0) + int(n)
+            for d, n in depth_counts.items():
+                self._depth_hist[min(max(int(d), 0), DEPTH_BINS - 1)] += int(n)
+            if max_depth is not None:
+                self._update_near_miss(max_depth)
+            revisits, rev_delta = self._revisits_locked()
+        self._c_eval.inc(int(evaluated))
+        self._c_term.inc(int(terminals))
+        for label, n in fired.items():
+            if n:
+                self._action_counter(label, fired=True).inc(int(n))
+        for label, n in fresh.items():
+            if n:
+                self._action_counter(label, fired=False).inc(int(n))
+        for i, n in exercised.items():
+            if n and 0 <= i < len(self._c_prop_ex):
+                self._c_prop_ex[i].inc(int(n))
+        for s, n in succ_counts.items():
+            if n:
+                self._h_succ.observe_many(int(s), int(n))
+        for d, n in depth_counts.items():
+            if n:
+                self._h_depth.observe_many(int(d), int(n))
+        self._refresh_gauges(revisits, rev_delta)
+
     def _update_near_miss(self, max_depth: int) -> None:
         """Deepest frontier evaluated while a ``sometimes`` property was
         still unwitnessed (caller holds the lock)."""
@@ -468,7 +591,8 @@ class CoverageLedger:
     def finalize(self, discovered=None) -> None:
         """Run-end: records the discovery outcome and emits a
         ``<prefix>.coverage.summary`` instant carrying the full report.
-        Safe to call more than once (readers take the LAST summary per
+        Safe to call more than once (the host engines call it from every
+        worker's shutdown path; readers take the LAST summary per
         prefix, so the final call's complete totals win)."""
         with self._lock:
             if discovered is not None:

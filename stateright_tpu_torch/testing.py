@@ -2,6 +2,9 @@
 
 ``Chain`` is the torch port of the JAX package's liveness-semantics
 fixture (``tests/test_tpu_bfs.py``): 0 -> 1 -> ... -> n (terminal).
+``Cycler`` is the port of its lasso fixture (``tests/test_liveness.py``):
+0 -> 1 -> 2 -> 1, whose ``eventually`` counterexample is a cycle that only
+``complete_liveness()`` reports.
 
 ``sweep_case`` and ``sweep_table`` build visited-set inputs that reach
 the hard cases of the tile sweep's ordered repair (``csrc/tile_sweep.cuh``):
@@ -81,6 +84,47 @@ class Chain(Model, BatchableModel):
 
     def unpack_state(self, packed):
         return int(packed)
+
+
+class PackedScalar(Model, BatchableModel):
+    """A packed state is ``{"s": u32}`` (in an int64 lane): the JAX twins'
+    layout, so both packages fingerprint and order the states alike."""
+
+    def packed_init_states(self, device="cpu"):
+        return {"s": torch.tensor(self.init_states(), dtype=torch.int64, device=device)}
+
+    def pack_state(self, host_state):
+        return {"s": torch.tensor(host_state, dtype=torch.int64)}
+
+    def unpack_state(self, packed):
+        return int(packed["s"])
+
+
+class Cycler(PackedScalar):
+    """0 -> 1 -> 2 -> 1: the cycle {1, 2} never reaches 3."""
+
+    def init_states(self):
+        return [0]
+
+    def actions(self, state, actions):
+        actions.append("step")
+
+    def next_state(self, state, action):
+        return {0: 1, 1: 2, 2: 1}[state]
+
+    def properties(self):
+        return [Property.eventually("three", lambda _, s: s == 3)]
+
+    def packed_action_count(self):
+        return 1
+
+    def packed_expand(self, states):
+        s = states["s"]
+        nxt = torch.where(s == 1, 2, 1)
+        return {"s": nxt[:, None]}, torch.ones_like(s, dtype=torch.bool)[:, None]
+
+    def packed_conditions(self):
+        return [lambda st: st["s"] == 3]
 
 
 # -- inputs for the tile sweep -----------------------------------------------

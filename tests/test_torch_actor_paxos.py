@@ -327,7 +327,7 @@ def runs(request):
                 device="cpu", wave_kernel=engine, **SPAWN, **options
             ).join()
         out[("staged_materialize", mode)] = make_port().into_model().checker().spawn_gpu_bfs(
-            device="cpu", expand_fps=False, **SPAWN, **options
+            wave_kernel="staged", device="cpu", expand_fps=False, **SPAWN, **options
         ).join()
     return out
 

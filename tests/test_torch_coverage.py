@@ -652,7 +652,8 @@ def test_coverage_off_runs_no_antecedent_and_no_coverage_stage(monkeypatch):
     assert calls == {"ant": 0, "stage": 0, "reduce": 0, "ant_stage": 0}
     assert "cov" not in outs["keys"]
     Counted(2, 2, 1, guarded=True).checker().spawn_gpu_bfs(
-        device="cpu", coverage=True, frontier_capacity=16, table_capacity=2048,
+        wave_kernel="staged", device="cpu", coverage=True, frontier_capacity=16,
+        table_capacity=2048,
         max_drain_waves=1).join()
     assert calls["ant"] > 0 and calls["ant_stage"] > 0 and calls["reduce"] > 0
     assert "cov" in outs["keys"]

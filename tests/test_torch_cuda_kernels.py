@@ -129,7 +129,8 @@ def test_cuda_checker_matches_cpu_twin(cuda_device):
     """2pc-5 on the card and on the CPU twin: same counts, same paths."""
     runs = [
         TwoPhaseSys(5).checker().spawn_gpu_bfs(
-            frontier_capacity=256, table_capacity=1 << 12, device=d, max_drain_waves=1
+            wave_kernel="staged", frontier_capacity=256, table_capacity=1 << 12, device=d,
+            max_drain_waves=1
         ).join()
         for d in (cuda_device, "cpu")
     ]
@@ -994,7 +995,7 @@ def test_cuda_fps_drain_matches_cpu_drain(cuda_device, model, take_factor, monke
     make = {"paxos_2c2s": lambda: PaxosModelCfg(2, 2).into_model(),
             "raft_crash": lambda: RaftModelCfg(3, 1, lossy=True, max_crashes=1).into_model()}
     monkeypatch.setattr(gpu_mod, "_TAKE_FACTOR", take_factor)
-    spawn = dict(frontier_capacity=64, table_capacity=1 << 12)
+    spawn = dict(frontier_capacity=64, table_capacity=1 << 12, wave_kernel="staged")
     gpu = make[model]().checker().spawn_gpu_bfs(device=cuda_device, **spawn).join()
     cpu = make[model]().checker().spawn_gpu_bfs(device="cpu", **spawn).join()
     assert gpu.worker_error() is None, gpu.worker_error()

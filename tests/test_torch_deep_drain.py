@@ -88,7 +88,7 @@ def drains(request):
         for wk in ("staged", "fused")
     }
     wave_path = _spawn(make_port(), depth_cap).spawn_gpu_bfs(
-        device="cpu", **dict(spawn, max_drain_waves=1)
+        wave_kernel="staged", device="cpu", **dict(spawn, max_drain_waves=1)
     ).join()
     return request.param, jc, runs, wave_path
 

@@ -172,7 +172,8 @@ def test_fps_checker_counts_match_jax_defaults(family, expected, mode):
     (paxos: the counts alone, to keep the file's time)."""
     make_jax, make_port = FAMILIES[family]
     options = dict(max_drain_waves=1) if mode == "wave" else {}
-    port = make_port().checker().spawn_gpu_bfs(device="cpu", **SPAWN, **options).join()
+    port = make_port().checker().spawn_gpu_bfs(
+        wave_kernel="staged", device="cpu", **SPAWN, **options).join()
     assert port._use_fps
     assert port.unique_state_count() == expected
     if mode == "wave":
@@ -219,7 +220,7 @@ def test_expand_fps_resolves_and_refuses_as_jax():
         with pytest.raises(ValueError, match="packed_expand_fps"):
             getattr(make().checker(), spawn_fn)(**kwargs)
     assert not supports_expand_fps(TwoPhaseSys(3))
-    c = TwoPhaseSys(3).checker().spawn_gpu_bfs(device="cpu", **spawn).join()
+    c = TwoPhaseSys(3).checker().spawn_gpu_bfs(wave_kernel="staged", device="cpu", **spawn).join()
     assert not c._use_fps and c.unique_state_count() == 288
 
 
@@ -245,7 +246,7 @@ def test_fps_coverage_matches_jax(mode):
     options = dict(max_drain_waves=1) if mode == "wave" else {}
     spawn = dict(frontier_capacity=64, table_capacity=4096, coverage=True, **options)
     port = SingleCopyModelCfg(2, 1).into_model().checker().spawn_gpu_bfs(
-        device="cpu", **spawn).join()
+        wave_kernel="staged", device="cpu", **spawn).join()
     ref = JaxSingleCopyModelCfg(2, 1).into_model().checker().spawn_tpu_bfs(
         hashset_impl="xla", wave_dedup="sort", **spawn).join()
     assert port._use_fps and ref._use_fps
@@ -260,9 +261,10 @@ def _drain_runs(make, spawn, factor, monkeypatch):
     """A drain with the device's take width at ``factor`` times the rung
     width, and the wave engine, at ``spawn``."""
     monkeypatch.setattr(gpu, "_TAKE_FACTOR", factor)
-    drain = make().checker().spawn_gpu_bfs(device="cpu", **spawn).join()
+    drain = make().checker().spawn_gpu_bfs(wave_kernel="staged", device="cpu", **spawn).join()
     monkeypatch.undo()
-    wave = make().checker().spawn_gpu_bfs(device="cpu", max_drain_waves=1, **spawn).join()
+    wave = make().checker().spawn_gpu_bfs(
+        wave_kernel="staged", device="cpu", max_drain_waves=1, **spawn).join()
     return drain, wave
 
 
@@ -296,9 +298,9 @@ def test_drain_take_full_exits_keep_the_rung_and_the_paths(monkeypatch):
     spawn = dict(frontier_capacity=512, table_capacity=1 << 16)
     make = FAMILIES["paxos"][1]
     monkeypatch.setattr(gpu, "_TAKE_FACTOR", 0.5)
-    small = make().checker().spawn_gpu_bfs(device="cpu", **spawn).join()
+    small = make().checker().spawn_gpu_bfs(wave_kernel="staged", device="cpu", **spawn).join()
     monkeypatch.setattr(gpu, "_TAKE_FACTOR", 512)
-    whole = make().checker().spawn_gpu_bfs(device="cpu", **spawn).join()
+    whole = make().checker().spawn_gpu_bfs(wave_kernel="staged", device="cpu", **spawn).join()
     assert small.drain_exits["take full"] > 0 and "take full" not in whole.drain_exits
     assert small.waves == whole.waves
     assert set(small.rungs) == set(whole.rungs)

@@ -248,7 +248,7 @@ def runs(request):
         wave_kernel="fused", device="cpu", max_drain_waves=1, **spawn
     ).join()
     staged = make_port().checker().spawn_gpu_bfs(
-        device="cpu", max_drain_waves=1, **spawn
+        wave_kernel="staged", device="cpu", max_drain_waves=1, **spawn
     ).join()
     return jax_fused, fused, staged
 
@@ -311,8 +311,9 @@ def test_fused_rounds_table_capacity_with_note():
     assert golden == _golden(jc, JaxWriteReporter)
     # The staged path keeps its refusal, and an admissible size adds no note.
     with pytest.raises(ValueError, match="multiple of 2048"):
-        Chain(6).checker().spawn_gpu_bfs(table_capacity=3000, device="cpu")
-    plain = Chain(6).checker().spawn_gpu_bfs(table_capacity=4096, device="cpu").join()
+        Chain(6).checker().spawn_gpu_bfs(wave_kernel="staged", table_capacity=3000, device="cpu")
+    plain = Chain(6).checker().spawn_gpu_bfs(
+        wave_kernel="staged", table_capacity=4096, device="cpu").join()
     assert plain.config_notes == [] and "Note:" not in _golden(plain, WriteReporter)
 
 
@@ -337,7 +338,7 @@ def test_fused_refuses_a_custom_fingerprint():
         spawn = dict(frontier_capacity=64, table_capacity=2048, device="cpu", **options)
         fused = _SaltedTwoPhaseSys(3).checker().spawn_gpu_bfs(
             wave_kernel="fused", **spawn).join()
-        staged = _SaltedTwoPhaseSys(3).checker().spawn_gpu_bfs(**spawn).join()
+        staged = _SaltedTwoPhaseSys(3).checker().spawn_gpu_bfs(wave_kernel="staged", **spawn).join()
         assert fused.keys_route == staged.keys_route == "pairs"
         assert fused.unique_state_count() == staged.unique_state_count() == 288
         assert fused.state_count() == staged.state_count() == 1146

@@ -49,7 +49,7 @@ def port_run(n, frontier, table):
         TwoPhaseSys(n)
         .checker()
         .spawn_gpu_bfs(
-            frontier_capacity=frontier, table_capacity=table, device="cpu",
+            wave_kernel="staged", frontier_capacity=frontier, table_capacity=table, device="cpu",
             max_drain_waves=1,
         )
         .join()
@@ -205,9 +205,11 @@ def test_spawn_refusals():
     from stateright_tpu_torch.core.model import FnModel
 
     with pytest.raises(ValueError, match="multiple of 2048"):
-        TwoPhaseSys(3).checker().spawn_gpu_bfs(table_capacity=3000, device="cpu")
+        TwoPhaseSys(3).checker().spawn_gpu_bfs(
+            wave_kernel="staged", table_capacity=3000, device="cpu")
     with pytest.raises(ValueError, match="multiple of 2048"):
-        TwoPhaseSys(3).checker().spawn_gpu_bfs(table_capacity=1024, device="cpu")
+        TwoPhaseSys(3).checker().spawn_gpu_bfs(
+            wave_kernel="staged", table_capacity=1024, device="cpu")
     model = FnModel(lambda s, out: out.append(0) if s is None else None)
     with pytest.raises(TypeError, match="BatchableModel"):
         model.checker().spawn_gpu_bfs(device="cpu")
@@ -224,6 +226,19 @@ def test_import_leaves_jax_out():
         "import stateright_tpu_torch.models.two_phase_commit\n"
         "import stateright_tpu_torch.ops.hashset_kernel\n"
         "import stateright_tpu_torch.ops.ring\n"
+        "import stateright_tpu_torch.checker.job_market\n"
+        "import stateright_tpu_torch.checker.liveness\n"
+        "import stateright_tpu_torch.checker.dfs\n"
+        "import stateright_tpu_torch.checker.on_demand\n"
+        "import stateright_tpu_torch.checker.simulation\n"
+        "import stateright_tpu_torch.checker.explorer\n"
+        "import stateright_tpu_torch.telemetry.instruments\n"
+        "import stateright_tpu_torch.semantics.write_once_register\n"
+        "import stateright_tpu_torch.actor.write_once_register\n"
+        "import stateright_tpu_torch.actor.ordered_reliable_link\n"
+        "import stateright_tpu_torch.actor.wire\n"
+        "import stateright_tpu_torch.actor.spawn\n"
+        "import stateright_tpu_torch.models.timers\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'stateright_tpu' or m.startswith('stateright_tpu.')]\n"
         "print(bad)\n"
