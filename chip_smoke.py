@@ -84,6 +84,16 @@ symmetry heuristic, 665), ``spawn_on_demand()`` and the default
 counted as the other paths'); and ``complete_liveness()`` on the card for a
 cycler and for raft-3 lossy "stable leader", each path equal to the CPU
 twin's with the condition false along it.
+Then checkpoints, preemption and the out-of-core visited set
+(``checkpoint_resume_tiering``): 2pc-8 through the default engine with a
+checkpoint every 8 chunks (one file copied aside mid-run), preempted after
+its third drain and resumed from the payload and from the copied file
+(bit-identical to the checkpointed run, golden report included), at the
+smallest admissible ``hbm_budget_mib`` (evictions, the handoff to the wave
+path, the host probe) and again with a 2 MiB host budget and a spill
+directory; abd3o staged with the fingerprint-only wave, preempted half way
+and resumed; and the insert kernel rebuilding the preempted run's table
+from its payload against its plain twin, timed.
 Prints phase lines, the card's name and power limit, the fused wave's
 stage times, the drains' walls, waves, no-op and warm-up waves, exits,
 graph captures and replays and rungs, peak device memory, one
@@ -1089,27 +1099,44 @@ def _check_sort_gather_launches(n):
     assert (n["fw_gather"] > 0) == (n["fused_wave"] > 0), n
 
 
+_LAUNCH_NAMES = ("hashset_insert_sorted", "fused_wave", "fw_frontier", "fw_keys", "fw_sort",
+                 "fw_dedup", "fw_compact", "fw_gather")
+
+
+def _zero_launches():
+    """Sets every kernel count to 0 (just before a run is driven)."""
+    from stateright_tpu_torch.ops import fused_wave as fw
+    from stateright_tpu_torch.ops import hashset_kernel as hk
+
+    hk.launches = fw.launches = fw.sort_launches = fw.compact_launches = 0
+    fw.gather_launches = fw.frontier_launches = fw.keys_launches = fw.dedup_launches = 0
+    fw.comphash_launches = 0
+
+
+def _read_launches():
+    """Each kernel's launches since ``_zero_launches``, by name."""
+    from stateright_tpu_torch.ops import fused_wave as fw
+    from stateright_tpu_torch.ops import hashset_kernel as hk
+
+    return dict(zip(_LAUNCH_NAMES, (hk.launches, fw.launches, fw.frontier_launches,
+                                    fw.keys_launches, fw.sort_launches, fw.dedup_launches,
+                                    fw.compact_launches, fw.gather_launches)))
+
+
 def _drive_2pc8(wave_kernel, **spawn):
     """Drives 2pc-8 through ``spawn_gpu_bfs`` with every kernel count set
     to 0 just before and read just after."""
     import torch
 
-    from stateright_tpu_torch.ops import fused_wave as fw
-    from stateright_tpu_torch.ops import hashset_kernel as hk
-
     cfg = _config("2pc8")
     torch.cuda.reset_peak_memory_stats()
-    hk.launches = fw.launches = fw.sort_launches = fw.compact_launches = 0
-    fw.gather_launches = fw.frontier_launches = fw.keys_launches = fw.dedup_launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     checker = cfg.make().checker().spawn_gpu_bfs(
         **dict(cfg.spawn, wave_kernel=wave_kernel, **spawn)).join()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"hashset_insert_sorted": hk.launches, "fused_wave": fw.launches,
-                "fw_frontier": fw.frontier_launches, "fw_keys": fw.keys_launches,
-                "fw_sort": fw.sort_launches, "fw_dedup": fw.dedup_launches,
-                "fw_compact": fw.compact_launches, "fw_gather": fw.gather_launches}
+    launches = _read_launches()
     _check_sort_gather_launches(launches)
     unique = checker.unique_state_count()
     mode = "drain" if checker.drains else "wave at a time"
@@ -2677,6 +2704,239 @@ def host_engines_and_lasso(drains):
     return out
 
 
+def _tiering_checkers():
+    """Subclasses of the GPU checker that stop a run deterministically from
+    its worker (after its ``after``-th drain) or copy its checkpoint file
+    aside after the ``copy_after``-th write."""
+    import shutil
+
+    from stateright_tpu_torch.checker.gpu import GpuBfsChecker
+
+    class PreemptAfterDrain(GpuBfsChecker):
+        def __init__(self, *a, after, **kw):
+            self._after = after
+            super().__init__(*a, **kw)
+
+        def _deep_drain(self, *a):
+            out = super()._deep_drain(*a)
+            if self.drains == self._after:
+                self.request_preempt()
+            return out
+
+    class CopyAside(GpuBfsChecker):
+        def __init__(self, *a, copy_after, copy_to, **kw):
+            self._copy = (copy_after, copy_to)
+            super().__init__(*a, **kw)
+
+        def save_checkpoint(self, path, queue, drain=None):
+            super().save_checkpoint(path, queue, drain)
+            if self.checkpoints_written == self._copy[0]:
+                shutil.copyfile(path, self._copy[1])
+
+    return PreemptAfterDrain, CopyAside
+
+
+def _golden(checker):
+    import io
+    import re
+
+    from stateright_tpu_torch import WriteReporter
+
+    out = io.StringIO()
+    checker.report(WriteReporter(out))
+    return re.sub(r"sec=\d+", "sec=_", out.getvalue())
+
+
+def _same_run(label, got, want, golden=True):
+    """Holds a resumed or budgeted run to the reference run: counts, depth,
+    discovery fingerprints and (``golden``) the report lines."""
+    assert got.worker_error() is None, (label, got.worker_error())
+    for k in ("unique_state_count", "state_count", "max_depth"):
+        assert getattr(got, k)() == getattr(want, k)(), (label, k, getattr(got, k)(),
+                                                         getattr(want, k)())
+    assert got._discoveries_fp == want._discoveries_fp, label
+    if golden:
+        assert _golden(got) == _golden(want), label
+
+
+def _joined(checker):
+    for h in checker.handles():
+        h.join()
+    assert checker.worker_error() is None, checker.worker_error()
+    return checker
+
+
+# checkpoint_resume_tiering's settings: a checkpoint every 8 chunks (a
+# drain runs at most 8 waves), whose 3rd file is copied aside; the preempt
+# after the 3rd drain; a 2 MiB host budget, which spills the runs (L2).
+TIERING_EVERY, TIERING_COPY_AFTER, TIERING_PREEMPT_AFTER = 8, 3, 3
+TIERING_HOST_BUDGET_MIB = 2.0
+
+
+def checkpoint_resume_runs(tmp, make, spawn, unique, fps_make, fps_spawn, fps_unique):
+    """The checkpoint, preempt, resume and tiering runs of one
+    configuration (``make``, ``spawn``) through the default engine on the
+    card, each with every kernel count set to 0 just before it and read
+    just after (a run's ``launches``): the uncheckpointed reference; a run
+    checkpointed every ``TIERING_EVERY`` chunks whose
+    ``TIERING_COPY_AFTER``-th file is copied aside; the same run preempted
+    after its ``TIERING_PREEMPT_AFTER``-th drain and resumed from the
+    payload, and resumed from the copied file; the run at
+    ``min_admissible_hbm_budget_mib``, and again with
+    ``TIERING_HOST_BUDGET_MIB`` and a spill directory; and a staged
+    fingerprint-only run of ``fps_make`` preempted half way and resumed.
+    Returns a dict of the runs' records and the preempt payload."""
+    import pickle
+
+    import torch
+
+    from stateright_tpu_torch.checker.gpu import min_admissible_hbm_budget_mib
+
+    PreemptAfterDrain, CopyAside = _tiering_checkers()
+    spawn = dict(spawn, device="cuda")
+    out, launches = {}, {}
+
+    def run(name, fn):
+        _zero_launches()
+        t0 = time.perf_counter()
+        checker = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = n = _read_launches()
+        assert checker.worker_error() is None, (name, checker.worker_error())
+        assert checker.device.type == "cuda", (name, checker.device)
+        # Every wave went through the engine's kernels, and the insert
+        # kernel seeded, rehashed or rebuilt the table.
+        if checker._wave_kernel == "fused":
+            _check_sort_gather_launches(n)
+            assert n["fused_wave"] >= checker.waves > 0, (name, n)
+        else:
+            assert n["fused_wave"] == 0 and n["hashset_insert_sorted"] >= checker.waves > 0
+        assert n["hashset_insert_sorted"] >= 1, (name, n)
+        rec = {"wall_s": wall, "unique": checker.unique_state_count(),
+               "states": checker.state_count(), "depth": checker.max_depth(),
+               "engine": checker._wave_kernel, "waves": checker.waves,
+               "drains": checker.drains, "noop_waves": checker.noop_waves,
+               "checkpoints_written": checker.checkpoints_written,
+               "checkpoint_s": checker.checkpoint_s, "checkpoint_bytes": checker.checkpoint_bytes,
+               "evictions": checker.evictions, "storage_fps": checker.storage_fps,
+               "host_probe_s": checker.host_probe_s, "stale_lanes": checker.stale_lanes,
+               "handoff_wave": checker.handoff_wave,
+               "restore_inserts": checker.restore_inserts, "launches": launches[name]}
+        if checker._tier is not None:
+            st = checker._tier.instruments.bench_stats()
+            rec.update(l1_runs=len(checker._tier.l1), l2_runs=len(checker._tier.l2),
+                       spills=st["spills"], merges=st["merges"],
+                       probe_hits_l2=st["probe_hits_l2"])
+        if checker.handoff_wave is not None:
+            rec["waves_after_handoff"] = checker.waves - checker.handoff_wave
+        out[name] = rec
+        log(f"  {name}: {rec}")
+        return checker
+
+    ref = run("reference", lambda: make().checker().spawn_gpu_bfs(**spawn).join())
+    assert ref.unique_state_count() == unique, ref.unique_state_count()
+
+    # (a) checkpointed; one file is kept aside.
+    ckpt, aside = os.path.join(tmp, "run.ckpt"), os.path.join(tmp, "aside.ckpt")
+    ck_spawn = dict(spawn, checkpoint_path=ckpt, checkpoint_every_chunks=TIERING_EVERY)
+    ckd = run("checkpointed", lambda: _joined(CopyAside(
+        make().checker(), copy_after=TIERING_COPY_AFTER, copy_to=aside, **ck_spawn)))
+    assert ckd.unique_state_count() == unique
+    assert ckd.checkpoints_written >= TIERING_COPY_AFTER and os.path.exists(aside)
+    _same_run("checkpointed", ckd, ref, golden=False)
+
+    # (b) preempted, resumed from the payload and from the checkpoint
+    # copied aside: bit-identical to (a).
+    first = run("preempted", lambda: _joined(PreemptAfterDrain(
+        make().checker(), after=TIERING_PREEMPT_AFTER, **ck_spawn)))
+    assert first.preempted and first.drains == TIERING_PREEMPT_AFTER
+    payload = first.preempt_payload()
+    assert payload["version"] == 2 and payload["kind"] == "gpu_bfs"
+    resumed = run("resumed_payload", lambda: make().checker().spawn_gpu_bfs(
+        resume_from=payload, **ck_spawn).join())
+    _same_run("resumed_payload", resumed, ckd)
+    with open(aside, "rb") as f:
+        assert pickle.load(f)["unique_count"] < unique
+    from_file = run("resumed_file", lambda: make().checker().spawn_gpu_bfs(
+        resume_from=aside, **dict(ck_spawn, checkpoint_path=os.path.join(tmp, "r2.ckpt")))
+        .join())
+    _same_run("resumed_file", from_file, ckd)
+
+    # (c) at the smallest admissible budget, then with a host budget that
+    # spills the runs to disk.
+    budget = min_admissible_hbm_budget_mib(make(), spawn["frontier_capacity"])
+    out["budget_mib"] = budget
+    bounded = run("budget", lambda: make().checker().spawn_gpu_bfs(
+        hbm_budget_mib=budget, **spawn).join())
+    _same_run("budget", bounded, ref, golden=False)
+    assert bounded.evictions >= 2 and bounded.handoff_wave is not None
+    spilled = run("budget_spill", lambda: make().checker().spawn_gpu_bfs(
+        hbm_budget_mib=budget, host_budget_mib=TIERING_HOST_BUDGET_MIB,
+        spill_dir=os.path.join(tmp, "spill"), **spawn).join())
+    _same_run("budget_spill", spilled, bounded)
+    assert spilled.evictions >= 2 and out["budget_spill"]["spills"] >= 1
+
+    # (e) the fingerprint-only wave, staged, preempted half way.
+    fps_spawn = dict(fps_spawn, device="cuda", wave_kernel="staged", expand_fps=True)
+    whole = run("fps_reference", lambda: fps_make().checker().spawn_gpu_bfs(
+        **fps_spawn).join())
+    assert whole._use_fps and whole.unique_state_count() == fps_unique
+    half = max(1, whole.drains // 2)
+    stop = run("fps_preempted", lambda: _joined(PreemptAfterDrain(
+        fps_make().checker(), after=half, **fps_spawn)))
+    assert stop.preempted
+    back = run("fps_resumed", lambda: fps_make().checker().spawn_gpu_bfs(
+        resume_from=stop.preempt_payload(), **fps_spawn).join())
+    _same_run("fps_resumed", back, whole)
+    out["launches"] = launches
+    return out, payload
+
+
+@phase("checkpoint_resume_tiering")
+def checkpoint_resume_tiering():
+    """2pc-8 (1,745,408) through the default (fused) engine: checkpointed
+    every 8 chunks, preempted after its third drain and resumed from the
+    payload and from a checkpoint file copied aside mid-run (bit-identical
+    to the checkpointed run, golden report included), and at the smallest
+    admissible ``hbm_budget_mib`` (a 2^20-row table cap: evictions, the
+    handoff to the wave path, the host probe), again with a 2 MiB host
+    budget and a spill directory (L2); abd3o (46,516) staged with the
+    fingerprint-only wave, preempted half way and resumed; then the insert
+    kernel rebuilding the preempted 2pc-8 run's table from its payload (as
+    the restore does) against its plain twin, bit for bit, timed."""
+    import tempfile
+
+    import numpy as np
+
+    from stateright_tpu_torch.checker.gpu import sorted_key_halves
+
+    cfg, abd = _config("2pc8"), _config("abd3o")
+    with tempfile.TemporaryDirectory() as tmp:
+        runs, payload = checkpoint_resume_runs(
+            tmp, cfg.make, cfg.spawn, cfg.unique, fps_make=abd.make, fps_spawn=abd.spawn,
+            fps_unique=abd.unique)
+    # (d) the restore's insert: the payload's keys, sorted, into an empty
+    # table of the restored capacity.
+    khi, klo = sorted_key_halves(payload["children"], "cpu")
+    hi, lo = khi.numpy().view(np.uint32), klo.numpy().view(np.uint32)
+    cap = max(cfg.spawn["table_capacity"], payload["capacity"])
+    empty = np.zeros((cap + 128, 2), np.uint32)
+    active = np.ones(hi.shape[0], bool)
+    res = _compare_insert(empty, hi, lo, active, timing=True)
+    assert res["err"] == 0 and res["after"].any(), res["err"]
+    bound_ms = _must_move_bytes(res["after"], hi, lo, active, res["fresh"]) \
+        / HBM_BYTES_PER_S * 1e3
+    runs["restore_insert"] = {"keys": int(hi.shape[0]), "capacity": cap,
+                              "max_abs_err": res["err"], "ms": res["ms"],
+                              "plain_ms": res["plain_ms"], "bound_ms": bound_ms,
+                              "bound_by": "bytes", "library_ms": None}
+    log(json.dumps({"checkpoint_resume_tiering": {
+        k: ({kk: vv for kk, vv in v.items() if kk != "launches"} if isinstance(v, dict) else v)
+        for k, v in runs.items()}}))
+    return runs
+
+
 STAGE_KERNELS = (
     ("frontier_kernel", "frontier"), ("comphash_keys_kernel", "keys"),
     ("keys_pairs_kernel", "keys"), ("keys_kernel", "keys"),
@@ -3090,6 +3350,7 @@ def main() -> int:
     sym_raft5 = symmetry_raft5_ttc(raft5["staged"]) if not FAILED else None
     sym_fallback = symmetry_drain_vs_cpu() if not FAILED else None
     host = host_engines_and_lasso(drains) if not FAILED else None
+    tiering = checkpoint_resume_tiering() if not FAILED else None
     if not FAILED:
         stage_device_profile()
     if FAILED:
@@ -3127,7 +3388,11 @@ def main() -> int:
     frontier_launches = by_path("fused", "fw_frontier", main_runs)
     keys_launches = by_path("fused", "fw_keys", main_runs)
     # 2pc-8 through the default engine (fused) in host_engines_and_lasso.
-    default_runs = {"2pc8_default": host["gpu_default_2pc8"]}
+    # ... and the runs of checkpoint_resume_tiering (2pc-8 on the default
+    # engine, abd3o staged).
+    default_runs = {"2pc8_default": host["gpu_default_2pc8"],
+                    **{f"tiering_{name}": {"launches": n}
+                       for name, n in tiering["launches"].items()}}
     for kernel, counts in (("hashset_insert_sorted", insert_launches),
                            ("fused_wave", fused_launches), ("fw_sort", sort_launches),
                            ("fw_dedup", dedup_launches), ("fw_compact", compact_launches),
@@ -3172,7 +3437,8 @@ def main() -> int:
             "launches": sum(insert_launches.values()),
             "launches_by_path": insert_launches,
             "max_abs_err": max(insert["max_abs_err"], raft5_insert["max_abs_err"],
-                               sym_insert["max_abs_err"]),
+                               sym_insert["max_abs_err"],
+                               tiering["restore_insert"]["max_abs_err"]),
             # On a random 344,064-key batch into a 2^22-row table at load
             # 0.4; on the keys of a raft5 wave and on a 2pc-9 drain take's
             # canonical (symmetry) keys, below.
@@ -3182,7 +3448,11 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": None,
             "by_path": {"raft5": held(raft5_insert, insert_launches["raft5"]),
-                        "symmetry_2pc9": held(sym_insert, insert_launches["symmetry_2pc9"])},
+                        "symmetry_2pc9": held(sym_insert, insert_launches["symmetry_2pc9"]),
+                        # The restore's rebuild of a preempted 2pc-8 run's
+                        # table: its launches in the resumed run.
+                        "restore_2pc8": held(tiering["restore_insert"],
+                                             tiering["resumed_payload"]["restore_inserts"])},
         },
         {
             "name": "fused_wave",

@@ -4,9 +4,9 @@ Reference: ``Checker`` trait at ``src/checker.rs:273-557``. This is the
 compatibility surface that tests hit; every backend of the port (host
 BFS/DFS, on-demand, simulation, GPU BFS) returns an object with this
 interface. It is the JAX package's ``checker/base.py`` with its metrics
-registry, coverage ledger and the ``complete_liveness()`` lasso pass, and
-without the hooks into attribution, device liveness, preemption and the
-live monitor, which the port has not taken on yet.
+registry, coverage ledger, the ``complete_liveness()`` lasso pass and the
+preemption surface, and without the hooks into attribution, device
+liveness and the live monitor, which the port has not taken on yet.
 """
 
 from __future__ import annotations
@@ -65,6 +65,32 @@ class Checker(Generic[State, Action]):
 
     def run_to_completion(self) -> None:
         """Ask the checker to run to completion (on-demand only)."""
+
+    # -- preemption (the GPU checker implements it; see checker/gpu.py) -------
+
+    _preempt_payload = None
+
+    # True on the backends whose request_preempt() yields a resumable
+    # payload.
+    supports_preempt = False
+
+    def request_preempt(self) -> None:
+        """Asks the worker to stop at the next wave boundary and put its
+        state into an in-memory checkpoint payload. The GPU checker
+        implements it; the host engines' per-state loops have no payload
+        format to yield."""
+        raise NotImplementedError(f"{type(self).__name__} does not support preemption")
+
+    @property
+    def preempted(self) -> bool:
+        """True when the worker stopped at a preempt request (the run is
+        incomplete and resumable)."""
+        return self._preempt_payload is not None
+
+    def preempt_payload(self):
+        """The stopped run's in-memory checkpoint payload, or None (not
+        preempted, or finished first). Pass it as ``resume_from=``."""
+        return self._preempt_payload
 
     # -- telemetry and coverage ----------------------------------------------
 

@@ -144,8 +144,15 @@ class CheckerBuilder:
         the visited set is keyed on canonical fingerprints of the orbits;
         that runs on the staged engine only (``wave_kernel="fused"`` raises,
         as in the JAX package). ``complete_liveness()`` adds the host lasso
-        pass over the model's host transitions after the device run. See
-        ``checker/gpu.py`` for the knobs."""
+        pass over the model's host transitions after the device run.
+        ``checkpoint_path``, ``checkpoint_every_chunks`` (32),
+        ``checkpoint_min_interval_s`` (0.0) and ``resume_from`` (a path or
+        a ``preempt_payload()``) checkpoint and resume the run;
+        ``request_preempt()`` on the returned checker stops it at the next
+        wave or drain boundary with a resumable payload. ``hbm_budget_mib``
+        caps the device table and evicts it to host runs past the cap,
+        ``host_budget_mib`` with ``spill_dir`` spills those runs to disk;
+        results stay bit-identical. See ``checker/gpu.py`` for the knobs."""
         from .gpu import GpuBfsChecker
 
         return GpuBfsChecker(self, **kwargs)

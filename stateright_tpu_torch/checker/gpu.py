@@ -112,6 +112,30 @@ discovery for a lasso or a masked terminal path, on the model's host
 ``actions``/``next_state``; ``discoveries()`` merges those paths in. A
 crashed run skips the pass and says so (``liveness_report()``).
 
+Checkpoint, preempt and resume (the JAX package's format v2 and its
+knobs): ``checkpoint_path`` writes a checkpoint atomically every
+``checkpoint_every_chunks`` dequeued chunks wave at a time, and at every
+drain exit after the first through the drain (whose waves are then capped
+at ``max(2, checkpoint_every_chunks)``), no more often than
+``checkpoint_min_interval_s``; ``request_preempt()`` stops the run at the
+next wave or drain boundary with the same payload in memory
+(``preempt_payload()``); ``resume_from`` (a path or a payload) restores
+counters, discoveries, the parent map, the pending frontier and the
+storage tiers, and rebuilds the table from the keys no run holds, sorted,
+through the insert kernel. The payload's kind is ``"gpu_bfs"``; its chunks
+hold live lanes only. A resumed run is bit-identical to the uninterrupted
+one; a drain's payload also carries the rung selector's state, so the
+resumed drains take the same waves.
+
+Out-of-core tiering (``hbm_budget_mib``, ``host_budget_mib``,
+``spill_dir``; ``storage/``): the table never grows past the budget; a
+growth that would pass it evicts every live row to host runs (L1, spilled
+to files as L2 past the host budget) and resets the table. From then on
+each wave's fresh keys are probed against the runs on the host, and only
+the survivors are counted, logged and queued, in lane order, so the run
+stays bit-identical to the unbounded one. The first eviction ends the
+drain: the ring, then the host queue, go back to the wave path.
+
 Semantics parity notes (mirrored from the reference): ``eventually`` bits
 propagate along paths and are not part of the fingerprint;
 ``target_state_count``/``target_max_depth`` may overshoot by up to a wave.
@@ -120,22 +144,25 @@ propagate along paths and are not part of the fingerprint;
 from __future__ import annotations
 
 import math
+import os
+import pickle
 import threading
 import time
 from collections import Counter, deque
+from hashlib import blake2b
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..actor.packed import PackedActorModel
-from ..core.batch import BatchableModel, map_leaves, supports_expand_fps
+from ..core.batch import BatchableModel, leaves, map_leaves, supports_expand_fps
 from ..core.model import Expectation
 from ..core.path import Path
 from ..native import make_fingerprint_store
 from ..ops import fused_wave as fw
 from ..ops import hashset_kernel as hk
-from ..ops.fingerprint import fp_to_int
+from ..ops.fingerprint import FP_SCHEME, fp_to_int
 from ..ops.fused_wave import (
     FusedWaveSpec,
     comphash_tables,
@@ -145,7 +172,7 @@ from ..ops.fused_wave import (
     torch_wave,
     torch_wave_fps,
 )
-from ..ops.hashset import hashset_new, i32_to_u32, u32_to_i32
+from ..ops.hashset import MAX_PROBES, hashset_new, i32_to_u32, u32_to_i32
 from ..ops.hashset_kernel import (
     TILE_ROWS,
     hashset_insert_sorted,
@@ -154,8 +181,15 @@ from ..ops.hashset_kernel import (
     split_key,
 )
 from ..ops.ring import ring_export, ring_push, ring_rows, ring_take
+from ..storage import (
+    StorageInstruments,
+    TieredVisitedStore,
+    max_table_rows_for_budget,
+    validate_budget_knobs,
+)
+from ..utils.faults import fault_point
 from .base import Checker
-from .symmetry import make_key_fn, sym_key_scheme
+from .symmetry import SYM_KEY_SCHEME, make_key_fn, sym_key_scheme
 
 _DEPTH_INF = (1 << 31) - 1
 # Grow the visited set before its load factor can pass this.
@@ -261,6 +295,153 @@ def _fp64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     return (hi << 32) | lo
 
 
+def _u64(x: torch.Tensor) -> np.ndarray:
+    """An int64 tensor of u64 bits as a host u64 array."""
+    return x.cpu().numpy().view(np.uint64)
+
+
+CHECKPOINT_KIND = "gpu_bfs"
+
+
+def min_admissible_hbm_budget_mib(model, frontier_capacity: int) -> float:
+    """The smallest ``hbm_budget_mib`` a checker with this model and
+    frontier width accepts, i.e. the most eviction pressure: one worst-case
+    wave (frontier x action count candidates) must fit a freshly evicted
+    table under ``_MAX_LOAD``, and the table is at least one tile of the
+    insert kernels (``TILE_ROWS`` rows). Priced as
+    ``storage.max_table_rows_for_budget`` prices a table: 8 bytes a row and
+    the ``MAX_PROBES`` apron."""
+    rows = _pow2ceil(
+        int(_pow2ceil(frontier_capacity) * model.packed_action_count() / _MAX_LOAD) + 1
+    )
+    return ((max(rows, TILE_ROWS) + MAX_PROBES) * 8) / (1 << 20)
+
+
+def packed_model_digest(model, action_count: int) -> str:
+    """Digest of a model's packed configuration, guarding a resume: the
+    class name alone would let a 3-RM checkpoint resume a 4-RM model. It
+    hashes the packed initial states' leaves, in the port's leaf order."""
+    h = blake2b(digest_size=16)
+    h.update(type(model).__name__.encode())
+    h.update(str(action_count).encode())
+    for leaf in leaves(model.packed_init_states("cpu")):
+        arr = leaf.cpu().numpy()
+        h.update(str(arr.shape).encode())
+        h.update(str(arr.dtype).encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def checkpoint_header(model, action_count: int, symmetry: bool, sym_scheme=None) -> dict:
+    """The checkpoint header: format version 2 (the optional ``"storage"``
+    payload of the tiers' runs), the checker kind (``CHECKPOINT_KIND``),
+    the model and its digest, and the key schemes."""
+    if symmetry and sym_scheme is None:
+        sym_scheme = SYM_KEY_SCHEME
+    return {
+        "version": 2,
+        "kind": CHECKPOINT_KIND,
+        "model": type(model).__name__,
+        "model_digest": packed_model_digest(model, action_count),
+        "symmetry": symmetry,
+        "sym_scheme": sym_scheme if symmetry else None,
+        "fp_scheme": FP_SCHEME,
+    }
+
+
+def validate_checkpoint_header(payload: dict, model, action_count: int, symmetry: bool,
+                               sym_scheme=None) -> None:
+    """Refuses a checkpoint that another checker kind, model, model
+    configuration or symmetry setting wrote, and a version 3 payload
+    (device liveness, which this checker does not run). A payload without
+    a ``kind`` was written by the JAX package's ``tpu_bfs`` checker."""
+    if payload.get("version") not in (1, 2, 3):
+        raise ValueError(f"unsupported checkpoint version: {payload.get('version')!r}")
+    found_kind = payload.get("kind", "tpu_bfs")
+    if found_kind != CHECKPOINT_KIND:
+        raise ValueError(
+            f"checkpoint kind {found_kind!r} does not match this checker "
+            f"({CHECKPOINT_KIND!r}): resume a checkpoint with the checker of the "
+            "package that wrote it"
+        )
+    if payload["version"] == 3 or "liveness" in payload:
+        raise ValueError(
+            "checkpoint carries a device liveness edge store (format version 3); "
+            "this checker does not run liveness='device' yet, and dropping the "
+            "store would make the final liveness verdict unsound"
+        )
+    if payload["model"] != type(model).__name__:
+        raise ValueError(
+            f"checkpoint was written by model {payload['model']!r}, "
+            f"resuming with {type(model).__name__!r}"
+        )
+    if payload.get("model_digest") != packed_model_digest(model, action_count):
+        raise ValueError(
+            "checkpoint was written by a differently-configured model "
+            "(packed init states / action count do not match); resuming "
+            "would mix two state spaces"
+        )
+    if payload.get("symmetry", False) != symmetry:
+        raise ValueError(
+            "checkpoint symmetry setting does not match this checker "
+            "(visited keys are canonical-form fingerprints under symmetry, "
+            "plain fingerprints otherwise; the two key spaces cannot mix)"
+        )
+    if symmetry:
+        want = sym_scheme if sym_scheme is not None else SYM_KEY_SCHEME
+        if payload.get("sym_scheme") != want:
+            raise ValueError(
+                f"checkpoint symmetry-key scheme {payload.get('sym_scheme')!r} does "
+                f"not match this checker ({want!r}); its visited keys cannot be "
+                "mixed into a resumed run"
+            )
+    if payload.get("fp_scheme") != FP_SCHEME:
+        raise ValueError(
+            f"checkpoint fingerprint scheme {payload.get('fp_scheme')!r} does not "
+            f"match this build ({FP_SCHEME!r}); its visited keys and parent fps "
+            "cannot be mixed into a resumed run"
+        )
+
+
+def atomic_pickle(path, payload) -> int:
+    """Writes the pickle to ``path`` atomically (a temporary file, then a
+    rename), so a kill or a failed write never corrupts the previous
+    checkpoint; returns the bytes written."""
+    # A real write fails on ENOSPC or a torn rename: the seam sits before
+    # the rename, so the previous checkpoint survives the fault.
+    fault_point("checkpoint.write")
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(payload, f)
+        size = f.tell()
+    os.replace(tmp, path)
+    return size
+
+
+def sorted_key_halves(keys: np.ndarray, device):
+    """u64 keys as the insert kernel takes them: sorted ascending, split
+    into int32 (hi, lo) halves on ``device``."""
+    keys = np.sort(np.asarray(keys, np.uint64))
+    hi = (keys >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    return torch.from_numpy(hi).to(device), torch.from_numpy(lo).to(device)
+
+
+def _chunk_to_host(chunk) -> dict:
+    """A queue chunk as numpy arrays (the payload's form)."""
+    return {k: (map_leaves(lambda x: x.cpu().numpy(), v) if k == "states"
+                else v.cpu().numpy()) for k, v in chunk.items()}
+
+
+def _tree_to_device(tree, device):
+    """A payload's numpy tree as fresh tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to_device(v, device) for v in tree)
+    return torch.tensor(tree, device=device)
+
+
 class GpuBfsChecker(Checker):
     """Requires the model to implement ``BatchableModel``.
 
@@ -284,7 +465,16 @@ class GpuBfsChecker(Checker):
     (``coverage_report()``, prefix ``gpu_bfs``). ``expand_fps`` chooses
     the fingerprint-only wave (module docstring). Symmetry reduction
     (``.symmetry()``, ``.symmetry_fn(f)``) runs on the staged engine only
-    (module docstring)."""
+    (module docstring).
+
+    Checkpoints and tiering take the JAX package's knobs and defaults
+    (module docstring): ``checkpoint_path``, ``checkpoint_every_chunks``,
+    ``checkpoint_min_interval_s`` and ``resume_from``; ``hbm_budget_mib``
+    caps the table (at least one worst-case wave,
+    ``min_admissible_hbm_budget_mib``), ``host_budget_mib`` and
+    ``spill_dir`` spill the host runs to disk."""
+
+    supports_preempt = True
 
     def __init__(
         self,
@@ -299,6 +489,13 @@ class GpuBfsChecker(Checker):
         bucket_ladder=None,
         coverage=False,
         expand_fps=None,
+        checkpoint_path=None,
+        checkpoint_every_chunks=32,
+        checkpoint_min_interval_s=0.0,
+        resume_from=None,
+        hbm_budget_mib=None,
+        host_budget_mib=None,
+        spill_dir=None,
     ):
         model = options.model
         if not isinstance(model, BatchableModel):
@@ -391,6 +588,18 @@ class GpuBfsChecker(Checker):
             raise ValueError(f"bucket_ladder must be >= 0, got {bucket_ladder}")
         self._buckets = bucket_ladder_widths(self._F_max, bucket_ladder)
         self._max_drain_waves = max(1, int(max_drain_waves))
+        self._checkpoint_path = checkpoint_path
+        # Counts dequeued chunks wave at a time; the time floor keeps wide
+        # frontiers from checkpointing back to back.
+        self._checkpoint_every = max(1, checkpoint_every_chunks)
+        self._checkpoint_min_interval = checkpoint_min_interval_s
+        self._resume_from = resume_from
+        if checkpoint_path is not None:
+            # A drain can span the whole run: with a checkpoint path a drain
+            # exits at least every N waves (2 at least, so it stays a drain).
+            self._max_drain_waves = min(
+                self._max_drain_waves, max(2, checkpoint_every_chunks)
+            )
         # The log holds at least one worst-case wave (F_max * A fresh
         # states), and so does the ring.
         self._drain_log_capacity = max(
@@ -403,17 +612,53 @@ class GpuBfsChecker(Checker):
         # (``Reporter.report_config_notes``).
         self.config_notes: List[str] = [engine_note] if engine_note else []
         cap = int(table_capacity)
+        # Out-of-core tiering: the budget caps the table; growth past the
+        # cap evicts the table to the host tiers (``_evict_l0``).
+        validate_budget_knobs(hbm_budget_mib, host_budget_mib, spill_dir)
+        self._tier = None
+        self._max_capacity = None
+        if hbm_budget_mib is not None:
+            max_cap = max_table_rows_for_budget(hbm_budget_mib)
+            # A freshly evicted table must take one worst-case wave under
+            # the load cap, or the grow-and-retry loop could not end.
+            min_cap = _pow2ceil(int(self._F_max * self._A / _MAX_LOAD) + 1)
+            if max_cap < min_cap:
+                raise ValueError(
+                    f"hbm_budget_mib={hbm_budget_mib} allows a device table of {max_cap} "
+                    f"rows, but one worst-case wave (frontier_capacity x action_count = "
+                    f"{self._F_max * self._A} candidates) needs at least {min_cap}; "
+                    "raise the budget or shrink frontier_capacity"
+                )
+            self._max_capacity = max_cap
+            cap = min(cap, max_cap)
+            self._tier = TieredVisitedStore(
+                host_budget_mib=host_budget_mib, spill_dir=spill_dir,
+                instruments=StorageInstruments("gpu_bfs"), tracer=self._tracer,
+            )
         if wave_kernel == "fused":
             # The fused wave's sweep grids over TILE_ROWS-row tiles: round
             # the capacity up and say so, as the JAX package does. The
             # staged insert keeps its refusal below.
             rounded = round_table_capacity(cap)
             if rounded != cap:
+                if self._max_capacity is not None and rounded > self._max_capacity:
+                    raise ValueError(
+                        f"table_capacity={cap} rounds up to {rounded} rows for the "
+                        f"tile-sweep kernels ({TILE_ROWS}-row tiles), which exceeds the "
+                        f"hbm_budget_mib cap of {self._max_capacity} rows; raise the "
+                        "budget or shrink table_capacity"
+                    )
                 self.config_notes.append(
                     f"table_capacity rounded {cap} -> {rounded} (tile-sweep "
                     f"kernels grid over {TILE_ROWS}-row table tiles)"
                 )
                 cap = rounded
+        elif self._max_capacity is not None and self._max_capacity < TILE_ROWS:
+            raise ValueError(
+                f"the hbm_budget_mib cap of {self._max_capacity} rows is less than one "
+                f"{TILE_ROWS}-row tile of the insert kernel; raise the budget "
+                "(min_admissible_hbm_budget_mib)"
+            )
         if cap <= 0 or cap & (cap - 1) or cap % TILE_ROWS:
             raise ValueError(
                 "table_capacity must be a power of two and a multiple of "
@@ -457,6 +702,9 @@ class GpuBfsChecker(Checker):
 
         self._state_count = 0
         self._unique_count = 0
+        # Keys resident in the table: the unique count until the first
+        # eviction, then the working set and the keys it claimed again.
+        self._l0_count = 0
         self._max_depth = 0
         self._discoveries_fp: Dict[str, int] = {}
         # (child fps, parent fps — 0 encodes "init state") per wave, as
@@ -495,6 +743,24 @@ class GpuBfsChecker(Checker):
         # The fresh children a drain wave makes on the device, by rung.
         self._take_widths: Dict[int, int] = {}
         self.max_fresh: Dict[int, int] = {}
+        # Tiering and checkpoint statistics: table evictions, the fresh lanes
+        # the host probe found in a run (``stale_lanes``) and its seconds,
+        # the wave count at the drain's handoff to the wave path (None: no
+        # handoff), and the checkpoints written, their seconds and bytes.
+        self.evictions = 0
+        self.stale_lanes = 0
+        self.host_probe_s = 0.0
+        self.handoff_wave = None
+        self.checkpoints_written = 0
+        self.checkpoint_s = 0.0
+        self.checkpoint_bytes = 0
+        # Insert-kernel launches of the restore's table rebuild.
+        self.restore_inserts = 0
+        # The rung selector's state a drain payload restores.
+        self._resume_drain = None
+        # request_preempt() sets it; the worker stops at the next wave or
+        # drain boundary with its state in ``_preempt_payload``.
+        self._preempt_event = threading.Event()
         self._drain = None
         self._graphs: Dict = {}
         self._go_host = None
@@ -545,6 +811,10 @@ class GpuBfsChecker(Checker):
         return new_table, int(pending.sum())
 
     def _grow_table(self, table, min_capacity):
+        """Doubles the table (rehash) to at least ``min_capacity`` rows, or,
+        under a budget, evicts it when that would pass the cap."""
+        if self._max_capacity is not None and min_capacity > self._max_capacity:
+            return self._evict_l0(table)
         capacity = self._capacity
         while capacity < min_capacity:
             capacity *= 2
@@ -553,26 +823,52 @@ class GpuBfsChecker(Checker):
             if not leftover:
                 break
             # A pathological key cluster can exhaust the probe cap during
-            # rehash; the next doubling shortens probe chains.
+            # rehash; the next doubling shortens probe chains. Under a
+            # budget the next doubling may not exist: evict instead.
             capacity *= 2
+            if self._max_capacity is not None and capacity > self._max_capacity:
+                return self._evict_l0(table)
         self._capacity = capacity
         self.table_growths += 1
         return new_table
+
+    def _evict_l0(self, table):
+        """Growth under the budget: the table's live rows go to the host
+        tiers as a new L1 run and the table starts empty at the cap; older
+        keys answer through the host probe from here on."""
+        rows = table.cpu().numpy().view(np.uint32).astype(np.uint64)
+        live = (rows[:, 0] != 0) | (rows[:, 1] != 0)
+        self._tier.evict((rows[live, 0] << np.uint64(32)) | rows[live, 1])
+        self._capacity = self._max_capacity
+        self._l0_count = 0
+        self.evictions += 1
+        self._tier.instruments.set_l0(0)
+        return hashset_new(self._capacity, self._device)
 
     # -- host exploration loop ----------------------------------------------
 
     def _run(self):
         try:
-            table, queue = self._seed()
+            if self._resume_from is not None:
+                table, queue = self._restore(self._resume_from)
+            else:
+                table, queue = self._seed()
             # As in the reference: the drain is off when a visitor needs
             # each chunk or a target count caps the run (a drain would
-            # overshoot by whole drains).
+            # overshoot by whole drains), and for a resumed run that has
+            # evicted (each wave needs the host probe).
             if (
                 self._max_drain_waves > 1
                 and self._visitor is None
                 and self._target_state_count is None
+                and (self._tier is None or self._tier.is_empty())
             ):
-                self._explore_deep(table, queue)
+                handoff = self._explore_deep(table, queue)
+                if handoff is not None:
+                    # The first eviction ended the drain: the rest of the
+                    # frontier goes on wave at a time.
+                    table, queue = handoff
+                    self._explore_waves(table, queue)
             else:
                 self._explore_waves(table, queue)
             self._finalize_coverage(set(self._discoveries_fp))
@@ -599,13 +895,13 @@ class GpuBfsChecker(Checker):
                 break
             self._capacity *= 2
         self._state_count = int(valid.sum())
-        self._unique_count = int(fresh.sum())
+        self._unique_count = self._l0_count = int(fresh.sum())
         if self._cov is not None:
             self._cov.record_seed(self._unique_count)
-        child = _fp64(hi, lo)[valid].cpu().numpy().view(np.uint64)
+        child = _u64(_fp64(hi, lo)[valid])
         self._wave_log.append((child, np.zeros_like(child)))
         if self._sym is not None:
-            self._key_log.append(_fp64(khi, klo)[valid].cpu().numpy().view(np.uint64))
+            self._key_log.append(_u64(_fp64(khi, klo)[valid]))
 
         # Chunks of F_max lanes over all init lanes, each keeping its valid
         # lanes (the reference masks the others out).
@@ -626,6 +922,8 @@ class GpuBfsChecker(Checker):
 
     def _explore_waves(self, table, queue):
         props = self._properties
+        chunks = 0
+        last_checkpoint = time.perf_counter()
         while queue:
             if not props:
                 break
@@ -636,12 +934,26 @@ class GpuBfsChecker(Checker):
                 and self._target_state_count <= self._state_count
             ):
                 break
+            if self._preempt_event.is_set():
+                # The queue is the whole pending frontier here.
+                self._preempt_payload = self.checkpoint_payload(queue)
+                self._tracer.instant("gpu_bfs.preempted", chunks=len(queue), mode="wave")
+                return
+            if (
+                self._checkpoint_path is not None
+                and chunks
+                and chunks % self._checkpoint_every == 0
+                and time.perf_counter() - last_checkpoint >= self._checkpoint_min_interval
+            ):
+                self.save_checkpoint(self._checkpoint_path, queue)
+                last_checkpoint = time.perf_counter()
+            chunks += 1
             chunk = queue.popleft()
             # Worst case of a full-width chunk, as the reference sizes it.
             B = self._F_max * self._A
-            if (self._unique_count + B) > _MAX_LOAD * self._capacity:
+            if (self._l0_count + B) > _MAX_LOAD * self._capacity:
                 table = self._grow_table(
-                    table, _pow2ceil(int((self._unique_count + B) / _MAX_LOAD))
+                    table, _pow2ceil(int((self._l0_count + B) / _MAX_LOAD))
                 )
             table, _ = self._consume_wave(table, chunk, queue)
 
@@ -649,7 +961,9 @@ class GpuBfsChecker(Checker):
         """Applies one wave host-side (counters, discoveries, coverage, log,
         requeue), growing the table and running the same chunk again while
         keys overflow their probe windows; each attempt's fresh states are
-        kept. ``out`` and its ``stats`` (a list), when given, are the first
+        kept. Once the table has evicted, only the fresh lanes whose keys
+        no host run holds count as new (``_probe_fresh``), in lane order.
+        ``out`` and its ``stats`` (a list), when given, are the first
         attempt, already run (a drain's final wave; ``chunk`` holds its
         live lanes; ``cov`` its coverage vector, with coverage on). Returns
         ``(table, fresh states kept)``."""
@@ -675,30 +989,39 @@ class GpuBfsChecker(Checker):
             if attempt == 0:
                 self._apply_wave_stats(stats, chunk)
             n_new = stats[1]
-            self._unique_count += n_new
-            wave_new += n_new
-            if n_new:
-                # Copies of the fresh rows: the queued chunks are views of
-                # these, so the wave's B-row outputs are freed now rather
-                # than held until its last chunk runs. The fingerprint-only
-                # wave makes its n_new fresh children here, in one take.
-                new = {k: out["new"][k][:n_new].clone() for k in ("hi", "lo", "ebits", "depth")}
+            keep = self._probe_fresh(out, n_new)
+            survivors = n_new if keep is None else keep.shape[0]
+            self._l0_count += n_new
+            self._unique_count += survivors
+            wave_new += survivors
+            if self._tier is not None:
+                self._tier.instruments.set_l0(self._l0_count)
+            if survivors:
+                # Copies of the fresh rows (or of the survivors of the host
+                # probe): the queued chunks are views of these, so the
+                # wave's B-row outputs are freed now rather than held until
+                # its last chunk runs. The fingerprint-only wave makes its
+                # children here, in one take.
+                def fresh(x):
+                    return x[:n_new].clone() if keep is None else x[:n_new][keep]
+
+                new = {k: fresh(out["new"][k]) for k in ("hi", "lo", "ebits", "depth")}
                 if self._use_fps:
                     states = take_children(self._spec, chunk["states"],
-                                           out["new"]["src"][:n_new])
+                                           fresh(out["new"]["src"]))
                     self.host_takes += 1
-                    self.host_take_rows += n_new
+                    self.host_take_rows += survivors
                 else:
-                    states = map_leaves(lambda x: x[:n_new].clone(), out["new"]["states"])
+                    states = map_leaves(fresh, out["new"]["states"])
                 rows = [_fp64(new["hi"], new["lo"]),
-                        _fp64(out["parent_hi"][:n_new], out["parent_lo"][:n_new])]
+                        _fp64(fresh(out["parent_hi"]), fresh(out["parent_lo"]))]
                 if self._sym is not None:
-                    rows.append(_fp64(out["key_hi"][:n_new], out["key_lo"][:n_new]))
-                log = torch.stack(rows).cpu().numpy().view(np.uint64)
+                    rows.append(_fp64(fresh(out["key_hi"]), fresh(out["key_lo"])))
+                log = _u64(torch.stack(rows))
                 self._wave_log.append((log[0], log[1]))
                 if self._sym is not None:
                     self._key_log.append(log[2])
-                for s in range(0, n_new, self._F_max):
+                for s in range(0, survivors, self._F_max):
                     piece = {k: v[s : s + self._F_max] for k, v in new.items()}
                     piece["states"] = map_leaves(lambda x: x[s : s + self._F_max], states)
                     queue.append(piece)
@@ -706,9 +1029,39 @@ class GpuBfsChecker(Checker):
                 if self._cov is not None:
                     self._cov.emit_wave_span()
                 return table, wave_new
+            if self._max_capacity is not None and attempt >= 8:
+                # The wave overflows even freshly evicted tables: a
+                # configuration error, not a loop to spin in.
+                raise RuntimeError(
+                    "a wave's candidates overflow the budget-capped table after "
+                    "repeated evictions; raise hbm_budget_mib or shrink "
+                    "frontier_capacity"
+                )
             table = self._grow_table(table, self._capacity * 2)
             attempt += 1
             out = None
+
+    def _probe_fresh(self, out, n_new):
+        """The host half of the two-phase probe, once the table has
+        evicted: the table vouches only for the keys it holds, so the
+        wave's ``n_new`` fresh lanes whose keys (orbit keys under symmetry)
+        a host run holds are stale. One batched probe a wave attempt.
+        Returns the survivors' lanes (a device index tensor, ascending) or
+        None when every fresh lane survives."""
+        if not n_new or self._tier is None or self._tier.is_empty():
+            return None
+        t0 = time.perf_counter()
+        if self._sym is not None:
+            keys = _fp64(out["key_hi"][:n_new], out["key_lo"][:n_new])
+        else:
+            keys = _fp64(out["new"]["hi"][:n_new], out["new"]["lo"][:n_new])
+        stale = self._tier.probe(_u64(keys))
+        self.host_probe_s += time.perf_counter() - t0
+        n_stale = int(stale.sum())
+        if not n_stale:
+            return None
+        self.stale_lanes += n_stale
+        return torch.from_numpy(np.flatnonzero(~stale)).to(self._device)
 
     def _apply_wave_stats(self, stats, chunk):
         self._state_count += stats[0]
@@ -734,28 +1087,54 @@ class GpuBfsChecker(Checker):
         ``_explore_deep``): on every pass it pushes the whole host queue
         into the ring (growing the ring when it must), grows the table
         ahead of the drain, picks the rung, runs one drain and consumes its
-        final wave, whose fresh states go to the host queue."""
+        final wave, whose fresh states go to the host queue. Checkpoints
+        and preemption happen between drains. Returns None, or, after the
+        first eviction, ``(table, queue)``: the whole pending frontier for
+        the wave path, the ring first."""
         props = self._properties
         if not props:
-            return
+            return None
         F_max = self._F_max
         B = F_max * self._A
         self._drain = self._drain_state(self._pool_capacity)
         pool_count = 0  # host view: exact after a drain, a bound after pushes
-        # Exact pending live lanes (ring + spilled queue), the rung
-        # selector's input; None until the first drain exit, so the first
-        # drain runs at F_max.
-        live_est = None
-        # Votes of consecutive drains for a rung not yet entered: a new
-        # rung is entered only when two drains in a row select it.
-        rung_votes: Dict[int, int] = {}
-        entered = set()
-        # A drain that stopped only because its wave had more fresh lanes
-        # than the device makes: the next drain runs at its rung.
-        keep_width = None
+        # The rung selector's state, which a drain payload carries so a
+        # resumed run takes the same waves: the exact pending live lanes
+        # (ring + spilled queue; None until the first drain exit, so the
+        # first drain runs at F_max); votes of consecutive drains for a
+        # rung not yet entered (a new rung is entered only when two drains
+        # in a row select it); the rungs entered; and the rung the next
+        # drain keeps after a drain that stopped only because its wave had
+        # more fresh lanes than the device makes, or an orbit fallback.
+        rungs = {"live_est": None, "rung_votes": {}, "entered": set(),
+                 "keep_width": None}
+        if self._resume_drain is not None:
+            rungs.update({k: self._resume_drain[k] for k in rungs})
+            rungs["entered"] = set(rungs["entered"])
+            self._take_widths.update(self._resume_drain["take_widths"])
+
+        def drain_state():
+            return {**rungs, "frontier_capacity": F_max, "entered": sorted(rungs["entered"]),
+                    "rung_votes": dict(rungs["rung_votes"]),
+                    "take_widths": dict(self._take_widths)}
+
+        drains = 0
+        last_checkpoint = time.perf_counter()
         while True:
             if len(self._discoveries_fp) == len(props):
                 break
+            if self._preempt_event.is_set():
+                # The ring's rows are older than the host queue's (the
+                # final wave spilled after everything the drain consumed):
+                # ring, then queue, is the exact FIFO order.
+                chunks = self._export_pool_chunks() + list(queue)
+                self._preempt_payload = self.checkpoint_payload(chunks, drain_state())
+                self._tracer.instant("gpu_bfs.preempted", chunks=len(chunks), mode="drain")
+                return None
+            # From the first eviction on every wave's fresh keys need the
+            # host probe, which a drain on the device cannot run.
+            if self._tier is not None and not self._tier.is_empty():
+                return table, self._handoff_queue(queue)
             # The queue must drain fully into the ring: its states are
             # older than anything the drain will push (exact BFS order).
             while queue:
@@ -769,22 +1148,38 @@ class GpuBfsChecker(Checker):
                 pool_count += F_max
             if pool_count == 0:
                 break
+            # Every drain exit after the first is a checkpoint opportunity;
+            # the ring holds the whole pending frontier here.
+            if (
+                self._checkpoint_path is not None
+                and drains
+                and time.perf_counter() - last_checkpoint >= self._checkpoint_min_interval
+            ):
+                self.save_checkpoint(self._checkpoint_path, self._export_pool_chunks(),
+                                     drain_state())
+                last_checkpoint = time.perf_counter()
+            drains += 1
             self.drains += 1
-            if self._unique_count + B > _MAX_LOAD * self._capacity:
+            if self._l0_count + B > _MAX_LOAD * self._capacity:
                 table = self._grow_table(
-                    table, _pow2ceil(int((self._unique_count + B) / _MAX_LOAD))
+                    table, _pow2ceil(int((self._l0_count + B) / _MAX_LOAD))
                 )
+                if self._tier is not None and not self._tier.is_empty():
+                    # The growth evicted: the queue was flushed above, and
+                    # the ring goes back to the wave path.
+                    return table, self._handoff_queue(queue)
             width = F_max
-            if keep_width is not None:
-                width = keep_width
+            live_est, entered = rungs["live_est"], rungs["entered"]
+            if rungs["keep_width"] is not None:
+                width = rungs["keep_width"]
             elif live_est is not None and len(self._buckets) > 1:
                 want = bucket_for(self._buckets, max(1, min(live_est, F_max)))
                 if want in entered or want == F_max:
                     width = want
-                    rung_votes = {}
+                    rungs["rung_votes"] = {}
                 else:
-                    votes = rung_votes.get(want, 0) + 1
-                    rung_votes = {want: votes}
+                    votes = rungs["rung_votes"].get(want, 0) + 1
+                    rungs["rung_votes"] = {want: votes}
                     if votes >= 2:
                         width = want
                     else:
@@ -795,7 +1190,7 @@ class GpuBfsChecker(Checker):
             entered.add(width)
             self.rungs[width] += 1
             budget = min(
-                int(_MAX_LOAD * self._capacity) - self._unique_count, (1 << 31) - 1 - B
+                int(_MAX_LOAD * self._capacity) - self._l0_count, (1 << 31) - 1 - B
             )
             table, summary, out, frontier = self._deep_drain(table, width, budget)
 
@@ -803,7 +1198,7 @@ class GpuBfsChecker(Checker):
             sc, stats = summary[:_N_SCALARS], summary[_N_SCALARS:_N_SCALARS + 5 + 3 * P]
             reason = sc[_REASON]
             self.drain_exits[EXIT_REASONS[(reason & -reason).bit_length() - 1]] += 1
-            keep_width = width if reason in (_TAKE_FULL, _ORBIT_FALLBACK) else None
+            rungs["keep_width"] = width if reason in (_TAKE_FULL, _ORBIT_FALLBACK) else None
             if reason & _TAKE_FULL:
                 # The device's take was too narrow for this wave: widen it
                 # for the rung's next capture, with room for growth.
@@ -812,6 +1207,10 @@ class GpuBfsChecker(Checker):
             log_n = sc[_LOG_N]
             self._state_count += sc[_GENERATED]
             self._unique_count += sc[_CONSUMED]
+            # Drains run while no run exists: every fresh key is resident.
+            self._l0_count += sc[_CONSUMED]
+            if self._tier is not None:
+                self._tier.instruments.set_l0(self._l0_count)
             self._max_depth = max(self._max_depth, sc[_MAX_DEPTH])
             # The final wave is counted by _consume_wave below.
             self.waves += sc[_WAVES] - 1
@@ -826,7 +1225,7 @@ class GpuBfsChecker(Checker):
                                          max_depth=sc[_MAX_DEPTH])
                 final_cov = summary[base + size : base + 2 * size]
             if log_n:
-                log = self._drain["log"][:, :log_n].contiguous().cpu().numpy().view(np.uint64)
+                log = _u64(self._drain["log"][:, :log_n].contiguous())
                 self._wave_log.append((log[0], log[1]))
                 if self._sym is not None:
                     self._key_log.append(log[2])
@@ -844,7 +1243,37 @@ class GpuBfsChecker(Checker):
                 out = stats = final_cov = None
             table, spilled = self._consume_wave(table, chunk, queue, out=out,
                                                 stats=stats, cov=final_cov)
-            live_est = pool_count + spilled
+            rungs["live_est"] = pool_count + spilled
+        return None
+
+    def _export_pool_chunks(self):
+        """The ring's live rows in FIFO order, head first, as chunks of
+        ``F_max`` lanes (a checkpoint's or the handoff's queue). The
+        drain's graphs are done: the host has read the scalars."""
+        d = self._drain
+        sc = d["scalars"]
+        n = int(sc[_COUNT])
+        rows = ring_export(d["pool"], sc[_HEAD], sc[_COUNT], d["capacity"])
+        del rows["mask"]
+        bounds = [(s, min(s + self._F_max, n)) for s in range(0, n, self._F_max)]
+        return [
+            {k: (map_leaves(lambda x: x[s:e], v) if k == "states" else v[s:e])
+             for k, v in rows.items()}
+            for s, e in bounds
+        ]
+
+    def _handoff_queue(self, queue):
+        """The wave path's queue at the first eviction: the ring's rows,
+        then the host queue's (exact FIFO order). The drain's ring, log and
+        graphs (which hold the evicted table's address) are dropped."""
+        newq = deque(self._export_pool_chunks())
+        newq.extend(queue)
+        self._tracer.instant("gpu_bfs.storage.wave_mode", ring_chunks=len(newq) - len(queue),
+                             spilled_chunks=len(queue))
+        self._drain = None
+        self._graphs = {}
+        self.handoff_wave = self.waves
+        return newq
 
     def _drain_state(self, capacity):
         """The drain's device state around a ring of ``capacity`` rows (and
@@ -1105,6 +1534,165 @@ class GpuBfsChecker(Checker):
             "table": table.data_ptr(),
             "launches": per_replay,
         }
+
+    # -- checkpoint, preempt and resume ----------------------------------------
+
+    def save_checkpoint(self, path, queue, drain=None) -> None:
+        """Writes ``checkpoint_payload(queue, drain)`` to ``path``
+        atomically. The visited set is not stored apart: it is the parent
+        map's keys (the key log under symmetry) and the host tiers' runs."""
+        t0 = time.perf_counter()
+        size = atomic_pickle(path, self.checkpoint_payload(queue, drain))
+        self.checkpoints_written += 1
+        self.checkpoint_s += time.perf_counter() - t0
+        self.checkpoint_bytes += size
+
+    def checkpoint_payload(self, queue, drain=None) -> dict:
+        """The checkpoint as an in-memory payload (format v2): counters,
+        discoveries, the parent map, the capacity, the pending chunks
+        (``queue``, live lanes only) as numpy, the claimed keys under
+        symmetry, the tiers' runs once the table has evicted, and, from a
+        drain, the rung selector's state (``drain``). Pass it to a new
+        checker's ``resume_from=``."""
+        self._ingest_wave_log()
+        children, parents = self._store.export()
+        payload = {
+            **checkpoint_header(self._model, self._A, self._sym is not None, self._sym_scheme),
+            "state_count": self._state_count,
+            "unique_count": self._unique_count,
+            "max_depth": self._max_depth,
+            "discoveries": dict(self._discoveries_fp),
+            "children": children,
+            "parents": parents,
+            "capacity": self._capacity,
+            "chunks": [_chunk_to_host(c) for c in queue],
+        }
+        if self._sym is not None:
+            payload["keys"] = (np.concatenate(self._key_log) if self._key_log
+                               else np.zeros((0,), np.uint64))
+        if self._tier is not None and not self._tier.is_empty():
+            payload["storage"] = self._tier.export_state()
+        if drain is not None:
+            payload["drain"] = drain
+        return payload
+
+    def _restore(self, source):
+        """Restores a checkpoint (a path, or a payload dict from
+        ``preempt_payload()``); returns ``(table, queue)``. The table is
+        rebuilt from the keys no host run holds, through the insert kernel,
+        in batches of the payload's order, each sorted: one batch with no
+        budget, else at most a freshly evicted table's load. A batch that
+        would take the table past ``_MAX_LOAD`` grows it first (under a
+        budget: evicts it), and one that leaves a key without a slot grows
+        it and runs again. A chunk wider than this checker's
+        ``frontier_capacity`` is split."""
+        if isinstance(source, dict):
+            payload = source
+        else:
+            with open(source, "rb") as f:
+                payload = pickle.load(f)
+        validate_checkpoint_header(payload, self._model, self._A, self._sym is not None,
+                                   self._sym_scheme)
+        self._state_count = payload["state_count"]
+        self._unique_count = payload["unique_count"]
+        self._max_depth = payload["max_depth"]
+        self._discoveries_fp = dict(payload["discoveries"])
+        self._wave_log.append((payload["children"], payload["parents"]))
+        keys = payload["children"]
+        if self._sym is not None:
+            keys = payload["keys"]
+            self._key_log.append(keys)
+        storage = payload.get("storage")
+        if storage:
+            if self._tier is None:
+                # Resumed without a budget: the runs stay probed, the table
+                # grows without a cap from here on.
+                self._tier = TieredVisitedStore(instruments=StorageInstruments("gpu_bfs"),
+                                                tracer=self._tracer)
+            self._tier.load_state(storage)
+        if self._tier is not None and not self._tier.is_empty():
+            keys = keys[~self._tier.probe(keys)]
+        self._capacity = max(self._capacity, payload["capacity"])
+        if self._max_capacity is not None:
+            self._capacity = min(self._capacity, self._max_capacity)
+        table = hashset_new(self._capacity, self._device)
+        self._l0_count = 0
+        # A batch must fit a freshly evicted table under the load cap, or
+        # the retry below could overflow again.
+        batch = max(1, len(keys)) if self._max_capacity is None \
+            else int(self._max_capacity * _MAX_LOAD)
+        for start in range(0, len(keys), batch):
+            khi, klo = sorted_key_halves(keys[start : start + batch], self._device)
+            n = khi.shape[0]
+            if self._l0_count + n > _MAX_LOAD * self._capacity:
+                # As ahead of a wave: the table stays under the load cap.
+                table = self._grow_table(
+                    table, _pow2ceil(int((self._l0_count + n) / _MAX_LOAD)))
+            active = torch.ones(n, dtype=torch.bool, device=self._device)
+            table, fresh, _found, pending = hashset_insert_sorted(table, khi, klo, active)
+            self.restore_inserts += 1
+            self._l0_count += int(fresh.sum())
+            if int(pending.sum()):
+                table = self._grow_table(table, self._capacity * 2)
+                table, fresh, _found, pending = hashset_insert_sorted(table, khi, klo, active)
+                self.restore_inserts += 1
+                self._l0_count += int(fresh.sum())
+                if int(pending.sum()):
+                    raise RuntimeError("checkpoint restore overflowed the table")
+        if self._tier is not None:
+            self._tier.instruments.set_l0(self._l0_count)
+        drain = payload.get("drain")
+        # The rung selector's state holds widths of the writer's ladder.
+        if drain is not None and drain.get("frontier_capacity") == self._F_max:
+            self._resume_drain = drain
+        queue = deque()
+        for chunk in payload["chunks"]:
+            chunk = _tree_to_device(chunk, self._device)
+            n = chunk["hi"].shape[0]
+            if n <= self._F_max:
+                queue.append(chunk)
+                continue
+            for s in range(0, n, self._F_max):
+                queue.append({k: (map_leaves(lambda x: x[s : s + self._F_max], v)
+                                  if k == "states" else v[s : s + self._F_max])
+                              for k, v in chunk.items()})
+        return table, queue
+
+    def request_preempt(self) -> None:
+        """Asks the worker to stop at the next wave or drain boundary: the
+        run's state (counters, parent map, pending frontier, tiers) goes
+        into an in-memory payload (``preempt_payload()``) and the worker
+        exits. A new checker of the same configuration with
+        ``resume_from=<payload>`` finishes the run bit-identically. A run
+        that ends before a boundary finishes normally and
+        ``preempt_payload()`` stays None."""
+        self._preempt_event.set()
+
+    @property
+    def storage_fps(self) -> int:
+        """Keys held in the host tiers' runs (0 with no budget)."""
+        return 0 if self._tier is None else self._tier.total_fps
+
+    def state_digest(self) -> dict:
+        """A cheap summary of where the run stands: counts, the table, the
+        checkpoint path, whether it was preempted, and the tiers' storage
+        statistics once they exist."""
+        digest = {
+            "backend": type(self).__name__,
+            "done": self.is_done(),
+            "state_count": self.state_count(),
+            "unique_state_count": self.unique_state_count(),
+            "max_depth": self.max_depth(),
+            "discoveries": sorted(self._discoveries_fp),
+            "table_capacity": self._capacity,
+            "frontier_capacity": self._F_max,
+            "wave_kernel": self._wave_kernel,
+            "checkpoint_path": self._checkpoint_path,
+            "preempted": self.preempted,
+        }
+        if self._tier is not None:
+            digest["storage"] = self._tier.instruments.bench_stats()
+        return digest
 
     # -- path reconstruction ------------------------------------------------
 

@@ -143,6 +143,37 @@ def test_cuda_checker_matches_cpu_twin(cuda_device):
         assert gpu.discoveries()[name].encode() == path.encode()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("wave_kernel", ["staged", "fused"])
+def test_cuda_budgeted_resume_matches_cpu_twin(cuda_device, tmp_path, wave_kernel):
+    """A 2pc-5 checkpoint written with no budget resumes at the smallest
+    admissible budget on the card as on the CPU twin: the restore's batched
+    rebuild through the insert kernel evicts, and the run goes on wave at a
+    time with the host probe. Same counts, evictions and paths."""
+    from stateright_tpu_torch.checker.gpu import min_admissible_hbm_budget_mib
+
+    spawn = dict(wave_kernel=wave_kernel, frontier_capacity=64, table_capacity=1 << 12)
+    budget = min_admissible_hbm_budget_mib(TwoPhaseSys(5), 64)
+    runs = []
+    for d in (cuda_device, "cpu"):
+        path = tmp_path / f"{d}.ckpt"
+        TwoPhaseSys(5).checker().target_state_count(35000).spawn_gpu_bfs(
+            device=d, checkpoint_path=str(path), checkpoint_every_chunks=8,
+            max_drain_waves=1, **spawn).join()
+        runs.append(TwoPhaseSys(5).checker().spawn_gpu_bfs(
+            device=d, hbm_budget_mib=budget, resume_from=str(path), **spawn).join())
+    gpu, cpu = runs
+    assert gpu.worker_error() is None
+    assert gpu.unique_state_count() == cpu.unique_state_count() == 8832
+    assert gpu.state_count() == cpu.state_count()
+    assert gpu.max_depth() == cpu.max_depth()
+    assert gpu.restore_inserts == cpu.restore_inserts >= 2
+    assert gpu.evictions == cpu.evictions >= 1
+    assert gpu.storage_fps == cpu.storage_fps
+    for name, path in cpu.discoveries().items():
+        assert gpu.discoveries()[name].encode() == path.encode()
+
+
 # -- the fused wave ------------------------------------------------------------
 
 

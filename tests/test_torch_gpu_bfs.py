@@ -239,6 +239,9 @@ def test_import_leaves_jax_out():
         "import stateright_tpu_torch.actor.wire\n"
         "import stateright_tpu_torch.actor.spawn\n"
         "import stateright_tpu_torch.models.timers\n"
+        "import stateright_tpu_torch.storage\n"
+        "import stateright_tpu_torch.storage.tiered\n"
+        "import stateright_tpu_torch.utils.faults\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'stateright_tpu' or m.startswith('stateright_tpu.')]\n"
         "print(bad)\n"

@@ -19,10 +19,21 @@ import torch_host_fixtures as tf
 from stateright_tpu import Property as JaxProperty
 from stateright_tpu.core.fingerprint import fingerprint as jax_fingerprint
 from stateright_tpu.report import WriteReporter as JaxWriteReporter
+from stateright_tpu.telemetry import metrics_registry as jax_metrics_registry
 from stateright_tpu_torch import Property, WriteReporter, fingerprint
 from stateright_tpu_torch.checker.liveness import INCONCLUSIVE, find_eventually_lasso
 from test_liveness import _Cycler as JaxCycler
 from test_liveness import _Diamond as JaxDiamond
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fresh_jax_registry():
+    """The JAX runs here count into the JAX package's process-wide metrics
+    registry, some of whose counters that package's own tests read
+    exactly: leave the registry empty, as a fresh process has it."""
+    yield
+    jax_metrics_registry().reset()
+
 
 GPU = dict(device="cpu", frontier_capacity=16, table_capacity=2048)
 # The JAX device checker as the port mirrors it: the sorted in-wave dedup.
