@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --stage-ab [--root DIR] [--out FILE]
+    python3 chip_smoke.py --attributed-child OUT.json
 
 Builds every CUDA kernel of the port from the sources in this checkout (one
 ``nvcc`` per source, all at once), holds each kernel against its plain torch
@@ -93,7 +94,22 @@ smallest admissible ``hbm_budget_mib`` (evictions, the handoff to the wave
 path, the host probe) and again with a 2 MiB host budget and a spill
 directory; abd3o staged with the fingerprint-only wave, preempted half way
 and resumed; and the insert kernel rebuilding the preempted run's table
-from its payload against its plain twin, timed.
+from its payload against its plain twin, timed; the budgeted 2pc-8 run is
+attributed (``attribution=True``) and its ledger printed
+(``{"budget_2pc8_ledger": ...}``: the host probe's share, an evict window
+an eviction).
+Then attribution and the per-stage breakdown
+(``attribution_and_breakdown``): 2pc-8 through the default engine with an
+attribution engine built with ``profile_dir`` beside the same run
+unattributed, in a child process (``--attributed-child``: its
+``torch.profiler`` window is then its process's first), held to the same
+states, digests, waves, drains, rungs, exits and graph captures, with a
+ledger within tolerance, a ``compile`` window a graph captured, a device
+split from the profile and probe-length counts over every key; and
+``measure_wave_breakdown`` of 2pc-8 and paxos3 on the fused engine
+(``{"wave_breakdown": ...}`` lines), each roofline attainment at most
+1.05. The kernels' bounds are the must-move counts of
+``stateright_tpu_torch/checker/breakdown.py``.
 Prints phase lines, the card's name and power limit, the fused wave's
 stage times, the drains' walls, waves, no-op and warm-up waves, exits,
 graph captures and replays and rungs, peak device memory, one
@@ -208,40 +224,13 @@ def _sorted_batch(rng, n, active_frac, dup_frac=0.0, span=None, old=None, old_fr
     return hi[order], lo[order], valid[order]
 
 
-def _probed_rows(after, k):
-    """The distinct table rows that the probes of the sorted, distinct u64
-    keys ``k`` read in the table ``after`` the insert: a probe reads from
-    its home to the row where it stops (its match, its claim, or the
-    window's last row when it is pending)."""
-    import numpy as np
+def _bd():
+    """The port's must-move byte counts and breakdown
+    (``stateright_tpu_torch/checker/breakdown.py``), which this script's
+    bounds read, imported when a phase first needs them."""
+    from stateright_tpu_torch.checker import breakdown
 
-    probes = 128
-    cap = after.shape[0] - probes
-    home = (k >> np.uint64(64 - (cap.bit_length() - 1))).astype(np.int64)
-    rows = (after[:, 0].astype(np.uint64) << np.uint64(32)) | after[:, 1].astype(np.uint64)
-    stop = np.empty_like(home)
-    for s in range(0, k.shape[0], 1 << 14):
-        hit = rows[home[s : s + (1 << 14), None] + np.arange(probes)] == k[s : s + (1 << 14), None]
-        stop[s : s + (1 << 14)] = np.where(hit.any(1), hit.argmax(1), probes - 1)
-    end = home + stop
-    # Rows of [home, end] not already read by an earlier key (homes are
-    # monotone, so the earlier probes end at most at the running maximum).
-    reach = np.concatenate([[-1], np.maximum.accumulate(end)[:-1]])
-    return int(np.clip(end - np.maximum(home, reach + 1) + 1, 0, None).sum())
-
-
-def _must_move_bytes(after, hi, lo, active, fresh):
-    """Bytes the insert must move on this input: the distinct table rows
-    that the keys' probes read (a later copy of a key is settled by the
-    first, its neighbour in the sorted batch), the claimed rows written,
-    the keys (hi, lo, active) read and the three flags written."""
-    import numpy as np
-
-    keys = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
-    k = keys[active]
-    k = k[np.concatenate([[True], k[1:] != k[:-1]])]
-    B = hi.shape[0]
-    return _probed_rows(after, k) * 8 + int(fresh.sum()) * 8 + B * 9 + B * 3
+    return breakdown
 
 
 def _sweep_pass_ms(run, reset=None, reps=5):
@@ -392,7 +381,7 @@ def kernel_vs_plain():
     first[1:] = (hi2[1:] != hi2[:-1]) | (lo2[1:] != lo2[:-1])
     active = valid & first
     r = check("full wave", table, hi2, lo2, active, timing=True)
-    moved = _must_move_bytes(r["after"], hi2, lo2, active, r["fresh"])
+    moved = _bd().insert_must_move(r["after"], hi2, lo2, active, r["fresh"])
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     windows = (r["touched"] + r["redone"]) * (tile + 128) * 8
     log(f"  full wave: B={B} active={int(active.sum())} fresh={int(r['fresh'].sum())} "
@@ -558,34 +547,6 @@ def _time_on_card(fn, reps=11, reset=None):
     return statistics.median(totals), {k: statistics.median(v) for k, v in stages.items()}
 
 
-def _keys_must_move(B, W, F, masked, n_valid):
-    """Bytes the fold route's keys stage must move on this wave, u32
-    values at 4 B: the W words of each of the ``n_valid`` valid lanes (an
-    invalid lane's key does not depend on its row), every lane's valid
-    byte, the frontier's depth and mask bytes, and each lane's key (8 B)
-    and idx (4 B) written. Reading int64 leaves in place moves each word's
-    8 B: about twice the words' share."""
-    return n_valid * W * 4 + B * (1 + 12) + F * (4 + (1 if masked else 0))
-
-
-def _frontier_must_move(spec, F, masked):
-    """Bytes ``fw_frontier`` must move, u32 values at 4 B: each frontier
-    lane's depth and ebits read and ``ebits_after`` written, its mask byte
-    and condition bytes, its A valid bytes only when an eventually property
-    needs the terminal test, and the (4 + P) int64 counters written."""
-    P = len(spec.conditions)
-    ev = spec.action_count if "eventually" in spec.expectations else 0
-    return F * (12 + (1 if masked else 0) + P + ev) + (4 + P) * 8
-
-
-def _dedup_must_move(B, n_tiles):
-    """Bytes ``fw_dedup`` must move: each sorted position's key (8 B) read
-    and its active byte written, and the ``n_tiles + 1`` int64 starts
-    written (a first ``~0`` position's lane and valid byte are a few bytes
-    more, left out)."""
-    return B * 9 + (n_tiles + 1) * 8
-
-
 def _time_dedup(key, idx, capacity, cvalid, A, depth, depth_cap, mask, chain=()):
     """``fw_dedup`` on these sorted keys against ``dedup_plain`` (both on
     the card): max_abs_err over ``active`` and ``starts`` (and over the
@@ -610,19 +571,11 @@ def _time_dedup(key, idx, capacity, cvalid, A, depth, depth_cap, mask, chain=())
     plain_ms, _ = _time_on_card(lambda mark: fw.dedup_plain(*args))
     searchsorted_ms, _ = _time_on_card(lambda mark: torch.searchsorted(homes, bounds))
     neighbours_ms, _ = _time_on_card(lambda mark: key[1:] != key[:-1])
-    moved = _dedup_must_move(B, n_tiles)
+    moved = _bd().dedup_must_move(B, n_tiles)
     return {"dedup_ms": ms, "dedup_plain_ms": plain_ms, "torch_searchsorted_ms": searchsorted_ms,
             "dedup_neighbours_ms": neighbours_ms, "dedup_bound_bytes": moved,
             "dedup_bound_ms": moved / HBM_BYTES_PER_S * 1e3, "dedup_max_abs_err": err,
             "dedup_tiles": n_tiles, "dedup_active": int(want[0].sum())}
-
-
-def _compact_must_move(B, n_new):
-    """Bytes ``fw_compact`` must move on this wave, u32 values at 4 B: the
-    B outcome bytes; at each fresh position its key (8 B) and lane (4 B)
-    and the parent's ebits, depth, hi and lo read (16 B), and the seven
-    per-slot outputs written (28 B)."""
-    return B + 56 * n_new
 
 
 # Each timed wave's inputs (on the host) and its stage record, for
@@ -673,7 +626,7 @@ def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cval
     # The stats' bound: the counters read, each hit's (hi, lo) read, the
     # vector written.
     P = len(spec.conditions)
-    stats_bytes = (4 + P) * 8 + 2 * P * 8 + (5 + 3 * P) * 8
+    stats_bytes = _bd().stats_must_move(P)
     if stats_err:
         raise AssertionError(f"{label}: fw_compact's stats vector and _stats disagree: "
                              f"{chain_out['stats'].tolist()} != {want_stats.tolist()}")
@@ -724,8 +677,8 @@ def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cval
     from stateright_tpu_torch.interop import table_to_numpy
 
     act_keys = taps["key"][taps["active"]].cpu().numpy().view(np.uint64)
-    probed = _probed_rows(table_to_numpy(work), act_keys)
-    sweep_bytes = (B * 8 + B + taps["starts"].shape[0] * 8 + probed * 8 + B + n_new * 8)
+    probed = _bd().probed_rows(table_to_numpy(work), act_keys)
+    sweep_bytes = _bd().sweep_must_move(B, taps["starts"].shape[0] - 1, probed, n_new)
     cargs = (taps["flag"], taps["key"], taps["idx"], A, taps["ebits_after"], depth, hi, lo)
     cacc = torch.zeros_like(acc)
     got_c = fw.compact_stage(*cargs, cacc)
@@ -737,7 +690,7 @@ def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cval
     compact_plain_ms, _ = _time_on_card(lambda mark: fw.compact_plain(*cargs))
     fresh = (taps["flag"] & 1) != 0
     nonzero_ms, _ = _time_on_card(lambda mark: torch.nonzero(fresh))
-    compact_bytes = _compact_must_move(B, n_new)
+    compact_bytes = _bd().compact_must_move(B, n_new)
     flat = leaves(cand)
     got, want = fw.gather_stage(src, acc, cand), fw.gather_plain(src, acc, cand)
     torch.cuda.synchronize()
@@ -763,7 +716,7 @@ def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cval
     frontier_err = _max_abs_err([(peb.cpu(), feb), (pacc.cpu(), facc)])
     frontier_ms, _ = _time_on_card(lambda mark: fw.frontier_stage(*fargs, facc, mask))
     frontier_plain_ms, _ = _time_on_card(lambda mark: fw.frontier_plain(*fargs, pacc, mask))
-    frontier_bytes = _frontier_must_move(spec, F, mask is not None)
+    frontier_bytes = _bd().frontier_must_move(spec, F, mask is not None)
     keys = {}
     if spec.keys_route == "fold":
         kargs = (cvalid, depth, depth_cap, A)
@@ -780,7 +733,7 @@ def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cval
         keys_plain_ms, _ = _time_on_card(
             lambda mark: fw.keys_plain(*fingerprint_state(cand), *kargs, mask))
         n_valid = int(n_keyed)
-        keys_bytes = _keys_must_move(B, W, F, mask is not None, n_valid)
+        keys_bytes = _bd().keys_must_move(B, W, F, mask is not None, n_valid)
         keys = {"keys_ms": keys_ms, "keys_plain_ms": keys_plain_ms, "keys_words": W,
                 "keys_valid_lanes": n_valid, "keys_bound_bytes": keys_bytes,
                 "keys_bound_ms": keys_bytes / HBM_BYTES_PER_S * 1e3,
@@ -796,8 +749,8 @@ def _stage_wave(label, spec, table0, hi, lo, ebits, depth, depth_cap, cond, cval
 
     # The sort reads each lane's key (8 B) and idx (4 B) once and writes
     # both once, whatever its passes move.
-    sort_bytes = B * 24
-    gather_bytes = n_new * (8 + 2 * row_bytes)
+    sort_bytes = _bd().sort_must_move(B)
+    gather_bytes = _bd().gather_must_move(n_new, row_bytes)
     rec = {
         "wave": label, "B": B, "n_live": n_live, "n_new": n_new,
         "fused_wave_stage_ms": stage_ms, "kernel_chain_ms": chain_ms,
@@ -1007,10 +960,9 @@ def fused_vs_plain():
     valid = (cvalid.view(F, A) & (depth < depth_cap)[:, None]).reshape(B).cpu().numpy()
     fh, fl = fingerprint_words(words.cpu())
     fps = (fh.numpy().astype(np.uint64) << np.uint64(32)) | fl.numpy().astype(np.uint64)
-    probed = _probed_rows(table_to_numpy(pt), np.unique(fps[valid]))
+    probed = _bd().probed_rows(table_to_numpy(pt), np.unique(fps[valid]))
     leaf_row_bytes = sum(x[0].numel() * x.element_size() for x in pout["new"]["states"].values())
-    moved = (words.numel() * 4 + B + 4 * F * 4 + P * F + probed * 8
-             + n * 8 + 2 * n * leaf_row_bytes + 6 * n * 4 + (5 + 3 * P) * 8)
+    moved = _bd().fused_wave_must_move(words.numel(), B, F, P, probed, n, leaf_row_bytes)
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     log(json.dumps({"fused_wave_stage_ms": stage_ms, "kernel_chain_ms": chain_ms,
                     "sweep_pass_ms": pass_ms, "sweep_tiles_touched": touched,
@@ -1324,27 +1276,6 @@ def _capture_take(name, min_unique, min_live):
     return got
 
 
-def _comphash_must_move(spec, cand, valid, F):
-    """Bytes ``fw_comphash_keys`` must move on this wave, u32 values at
-    4 B: every lane's valid bit and its frontier lane's depth and mask; for
-    each valid lane its actor rows and timer words and its history row;
-    its network: on an unordered one every envelope count and the src, dst
-    and message words of its active envelopes, on an ordered one every
-    flow's length and the words of the messages it holds; the key (8 B)
-    and lane index (4 B) of every lane."""
-    lay = spec.comphash["layout"]
-    B = valid.shape[0]
-    N, R, E, P, W, H = (lay[k] for k in ("N", "R", "E", "P", "W", "H"))
-    n_valid = int(valid.sum())
-    if lay["ordered"]:
-        msgs = int((cand["flow_len"] * valid[:, None]).sum())
-        words = n_valid * (N * (R + 1) + H + P) + msgs * W
-    else:
-        active_envs = int(((cand["net_cnt"] != 0) & valid[:, None]).sum())
-        words = n_valid * (N * (R + 1) + H + E) + active_envs * (2 + W)
-    return B * 1 + F * (4 + 1) + words * 4 + B * 12
-
-
 def _comphash_wave(label, got):
     """``fw_comphash_keys`` and the whole fused chain against their plain
     twins on a wave taken from the drain with its table; their median times
@@ -1398,7 +1329,7 @@ def _comphash_wave(label, got):
                                      cvalid, None, cand, mark=mark, mask=mask),
         reset=lambda: work.copy_(table0),
     )
-    moved = _comphash_must_move(spec, cand, pkey != -1, F)
+    moved = _bd().comphash_must_move(spec, cand, pkey != -1, F)
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     log(json.dumps({f"{label}_wave": {
         "comphash_keys_ms": ms, "comphash_plain_on_card_ms": twin_ms,
@@ -1435,7 +1366,7 @@ def _insert_on_wave(label, got):
     hi, lo = (x.cpu().numpy().astype("uint32") for x in (shi, slo))
     active = unique.cpu().numpy()
     r = _compare_insert(table_to_numpy(got["table"]), hi, lo, active, timing=True)
-    moved = _must_move_bytes(r["after"], hi, lo, active, r["fresh"])
+    moved = _bd().insert_must_move(r["after"], hi, lo, active, r["fresh"])
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     log(f"  hashset_insert_sorted ({label} wave keys): B={hi.shape[0]} active={int(active.sum())} "
         f"fresh={int(r['fresh'].sum())} tiles={r['touched']} redone={r['redone']} "
@@ -1915,24 +1846,6 @@ def _with_coverage(spec, model):
                                cov_antecedents=tuple(model.packed_antecedents()))
 
 
-def _coverage_must_move(spec, F, n_eval, n_valid, n_new, masked):
-    """Bytes the coverage epilogue must move on this wave, each input at
-    the width it is stored in: each frontier lane's int64 depth and, when
-    masked, its mask byte; for each of the ``n_eval`` evaluated lanes its
-    A valid bytes, its int64 ``ebits_after`` when a property is
-    ``eventually``, and a byte for each ``sometimes`` condition and each
-    ``always`` antecedent; the sweep's outcome byte at each of the
-    ``n_valid`` sorted positions that hold a key (the sort sinks the
-    others to the end); the u32 sorted lane of each of the ``n_new``
-    fresh positions; and the int64 vector written."""
-    A, kinds = spec.action_count, spec.expectations
-    ants = spec.cov_antecedents or (None,) * len(kinds)
-    per_eval = (A + (8 if "eventually" in kinds else 0) + kinds.count("sometimes")
-                + sum(k == "always" and a is not None for k, a in zip(kinds, ants)))
-    return (F * (8 + (1 if masked else 0)) + n_eval * per_eval + n_valid + 4 * n_new
-            + 8 * spec.cov_layout.size)
-
-
 def _coverage_wave(label, got, model):
     """The fused chain with coverage on against its plain twin on a
     full-width wave taken from the fused drain with its table: the chain
@@ -2011,7 +1924,7 @@ def _coverage_wave(label, got, model):
                                      kin, cand, mark=mark, mask=mask, ant=ant),
         reset=lambda: work.copy_(table0),
     )
-    moved = _coverage_must_move(spec, F, cov[0], stats[0], n_new, mask is not None)
+    moved = _bd().coverage_must_move(spec, F, cov[0], stats[0], n_new, mask is not None)
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     log(json.dumps({f"{label}_coverage_wave": {
         "coverage_plain_on_card_ms": twin_ms, **alone,
@@ -2399,7 +2312,7 @@ def symmetry_insert_vs_plain():
     hi, lo = (x.cpu().numpy().astype("uint32") for x in (shi, slo))
     active = unique.cpu().numpy()
     r = _compare_insert(table_to_numpy(got["table"]), hi, lo, active, timing=True)
-    moved = _must_move_bytes(r["after"], hi, lo, active, r["fresh"])
+    moved = _bd().insert_must_move(r["after"], hi, lo, active, r["fresh"])
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     log(f"  hashset_insert_sorted (2pc-9 canonical keys): B={hi.shape[0]} "
         f"active={int(active.sum())} fresh={int(r['fresh'].sum())} tiles={r['touched']} "
@@ -2766,6 +2679,28 @@ def _joined(checker):
     return checker
 
 
+def _ledger_line(ledger):
+    """A ledger's totals and shares on one line."""
+    return {k: ledger[k] for k in ("waves", "drains", "wall_s", "phases_s", "phase_share",
+                                   "phase_windows", "gap_s", "gap_share", "overrun_s",
+                                   "within_tolerance", "utilization", "overlap_headroom",
+                                   "device_split", "outside_wave_s") if k in ledger}
+
+
+def _check_budget_ledger(checker):
+    """The budgeted run's ledger: phases within tolerance of the wall, an
+    evict window for each eviction, and a host-probe total that agrees with
+    ``host_probe_s`` (the two time the same work: within 5% and 1 ms)."""
+    ledger = checker.attribution_report()
+    log(json.dumps({"budget_2pc8_ledger": _ledger_line(ledger)}))
+    assert ledger["within_tolerance"], ledger
+    assert ledger["phase_windows"].get("evict", 0) == checker.evictions, ledger
+    probe = ledger["phases_s"].get("host_probe", 0.0)
+    assert abs(probe - checker.host_probe_s) <= 0.05 * checker.host_probe_s + 1e-3, (
+        probe, checker.host_probe_s)
+    assert sum(ledger["probe_length_counts"]) == checker._l0_count
+
+
 # checkpoint_resume_tiering's settings: a checkpoint every 8 chunks (a
 # drain runs at most 8 waves), whose 3rd file is copied aside; the preempt
 # after the 3rd drain; a 2 MiB host budget, which spills the runs (L2).
@@ -2830,6 +2765,9 @@ def checkpoint_resume_runs(tmp, make, spawn, unique, fps_make, fps_spawn, fps_un
                        probe_hits_l2=st["probe_hits_l2"])
         if checker.handoff_wave is not None:
             rec["waves_after_handoff"] = checker.waves - checker.handoff_wave
+        ledger = checker.attribution_report()
+        if ledger is not None:
+            rec["attribution"] = ledger
         out[name] = rec
         log(f"  {name}: {rec}")
         return checker
@@ -2865,12 +2803,15 @@ def checkpoint_resume_runs(tmp, make, spawn, unique, fps_make, fps_spawn, fps_un
 
     # (c) at the smallest admissible budget, then with a host budget that
     # spills the runs to disk.
+    # The budgeted run is attributed: its ledger splits the wall into the
+    # wave kernel, the host probe, the evictions and the gap.
     budget = min_admissible_hbm_budget_mib(make(), spawn["frontier_capacity"])
     out["budget_mib"] = budget
     bounded = run("budget", lambda: make().checker().spawn_gpu_bfs(
-        hbm_budget_mib=budget, **spawn).join())
+        hbm_budget_mib=budget, attribution=True, **spawn).join())
     _same_run("budget", bounded, ref, golden=False)
     assert bounded.evictions >= 2 and bounded.handoff_wave is not None
+    _check_budget_ledger(bounded)
     spilled = run("budget_spill", lambda: make().checker().spawn_gpu_bfs(
         hbm_budget_mib=budget, host_budget_mib=TIERING_HOST_BUDGET_MIB,
         spill_dir=os.path.join(tmp, "spill"), **spawn).join())
@@ -2925,7 +2866,7 @@ def checkpoint_resume_tiering():
     active = np.ones(hi.shape[0], bool)
     res = _compare_insert(empty, hi, lo, active, timing=True)
     assert res["err"] == 0 and res["after"].any(), res["err"]
-    bound_ms = _must_move_bytes(res["after"], hi, lo, active, res["fresh"]) \
+    bound_ms = _bd().insert_must_move(res["after"], hi, lo, active, res["fresh"]) \
         / HBM_BYTES_PER_S * 1e3
     runs["restore_insert"] = {"keys": int(hi.shape[0]), "capacity": cap,
                               "max_abs_err": res["err"], "ms": res["ms"],
@@ -2935,6 +2876,122 @@ def checkpoint_resume_tiering():
         k: ({kk: vv for kk, vv in v.items() if kk != "launches"} if isinstance(v, dict) else v)
         for k, v in runs.items()}}))
     return runs
+
+
+# -- 8. attribution and the per-stage breakdown ------------------------------
+
+
+def _run_record(checker, wall, launches):
+    return {"unique": checker.unique_state_count(), "states": checker.state_count(),
+            "depth": checker.max_depth(), "digest": checker.state_digest(), "wall_s": wall,
+            "launches": launches, "waves": checker.waves, "drains": checker.drains,
+            "rungs": {str(k): v for k, v in checker.rungs.items()},
+            "exits": dict(checker.drain_exits), "graph_captures": checker.graph_captures,
+            "noop_waves": checker.noop_waves, "resident_keys": checker._l0_count}
+
+
+def attributed_runs(config="2pc8", device="cuda"):
+    """The configuration's run through the default engine without
+    attribution, then with an engine built with ``profile_dir`` in a
+    temporary directory (``torch.profiler`` over its first two windows), each
+    with every kernel count set to 0 just before and read just after.
+    Returns both runs' records, the second with its ledger."""
+    import tempfile
+
+    import torch
+
+    from stateright_tpu_torch.telemetry import WaveAttribution
+
+    cfg = _config(config)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("unattributed", "attributed"):
+            attr = (WaveAttribution("gpu_bfs", profile_dir=tmp, profile_waves=2)
+                    if name == "attributed" else False)
+            _zero_launches()
+            t0 = time.perf_counter()
+            checker = cfg.make().checker().spawn_gpu_bfs(
+                **dict(cfg.spawn, device=device, attribution=attr)).join()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            assert checker.worker_error() is None, (name, checker.worker_error())
+            out[name] = _run_record(checker, wall, _read_launches())
+            if attr:
+                out[name]["ledger"] = checker.attribution_report()
+    return out
+
+
+def _attributed_child(path):
+    """``attributed_runs()`` in a process of its own (its profiler session
+    is the process's first), written to ``path`` as JSON."""
+    runs = attributed_runs()
+    with open(path, "w") as f:
+        json.dump(runs, f)
+    return 0
+
+
+@phase("attribution_and_breakdown")
+def attribution_and_breakdown():
+    """2pc-8 through the default (fused) engine attributed, beside the same
+    run unattributed, in a process of its own so that its ``torch.profiler``
+    window is the process's first: the same 1,745,408 states and state
+    digests, waves, drains, rungs, exits and graph captures; the ledger
+    within tolerance, a ``compile`` window for each graph captured, a
+    device split parsed from the profile, and probe-length counts that sum
+    to the resident keys. Then ``measure_wave_breakdown`` of 2pc-8 and
+    paxos3 on the fused engine at their configurations' widths, each
+    roofline attainment at most 1.05. (The budgeted 2pc-8 run of
+    ``checkpoint_resume_tiering`` is attributed too; its ledger is printed
+    there.)"""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "runs.json")
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--attributed-child", path],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+        if child.returncode:
+            raise AssertionError(f"the attributed runs' process failed ({child.returncode}):\n"
+                                 f"{child.stdout[-4000:]}\n{child.stderr[-4000:]}")
+        with open(path) as f:
+            runs = json.load(f)
+    off, on = runs["unattributed"], runs["attributed"]
+    ledger = on.pop("ledger")
+    unique = _config("2pc8").unique
+    log(json.dumps({"attributed_2pc8": {"unattributed": off, "attributed": on}}))
+    log(json.dumps({"attributed_2pc8_ledger": _ledger_line(ledger)}))
+    assert off["unique"] == on["unique"] == unique, (off["unique"], on["unique"])
+    assert off["digest"] == on["digest"], (off["digest"], on["digest"])
+    for k in ("states", "depth", "waves", "drains", "rungs", "exits", "graph_captures"):
+        assert off[k] == on[k], (k, off[k], on[k])
+    assert ledger["within_tolerance"], ledger
+    assert ledger["drains"] == on["drains"], (ledger["drains"], on["drains"])
+    assert ledger["phase_windows"].get("compile", 0) == on["graph_captures"] > 0, (
+        ledger["phase_windows"], on["graph_captures"])
+    assert ledger["device_split"] is not None, "the profiler window recorded no device interval"
+    assert sum(ledger["probe_length_counts"]) == on["resident_keys"] == unique
+
+    from stateright_tpu_torch.checker.breakdown import measure_wave_breakdown
+
+    breakdown = {}
+    for name in ("2pc8", "paxos3"):
+        cfg = _config(name)
+        t0 = time.perf_counter()
+        rec = measure_wave_breakdown(
+            cfg.make(), frontier_capacity=cfg.spawn["frontier_capacity"],
+            table_capacity=cfg.spawn["table_capacity"], wave_kernel="fused")
+        rec["seconds"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        log(json.dumps({"wave_breakdown": {"config": name, **rec}}))
+        assert rec["hbm_roofline_attainment"] is not None, rec["device_kind"]
+        assert rec["hbm_roofline_attainment"] <= 1.05, rec["hbm_roofline_attainment"]
+        breakdown[name] = rec
+    return {"runs": runs, "ledger": ledger, "breakdown": breakdown}
 
 
 STAGE_KERNELS = (
@@ -3292,6 +3349,9 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                     help="with --stage-ab: the checkout whose package is timed")
     ap.add_argument("--out", default=None, help="with --stage-ab: JSON lines output path")
+    ap.add_argument("--attributed-child", default=None, metavar="PATH",
+                    help="run only attributed_runs() and write them to PATH (the "
+                         "attribution_and_breakdown phase starts this)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     if args.stage_ab:
@@ -3312,6 +3372,8 @@ def main() -> int:
         return 2
     if args.stage_ab:
         return stage_ab(root, args.out)
+    if args.attributed_child:
+        return _attributed_child(args.attributed_child)
 
     t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3351,6 +3413,7 @@ def main() -> int:
     sym_fallback = symmetry_drain_vs_cpu() if not FAILED else None
     host = host_engines_and_lasso(drains) if not FAILED else None
     tiering = checkpoint_resume_tiering() if not FAILED else None
+    attribution = attribution_and_breakdown() if not FAILED else None
     if not FAILED:
         stage_device_profile()
     if FAILED:
@@ -3390,9 +3453,13 @@ def main() -> int:
     # 2pc-8 through the default engine (fused) in host_engines_and_lasso.
     # ... and the runs of checkpoint_resume_tiering (2pc-8 on the default
     # engine, abd3o staged).
+    # ... and the attributed 2pc-8 run with its unattributed twin
+    # (attribution_and_breakdown).
     default_runs = {"2pc8_default": host["gpu_default_2pc8"],
                     **{f"tiering_{name}": {"launches": n}
-                       for name, n in tiering["launches"].items()}}
+                       for name, n in tiering["launches"].items()},
+                    **{f"attribution_{name}": run
+                       for name, run in attribution["runs"].items()}}
     for kernel, counts in (("hashset_insert_sorted", insert_launches),
                            ("fused_wave", fused_launches), ("fw_sort", sort_launches),
                            ("fw_dedup", dedup_launches), ("fw_compact", compact_launches),

@@ -4,13 +4,15 @@ Reference: ``Checker`` trait at ``src/checker.rs:273-557``. This is the
 compatibility surface that tests hit; every backend of the port (host
 BFS/DFS, on-demand, simulation, GPU BFS) returns an object with this
 interface. It is the JAX package's ``checker/base.py`` with its metrics
-registry, coverage ledger, the ``complete_liveness()`` lasso pass and the
-preemption surface, and without the hooks into attribution, device
-liveness and the live monitor, which the port has not taken on yet.
+registry, coverage ledger, wave-timeline attribution hooks, the
+``complete_liveness()`` lasso pass and the preemption surface, and without
+the hooks into device liveness, the async pipeline and the live monitor,
+which the port has not taken on yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Dict, Generic, List, Optional, TypeVar
@@ -21,6 +23,10 @@ from ..report import ReportData, ReportDiscovery, Reporter
 
 State = TypeVar("State")
 Action = TypeVar("Action")
+
+# The attribution hooks' context when attribution is off: one shared object,
+# so the off path costs an enter and an exit and nothing else.
+_NULL_CTX = contextlib.nullcontext()
 
 EXAMPLE = "example"
 COUNTEREXAMPLE = "counterexample"
@@ -94,6 +100,7 @@ class Checker(Generic[State, Action]):
 
     # -- telemetry and coverage ----------------------------------------------
 
+    _attr = None
     _cov = None
     _cov_layout = None
     _cov_antecedents = None
@@ -111,6 +118,75 @@ class Checker(Generic[State, Action]):
         from ..telemetry import metrics_registry
 
         return metrics_registry()
+
+    # -- wave-timeline attribution (the GPU checker's) ------------------------
+
+    def _init_attribution(self, prefix: str, attribution) -> None:
+        """Installs the attribution engine when requested: ``True`` builds
+        a ``WaveAttribution`` recording into ``self._tracer`` and
+        ``self.metrics()``, or pass an engine already built (an injected
+        clock, a ``profile_dir``). Falsy leaves attribution off (the class
+        default)."""
+        if not attribution:
+            return
+        from ..telemetry.attribution import WaveAttribution
+
+        self._attr = (
+            attribution
+            if isinstance(attribution, WaveAttribution)
+            else WaveAttribution(prefix, tracer=self._tracer, registry=self.metrics())
+        )
+
+    def _phase(self, name: str):
+        """An attribution phase window, or the shared no-op context when
+        attribution is off (the off path reads no clock and fences
+        nothing)."""
+        if self._attr is None:
+            return _NULL_CTX
+        return self._attr.phase(name)
+
+    def _wave_window(self, kind: str = "wave"):
+        """One attributed wave or drain window (no-op when attribution is
+        off)."""
+        if self._attr is None:
+            return _NULL_CTX
+        return self._attr.wave(kind)
+
+    def _phase_overlapped(self, name: str):
+        """An attribution window for host-tier work running on a worker
+        thread under device compute: it records into the thread-safe
+        ``overlapped`` ledger, not into the wave window
+        (``telemetry/attribution.py``). No-op when attribution is off."""
+        if self._attr is None:
+            return _NULL_CTX
+        return self._attr.overlapped(name)
+
+    def _abort_attribution(self) -> None:
+        """Run-end cleanup on the worker thread: closes any window a crash
+        left open, so the dying wave's ``.pipeline`` span still reaches the
+        sinks and no dangling state survives into a ledger read, and stops
+        a profiler window still running. Never raises: it must not mask
+        the run's own error."""
+        if self._attr is None:
+            return
+        try:
+            self._attr.abort()
+        except Exception:  # noqa: BLE001 - never mask the worker error
+            pass
+
+    @property
+    def attribution(self):
+        """The ``WaveAttribution`` engine, or None outside attribution
+        mode."""
+        return self._attr
+
+    def attribution_report(self):
+        """The wave-timeline phase ledger
+        (``stateright_tpu_torch.telemetry.attribution``): where real-run
+        wall clock went between device work. None unless the run was
+        spawned with ``attribution=True`` (the GPU checker takes it; the
+        host engines have no device/host boundary to attribute)."""
+        return self._attr.report() if self._attr is not None else None
 
     def _init_coverage(self, prefix: str, coverage, action_count: int,
                        symmetry: bool = False) -> None:

@@ -152,7 +152,17 @@ class CheckerBuilder:
         wave or drain boundary with a resumable payload. ``hbm_budget_mib``
         caps the device table and evicts it to host runs past the cap,
         ``host_budget_mib`` with ``spill_dir`` spills those runs to disk;
-        results stay bit-identical. See ``checker/gpu.py`` for the knobs."""
+        results stay bit-identical. ``attribution=True`` (or a
+        ``telemetry.WaveAttribution`` built by the caller, for an injected
+        clock or a ``profile_dir`` that runs ``torch.profiler`` over the
+        first waves) records the wave-timeline ledger: each wave and drain
+        window's wall split into the device phase (``wave_kernel`` fused,
+        ``device`` staged), ``host_probe``, ``evict``, ``table_grow``,
+        ``checkpoint``, ``compile`` (graph captures) and the residual
+        ``gap``, read with ``attribution_report()`` and emitted as
+        ``gpu_bfs.*`` spans that ``scripts/gap_report.py`` and
+        ``scripts/trace_summary.py`` render; results stay bit-identical.
+        See ``checker/gpu.py`` for the knobs."""
         from .gpu import GpuBfsChecker
 
         return GpuBfsChecker(self, **kwargs)

@@ -136,6 +136,24 @@ the survivors are counted, logged and queued, in lane order, so the run
 stays bit-identical to the unbounded one. The first eviction ends the
 drain: the ring, then the host queue, go back to the wave path.
 
+Wave-timeline attribution (``attribution=True``, or an engine already
+built; ``telemetry/attribution.py``, ``attribution_report()``, prefix
+``gpu_bfs``): each wave at a time is a ``wave`` window with a
+``gpu_bfs.wave`` span, each drain a ``drain`` window with a
+``gpu_bfs.drain`` span (and a ``gpu_bfs.wave`` span over its final wave),
+and their wall is classified into the device phase (``wave_kernel`` on the
+fused engine, ``device`` on the staged one: the wave's launches, or a
+drain's replays, fenced inside the phase), ``host_probe``, ``evict``,
+``table_grow`` (with a ``gpu_bfs.table_grow`` span), ``checkpoint`` and
+``compile`` (one window for each drain graph captured, its warm-up wave
+with the first, under a ``gpu_bfs.compile`` span; a replay of a held graph
+never enters it), the rest being the ``gap``. The restore's table rebuild
+lands in ``outside_wave_s``. At run end the table's probe-length counts
+feed the ledger and the ``gpu_bfs.hashset.probe_length`` histogram.
+Attribution adds fences and nothing else: waves, rungs, exits, captures
+and results are those of the run without it. With it off no hook reads a
+clock, fences or emits a span.
+
 Semantics parity notes (mirrored from the reference): ``eventually`` bits
 propagate along paths and are not part of the fingerprint;
 ``target_state_count``/``target_max_depth`` may overshoot by up to a wave.
@@ -172,7 +190,13 @@ from ..ops.fused_wave import (
     torch_wave,
     torch_wave_fps,
 )
-from ..ops.hashset import MAX_PROBES, hashset_new, i32_to_u32, u32_to_i32
+from ..ops.hashset import (
+    MAX_PROBES,
+    hashset_new,
+    hashset_probe_length_counts,
+    i32_to_u32,
+    u32_to_i32,
+)
 from ..ops.hashset_kernel import (
     TILE_ROWS,
     hashset_insert_sorted,
@@ -187,6 +211,7 @@ from ..storage import (
     max_table_rows_for_budget,
     validate_budget_knobs,
 )
+from ..telemetry.trace import _NULL_SPAN
 from ..utils.faults import fault_point
 from .base import Checker
 from .symmetry import SYM_KEY_SCHEME, make_key_fn, sym_key_scheme
@@ -268,6 +293,51 @@ def bucket_for(widths, live: int) -> int:
         if live <= w:
             chosen = w
     return chosen
+
+
+def keys_route(model) -> str:
+    """The fused wave's key route for ``model`` (``ops/fused_wave.py``):
+    ``"fold"`` for the default fold, ``"comphash"`` for a packed actor
+    model's component hash, ``"pairs"`` for any other
+    ``packed_fingerprint``."""
+    fp = getattr(model.packed_fingerprint, "__func__", None)
+    if fp is BatchableModel.packed_fingerprint:
+        return "fold"
+    if fp is PackedActorModel.packed_fingerprint:
+        return "comphash"
+    return "pairs"
+
+
+def wave_spec(model, device, use_fps=False, cov_layout=None, cov_antecedents=None,
+              symmetry=None) -> FusedWaveSpec:
+    """What a wave of ``model`` closes over (``FusedWaveSpec``), as the
+    checker builds it: the properties' kinds and eventually bits, the key
+    route, and on the ``"comphash"`` route its constants, on ``device``
+    now, before any capture. ``use_fps`` takes the fingerprint-only
+    expansion; ``cov_layout`` and ``cov_antecedents`` turn coverage on;
+    ``symmetry`` is the checker's ``SymmetryKeys``."""
+    props = model.properties()
+    eventually = [i for i, p in enumerate(props) if p.expectation == Expectation.EVENTUALLY]
+    route = keys_route(model)
+    comphash = None
+    if route == "comphash":
+        comphash = comphash_tables(model.packed_comphash_layout(), device)
+    return FusedWaveSpec(
+        expand=model.packed_expand,
+        within_boundary=model.packed_within_boundary,
+        conditions=tuple(model.packed_conditions()),
+        expectations=tuple(p.expectation.value for p in props),
+        ebit=tuple((pi, b) for b, pi in enumerate(eventually)),
+        action_count=model.packed_action_count(),
+        fingerprint=model.packed_fingerprint,
+        keys_route=route,
+        comphash=comphash,
+        cov_layout=cov_layout,
+        cov_antecedents=tuple(cov_antecedents or ()),
+        expand_fps=model.packed_expand_fps if use_fps else None,
+        take=model.packed_take if use_fps else None,
+        symmetry=symmetry,
+    )
 
 
 def resolve_device(device) -> torch.device:
@@ -472,7 +542,11 @@ class GpuBfsChecker(Checker):
     ``checkpoint_min_interval_s`` and ``resume_from``; ``hbm_budget_mib``
     caps the table (at least one worst-case wave,
     ``min_admissible_hbm_budget_mib``), ``host_budget_mib`` and
-    ``spill_dir`` spill the host runs to disk."""
+    ``spill_dir`` spill the host runs to disk.
+
+    ``attribution`` (False, True, or a ``WaveAttribution`` built by the
+    caller, say with a ``profile_dir``) records the wave-timeline ledger
+    (module docstring, ``attribution_report()``)."""
 
     supports_preempt = True
 
@@ -496,6 +570,7 @@ class GpuBfsChecker(Checker):
         hbm_budget_mib=None,
         host_budget_mib=None,
         spill_dir=None,
+        attribution=False,
     ):
         model = options.model
         if not isinstance(model, BatchableModel):
@@ -668,37 +743,15 @@ class GpuBfsChecker(Checker):
         self._visitor = options._visitor
         self._target_state_count: Optional[int] = options._target_state_count
         self._depth_cap = options._target_max_depth or _DEPTH_INF
-        # The fused wave's key route (``ops/fused_wave.py``): the default
-        # fold, the component hash of a packed actor model, or the model's
-        # own pairs. The comphash constants go to the device now, before
-        # any capture.
-        fp = getattr(model.packed_fingerprint, "__func__", None)
-        if fp is BatchableModel.packed_fingerprint:
-            self.keys_route = "fold"
-        elif fp is PackedActorModel.packed_fingerprint:
-            self.keys_route = "comphash"
-        else:
-            self.keys_route = "pairs"
-        comphash = None
-        if self.keys_route == "comphash":
-            comphash = comphash_tables(model.packed_comphash_layout(), self._device)
         self._init_coverage("gpu_bfs", coverage, self._A, symmetry=symmetry)
-        self._spec = FusedWaveSpec(
-            expand=model.packed_expand,
-            within_boundary=model.packed_within_boundary,
-            conditions=tuple(self._conditions),
-            expectations=tuple(p.expectation.value for p in self._properties),
-            ebit=tuple(sorted(self._ebit.items())),
-            action_count=self._A,
-            fingerprint=model.packed_fingerprint,
-            keys_route=self.keys_route,
-            comphash=comphash,
-            cov_layout=self._cov_layout,
-            cov_antecedents=tuple(self._cov_antecedents or ()),
-            expand_fps=model.packed_expand_fps if self._use_fps else None,
-            take=model.packed_take if self._use_fps else None,
-            symmetry=self._sym,
+        self._init_attribution("gpu_bfs", attribution)
+        # The attribution phase of a wave's device work, by engine.
+        self._device_phase = "wave_kernel" if wave_kernel == "fused" else "device"
+        self._spec = wave_spec(
+            model, self._device, use_fps=self._use_fps, cov_layout=self._cov_layout,
+            cov_antecedents=self._cov_antecedents, symmetry=self._sym,
         )
+        self.keys_route = self._spec.keys_route
 
         self._state_count = 0
         self._unique_count = 0
@@ -796,6 +849,40 @@ class GpuBfsChecker(Checker):
             return torch_wave_fps(*args, mask=mask)
         return torch_wave(*args, mask=mask, exact=exact)
 
+    def _device_wave(self, table, chunk):
+        """``_wave`` on the wave path; in attribution mode inside the device
+        phase, fenced."""
+        if self._attr is None:
+            return self._wave(table, chunk)
+        with self._attr.phase(self._device_phase):
+            table, out = self._wave(table, chunk)
+            self._attr.fence(out)
+        return table, out
+
+    def _span(self, name, **args):
+        """A trace span in attribution mode; the tracer's null span
+        otherwise."""
+        if self._attr is None:
+            return _NULL_SPAN
+        return self._tracer.span(name, **args)
+
+    def _span_counts(self, span, frontier, generated, n_new, **extra):
+        """A wave or drain span's counts, in the JAX package's names (what
+        ``scripts/trace_summary.py`` reads); nothing with attribution off."""
+        if self._attr is None:
+            return
+        span.set(frontier=frontier, generated=generated, new_unique=n_new,
+                 dedup_hit_rate=(generated - n_new) / generated if generated else 0.0,
+                 occupancy=self._l0_count / self._capacity, capacity=self._capacity,
+                 max_depth=self._max_depth, **extra)
+
+    def _audit_table(self, table):
+        """Run-end audit in attribution mode: the table's probe-length
+        counts into the ledger and the ``gpu_bfs.hashset.probe_length``
+        histogram."""
+        if self._attr is not None:
+            self._attr.observe_probe_lengths(hashset_probe_length_counts(table))
+
     def _rehash(self, table, capacity):
         """The old table's live rows, sorted, inserted into an empty table
         of ``capacity`` rows through the same insert; returns the new table
@@ -819,7 +906,11 @@ class GpuBfsChecker(Checker):
         while capacity < min_capacity:
             capacity *= 2
         while True:
-            new_table, leftover = self._rehash(table, capacity)
+            with self._span("gpu_bfs.table_grow", from_capacity=self._capacity,
+                            to_capacity=capacity), self._phase("table_grow"):
+                new_table, leftover = self._rehash(table, capacity)
+                if self._attr is not None:
+                    self._attr.fence(new_table)
             if not leftover:
                 break
             # A pathological key cluster can exhaust the probe cap during
@@ -836,9 +927,10 @@ class GpuBfsChecker(Checker):
         """Growth under the budget: the table's live rows go to the host
         tiers as a new L1 run and the table starts empty at the cap; older
         keys answer through the host probe from here on."""
-        rows = table.cpu().numpy().view(np.uint32).astype(np.uint64)
-        live = (rows[:, 0] != 0) | (rows[:, 1] != 0)
-        self._tier.evict((rows[live, 0] << np.uint64(32)) | rows[live, 1])
+        with self._phase("evict"):
+            rows = table.cpu().numpy().view(np.uint32).astype(np.uint64)
+            live = (rows[:, 0] != 0) | (rows[:, 1] != 0)
+            self._tier.evict((rows[live, 0] << np.uint64(32)) | rows[live, 1])
         self._capacity = self._max_capacity
         self._l0_count = 0
         self.evictions += 1
@@ -875,6 +967,9 @@ class GpuBfsChecker(Checker):
         except BaseException as e:  # noqa: BLE001 - surfaced via worker_error
             self._error = e
         finally:
+            # A window a crash left open closes, and a profiler window
+            # still running stops, on this thread.
+            self._abort_attribution()
             # The drain's ring, log and graphs hold device memory that the
             # finished checker no longer needs.
             self._drain = None
@@ -939,23 +1034,33 @@ class GpuBfsChecker(Checker):
                 self._preempt_payload = self.checkpoint_payload(queue)
                 self._tracer.instant("gpu_bfs.preempted", chunks=len(queue), mode="wave")
                 return
-            if (
-                self._checkpoint_path is not None
-                and chunks
-                and chunks % self._checkpoint_every == 0
-                and time.perf_counter() - last_checkpoint >= self._checkpoint_min_interval
-            ):
-                self.save_checkpoint(self._checkpoint_path, queue)
-                last_checkpoint = time.perf_counter()
-            chunks += 1
-            chunk = queue.popleft()
-            # Worst case of a full-width chunk, as the reference sizes it.
-            B = self._F_max * self._A
-            if (self._l0_count + B) > _MAX_LOAD * self._capacity:
-                table = self._grow_table(
-                    table, _pow2ceil(int((self._l0_count + B) / _MAX_LOAD))
-                )
-            table, _ = self._consume_wave(table, chunk, queue)
+            # The window covers the whole iteration (the checkpoint and the
+            # growth ahead of the wave included).
+            with self._wave_window():
+                if (
+                    self._checkpoint_path is not None
+                    and chunks
+                    and chunks % self._checkpoint_every == 0
+                    and time.perf_counter() - last_checkpoint
+                    >= self._checkpoint_min_interval
+                ):
+                    with self._phase("checkpoint"):
+                        self.save_checkpoint(self._checkpoint_path, queue)
+                    last_checkpoint = time.perf_counter()
+                chunks += 1
+                chunk = queue.popleft()
+                # Worst case of a full-width chunk, as the reference sizes it.
+                B = self._F_max * self._A
+                if (self._l0_count + B) > _MAX_LOAD * self._capacity:
+                    table = self._grow_table(
+                        table, _pow2ceil(int((self._l0_count + B) / _MAX_LOAD))
+                    )
+                with self._span("gpu_bfs.wave", wave=chunks) as sp:
+                    generated = self._state_count
+                    table, n_new = self._consume_wave(table, chunk, queue)
+                    self._span_counts(sp, chunk["hi"].shape[0],
+                                      self._state_count - generated, n_new)
+        self._audit_table(table)
 
     def _consume_wave(self, table, chunk, queue, out=None, stats=None, cov=None):
         """Applies one wave host-side (counters, discoveries, coverage, log,
@@ -973,7 +1078,7 @@ class GpuBfsChecker(Checker):
         wave_new = 0
         while True:
             if out is None:
-                table, out = self._wave(table, chunk)
+                table, out = self._device_wave(table, chunk)
                 if self._cov is None:
                     stats = out["stats"].tolist()  # the wave's one read of its counters
                 else:
@@ -1050,13 +1155,15 @@ class GpuBfsChecker(Checker):
         None when every fresh lane survives."""
         if not n_new or self._tier is None or self._tier.is_empty():
             return None
-        t0 = time.perf_counter()
-        if self._sym is not None:
-            keys = _fp64(out["key_hi"][:n_new], out["key_lo"][:n_new])
-        else:
-            keys = _fp64(out["new"]["hi"][:n_new], out["new"]["lo"][:n_new])
-        stale = self._tier.probe(_u64(keys))
-        self.host_probe_s += time.perf_counter() - t0
+        # The phase and host_probe_s time the same work.
+        with self._phase("host_probe"):
+            t0 = time.perf_counter()
+            if self._sym is not None:
+                keys = _fp64(out["key_hi"][:n_new], out["key_lo"][:n_new])
+            else:
+                keys = _fp64(out["new"]["hi"][:n_new], out["new"]["lo"][:n_new])
+            stale = self._tier.probe(_u64(keys))
+            self.host_probe_s += time.perf_counter() - t0
         n_stale = int(stale.sum())
         if not n_stale:
             return None
@@ -1148,103 +1255,134 @@ class GpuBfsChecker(Checker):
                 pool_count += F_max
             if pool_count == 0:
                 break
-            # Every drain exit after the first is a checkpoint opportunity;
-            # the ring holds the whole pending frontier here.
-            if (
-                self._checkpoint_path is not None
-                and drains
-                and time.perf_counter() - last_checkpoint >= self._checkpoint_min_interval
-            ):
-                self.save_checkpoint(self._checkpoint_path, self._export_pool_chunks(),
-                                     drain_state())
-                last_checkpoint = time.perf_counter()
-            drains += 1
-            self.drains += 1
-            if self._l0_count + B > _MAX_LOAD * self._capacity:
-                table = self._grow_table(
-                    table, _pow2ceil(int((self._l0_count + B) / _MAX_LOAD))
+            # The window covers the whole drain: the checkpoint, the growth
+            # ahead of it, the drain and its final wave.
+            drain_window = self._wave_window("drain")
+            with drain_window:
+                # Every drain exit after the first is a checkpoint opportunity;
+                # the ring holds the whole pending frontier here.
+                if (
+                    self._checkpoint_path is not None
+                    and drains
+                    and time.perf_counter() - last_checkpoint >= self._checkpoint_min_interval
+                ):
+                    with self._phase("checkpoint"):
+                        self.save_checkpoint(self._checkpoint_path, self._export_pool_chunks(),
+                                             drain_state())
+                    last_checkpoint = time.perf_counter()
+                drains += 1
+                self.drains += 1
+                if self._l0_count + B > _MAX_LOAD * self._capacity:
+                    table = self._grow_table(
+                        table, _pow2ceil(int((self._l0_count + B) / _MAX_LOAD))
+                    )
+                    if self._tier is not None and not self._tier.is_empty():
+                        # The growth evicted: the queue was flushed above, and
+                        # the ring goes back to the wave path. The window closes
+                        # first, so the handoff is not this drain's (a second
+                        # exit is a no-op).
+                        drain_window.__exit__(None, None, None)
+                        return table, self._handoff_queue(queue)
+                width = self._drain_width(rungs)
+                budget = min(
+                    int(_MAX_LOAD * self._capacity) - self._l0_count, (1 << 31) - 1 - B
                 )
-                if self._tier is not None and not self._tier.is_empty():
-                    # The growth evicted: the queue was flushed above, and
-                    # the ring goes back to the wave path.
-                    return table, self._handoff_queue(queue)
-            width = F_max
-            live_est, entered = rungs["live_est"], rungs["entered"]
-            if rungs["keep_width"] is not None:
-                width = rungs["keep_width"]
-            elif live_est is not None and len(self._buckets) > 1:
-                want = bucket_for(self._buckets, max(1, min(live_est, F_max)))
-                if want in entered or want == F_max:
-                    width = want
-                    rungs["rung_votes"] = {}
-                else:
-                    votes = rungs["rung_votes"].get(want, 0) + 1
-                    rungs["rung_votes"] = {want: votes}
-                    if votes >= 2:
-                        width = want
-                    else:
-                        # The narrowest rung already entered that holds
-                        # the load.
-                        width = min((w for w in entered if w >= want),
-                                    default=F_max)
-            entered.add(width)
-            self.rungs[width] += 1
-            budget = min(
-                int(_MAX_LOAD * self._capacity) - self._l0_count, (1 << 31) - 1 - B
-            )
-            table, summary, out, frontier = self._deep_drain(table, width, budget)
-
-            P = len(props)
-            sc, stats = summary[:_N_SCALARS], summary[_N_SCALARS:_N_SCALARS + 5 + 3 * P]
-            reason = sc[_REASON]
-            self.drain_exits[EXIT_REASONS[(reason & -reason).bit_length() - 1]] += 1
-            rungs["keep_width"] = width if reason in (_TAKE_FULL, _ORBIT_FALLBACK) else None
-            if reason & _TAKE_FULL:
-                # The device's take was too narrow for this wave: widen it
-                # for the rung's next capture, with room for growth.
-                self._take_widths[width] = min(width * self._A, _pow2ceil(2 * stats[1]))
-            self.max_fresh[width] = max(self.max_fresh.get(width, 0), sc[_MAX_FRESH])
-            log_n = sc[_LOG_N]
-            self._state_count += sc[_GENERATED]
-            self._unique_count += sc[_CONSUMED]
-            # Drains run while no run exists: every fresh key is resident.
-            self._l0_count += sc[_CONSUMED]
-            if self._tier is not None:
-                self._tier.instruments.set_l0(self._l0_count)
-            self._max_depth = max(self._max_depth, sc[_MAX_DEPTH])
-            # The final wave is counted by _consume_wave below.
-            self.waves += sc[_WAVES] - 1
-            pool_count = sc[_COUNT]
-            final_cov = None
-            if self._cov is not None:
-                # The consumed waves' sum with the drain's max depth, then
-                # (in _consume_wave) the final wave's own vector.
-                size = self._cov_layout.size
-                base = _N_SCALARS + 5 + 3 * P
-                self._cov.consume_device(summary[base : base + size], self._cov_layout,
-                                         max_depth=sc[_MAX_DEPTH])
-                final_cov = summary[base + size : base + 2 * size]
-            if log_n:
-                log = _u64(self._drain["log"][:, :log_n].contiguous())
-                self._wave_log.append((log[0], log[1]))
-                if self._sym is not None:
-                    self._key_log.append(log[2])
-            # The final wave, which the device could not consume: its live
-            # lanes are the prefix it took.
-            n = sc[_FINAL_TAKE]
-            chunk = {
-                k: (map_leaves(lambda x: x[:n], v) if k == "states" else v[:n])
-                for k, v in frontier.items()
-                if k != "mask"
-            }
-            if reason == _ORBIT_FALLBACK:
-                # The wave inserted nothing: the host runs it again, keying
-                # its failed lanes on the orbit minimum.
-                out = stats = final_cov = None
-            table, spilled = self._consume_wave(table, chunk, queue, out=out,
-                                                stats=stats, cov=final_cov)
+                with self._span("gpu_bfs.drain", drain=drains, bucket=width) as sp:
+                    table, summary, out, frontier = self._deep_drain(table, width, budget)
+                    sc, stats, final_cov = self._apply_drain(summary, width, rungs)
+                    self._span_counts(sp, width, sc[_GENERATED], sc[_CONSUMED],
+                                      waves=max(sc[_WAVES] - 1, 0), log_n=sc[_LOG_N],
+                                      ring_count=sc[_COUNT], bucket=width)
+                pool_count = sc[_COUNT]
+                # The final wave, which the device could not consume: its live
+                # lanes are the prefix it took.
+                n = sc[_FINAL_TAKE]
+                chunk = {
+                    k: (map_leaves(lambda x: x[:n], v) if k == "states" else v[:n])
+                    for k, v in frontier.items()
+                    if k != "mask"
+                }
+                if sc[_REASON] == _ORBIT_FALLBACK:
+                    # The wave inserted nothing: the host runs it again, keying
+                    # its failed lanes on the orbit minimum.
+                    out = stats = final_cov = None
+                with self._span("gpu_bfs.wave", drain=drains) as sp:
+                    generated = self._state_count
+                    table, spilled = self._consume_wave(table, chunk, queue, out=out,
+                                                        stats=stats, cov=final_cov)
+                    self._span_counts(sp, n, self._state_count - generated, spilled)
             rungs["live_est"] = pool_count + spilled
+        self._audit_table(table)
         return None
+
+    def _drain_width(self, rungs):
+        """The next drain's rung width from the selector's state
+        (``rungs``), which it updates: the rung a ``take full`` or orbit
+        fallback exit keeps, else the ladder's rung for the pending live
+        lanes, entered only when two drains in a row select it."""
+        F_max = self._F_max
+        width = F_max
+        live_est, entered = rungs["live_est"], rungs["entered"]
+        if rungs["keep_width"] is not None:
+            width = rungs["keep_width"]
+        elif live_est is not None and len(self._buckets) > 1:
+            want = bucket_for(self._buckets, max(1, min(live_est, F_max)))
+            if want in entered or want == F_max:
+                width = want
+                rungs["rung_votes"] = {}
+            else:
+                votes = rungs["rung_votes"].get(want, 0) + 1
+                rungs["rung_votes"] = {want: votes}
+                if votes >= 2:
+                    width = want
+                else:
+                    # The narrowest rung already entered that holds the
+                    # load.
+                    width = min((w for w in entered if w >= want), default=F_max)
+        entered.add(width)
+        self.rungs[width] += 1
+        return width
+
+    def _apply_drain(self, summary, width, rungs):
+        """Applies a drain's one read (``summary``) on the host: exits,
+        rung and take state, counters, coverage of the consumed waves, and
+        the parent log. Returns the drain's scalars, the final wave's stats
+        and its coverage vector (None with coverage off)."""
+        P = len(self._properties)
+        sc, stats = summary[:_N_SCALARS], summary[_N_SCALARS:_N_SCALARS + 5 + 3 * P]
+        reason = sc[_REASON]
+        self.drain_exits[EXIT_REASONS[(reason & -reason).bit_length() - 1]] += 1
+        rungs["keep_width"] = width if reason in (_TAKE_FULL, _ORBIT_FALLBACK) else None
+        if reason & _TAKE_FULL:
+            # The device's take was too narrow for this wave: widen it
+            # for the rung's next capture, with room for growth.
+            self._take_widths[width] = min(width * self._A, _pow2ceil(2 * stats[1]))
+        self.max_fresh[width] = max(self.max_fresh.get(width, 0), sc[_MAX_FRESH])
+        log_n = sc[_LOG_N]
+        self._state_count += sc[_GENERATED]
+        self._unique_count += sc[_CONSUMED]
+        # Drains run while no run exists: every fresh key is resident.
+        self._l0_count += sc[_CONSUMED]
+        if self._tier is not None:
+            self._tier.instruments.set_l0(self._l0_count)
+        self._max_depth = max(self._max_depth, sc[_MAX_DEPTH])
+        # The final wave is counted by _consume_wave.
+        self.waves += sc[_WAVES] - 1
+        final_cov = None
+        if self._cov is not None:
+            # The consumed waves' sum with the drain's max depth, then
+            # (in _consume_wave) the final wave's own vector.
+            size = self._cov_layout.size
+            base = _N_SCALARS + 5 + 3 * P
+            self._cov.consume_device(summary[base : base + size], self._cov_layout,
+                                     max_depth=sc[_MAX_DEPTH])
+            final_cov = summary[base + size : base + 2 * size]
+        if log_n:
+            log = _u64(self._drain["log"][:, :log_n].contiguous())
+            self._wave_log.append((log[0], log[1]))
+            if self._sym is not None:
+                self._key_log.append(log[2])
+        return sc, stats, final_cov
 
     def _export_pool_chunks(self):
         """The ring's live rows in FIFO order, head first, as chunks of
@@ -1433,10 +1571,11 @@ class GpuBfsChecker(Checker):
         if self._device.type == "cuda":
             slots = self._replay_drain(table, width)
         else:
-            while True:
-                table, out, frontier = self._drain_step(table, width, 0)
-                if not int(sc[_GO]):
-                    break
+            with self._phase(self._device_phase):
+                while True:
+                    table, out, frontier = self._drain_step(table, width, 0)
+                    if not int(sc[_GO]):
+                        break
             slots = [(out, frontier)]
         parts = [sc, d["final_stats"]]
         if self._cov is not None:
@@ -1464,7 +1603,9 @@ class GpuBfsChecker(Checker):
                 and k[0] != width and v["table"] == table.data_ptr()
             }
             t0 = time.perf_counter()
-            entry = self._graphs[key] = self._capture_drain(table, width)
+            with self._span("gpu_bfs.compile", kind="drain", bucket=width,
+                            table_capacity=self._capacity):
+                entry = self._graphs[key] = self._capture_drain(table, width)
             self.capture_s += time.perf_counter() - t0
         if self._go_host is None:
             self._go_host = torch.zeros(2, dtype=torch.int64, pin_memory=True)
@@ -1480,15 +1621,19 @@ class GpuBfsChecker(Checker):
             flag[i % 2].copy_(d["scalars"][_GO], non_blocking=True)
             events[i % 2].record()
 
-        launch(0)
-        launch(1)
-        q = 2
-        while True:
-            events[q % 2].synchronize()
-            if not int(flag[q % 2]):
-                break
-            launch(q)
-            q += 1
+        with self._phase(self._device_phase):
+            launch(0)
+            launch(1)
+            q = 2
+            while True:
+                events[q % 2].synchronize()
+                if not int(flag[q % 2]):
+                    break
+                launch(q)
+                q += 1
+            if self._attr is not None:
+                # The graph queued behind the last one read may still run.
+                self._attr.fence(d["scalars"])
         self.graph_replays += q
         self.noop_waves += q * _GRAPH_WAVES - int(d["scalars"][_WAVES])
         return entry["slots"]
@@ -1501,27 +1646,33 @@ class GpuBfsChecker(Checker):
         graphs with the kernel launches each replay makes."""
         d = self._drain
         sc = d["scalars"]
-        sc[_GO] = 0
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self._drain_step(table, width, 0)
-        torch.cuda.current_stream().wait_stream(side)
-        self.warmup_waves += 1
-        sc[_GO] = 1
-        # A capture records the kernels and launches none: its counts are
-        # undone here and added at every replay instead.
-        counts = [getattr(mod, name) for mod, name in _LAUNCH_COUNTERS]
         graphs, slots = [], []
         for g in range(2):
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                for j in range(_GRAPH_WAVES):
-                    _table, out, frontier = self._drain_step(
-                        table, width, g * _GRAPH_WAVES + j
-                    )
-                    slots.append((out, frontier))
-            graphs.append(graph)
+            # One attribution compile window a graph captured (as
+            # graph_captures counts them); the warm-up wave rides the first.
+            with self._phase("compile"):
+                if g == 0:
+                    sc[_GO] = 0
+                    side = torch.cuda.Stream()
+                    side.wait_stream(torch.cuda.current_stream())
+                    with torch.cuda.stream(side):
+                        self._drain_step(table, width, 0)
+                    torch.cuda.current_stream().wait_stream(side)
+                    self.warmup_waves += 1
+                    sc[_GO] = 1
+                    # A capture records the kernels and launches none: its
+                    # counts are undone below and added at every replay.
+                    counts = [getattr(mod, name) for mod, name in _LAUNCH_COUNTERS]
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    for j in range(_GRAPH_WAVES):
+                        _table, out, frontier = self._drain_step(
+                            table, width, g * _GRAPH_WAVES + j
+                        )
+                        slots.append((out, frontier))
+                graphs.append(graph)
+                if self._attr is not None:
+                    self._attr.fence(sc)
         per_replay = []
         for (mod, name), before in zip(_LAUNCH_COUNTERS, counts):
             per_replay.append((getattr(mod, name) - before) // 2)

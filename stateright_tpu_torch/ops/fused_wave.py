@@ -200,18 +200,26 @@ class FusedWaveSpec:
 # -- the model stage (torch on both paths) ---------------------------------
 
 
-def model_stage(spec: FusedWaveSpec, states, F: int):
+def _no_mark(name):
+    pass
+
+
+def model_stage(spec: FusedWaveSpec, states, F: int, mark=_no_mark):
     """The model's own code over F frontier states: ``(cond, cvalid,
     cand_flat)`` with ``cond`` the ``(P, F)`` bool condition matrix,
     ``cvalid`` the ``(F * A,)`` bool valid bits of the candidates (guard and
     boundary; the depth cap is applied later) and ``cand_flat`` the
-    candidates with their leaves flattened to ``(F * A, ...)``, contiguous."""
+    candidates with their leaves flattened to ``(F * A, ...)``, contiguous.
+    ``mark(name)`` is called before the expansion and before the
+    conditions (``checker/breakdown.py`` times the stages there)."""
     B = F * spec.action_count
+    mark("expand")
     cand, valid = spec.expand(states)
     cand_flat = map_leaves(
         lambda x: x.reshape((B,) + x.shape[2:]).contiguous(), cand
     )
     cvalid = (valid.reshape(B) & spec.within_boundary(cand_flat)).contiguous()
+    mark("properties")
     return _conditions(spec, states, F, cvalid.device), cvalid, cand_flat
 
 
@@ -411,7 +419,7 @@ def _stats(spec, cond, eval_mask, terminal, ebits_after, hi, lo, depth,
 
 
 def torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None,
-               exact=True):
+               exact=True, mark=_no_mark):
     """The whole wave in torch, fingerprinting with ``spec.fingerprint``
     (the model's ``packed_fingerprint``), with the visited-set insert
     through ``hashset_insert_sorted`` (the CUDA kernel on a CUDA table, its
@@ -425,40 +433,47 @@ def torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None,
     the original fingerprints, and ``out`` also holds the fresh lanes'
     keys (``key_hi``, ``key_lo``). ``exact=False`` computes the keys with
     no host read (``SymmetryKeys.wave_keys``): ``out["hold"]`` is then a
-    0-d bool tensor, and a wave that holds inserts nothing."""
+    0-d bool tensor, and a wave that holds inserts nothing. ``mark(name)``
+    is called before each stage (``checker/breakdown.py``)."""
     F = hi.shape[0]
-    cond, cvalid, cand_flat = model_stage(spec, states, F)
+    cond, cvalid, cand_flat = model_stage(spec, states, F, mark)
+    mark("fingerprint")
     chi, clo = spec.fingerprint(cand_flat)
     keys = None
     if spec.symmetry is not None:
         def keys(valid):
             return spec.symmetry.wave_keys(cand_flat, valid, exact)
     table, out = _staged_wave(spec, table, states, cond, cvalid, chi, clo, hi, lo, ebits,
-                              depth, depth_cap, mask, keys)
+                              depth, depth_cap, mask, keys, mark)
     # The leaves' rows past n_new are lane 0's.
+    mark("gather")
     src = out["new"].pop("src")
     out["new"]["states"] = map_leaves(lambda x: x[src], cand_flat)
     return table, out
 
 
-def torch_wave_fps(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None):
+def torch_wave_fps(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None,
+                   mark=_no_mark):
     """``torch_wave`` with the fingerprint-only expansion (the JAX staged
     wave with ``expand_fps`` on): the candidates' fingerprints and validity
     come from ``spec.expand_fps`` with no candidate state made, then the
     same sort, dedup, insert, compaction, stats and coverage. ``new`` holds
     no ``states``: it holds ``src``, each slot's candidate lane (parent
     ``src // A``, action ``src % A``; 0 past ``n_new``), and the caller
-    makes the fresh children it keeps with ``take_children``."""
+    makes the fresh children it keeps with ``take_children``. ``mark(name)``
+    is called before each stage (``checker/breakdown.py``)."""
     F = hi.shape[0]
     B = F * spec.action_count
+    mark("properties")
     cond = _conditions(spec, states, F, hi.device)
+    mark("expand_fps")
     chi, clo, valid = spec.expand_fps(states)
     return _staged_wave(spec, table, states, cond, valid.reshape(B), chi.reshape(B),
-                        clo.reshape(B), hi, lo, ebits, depth, depth_cap, mask)
+                        clo.reshape(B), hi, lo, ebits, depth, depth_cap, mask, mark=mark)
 
 
 def _staged_wave(spec, table, states, cond, cvalid, chi, clo, hi, lo, ebits, depth,
-                 depth_cap, mask, keys=None):
+                 depth_cap, mask, keys=None, mark=_no_mark):
     """The staged wave from the candidates' valid bits and fingerprints on:
     the frontier, the sort and dedup, the insert, the stats, the coverage
     and the JAX staged wave's cumsum compaction (the Pallas epilogue's,
@@ -466,21 +481,28 @@ def _staged_wave(spec, table, states, cond, cvalid, chi, clo, hi, lo, ebits, dep
     candidate lane, and no ``states``. ``keys``, under symmetry, maps the
     valid bits under the eval mask to ``(khi, klo, hold)``
     (``SymmetryKeys.wave_keys``): the dedup and insert run on those keys,
-    none of them when ``hold`` is true."""
+    none of them when ``hold`` is true. ``mark(name)`` is called before
+    each stage."""
     F, A = hi.shape[0], spec.action_count
+    mark("frontier")
     eval_mask, ebits_after, cvalid, terminal = _frontier_plain(
         spec, cond, cvalid, ebits, depth, depth_cap, mask
     )
     khi, klo, hold = chi, clo, None
     if keys is not None:
+        mark("keys")
         khi, klo, hold = keys(cvalid)
     insert_valid = cvalid if hold is None else cvalid & ~hold
+    mark("sort_dedup")
     shi, slo, sidx, unique = sorted_dedup(khi, klo, insert_valid)
+    mark("insert")
     table, fresh, _found, pending = hashset_insert_sorted(
         table, u32_to_i32(shi), u32_to_i32(slo), unique
     )
+    mark("stats")
     stats = _stats(spec, cond, eval_mask, terminal, ebits_after, hi, lo,
                    depth, cvalid.sum(), fresh, pending, mask)
+    mark("compact")
     c, _n_new = compact_plain(fresh, (shi << 32) | slo, sidx, A, ebits_after, depth, hi, lo)
     new = {k: c[k] for k in ("src", "hi", "lo", "ebits", "depth")}
     out = {"stats": stats, "new": new, "parent_hi": c["parent_hi"],
@@ -494,6 +516,7 @@ def _staged_wave(spec, table, states, cond, cvalid, chi, clo, hi, lo, ebits, dep
         if hold is not None:
             out["hold"] = hold
     if spec.cov_layout is not None:
+        mark("coverage")
         # The JAX staged wave's coverage (checker/tpu.py:1337-1380): the
         # claim winners in sorted order, each with its lane's action and
         # its child's depth; under symmetry also the wave's distinct

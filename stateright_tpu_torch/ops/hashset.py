@@ -25,6 +25,7 @@ __all__ = [
     "MAX_PROBES",
     "hashset_contains",
     "hashset_new",
+    "hashset_probe_length_counts",
     "i32_to_u32",
     "u32_to_i32",
 ]
@@ -59,6 +60,27 @@ def _home(key_hi: torch.Tensor, capacity: int) -> torch.Tensor:
     if k == 0:
         return torch.zeros_like(key_hi)
     return key_hi >> (32 - k)
+
+
+def hashset_probe_length_counts(table: torch.Tensor):
+    """Probe-chain length distribution of the resident keys: for each
+    occupied row, its displacement from its key's home row (linear probing
+    never wraps, so ``row - home`` is the probe count the insert paid and
+    every later lookup pays again), clipped to ``MAX_PROBES``. Returns a
+    host int64 numpy array of ``MAX_PROBES + 1`` entries, entry ``d``
+    counting the keys resting ``d`` rows past home: the JAX package's
+    ``hashset_probe_length_counts`` (which reads a host copy of the table).
+    Here the counts are made in torch on the table's own device, and only
+    the result crosses to the host."""
+    capacity = table.shape[0] - MAX_PROBES
+    rows = torch.arange(table.shape[0], dtype=torch.int64, device=table.device)
+    live = (table[:, 0] != 0) | (table[:, 1] != 0)
+    disp = (rows - _home(i32_to_u32(table[:, 0]), capacity)).clamp(0, MAX_PROBES)
+    # Empty rows count into a last bin, which is dropped.
+    disp = torch.where(live, disp, MAX_PROBES + 1)
+    counts = torch.zeros(MAX_PROBES + 2, dtype=torch.int64, device=table.device)
+    counts.scatter_add_(0, disp, torch.ones_like(disp))
+    return counts[: MAX_PROBES + 1].cpu().numpy()
 
 
 def _row_keys(table: torch.Tensor) -> torch.Tensor:

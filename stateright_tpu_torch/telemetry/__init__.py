@@ -1,13 +1,21 @@
 """Observability of the port's checker: the metrics registry, trace
-events and the coverage ledger.
+events, the coverage ledger and the wave-timeline attribution.
 
 The port's copies of the JAX package's ``telemetry`` modules that it uses
 (``metrics``, ``trace`` without its ``jax.profiler`` bridge,
-``coverage`` with its device reduction rewritten in torch, and the host
-engines' ``instruments``). Nothing here
-imports JAX or the JAX package.
+``coverage`` with its device reduction rewritten in torch, the host
+engines' ``instruments``, and ``attribution`` with its fence and profiler
+window rewritten in torch). Nothing here imports JAX or the JAX package.
 """
 
+from .attribution import (
+    DEFAULT_TOLERANCE,
+    DEVICE_PHASES,
+    HOST_OVERLAPPABLE_PHASES,
+    PHASES,
+    WaveAttribution,
+    parse_profile_device_busy,
+)
 from .coverage import (
     DEPTH_BINS,
     BlockCoverage,
@@ -21,7 +29,13 @@ from .metrics import Counter, Gauge, Histogram, MetricsRegistry, metrics_registr
 from .trace import JsonlSink, Tracer, get_tracer, instant, span
 
 __all__ = [
+    "DEFAULT_TOLERANCE",
     "DEPTH_BINS",
+    "DEVICE_PHASES",
+    "HOST_OVERLAPPABLE_PHASES",
+    "PHASES",
+    "WaveAttribution",
+    "parse_profile_device_busy",
     "BlockCoverage",
     "BlockInstruments",
     "Counter",

@@ -174,6 +174,55 @@ def test_cuda_budgeted_resume_matches_cpu_twin(cuda_device, tmp_path, wave_kerne
         assert gpu.discoveries()[name].encode() == path.encode()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("wave_kernel", ["staged", "fused"])
+@pytest.mark.parametrize("max_drain_waves", [1, 100_000])
+def test_cuda_attributed_run_matches_cpu_twin(cuda_device, wave_kernel, max_drain_waves):
+    """2pc-5 attributed on the card and on the CPU twin: the same counts and
+    paths, the ledger within tolerance on the card, a ``compile`` window for
+    each drain graph captured, and probe-length counts over every key."""
+    spawn = dict(wave_kernel=wave_kernel, frontier_capacity=256, table_capacity=1 << 12,
+                 max_drain_waves=max_drain_waves, attribution=True)
+    runs = [TwoPhaseSys(5).checker().spawn_gpu_bfs(device=d, **spawn).join()
+            for d in (cuda_device, "cpu")]
+    gpu, cpu = runs
+    assert gpu.worker_error() is None
+    assert gpu.unique_state_count() == cpu.unique_state_count() == 8832
+    assert gpu.state_count() == cpu.state_count()
+    assert gpu.max_depth() == cpu.max_depth()
+    assert (gpu.waves, gpu.drains, dict(gpu.rungs)) == (cpu.waves, cpu.drains, dict(cpu.rungs))
+    for name, path in cpu.discoveries().items():
+        assert gpu.discoveries()[name].encode() == path.encode()
+    rep = gpu.attribution_report()
+    assert rep["within_tolerance"], rep
+    assert rep["phase_windows"].get("compile", 0) == gpu.graph_captures
+    assert (gpu.graph_captures > 0) == (max_drain_waves > 1)
+    assert rep["drains"] == gpu.drains
+    phase = "wave_kernel" if wave_kernel == "fused" else "device"
+    assert rep["phases_s"][phase] > 0
+    assert sum(rep["probe_length_counts"]) == 8832
+    assert rep["probe_length_counts"] == cpu.attribution_report()["probe_length_counts"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n,capacity", [(0, 3000, 1 << 13), (1, 70_000, 1 << 17)])
+def test_cuda_probe_length_counts_match_cpu(cuda_device, seed, n, capacity):
+    """``hashset_probe_length_counts`` of a table on the card equals the
+    counts of the same table on the CPU."""
+    from stateright_tpu_torch.ops.hashset import hashset_probe_length_counts
+
+    rng = np.random.default_rng(seed)
+    hi, lo, active = sorted_batch(rng, n, active_frac=0.9, dup_frac=0.05)
+    table = table_from_numpy(empty_table(capacity), cuda_device)
+    table, fresh, _found, pending = hk.hashset_insert_sorted(
+        table, *keys_from_numpy(hi, lo, cuda_device), torch.from_numpy(active).to(cuda_device))
+    assert not bool(pending.any())
+    got = hashset_probe_length_counts(table)
+    want = hashset_probe_length_counts(table.cpu())
+    assert got.dtype == np.int64 and np.array_equal(got, want)
+    assert got.sum() == int(fresh.sum())
+
+
 # -- the fused wave ------------------------------------------------------------
 
 
