@@ -110,6 +110,21 @@ split from the profile and probe-length counts over every key; and
 (``{"wave_breakdown": ...}`` lines), each roofline attainment at most
 1.05. The kernels' bounds are the must-move counts of
 ``stateright_tpu_torch/checker/breakdown.py``.
+Then the device random walks (``simulation_and_swarm``), each run against
+its CPU twin: the JAX bench's swarm leg at its full widths through
+``spawn_swarm`` (the named ``SWARM_CONFIGS``: the deep sharded KV to its
+"no total tear" violation, whose path is replayed on the host to a state
+with every key torn; raft-3 check-live to a "stable leader" cycle; the
+2pc-3 witness hunt, polled and preempted once both witnesses land), the
+insert kernel against its plain twin on one sample step of the deep run,
+the guarded sharded KV to 2^20 walk steps (walk steps a second, a wave's
+device ms under CUDA events, capture seconds, peak device bytes, the torch
+operations of one step and the threefry draws' share; its first wave
+against the CPU twin's, and a preempt after that wave resumed
+bit-identically), ``spawn_gpu_simulation`` on 2pc-3 (200,000 walk steps
+against the twin, then 1,000,000), and two ``SwarmPackedEngine`` tenants
+each equal to its solo run; one ``{"swarm_run": ...}`` line a run, and the
+insert kernel's launches of each run in the kernels line.
 Prints phase lines, the card's name and power limit, the fused wave's
 stage times, the drains' walls, waves, no-op and warm-up waves, exits,
 graph captures and replays and rungs, peak device memory, one
@@ -2994,6 +3009,310 @@ def attribution_and_breakdown():
     return {"runs": runs, "ledger": ledger, "breakdown": breakdown}
 
 
+# -- 9. device random walks: simulation and swarm ------------------------------
+
+# The JAX bench's deep sharded-KV swarm figures (BENCH_r15.json, an older JAX
+# on a CPU), printed beside the port's for comparison only; JAX 0.9.0 on a
+# CPU walks the port's walks (tests/test_torch_swarm_parity.py).
+BENCH_R15_DEEP_KV = {"walk_steps": 22_528, "unique_sample": 2_049, "trail": 22}
+SWARM_THROUGHPUT_STEPS = 1_048_576
+
+
+@contextlib.contextmanager
+def _one_cpu_thread():
+    """The CPU twins' steps are many small operations, which the intra-op
+    thread pool only slows down."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def _walk_result(ck):
+    """What a swarm run's determinism covers (the JAX tests'
+    ``_fingerprint_result``) and the engine's stats."""
+    return (ck.state_count(), ck.unique_state_count(), ck.max_depth(),
+            dict(ck._discoveries_fps), ck.coverage_estimate()["saturated"],
+            ck.engine.tenant_stats(0))
+
+
+def _swarm_line(name, ck, wall, launches, device):
+    eng = ck.engine
+    rec = {"name": name, "device": device, "walk_steps": ck.state_count(),
+           "unique_sample": ck.unique_state_count(),
+           "saturated": ck.coverage_estimate()["saturated"], "max_depth": ck.max_depth(),
+           "trails": {k: len(v) for k, v in eng.tenant_discoveries_fps(0)[0].items()},
+           "waves": eng._wave_calls, "wall_s": wall, "warmup_s": ck.warmup_seconds,
+           "graph_captures": eng.graph_captures, "capture_s": eng.capture_s,
+           "insert_launches": launches}
+    log(json.dumps({"swarm_run": rec}))
+    return rec
+
+
+def _swarm(name, builder, device, poll=None, preempt_after_first=False, **spawn):
+    """One swarm run on ``device``: its checker, wall and insert launches.
+    ``poll(ck)`` true preempts the run (polled every 20 ms); with
+    ``preempt_after_first`` the run stops at its first wave boundary."""
+    import torch
+
+    from stateright_tpu_torch.ops import hashset_kernel as hk
+
+    _zero_launches()
+    ctx = _one_cpu_thread() if device == "cpu" else contextlib.nullcontext()
+    with ctx:
+        t0 = time.perf_counter()
+        ck = builder.spawn_swarm(device=device, **spawn)
+        if preempt_after_first:
+            ck.request_preempt()
+        while poll is not None and not ck.is_done():
+            if poll(ck):
+                ck.request_preempt()
+                break
+            time.sleep(0.02)
+        ck.join()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = hk.launches if device == "cuda" else 0
+    assert device == "cpu" or launches > 0, name
+    _swarm_line(name, ck, wall, launches, device)
+    return ck, wall, launches
+
+
+def _same_slot(a, b, where=""):
+    import numpy as np
+
+    if isinstance(a, dict):
+        assert set(a) == set(b), where
+        for k in a:
+            _same_slot(a[k], b[k], f"{where}.{k}")
+        return
+    assert np.array_equal(np.asarray(a), np.asarray(b)), where
+
+
+def _ops_in_a_step(model, **spawn):
+    """The torch operations dispatched in one step of the swarm (the work
+    one captured step replays), and the threefry draws' share of them."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from stateright_tpu_torch.checker.swarm import SwarmEngine
+    from stateright_tpu_torch.ops import threefry
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    eng = SwarmEngine(model, device="cuda", **spawn)
+    eng.write_slot(0, eng.fresh_tenant_carry(1, target=1 << 30))
+    with Count():
+        eng._k._tenant_step(eng._carry)
+    step_ops = Count.n
+    Count.n = 0
+    with Count():
+        threefry.draw_step(eng._carry["lanes"]["key"][0], eng._n_seeds, eng._A)
+    return {"ops_a_step": step_ops, "threefry_ops": Count.n}
+
+
+def _insert_on_swarm_step(ck):
+    """``hashset_insert_sorted`` against its plain twin on one sample step
+    of a swarm run, as ``hashset_insert_unsorted`` hands it over: the
+    fingerprints of the run's 1,024 lanes, sorted, the first copy of each
+    key active, into the run's sample table; its median time and bound."""
+    import numpy as np
+    import torch
+
+    from stateright_tpu_torch.core.batch import map_leaves
+    from stateright_tpu_torch.interop import table_to_numpy
+    from stateright_tpu_torch.ops.hashset_kernel import sort_key, split_key
+
+    eng = ck.engine
+    hi, lo = eng._model.packed_fingerprint(map_leaves(lambda x: x[0],
+                                                      eng._carry["lanes"]["state"]))
+    skey, _ = torch.sort(sort_key(hi, lo), stable=True)
+    first = torch.ones_like(skey, dtype=torch.bool)
+    first[1:] = skey[1:] != skey[:-1]
+    shi, slo = split_key(skey)
+    hi, lo = (x.cpu().numpy().astype(np.uint32) for x in (shi, slo))
+    active = first.cpu().numpy()
+    r = _compare_insert(table_to_numpy(eng._carry["table"][0]), hi, lo, active, timing=True)
+    moved = _bd().insert_must_move(r["after"], hi, lo, active, r["fresh"])
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    log(f"  hashset_insert_sorted (swarm sample step): B={hi.shape[0]} "
+        f"active={int(active.sum())} fresh={int(r['fresh'].sum())} max_abs_err={r['err']} "
+        f"median {r['ms']:.4f} ms plain={r['plain_ms']:.1f} ms (host CPU) "
+        f"bound={bound_ms:.6f} ms ({moved} B)")
+    if r["err"]:
+        raise AssertionError("hashset_insert_sorted and its plain twin disagree on the "
+                             "swarm's sample step")
+    return {"max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": bound_ms}
+
+
+@phase("simulation_and_swarm")
+def simulation_and_swarm():
+    """The device walkers on the card, each run against its CPU twin: the
+    JAX bench's swarm leg (deep sharded KV, raft-3 check-live, the 2pc-3
+    witness hunt) at its full widths, a throughput run of the guarded
+    sharded KV to 2^20 walk steps with a preempt and resume, the
+    simulation checker, and two packed tenants. Returns the insert
+    kernel's launches by path and the throughput record."""
+    import torch
+
+    from stateright_tpu_torch.checker.swarm import SwarmPackedEngine
+    from stateright_tpu_torch.configs import SWARM_CONFIGS
+    from stateright_tpu_torch.models.sharded_kv import ShardedKv
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+    from stateright_tpu_torch.ops import hashset_kernel as hk
+
+    launches, out = {}, {}
+
+    # 1. The deep sharded KV: "no total tear" at depth >= 16.
+    cfg = SWARM_CONFIGS["skv483_deep"]
+    card, wall, launches["swarm_skv483_deep"] = _swarm(
+        "skv483_deep", cfg.builder(), "cuda", **cfg.spawn)
+    cpu, _, _ = _swarm("skv483_deep", cfg.builder(), "cpu", **cfg.spawn)
+    assert _walk_result(card) == _walk_result(cpu)
+    path = card.discoveries()["no total tear"]
+    assert all(path.last_state().torn), path.last_state()
+    out["insert"] = _insert_on_swarm_step(card)
+    log(json.dumps({"swarm_deep_kv": {
+        "walk_steps": card.state_count(), "unique_sample": card.unique_state_count(),
+        "trail": len(card._discoveries_fps["no total tear"]), "ttfv_s": wall,
+        "jax_bench_r15_for_comparison": BENCH_R15_DEEP_KV}}))
+
+    # 2. Raft-3 check-live: a leaderless cycle for "stable leader".
+    cfg = SWARM_CONFIGS["raft3_live"]
+    card, _, launches["swarm_raft3_live"] = _swarm("raft3_live", cfg.builder(), "cuda",
+                                                   **cfg.spawn)
+    cpu, _, _ = _swarm("raft3_live", cfg.builder(), "cpu", **cfg.spawn)
+    assert _walk_result(card) == _walk_result(cpu)
+    assert "stable leader" in card.discoveries()
+
+    # 3. The 2pc-3 witness hunt, polled until both witnesses land.
+    cfg = SWARM_CONFIGS["2pc3_witness"]
+    both = {"abort agreement", "commit agreement"}
+    trails = {}
+    for device in ("cuda", "cpu"):
+        ck, _, n = _swarm("2pc3_witness", cfg.builder(), device,
+                          poll=lambda c: both <= set(c._discovery_names()), **cfg.spawn)
+        trails[device] = ck.engine.tenant_discoveries_fps(0)[0]
+        if device == "cuda":
+            launches["swarm_2pc3_witness"] = n
+    assert set(trails["cuda"]) == both and trails["cuda"] == trails["cpu"]
+
+    # 4. Throughput: the guarded sharded KV (the property holds, so walks
+    # run to the target), with a preempt after the first wave and a resume.
+    def guarded():
+        return ShardedKv(4, 8, 3, guarded=True, retain=("no total tear",)).checker() \
+            .target_state_count(SWARM_THROUGHPUT_STEPS)
+
+    spawn = dict(SWARM_CONFIGS["skv483_deep"].spawn)
+    peak = {}
+
+    def whole():
+        peak["ck"] = _swarm("skv483_guarded_throughput", guarded(), "cuda", **spawn)
+
+    peak["bytes"] = _peak_bytes(whole)
+    full, wall, launches["swarm_throughput"] = peak["ck"]
+    first = {}
+    for device in ("cuda", "cpu"):
+        ck, _, n = _swarm("skv483_guarded_first_wave", guarded(), device,
+                          preempt_after_first=True, **spawn)
+        assert ck.preempted
+        first[device] = ck.preempt_payload()
+        if device == "cuda":
+            launches["swarm_throughput_first_wave"] = n
+    _same_slot(first["cuda"]["swarm"]["slot"], first["cpu"]["swarm"]["slot"], "first wave")
+    resumed, _, launches["swarm_throughput_resumed"] = _swarm(
+        "skv483_guarded_resumed", guarded(), "cuda", resume_from=first["cuda"], **spawn)
+    assert _walk_result(resumed) == _walk_result(full)
+    _same_slot(resumed.engine.read_slot(0), full.engine.read_slot(0), "resumed")
+    # A wave's device time: the replays of a captured step, CUDA events.
+    from stateright_tpu_torch.checker.swarm import SwarmEngine
+
+    eng = SwarmEngine(guarded().model, device="cuda", **{
+        k: v for k, v in spawn.items() if k != "seed"})
+    eng.write_slot(0, eng.fresh_tenant_carry(spawn["seed"], target=1 << 30))
+    eng.run_wave()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    wave_ms = []
+    for _ in range(3):
+        ev[0].record()
+        eng._graph.run(eng._K)
+        ev[1].record()
+        torch.cuda.synchronize()
+        wave_ms.append(ev[0].elapsed_time(ev[1]))
+    hk.launches = 0
+    ops = _ops_in_a_step(guarded().model, **{k: v for k, v in spawn.items() if k != "seed"})
+    out["throughput"] = {
+        "walk_steps": full.state_count(), "walk_steps_per_s": full.state_count() / wall,
+        "waves": full.engine._wave_calls, "wall_s": wall, "warmup_s": full.warmup_seconds,
+        "capture_s": full.engine.capture_s, "wave_device_ms": wave_ms,
+        "step_device_ms": [m / eng._K for m in wave_ms], "peak_device_bytes": peak["bytes"],
+        **ops}
+    log(json.dumps({"swarm_throughput": out["throughput"]}))
+
+    # 5. The simulation checker: equal to the CPU twin, then timed.
+    def sim(target, device):
+        _zero_launches()
+        ctx = _one_cpu_thread() if device == "cpu" else contextlib.nullcontext()
+        with ctx:
+            t0 = time.perf_counter()
+            ck = (TwoPhaseSys(3).checker().target_state_count(target)
+                  .spawn_gpu_simulation(seed=7, lanes=1024, steps_per_call=64,
+                                        device=device).join())
+            wall = time.perf_counter() - t0
+        rec = {"name": f"gpu_simulation_2pc3_{target}", "device": device,
+               "walk_steps": ck.state_count(), "max_depth": ck.max_depth(),
+               "trails": {k: len(v) for k, v in ck._discoveries_fps.items()},
+               "trace_overflows": ck._trace_overflows, "wall_s": wall,
+               "graph_captures": ck.graph_captures, "graph_replays": ck.graph_replays,
+               "insert_launches": hk.launches}
+        log(json.dumps({"swarm_run": rec}))
+        return ck, rec
+
+    card, _ = sim(200_000, "cuda")
+    cpu, _ = sim(200_000, "cpu")
+    assert ((card.state_count(), card.max_depth(), card._trace_overflows,
+             card._discoveries_fps) == (cpu.state_count(), cpu.max_depth(),
+                                        cpu._trace_overflows, cpu._discoveries_fps))
+    _card, out["simulation"] = sim(1_000_000, "cuda")
+
+    # 6. Two packed tenants, each equal to its solo card run.
+    knobs = dict(lanes=1024, wave_steps=64, max_trace_len=64, sample_capacity=1 << 15,
+                 sample_stride=4)
+    _zero_launches()
+    pack = SwarmPackedEngine(TwoPhaseSys(3), max_tenants=2, device="cuda", **knobs)
+    views = {seed: pack.admit(f"t{seed}", seed=seed, target_state_count=200_000)
+             for seed in (11, 12)}
+    done = set()
+    t0 = time.perf_counter()
+    while len(done) < 2:
+        done |= set(pack.step())
+    torch.cuda.synchronize()
+    launches["swarm_packed_2pc3"] = hk.launches
+    log(json.dumps({"swarm_run": {"name": "packed_2pc3", "device": "cuda",
+                                  "tenants": 2, "waves": pack.engine._wave_calls,
+                                  "wall_s": time.perf_counter() - t0,
+                                  "insert_launches": hk.launches}}))
+    for seed, view in views.items():
+        solo, _, launches[f"swarm_solo_2pc3_seed{seed}"] = _swarm(
+            f"solo_2pc3_seed{seed}", TwoPhaseSys(3).checker().target_state_count(200_000),
+            "cuda", seed=seed, **knobs)
+        assert (view.state_count(), view.unique_state_count(), view.max_depth(),
+                view._fps) == (solo.state_count(), solo.unique_state_count(),
+                               solo.max_depth(), solo._discoveries_fps), seed
+    out["launches"] = launches
+    return out
+
+
 STAGE_KERNELS = (
     ("frontier_kernel", "frontier"), ("comphash_keys_kernel", "keys"),
     ("keys_pairs_kernel", "keys"), ("keys_kernel", "keys"),
@@ -3414,6 +3733,7 @@ def main() -> int:
     host = host_engines_and_lasso(drains) if not FAILED else None
     tiering = checkpoint_resume_tiering() if not FAILED else None
     attribution = attribution_and_breakdown() if not FAILED else None
+    walks = simulation_and_swarm() if not FAILED else None
     if not FAILED:
         stage_device_profile()
     if FAILED:
@@ -3438,6 +3758,8 @@ def main() -> int:
                 "symmetry_fallback_drain": sym_fallback}
     insert_launches.update({name: run["launches"]["hashset_insert_sorted"]
                             for name, run in sym_runs.items()})
+    # The swarm's visited sample: one launch a tenant a step.
+    insert_launches.update(walks["launches"])
     fused_launches = by_path("fused", "fused_wave", {"2pc8": drains, **actor_runs})
     comphash_launches = by_path("fused", "fw_comphash_keys", actor_runs)
     cov_runs = {"2pc8": cov_2pc8, "skv4x4": cov_skv}
@@ -3505,7 +3827,8 @@ def main() -> int:
             "launches_by_path": insert_launches,
             "max_abs_err": max(insert["max_abs_err"], raft5_insert["max_abs_err"],
                                sym_insert["max_abs_err"],
-                               tiering["restore_insert"]["max_abs_err"]),
+                               tiering["restore_insert"]["max_abs_err"],
+                               walks["insert"]["max_abs_err"]),
             # On a random 344,064-key batch into a 2^22-row table at load
             # 0.4; on the keys of a raft5 wave and on a 2pc-9 drain take's
             # canonical (symmetry) keys, below.
@@ -3519,7 +3842,10 @@ def main() -> int:
                         # The restore's rebuild of a preempted 2pc-8 run's
                         # table: its launches in the resumed run.
                         "restore_2pc8": held(tiering["restore_insert"],
-                                             tiering["resumed_payload"]["restore_inserts"])},
+                                             tiering["resumed_payload"]["restore_inserts"]),
+                        # One sample step of the deep sharded-KV swarm.
+                        "swarm_skv483_deep": held(walks["insert"],
+                                                  insert_launches["swarm_skv483_deep"])},
         },
         {
             "name": "fused_wave",

@@ -77,8 +77,17 @@ class Checker(Generic[State, Action]):
     _preempt_payload = None
 
     # True on the backends whose request_preempt() yields a resumable
-    # payload.
+    # payload; the packing pair says whether the backend's runs can share a
+    # packed engine (the swarm's can) and why not.
     supports_preempt = False
+    supports_packing = False
+    packing_reason: Optional[str] = None
+
+    # The walkers' truncation count: walks aborted because their trace
+    # buffer overflowed (not a semantic depth cap). Nonzero means absence
+    # of discoveries on those walks is not evidence; the report warns once
+    # at run end.
+    _trace_overflows = 0
 
     def request_preempt(self) -> None:
         """Asks the worker to stop at the next wave boundary and put its
@@ -396,6 +405,10 @@ class Checker(Generic[State, Action]):
             ]
             if undiscovered:
                 reporter.report_undiscovered(undiscovered)
+            # Truncated walks must never read as absence of discoveries.
+            overflows = getattr(self, "_trace_overflows", 0)
+            if overflows:
+                reporter.report_truncation(overflows)
             # Bounded host-pass honesty: the discoveries() call above
             # already ran (and cached) the lasso pass, so the
             # inconclusive set is final here.

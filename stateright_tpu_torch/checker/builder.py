@@ -3,8 +3,9 @@
 Reference: ``CheckerBuilder`` at ``src/checker.rs:64-267``. The port's
 builder carries the options its backends read: the host engines
 ``spawn_bfs``, ``spawn_dfs``, ``spawn_on_demand`` and ``spawn_simulation``
-(the JAX package's, copied), the Explorer (``serve``), and
-``spawn_gpu_bfs`` (the breadth-first search on the GPU).
+(the JAX package's, copied), the Explorer (``serve``), ``spawn_gpu_bfs``
+(the breadth-first search on the GPU), and the device random walks
+``spawn_gpu_simulation`` and ``spawn_swarm``.
 """
 
 from __future__ import annotations
@@ -166,6 +167,39 @@ class CheckerBuilder:
         from .gpu import GpuBfsChecker
 
         return GpuBfsChecker(self, **kwargs)
+
+    def spawn_gpu_simulation(self, seed: int, lanes: int = 1024, steps_per_call: int = 64,
+                             max_trace_len: Optional[int] = None, device=None):
+        """Random walks on the GPU: ``lanes`` walks in lockstep, the host
+        reading their stats every ``steps_per_call`` steps (one captured
+        CUDA Graph of a step, replayed). The walks are the JAX package's
+        ``spawn_tpu_simulation`` walks for the same seed and knobs. Runs on
+        ``cuda`` unless ``device="cpu"`` is passed; with no CUDA device and
+        no ``device="cpu"`` it raises. See ``checker/gpu_simulation.py``."""
+        from .gpu_simulation import GpuSimulationChecker
+
+        return GpuSimulationChecker(self, seed, lanes, steps_per_call, max_trace_len,
+                                    device=device)
+
+    def spawn_swarm(self, seed: int, **kwargs):
+        """Swarm verification on the GPU: the whole walk loop stays on the
+        device for ``wave_steps`` steps at a time (per-walk threefry streams,
+        restarts, boundary, depth and terminal exits, the properties and the
+        discovery capture), with a sample of the walks' fingerprints in a
+        device hash table inserted through the hand-written insert kernel.
+        The JAX package's knobs and defaults: ``lanes`` (1024),
+        ``wave_steps`` (1024), ``max_trace_len`` (the depth target, else
+        512), ``sample_capacity`` (1 << 15), ``sample_stride`` (1), ``seeds``
+        (a packed-state pool, or a preempted ``spawn_gpu_bfs`` payload for
+        the frontier-seeded hybrid), ``resume_from`` (a ``preempt_payload()``),
+        ``coverage`` and ``aot_cache``; plus ``device`` (``cuda`` unless
+        ``"cpu"``). The walks are the JAX package's ``spawn_swarm`` walks for
+        the same seed and knobs. Reference simulation semantics: the run
+        ends when every property has a discovery or ``target_state_count``
+        walk steps are reached (below 2^31). See ``checker/swarm.py``."""
+        from .swarm import SwarmChecker
+
+        return SwarmChecker(self, seed, **kwargs)
 
     def serve(self, address):
         """Starts the interactive Explorer web service (blocks)."""

@@ -340,14 +340,14 @@ def wave_spec(model, device, use_fps=False, cov_layout=None, cov_antecedents=Non
     )
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device, entry: str = "spawn_gpu_bfs") -> torch.device:
     """The checker's device: CUDA unless the caller asks for the CPU. With
     no CUDA device and no ``device="cpu"`` it raises — the run never goes
-    on quietly on the CPU."""
+    on quietly on the CPU. ``entry`` names the caller in the errors."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "spawn_gpu_bfs runs on a CUDA device and none is available; "
+                f"{entry} runs on a CUDA device and none is available; "
                 "pass device='cpu' to run the plain torch path on the CPU"
             )
         return torch.device("cuda")
@@ -356,7 +356,7 @@ def resolve_device(device) -> torch.device:
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but CUDA is unavailable")
     elif dev.type != "cpu":
-        raise ValueError(f"spawn_gpu_bfs runs on 'cuda' or 'cpu', got {device!r}")
+        raise ValueError(f"{entry} runs on 'cuda' or 'cpu', got {device!r}")
     return dev
 
 
@@ -402,15 +402,31 @@ def packed_model_digest(model, action_count: int) -> str:
     return h.hexdigest()
 
 
-def checkpoint_header(model, action_count: int, symmetry: bool, sym_scheme=None) -> dict:
-    """The checkpoint header: format version 2 (the optional ``"storage"``
-    payload of the tiers' runs), the checker kind (``CHECKPOINT_KIND``),
-    the model and its digest, and the key schemes."""
+def host_fingerprint(model, host_state) -> int:
+    """The packed fingerprint of one host state, as the device checkers key
+    it: the ``fp_of`` their path replays match the trails with."""
+    packed = map_leaves(lambda x: x[None], model.pack_state(host_state))
+    hi, lo = model.packed_fingerprint(packed)
+    return fp_to_int(hi[0], lo[0])
+
+
+# The swarm's payload kind, whose format is version 3 (the JAX package's
+# swarm payload's).
+SWARM_CHECKPOINT_KIND = "gpu_swarm"
+
+
+def checkpoint_header(model, action_count: int, symmetry: bool, sym_scheme=None, *,
+                      kind: str = CHECKPOINT_KIND) -> dict:
+    """The checkpoint header: the checker kind (``CHECKPOINT_KIND`` for
+    this checker, ``SWARM_CHECKPOINT_KIND`` for the swarm), its format
+    version (2 for this checker, with the optional ``"storage"`` payload of
+    the tiers' runs; 3 for the swarm), the model and its digest, and the
+    key schemes."""
     if symmetry and sym_scheme is None:
         sym_scheme = SYM_KEY_SCHEME
     return {
-        "version": 2,
-        "kind": CHECKPOINT_KIND,
+        "version": 3 if kind == SWARM_CHECKPOINT_KIND else 2,
+        "kind": kind,
         "model": type(model).__name__,
         "model_digest": packed_model_digest(model, action_count),
         "symmetry": symmetry,
@@ -420,21 +436,22 @@ def checkpoint_header(model, action_count: int, symmetry: bool, sym_scheme=None)
 
 
 def validate_checkpoint_header(payload: dict, model, action_count: int, symmetry: bool,
-                               sym_scheme=None) -> None:
+                               sym_scheme=None, *, kind: str = CHECKPOINT_KIND) -> None:
     """Refuses a checkpoint that another checker kind, model, model
-    configuration or symmetry setting wrote, and a version 3 payload
-    (device liveness, which this checker does not run). A payload without
-    a ``kind`` was written by the JAX package's ``tpu_bfs`` checker."""
+    configuration or symmetry setting wrote. A payload without a ``kind``
+    was written by the JAX package's ``tpu_bfs`` checker. For this
+    checker's kind a version 3 payload (device liveness, which it does not
+    run) is refused too; the swarm's payloads are version 3."""
     if payload.get("version") not in (1, 2, 3):
         raise ValueError(f"unsupported checkpoint version: {payload.get('version')!r}")
     found_kind = payload.get("kind", "tpu_bfs")
-    if found_kind != CHECKPOINT_KIND:
+    if found_kind != kind:
         raise ValueError(
             f"checkpoint kind {found_kind!r} does not match this checker "
-            f"({CHECKPOINT_KIND!r}): resume a checkpoint with the checker of the "
-            "package that wrote it"
+            f"({kind!r}): resume a checkpoint with the checker of the package "
+            "that wrote it"
         )
-    if payload["version"] == 3 or "liveness" in payload:
+    if kind == CHECKPOINT_KIND and (payload["version"] == 3 or "liveness" in payload):
         raise ValueError(
             "checkpoint carries a device liveness edge store (format version 3); "
             "this checker does not run liveness='device' yet, and dropping the "
@@ -1852,9 +1869,7 @@ class GpuBfsChecker(Checker):
             return self._host_fps[host_state]
         except (KeyError, TypeError):
             pass
-        packed = map_leaves(lambda x: x[None], self._model.pack_state(host_state))
-        hi, lo = self._model.packed_fingerprint(packed)
-        fp = fp_to_int(hi[0], lo[0])
+        fp = host_fingerprint(self._model, host_state)
         try:
             self._host_fps[host_state] = fp
         except TypeError:

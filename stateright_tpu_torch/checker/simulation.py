@@ -52,6 +52,12 @@ class UniformChooser(Chooser):
 
 
 class SimulationChecker(Checker):
+    # Host threads have no resumable payload format and nothing to
+    # dispatch together.
+    supports_preempt = False
+    supports_packing = False
+    packing_reason = "host-threaded walker (no shared device dispatch to pack into)"
+
     def __init__(self, options, seed: int, chooser: Chooser):
         model = options.model
         self._model = model

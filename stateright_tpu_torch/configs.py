@@ -6,6 +6,13 @@ profiling scripts (``scripts/torch_profile.py``,
     from stateright_tpu_torch.configs import CONFIGS
     cfg = CONFIGS["abd3o"]
     checker = cfg.make().checker().spawn_gpu_bfs(**cfg.spawn).join()
+
+``SWARM_CONFIGS`` are the JAX bench's swarm leg (``bench.py``'s
+``_run_swarm_leg``): a model, its ``spawn_swarm`` settings (the seed
+included) and the walk-step target, if any.
+
+    cfg = SWARM_CONFIGS["skv483_deep"]
+    checker = cfg.builder().spawn_swarm(**cfg.spawn).join()
 """
 
 from __future__ import annotations
@@ -87,4 +94,57 @@ CONFIGS = {c.name: c for c in (
            "ShardedKv(4, 8, 3) cut to 4 keys for an exhaustive check", _skv4x4,
            dict(frontier_capacity=8192, table_capacity=1 << 25, drain_log_factor=128),
            16_777_216),
+)}
+
+
+@dataclasses.dataclass(frozen=True)
+class SwarmConfig:
+    name: str
+    source: str
+    make: Callable
+    # ``spawn_swarm``'s settings, the seed included.
+    spawn: Dict[str, int]
+    # ``target_state_count`` (walk steps), or None: the run ends at its
+    # discoveries.
+    target: Optional[int]
+
+    def builder(self):
+        b = self.make().checker()
+        return b.target_state_count(self.target) if self.target is not None else b
+
+
+def _skv483_deep():
+    from .models.sharded_kv import ShardedKv
+
+    return ShardedKv(4, 8, 3, retain=("no total tear",))
+
+
+def _raft3_live():
+    from .models.raft import RaftModelCfg
+
+    model = RaftModelCfg(server_count=3, max_term=1, lossy=True).into_model()
+    return model.retain_properties("stable leader")
+
+
+def _two_phase_commit_3():
+    from .models.two_phase_commit import TwoPhaseSys
+
+    return TwoPhaseSys(3)
+
+
+SWARM_CONFIGS = {c.name: c for c in (
+    SwarmConfig("skv483_deep", "sharded KV, 4 shards, 8 keys, versions <= 3 (~10^14 "
+                "states), only 'no total tear': the deep violation hunt "
+                "(bench.py:2419-2447)", _skv483_deep,
+                dict(seed=3, lanes=1024, wave_steps=128, max_trace_len=128,
+                     sample_capacity=1 << 17, sample_stride=8), None),
+    SwarmConfig("raft3_live", "raft, 3 servers, lossy, max_term 1, only 'stable leader': "
+                "check-live by walks (bench.py:2308-2313)", _raft3_live,
+                dict(seed=7, lanes=512, wave_steps=64, max_trace_len=128,
+                     sample_capacity=1 << 15, sample_stride=8), None),
+    SwarmConfig("2pc3_witness", "two-phase commit, 3 resource managers: the hunt for "
+                "both 'sometimes' witnesses, polled and preempted once both land "
+                "(bench.py:2362-2376)", _two_phase_commit_3,
+                dict(seed=11, lanes=512, wave_steps=64, max_trace_len=64,
+                     sample_capacity=1 << 15, sample_stride=4), 50_000_000),
 )}

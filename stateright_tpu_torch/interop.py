@@ -24,6 +24,8 @@ __all__ = [
     "packed_states_to_numpy",
     "table_from_numpy",
     "table_to_numpy",
+    "walk_carry_from_numpy",
+    "walk_carry_to_numpy",
 ]
 
 
@@ -62,3 +64,25 @@ def table_from_numpy(table: np.ndarray, device="cpu") -> torch.Tensor:
 def table_to_numpy(table: torch.Tensor) -> np.ndarray:
     """The port's table -> a ``(cap + 128, 2)`` ``np.uint32`` array."""
     return table.cpu().contiguous().numpy().view(np.uint32).copy()
+
+
+def walk_carry_from_numpy(carry, device="cpu"):
+    """A walker's carry as numpy in the JAX package's dtypes (``uint32``
+    state leaves, keys, ebits and trace buffers, ``int32`` depths, ``bool``
+    flags), in nested dicts -> the port's tensors: integers as ``int64``
+    (u32 values as they are), flags as ``bool``."""
+    if isinstance(carry, dict):
+        return {k: walk_carry_from_numpy(v, device) for k, v in carry.items()}
+    a = np.asarray(carry)
+    if a.dtype != np.bool_:
+        a = a.astype(np.int64)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def walk_carry_to_numpy(carry):
+    """The port's walker carry (nested dicts of tensors) -> numpy, integers
+    as ``int64`` and flags as ``bool``: the form ``walk_carry_from_numpy``
+    takes and the JAX package's carry compares with after ``astype``."""
+    if isinstance(carry, dict):
+        return {k: walk_carry_to_numpy(v) for k, v in carry.items()}
+    return carry.cpu().numpy()

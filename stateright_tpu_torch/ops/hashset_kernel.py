@@ -34,6 +34,7 @@ __all__ = [
     "TILE_ROWS",
     "hashset_insert_sorted",
     "hashset_insert_sorted_plain",
+    "hashset_insert_unsorted",
     "launches",
     "round_table_capacity",
     "sort_key",
@@ -155,6 +156,55 @@ def hashset_insert_sorted(table, key_hi, key_lo, active):
     return (table, *flags)
 
 
+def hashset_insert_unsorted(table, key_hi, key_lo, active):
+    """Inserts a batch in lane order, duplicates allowed; returns
+    ``(table, fresh, found, pending)`` in lane order.
+
+    The JAX package's ``ops/hashset.py::hashset_insert_unsorted`` contract,
+    which its swarm's visited sample inserts through: exactly one lane per
+    distinct new key reports ``fresh`` (the lowest lane, as the JAX owner
+    ticket, a scatter-min of lane ids, picks), its duplicates report
+    ``found``, a key already in the table is ``found`` in every lane, and a
+    key whose ``MAX_PROBES`` window is full is ``pending`` in every lane.
+    The table's layout is this package's (each key at the first empty row
+    of its window, claimed in key order), not the JAX race's, so the two
+    tables hold the same key set in other rows.
+
+    The keys are sorted stably by ``sort_key`` (inactive lanes take the
+    (MAX, MAX) sentinel and sort last), the first active occurrence of
+    each key goes through ``hashset_insert_sorted`` (the CUDA kernel on a
+    CUDA table, the plain twin on the CPU), and the flags go back to lane
+    order.
+    Nothing reads a host value, so the call runs inside a captured CUDA
+    Graph."""
+    hi, lo = i32_to_u32(key_hi), i32_to_u32(key_lo)
+    key = torch.where(active, sort_key(hi, lo), torch.full_like(hi, ~_INT64_MIN))
+    skey, order = torch.sort(key, stable=True)
+    B = skey.shape[0]
+    sactive = active[order]
+    # A group starts at a new key, and also where the active flag changes:
+    # an active (MAX, MAX) key shares the inactive lanes' sentinel, and
+    # must not be taken for a duplicate of an inactive lane before it.
+    first = torch.ones_like(active)
+    first[1:] = (skey[1:] != skey[:-1]) | (sactive[1:] != sactive[:-1])
+    shi, slo = split_key(skey)
+    table, fresh, found, pending = hashset_insert_sorted(
+        table, u32_to_i32(shi), u32_to_i32(slo), sactive & first)
+    # Each duplicate takes its key's first occurrence's outcome: found
+    # where that one was fresh or found, pending where it was pending.
+    pos = torch.arange(B, dtype=torch.int64, device=skey.device)
+    head = torch.cummax(torch.where(first, pos, torch.zeros_like(pos)), 0).values
+    dup = sactive & ~first
+    found = found | (dup & (fresh[head] | found[head]))
+    pending = pending | (dup & pending[head])
+    out = []
+    for flag in (fresh, found, pending):
+        lane = torch.empty_like(flag)
+        lane[order] = flag
+        out.append(lane)
+    return (table, *out)
+
+
 def _kernel():
     """The C entry point of ``csrc/hashset_insert.cu``, built and typed on
     first use."""
@@ -217,7 +267,7 @@ def _first_match(rows: torch.Tensor, home, keys, chunk: int = 1 << 13):
     probe = torch.arange(MAX_PROBES, dtype=torch.int64)
     out = torch.empty_like(home)
     for s in range(0, home.shape[0], chunk):
-        hit = rows[home[s : s + chunk, None] + probe] == keys[s : s + chunk, None]
+        hit = torch.take(rows, home[s : s + chunk, None] + probe) == keys[s : s + chunk, None]
         out[s : s + chunk] = torch.where(
             hit.any(dim=1), hit.to(torch.int8).argmax(dim=1),
             torch.full_like(home[s : s + chunk], MAX_PROBES),

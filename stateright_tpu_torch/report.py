@@ -49,6 +49,12 @@ class Reporter:
         mistaken for certified absence). Default no-op keeps existing
         reporters source-compatible."""
 
+    def report_truncation(self, overflows: int) -> None:
+        """Called once at run end (the walkers) when walks were aborted by a
+        trace-buffer overflow: truncation must never be mistaken for
+        absence of discoveries. Default no-op keeps existing reporters
+        source-compatible."""
+
     def report_config_notes(self, notes) -> None:
         """Called once per report with the configuration adjustments the
         checker made on the user's behalf (e.g. the tile-sweep kernels
@@ -109,6 +115,13 @@ class WriteReporter(Reporter):
                 "Liveness pass skipped: run crashed; absence of "
                 "counterexamples NOT certified\n"
             )
+
+    def report_truncation(self, overflows: int) -> None:
+        self.writer.write(
+            f"Warning: {overflows} walk(s) truncated at the trace "
+            "buffer (raise max_trace_len); absence of discoveries on "
+            "those walks is NOT evidence\n"
+        )
 
     def report_config_notes(self, notes) -> None:
         for note in notes:

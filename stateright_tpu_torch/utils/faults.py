@@ -41,6 +41,7 @@ __all__ = [
     "PackTenantFault",
     "SeedLoadFault",
     "SpillFault",
+    "TenantFaultError",
     "WorkerDeathFault",
     "clear_fault_injector",
     "fault_point",
@@ -120,16 +121,38 @@ class ConformanceBatchFault(FaultError):
     fault_class = "conformance_batch"
 
 
+class TenantFaultError(Exception):
+    """An engine fault attributable to exactly one packed tenant: the
+    pack's blast-radius boundary. The engine's caller drops only this
+    tenant (its payload slice resumes it) while the others keep going.
+    ``pre_dispatch=True`` means the wave never ran, so every participant's
+    input was left as it was."""
+
+    def __init__(self, tenant_key, original: BaseException,
+                 pre_dispatch: bool = False):
+        super().__init__(
+            f"fault attributable to packed tenant {tenant_key!r}: "
+            f"{original!r}"
+        )
+        self.tenant_key = tenant_key
+        self.original = original
+        self.pre_dispatch = pre_dispatch
+
+
 # -- the injector ------------------------------------------------------------
 
 # Default exception factory per site (a spec may override with exc=):
 # the seams of the port's tree. The JAX package's other sites (its async
-# pipeline, tenancy, swarm, warm-start and conformance planes) wait for
-# the modules that hold them.
+# pipeline, tenancy, warm-start and conformance planes) wait for the
+# modules that hold them.
 _SITE_EXC = {
     "storage.host_probe": HostProbeFault,
     "storage.spill": SpillFault,
     "checkpoint.write": CheckpointWriteFault,
+    # The swarm engine (checker/swarm.py): the stacked wave dispatch and
+    # the per-tenant harvest that bounds a packed swarm's blast radius.
+    "swarm.wave": DeviceWaveFault,
+    "swarm.tenant.verdict": PackTenantFault,
 }
 
 # Sites that exist in the tree — fail fast on typos in test specs.

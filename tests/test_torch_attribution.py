@@ -524,6 +524,14 @@ def test_coverage_report_renders_a_port_run(tmp_path):
 # -- the port stands alone ------------------------------------------------------------
 
 
+# The device walkers' modules, which the walk above must have imported.
+WALK_MODULES = (
+    "stateright_tpu_torch.ops.threefry",
+    "stateright_tpu_torch.checker.gpu_simulation",
+    "stateright_tpu_torch.checker.swarm",
+)
+
+
 def test_no_module_of_the_port_nor_chip_smoke_imports_jax():
     """Every module of ``stateright_tpu_torch`` and ``chip_smoke.py``
     imported in a fresh process leave JAX and the JAX package out."""
@@ -536,8 +544,9 @@ def test_no_module_of_the_port_nor_chip_smoke_imports_jax():
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('jax', 'jaxlib', 'stateright_tpu'))\n"
-        "print(len(sys.modules), bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        f"missing = sorted(set({WALK_MODULES!r}) - set(sys.modules))\n"
+        "print(len(sys.modules), bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        timeout=120, env={k: v for k, v in os.environ.items()

@@ -55,3 +55,69 @@ def test_config_matches_the_jax_package(name):
     assert got == want
     assert [a is None for a in port.packed_antecedents()] == [
         a is None for a in ref.packed_antecedents()]
+
+
+# -- the swarm leg (bench.py's _run_swarm_leg) ---------------------------------------
+
+
+def _bench_swarm_spawns():
+    """The ``spawn_swarm`` settings of the JAX bench's swarm leg, read from
+    its source: every call there with constant keywords and a ``seed``
+    (``aot_cache`` left out: the port's cache namespace is its own)."""
+    import ast
+    import inspect
+    import textwrap
+
+    tree = ast.parse(textwrap.dedent(inspect.getsource(bench._run_swarm_leg)))
+    spawns = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        try:
+            kw = {k.arg: eval(compile(ast.Expression(k.value), "bench.py", "eval"), {})
+                  for k in node.keywords if k.arg not in (None, "aot_cache")}
+        except NameError:
+            continue
+        if "seed" in kw:
+            spawns.append(kw)
+    return spawns
+
+
+def _jax_swarm_models():
+    return {
+        "skv483_deep": lambda: JaxShardedKv(4, 8, 3, retain=("no total tear",)),
+        "raft3_live": lambda: JaxRaftModelCfg(server_count=3, max_term=1, lossy=True)
+        .into_model().retain_properties("stable leader"),
+        "2pc3_witness": lambda: JaxTwoPhaseSys(3),
+    }
+
+
+def test_every_swarm_config_is_a_bench_swarm_run():
+    from stateright_tpu_torch.configs import SWARM_CONFIGS
+
+    spawns = _bench_swarm_spawns()
+    assert len(spawns) == 3
+    assert sorted(map(sorted, (c.spawn.items() for c in SWARM_CONFIGS.values()))) == sorted(
+        map(sorted, (s.items() for s in spawns)))
+    import inspect
+
+    src = inspect.getsource(bench._run_swarm_leg)
+    for cfg in SWARM_CONFIGS.values():
+        if cfg.target is not None:
+            assert f"target_state_count({cfg.target:_})" in src
+
+
+@pytest.mark.parametrize("name", ["skv483_deep", "raft3_live", "2pc3_witness"])
+def test_swarm_config_matches_the_jax_package(name):
+    from stateright_tpu_torch.configs import SWARM_CONFIGS
+
+    cfg = SWARM_CONFIGS[name]
+    assert cfg.name == name
+    port, ref = cfg.make(), _jax_swarm_models()[name]()
+    assert port.packed_action_count() == ref.packed_action_count()
+    assert [p.name for p in port.properties()] == [p.name for p in ref.properties()]
+    got = {k: tuple(v.shape) for k, v in port.packed_init_states().items()}
+    want = {k: tuple(np.asarray(v).shape) for k, v in ref.packed_init_states().items()}
+    assert got == want
+    builder = cfg.builder()
+    assert builder._target_state_count == cfg.target

@@ -1647,3 +1647,56 @@ def test_cuda_coverage_drain_matches_cpu_twin(cuda_device, wave_kernel, case, mo
         assert cov_launches == on_launches == fw.launches > 0
     else:
         assert cov_launches == on_launches == fw.launches == 0
+
+
+# -- the device walkers (simulation and swarm) ---------------------------------------
+
+
+def _walk_result(ck):
+    return (ck.state_count(), ck.unique_state_count(), ck.max_depth(),
+            dict(ck._discoveries_fps), ck.coverage_estimate()["saturated"])
+
+
+@pytest.mark.cuda
+def test_cuda_unsorted_insert_matches_plain_twin(cuda_device):
+    """The swarm's sample insert (duplicates in lane order) on the card and
+    on the CPU twin: the same flags and the same table, batch after batch."""
+    rng = np.random.default_rng(22)
+    universe = rng.integers(1, 1 << 32, size=(3000, 2), dtype=np.uint64).astype(np.uint32)
+    cpu = table_from_numpy(empty_table(1 << 13))
+    card = cpu.to(cuda_device)
+    for _ in range(12):
+        pick = universe[rng.integers(0, len(universe), size=1024)]
+        hi, lo = keys_from_numpy(pick[:, 0], pick[:, 1])
+        active = torch.from_numpy(rng.random(1024) < 0.8)
+        cpu, *want = hk.hashset_insert_unsorted(cpu, hi, lo, active)
+        card, *got = hk.hashset_insert_unsorted(card, hi.to(cuda_device), lo.to(cuda_device),
+                                                active.to(cuda_device))
+        for w, g in zip(want, got):
+            assert torch.equal(w, g.cpu())
+        assert np.array_equal(table_to_numpy(card), table_to_numpy(cpu))
+
+
+@pytest.mark.cuda
+def test_cuda_swarm_matches_cpu_twin(cuda_device):
+    """A 2pc-3 swarm on the card (one captured step, replayed) and on the
+    CPU twin: the same walks, sample and trails; the insert kernel launched
+    once a step."""
+    runs = []
+    for d in ("cuda", "cpu"):
+        hk.launches = 0
+        runs.append(TwoPhaseSys(3).checker().target_state_count(20_000).spawn_swarm(
+            seed=11, lanes=64, wave_steps=16, sample_capacity=1 << 12, device=d).join())
+        if d == "cuda":
+            assert hk.launches == 16 * runs[0].engine._wave_calls
+    assert _walk_result(runs[0]) == _walk_result(runs[1])
+    assert runs[0].engine.graph_captures == 1
+
+
+@pytest.mark.cuda
+def test_cuda_gpu_simulation_matches_cpu_twin(cuda_device):
+    runs = [TwoPhaseSys(3).checker().target_state_count(20_000).spawn_gpu_simulation(
+        seed=7, lanes=128, steps_per_call=32, device=d).join() for d in ("cuda", "cpu")]
+    assert ((runs[0].state_count(), runs[0].max_depth(), runs[0]._discoveries_fps)
+            == (runs[1].state_count(), runs[1].max_depth(), runs[1]._discoveries_fps))
+    assert runs[0].graph_captures == 1

@@ -261,7 +261,8 @@ def test_store_fault_seams_fire_and_keep_the_tiers_whole(tmp_path):
         inject,
     )
 
-    assert FAULT_SITES == {"checkpoint.write", "storage.host_probe", "storage.spill"}
+    assert FAULT_SITES == {"checkpoint.write", "storage.host_probe", "storage.spill",
+                           "swarm.wave", "swarm.tenant.verdict"}
     with pytest.raises(ValueError, match="unknown fault site"):
         FaultSpec("pipeline.worker")
     store = TieredVisitedStore(host_budget_mib=0.01, spill_dir=str(tmp_path),
