@@ -125,6 +125,19 @@ bit-identically), ``spawn_gpu_simulation`` on 2pc-3 (200,000 walk steps
 against the twin, then 1,000,000), and two ``SwarmPackedEngine`` tenants
 each equal to its solo run; one ``{"swarm_run": ...}`` line a run, and the
 insert kernel's launches of each run in the kernels line.
+Then device liveness (``device_liveness``): ``spawn_gpu_bfs(liveness=
+"device")`` on the staged engine, the edge log appended inside the captured
+drain and the trim and reach on the card, each run against its CPU twin
+(counts, drains and exits, the logged relation, the verdict records, the
+certificates by fingerprint): raft-3 check-live (``LIVENESS_CONFIGS``, the
+JAX bench's liveness leg) to its "stable leader" counterexample; the
+``LevelDag`` absence certificate (73,727 states), its analysis re-run warm
+and the host post-pass (``find_eventually_lasso``) timed on the same
+region; the same DAG at W = 2^20 (2,097,151 states), held to its analytic
+figures; raft4 staged with the knob and without it (24,545 both); the
+absence run preempted after its first drain and resumed from its version 3
+payload. One ``{"liveness_run": ...}`` line a run, and the insert kernel's
+launches of each run in the kernels line.
 Prints phase lines, the card's name and power limit, the fused wave's
 stage times, the drains' walls, waves, no-op and warm-up waves, exits,
 graph captures and replays and rungs, peak device memory, one
@@ -3313,6 +3326,195 @@ def simulation_and_swarm():
     return out
 
 
+# -- 10. device liveness -------------------------------------------------------------
+
+# ``level_dag_2p20`` follows from its definition (``configs.LevelDag``, W =
+# 2^20, L = 20): levels 0..20 of min(2^k, W) states; levels 0..19 fail the
+# condition; each state of levels 0..18 has 2 condition-false children.
+LEVEL_DAG_2P20 = {"states": 2_097_151, "nodes": 1_048_575, "edges": 1_048_574,
+                  "verdict": "absent", "survivors": 0}
+
+
+def _liveness_record(name, checker, wall, launches, peak):
+    """One ``{"liveness_run": ...}`` record: counts, waves, drains and exits,
+    the edge store and each verdict's record, the wall and peak bytes."""
+    rep = checker.liveness_report()
+    return {"name": name, "device": checker.device.type, "unique": checker.unique_state_count(),
+            "states": checker.state_count(), "depth": checker.max_depth(),
+            "engine": checker._wave_kernel, "waves": checker.waves, "drains": checker.drains,
+            "exits": dict(checker.drain_exits), "noop_waves": checker.noop_waves,
+            "graph_replays": checker.graph_replays, "edge_store": rep.get("edge_store"),
+            "outcomes": rep.get("outcomes"), "discoveries": sorted(checker.discoveries()),
+            "wall_s": wall, "peak_device_bytes": peak, "insert_launches": launches}
+
+
+def _same_liveness(label, card, cpu):
+    """A card run held to its CPU twin: counts, drains and exits, the edge
+    store's statistics and relation, each outcome record (its seconds
+    aside) and each certificate, state for state by fingerprint."""
+    import numpy as np
+
+    from stateright_tpu_torch.core.fingerprint import fingerprint
+
+    assert card.worker_error() is None and cpu.worker_error() is None, label
+    for k in ("unique_state_count", "state_count", "max_depth"):
+        assert getattr(card, k)() == getattr(cpu, k)(), (label, k)
+    assert (card.drains, card.drain_exits) == (cpu.drains, cpu.drain_exits), label
+    assert card._live_store.stats() == cpu._live_store.stats(), label
+    np.testing.assert_array_equal(card._live_store.edge_rows(), cpu._live_store.edge_rows())
+
+    def records(ck):
+        return {k: {f: v for f, v in r.items() if f != "seconds"}
+                for k, r in ck.liveness_report()["outcomes"].items()}
+
+    assert records(card) == records(cpu), label
+    got = {k: [fingerprint(s) for s in p.into_states()] for k, p in card.discoveries().items()}
+    want = {k: [fingerprint(s) for s in p.into_states()] for k, p in cpu.discoveries().items()}
+    assert got == want, label
+
+
+def _analysis_split(checker):
+    """Where an absence analysis' seconds go, its steps timed apart on the
+    checker's store: the deduped relation (``edge_rows``), the property's
+    slice and the node index on the host (``np.unique``,
+    ``np.searchsorted``), and the trim on the card."""
+    import numpy as np
+    import torch
+
+    from stateright_tpu_torch.ops.edge_store import lasso_trim
+
+    store, t = checker._live_store, {}
+    t0 = time.perf_counter()
+    rows = store.edge_rows()
+    t["edge_rows_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    src64, dst64, roots64, terms64 = store.property_slice(0, rows=rows)
+    nodes = np.unique(np.concatenate([roots64, terms64, src64, dst64]))
+    src, dst = np.searchsorted(nodes, src64), np.searchsorted(nodes, dst64)
+    t["slice_and_index_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    alive, rounds = lasso_trim(src, dst, np.ones(len(src), bool), np.ones(len(nodes), bool),
+                               device=checker.device)
+    torch.cuda.synchronize()
+    t["trim_s"] = time.perf_counter() - t0
+    t.update(trim_rounds=rounds, survivors=int(alive.sum()))
+    return t
+
+
+@phase("device_liveness")
+def device_liveness():
+    """``liveness="device"`` on the card (the staged engine, its insert
+    kernel, the edge log appended inside the captured drain, the trim and
+    reach on the card), each run against its CPU twin in this call, but
+    ``level_dag_2p20``, held to ``LEVEL_DAG_2P20``: raft-3 check-live;
+    the ``LevelDag`` absence certificate with the analysis re-run warm and
+    the host post-pass timed on the same region; ``level_dag_2p20``; raft4
+    staged with the knob and without it; and the absence run preempted after
+    its first drain and resumed from its version 3 payload."""
+    import torch
+
+    from stateright_tpu_torch.checker.device_liveness import analyze_liveness
+    from stateright_tpu_torch.checker.liveness import find_eventually_lasso
+    from stateright_tpu_torch.configs import CONFIGS, LIVENESS_CONFIGS
+
+    out, launches = {}, {}
+
+    def run(name, spawn_fn):
+        # Tensors of earlier runs held only by reference cycles are freed
+        # now, so that the peak below is this run's own.
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        checker = spawn_fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = _read_launches()
+        assert checker.worker_error() is None, (name, checker.worker_error())
+        assert checker.device.type == "cuda" and checker._wave_kernel == "staged", name
+        assert n["fused_wave"] == 0 and n["hashset_insert_sorted"] >= checker.waves > 0, (name, n)
+        launches[name] = n["hashset_insert_sorted"]
+        out[name] = rec = _liveness_record(name, checker, wall, launches[name],
+                                           torch.cuda.max_memory_allocated())
+        log(json.dumps({"liveness_run": rec}, default=str))
+        return checker
+
+    def cpu_twin(cfg):
+        return cfg.make().checker().spawn_gpu_bfs(device="cpu", **cfg.spawn).join()
+
+    # raft-3 check-live.
+    cfg = LIVENESS_CONFIGS["raft3_check_live"]
+    raft3 = run(cfg.name, lambda: cfg.make().checker().spawn_gpu_bfs(**cfg.spawn).join())
+    assert "stable leader" in raft3.discoveries()
+    _same_liveness(cfg.name, raft3, cpu_twin(cfg))
+
+    # The absence certificate: the analysis again, warm, on the same store,
+    # and the host post-pass over the same condition-false region.
+    cfg = LIVENESS_CONFIGS["level_dag_absence"]
+    dag = run(cfg.name, lambda: cfg.make().checker().spawn_gpu_bfs(**cfg.spawn).join())
+    assert dag.unique_state_count() == cfg.unique
+    assert dag._live_outcomes["done"]["verdict"] == "absent"
+    _same_liveness(cfg.name, dag, cpu_twin(cfg))
+    t0 = time.perf_counter()
+    _paths, warm = analyze_liveness(dag.model(), dag.model().properties(), dag._ebit,
+                                    dag._live_store, dag._host_fp, set(), device=dag.device)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    assert warm["done"]["verdict"] == "absent"
+    model = cfg.make()
+    t0 = time.perf_counter()
+    assert find_eventually_lasso(model, model.properties()[0]) is None
+    host_s = time.perf_counter() - t0
+    out["absence"] = {"analysis_cold_s": dag._live_outcomes["done"]["seconds"],
+                      "analysis_warm_s": warm_s, "host_pass_s": host_s,
+                      "host_over_warm": host_s / warm_s}
+    log(json.dumps({"liveness_absence": out["absence"]}))
+
+    # The same DAG at W = 2^20, held to its analytic figures.
+    cfg = LIVENESS_CONFIGS["level_dag_2p20"]
+    big = run(cfg.name, lambda: cfg.make().checker().spawn_gpu_bfs(**cfg.spawn).join())
+    rec = big._live_outcomes["done"]
+    got = {"states": big.unique_state_count(), "nodes": rec["nodes"], "edges": rec["edges"],
+           "verdict": rec["verdict"], "survivors": rec["survivors"]}
+    assert got == LEVEL_DAG_2P20, got
+    out["analysis_split_2p20"] = split = _analysis_split(big)
+    log(json.dumps({"liveness_analysis_split": {"name": cfg.name, **split}}))
+
+    # raft4, staged, with the knob and without it: the knob adds only the
+    # device verdicts.
+    cfg = CONFIGS["raft4"]
+    spawn = dict(cfg.spawn, wave_kernel="staged", expand_fps=False)
+    live4 = run("raft4_live", lambda: cfg.make().checker().spawn_gpu_bfs(
+        liveness="device", **spawn).join())
+    plain4 = run("raft4_plain", lambda: cfg.make().checker().spawn_gpu_bfs(**spawn).join())
+    assert live4.unique_state_count() == plain4.unique_state_count() == cfg.unique
+    assert (live4.state_count(), live4.max_depth(), live4.waves) == (
+        plain4.state_count(), plain4.max_depth(), plain4.waves)
+    assert plain4._discoveries_fp == live4._discoveries_fp
+    added = set(live4.discoveries()) - set(plain4.discoveries())
+    assert all(live4._live_outcomes[k]["verdict"] == "counterexample" for k in added), added
+
+    # The absence run preempted after its first drain and resumed from its
+    # version 3 payload.
+    cfg = LIVENESS_CONFIGS["level_dag_absence"]
+    PreemptAfterDrain, _copy_aside = _tiering_checkers()
+    cut = run("level_dag_absence_preempted", lambda: _joined(PreemptAfterDrain(
+        cfg.make().checker(), after=1, device="cuda", **cfg.spawn)))
+    payload = cut.preempt_payload()
+    assert cut.preempted and payload["version"] == 3 and "liveness" in payload
+    resumed = run("level_dag_absence_resumed", lambda: cfg.make().checker().spawn_gpu_bfs(
+        resume_from=payload, **cfg.spawn).join())
+    assert resumed.unique_state_count() == cfg.unique
+    assert resumed._live_outcomes["done"]["verdict"] == "absent"
+    assert resumed._live_store.stats()["edges_logged"] >= dag._live_store.stats()["edges_logged"]
+    import numpy as np
+
+    np.testing.assert_array_equal(resumed._live_store.edge_rows(), dag._live_store.edge_rows())
+    out["launches"] = launches
+    return out
+
+
 STAGE_KERNELS = (
     ("frontier_kernel", "frontier"), ("comphash_keys_kernel", "keys"),
     ("keys_pairs_kernel", "keys"), ("keys_kernel", "keys"),
@@ -3734,6 +3936,7 @@ def main() -> int:
     tiering = checkpoint_resume_tiering() if not FAILED else None
     attribution = attribution_and_breakdown() if not FAILED else None
     walks = simulation_and_swarm() if not FAILED else None
+    liveness = device_liveness() if not FAILED else None
     if not FAILED:
         stage_device_profile()
     if FAILED:
@@ -3760,6 +3963,8 @@ def main() -> int:
                             for name, run in sym_runs.items()})
     # The swarm's visited sample: one launch a tenant a step.
     insert_launches.update(walks["launches"])
+    # Device liveness: the staged engine's insert, every wave.
+    insert_launches.update({f"liveness_{name}": n for name, n in liveness["launches"].items()})
     fused_launches = by_path("fused", "fused_wave", {"2pc8": drains, **actor_runs})
     comphash_launches = by_path("fused", "fw_comphash_keys", actor_runs)
     cov_runs = {"2pc8": cov_2pc8, "skv4x4": cov_skv}

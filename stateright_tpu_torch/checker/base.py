@@ -5,9 +5,9 @@ compatibility surface that tests hit; every backend of the port (host
 BFS/DFS, on-demand, simulation, GPU BFS) returns an object with this
 interface. It is the JAX package's ``checker/base.py`` with its metrics
 registry, coverage ledger, wave-timeline attribution hooks, the
-``complete_liveness()`` lasso pass and the preemption surface, and without
-the hooks into device liveness, the async pipeline and the live monitor,
-which the port has not taken on yet.
+``complete_liveness()`` lasso pass, device liveness (``liveness="device"``)
+and the preemption surface, and without the hooks into the async pipeline
+and the live monitor, which the port has not taken on yet.
 """
 
 from __future__ import annotations
@@ -248,29 +248,98 @@ class Checker(Generic[State, Action]):
         (``spawn_gpu_bfs(coverage=True)``)."""
         return self._cov.report() if self._cov is not None else None
 
-    # -- liveness surfaces (the host post-pass) -------------------------------
+    # -- liveness surfaces (device mode + the host post-pass) ----------------
+
+    # True on backends whose ``liveness="device"`` spawn knob yields sound
+    # ``eventually`` verdicts through the device edge log.
+    supports_device_liveness = False
+    _live = None
+    _live_enabled = False
+    _live_store = None
+    _live_ins = None
 
     @property
     def liveness_mode(self) -> str:
         """How this run's ``eventually`` verdicts were produced:
+        ``"device"`` (edge-log trim/reach, sound by construction),
         ``"host_pass"`` (the opt-in O(region) post-pass of
         ``complete_liveness()``) or ``"default"`` (reference parity: the
-        documented DAG-join/cycle false negatives). The JAX package's
-        ``"device"`` mode waits for the port's device liveness."""
+        documented DAG-join/cycle false negatives)."""
+        if getattr(self, "_live", None) == "device":
+            return "device"
         if getattr(self, "_complete_liveness", False):
             return "host_pass"
         return "default"
 
     def liveness_report(self) -> dict:
-        """The per-property liveness evidence: mode, host-pass
-        inconclusive names, and whether a crashed run skipped the pass."""
+        """The per-property liveness evidence: mode, device verdicts
+        (``outcomes``), edge-store stats, host-pass inconclusive names, and
+        whether a crashed run skipped the pass."""
         out: dict = {"mode": self.liveness_mode}
+        outcomes = getattr(self, "_live_outcomes", None)
+        if outcomes:
+            out["outcomes"] = dict(outcomes)
+        store = getattr(self, "_live_store", None)
+        if store is not None:
+            out["edge_store"] = store.stats()
         inconclusive = getattr(self, "_lasso_inconclusive", None)
         if inconclusive:
             out["inconclusive"] = sorted(inconclusive)
         if getattr(self, "_liveness_skipped_crashed", False):
             out["skipped_crashed_run"] = True
         return out
+
+    def _with_device_liveness(self, out: Dict[str, Path]):
+        """Merges device-liveness counterexamples into ``out`` without
+        overriding default-semantics discoveries, and signals (once)
+        when a crashed run makes the missing verdicts untrustworthy —
+        a missing counterexample must never read as absence."""
+        if not getattr(self, "_live_enabled", False):
+            return out
+        for name, path in getattr(self, "_live_paths", {}).items():
+            out.setdefault(name, path)
+        if self.is_done() and self.worker_error() is not None:
+            self._signal_liveness_skip()
+        return out
+
+    def _flush_live_edges(self) -> None:
+        """Pre-analysis hook: backends with a device-resident edge log
+        drain it here."""
+
+    def _run_liveness_analysis(self, prefix: str) -> None:
+        """End-of-exploration device-liveness pass on the checker's
+        ``_device``, run on the worker thread (so ``is_done()`` implies the
+        verdicts exist and a crash surfaces through ``worker_error``).
+        Preempted runs skip it: the edge store rides the checkpoint payload
+        and the resumed incarnation finishes the job."""
+        if not self._live_enabled or self._preempt_payload is not None:
+            return
+        # The JAX package first drains its async pipeline's deferred
+        # absorbs here; the port absorbs on this thread until it takes the
+        # pipeline on (Queue 1 #12).
+        self._flush_live_edges()
+        from .device_liveness import analyze_liveness
+
+        t0 = time.perf_counter()
+        with self._tracer.span(f"{prefix}.liveness.analysis"):
+            self._live_paths, self._live_outcomes = analyze_liveness(
+                self._model,
+                self._properties,
+                self._ebit,
+                self._live_store,
+                self._host_fp,
+                set(self._discoveries_fp),
+                instruments=self._live_ins,
+                tracer=self._tracer,
+                device=self._device,
+            )
+        self._live_ins.analysis_seconds.set(time.perf_counter() - t0)
+        self._tracer.instant(
+            f"{prefix}.liveness.summary",
+            store=self._live_store.stats(),
+            outcomes=self._live_outcomes,
+            analysis_s=time.perf_counter() - t0,
+        )
 
     def _signal_liveness_skip(self) -> None:
         """Crashed-run skip evidence: the ``liveness.skipped_crashed_run``

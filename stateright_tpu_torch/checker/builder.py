@@ -163,7 +163,13 @@ class CheckerBuilder:
         ``gap``, read with ``attribution_report()`` and emitted as
         ``gpu_bfs.*`` spans that ``scripts/gap_report.py`` and
         ``scripts/trace_summary.py`` render; results stay bit-identical.
-        See ``checker/gpu.py`` for the knobs."""
+        ``liveness="device"`` (with ``edge_log_capacity``, rows of the device
+        edge log) decides the ``eventually`` properties soundly: the staged
+        waves log their condition-false edges on the device and the trim and
+        reach decide each property at run end, with a certificate
+        (``liveness_report()``); it runs the staged wave and refuses
+        ``wave_kernel="fused"``, ``expand_fps=True``, symmetry and a capped
+        run. See ``checker/gpu.py`` for the knobs."""
         from .gpu import GpuBfsChecker
 
         return GpuBfsChecker(self, **kwargs)

@@ -112,7 +112,27 @@ discovery for a lasso or a masked terminal path, on the model's host
 ``actions``/``next_state``; ``discoveries()`` merges those paths in. A
 crashed run skips the pass and says so (``liveness_report()``).
 
-Checkpoint, preempt and resume (the JAX package's format v2 and its
+Device liveness (``liveness="device"``, the JAX package's knob and
+``edge_log_capacity``; ``checker/device_liveness.py``): every staged wave
+appends its condition-false edges and terminal rows to a device edge log
+(``ops/edge_store.py``), on the wave path and inside the captured drain;
+the seed records the condition-false roots. The log holds
+``edge_log_capacity`` rows (default four worst-case waves, at least one)
+and the host evicts it to ``storage.LivenessEdgeStore`` before a wave
+could overflow it: wave at a time from the fill count the wave's one
+stats read carries, and between drains, a drain exiting ("edge log full",
+the last bit of ``EXIT_REASONS``) when its log could not take one more
+wave. At run end the trim and reach on the checker's device decide each
+undiscovered ``eventually`` property, with a certificate replayed on the
+host; ``discoveries()`` merges the counterexamples in and
+``liveness_report()`` gives each verdict's record. The knob runs the
+staged, materializing wave (``wave_kernel=None`` resolves to
+``"staged"``; ``"fused"``, ``expand_fps=True``, symmetry and a capped run
+are refused, as in the JAX package). A wave's outputs do not depend on
+the log: counts, depths and paths are those of the run without it.
+
+Checkpoint, preempt and resume (the JAX package's format v2, and v3 with
+device liveness, whose payload adds the edge store; and its
 knobs): ``checkpoint_path`` writes a checkpoint atomically every
 ``checkpoint_every_chunks`` dequeued chunks wave at a time, and at every
 drain exit after the first through the drain (whose waves are then capped
@@ -161,6 +181,8 @@ propagate along paths and are not part of the fingerprint;
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import math
 import os
 import pickle
@@ -204,8 +226,11 @@ from ..ops.hashset_kernel import (
     sort_key,
     split_key,
 )
+from ..ops.edge_store import EDGE_COLS, edge_log_new
 from ..ops.ring import ring_export, ring_push, ring_rows, ring_take
 from ..storage import (
+    LivenessEdgeStore,
+    LivenessInstruments,
     StorageInstruments,
     TieredVisitedStore,
     max_table_rows_for_budget,
@@ -214,6 +239,7 @@ from ..storage import (
 from ..telemetry.trace import _NULL_SPAN
 from ..utils.faults import fault_point
 from .base import Checker
+from .device_liveness import seed_root_mask, validate_liveness_mode
 from .symmetry import SYM_KEY_SCHEME, make_key_fn, sym_key_scheme
 
 _DEPTH_INF = (1 << 31) - 1
@@ -254,16 +280,35 @@ _LAUNCH_COUNTERS = (
  _GO, _REASON, _FINAL_SLOT, _FINAL_TAKE, _MAX_FRESH) = range(13)
 _N_SCALARS = 13
 # Why a drain exits, by bit of ``_REASON``, in the order of the
-# reference's loop condition; ``drain_exits`` counts a drain under the
-# first of its reasons.
+# reference's loop condition, the port's own reasons after them;
+# ``drain_exits`` counts a drain under the first of its reasons.
 EXIT_REASONS = (
     "nothing left", "probe overflow", "property hit", "log full", "ring full",
     "promote", "budget", "max waves", "generated cap", "take full", "orbit fallback",
+    "edge log full",
 )
 _TAKE_FULL = 1 << EXIT_REASONS.index("take full")
 # A drain wave under symmetry whose refined keys failed their check on a
 # valid lane inserts nothing and records this reason alone.
 _ORBIT_FALLBACK = 1 << EXIT_REASONS.index("orbit fallback")
+# A drain wave after which the device liveness edge log could not take one
+# more worst-case wave of the rung stops the drain; the host evicts it.
+_EDGE_LOG_FULL_BIT = EXIT_REASONS.index("edge log full")
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """Python's cyclic collector paused for a CUDA Graph capture: a
+    collection inside the capture can free a graph that became garbage
+    (another run's), and destroying a graph while this thread captures
+    invalidates the capture. ``torch.cuda.graph`` collects once on entry."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def take_width(width: int, action_count: int) -> int:
@@ -420,8 +465,9 @@ def checkpoint_header(model, action_count: int, symmetry: bool, sym_scheme=None,
     """The checkpoint header: the checker kind (``CHECKPOINT_KIND`` for
     this checker, ``SWARM_CHECKPOINT_KIND`` for the swarm), its format
     version (2 for this checker, with the optional ``"storage"`` payload of
-    the tiers' runs; 3 for the swarm), the model and its digest, and the
-    key schemes."""
+    the tiers' runs, which ``checkpoint_payload`` stamps 3 when it adds the
+    device liveness edge store; 3 for the swarm), the model and its digest,
+    and the key schemes."""
     if symmetry and sym_scheme is None:
         sym_scheme = SYM_KEY_SCHEME
     return {
@@ -439,9 +485,9 @@ def validate_checkpoint_header(payload: dict, model, action_count: int, symmetry
                                sym_scheme=None, *, kind: str = CHECKPOINT_KIND) -> None:
     """Refuses a checkpoint that another checker kind, model, model
     configuration or symmetry setting wrote. A payload without a ``kind``
-    was written by the JAX package's ``tpu_bfs`` checker. For this
-    checker's kind a version 3 payload (device liveness, which it does not
-    run) is refused too; the swarm's payloads are version 3."""
+    was written by the JAX package's ``tpu_bfs`` checker. Versions 1 to 3
+    are read (3: this checker's payload with a device liveness edge store,
+    whose mode ``_restore`` matches; the swarm's payloads)."""
     if payload.get("version") not in (1, 2, 3):
         raise ValueError(f"unsupported checkpoint version: {payload.get('version')!r}")
     found_kind = payload.get("kind", "tpu_bfs")
@@ -450,12 +496,6 @@ def validate_checkpoint_header(payload: dict, model, action_count: int, symmetry
             f"checkpoint kind {found_kind!r} does not match this checker "
             f"({kind!r}): resume a checkpoint with the checker of the package "
             "that wrote it"
-        )
-    if kind == CHECKPOINT_KIND and (payload["version"] == 3 or "liveness" in payload):
-        raise ValueError(
-            "checkpoint carries a device liveness edge store (format version 3); "
-            "this checker does not run liveness='device' yet, and dropping the "
-            "store would make the final liveness verdict unsound"
         )
     if payload["model"] != type(model).__name__:
         raise ValueError(
@@ -552,7 +592,9 @@ class GpuBfsChecker(Checker):
     (``coverage_report()``, prefix ``gpu_bfs``). ``expand_fps`` chooses
     the fingerprint-only wave (module docstring). Symmetry reduction
     (``.symmetry()``, ``.symmetry_fn(f)``) runs on the staged engine only
-    (module docstring).
+    (module docstring). ``liveness="device"`` decides the ``eventually``
+    properties soundly from a device edge log of ``edge_log_capacity``
+    rows (module docstring).
 
     Checkpoints and tiering take the JAX package's knobs and defaults
     (module docstring): ``checkpoint_path``, ``checkpoint_every_chunks``,
@@ -588,6 +630,8 @@ class GpuBfsChecker(Checker):
         host_budget_mib=None,
         spill_dir=None,
         attribution=False,
+        liveness=None,
+        edge_log_capacity=None,
     ):
         model = options.model
         if not isinstance(model, BatchableModel):
@@ -602,18 +646,29 @@ class GpuBfsChecker(Checker):
                 f"{wave_kernel!r}"
             )
         symmetry = options._symmetry is not None
+        self._live = validate_liveness_mode(liveness, symmetry=symmetry,
+                                            expand_fps=(expand_fps is True), options=options)
         # The default engine: fused, unless the run asks for what only the
-        # staged wave does (symmetry keys, the fingerprint-only expansion).
+        # staged wave does (symmetry keys, the fingerprint-only expansion,
+        # the device liveness edge log).
         engine_note = None
         if wave_kernel is None:
             if symmetry:
                 wave_kernel, why = "staged", "symmetry reduction runs on the staged wave"
             elif expand_fps:
                 wave_kernel, why = "staged", "expand_fps=True runs on the staged wave"
+            elif self._live:
+                wave_kernel, why = "staged", "liveness='device' runs on the staged wave"
             else:
                 wave_kernel = "fused"
                 why = "it rounds table_capacity up to a tile-aligned power of two"
             engine_note = f"wave_kernel resolved to '{wave_kernel}' ({why})"
+        if wave_kernel == "fused" and self._live:
+            raise ValueError(
+                "liveness='device' is incompatible with wave_kernel='fused' (the "
+                "edge-log append is not fused yet); use wave_kernel='staged' or "
+                "the host liveness post-pass"
+            )
         self._wave_kernel = wave_kernel
         self._device = resolve_device(device)
         self._setup_lasso(options)
@@ -628,11 +683,13 @@ class GpuBfsChecker(Checker):
         self._sym = make_key_fn(model, model.packed_fingerprint, options._symmetry,
                                 self._device)
         # The fingerprint-only wave (the JAX package's resolution): off
-        # under the fused wave and under symmetry, whose keys need the
-        # candidate states.
+        # under the fused wave, under symmetry, whose keys need the
+        # candidate states, and with device liveness, whose edge log needs
+        # the children's conditions.
         has_fps = supports_expand_fps(model)
         if expand_fps is None:
-            self._use_fps = has_fps and wave_kernel != "fused" and not symmetry
+            self._use_fps = (has_fps and wave_kernel != "fused" and not symmetry
+                             and not self._live)
         elif expand_fps:
             if wave_kernel == "fused":
                 raise ValueError(
@@ -672,6 +729,28 @@ class GpuBfsChecker(Checker):
         self._ebits0 = sum(1 << b for b in self._ebit.values())
         self._A = model.packed_action_count()
         self._F_max = _pow2ceil(frontier_capacity)
+        # Device liveness: the edge log (allocated at run start) and its
+        # host tier.
+        self._live_enabled = self._live == "device" and bool(self._ebit)
+        self._live_paths: Dict[str, Path] = {}
+        self._live_outcomes: Dict[str, dict] = {}
+        self._elog = None
+        self._elog_count = 0
+        if self._live_enabled:
+            # One worst-case wave appends F·A edge rows + F terminal rows;
+            # the default log holds four of them, so evictions are rare.
+            self._elog_capacity = _pow2ceil(
+                edge_log_capacity or 4 * (self._F_max * self._A + self._F_max))
+            if self._elog_capacity < self._F_max * (self._A + 1):
+                raise ValueError(
+                    f"edge_log_capacity={edge_log_capacity} cannot hold one worst-case "
+                    f"wave ({self._F_max * (self._A + 1)} rows)"
+                )
+            self._live_ins = LivenessInstruments("gpu_bfs", registry=self.metrics())
+            self._live_store = LivenessEdgeStore(
+                instruments=self._live_ins, spill_dir=spill_dir,
+                host_budget_mib=host_budget_mib,
+            )
         if bucket_ladder is None:
             bucket_ladder = (
                 _DEFAULT_BUCKET_STEPS if self._F_max >= _AUTO_BUCKET_MIN_F else 0
@@ -864,7 +943,7 @@ class GpuBfsChecker(Checker):
             return fused_wave(*args, mask=mask)
         if self._use_fps:
             return torch_wave_fps(*args, mask=mask)
-        return torch_wave(*args, mask=mask, exact=exact)
+        return torch_wave(*args, mask=mask, exact=exact, elog=self._elog)
 
     def _device_wave(self, table, chunk):
         """``_wave`` on the wave path; in attribution mode inside the device
@@ -958,6 +1037,8 @@ class GpuBfsChecker(Checker):
 
     def _run(self):
         try:
+            if self._live_enabled:
+                self._elog = edge_log_new(self._elog_capacity, self._device)
             if self._resume_from is not None:
                 table, queue = self._restore(self._resume_from)
             else:
@@ -980,6 +1061,10 @@ class GpuBfsChecker(Checker):
                     self._explore_waves(table, queue)
             else:
                 self._explore_waves(table, queue)
+            # Sound `eventually` verdicts (liveness="device"): the trim and
+            # reach over the logged condition-false edges, with a
+            # certificate.
+            self._run_liveness_analysis("gpu_bfs")
             self._finalize_coverage(set(self._discoveries_fp))
         except BaseException as e:  # noqa: BLE001 - surfaced via worker_error
             self._error = e
@@ -1012,6 +1097,10 @@ class GpuBfsChecker(Checker):
             self._cov.record_seed(self._unique_count)
         child = _u64(_fp64(hi, lo)[valid])
         self._wave_log.append((child, np.zeros_like(child)))
+        if self._live_enabled:
+            # The analysis roots: condition-false init states.
+            roots = seed_root_mask(self._conditions, self._ebit, states, valid)
+            self._live_store.add_roots(child, roots[valid].cpu().numpy())
         if self._sym is not None:
             self._key_log.append(_u64(_fp64(khi, klo)[valid]))
 
@@ -1095,12 +1184,23 @@ class GpuBfsChecker(Checker):
         wave_new = 0
         while True:
             if out is None:
+                if self._live_enabled:
+                    self._maybe_evict_elog()
                 table, out = self._device_wave(table, chunk)
-                if self._cov is None:
-                    stats = out["stats"].tolist()  # the wave's one read of its counters
-                else:
-                    read = torch.cat([out["stats"], out["cov"]]).tolist()
-                    stats, cov = read[: out["stats"].shape[0]], read[out["stats"].shape[0]:]
+                # The wave's one read: its counters, with coverage on its
+                # vector, with device liveness the edge log's fill count.
+                parts = [out["stats"]]
+                if self._cov is not None:
+                    parts.append(out["cov"])
+                if self._live_enabled:
+                    parts.append(self._elog["count"].view(1))
+                read = torch.cat(parts).tolist()
+                ns = out["stats"].shape[0]
+                stats = read[:ns]
+                if self._cov is not None:
+                    cov = read[ns:ns + self._cov_layout.size]
+                if self._live_enabled:
+                    self._elog_count = read[-1]
             self.waves += 1
             if self._cov is not None:
                 # A table-growth retry re-expands the same frontier: only
@@ -1301,6 +1401,10 @@ class GpuBfsChecker(Checker):
                         drain_window.__exit__(None, None, None)
                         return table, self._handoff_queue(queue)
                 width = self._drain_width(rungs)
+                if self._live_enabled:
+                    # Room in the edge log for the drain's first wave; the
+                    # drain stops itself once it could not take another.
+                    self._maybe_evict_elog()
                 budget = min(
                     int(_MAX_LOAD * self._capacity) - self._l0_count, (1 << 31) - 1 - B
                 )
@@ -1495,7 +1599,10 @@ class GpuBfsChecker(Checker):
         lanes stop the drain). Under symmetry the wave keys its lanes with no
         host read; one whose refined keys failed on a valid lane inserts
         nothing and stops the drain with the "orbit fallback" reason alone.
-        Returns ``(table, out, frontier)``."""
+        With device liveness the wave appends its rows to the edge log, and
+        one after which the log could not take another wave of the rung
+        stops the drain ("edge log full"). Returns ``(table, out,
+        frontier)``."""
         d = self._drain
         sc = d["scalars"]
         PC, L, F = d["capacity"], self._drain_log_capacity, width
@@ -1531,6 +1638,11 @@ class GpuBfsChecker(Checker):
             rows["states"] = take_children(self._spec, frontier["states"], new["src"][:S])
             new, parent_hi, parent_lo = rows, parent_hi[:S], parent_lo[:S]
         reason = sum(f.to(torch.int64) << i for i, f in enumerate(fails))
+        if self._live_enabled:
+            # The edge log must take another worst-case wave of this rung
+            # (B edge rows + F terminal rows), or the host evicts it first.
+            full = self._elog["count"] + (B + F) > self._elog_capacity
+            reason = reason | (full.to(torch.int64) << _EDGE_LOG_FULL_BIT)
         if "hold" in out:
             reason = torch.where(out["hold"], _ORBIT_FALLBACK, reason)
         ok = (reason == 0).to(torch.int64)
@@ -1597,7 +1709,12 @@ class GpuBfsChecker(Checker):
         parts = [sc, d["final_stats"]]
         if self._cov is not None:
             parts += [d["cov_acc"], d["final_cov"]]
+        if self._live_enabled:
+            # The edge log's fill count, the final wave's rows included.
+            parts.append(self._elog["count"].view(1))
         summary = torch.cat(parts).tolist()  # the drain's one read
+        if self._live_enabled:
+            self._elog_count = summary[-1]
         out, frontier = slots[summary[_FINAL_SLOT]]
         return table, summary, out, frontier
 
@@ -1681,7 +1798,8 @@ class GpuBfsChecker(Checker):
                     # counts are undone below and added at every replay.
                     counts = [getattr(mod, name) for mod, name in _LAUNCH_COUNTERS]
                 graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                with _collector_paused(), torch.cuda.graph(
+                        graph, capture_error_mode="thread_local"):
                     for j in range(_GRAPH_WAVES):
                         _table, out, frontier = self._drain_step(
                             table, width, g * _GRAPH_WAVES + j
@@ -1720,8 +1838,10 @@ class GpuBfsChecker(Checker):
         discoveries, the parent map, the capacity, the pending chunks
         (``queue``, live lanes only) as numpy, the claimed keys under
         symmetry, the tiers' runs once the table has evicted, and, from a
-        drain, the rung selector's state (``drain``). Pass it to a new
-        checker's ``resume_from=``."""
+        drain, the rung selector's state (``drain``). With device liveness
+        the edge log is evicted first and the payload, format v3, carries
+        the edge store (``"liveness"``). Pass it to a new checker's
+        ``resume_from=``."""
         self._ingest_wave_log()
         children, parents = self._store.export()
         payload = {
@@ -1742,6 +1862,13 @@ class GpuBfsChecker(Checker):
             payload["storage"] = self._tier.export_state()
         if drain is not None:
             payload["drain"] = drain
+        if self._live_enabled:
+            # The condition-false relation so far (the device log flushed
+            # first) and the roots and terminals: the resumed run's verdict
+            # does not depend on where the run was cut.
+            self._evict_elog()
+            payload["liveness"] = self._live_store.export_state()
+            payload["version"] = 3
         return payload
 
     def _restore(self, source):
@@ -1778,6 +1905,25 @@ class GpuBfsChecker(Checker):
                 self._tier = TieredVisitedStore(instruments=StorageInstruments("gpu_bfs"),
                                                 tracer=self._tracer)
             self._tier.load_state(storage)
+        # Device-liveness state must round-trip with the run: resuming a
+        # liveness="device" run without the knob (or the reverse) would end
+        # with a silently truncated edge relation, an unsound verdict.
+        live_state = payload.get("liveness")
+        if self._live_enabled and live_state is None:
+            raise ValueError(
+                "liveness='device' cannot resume a checkpoint written "
+                "without it: the edges explored before the checkpoint "
+                "were never logged, so the final verdict would be "
+                "unsound"
+            )
+        if live_state is not None:
+            if not self._live_enabled:
+                raise ValueError(
+                    "checkpoint carries a liveness edge store; resume "
+                    "with liveness='device' (dropping it would discard "
+                    "the soundness the original run paid for)"
+                )
+            self._live_store.load_state(live_state)
         if self._tier is not None and not self._tier.is_empty():
             keys = keys[~self._tier.probe(keys)]
         self._capacity = max(self._capacity, payload["capacity"])
@@ -1836,6 +1982,40 @@ class GpuBfsChecker(Checker):
         ``preempt_payload()`` stays None."""
         self._preempt_event.set()
 
+    # -- device liveness (liveness="device") ----------------------------------
+
+    def _maybe_evict_elog(self) -> None:
+        """Evicts the device edge log to the host store when one more
+        worst-case wave (F_max·A edge rows + F_max terminal rows) could
+        overflow it."""
+        self._live_ins.occupancy.set(self._elog_count / self._elog_capacity)
+        if self._elog_count + self._F_max * (self._A + 1) > self._elog_capacity:
+            self._evict_elog()
+
+    def _evict_elog(self) -> None:
+        """Drains the filled prefix of the device edge log into the host
+        ``LivenessEdgeStore`` (one copy of the six columns) and resets the
+        fill count on the device."""
+        n = self._elog_count
+        if self._elog is None or n == 0:
+            return
+        if n > self._elog_capacity:
+            raise RuntimeError(
+                "liveness edge store overflowed despite headroom checks "
+                f"({n} > {self._elog_capacity}); this is a bug"
+            )
+        with self._tracer.span("gpu_bfs.liveness.evict", rows=n):
+            cols = torch.stack([self._elog[c][:n] for c in EDGE_COLS]).cpu().numpy()
+            self._live_store.absorb(**dict(zip(EDGE_COLS, cols)))
+            self._elog["count"].zero_()
+            self._elog_count = 0
+        self._live_ins.occupancy.set(0.0)
+
+    def _flush_live_edges(self) -> None:
+        """The analysis's pre-hook: the log is on the device, so it drains
+        before any host read."""
+        self._evict_elog()
+
     @property
     def storage_fps(self) -> int:
         """Keys held in the host tiers' runs (0 with no budget)."""
@@ -1843,21 +2023,25 @@ class GpuBfsChecker(Checker):
 
     def state_digest(self) -> dict:
         """A cheap summary of where the run stands: counts, the table, the
-        checkpoint path, whether it was preempted, and the tiers' storage
-        statistics once they exist."""
+        checkpoint path, whether it was preempted, the liveness mode (and
+        the edge store's statistics with device liveness), and the tiers'
+        storage statistics once they exist."""
         digest = {
             "backend": type(self).__name__,
             "done": self.is_done(),
             "state_count": self.state_count(),
             "unique_state_count": self.unique_state_count(),
             "max_depth": self.max_depth(),
-            "discoveries": sorted(self._discoveries_fp),
+            "discoveries": sorted(set(self._discoveries_fp) | set(self._live_paths)),
             "table_capacity": self._capacity,
             "frontier_capacity": self._F_max,
             "wave_kernel": self._wave_kernel,
             "checkpoint_path": self._checkpoint_path,
             "preempted": self.preempted,
+            "liveness_mode": self.liveness_mode,
         }
+        if self._live_store is not None:
+            digest["liveness_edge_store"] = self._live_store.stats()
         if self._tier is not None:
             digest["storage"] = self._tier.instruments.bench_stats()
         return digest
@@ -1908,13 +2092,17 @@ class GpuBfsChecker(Checker):
     def max_depth(self) -> int:
         return self._max_depth
 
+    supports_device_liveness = True
+
     def discoveries(self) -> Dict[str, Path]:
         out = {
             name: self._reconstruct(fp)
             for name, fp in list(self._discoveries_fp.items())
         }
+        out = self._with_device_liveness(out)
         return self._with_lassos(
-            out, self._done_event.is_set(), set(self._discoveries_fp)
+            out, self._done_event.is_set(),
+            set(self._discoveries_fp) | set(self._live_paths),
         )
 
     def handles(self) -> List[threading.Thread]:

@@ -419,7 +419,7 @@ def _stats(spec, cond, eval_mask, terminal, ebits_after, hi, lo, depth,
 
 
 def torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None,
-               exact=True, mark=_no_mark):
+               exact=True, mark=_no_mark, elog=None):
     """The whole wave in torch, fingerprinting with ``spec.fingerprint``
     (the model's ``packed_fingerprint``), with the visited-set insert
     through ``hashset_insert_sorted`` (the CUDA kernel on a CUDA table, its
@@ -434,7 +434,16 @@ def torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None,
     keys (``key_hi``, ``key_lo``). ``exact=False`` computes the keys with
     no host read (``SymmetryKeys.wave_keys``): ``out["hold"]`` is then a
     0-d bool tensor, and a wave that holds inserts nothing. ``mark(name)``
-    is called before each stage (``checker/breakdown.py``)."""
+    is called before each stage (``checker/breakdown.py``).
+
+    ``elog`` (device liveness, ``ops/edge_store.py``'s log) appends the
+    wave's condition-false edge and terminal rows to the log, in place,
+    with no host read: the candidates' conditions and
+    ``checker/device_liveness.py::wave_edge_rows`` over the pre-sort
+    fingerprints, in lane order (the JAX staged wave's append,
+    ``checker/tpu.py:1229-1246``). No output of the wave depends on the
+    log, so a wave with it and one without give the same results bit for
+    bit."""
     F = hi.shape[0]
     cond, cvalid, cand_flat = model_stage(spec, states, F, mark)
     mark("fingerprint")
@@ -444,7 +453,7 @@ def torch_wave(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=None,
         def keys(valid):
             return spec.symmetry.wave_keys(cand_flat, valid, exact)
     table, out = _staged_wave(spec, table, states, cond, cvalid, chi, clo, hi, lo, ebits,
-                              depth, depth_cap, mask, keys, mark)
+                              depth, depth_cap, mask, keys, mark, elog, cand_flat)
     # The leaves' rows past n_new are lane 0's.
     mark("gather")
     src = out["new"].pop("src")
@@ -473,7 +482,7 @@ def torch_wave_fps(spec, table, states, hi, lo, ebits, depth, depth_cap, mask=No
 
 
 def _staged_wave(spec, table, states, cond, cvalid, chi, clo, hi, lo, ebits, depth,
-                 depth_cap, mask, keys=None, mark=_no_mark):
+                 depth_cap, mask, keys=None, mark=_no_mark, elog=None, cand_flat=None):
     """The staged wave from the candidates' valid bits and fingerprints on:
     the frontier, the sort and dedup, the insert, the stats, the coverage
     and the JAX staged wave's cumsum compaction (the Pallas epilogue's,
@@ -482,12 +491,20 @@ def _staged_wave(spec, table, states, cond, cvalid, chi, clo, hi, lo, ebits, dep
     valid bits under the eval mask to ``(khi, klo, hold)``
     (``SymmetryKeys.wave_keys``): the dedup and insert run on those keys,
     none of them when ``hold`` is true. ``mark(name)`` is called before
-    each stage."""
+    each stage. ``elog`` (device liveness, with the candidates
+    ``cand_flat``) takes the wave's condition-false rows."""
     F, A = hi.shape[0], spec.action_count
     mark("frontier")
     eval_mask, ebits_after, cvalid, terminal = _frontier_plain(
         spec, cond, cvalid, ebits, depth, depth_cap, mask
     )
+    if elog is not None:
+        from ..checker.device_liveness import wave_edge_rows
+        from .edge_store import edge_log_append
+
+        rows, n = wave_edge_rows(spec.conditions, dict(spec.ebit), cond, cand_flat, cvalid,
+                                 terminal, hi, lo, chi, clo, A)
+        edge_log_append(elog, rows, n, elog["phi"].shape[0] - 1)
     khi, klo, hold = chi, clo, None
     if keys is not None:
         mark("keys")

@@ -20,12 +20,15 @@ the L0-fresh keys of each wave batch-probe L1/L2 on the host. The union of
 the tiers is exactly the visited set, so a key reports fresh iff it was
 never seen, and results are bit-identical to the single-tier run.
 
-The JAX package's ``persist``, ``corpus`` and ``edge_log`` modules wait
-for the modules of the port that use them. Nothing here imports JAX or
-the JAX package.
+``edge_log.py`` is the host tier of the device liveness edge log
+(``LivenessEdgeStore``: the condition-false edges, deduped, spilled past
+``host_budget_mib``, with the roots and terminals). The JAX package's
+``persist`` and ``corpus`` modules wait for the modules of the port that
+use them. Nothing here imports JAX or the JAX package.
 """
 
 from .bloom import BloomFilter
+from .edge_log import LivenessEdgeStore, LivenessInstruments
 from .runs import (
     RUN_BLOCK,
     FingerprintRun,
@@ -44,6 +47,8 @@ from .tiered import (
 __all__ = [
     "BloomFilter",
     "FingerprintRun",
+    "LivenessEdgeStore",
+    "LivenessInstruments",
     "RUN_BLOCK",
     "StorageInstruments",
     "TieredVisitedStore",

@@ -153,6 +153,8 @@ _SITE_EXC = {
     # the per-tenant harvest that bounds a packed swarm's blast radius.
     "swarm.wave": DeviceWaveFault,
     "swarm.tenant.verdict": PackTenantFault,
+    # The device liveness edge log's host absorb (storage/edge_log.py).
+    "liveness.edge_evict": LivenessEvictFault,
 }
 
 # Sites that exist in the tree — fail fast on typos in test specs.

@@ -121,3 +121,107 @@ def test_swarm_config_matches_the_jax_package(name):
     assert got == want
     builder = cfg.builder()
     assert builder._target_state_count == cfg.target
+
+
+# -- the liveness leg (bench.py's _run_liveness_leg) --------------------------------
+
+
+def _bench_liveness_spawns():
+    """The ``spawn_tpu_bfs`` settings of the JAX bench's liveness leg, read
+    from its source, in call order (raft-3 check-live, then the DAG)."""
+    import ast
+    import inspect
+    import textwrap
+
+    tree = ast.parse(textwrap.dedent(inspect.getsource(bench._run_liveness_leg)))
+    return [{k.arg: eval(compile(ast.Expression(k.value), "bench.py", "eval"), {})
+             for k in node.keywords}
+            for node in ast.walk(tree)
+            if isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "spawn_tpu_bfs"]
+
+
+def test_liveness_configs_are_the_bench_liveness_runs():
+    from stateright_tpu_torch.configs import LIVENESS_CONFIGS, LevelDag
+
+    raft, dag = _bench_liveness_spawns()
+    assert LIVENESS_CONFIGS["raft3_check_live"].spawn == raft
+    assert LIVENESS_CONFIGS["level_dag_absence"].spawn == dag
+    # The card-sized run: the same DAG at W = 2^20, spawned as the leg
+    # spawns it, at a frontier and a table fitted to its 2^20-wide levels.
+    big = LIVENESS_CONFIGS["level_dag_2p20"]
+    assert big.spawn == dict(frontier_capacity=1 << 16, table_capacity=1 << 23,
+                             liveness="device")
+    model = big.make()
+    assert isinstance(model, LevelDag) and (model.W, model.WB, model.L) == (1 << 20, 20, 20)
+    # Every level k holds min(2^k, W) values: 2^21 - 1 states.
+    assert big.unique == sum(min(1 << k, model.W) for k in range(model.L + 1)) == 2_097_151
+    default = LevelDag()
+    assert (default.W, default.WB, default.L) == (bench._LevelDag.W, bench._LevelDag.WB,
+                                                  bench._LevelDag.L)
+    assert LIVENESS_CONFIGS["level_dag_absence"].unique == sum(
+        min(1 << k, default.W) for k in range(default.L + 1)) == 73_727
+
+
+def test_raft3_check_live_matches_the_jax_package():
+    from stateright_tpu_torch.configs import LIVENESS_CONFIGS
+
+    cfg = LIVENESS_CONFIGS["raft3_check_live"]
+    port = cfg.make()
+    ref = JaxRaftModelCfg(server_count=3, max_term=1, lossy=True).into_model() \
+        .retain_properties("stable leader")
+    assert port.packed_action_count() == ref.packed_action_count()
+    assert [p.name for p in port.properties()] == [p.name for p in ref.properties()] == [
+        "stable leader"]
+    got = {k: tuple(v.shape) for k, v in port.packed_init_states().items()}
+    want = {k: tuple(np.asarray(v).shape) for k, v in ref.packed_init_states().items()}
+    assert got == want
+
+
+def test_level_dag_is_the_bench_class_state_for_state():
+    """On a small W (2^5, 7 levels) the port's ``LevelDag`` and the bench's
+    ``_LevelDag`` give the same host states, actions, successors and
+    verdicts of the condition, and the same packed words, successors and
+    validity on every reachable state."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from stateright_tpu.core.batch import BatchableModel as JaxBatchableModel
+    from stateright_tpu.core.model import Model as JaxModel
+    from stateright_tpu_torch.configs import LevelDag
+
+    class Small(bench._LevelDag, JaxModel, JaxBatchableModel):
+        W, WB, L = 1 << 5, 5, 7
+
+    port, ref = LevelDag(5, 7), Small()
+    assert port.init_states() == ref.init_states()
+    prop, jprop = port.properties()[0], ref.properties()[0]
+    assert prop.name == jprop.name == "done"
+    seen, frontier = set(port.init_states()), list(port.init_states())
+    while frontier:
+        state = frontier.pop()
+        assert prop.condition(port, state) == jprop.condition(ref, state)
+        acts, jacts = [], []
+        port.actions(state, acts)
+        ref.actions(state, jacts)
+        assert acts == jacts
+        for a in acts:
+            nxt = port.next_state(state, a)
+            assert nxt == ref.next_state(state, a)
+            if nxt not in seen:
+                seen.add(nxt)
+                frontier.append(nxt)
+    assert len(seen) == sum(min(1 << k, port.W) for k in range(port.L + 1))
+    states = sorted(seen)
+    words = np.array([int(port.pack_state(s)["s"]) for s in states], np.int64)
+    np.testing.assert_array_equal(words, [int(ref.pack_state(s)["s"]) for s in states])
+    assert [port.unpack_state({"s": torch.tensor(w)}) for w in words] == states
+    cand, valid = port.packed_expand({"s": torch.from_numpy(words)})
+    for a in range(2):
+        jnxt, jvalid = jax.vmap(lambda s: ref.packed_step({"s": s}, jnp.int32(a)))(
+            jnp.asarray(words.astype(np.uint32)))
+        np.testing.assert_array_equal(cand["s"][:, a].numpy(), np.asarray(jnxt["s"]))
+        np.testing.assert_array_equal(valid[:, a].numpy(), np.asarray(jvalid))
+    cond = port.packed_conditions()[0]({"s": torch.from_numpy(words)})
+    jcond = jax.vmap(ref.packed_conditions()[0])({"s": jnp.asarray(words.astype(np.uint32))})
+    np.testing.assert_array_equal(cond.numpy(), np.asarray(jcond))

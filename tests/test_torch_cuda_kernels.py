@@ -1700,3 +1700,87 @@ def test_cuda_gpu_simulation_matches_cpu_twin(cuda_device):
     assert ((runs[0].state_count(), runs[0].max_depth(), runs[0]._discoveries_fps)
             == (runs[1].state_count(), runs[1].max_depth(), runs[1]._discoveries_fps))
     assert runs[0].graph_captures == 1
+
+
+def _liveness_outcomes(checker):
+    return {name: {k: v for k, v in rec.items() if k != "seconds"}
+            for name, rec in checker.liveness_report()["outcomes"].items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge_log_capacity", [None, 24], ids=["default_log", "tiny_log"])
+@pytest.mark.parametrize("model", ["cycle", "level_dag_small"])
+def test_cuda_device_liveness_drain_matches_cpu_twin(cuda_device, model, edge_log_capacity):
+    """``liveness="device"`` through the captured drain on the card and the
+    uncaptured drain of the CPU twin: the same counts, drains and exits
+    ("edge log full" with the tiny log), the same logged relation array for
+    array, the same verdicts, outcome records and certificates; the card's
+    waves ran the insert kernel, and its trim and reach ran on the card."""
+    from stateright_tpu_torch.configs import LevelDag
+    from torch_host_fixtures import PackedDGraph
+
+    make = {"cycle": lambda: PackedDGraph([0, 2, 4, 2], [0, 6], [6, 8, 10, 6]),
+            "level_dag_small": lambda: LevelDag(6, 10)}[model]
+    spawn = dict(frontier_capacity=8, table_capacity=2048, liveness="device",
+                 edge_log_capacity=edge_log_capacity)
+    hk.launches = 0
+    gpu = make().checker().spawn_gpu_bfs(device=cuda_device, **spawn).join()
+    launches = hk.launches
+    cpu = make().checker().spawn_gpu_bfs(device="cpu", **spawn).join()
+    assert gpu.worker_error() is None, gpu.worker_error()
+    assert gpu._wave_kernel == "staged" and gpu.graph_replays >= 1
+    assert launches >= gpu.waves > 0
+    assert gpu.unique_state_count() == cpu.unique_state_count()
+    assert gpu.drains == cpu.drains and gpu.drain_exits == cpu.drain_exits
+    if edge_log_capacity and model == "level_dag_small":
+        assert gpu.drain_exits["edge log full"] >= 1
+    assert _liveness_outcomes(gpu) == _liveness_outcomes(cpu)
+    assert gpu._live_store.stats() == cpu._live_store.stats()
+    rows, cpu_rows = gpu._live_store.edge_rows(), cpu._live_store.edge_rows()
+    np.testing.assert_array_equal(rows, cpu_rows)
+    assert {k: p.encode() for k, p in gpu.discoveries().items()} == {
+        k: p.encode() for k, p in cpu.discoveries().items()}
+    want = "counterexample" if model == "cycle" else "absent"
+    assert list(gpu.liveness_report()["outcomes"].values())[0]["verdict"] == want
+
+
+@pytest.mark.cuda
+def test_cuda_drain_capture_survives_garbage_graphs(cuda_device):
+    """Another run's CUDA Graph that becomes cyclic garbage while a drain is
+    being captured, with the collector set to run at every allocation, is
+    not collected inside the capture (destroying it there would invalidate
+    the capture): the run equals its CPU twin."""
+    import gc
+
+    from torch_host_fixtures import PackedDGraph
+
+    class Baited(PackedDGraph):
+        bait = None
+
+        def packed_expand(self, states):
+            if self.bait is not None and torch.cuda.is_current_stream_capturing():
+                cycle = [self.bait]
+                cycle.append(cycle)
+                self.bait = None
+                del cycle
+            return super().packed_expand(states)
+
+    paths = ([0, 2, 4, 2], [0, 6], [6, 8, 10, 6])
+    spawn = dict(frontier_capacity=8, table_capacity=2048, liveness="device")
+    graph, x = torch.cuda.CUDAGraph(), torch.zeros(1, device=cuda_device)
+    with torch.cuda.graph(graph):
+        x.add_(1)
+    model = Baited(*paths)
+    model.bait = graph
+    del graph
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        gpu = model.checker().spawn_gpu_bfs(device=cuda_device, **spawn).join()
+    finally:
+        gc.set_threshold(*thresholds)
+    assert model.bait is None and gpu.graph_captures >= 2
+    cpu = PackedDGraph(*paths).checker().spawn_gpu_bfs(device="cpu", **spawn).join()
+    assert _liveness_outcomes(gpu) == _liveness_outcomes(cpu)
+    assert {k: p.encode() for k, p in gpu.discoveries().items()} == {
+        k: p.encode() for k, p in cpu.discoveries().items()}

@@ -3,21 +3,26 @@
 ``stateright_tpu_torch``'s ``Model``, and two small models with the packed
 protocol in torch for the GPU checker's lasso pass (``Diamond``, and
 ``Cycler`` from ``stateright_tpu_torch.testing``, which ``chip_smoke.py``
-drives too). The host engines' parity tests (``test_torch_host_engines.py``,
-``test_torch_liveness.py``, ``test_torch_explorer.py``) run each of these
-and its JAX twin side by side.
+drives too), and ``PackedDGraph``, the packed graph of
+``test_device_liveness.py``. The host engines' parity tests
+(``test_torch_host_engines.py``, ``test_torch_liveness.py``,
+``test_torch_explorer.py``) and the device liveness tests
+(``test_torch_device_liveness.py``) run each of these and its JAX twin side
+by side.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Set
 
+import numpy as np
 import torch
 
 from stateright_tpu_torch import Model, Property
 from stateright_tpu_torch.testing import Cycler, PackedScalar
 
-__all__ = ["BinaryClock", "Cycler", "DGraph", "Diamond", "LinearEquation", "Panicker"]
+__all__ = ["BinaryClock", "Cycler", "DGraph", "Diamond", "LinearEquation", "PackedDGraph",
+           "Panicker", "chain"]
 
 
 class BinaryClock(Model):
@@ -156,3 +161,77 @@ class Diamond(PackedScalar):
 
     def packed_conditions(self):
         return [lambda st: st["s"] % 2 == 1]
+
+
+class PackedDGraph(PackedScalar):
+    """A graph given by paths from its initial states, with the
+    ``eventually "odd"`` property, in the packed protocol: the port's twin
+    of ``test_device_liveness.py::PackedDGraph``. States are node ids;
+    action ``i`` takes a node's ``i``-th successor in sorted order."""
+
+    def __init__(self, *paths):
+        self.inits = set()
+        self.edges = {}
+        for path in paths:
+            src = path[0]
+            self.inits.add(src)
+            for dst in path[1:]:
+                self.edges.setdefault(src, set()).add(dst)
+                src = dst
+        nodes = set(self.inits) | set(self.edges)
+        for ds in self.edges.values():
+            nodes |= ds
+        size = max(nodes) + 1
+        self._A_max = max((len(v) for v in self.edges.values()), default=1) or 1
+        self._succ = np.zeros((size, self._A_max), np.int64)
+        self._vld = np.zeros((size, self._A_max), bool)
+        for s, ds in self.edges.items():
+            for i, d in enumerate(sorted(ds)):
+                self._succ[s, i] = d
+                self._vld[s, i] = True
+        self._on_device = {}
+
+    def init_states(self):
+        return sorted(self.inits)
+
+    def actions(self, state, actions):
+        actions.extend(i for i in range(self._A_max) if self._vld[state, i])
+
+    def next_state(self, state, action):
+        if not self._vld[state, action]:
+            return None
+        return int(self._succ[state, action])
+
+    def properties(self):
+        return [Property.eventually("odd", lambda _, s: s % 2 == 1)]
+
+    def packed_action_count(self):
+        return self._A_max
+
+    def _tables(self, device):
+        # On the device before any drain graph is captured (a copy from the
+        # host cannot be captured): the first wave, uncaptured, makes them.
+        key = str(device)
+        if key not in self._on_device:
+            self._on_device[key] = (torch.from_numpy(self._succ).to(device),
+                                    torch.from_numpy(self._vld).to(device))
+        return self._on_device[key]
+
+    def packed_expand(self, states):
+        s = states["s"]
+        succ, vld = self._tables(s.device)
+        valid = vld[s]
+        return {"s": torch.where(valid, succ[s], s[:, None])}, valid
+
+    def packed_conditions(self):
+        return [lambda st: st["s"] % 2 == 1]
+
+
+def chain(n, tail_odd=True):
+    """0 -> 2 -> ... -> 2(n - 1) [-> an odd terminal]: the absence shape of
+    ``test_device_liveness.py::_chain`` (no cycle; the only terminal
+    satisfies the condition)."""
+    path = [2 * i for i in range(n)]
+    if tail_odd:
+        path.append(2 * n + 1)
+    return PackedDGraph(path)
