@@ -138,6 +138,17 @@ figures; raft4 staged with the knob and without it (24,545 both); the
 absence run preempted after its first drain and resumed from its version 3
 payload. One ``{"liveness_run": ...}`` line a run, and the insert kernel's
 launches of each run in the kernels line.
+Then tenant packing (``tenant_packing``): ``TenantPackedEngine`` on the
+card, every salted claim through the insert kernel: 8 tenants of 2pc-5 (the
+JAX service bench's packed leg) each equal to its CPU twin, beside a solo
+2pc-5; 4 tenants of 2pc-8 at the ``2pc8`` configuration's widths, one
+joining after 20 waves and one dropped at half its count and resumed in
+``spawn_gpu_bfs``, each at 1,745,408 with a solo card run's depth and
+discovery names; 2 tenants of 2pc-5 at twice the smallest admissible budget
+in both pipeline modes; 3 tenants of the ``LevelDag`` absence model with
+``liveness="device"``; and the insert kernel against its plain twin on a
+full-width 2pc-8 pack wave. One ``{"pack_run": ...}`` line a pack, and a
+``{"tenant_packing": ...}`` summary after the kernels line.
 Prints phase lines, the card's name and power limit, the fused wave's
 stage times, the drains' walls, waves, no-op and warm-up waves, exits,
 graph captures and replays and rungs, peak device memory, one
@@ -3515,6 +3526,324 @@ def device_liveness():
     return out
 
 
+# -- tenant packing ---------------------------------------------------------------
+
+UNIQUE_2PC5, UNIQUE_2PC8 = 8_832, 1_745_408
+
+
+def _pack_drive(eng, views=None, before_step=None, max_steps=100_000):
+    """Steps a pack until no tenant is live, calling ``before_step(eng)``
+    before each step, releasing the finished; returns ``views``."""
+    steps = 0
+    while True:
+        if before_step is not None:
+            before_step(eng)
+        if not eng.live_count():
+            break
+        for key in eng.step():
+            eng.release(key)
+        steps += 1
+        assert steps < max_steps, "packed engine did not converge"
+    eng.close()
+    return views
+
+
+def _pack_record(name, eng, views, wall, launches, peak, gc_pauses):
+    """One ``{"pack_run": ...}`` record: each tenant's unique count, the
+    waves and lanes (occupancy = live / dispatched), the table, the wall and
+    the aggregate unique states a second, the host seconds of the waves'
+    parts (assembly and upload, the wave to its stats read, the fresh
+    prefix's copy, the verdicts, the table's growths) and what else the
+    wall holds, the collector's pauses (seconds and collections by
+    generation), the insert launches and the peak bytes."""
+    unique = {k: v.unique_state_count() for k, v in views.items()}
+    rec = {"name": name, "device": eng.device.type, "tenants": len(views), "unique": unique,
+           "waves": eng.waves, "lanes_live": eng.lanes_live,
+           "lanes_dispatched": eng.lanes_dispatched,
+           "occupancy": eng.lanes_live / max(1, eng.lanes_dispatched),
+           "table_capacity": eng._capacity, "table_growths": eng.table_growths,
+           "evictions": eng.evictions, "wall_s": wall,
+           "unique_per_s": sum(unique.values()) / wall, "assemble_s": eng.assemble_s,
+           "wave_s": eng.wave_s, "copy_s": eng.copy_s, "verdict_s": eng.verdict_s,
+           "grow_s": eng.grow_s,
+           "other_s": wall - eng.assemble_s - eng.wave_s - eng.copy_s - eng.verdict_s
+           - eng.grow_s, "gc_s": gc_pauses["s"], "gc_collections": gc_pauses["n"],
+           "insert_launches": launches, "peak_device_bytes": peak}
+    log(json.dumps({"pack_run": rec}))
+    return rec
+
+
+def _same_pack_tenant(label, got, want, golden=True):
+    """A card tenant held to its CPU twin: counts, depth, discovery names
+    and (``golden``) the report, paths included."""
+    for k in ("unique_state_count", "state_count", "max_depth"):
+        assert getattr(got, k)() == getattr(want, k)(), (label, k, getattr(got, k)(),
+                                                         getattr(want, k)())
+    assert sorted(got.discoveries()) == sorted(want.discoveries()), label
+    if golden:
+        assert _golden(got) == _golden(want), label
+
+
+# The full-width 2pc-8 pack wave whose insert is held to its plain twin:
+# late enough that the shared table is well filled.
+PACK_INSERT_WAVE = 64
+
+
+def _capture_pack_insert(pt, width):
+    """Wraps the pack's salted insert to keep the inputs of one full-width
+    wave (the ``PACK_INSERT_WAVE``-th): the table before it, the keys, the
+    salts and the valid lanes."""
+    real, seen = pt.hashset_insert_salted, {"n": 0}
+
+    def spy(table, hi, lo, salt_hi, salt_lo, active):
+        if hi.shape[0] == width and "table" not in seen:
+            seen["n"] += 1
+            if seen["n"] == PACK_INSERT_WAVE:
+                seen.update(table=table.clone(), args=[x.clone() for x in (
+                    hi, lo, salt_hi, salt_lo, active)])
+        return real(table, hi, lo, salt_hi, salt_lo, active)
+
+    pt.hashset_insert_salted = spy
+    return real, seen
+
+
+def _insert_on_pack_wave(seen):
+    """``hashset_insert_sorted`` against its plain twin on one full-width
+    2pc-8 pack wave, as ``hashset_insert_salted`` hands it over: the four
+    tenants' salted keys, sorted, the first copy of each key active, into
+    the pack's shared table; its median time and bound."""
+    import torch
+
+    from stateright_tpu_torch.interop import table_to_numpy
+    from stateright_tpu_torch.ops.fingerprint import salt_keys
+    from stateright_tpu_torch.ops.hashset_kernel import sort_key, split_key
+
+    hi, lo, shi, slo, active = seen["args"]
+    khi, klo = salt_keys(hi, lo, shi, slo)
+    key = torch.where(active, sort_key(khi, klo), torch.full_like(khi, (1 << 63) - 1))
+    skey, order = torch.sort(key, stable=True)
+    sact = active[order]
+    first = torch.ones_like(sact)
+    first[1:] = (skey[1:] != skey[:-1]) | (sact[1:] != sact[:-1])
+    shi_, slo_ = split_key(skey)
+    hi_np, lo_np = (x.cpu().numpy().astype("uint32") for x in (shi_, slo_))
+    act_np = (sact & first).cpu().numpy()
+    r = _compare_insert(table_to_numpy(seen["table"]), hi_np, lo_np, act_np, timing=True)
+    moved = _bd().insert_must_move(r["after"], hi_np, lo_np, act_np, r["fresh"])
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    log(f"  hashset_insert_sorted (2pc-8 pack wave): B={hi_np.shape[0]} "
+        f"active={int(act_np.sum())} fresh={int(r['fresh'].sum())} max_abs_err={r['err']} "
+        f"median {r['ms']:.4f} ms plain={r['plain_ms']:.1f} ms (host CPU) "
+        f"bound={bound_ms:.6f} ms ({moved} B)")
+    if r["err"]:
+        raise AssertionError("hashset_insert_sorted and its plain twin disagree on the "
+                             "pack wave")
+    return {"max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": bound_ms}
+
+
+@phase("tenant_packing")
+def tenant_packing():
+    """Tenant packing on the card (``TenantPackedEngine``: one shared wave
+    and one shared table, every salted claim through the insert kernel),
+    each pack against its CPU twin or its solo card runs: 8 x 2pc-5 (the
+    JAX service bench's packed leg, bench.py:900-933) beside a solo 2pc-5;
+    4 x 2pc-8 at the 2pc8 configuration's widths, one tenant joining after
+    20 waves and one dropped at half its count and resumed in
+    ``spawn_gpu_bfs``, held to a solo card run; 2 x 2pc-5 at twice the
+    smallest admissible budget, both pipeline modes; 3 x the LevelDag
+    absence model with ``liveness="device"``. One ``{"pack_run": ...}``
+    line a run; the insert kernel on a full-width 2pc-8 pack wave against
+    its plain twin."""
+    import torch
+
+    from stateright_tpu_torch.checker import TenantPackedEngine
+    from stateright_tpu_torch.checker import packed_tenancy as pt
+    from stateright_tpu_torch.checker.gpu import min_admissible_hbm_budget_mib
+    from stateright_tpu_torch.configs import CONFIGS, LIVENESS_CONFIGS
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+    from stateright_tpu_torch.telemetry import metrics_registry
+
+    out, launches = {"runs": {}}, {}
+
+    def run(name, make_engine, script):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        pauses = {"s": 0.0, "n": [0, 0, 0], "t0": None}
+
+        def on_gc(event, info):
+            if event == "start":
+                pauses["t0"] = time.perf_counter()
+            elif pauses["t0"] is not None:
+                pauses["s"] += time.perf_counter() - pauses["t0"]
+                pauses["n"][info["generation"]] += 1
+
+        gc.callbacks.append(on_gc)
+        try:
+            t0 = time.perf_counter()
+            eng = make_engine()
+            views = script(eng)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            gc.callbacks.remove(on_gc)
+        n = _read_launches()
+        assert eng.device.type == "cuda", name
+        assert n["fused_wave"] == 0 and n["hashset_insert_sorted"] >= eng.waves > 0, (name, n)
+        launches[name] = n["hashset_insert_sorted"]
+        out["runs"][name] = _pack_record(name, eng, views, wall, launches[name],
+                                         torch.cuda.max_memory_allocated(), pauses)
+        return eng, views
+
+    def admit_all(prefix, n):
+        def script(eng):
+            views = {f"t{i}": eng.admit(f"t{i}", f"tpk-{prefix}-{eng.device.type}-{i}")
+                     for i in range(n)}
+            return _pack_drive(eng, views)
+        return script
+
+    def cpu_twin(make_engine, script):
+        eng = make_engine()
+        return eng, script(eng)
+
+    # 8 x 2pc-5: the JAX service bench's packed leg, nothing cut.
+    kw = dict(frontier_capacity=1 << 10, table_capacity=1 << 15, max_tenants=8)
+    card, views = run("pack_2pc5x8", lambda: TenantPackedEngine(TwoPhaseSys(5), **kw),
+                      admit_all("2pc5x8", 8))
+    _, twins = cpu_twin(lambda: TenantPackedEngine(TwoPhaseSys(5), device="cpu", **kw),
+                        admit_all("2pc5x8", 8))
+    for key, view in views.items():
+        assert view.unique_state_count() == UNIQUE_2PC5, key
+        _same_pack_tenant(f"pack_2pc5x8 {key}", view, twins[key])
+    _zero_launches()
+    solo, solo_wall = _timed(lambda: TwoPhaseSys(5).checker().spawn_gpu_bfs(
+        frontier_capacity=1 << 10, table_capacity=1 << 15).join())
+    torch.cuda.synchronize()
+    launches["pack_2pc5_solo"] = _read_launches()
+    assert solo.unique_state_count() == UNIQUE_2PC5
+    rec = out["runs"]["pack_2pc5x8"]
+    out["2pc5x8"] = {"pack_unique_per_s": rec["unique_per_s"], "pack_wall_s": rec["wall_s"],
+                     "solo_wall_s": solo_wall,
+                     "solo_unique_per_s": UNIQUE_2PC5 / solo_wall,
+                     "solo_engine": solo._wave_kernel, "waves": rec["waves"],
+                     "occupancy": rec["occupancy"], "insert_launches": rec["insert_launches"]}
+    log(json.dumps({"pack_2pc5x8": out["2pc5x8"]}))
+
+    # 4 x 2pc-8 at the 2pc8 configuration's widths: "d" joins after 20
+    # waves, "b" is dropped at half its count and resumed solo.
+    cfg = CONFIGS["2pc8"]
+    kw = dict(frontier_capacity=cfg.spawn["frontier_capacity"],
+              table_capacity=cfg.spawn["table_capacity"], max_tenants=4)
+    dropped = {}
+
+    def script_2pc8(eng):
+        views = {k: eng.admit(k, f"tpk-2pc8x4-{k}") for k in ("a", "b", "c")}
+
+        def before_step(eng):
+            if "d" not in views and eng.waves >= 20:
+                views["d"] = eng.admit("d", "tpk-2pc8x4-d")
+            if "payload" not in dropped and views["b"].unique_state_count() >= UNIQUE_2PC8 // 2:
+                dropped["unique"] = views["b"].unique_state_count()
+                t0 = time.perf_counter()
+                dropped["payload"] = eng.drop("b")
+                dropped["drop_s"] = time.perf_counter() - t0
+
+        return _pack_drive(eng, views, before_step)
+
+    real, seen = _capture_pack_insert(
+        pt, kw["frontier_capacity"] * cfg.make().packed_action_count())
+    try:
+        eng, views = run("pack_2pc8x4", lambda: TenantPackedEngine(cfg.make(), **kw),
+                         script_2pc8)
+    finally:
+        pt.hashset_insert_salted = real
+    assert "table" in seen and "payload" in dropped
+    _zero_launches()
+    resumed, resumed_wall = _timed(lambda: cfg.make().checker().spawn_gpu_bfs(
+        resume_from=dropped["payload"], **cfg.spawn).join())
+    torch.cuda.synchronize()
+    launches["pack_2pc8_resumed"] = _read_launches()
+    _zero_launches()
+    solo, solo_wall = _timed(lambda: cfg.make().checker().spawn_gpu_bfs(**cfg.spawn).join())
+    torch.cuda.synchronize()
+    launches["pack_2pc8_solo"] = _read_launches()
+    finished = {k: v for k, v in views.items() if k != "b"}
+    assert sorted(finished) == ["a", "c", "d"]
+    for key, ck in {**finished, "b_resumed": resumed}.items():
+        assert ck.unique_state_count() == UNIQUE_2PC8, key
+        assert (ck.state_count(), ck.max_depth()) == (solo.state_count(), solo.max_depth()), key
+        assert sorted(ck.discoveries()) == sorted(solo.discoveries()), key
+        for path in ck.discoveries().values():
+            assert path.into_states(), key  # replayed on the model
+    assert views["b"].preempted and dropped["payload"]["kind"] == "gpu_bfs"
+    rec = out["runs"]["pack_2pc8x4"]
+    out["2pc8x4"] = {"wall_s": rec["wall_s"], "unique_per_s": rec["unique_per_s"],
+                     "waves": rec["waves"], "occupancy": rec["occupancy"],
+                     "assemble_s": rec["assemble_s"], "wave_s": rec["wave_s"],
+                     "copy_s": rec["copy_s"], "verdict_s": rec["verdict_s"],
+                     "grow_s": rec["grow_s"], "other_s": rec["other_s"], "gc_s": rec["gc_s"],
+                     "gc_collections": rec["gc_collections"], "drop_s": dropped["drop_s"],
+                     "table_capacity": rec["table_capacity"],
+                     "peak_device_bytes": rec["peak_device_bytes"],
+                     "dropped_at_unique": dropped["unique"], "resumed_wall_s": resumed_wall,
+                     "solo_wall_s": solo_wall, "solo_unique_per_s": UNIQUE_2PC8 / solo_wall,
+                     "insert_launches": rec["insert_launches"]}
+    log(json.dumps({"pack_2pc8x4": out["2pc8x4"]}))
+    out["insert"] = _insert_on_pack_wave(seen)
+    del seen
+
+    # 2 x 2pc-5 at twice the smallest admissible budget, both pipeline modes.
+    for mode in (False, True):
+        name = f"pack_budget_2pc5x2_{'async' if mode else 'sync'}"
+        kw = dict(frontier_capacity=64, table_capacity=1 << 15, max_tenants=2,
+                  hbm_budget_mib=2 * min_admissible_hbm_budget_mib(TwoPhaseSys(5), 64),
+                  async_pipeline=mode)
+        card, views = run(name, lambda: TenantPackedEngine(TwoPhaseSys(5), **kw),
+                          admit_all(name, 2))
+        _, twins = cpu_twin(lambda: TenantPackedEngine(TwoPhaseSys(5), device="cpu", **kw),
+                            admit_all(name, 2))
+        assert card.evictions > 0, name
+        for key, view in views.items():
+            assert view.unique_state_count() == UNIQUE_2PC5, (name, key)
+            _same_pack_tenant(f"{name} {key}", view, twins[key])
+            stale = metrics_registry(view.run_id).snapshot().get("pack.tenant.storage_stale", 0)
+            assert stale > 0, (name, key)
+
+    # 3 x the LevelDag absence model with device liveness.
+    cfg = LIVENESS_CONFIGS["level_dag_absence"]
+    kw = dict(frontier_capacity=cfg.spawn["frontier_capacity"],
+              table_capacity=cfg.spawn["table_capacity"], max_tenants=4, liveness="device")
+    card, views = run("pack_liveness_level_dag", lambda: TenantPackedEngine(cfg.make(), **kw),
+                      admit_all("live", 3))
+    _, twins = cpu_twin(lambda: TenantPackedEngine(cfg.make(), device="cpu", **kw),
+                        admit_all("live", 3))
+    _zero_launches()
+    solo = cfg.make().checker().spawn_gpu_bfs(**cfg.spawn).join()
+    launches["pack_liveness_solo"] = _read_launches()
+
+    def records(ck):
+        return {k: {f: v for f, v in r.items() if f != "seconds"}
+                for k, r in ck.liveness_report()["outcomes"].items()}
+
+    def relation(ck):
+        return {k: v for k, v in ck._live_store.stats().items()
+                if k not in ("evictions", "chunks")}
+
+    import numpy as np
+
+    for key, view in views.items():
+        assert view.unique_state_count() == cfg.unique, key
+        assert records(view) == records(solo) == records(twins[key]), key
+        assert records(view)["done"]["verdict"] == "absent", key
+        assert relation(view) == relation(solo) == relation(twins[key]), key
+        np.testing.assert_array_equal(view._live_store.edge_rows(), solo._live_store.edge_rows())
+        _same_pack_tenant(f"pack_liveness {key}", view, twins[key])
+    out["launches"] = launches
+    return out
+
+
 STAGE_KERNELS = (
     ("frontier_kernel", "frontier"), ("comphash_keys_kernel", "keys"),
     ("keys_pairs_kernel", "keys"), ("keys_kernel", "keys"),
@@ -3937,6 +4266,7 @@ def main() -> int:
     attribution = attribution_and_breakdown() if not FAILED else None
     walks = simulation_and_swarm() if not FAILED else None
     liveness = device_liveness() if not FAILED else None
+    packing = tenant_packing() if not FAILED else None
     if not FAILED:
         stage_device_profile()
     if FAILED:
@@ -3965,6 +4295,12 @@ def main() -> int:
     insert_launches.update(walks["launches"])
     # Device liveness: the staged engine's insert, every wave.
     insert_launches.update({f"liveness_{name}": n for name, n in liveness["launches"].items()})
+    # Tenant packing: every salted claim of a pack (its seeds, waves, bulk
+    # admissions and table growths); the solo and resumed runs beside the
+    # packs join default_runs below.
+    pack_solo = {name: n for name, n in packing["launches"].items() if isinstance(n, dict)}
+    insert_launches.update({name: n for name, n in packing["launches"].items()
+                            if not isinstance(n, dict)})
     fused_launches = by_path("fused", "fused_wave", {"2pc8": drains, **actor_runs})
     comphash_launches = by_path("fused", "fw_comphash_keys", actor_runs)
     cov_runs = {"2pc8": cov_2pc8, "skv4x4": cov_skv}
@@ -3986,7 +4322,8 @@ def main() -> int:
                     **{f"tiering_{name}": {"launches": n}
                        for name, n in tiering["launches"].items()},
                     **{f"attribution_{name}": run
-                       for name, run in attribution["runs"].items()}}
+                       for name, run in attribution["runs"].items()},
+                    **{name: {"launches": n} for name, n in pack_solo.items()}}
     for kernel, counts in (("hashset_insert_sorted", insert_launches),
                            ("fused_wave", fused_launches), ("fw_sort", sort_launches),
                            ("fw_dedup", dedup_launches), ("fw_compact", compact_launches),
@@ -4033,7 +4370,8 @@ def main() -> int:
             "max_abs_err": max(insert["max_abs_err"], raft5_insert["max_abs_err"],
                                sym_insert["max_abs_err"],
                                tiering["restore_insert"]["max_abs_err"],
-                               walks["insert"]["max_abs_err"]),
+                               walks["insert"]["max_abs_err"],
+                               packing["insert"]["max_abs_err"]),
             # On a random 344,064-key batch into a 2^22-row table at load
             # 0.4; on the keys of a raft5 wave and on a 2pc-9 drain take's
             # canonical (symmetry) keys, below.
@@ -4050,7 +4388,11 @@ def main() -> int:
                                              tiering["resumed_payload"]["restore_inserts"]),
                         # One sample step of the deep sharded-KV swarm.
                         "swarm_skv483_deep": held(walks["insert"],
-                                                  insert_launches["swarm_skv483_deep"])},
+                                                  insert_launches["swarm_skv483_deep"]),
+                        # One full-width wave of the 4 x 2pc-8 pack: four
+                        # tenants' salted keys into the shared table.
+                        "pack_2pc8x4": held(packing["insert"],
+                                            insert_launches["pack_2pc8x4"])},
         },
         {
             "name": "fused_wave",
@@ -4232,6 +4574,13 @@ def main() -> int:
             "by_path": stage_held("gather", gather_launches),
         },
     ]}))
+    # The packs' figures after the long kernels line, so the output's tail
+    # keeps them.
+    log(json.dumps({"tenant_packing": {
+        "2pc5x8": packing["2pc5x8"], "2pc8x4": packing["2pc8x4"],
+        "runs": {name: {k: r[k] for k in ("waves", "occupancy", "wall_s", "unique_per_s",
+                                           "evictions", "insert_launches")}
+                 for name, r in packing["runs"].items()}}}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

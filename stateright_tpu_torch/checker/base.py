@@ -120,10 +120,17 @@ class Checker(Generic[State, Action]):
 
         return get_tracer()
 
+    # A run given a run id (a packed tenant) records into its own registry.
+    run_id = None
+    _registry = None
+
     def metrics(self):
-        """The telemetry metrics registry this checker records into (the
-        process-local one); ``metrics().snapshot()`` is the cheap
-        point-in-time view."""
+        """The telemetry metrics registry this checker records into: the
+        process-local one, or the run's own (``_registry``, a packed
+        tenant's run-scoped registry); ``metrics().snapshot()`` is the
+        cheap point-in-time view."""
+        if self._registry is not None:
+            return self._registry
         from ..telemetry import metrics_registry
 
         return metrics_registry()

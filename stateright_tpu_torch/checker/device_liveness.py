@@ -110,7 +110,7 @@ def _bit_where(sel, b):
 
 
 def wave_edge_rows(conditions, ebit: Dict[int, int], cond_vals, cand_flat, cvalid_flat,
-                   terminal, hi, lo, chi, clo, A: int):
+                   terminal, hi, lo, chi, clo, A: int, extra_lane=None, extra_row=None):
     """A staged wave's condition-false edge and terminal rows,
     prefix-compacted into (B + F)-row int64 columns carrying u32 values:
     edges first, in lane order, then terminal rows with the (0, 0) child
@@ -118,8 +118,12 @@ def wave_edge_rows(conditions, ebit: Dict[int, int], cond_vals, cand_flat, cvali
     ``packed_conditions``, ``cond_vals`` the frontier's (P, F) condition
     matrix, ``cvalid_flat`` the candidates' valid bits under the eval mask,
     ``terminal`` the frontier's terminal lanes, ``chi``/``clo`` the
-    candidates' fingerprints in lane order. Returns ``(rows, n)``, ``n`` a
-    0-dim tensor; nothing is read back."""
+    candidates' fingerprints in lane order. ``extra_lane`` and
+    ``extra_row`` (``{name: column}``) add int64 columns, one value a
+    candidate lane (B) for the edge rows and one a frontier row (F) for
+    the terminal rows (0 elsewhere): the tenant-packed engine threads the
+    tenant id through them. Returns ``(rows, n)``, ``n`` a 0-dim tensor;
+    nothing is read back."""
     B = cvalid_flat.shape[0]
     F = hi.shape[0]
     dev = hi.device
@@ -151,6 +155,12 @@ def wave_edge_rows(conditions, ebit: Dict[int, int], cond_vals, cand_flat, cvali
         "emask": column([(slot_e, emask)]),
         "tmask": column([(slot_t, tmask)]),
     }
+    lane_cols, row_cols = extra_lane or {}, extra_row or {}
+    for name in {**lane_cols, **row_cols}:
+        pairs = [(slot_e, lane_cols[name])] if name in lane_cols else []
+        if name in row_cols:
+            pairs.append((slot_t, row_cols[name]))
+        rows[name] = column(pairs)
     return rows, n_e + sel_t.sum()
 
 

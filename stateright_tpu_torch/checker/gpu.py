@@ -554,6 +554,22 @@ def sorted_key_halves(keys: np.ndarray, device):
     return torch.from_numpy(hi).to(device), torch.from_numpy(lo).to(device)
 
 
+def rehash_table(table, capacity: int):
+    """The table's live rows, sorted, inserted into an empty table of
+    ``capacity`` rows on its device through the insert kernel (the plain
+    twin on the CPU); returns the new table and the count of rows that
+    found no slot."""
+    rows_hi, rows_lo = i32_to_u32(table[:, 0]), i32_to_u32(table[:, 1])
+    live = (rows_hi != 0) | (rows_lo != 0)
+    key, _ = torch.sort(sort_key(rows_hi[live], rows_lo[live]))
+    khi, klo = split_key(key)
+    new_table, _fresh, _found, pending = hashset_insert_sorted(
+        hashset_new(capacity, table.device), u32_to_i32(khi),
+        u32_to_i32(klo), torch.ones_like(key, dtype=torch.bool),
+    )
+    return new_table, int(pending.sum())
+
+
 def _chunk_to_host(chunk) -> dict:
     """A queue chunk as numpy arrays (the payload's form)."""
     return {k: (map_leaves(lambda x: x.cpu().numpy(), v) if k == "states"
@@ -979,20 +995,6 @@ class GpuBfsChecker(Checker):
         if self._attr is not None:
             self._attr.observe_probe_lengths(hashset_probe_length_counts(table))
 
-    def _rehash(self, table, capacity):
-        """The old table's live rows, sorted, inserted into an empty table
-        of ``capacity`` rows through the same insert; returns the new table
-        and the count of rows that found no slot."""
-        rows_hi, rows_lo = i32_to_u32(table[:, 0]), i32_to_u32(table[:, 1])
-        live = (rows_hi != 0) | (rows_lo != 0)
-        key, _ = torch.sort(sort_key(rows_hi[live], rows_lo[live]))
-        khi, klo = split_key(key)
-        new_table, _fresh, _found, pending = hashset_insert_sorted(
-            hashset_new(capacity, self._device), u32_to_i32(khi),
-            u32_to_i32(klo), torch.ones_like(key, dtype=torch.bool),
-        )
-        return new_table, int(pending.sum())
-
     def _grow_table(self, table, min_capacity):
         """Doubles the table (rehash) to at least ``min_capacity`` rows, or,
         under a budget, evicts it when that would pass the cap."""
@@ -1004,7 +1006,7 @@ class GpuBfsChecker(Checker):
         while True:
             with self._span("gpu_bfs.table_grow", from_capacity=self._capacity,
                             to_capacity=capacity), self._phase("table_grow"):
-                new_table, leftover = self._rehash(table, capacity)
+                new_table, leftover = rehash_table(table, capacity)
                 if self._attr is not None:
                     self._attr.fence(new_table)
             if not leftover:

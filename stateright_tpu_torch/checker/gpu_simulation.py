@@ -49,7 +49,7 @@ from ..ops import hashset_kernel as hk
 from ..ops.threefry import choose_from_bits, draw_step, lane_keys
 from ..telemetry import get_tracer, metrics_registry
 from .base import Checker
-from .gpu import host_fingerprint, resolve_device
+from .gpu import _collector_paused, host_fingerprint, resolve_device
 
 __all__ = [
     "GpuSimulationChecker",
@@ -335,8 +335,10 @@ class StepGraph:
     step runs uncaptured. On the card the first call runs one step eagerly
     (its first step: it sets up the libraries' workspaces before a
     capture), captures one step in a CUDA Graph and replays it for the
-    rest; later calls replay it ``n`` times. A capture that fails raises:
-    nothing falls back to the uncaptured loop. ``hashset_kernel.launches``
+    rest; later calls replay it ``n`` times. The capture runs with Python's
+    collector paused (``_collector_paused``: a collection inside it could
+    free another run's graph and invalidate the capture). A capture that
+    fails raises: nothing falls back to the uncaptured loop. ``hashset_kernel.launches``
     counts every launch a replay makes (a capture launches nothing, its
     count is undone and added at each replay)."""
 
@@ -374,7 +376,8 @@ class StepGraph:
             t0 = time.perf_counter()
             before = hk.launches
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with _collector_paused(), torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
                 self._fn()
             self._per_replay = hk.launches - before
             hk.launches = before

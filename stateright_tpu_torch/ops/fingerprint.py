@@ -48,7 +48,9 @@ __all__ = [
     "multiset_salts",
     "pairs_acc",
     "row_salts",
+    "salt_keys",
     "state_words",
+    "tenant_salt_pair",
 ]
 
 U32 = 0xFFFFFFFF
@@ -174,6 +176,54 @@ def fingerprint_state(states: Any) -> Tuple[torch.Tensor, torch.Tensor]:
 def fp_to_int(hi, lo) -> int:
     """Host-side: a (hi, lo) pair as one python int fingerprint."""
     return (int(hi) << 32) | int(lo)
+
+
+# -- tenant salting (checker/packed_tenancy.py) -------------------------------
+#
+# Tenants packed into one shared visited table dedup on salted keys,
+# ``(hi ^ salt_hi, lo ^ salt_lo)``. XOR is a bijection for each tenant, so
+# two of its states collide salted iff they collide unsalted, and two
+# tenants' keys differ by ``salt_a ^ salt_b``, an avalanche-mixed 64-bit
+# constant. Unsalting is the same XOR, so parent logs, checkpoints and the
+# host tiers keep each tenant's original fingerprints.
+
+
+def _fmix32_host(x: int) -> int:
+    """Host-side murmur3 fmix32 (``_fmix`` bit for bit)."""
+    x &= U32
+    x ^= x >> 16
+    x = (x * 0x85EBCA6B) & U32
+    x ^= x >> 13
+    x = (x * 0xC2B2AE35) & U32
+    return x ^ (x >> 16)
+
+
+def tenant_salt_pair(epoch: int) -> Tuple[int, int]:
+    """The (salt_hi, salt_lo) u32 pair of tenant-salt epoch ``epoch``, the
+    JAX package's bit for bit. fmix32 is a bijection on u32, so distinct
+    epochs give distinct hi words: a tenant admitted again under a fresh
+    epoch never dedups against a departed tenant's keys left in the table.
+    Epoch 0 is the identity salt."""
+    if epoch == 0:
+        return 0, 0
+    hi = _fmix32_host(0x9E3779B9 * (2 * epoch + 1))
+    lo = _fmix32_host(0x85EBCA6B * (2 * epoch + 3))
+    # The identity salt is reserved.
+    if hi == 0 and lo == 0:
+        lo = 1
+    return hi, lo
+
+
+def salt_keys(hi: torch.Tensor, lo: torch.Tensor, salt_hi, salt_lo):
+    """Per-lane XOR salts applied to (hi, lo) u32 keys (int64 carriers),
+    with the reserved sentinels nudged as ``_finalize_pair`` nudges raw
+    fingerprints: a salted key on (0, 0), the empty slot, moves to (0, 1)
+    and one on (MAX, MAX), the invalid-lane sentinel, to (MAX, MAX - 1)."""
+    shi = hi ^ salt_hi
+    slo = lo ^ salt_lo
+    slo = torch.where((shi == 0) & (slo == 0), torch.ones_like(slo), slo)
+    slo = torch.where((shi == U32) & (slo == U32), torch.full_like(slo, U32 - 1), slo)
+    return shi, slo
 
 
 # -- the component hash ----------------------------------------------------------

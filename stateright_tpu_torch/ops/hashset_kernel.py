@@ -27,12 +27,13 @@ import ctypes
 
 import torch
 
-from .fingerprint import U32
+from .fingerprint import U32, salt_keys
 from .hashset import MAX_PROBES, _home, i32_to_u32, u32_to_i32
 
 __all__ = [
     "TILE_ROWS",
     "hashset_insert_sorted",
+    "hashset_insert_salted",
     "hashset_insert_sorted_plain",
     "hashset_insert_unsorted",
     "launches",
@@ -203,6 +204,19 @@ def hashset_insert_unsorted(table, key_hi, key_lo, active):
         lane[order] = flag
         out.append(lane)
     return (table, *out)
+
+
+def hashset_insert_salted(table, key_hi, key_lo, salt_hi, salt_lo, active):
+    """The tenant-salted insert of a packed multi-tenant wave
+    (``checker/packed_tenancy.py``; the JAX package's
+    ``ops/hashset.py::hashset_insert_salted``): each lane's (hi, lo) key is
+    XOR-salted by its tenant's salt (``ops/fingerprint.py::salt_keys``;
+    per-lane tensors or scalars), then ``hashset_insert_unsorted`` inserts
+    the batch, the kernel on a CUDA table. The flags come back in lane
+    order and the lowest lane of each new key is the fresh one, so each
+    tenant's fresh lanes keep its own frontier order."""
+    shi, slo = salt_keys(i32_to_u32(key_hi), i32_to_u32(key_lo), salt_hi, salt_lo)
+    return hashset_insert_unsorted(table, shi, slo, active)
 
 
 def _kernel():

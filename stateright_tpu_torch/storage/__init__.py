@@ -22,7 +22,8 @@ never seen, and results are bit-identical to the single-tier run.
 
 ``edge_log.py`` is the host tier of the device liveness edge log
 (``LivenessEdgeStore``: the condition-false edges, deduped, spilled past
-``host_budget_mib``, with the roots and terminals). The JAX package's
+``host_budget_mib``, with the roots and terminals). ``TenantPartitions``
+keeps one tiered store for each tenant of the tenant-packed engine. The JAX package's
 ``persist`` and ``corpus`` modules wait for the modules of the port that
 use them. Nothing here imports JAX or the JAX package.
 """
@@ -39,6 +40,7 @@ from .runs import (
 )
 from .tiered import (
     StorageInstruments,
+    TenantPartitions,
     TieredVisitedStore,
     max_table_rows_for_budget,
     validate_budget_knobs,
@@ -51,6 +53,7 @@ __all__ = [
     "LivenessInstruments",
     "RUN_BLOCK",
     "StorageInstruments",
+    "TenantPartitions",
     "TieredVisitedStore",
     "decode_sorted_fps",
     "decode_varint_u64",

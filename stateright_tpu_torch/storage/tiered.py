@@ -1,7 +1,7 @@
 """The tiered visited-fingerprint store (host side: L1 runs + L2 spill).
 
-The port's copy of the JAX package's ``storage/tiered.py`` without
-``TenantPartitions`` (tenancy waits for its module).
+The port's copy of the JAX package's ``storage/tiered.py`` (without its
+sharded checker's per-shard tags).
 ``TieredVisitedStore`` owns everything below the device table: evicted
 fingerprints live in delta-compressed sorted runs (``runs.py``) fronted
 by per-run Bloom filters. Runs merge LSM-style once their count passes
@@ -38,6 +38,7 @@ from .runs import FingerprintRun
 
 __all__ = [
     "StorageInstruments",
+    "TenantPartitions",
     "TieredVisitedStore",
     "max_table_rows_for_budget",
     "validate_budget_knobs",
@@ -207,6 +208,7 @@ class TieredVisitedStore:
         instruments: Optional[StorageInstruments] = None,
         prefix: str = "gpu_bfs",
         tracer=None,
+        owner=None,
     ):
         if host_budget_mib is not None and spill_dir is None:
             raise ValueError(
@@ -230,6 +232,10 @@ class TieredVisitedStore:
         # evict/merge/spill spans with the run id; default otherwise.
         self._tracer = tracer if tracer is not None else get_tracer()
         self._span_prefix = self._instr.prefix
+        # Fault attribution (utils/faults.py): the tenant key of a packed
+        # partition, None for a solo store, so a fault spec can target one
+        # tenant's host tier.
+        self._owner = owner
         self._seq = 0
         # The merge fence (see the module docstring): reentrant because
         # evict() holds it across the merges/spills it triggers.
@@ -337,7 +343,7 @@ class TieredVisitedStore:
     def _spill_run(self, run: FingerprintRun) -> FingerprintRun:
         # Injection seam: ENOSPC / EIO at the spill write, before any
         # tier list mutates (see _enforce_host_budget's ordering).
-        fault_point("storage.spill")
+        fault_point("storage.spill", tenant=self._owner)
         os.makedirs(self._spill_dir, exist_ok=True)
         path = os.path.join(self._spill_dir, f"run{self._seq:05d}.fpr")
         self._seq += 1
@@ -362,7 +368,7 @@ class TieredVisitedStore:
         # file, a failing disk read, or a poisoned mmap — always before
         # any result is applied, so a faulted probe never half-updates
         # the wave's verdict.
-        fault_point("storage.host_probe")
+        fault_point("storage.host_probe", tenant=self._owner)
         stats: dict = {}
         hits = {"l1": 0, "l2": 0}
         bloom_probed = 0
@@ -435,3 +441,70 @@ class TieredVisitedStore:
                 l2 = [self._spill_run(r) for r in l2]
             self.l2 = l2
         self._instr.refresh()
+
+
+class TenantPartitions:
+    """Per-tenant host-tier partitions for the tenant-packed wave engine
+    (``checker/packed_tenancy.py``).
+
+    The packed engine's shared device table holds SALTED keys, which
+    cannot be attributed to a tenant after the fact — so the host tiers
+    are partitioned up front: each tenant gets its own
+    ``TieredVisitedStore`` holding its ORIGINAL (unsalted) fingerprints.
+    An eviction drains each tenant's since-last-eviction L0 claims (the
+    engine knows them exactly — they are its parent-log stream) into that
+    tenant's partition, and each wave's two-phase probe runs per tenant
+    against its own partition. A tenant's partition is therefore
+    membership-equivalent to the solo run's tiered store, its export
+    rides the tenant's preempt payload slice unchanged, and dropping a
+    tenant frees its tiers without touching anyone else's.
+
+    Under the packed engine's async pipeline every probe and eviction runs
+    on the one pipeline worker in FIFO order (the merge fence); the
+    per-store locks remain as the second fence for readers on other
+    threads.
+    """
+
+    def __init__(
+        self,
+        host_budget_mib=None,
+        spill_dir=None,
+        prefix: str = "pack",
+        tracer=None,
+    ):
+        self._host_budget_mib = host_budget_mib
+        self._spill_dir = spill_dir
+        self._prefix = prefix
+        self._tracer = tracer
+        self._stores: dict = {}
+
+    def store(self, tenant_key, registry=None) -> TieredVisitedStore:
+        """The tenant's partition, created on first use. ``registry`` (the
+        tenant's run-scoped metrics registry) takes the partition's
+        storage instruments."""
+        st = self._stores.get(tenant_key)
+        if st is None:
+            spill = self._spill_dir
+            if spill is not None:
+                spill = os.path.join(spill, f"tenant-{tenant_key}")
+                os.makedirs(spill, exist_ok=True)
+            st = TieredVisitedStore(
+                host_budget_mib=self._host_budget_mib,
+                spill_dir=spill,
+                instruments=StorageInstruments(
+                    self._prefix, registry=registry
+                ),
+                tracer=self._tracer,
+                # Fault specs target one tenant's partition by this tag.
+                owner=tenant_key,
+            )
+            self._stores[tenant_key] = st
+        return st
+
+    def get(self, tenant_key):
+        """The tenant's partition, or None (never probed/evicted)."""
+        return self._stores.get(tenant_key)
+
+    def drop(self, tenant_key) -> None:
+        """Forgets a departed tenant's partition (its runs free with it)."""
+        self._stores.pop(tenant_key, None)

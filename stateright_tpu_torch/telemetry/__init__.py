@@ -3,8 +3,8 @@ events, the coverage ledger and the wave-timeline attribution.
 
 The port's copies of the JAX package's ``telemetry`` modules that it uses
 (``metrics``, ``trace`` without its ``jax.profiler`` bridge,
-``coverage`` with its device reduction rewritten in torch, the host
-engines' ``instruments``, and ``attribution`` with its fence and profiler
+``coverage`` with its device reduction rewritten in torch,
+``instruments`` without the sharded checker's bundle, and ``attribution`` with its fence and profiler
 window rewritten in torch). Nothing here imports JAX or the JAX package.
 """
 
@@ -24,9 +24,17 @@ from .coverage import (
     coverage_action_labels,
     sanitize_component,
 )
-from .instruments import BlockInstruments
-from .metrics import Counter, Gauge, Histogram, MetricsRegistry, metrics_registry
-from .trace import JsonlSink, Tracer, get_tracer, instant, span
+from .instruments import BlockInstruments, TenantInstruments, WaveInstruments
+from .metrics import (
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    discard_run_registry,
+    metrics_registry,
+    run_registries,
+)
+from .trace import JsonlSink, RunScopedTracer, Tracer, get_tracer, instant, span
 
 __all__ = [
     "DEFAULT_TOLERANCE",
@@ -45,11 +53,16 @@ __all__ = [
     "Histogram",
     "JsonlSink",
     "MetricsRegistry",
+    "RunScopedTracer",
+    "TenantInstruments",
     "Tracer",
+    "WaveInstruments",
     "coverage_action_labels",
+    "discard_run_registry",
     "get_tracer",
     "instant",
     "metrics_registry",
+    "run_registries",
     "sanitize_component",
     "span",
 ]

@@ -175,7 +175,34 @@ class MetricsRegistry:
 
 _default_registry = MetricsRegistry()
 
+# Per-run registries, keyed by run id: a run given a ``run_id`` (a packed
+# tenant, its engine) records into its own registry, so two runs in one
+# process never share an instrument; ``run_id=None`` is the process-local
+# registry, as before.
+_run_lock = threading.Lock()
+_run_registries: Dict[str, MetricsRegistry] = {}
 
-def metrics_registry() -> MetricsRegistry:
-    """The process-local registry every checker of the port records into."""
-    return _default_registry
+
+def metrics_registry(run_id: Optional[str] = None) -> MetricsRegistry:
+    """The process-local registry every checker of the port records into,
+    or, given a ``run_id``, that run's own registry (made on first use;
+    ``discard_run_registry`` drops it)."""
+    if run_id is None:
+        return _default_registry
+    reg = _run_registries.get(run_id)
+    if reg is None:
+        with _run_lock:
+            reg = _run_registries.setdefault(run_id, MetricsRegistry())
+    return reg
+
+
+def run_registries() -> Dict[str, MetricsRegistry]:
+    """A snapshot of the per-run registries, ``{run_id: registry}``."""
+    with _run_lock:
+        return dict(_run_registries)
+
+
+def discard_run_registry(run_id: str) -> None:
+    """Forgets one run's registry (nothing when there is none)."""
+    with _run_lock:
+        _run_registries.pop(run_id, None)

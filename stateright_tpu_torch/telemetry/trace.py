@@ -13,7 +13,7 @@ Per-state recording is a design error — backends emit one span per
 wave/block/drain.
 
 The port's copy of the JAX package's ``telemetry/trace.py``, without its
-run-scoped view, its Chrome export and its ``jax.profiler`` bridge: device
+Chrome export and its ``jax.profiler`` bridge: device
 time on the card comes from ``torch.profiler``
 (``scripts/torch_profile.py``).
 """
@@ -26,7 +26,7 @@ import threading
 import time
 import weakref
 from collections import deque
-from typing import Dict, IO, List
+from typing import Dict, IO, List, Optional
 
 RING_CAPACITY = 4096
 
@@ -234,12 +234,38 @@ class Tracer:
         self._ring.clear()
 
 
+class RunScopedTracer:
+    """A view of a tracer that stamps ``run_id`` into the args of every
+    span and instant, so the interleaved spans of several runs in one
+    process stay attributable. Sinks, the ring buffer and everything else
+    are the wrapped tracer's: the events land in the one process-local
+    stream."""
+
+    def __init__(self, run_id: str, tracer: Optional[Tracer] = None):
+        self.run_id = run_id
+        self._tracer = tracer if tracer is not None else get_tracer()
+
+    def span(self, name: str, **args):
+        args.setdefault("run_id", self.run_id)
+        return self._tracer.span(name, **args)
+
+    def instant(self, name: str, **args) -> None:
+        args.setdefault("run_id", self.run_id)
+        self._tracer.instant(name, **args)
+
+    def __getattr__(self, name):
+        return getattr(self._tracer, name)
+
+
 _default_tracer = Tracer()
 
 
-def get_tracer() -> Tracer:
-    """THE process-local tracer every checker of the port records into."""
-    return _default_tracer
+def get_tracer(run_id: Optional[str] = None):
+    """THE process-local tracer every checker of the port records into;
+    with a ``run_id``, a :class:`RunScopedTracer` view of it."""
+    if run_id is None:
+        return _default_tracer
+    return RunScopedTracer(run_id, _default_tracer)
 
 
 def span(name: str, **args) -> "_Span":

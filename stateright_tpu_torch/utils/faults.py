@@ -142,13 +142,20 @@ class TenantFaultError(Exception):
 # -- the injector ------------------------------------------------------------
 
 # Default exception factory per site (a spec may override with exc=):
-# the seams of the port's tree. The JAX package's other sites (its async
-# pipeline, tenancy, warm-start and conformance planes) wait for the
-# modules that hold them.
+# the seams of the port's tree. The JAX package's other sites (its
+# warm-start and conformance planes) wait for the modules that hold them.
 _SITE_EXC = {
     "storage.host_probe": HostProbeFault,
     "storage.spill": SpillFault,
     "checkpoint.write": CheckpointWriteFault,
+    # The host pipeline's worker (checker/pipeline.py) and the
+    # tenant-packed engine (checker/packed_tenancy.py): its shared wave
+    # dispatch and the per-tenant verdict and eviction slices that bound a
+    # pack's blast radius.
+    "pipeline.worker": WorkerDeathFault,
+    "device.wave": DeviceWaveFault,
+    "pack.tenant.verdict": PackTenantFault,
+    "pack.tenant.evict": PackTenantFault,
     # The swarm engine (checker/swarm.py): the stacked wave dispatch and
     # the per-tenant harvest that bounds a packed swarm's blast radius.
     "swarm.wave": DeviceWaveFault,

@@ -1694,6 +1694,45 @@ def test_cuda_swarm_matches_cpu_twin(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_swarm_capture_survives_garbage_graphs(cuda_device):
+    """Another run's CUDA Graph that becomes cyclic garbage while a swarm
+    step is being captured, with the collector set to run at every
+    allocation, is not collected inside the capture (destroying it there
+    would invalidate the capture): the swarm equals its CPU twin."""
+    import gc
+
+    class Baited(TwoPhaseSys):
+        bait = None
+
+        def packed_expand(self, states):
+            if self.bait is not None and torch.cuda.is_current_stream_capturing():
+                cycle = [self.bait]
+                cycle.append(cycle)
+                self.bait = None
+                del cycle
+            return super().packed_expand(states)
+
+    spawn = dict(seed=11, lanes=64, wave_steps=16, sample_capacity=1 << 12)
+    graph, x = torch.cuda.CUDAGraph(), torch.zeros(1, device=cuda_device)
+    with torch.cuda.graph(graph):
+        x.add_(1)
+    model = Baited(3)
+    model.bait = graph
+    del graph
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        card = model.checker().target_state_count(20_000).spawn_swarm(
+            device=cuda_device, **spawn).join()
+    finally:
+        gc.set_threshold(*thresholds)
+    assert model.bait is None and card.engine.graph_captures == 1
+    cpu = TwoPhaseSys(3).checker().target_state_count(20_000).spawn_swarm(
+        device="cpu", **spawn).join()
+    assert _walk_result(card) == _walk_result(cpu)
+
+
+@pytest.mark.cuda
 def test_cuda_gpu_simulation_matches_cpu_twin(cuda_device):
     runs = [TwoPhaseSys(3).checker().target_state_count(20_000).spawn_gpu_simulation(
         seed=7, lanes=128, steps_per_call=32, device=d).join() for d in ("cuda", "cpu")]
@@ -1784,3 +1823,76 @@ def test_cuda_drain_capture_survives_garbage_graphs(cuda_device):
     assert _liveness_outcomes(gpu) == _liveness_outcomes(cpu)
     assert {k: p.encode() for k, p in gpu.discoveries().items()} == {
         k: p.encode() for k, p in cpu.discoveries().items()}
+
+
+# -- tenant packing ---------------------------------------------------------------
+
+
+def _pack_run(make, device, n_tenants, **kw):
+    """``n_tenants`` tenants of one pack driven to the end; returns their
+    views in admission order."""
+    from stateright_tpu_torch.checker import TenantPackedEngine
+
+    eng = TenantPackedEngine(make(), device=device, **kw)
+    views = [eng.admit(f"t{i}", f"tpk-card-{device}-{i}") for i in range(n_tenants)]
+    steps = 0
+    while eng.live_count():
+        for key in eng.step():
+            eng.release(key)
+        steps += 1
+        assert steps < 20_000
+    eng.close()
+    return eng, views
+
+
+def _pack_golden(view):
+    import io
+    import re
+
+    from stateright_tpu_torch import WriteReporter
+
+    out = io.StringIO()
+    view.report(WriteReporter(out))
+    return re.sub(r"sec=\d+", "sec=_", out.getvalue())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["pair", "budget_sync", "budget_async", "liveness_trio"])
+def test_cuda_tenant_pack_matches_cpu_twin(cuda_device, case):
+    """A pack on the card and the same pack on the CPU twin: every tenant's
+    counts, depth and golden report (paths included), with device liveness
+    the verdicts, the certificates and the logged relation; on the card
+    every salted claim went through the insert kernel (at least one launch
+    a wave)."""
+    from stateright_tpu_torch.checker.gpu import min_admissible_hbm_budget_mib
+    from torch_host_fixtures import PackedDGraph
+
+    kw = dict(frontier_capacity=16, table_capacity=1 << 12, max_tenants=4)
+    make, n = (lambda: TwoPhaseSys(3)), 2
+    if case.startswith("budget"):
+        make = lambda: TwoPhaseSys(4)  # noqa: E731 - the budget binds at 2pc-4
+        kw["hbm_budget_mib"] = min_admissible_hbm_budget_mib(TwoPhaseSys(4), 16)
+        kw["async_pipeline"] = case == "budget_async"
+    elif case == "liveness_trio":
+        make, n = (lambda: PackedDGraph([0, 2, 4, 2])), 3
+        kw.update(table_capacity=1 << 10, liveness="device")
+    hk.launches = 0
+    card, card_views = _pack_run(make, cuda_device, n, **kw)
+    assert hk.launches >= card.waves > 0
+    cpu, cpu_views = _pack_run(make, "cpu", n, **kw)
+    if not kw.get("async_pipeline"):
+        # Synchronous verdicts make the schedule the device's own; with the
+        # async pipeline a wave takes the lanes pushed so far, so its
+        # widths may differ (the claims, and so the results, do not).
+        assert (card.waves, card.lanes_live, card.evictions) == (cpu.waves, cpu.lanes_live,
+                                                                 cpu.evictions)
+    if case.startswith("budget"):
+        assert card.evictions > 0
+    for got, want in zip(card_views, cpu_views):
+        assert got.unique_state_count() == want.unique_state_count()
+        assert got.state_count() == want.state_count()
+        assert got.max_depth() == want.max_depth()
+        assert _pack_golden(got) == _pack_golden(want)
+        if case == "liveness_trio":
+            assert _liveness_outcomes(got) == _liveness_outcomes(want)
+            assert np.array_equal(got._live_store.edge_rows(), want._live_store.edge_rows())
