@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --stage-ab [--root DIR] [--out FILE]
     python3 chip_smoke.py --attributed-child OUT.json
+    python3 chip_smoke.py --sharded-child RANK PORT OUT.json
 
 Builds every CUDA kernel of the port from the sources in this checkout (one
 ``nvcc`` per source, all at once), holds each kernel against its plain torch
@@ -149,6 +150,18 @@ in both pipeline modes; 3 tenants of the ``LevelDag`` absence model with
 ``liveness="device"``; and the insert kernel against its plain twin on a
 full-width 2pc-8 pack wave. One ``{"pack_run": ...}`` line a pack, and a
 ``{"tenant_packing": ...}`` summary after the kernels line.
+Then fingerprint sharding (``sharded``): ``spawn_sharded_gpu_bfs`` with n
+shards in this process on the card, every owner insert through the insert
+kernel, each run against its CPU twin in counts, depth, discoveries, paths
+and lanes shipped: the JAX bench's multichip leg (2pc-5 at 1, 2, 4 and 8
+shards, sieve off and on); 2pc-8 at 8 shards of 1,024 lanes through the
+drain (1,745,408); the insert kernel against its plain twin on one owner's
+received batch of that run; a one-rank NCCL ``bootstrap_mesh`` run of 2pc-5
+with 8 shards against the one-process mesh; and a two-rank NCCL run where
+the machine has two cards (``--sharded-child``), else a
+``{"sharded_nccl_two_ranks": "not run: 1 CUDA device"}`` line. One
+``{"sharded_run": ...}`` line a run, and a ``{"sharded": ...}`` summary
+after the kernels line.
 Prints phase lines, the card's name and power limit, the fused wave's
 stage times, the drains' walls, waves, no-op and warm-up waves, exits,
 graph captures and replays and rungs, peak device memory, one
@@ -4005,6 +4018,247 @@ def _waves_on_card(stage_waves):
     return out
 
 
+# -- sharding -------------------------------------------------------------------
+
+# The JAX bench's multichip leg (bench.py:2693-2740): 2pc-5 at these shard
+# counts, frontier_per_device=max(8, 512 // n), 2^14-row shard tables.
+SHARD_COUNTS = (1, 2, 4, 8)
+# The full-width sharded path: 2pc-8 at 8 shards of 1,024 lanes (the 2pc8
+# configuration's 8,192) and its 2^20-row table split over the shards.
+SHARDED_2PC8 = dict(frontier_per_device=1024, table_capacity_per_device=1 << 17)
+# The owner insert of this wave (counting every insert call of the run,
+# shard by shard) is held against its plain twin.
+SHARDED_INSERT_CALL = 800
+
+
+def _sharded_run(label, make, mesh, **kw):
+    """One ``spawn_sharded_gpu_bfs`` run with every kernel count set to 0
+    just before and read just after; returns its record."""
+    import torch
+
+    from stateright_tpu_torch.parallel.sharded import run_summary
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    checker = make().checker().spawn_sharded_gpu_bfs(mesh=mesh, run_id=f"shd-{label}",
+                                                     **kw).join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    assert checker.device.type == mesh.device.type, label
+    assert launches["fused_wave"] == 0, (label, launches)
+    if mesh.device.type == "cuda":
+        # Every owner insert goes through the kernel: one launch a shard a
+        # wave, the seed's and every growth's rehash besides.
+        assert launches["hashset_insert_sorted"] >= checker.waves * mesh.local > 0, (
+            label, launches, checker.waves)
+    summary = run_summary(checker)
+    rec = {"label": label, "shards": mesh.n, "processes": mesh.world,
+           "device": mesh.device.type, "unique": summary["unique"],
+           "states": summary["states"], "depth": summary["depth"],
+           "discoveries": sorted(summary["discoveries"]), "waves": checker.waves,
+           "drains": checker.drains, "table_growths": checker.table_growths,
+           "table_capacity_per_shard": checker.table_capacity_per_shard(),
+           "lanes_shipped": summary["lanes_shipped"], "rungs": summary["rungs"],
+           "wall_s": wall, "warmup_s": checker.warmup_seconds,
+           "unique_per_s": summary["unique"] / wall,
+           "insert_launches": launches["hashset_insert_sorted"],
+           "peak_device_bytes": (torch.cuda.max_memory_allocated()
+                                 if mesh.device.type == "cuda" else None)}
+    for path in checker.discoveries().values():
+        assert path.into_states(), label  # replayed on the model
+    return checker, summary, rec
+
+
+def _capture_sharded_insert(mod, call):
+    """Wraps the sharded module's insert to keep the inputs of its
+    ``call``-th launch: one owner's table before it and its received
+    batch, sorted, the first copy of each key active."""
+    real, seen = mod.hashset_insert_sorted, {"n": 0}
+
+    def spy(table, hi, lo, active):
+        seen["n"] += 1
+        if seen["n"] == call:
+            seen.update(table=table.clone(), args=[x.clone() for x in (hi, lo, active)])
+        return real(table, hi, lo, active)
+
+    mod.hashset_insert_sorted = spy
+    return real, seen
+
+
+def _insert_on_owner_batch(seen):
+    """``hashset_insert_sorted`` against its plain twin on one owner's
+    received batch of the sharded 2pc-8 run; its median time and bound."""
+    import numpy as np
+
+    from stateright_tpu_torch.interop import table_to_numpy
+
+    hi, lo, active = (x.cpu().numpy() for x in seen["args"])
+    hi_np, lo_np = hi.view(np.uint32), lo.view(np.uint32)
+    r = _compare_insert(table_to_numpy(seen["table"]), hi_np, lo_np, active, timing=True)
+    moved = _bd().insert_must_move(r["after"], hi_np, lo_np, active, r["fresh"])
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    log(f"  hashset_insert_sorted (sharded 2pc-8 owner batch): B={hi_np.shape[0]} "
+        f"active={int(active.sum())} fresh={int(r['fresh'].sum())} max_abs_err={r['err']} "
+        f"median {r['ms']:.4f} ms plain={r['plain_ms']:.1f} ms (host CPU) "
+        f"bound={bound_ms:.6f} ms ({moved} B)")
+    if r["err"]:
+        raise AssertionError("hashset_insert_sorted and its plain twin disagree on the "
+                             "sharded owner batch")
+    return {"max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": bound_ms, "B": int(hi_np.shape[0]), "active": int(active.sum())}
+
+
+def _same_sharded(label, got, want):
+    """Two sharded runs of one configuration agree in counts, depth,
+    discoveries, paths and the exchange's lanes and rungs."""
+    if got != want:
+        diff = {k: (got[k], want[k]) for k in want if got.get(k) != want[k]}
+        raise AssertionError(f"{label}: the runs disagree: {diff}")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _sharded_child(rank, port, out_path):
+    """``--sharded-child``: one rank of the two-rank NCCL leg, 4 shards on
+    ``cuda:<rank>``; writes its run summary to ``out_path``."""
+    import torch
+    import torch.distributed as dist
+
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+    from stateright_tpu_torch.parallel import bootstrap_mesh
+    from stateright_tpu_torch.parallel.sharded import run_summary
+
+    mesh = bootstrap_mesh(4, device=f"cuda:{rank}", init_method=f"tcp://localhost:{port}",
+                          world_size=2, rank=rank, timeout_s=120)
+    n = mesh.n
+    checker = TwoPhaseSys(5).checker().spawn_sharded_gpu_bfs(
+        mesh=mesh, frontier_per_device=max(8, 512 // n), table_capacity_per_device=1 << 14,
+        run_id=f"shd-nccl2-{rank}").join()
+    with open(out_path, "w") as f:
+        json.dump(run_summary(checker), f)
+    dist.destroy_process_group()
+    torch.cuda.synchronize()
+    return 0
+
+
+@phase("sharded")
+def sharded():
+    """Fingerprint-sharded BFS on the card (``spawn_sharded_gpu_bfs``: n
+    shards in this process on the one card, every owner insert through the
+    insert kernel), each run against its CPU twin: the JAX bench's
+    multichip leg, 2pc-5 at 1, 2, 4 and 8 shards with the sieve off and on;
+    2pc-8 at 8 shards of 1,024 lanes through the drain; the insert kernel
+    against its plain twin on one owner's received batch of that run; a
+    one-rank NCCL ``bootstrap_mesh`` run of 2pc-5 with 8 shards against the
+    one-process mesh; and, with two cards, a two-rank NCCL run. One
+    ``{"sharded_run": ...}`` line a run."""
+    import torch
+    import torch.distributed as dist
+
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+    from stateright_tpu_torch.parallel import bootstrap_mesh, default_mesh
+    from stateright_tpu_torch.parallel import sharded as shmod
+
+    out, launches = {"runs": {}}, {}
+
+    def keep(checker, summary, rec):
+        out["runs"][rec["label"]] = rec
+        log(json.dumps({"sharded_run": rec}))
+        return summary
+
+    # The multichip leg: 2pc-5, each shard count, sieve off and on.
+    leg = {}
+    for n in SHARD_COUNTS:
+        for sieve in (False, True):
+            label = f"2pc5_n{n}_{'sieve' if sieve else 'plain'}"
+            kw = dict(frontier_per_device=max(8, 512 // n), table_capacity_per_device=1 << 14,
+                      sieve=sieve)
+            card = keep(*_sharded_run(label, lambda: TwoPhaseSys(5), default_mesh(n), **kw))
+            launches[f"sharded_{label}"] = out["runs"][label]["insert_launches"]
+            _, cpu, _ = _sharded_run(f"{label}_cpu", lambda: TwoPhaseSys(5),
+                                     default_mesh(n, device="cpu"), **kw)
+            assert card["unique"] == UNIQUE_2PC5, label
+            _same_sharded(label, card, cpu)
+            leg[label] = card
+        plain, sieved = leg[f"2pc5_n{n}_plain"], leg[f"2pc5_n{n}_sieve"]
+        _same_sharded(f"2pc5_n{n} sieve", {**sieved, "lanes_shipped": 0, "rungs": 0},
+                      {**plain, "lanes_shipped": 0, "rungs": 0})
+        if n > 1:
+            assert sieved["lanes_shipped"] < plain["lanes_shipped"], n
+
+    # The full-width path: 2pc-8 at 8 shards through the drain, one owner
+    # insert kept for the kernel-vs-twin check.
+    real, seen = _capture_sharded_insert(shmod, SHARDED_INSERT_CALL)
+    try:
+        _, big, rec = _sharded_run("2pc8_n8", lambda: TwoPhaseSys(8), default_mesh(8),
+                                   **SHARDED_2PC8)
+    finally:
+        shmod.hashset_insert_sorted = real
+    keep(None, big, rec)
+    assert big["unique"] == UNIQUE_2PC8 and rec["drains"] > 0, rec
+    launches["sharded_2pc8_n8"] = rec["insert_launches"]
+    assert "table" in seen, seen["n"]
+    out["insert"] = _insert_on_owner_batch(seen)
+    del seen
+
+    # One rank of NCCL: the collectives' path, against the one-process mesh.
+    _zero_launches()
+    mesh = bootstrap_mesh(8, device="cuda", init_method=f"tcp://localhost:{_free_port()}",
+                          world_size=1, rank=0, timeout_s=120)
+    try:
+        assert mesh.distributed and mesh.n == 8 and mesh.world == 1
+        kw = dict(frontier_per_device=max(8, 512 // 8), table_capacity_per_device=1 << 14)
+        nccl = keep(*_sharded_run("2pc5_nccl_one_rank", lambda: TwoPhaseSys(5), mesh, **kw))
+        launches["sharded_2pc5_nccl_one_rank"] = out["runs"]["2pc5_nccl_one_rank"][
+            "insert_launches"]
+        _same_sharded("2pc5 one-rank NCCL", nccl, leg["2pc5_n8_plain"])
+        out["nccl_backend"] = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+
+    if torch.cuda.device_count() < 2:
+        log(json.dumps({"sharded_nccl_two_ranks": "not run: 1 CUDA device"}))
+        out["nccl_two_ranks"] = "not run: 1 CUDA device"
+    else:
+        import tempfile
+
+        port = _free_port()
+        got = []
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = [os.path.join(tmp, f"sharded_rank{r}.json") for r in range(2)]
+            procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                       "--sharded-child", str(r), str(port), paths[r]])
+                     for r in range(2)]
+            try:
+                for p in procs:
+                    assert p.wait(timeout=300) == 0, "a rank of the two-rank NCCL leg failed"
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            for path in paths:
+                with open(path) as f:
+                    got.append(json.load(f))
+        want = json.loads(json.dumps(leg["2pc5_n8_plain"]))
+        for r, summary in enumerate(got):
+            _same_sharded(f"2pc5 two-rank NCCL rank {r}", summary, want)
+        out["nccl_two_ranks"] = "passed"
+        log(json.dumps({"sharded_nccl_two_ranks": "passed"}))
+    out["launches"] = launches
+    return out
+
+
 @phase("stage_device_profile")
 def stage_device_profile(reps=5):
     """``_profile_chains`` over every timed wave, in this process's only
@@ -4199,6 +4453,9 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                     help="with --stage-ab: the checkout whose package is timed")
     ap.add_argument("--out", default=None, help="with --stage-ab: JSON lines output path")
+    ap.add_argument("--sharded-child", nargs=3, default=None,
+                    metavar=("RANK", "PORT", "OUT"),
+                    help="run one rank of the sharded phase's two-rank NCCL leg")
     ap.add_argument("--attributed-child", default=None, metavar="PATH",
                     help="run only attributed_runs() and write them to PATH (the "
                          "attribution_and_breakdown phase starts this)")
@@ -4224,6 +4481,9 @@ def main() -> int:
         return stage_ab(root, args.out)
     if args.attributed_child:
         return _attributed_child(args.attributed_child)
+    if args.sharded_child:
+        rank, port, out = args.sharded_child
+        return _sharded_child(int(rank), int(port), out)
 
     t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -4267,6 +4527,7 @@ def main() -> int:
     walks = simulation_and_swarm() if not FAILED else None
     liveness = device_liveness() if not FAILED else None
     packing = tenant_packing() if not FAILED else None
+    shard = sharded() if not FAILED else None
     if not FAILED:
         stage_device_profile()
     if FAILED:
@@ -4301,6 +4562,9 @@ def main() -> int:
     pack_solo = {name: n for name, n in packing["launches"].items() if isinstance(n, dict)}
     insert_launches.update({name: n for name, n in packing["launches"].items()
                             if not isinstance(n, dict)})
+    # Sharding: every owner insert of every shard, the seeds and the
+    # growths' rehashes.
+    insert_launches.update(shard["launches"])
     fused_launches = by_path("fused", "fused_wave", {"2pc8": drains, **actor_runs})
     comphash_launches = by_path("fused", "fw_comphash_keys", actor_runs)
     cov_runs = {"2pc8": cov_2pc8, "skv4x4": cov_skv}
@@ -4371,7 +4635,8 @@ def main() -> int:
                                sym_insert["max_abs_err"],
                                tiering["restore_insert"]["max_abs_err"],
                                walks["insert"]["max_abs_err"],
-                               packing["insert"]["max_abs_err"]),
+                               packing["insert"]["max_abs_err"],
+                               shard["insert"]["max_abs_err"]),
             # On a random 344,064-key batch into a 2^22-row table at load
             # 0.4; on the keys of a raft5 wave and on a 2pc-9 drain take's
             # canonical (symmetry) keys, below.
@@ -4392,7 +4657,11 @@ def main() -> int:
                         # One full-width wave of the 4 x 2pc-8 pack: four
                         # tenants' salted keys into the shared table.
                         "pack_2pc8x4": held(packing["insert"],
-                                            insert_launches["pack_2pc8x4"])},
+                                            insert_launches["pack_2pc8x4"]),
+                        # One owner's received batch of the 8-shard 2pc-8
+                        # run: every shard's keys for that owner, sorted.
+                        "sharded_2pc8": held(shard["insert"],
+                                             insert_launches["sharded_2pc8_n8"])},
         },
         {
             "name": "fused_wave",
@@ -4581,6 +4850,12 @@ def main() -> int:
         "runs": {name: {k: r[k] for k in ("waves", "occupancy", "wall_s", "unique_per_s",
                                            "evictions", "insert_launches")}
                  for name, r in packing["runs"].items()}}}))
+    log(json.dumps({"sharded": {
+        "insert": shard["insert"], "nccl_backend": shard["nccl_backend"],
+        "nccl_two_ranks": shard["nccl_two_ranks"],
+        "runs": {name: {k: r[k] for k in ("unique", "waves", "drains", "wall_s", "unique_per_s",
+                                           "lanes_shipped", "insert_launches")}
+                 for name, r in shard["runs"].items()}}}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

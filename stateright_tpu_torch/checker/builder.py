@@ -174,6 +174,23 @@ class CheckerBuilder:
 
         return GpuBfsChecker(self, **kwargs)
 
+    def spawn_sharded_gpu_bfs(self, mesh=None, device=None, **kwargs):
+        """Fingerprint-sharded breadth-first search over a mesh of shards
+        (``parallel/base_mesh.py::ShardMesh``): each shard owns the visited
+        keys with ``hi % n`` equal to its index and a slice of every wave;
+        candidate keys go to their owners and back by an all-to-all (a
+        permutation on the device in one process, ``torch.distributed``
+        collectives across processes), and each owner inserts through the
+        hand-written insert kernel. ``mesh=None`` takes ``default_mesh``:
+        one process, on ``cuda`` unless ``device="cpu"``, raising without
+        CUDA. The JAX package's ``spawn_sharded_tpu_bfs`` knobs and defaults
+        (``frontier_per_device``, ``table_capacity_per_device``, the deep
+        drain's, the checkpoint's, ``sieve``, ...). See
+        ``parallel/sharded.py``."""
+        from ..parallel.sharded import ShardedGpuBfsChecker
+
+        return ShardedGpuBfsChecker(self, mesh=mesh, device=device, **kwargs)
+
     def spawn_gpu_simulation(self, seed: int, lanes: int = 1024, steps_per_call: int = 64,
                              max_trace_len: Optional[int] = None, device=None):
         """Random walks on the GPU: ``lanes`` walks in lockstep, the host

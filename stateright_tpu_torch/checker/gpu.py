@@ -482,20 +482,23 @@ def checkpoint_header(model, action_count: int, symmetry: bool, sym_scheme=None,
 
 
 def validate_checkpoint_header(payload: dict, model, action_count: int, symmetry: bool,
-                               sym_scheme=None, *, kind: str = CHECKPOINT_KIND) -> None:
+                               sym_scheme=None, *, kind: str = CHECKPOINT_KIND,
+                               hint: Optional[str] = None) -> None:
     """Refuses a checkpoint that another checker kind, model, model
     configuration or symmetry setting wrote. A payload without a ``kind``
     was written by the JAX package's ``tpu_bfs`` checker. Versions 1 to 3
     are read (3: this checker's payload with a device liveness edge store,
-    whose mode ``_restore`` matches; the swarm's payloads)."""
+    whose mode ``_restore`` matches; the swarm's payloads). ``hint`` ends
+    the message of a refused kind (default: resume with the package that
+    wrote it)."""
     if payload.get("version") not in (1, 2, 3):
         raise ValueError(f"unsupported checkpoint version: {payload.get('version')!r}")
     found_kind = payload.get("kind", "tpu_bfs")
     if found_kind != kind:
         raise ValueError(
             f"checkpoint kind {found_kind!r} does not match this checker "
-            f"({kind!r}): resume a checkpoint with the checker of the package "
-            "that wrote it"
+            f"({kind!r}): "
+            + (hint or "resume a checkpoint with the checker of the package that wrote it")
         )
     if payload["model"] != type(model).__name__:
         raise ValueError(
@@ -585,7 +588,80 @@ def _tree_to_device(tree, device):
     return torch.tensor(tree, device=device)
 
 
-class GpuBfsChecker(Checker):
+class DeviceBfsChecker(Checker):
+    """What the port's device BFS checkers share: the parent map their
+    waves log, path reconstruction from it, and the worker thread's
+    accessors. A subclass calls ``_init_wave_log()`` in its constructor
+    and keeps ``_model``, ``_device``, the counts, ``_done_event``,
+    ``_error`` and ``_handles``."""
+
+    def _init_wave_log(self) -> None:
+        # (child fps, parent fps — 0 encodes "init state") per wave, as
+        # u64 numpy arrays, ingested lazily into the parent-pointer store.
+        self._wave_log: List = []
+        self._store = make_fingerprint_store()
+        self._ingested = 0
+        self._ingest_lock = threading.Lock()
+        self._host_fps: Dict = {}
+
+    # -- path reconstruction ------------------------------------------------
+
+    def _host_fp(self, host_state) -> int:
+        try:
+            return self._host_fps[host_state]
+        except (KeyError, TypeError):
+            pass
+        fp = host_fingerprint(self._model, host_state)
+        try:
+            self._host_fps[host_state] = fp
+        except TypeError:
+            pass
+        return fp
+
+    def _ingest_wave_log(self):
+        # Raced by the worker (visitor reconstruction) and the user thread
+        # (mid-run discoveries()); first-writer-wins keeps the BFS parent.
+        with self._ingest_lock:
+            while self._ingested < len(self._wave_log):
+                children, parents = self._wave_log[self._ingested]
+                self._store.insert_batch(children, parents)
+                self._ingested += 1
+
+    def _reconstruct(self, fp: int) -> Path:
+        self._ingest_wave_log()
+        chain = self._store.chain(fp)
+        return Path.from_fingerprints(self._model, chain, fp_of=self._host_fp)
+
+    # -- Checker surface -----------------------------------------------------
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def model(self):
+        return self._model
+
+    def state_count(self) -> int:
+        return max(self._state_count, self._unique_count)
+
+    def unique_state_count(self) -> int:
+        return self._unique_count
+
+    def max_depth(self) -> int:
+        return self._max_depth
+
+    def handles(self) -> List[threading.Thread]:
+        handles, self._handles = self._handles, []
+        return handles
+
+    def is_done(self) -> bool:
+        return self._done_event.is_set()
+
+    def worker_error(self) -> Optional[BaseException]:
+        return self._error
+
+
+class GpuBfsChecker(DeviceBfsChecker):
     """Requires the model to implement ``BatchableModel``.
 
     ``frontier_capacity`` caps lanes per wave (larger frontiers split into
@@ -872,17 +948,11 @@ class GpuBfsChecker(Checker):
         self._l0_count = 0
         self._max_depth = 0
         self._discoveries_fp: Dict[str, int] = {}
-        # (child fps, parent fps — 0 encodes "init state") per wave, as
-        # u64 numpy arrays, ingested lazily into the parent-pointer store.
-        self._wave_log: List = []
+        self._init_wave_log()
         # Under symmetry: the visited-set keys claimed so far (u64 numpy
         # arrays a wave; first the seed's valid lanes), as the JAX package
         # keeps them.
         self._key_log: List = []
-        self._store = make_fingerprint_store()
-        self._ingested = 0
-        self._ingest_lock = threading.Lock()
-        self._host_fps: Dict = {}
         # Run statistics (read by chip_smoke.py and the tests): waves run
         # with live lanes, table growths, drains, drains by exit reason and
         # by rung width, and, on the card, the no-op waves after the exits,
@@ -2048,51 +2118,7 @@ class GpuBfsChecker(Checker):
             digest["storage"] = self._tier.instruments.bench_stats()
         return digest
 
-    # -- path reconstruction ------------------------------------------------
-
-    def _host_fp(self, host_state) -> int:
-        try:
-            return self._host_fps[host_state]
-        except (KeyError, TypeError):
-            pass
-        fp = host_fingerprint(self._model, host_state)
-        try:
-            self._host_fps[host_state] = fp
-        except TypeError:
-            pass
-        return fp
-
-    def _ingest_wave_log(self):
-        # Raced by the worker (visitor reconstruction) and the user thread
-        # (mid-run discoveries()); first-writer-wins keeps the BFS parent.
-        with self._ingest_lock:
-            while self._ingested < len(self._wave_log):
-                children, parents = self._wave_log[self._ingested]
-                self._store.insert_batch(children, parents)
-                self._ingested += 1
-
-    def _reconstruct(self, fp: int) -> Path:
-        self._ingest_wave_log()
-        chain = self._store.chain(fp)
-        return Path.from_fingerprints(self._model, chain, fp_of=self._host_fp)
-
     # -- Checker surface -----------------------------------------------------
-
-    @property
-    def device(self) -> torch.device:
-        return self._device
-
-    def model(self):
-        return self._model
-
-    def state_count(self) -> int:
-        return max(self._state_count, self._unique_count)
-
-    def unique_state_count(self) -> int:
-        return self._unique_count
-
-    def max_depth(self) -> int:
-        return self._max_depth
 
     supports_device_liveness = True
 
@@ -2106,16 +2132,6 @@ class GpuBfsChecker(Checker):
             out, self._done_event.is_set(),
             set(self._discoveries_fp) | set(self._live_paths),
         )
-
-    def handles(self) -> List[threading.Thread]:
-        handles, self._handles = self._handles, []
-        return handles
-
-    def is_done(self) -> bool:
-        return self._done_event.is_set()
-
-    def worker_error(self) -> Optional[BaseException]:
-        return self._error
 
     def table_capacity(self) -> int:
         return self._capacity

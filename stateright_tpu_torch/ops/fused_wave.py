@@ -330,13 +330,15 @@ def sorted_dedup(khi, klo, valid):
     """Stable sort of the (hi, lo) keys with invalid lanes sunk to the
     (MAX, MAX) sentinel; returns ``(shi, slo, sidx, unique)`` where
     ``unique`` marks each valid key's first (lowest-lane) occurrence —
-    ``jax.lax.sort(num_keys=2)`` over ``(hi, lo, lane)`` in the reference."""
+    ``jax.lax.sort(num_keys=2)`` over ``(hi, lo, lane)`` in the reference.
+    Keys of shape ``(L, m)`` are sorted and deduplicated row by row (a
+    shard each)."""
     key = torch.where(valid, sort_key(khi, klo), torch.full_like(khi, _SENTINEL))
     skey, sidx = torch.sort(key, stable=True)
     first = torch.ones_like(valid)
-    first[1:] = skey[1:] != skey[:-1]
+    first[..., 1:] = skey[..., 1:] != skey[..., :-1]
     shi, slo = split_key(skey)
-    return shi, slo, sidx, valid[sidx] & first
+    return shi, slo, sidx, valid.gather(-1, sidx) & first
 
 
 def _frontier_plain(spec, cond, cvalid, ebits, depth, depth_cap, mask=None):

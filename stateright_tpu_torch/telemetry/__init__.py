@@ -4,7 +4,7 @@ events, the coverage ledger and the wave-timeline attribution.
 The port's copies of the JAX package's ``telemetry`` modules that it uses
 (``metrics``, ``trace`` without its ``jax.profiler`` bridge,
 ``coverage`` with its device reduction rewritten in torch,
-``instruments`` without the sharded checker's bundle, and ``attribution`` with its fence and profiler
+``instruments``, and ``attribution`` with its fence and profiler
 window rewritten in torch). Nothing here imports JAX or the JAX package.
 """
 
@@ -24,7 +24,12 @@ from .coverage import (
     coverage_action_labels,
     sanitize_component,
 )
-from .instruments import BlockInstruments, TenantInstruments, WaveInstruments
+from .instruments import (
+    BlockInstruments,
+    CommsInstruments,
+    TenantInstruments,
+    WaveInstruments,
+)
 from .metrics import (
     Counter,
     Gauge,
@@ -46,6 +51,7 @@ __all__ = [
     "parse_profile_device_busy",
     "BlockCoverage",
     "BlockInstruments",
+    "CommsInstruments",
     "Counter",
     "CoverageLedger",
     "DeviceCoverage",

@@ -3,9 +3,9 @@
 The port's copy of the JAX package's ``telemetry/instruments.py``: the
 device wave loop's bundle (``WaveInstruments``, which the tenant-packed
 engine records its shared waves into), the packed tenants' own
-(``TenantInstruments``) and the host engines' (``BlockInstruments``). Each
-bundle is the one place its names and shape live. ``CommsInstruments``
-waits for the sharded checker.
+(``TenantInstruments``), the host engines' (``BlockInstruments``) and the
+sharded checker's exchange ledger (``CommsInstruments``). Each bundle is
+the one place its names and shape live.
 """
 
 from __future__ import annotations
@@ -104,6 +104,68 @@ class WaveInstruments:
                 max_depth=max_depth,
                 **extra,
             )
+
+
+class CommsInstruments:
+    """The sharded checker's cross-shard exchange ledger, named
+    ``<prefix>.comms.*`` (the JAX package's names): lanes that entered the
+    router and lanes the receipt cache dropped, the Bloom filter's probes
+    and counted false positives, the lanes and bytes the exchange shipped,
+    exchanges by rung width, and the bytes an eviction exchange put on the
+    wire. Fed from each wave's comms vector, so it counts what the
+    exchange shipped."""
+
+    # Wire cost of a shipped lane: 8 key bytes out, 1 flag byte back.
+    LANE_BYTES = 9
+
+    def __init__(self, prefix: str, registry: MetricsRegistry = None):
+        reg = registry if registry is not None else metrics_registry()
+        p = f"{prefix}.comms"
+        self._prefix = p
+        self._registry = reg
+        self.sieve_probes = reg.counter(f"{p}.sieve.probes")
+        self.sieve_killed = reg.counter(f"{p}.sieve.killed")
+        self.bloom_probes = reg.counter(f"{p}.sieve.bloom_probe_total")
+        self.bloom_fps = reg.counter(f"{p}.sieve.bloom_fp_total")
+        self.lanes_shipped = reg.counter(f"{p}.lanes_shipped")
+        self.bytes_shipped = reg.counter(f"{p}.bytes_shipped")
+        self.evict_wire_bytes = reg.counter(f"{p}.evict_wire_bytes")
+        self.kill_rate = reg.gauge(f"{p}.sieve.kill_rate")
+        self.fp_rate = reg.gauge(f"{p}.sieve.bloom_fp_rate")
+        self._rung_counters = {}
+
+    def rung_dispatch(self, width: int, n: int = 1) -> None:
+        """Counts ``n`` exchanges at rung ``width`` lanes a destination
+        (``<prefix>.comms.rung_dispatch.<width>``)."""
+        c = self._rung_counters.get(width)
+        if c is None:
+            c = self._registry.counter(f"{self._prefix}.rung_dispatch.{width}")
+            self._rung_counters[width] = c
+        c.inc(n)
+
+    def record(self, *, probes: int, killed: int, bloom_probes: int, bloom_hits: int,
+               bloom_fps: int, lanes: int) -> dict:
+        """One wave's (or a drain's) exchange totals; returns the span
+        arguments they ride on."""
+        self.sieve_probes.inc(probes)
+        self.sieve_killed.inc(killed)
+        self.bloom_probes.inc(bloom_probes)
+        self.bloom_fps.inc(bloom_fps)
+        self.lanes_shipped.inc(lanes)
+        self.bytes_shipped.inc(lanes * self.LANE_BYTES)
+        if probes:
+            self.kill_rate.set(killed / probes)
+        if bloom_probes:
+            self.fp_rate.set(bloom_fps / bloom_probes)
+        return {
+            "comms_probes": probes,
+            "comms_killed": killed,
+            "comms_bloom_probes": bloom_probes,
+            "comms_bloom_hits": bloom_hits,
+            "comms_bloom_fps": bloom_fps,
+            "comms_lanes": lanes,
+            "comms_bytes": lanes * self.LANE_BYTES,
+        }
 
 
 class BlockInstruments:

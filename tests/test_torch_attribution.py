@@ -524,11 +524,15 @@ def test_coverage_report_renders_a_port_run(tmp_path):
 # -- the port stands alone ------------------------------------------------------------
 
 
-# The device walkers' modules, which the walk above must have imported.
+# Modules the walk above must have imported: the device walkers', and the
+# sharded checker's, its mesh's and the comm sieve's.
 WALK_MODULES = (
     "stateright_tpu_torch.ops.threefry",
     "stateright_tpu_torch.checker.gpu_simulation",
     "stateright_tpu_torch.checker.swarm",
+    "stateright_tpu_torch.parallel.base_mesh",
+    "stateright_tpu_torch.parallel.sharded",
+    "stateright_tpu_torch.ops.comm_sieve",
 )
 
 

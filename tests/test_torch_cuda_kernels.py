@@ -1896,3 +1896,44 @@ def test_cuda_tenant_pack_matches_cpu_twin(cuda_device, case):
         if case == "liveness_trio":
             assert _liveness_outcomes(got) == _liveness_outcomes(want)
             assert np.array_equal(got._live_store.edge_rows(), want._live_store.edge_rows())
+
+
+# -- fingerprint sharding ---------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["n1_wave", "n4_drain", "n8_sieve_drain", "n8_sym_wave",
+                                  "n4_growth"])
+def test_cuda_sharded_matches_cpu_twin(cuda_device, case):
+    """``spawn_sharded_gpu_bfs`` with n shards on the card and the same run
+    on the CPU twin: counts, depth, discoveries, paths, lanes shipped and
+    rungs; on the card every owner insert went through the insert kernel
+    (a launch a shard a wave at least)."""
+    from stateright_tpu_torch.parallel import default_mesh
+    from stateright_tpu_torch.parallel.sharded import run_summary
+
+    n = int(case.split("_")[0][1:])
+    kw = dict(frontier_per_device=32, table_capacity_per_device=1 << 12,
+              sieve="sieve" in case)
+    if "wave" in case:
+        kw["max_drain_waves"] = 1
+    if case == "n4_growth":
+        kw.update(frontier_per_device=64, table_capacity_per_device=256)
+    rm = 3 if "sym" in case else 4
+
+    def run(device, tag):
+        b = TwoPhaseSys(rm).checker()
+        if "sym" in case:
+            b = b.symmetry()
+        checker = b.spawn_sharded_gpu_bfs(mesh=default_mesh(n, device=device),
+                                          run_id=f"tsh-cuda-{case}-{tag}", **kw).join()
+        return checker, run_summary(checker)
+
+    hk.launches = 0
+    card, got = run(cuda_device, "card")
+    assert hk.launches >= card.waves * n > 0
+    _cpu, want = run("cpu", "cpu")
+    assert got == want
+    assert got["unique"] == (80 if "sym" in case else 1568)
+    if case == "n4_growth":
+        assert card.table_growths >= 1
