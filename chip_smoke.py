@@ -159,9 +159,23 @@ drain (1,745,408); the insert kernel against its plain twin on one owner's
 received batch of that run; a one-rank NCCL ``bootstrap_mesh`` run of 2pc-5
 with 8 shards against the one-process mesh; and a two-rank NCCL run where
 the machine has two cards (``--sharded-child``), else a
-``{"sharded_nccl_two_ranks": "not run: 1 CUDA device"}`` line. One
-``{"sharded_run": ...}`` line a run, and a ``{"sharded": ...}`` summary
-after the kernels line.
+``{"sharded_nccl_two_ranks": "not run: 1 CUDA device"}`` line. Then the
+rest of sharding (``_sharded_rest``): 2pc-8 on 8 shards of 512 lanes with
+the sieve, wave at a time, unbounded and at the smallest ``hbm_budget_mib``
+the checker admits (a 2^18-row table a shard: it evicts) with a host budget
+that spills, the insert kernel against its plain twin on the first owner
+batch after an eviction; the budgeted run again with
+``async_pipeline=True``; the budgeted run's payload after its last eviction
+resumed on 4 shards of 1,024 lanes, the insert kernel against its twin on
+the rebuild's last batch;
+2pc-8 on 8 shards of 1,024 lanes with ``coverage=True`` (its report against
+the solo ``spawn_gpu_bfs(coverage=True)`` report) and with
+``attribution=True``; ``level_dag_2p20`` with ``liveness="device"`` on 8
+shards against the solo run; and the JAX package's slow sharded counts
+(raft-3 with a crash 2,252, 2pc-7 orbits 920, raft-5 lossless 7,977). One
+``{"sharded_run": ...}`` line a run, and ``{"sharded": ...}``,
+``{"sharded_tiers": ...}``, ``{"sharded_telemetry": ...}`` and
+``{"sharded_liveness": ...}`` lines after the kernels line.
 Prints phase lines, the card's name and power limit, the fused wave's
 stage times, the drains' walls, waves, no-op and warm-up waves, exits,
 graph captures and replays and rungs, peak device memory, one
@@ -4031,26 +4045,30 @@ SHARDED_2PC8 = dict(frontier_per_device=1024, table_capacity_per_device=1 << 17)
 SHARDED_INSERT_CALL = 800
 
 
-def _sharded_run(label, make, mesh, **kw):
-    """One ``spawn_sharded_gpu_bfs`` run with every kernel count set to 0
-    just before and read just after; returns its record."""
+def _sharded_run(label, make, mesh, spawn=None, **kw):
+    """One ``spawn_sharded_gpu_bfs`` run (``spawn(builder, **kw)`` instead,
+    where given) with every kernel count set to 0 just before and read just
+    after; returns its record."""
     import torch
 
     from stateright_tpu_torch.parallel.sharded import run_summary
 
     gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    cuda = mesh.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     _zero_launches()
     t0 = time.perf_counter()
-    checker = make().checker().spawn_sharded_gpu_bfs(mesh=mesh, run_id=f"shd-{label}",
-                                                     **kw).join()
-    torch.cuda.synchronize()
+    spawn = spawn or (lambda b, **k: b.spawn_sharded_gpu_bfs(**k))
+    checker = _joined(spawn(make().checker(), mesh=mesh, run_id=f"shd-{label}", **kw))
+    if cuda:
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read_launches()
     assert checker.device.type == mesh.device.type, label
     assert launches["fused_wave"] == 0, (label, launches)
-    if mesh.device.type == "cuda":
+    if cuda:
         # Every owner insert goes through the kernel: one launch a shard a
         # wave, the seed's and every growth's rehash besides.
         assert launches["hashset_insert_sorted"] >= checker.waves * mesh.local > 0, (
@@ -4066,8 +4084,9 @@ def _sharded_run(label, make, mesh, **kw):
            "wall_s": wall, "warmup_s": checker.warmup_seconds,
            "unique_per_s": summary["unique"] / wall,
            "insert_launches": launches["hashset_insert_sorted"],
-           "peak_device_bytes": (torch.cuda.max_memory_allocated()
-                                 if mesh.device.type == "cuda" else None)}
+           "evictions": checker.evictions, "stale_lanes": checker.stale_lanes,
+           "host_probe_s": checker.host_probe_s,
+           "peak_device_bytes": torch.cuda.max_memory_allocated() if cuda else None}
     for path in checker.discoveries().values():
         assert path.into_states(), label  # replayed on the model
     return checker, summary, rec
@@ -4089,9 +4108,10 @@ def _capture_sharded_insert(mod, call):
     return real, seen
 
 
-def _insert_on_owner_batch(seen):
+def _insert_on_owner_batch(seen, label="sharded 2pc-8 owner batch"):
     """``hashset_insert_sorted`` against its plain twin on one owner's
-    received batch of the sharded 2pc-8 run; its median time and bound."""
+    received batch of a sharded run (``label``); its median time and
+    bound."""
     import numpy as np
 
     from stateright_tpu_torch.interop import table_to_numpy
@@ -4101,13 +4121,13 @@ def _insert_on_owner_batch(seen):
     r = _compare_insert(table_to_numpy(seen["table"]), hi_np, lo_np, active, timing=True)
     moved = _bd().insert_must_move(r["after"], hi_np, lo_np, active, r["fresh"])
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    log(f"  hashset_insert_sorted (sharded 2pc-8 owner batch): B={hi_np.shape[0]} "
+    log(f"  hashset_insert_sorted ({label}): B={hi_np.shape[0]} "
         f"active={int(active.sum())} fresh={int(r['fresh'].sum())} max_abs_err={r['err']} "
         f"median {r['ms']:.4f} ms plain={r['plain_ms']:.1f} ms (host CPU) "
         f"bound={bound_ms:.6f} ms ({moved} B)")
     if r["err"]:
-        raise AssertionError("hashset_insert_sorted and its plain twin disagree on the "
-                             "sharded owner batch")
+        raise AssertionError(f"hashset_insert_sorted and its plain twin disagree on the "
+                             f"{label}")
     return {"max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms, "B": int(hi_np.shape[0]), "active": int(active.sum())}
 
@@ -4151,6 +4171,271 @@ def _sharded_child(rank, port, out_path):
     return 0
 
 
+# The rest of sharding (per-shard tiers, coverage, attribution, device
+# liveness, the async pipeline). The tiers' runs: 2pc-8 at 8 shards of 512
+# lanes, the sieve on, wave at a time, at the smallest hbm_budget_mib the
+# checker admits (a 2^18-row table a shard: about 131,000 keys at load 0.5
+# of the about 218,000 a shard owns, so every budgeted run evicts), with a
+# 1 MiB host budget (1/8 MiB a shard) that spills, and again with the
+# async pipeline; its payload after the last eviction resumed on 4 shards
+# of 1,024 lanes (the same lanes a wave and device memory in all).
+SHARDED_TIERS = dict(frontier_per_device=512, table_capacity_per_device=1 << 18, sieve=True)
+SHARDED_HOST_BUDGET_MIB = 1.0
+SHARDED_ELASTIC_SHARDS = 4
+
+
+def _sharded_slow_counts():
+    """The JAX package's sharded parity checks marked slow there, at their
+    knobs on 8 shards: (label, model, spawn, settings, count)."""
+    from stateright_tpu_torch.models.raft import RaftModelCfg
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    return [
+        # test_packed_ordered_crash.py:66
+        ("raft3_crash", lambda: RaftModelCfg(server_count=3, max_term=1, lossy=True,
+                                             max_crashes=1).into_model(),
+         None, dict(frontier_per_device=64, table_capacity_per_device=1 << 10), 2_252),
+        # test_device_symmetry.py:332
+        ("2pc7_orbits", lambda: TwoPhaseSys(7),
+         lambda b, **k: b.symmetry().spawn_sharded_gpu_bfs(**k),
+         dict(frontier_per_device=1 << 10, table_capacity_per_device=1 << 17), 920),
+        # test_raft5.py:26
+        ("raft5_lossless", lambda: RaftModelCfg(server_count=5, max_term=1,
+                                                lossy=False).into_model(),
+         None, dict(frontier_per_device=128, table_capacity_per_device=1 << 11), 7_977),
+    ]
+
+
+def _capture_insert_when(mod, armed, last=False):
+    """Wraps the sharded module's insert to keep the inputs (the table
+    before the launch and its batch) of the first launch for which
+    ``armed()`` holds, or with ``last`` of the last one."""
+    real, seen = mod.hashset_insert_sorted, {"n": 0}
+
+    def spy(table, hi, lo, active):
+        seen["n"] += 1
+        if armed() and (last or "table" not in seen):
+            seen.update(table=table.clone(), args=[x.clone() for x in (hi, lo, active)])
+        return real(table, hi, lo, active)
+
+    mod.hashset_insert_sorted = spy
+    return real, seen
+
+
+def _results(summary):
+    """What a budgeted run shares with the unbounded one whatever the sieve
+    flushed: counts, depth, discoveries and their paths."""
+    return {k: summary[k] for k in ("unique", "states", "depth", "discoveries", "paths")}
+
+
+def _same_coverage(label, sharded_rep, solo_rep):
+    """A sharded coverage report held to the solo run's on every field that
+    does not depend on which lane of a wave claims a key first: the
+    per-action fresh counts (and ``never_new``, made of them) and a drain's
+    near-miss depths aside."""
+    def flat(d, prefix=""):
+        out = {}
+        for k, v in d.items():
+            if isinstance(v, dict):
+                out.update(flat(v, f"{prefix}{k}."))
+            else:
+                out[prefix + k] = v
+        return out
+
+    a, b = flat(sharded_rep), flat(solo_rep)
+    skip = ("prefix", "actions.never_new")
+    diff = {k: (a.get(k), b.get(k)) for k in set(a) | set(b)
+            if k not in skip and not k.endswith(".fresh") and not k.endswith(".near_miss_depth")
+            and a.get(k) != b.get(k)}
+    if diff:
+        raise AssertionError(f"{label}: the coverage reports disagree: {diff}")
+
+
+def _sharded_rest(out, launches, keep, big):
+    """The tiers, the async pipeline, coverage, attribution, device
+    liveness and the slow parity counts on ``spawn_sharded_gpu_bfs``; each
+    run against its twin. ``big`` is the full-width 2pc-8 run of the
+    phase (coverage's and attribution's bare twin)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stateright_tpu_torch.configs import CONFIGS, LIVENESS_CONFIGS
+    from stateright_tpu_torch.core.fingerprint import fingerprint
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+    from stateright_tpu_torch.parallel import default_mesh
+    from stateright_tpu_torch.parallel import sharded as shmod
+
+    tiers, telemetry = {}, {}
+
+    def run(label, make, n=8, spawn=None, **kw):
+        checker, summary, rec = _sharded_run(label, make, default_mesh(n), spawn=spawn, **kw)
+        keep(checker, summary, rec)
+        launches[f"sharded_{label}"] = rec["insert_launches"]
+        return checker, summary, rec
+
+    two8 = lambda: TwoPhaseSys(8)  # noqa: E731
+    budget = shmod.min_hbm_budget_mib(SHARDED_TIERS["frontier_per_device"],
+                                      two8().packed_action_count())
+    tiers["hbm_budget_mib"] = budget
+    _, unbounded, unb_rec = run("2pc8_tiers_unbounded", two8, max_drain_waves=1, **SHARDED_TIERS)
+    assert unbounded["unique"] == UNIQUE_2PC8, unb_rec
+
+    # The budget with a host budget that spills; the insert kept on the
+    # first owner batch after an eviction; a checkpoint payload taken at the
+    # second wave boundary after each eviction (the pool is then the whole
+    # pending frontier, and the tables hold one wave's keys, which the
+    # rebuild inserts), the last one kept for the elastic resume.
+    holder, payloads = [], {"evictions": 0, "armed": None, "s": 0.0}
+
+    class PayloadAfterEvict(shmod.ShardedGpuBfsChecker):
+        def _pool_take(self, width):
+            if self.evictions != payloads["evictions"]:
+                if payloads["armed"] is None:
+                    payloads["armed"] = self.waves
+                elif self.waves > payloads["armed"]:
+                    t0 = time.perf_counter()
+                    payloads.update(evictions=self.evictions, armed=None,
+                                    last=self.checkpoint_payload(list(self._pool)),
+                                    unique=self.unique_state_count())
+                    payloads["s"] += time.perf_counter() - t0
+            return super()._pool_take(width)
+
+    real, seen = _capture_insert_when(shmod, lambda: bool(holder) and holder[0].evictions > 0)
+    try:
+        with tempfile.TemporaryDirectory() as spill:
+            ck, budgeted, rec = run(
+                "2pc8_budget_spill", two8, hbm_budget_mib=budget,
+                host_budget_mib=SHARDED_HOST_BUDGET_MIB, spill_dir=spill,
+                spawn=lambda b, **k: holder.append(PayloadAfterEvict(b, **k)) or holder[0],
+                **SHARDED_TIERS)
+            spills = ck.metrics().snapshot().get("sharded_bfs.storage.spills", 0)
+            assert spills >= 1 and any(f.startswith("s0_") for f in os.listdir(spill)), spills
+    finally:
+        shmod.hashset_insert_sorted = real
+    assert rec["evictions"] >= 1 and rec["stale_lanes"] > 0, rec
+    assert _results(budgeted) == _results(unbounded), "the budgeted run differs from the unbounded"
+    # The payloads are taken inside the timed run: the budget's own wall is
+    # the run's less their seconds.
+    tiers["budget_spill"] = {"spills": spills, "payload_s": payloads["s"],
+                             "wall_less_payload_s": rec["wall_s"] - payloads["s"],
+                             "storage": ck.state_digest()["storage"],
+                             **{k: rec[k] for k in ("evictions", "stale_lanes", "host_probe_s",
+                                                    "wall_s", "waves", "lanes_shipped",
+                                                    "unique_per_s")}}
+    tiers["unbounded"] = {k: unb_rec[k] for k in ("wall_s", "waves", "lanes_shipped",
+                                                   "table_growths", "unique_per_s")}
+    assert "table" in seen, seen["n"]
+    out["evicted_insert"] = _insert_on_owner_batch(
+        seen, "sharded 2pc-8 owner batch after an eviction")
+    del seen, holder
+
+    # The async pipeline: the budgeted run's twin.
+    ck, pipelined, rec = run("2pc8_budget_async", two8, hbm_budget_mib=budget,
+                             async_pipeline=True, **SHARDED_TIERS)
+    _same_sharded("2pc8 budget async", pipelined, budgeted)
+    tiers["async"] = {k: rec[k] for k in ("wall_s", "evictions", "stale_lanes", "host_probe_s")}
+
+    # The payload after the last eviction resumed on 4 shards: the insert
+    # kept on the last launch of the restore's rebuild.
+    payload = payloads.pop("last")
+    assert payload["n_shards"] == 8 and len(payload["storage"]) == 8
+    state = {"on": False}
+
+    class Restoring(shmod.ShardedGpuBfsChecker):
+        def _restore(self, source):
+            state["on"] = True
+            try:
+                return super()._restore(source)
+            finally:
+                state["on"] = False
+
+    # The same lanes a wave and the same device memory in all, over half
+    # the shards: each shard twice as wide, at its smallest budget.
+    grow = 8 // SHARDED_ELASTIC_SHARDS
+    elastic_kw = dict(SHARDED_TIERS,
+                      frontier_per_device=SHARDED_TIERS["frontier_per_device"] * grow,
+                      table_capacity_per_device=SHARDED_TIERS["table_capacity_per_device"] * grow)
+    elastic_kw["hbm_budget_mib"] = shmod.min_hbm_budget_mib(
+        elastic_kw["frontier_per_device"], two8().packed_action_count())
+    real, seen = _capture_insert_when(shmod, lambda: state["on"], last=True)
+    try:
+        ck, elastic, rec = run(f"2pc8_budget_elastic{SHARDED_ELASTIC_SHARDS}", two8,
+                               n=SHARDED_ELASTIC_SHARDS, resume_from=payload,
+                               spawn=lambda b, **k: Restoring(b, **k), **elastic_kw)
+    finally:
+        shmod.hashset_insert_sorted = real
+    assert {k: elastic[k] for k in ("unique", "discoveries")} == {
+        k: unbounded[k] for k in ("unique", "discoveries")}, "the elastic resume differs"
+    tiers["elastic"] = {"from_shards": 8, "to_shards": SHARDED_ELASTIC_SHARDS,
+                        "hbm_budget_mib": elastic_kw["hbm_budget_mib"],
+                        "frontier_per_device": elastic_kw["frontier_per_device"],
+                        "resumed_at_unique": payloads["unique"],
+                        "restore_inserts": ck.restore_inserts, "wall_s": rec["wall_s"],
+                        "evictions": rec["evictions"], "stale_lanes": rec["stale_lanes"],
+                        "host_probe_s": rec["host_probe_s"]}
+    out["restore_inserts"] = ck.restore_inserts
+    assert "table" in seen, seen["n"]
+    out["restore_insert"] = _insert_on_owner_batch(
+        seen, "sharded 2pc-8 elastic restore's rebuild batch")
+    del seen, payload
+
+    # Coverage and attribution through the drain, each against the bare
+    # full-width run; coverage also against the solo run's report.
+    ck, covered, rec = run("2pc8_n8_coverage", two8, coverage=True, **SHARDED_2PC8)
+    _same_sharded("2pc8 coverage", covered, big["summary"])
+    cfg = CONFIGS["2pc8"]
+    solo = cfg.make().checker().spawn_gpu_bfs(coverage=True, **cfg.spawn).join()
+    _same_coverage("2pc8 coverage", ck.coverage_report(), solo.coverage_report())
+    telemetry["coverage"] = {"wall_s": rec["wall_s"], "bare_wall_s": big["rec"]["wall_s"],
+                             "unique": ck.coverage_report()["unique"],
+                             "vacuous": ck.coverage_report()["vacuous"]}
+    del solo
+    ck, attributed, rec = run("2pc8_n8_attributed", two8, attribution=True, **SHARDED_2PC8)
+    _same_sharded("2pc8 attribution", attributed, big["summary"])
+    ledger = ck.attribution_report()
+    assert ledger["within_tolerance"] and ledger["phases_s"].get("device", 0) > 0, ledger
+    assert sum(ledger["probe_length_counts"]) == UNIQUE_2PC8, ledger["probe_length_counts"]
+    telemetry["attribution"] = {"wall_s": rec["wall_s"], "bare_wall_s": big["rec"]["wall_s"],
+                                **_ledger_line(ledger)}
+
+    # Device liveness at W = 2^20 on 8 shards, against the solo run.
+    cfg = LIVENESS_CONFIGS["level_dag_2p20"]
+    spawn = dict(frontier_per_device=cfg.spawn["frontier_capacity"] // 8,
+                 table_capacity_per_device=cfg.spawn["table_capacity"] // 8, liveness="device")
+    ck, _, rec = run("level_dag_2p20_live", cfg.make, **spawn)
+    t0 = time.perf_counter()
+    solo = cfg.make().checker().spawn_gpu_bfs(**cfg.spawn).join()
+    solo_wall = time.perf_counter() - t0
+
+    def records(c):
+        return {k: {f: v for f, v in r.items() if f != "seconds"}
+                for k, r in c.liveness_report()["outcomes"].items()}
+
+    assert ck.unique_state_count() == LEVEL_DAG_2P20["states"], rec
+    assert records(ck) == records(solo), (records(ck), records(solo))
+    np.testing.assert_array_equal(ck._live_store.edge_rows(), solo._live_store.edge_rows())
+    assert ({k: [fingerprint(s) for s in p.into_states()] for k, p in ck.discoveries().items()}
+            == {k: [fingerprint(s) for s in p.into_states()]
+                for k, p in solo.discoveries().items()})
+    done = ck.liveness_report()["outcomes"]["done"]
+    liveness = {"waves": ck.waves, "edge_store": ck._live_store.stats(),
+                "verdict": done["verdict"], "analysis_s": done["seconds"],
+                "wall_s": rec["wall_s"], "solo_wall_s": solo_wall,
+                "solo_analysis_s": solo.liveness_report()["outcomes"]["done"]["seconds"]}
+    del ck, solo
+
+    # The JAX package's slow sharded parity counts.
+    slow = {}
+    for label, make, spawn_fn, kw, count in _sharded_slow_counts():
+        _, summary, rec = run(label, make, spawn=spawn_fn, **kw)
+        assert summary["unique"] == count, (label, summary["unique"], count)
+        slow[label] = {"unique": summary["unique"], "wall_s": rec["wall_s"]}
+    telemetry["slow_counts"] = slow
+    out["tiers"], out["telemetry"], out["liveness"] = tiers, telemetry, liveness
+
+
 @phase("sharded")
 def sharded():
     """Fingerprint-sharded BFS on the card (``spawn_sharded_gpu_bfs``: n
@@ -4160,8 +4445,10 @@ def sharded():
     2pc-8 at 8 shards of 1,024 lanes through the drain; the insert kernel
     against its plain twin on one owner's received batch of that run; a
     one-rank NCCL ``bootstrap_mesh`` run of 2pc-5 with 8 shards against the
-    one-process mesh; and, with two cards, a two-rank NCCL run. One
-    ``{"sharded_run": ...}`` line a run."""
+    one-process mesh; with two cards, a two-rank NCCL run; then the tiers,
+    the async pipeline, coverage, attribution, device liveness and the
+    slow counts (``_sharded_rest``). One ``{"sharded_run": ...}`` line a
+    run."""
     import torch
     import torch.distributed as dist
 
@@ -4210,6 +4497,10 @@ def sharded():
     assert "table" in seen, seen["n"]
     out["insert"] = _insert_on_owner_batch(seen)
     del seen
+
+    # The per-shard tiers, the async pipeline, coverage, attribution,
+    # device liveness and the slow parity counts.
+    _sharded_rest(out, launches, keep, {"summary": big, "rec": rec})
 
     # One rank of NCCL: the collectives' path, against the one-process mesh.
     _zero_launches()
@@ -4636,7 +4927,9 @@ def main() -> int:
                                tiering["restore_insert"]["max_abs_err"],
                                walks["insert"]["max_abs_err"],
                                packing["insert"]["max_abs_err"],
-                               shard["insert"]["max_abs_err"]),
+                               shard["insert"]["max_abs_err"],
+                               shard["evicted_insert"]["max_abs_err"],
+                               shard["restore_insert"]["max_abs_err"]),
             # On a random 344,064-key batch into a 2^22-row table at load
             # 0.4; on the keys of a raft5 wave and on a 2pc-9 drain take's
             # canonical (symmetry) keys, below.
@@ -4661,7 +4954,16 @@ def main() -> int:
                         # One owner's received batch of the 8-shard 2pc-8
                         # run: every shard's keys for that owner, sorted.
                         "sharded_2pc8": held(shard["insert"],
-                                             insert_launches["sharded_2pc8_n8"])},
+                                             insert_launches["sharded_2pc8_n8"]),
+                        # The first owner batch after an eviction of the
+                        # budgeted 8-shard 2pc-8 run, into its emptied
+                        # 2^18-row shard table.
+                        "sharded_evicted_2pc8": held(shard["evicted_insert"],
+                                                     insert_launches["sharded_2pc8_budget_spill"]),
+                        # The last batch of the elastic restore's rebuild
+                        # (8 shards to 4): its launches in the resumed run.
+                        "sharded_restore_2pc8": held(shard["restore_insert"],
+                                                     shard["restore_inserts"])},
         },
         {
             "name": "fused_wave",
@@ -4856,6 +5158,9 @@ def main() -> int:
         "runs": {name: {k: r[k] for k in ("unique", "waves", "drains", "wall_s", "unique_per_s",
                                            "lanes_shipped", "insert_launches")}
                  for name, r in shard["runs"].items()}}}))
+    log(json.dumps({"sharded_tiers": shard["tiers"]}, default=str))
+    log(json.dumps({"sharded_telemetry": shard["telemetry"]}, default=str))
+    log(json.dumps({"sharded_liveness": shard["liveness"]}, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

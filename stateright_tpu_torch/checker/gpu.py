@@ -557,6 +557,13 @@ def sorted_key_halves(keys: np.ndarray, device):
     return torch.from_numpy(hi).to(device), torch.from_numpy(lo).to(device)
 
 
+def live_table_keys(rows: np.ndarray) -> np.ndarray:
+    """The u64 keys of a table's live rows, from its ``(rows, 2)`` u32 host
+    view (an eviction's keys)."""
+    live = (rows[:, 0] != 0) | (rows[:, 1] != 0)
+    return (rows[live, 0].astype(np.uint64) << np.uint64(32)) | rows[live, 1].astype(np.uint64)
+
+
 def rehash_table(table, capacity: int):
     """The table's live rows, sorted, inserted into an empty table of
     ``capacity`` rows on its device through the insert kernel (the plain
@@ -1096,9 +1103,7 @@ class GpuBfsChecker(DeviceBfsChecker):
         tiers as a new L1 run and the table starts empty at the cap; older
         keys answer through the host probe from here on."""
         with self._phase("evict"):
-            rows = table.cpu().numpy().view(np.uint32).astype(np.uint64)
-            live = (rows[:, 0] != 0) | (rows[:, 1] != 0)
-            self._tier.evict((rows[live, 0] << np.uint64(32)) | rows[live, 1])
+            self._tier.evict(live_table_keys(table.cpu().numpy().view(np.uint32)))
         self._capacity = self._max_capacity
         self._l0_count = 0
         self.evictions += 1

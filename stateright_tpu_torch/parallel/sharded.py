@@ -59,6 +59,32 @@ map's keys through the routed insert, so a checkpoint resumes on a mesh of
 any size. As in the JAX package, the deep drain's depth labels are those
 of first claims (``max_depth()`` and path lengths are upper bounds); counts
 and verdicts are exact, and the wave path's paths are the JAX package's.
+
+Out of core (``hbm_budget_mib``, with ``host_budget_mib`` and
+``spill_dir``): each shard's table is capped, and growth past the cap
+evicts every shard's live keys into that shard's own host tier
+(``storage.TieredVisitedStore``, the host budget divided by n; across
+processes the keys travel delta-encoded, ``_allgather_evicted_keys``),
+resets the tables at the cap and flushes the sieve, whose receipts must
+only cover keys the tables hold. The fresh rows of each wave then probe
+the union of the tiers at the harvest, and the ones a tier holds are
+stale: results stay bit-identical to the unbounded run. The budget forces
+the wave path. Checkpoints carry the tiers' runs (``"storage"``); a
+payload of m shards resumed on n re-evicts each key to its new owner's
+tier, and the tables are rebuilt from the keys no tier holds.
+
+``coverage=True`` reduces each wave's coverage vector on the device (the
+JAX package's per-shard reductions, summed) and the host adds it at the
+reads the wave already makes. ``attribution=True`` records the solo
+checker's phases and windows (prefix ``sharded_bfs``).
+``liveness="device"`` builds each wave's condition-false edge rows on the
+device (``checker/device_liveness.py::wave_edge_rows``), absorbs them at
+every wave attempt into one ``LivenessEdgeStore`` and runs the trim and
+reach at the end; it forces the wave path. ``async_pipeline=True`` (one
+process) runs each wave's harvest, the tier probe and the evictions'
+absorbs on a ``HostPipeline`` worker while the next wave runs: the loop
+dispatches ahead only while the pool holds a full chunk without the
+verdicts in flight, so the waves are those of the synchronous run.
 """
 
 from __future__ import annotations
@@ -77,12 +103,19 @@ from ..core.model import Expectation
 from ..core.path import Path
 from ..ops import comm_sieve
 from ..ops.fingerprint import U32, fp_to_int
-from ..ops.fused_wave import _frontier_plain, _hit_lanes, model_stage, sorted_dedup
-from ..ops.hashset import MAX_PROBES, u32_to_i32
+from ..ops.fused_wave import (
+    _exercised,
+    _frontier_plain,
+    _hit_lanes,
+    antecedent_stage,
+    model_stage,
+    sorted_dedup,
+)
+from ..ops.hashset import MAX_PROBES, hashset_probe_length_counts, u32_to_i32
 from ..ops.hashset_kernel import TILE_ROWS, hashset_insert_sorted, round_table_capacity
 from ..telemetry import CommsInstruments, WaveInstruments, metrics_registry
 from ..utils.faults import fault_point
-from ..checker.device_liveness import validate_liveness_mode
+from ..checker.device_liveness import seed_root_mask, validate_liveness_mode, wave_edge_rows
 from ..checker.gpu import (
     _AUTO_BUCKET_MIN_F,
     _DEFAULT_BUCKET_STEPS,
@@ -93,14 +126,27 @@ from ..checker.gpu import (
     bucket_ladder_widths,
     DeviceBfsChecker,
     checkpoint_header,
+    live_table_keys,
     rehash_table,
     validate_checkpoint_header,
     wave_spec,
 )
+from ..checker.pipeline import HostPipeline
 from ..checker.symmetry import make_key_fn, sym_key_scheme
+from ..ops.edge_store import EDGE_COLS
+from ..storage import (
+    LivenessEdgeStore,
+    LivenessInstruments,
+    StorageInstruments,
+    TieredVisitedStore,
+    max_table_rows_for_budget,
+    table_budget_mib,
+    validate_budget_knobs,
+)
 from .base_mesh import ShardMesh, default_mesh
 
-__all__ = ["CHECKPOINT_KIND", "ShardedGpuBfsChecker", "comm_rungs", "run_summary"]
+__all__ = ["CHECKPOINT_KIND", "ShardedGpuBfsChecker", "comm_rungs", "min_hbm_budget_mib",
+           "run_summary"]
 
 CHECKPOINT_KIND = "sharded_gpu_bfs"
 _DEPTH_INF = (1 << 31) - 1
@@ -119,11 +165,26 @@ _COMMS_HEAD = 6
 _V_NEW, _V_COUNT, _V_OVERFLOW, _V_HIT, _V_LOG, _V_RING, _V_GEN = range(7)
 _GEN_WRAP = 1 << 30
 
-_WHY_10B = "is not ported yet (ROADMAP Queue 1 #10b)"
-
 
 def _pow2ceil(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
+
+
+def _min_shard_rows(frontier_per_device: int, action_count: int):
+    """The smallest per-shard table the budget may cap: a freshly evicted
+    shard takes one wave of received keys under the load cap, the balanced
+    share with 4x skew slack, as in the JAX package (a worse skew ends in
+    the retry guard's error). Returns (routed keys, rows)."""
+    worst = 4 * _pow2ceil(frontier_per_device) * action_count
+    return worst, _pow2ceil(int(worst / _MAX_LOAD) + 1)
+
+
+def min_hbm_budget_mib(frontier_per_device: int, action_count: int) -> float:
+    """The smallest ``hbm_budget_mib`` that ``spawn_sharded_gpu_bfs``
+    admits for ``frontier_per_device`` lanes a shard of a model with
+    ``action_count`` packed actions."""
+    return table_budget_mib(max(_min_shard_rows(frontier_per_device, action_count)[1],
+                                TILE_ROWS))
 
 
 def comm_rungs(m: int) -> list:
@@ -189,15 +250,17 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
     ``drain_log_factor``, ``pool_factor`` and ``bucket_ladder`` the deep
     drain's and the ladder's, ``checkpoint_*`` and ``resume_from`` the
     checkpoint's, ``sieve``, ``sieve_slots_per_device`` and
-    ``sieve_bloom_bits`` the comm sieve's. ``mesh`` is a ``ShardMesh``
-    (default: ``default_mesh(device=device)``). ``wave_kernel="fused"`` is
-    refused, as in the JAX package. ``aot_store`` is accepted and caches
-    nothing. The knobs of the per-shard tiers and device liveness,
-    coverage, attribution and the async pipeline raise
-    ``NotImplementedError`` (ROADMAP Queue 1 #10b), and ``fleet=True``
-    raises until the fleet ledger is ported (Queue 1 #12)."""
+    ``sieve_bloom_bits`` the comm sieve's, ``hbm_budget_mib``,
+    ``host_budget_mib`` and ``spill_dir`` the per-shard tiers', and
+    ``coverage``, ``attribution``, ``liveness`` and ``async_pipeline``
+    (module docstring). ``mesh`` is a ``ShardMesh`` (default:
+    ``default_mesh(device=device)``). ``wave_kernel="fused"`` is refused, as
+    in the JAX package. ``aot_store`` is accepted and caches nothing.
+    ``fleet=True`` raises until the fleet ledger is ported (ROADMAP Queue 1
+    #12)."""
 
     supports_preempt = True
+    supports_device_liveness = True
 
     def __init__(
         self,
@@ -299,45 +362,36 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
             raise ValueError(f"sieve_bloom_bits must be a power of two, got {sieve_bloom_bits}")
         self._sieve_bits = sieve_bloom_bits
         self._sieve_dev = None
-        # The knobs whose paths are still to port.
-        for name, value in (("hbm_budget_mib", hbm_budget_mib),
-                            ("host_budget_mib", host_budget_mib), ("spill_dir", spill_dir)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name} on the sharded GPU checker {_WHY_10B}: the per-shard "
-                    "host tiers, their eviction and its all-gather")
         if fleet:
             raise NotImplementedError(
                 "fleet=True on the sharded GPU checker waits for the fleet ledger "
                 "(telemetry/fleet.py, ROADMAP Queue 1 #12); it is off by default")
-        if coverage:
-            raise NotImplementedError(f"coverage=True on the sharded GPU checker {_WHY_10B}")
-        if attribution:
-            raise NotImplementedError(f"attribution on the sharded GPU checker {_WHY_10B}")
         self._visitor = options._visitor
-        if async_pipeline:
-            if self._visitor is not None:
-                raise ValueError(
-                    "async_pipeline is incompatible with a visitor: per-chunk "
-                    "callbacks reconstruct paths through verdicts the "
-                    "pipeline defers; drop the visitor or run synchronously"
-                )
-            if mesh.world > 1:
-                raise ValueError(
-                    "async_pipeline is single-controller only: deferred "
-                    "verdicts issue process_allgather collectives from the "
-                    "worker thread, which cannot be ordered against the "
-                    "checker thread's across processes"
-                )
-            raise NotImplementedError(f"async_pipeline=True on the sharded GPU checker {_WHY_10B}")
+        # The async pipeline (module docstring). The pool takes a lock: the
+        # worker appends survivors while this thread takes chunks; the
+        # verdicts in flight are the coalescing barrier's predicate.
+        self._async = bool(async_pipeline)
+        if self._async and self._visitor is not None:
+            raise ValueError(
+                "async_pipeline is incompatible with a visitor: per-chunk "
+                "callbacks reconstruct paths through verdicts the "
+                "pipeline defers; drop the visitor or run synchronously"
+            )
+        if self._async and mesh.world > 1:
+            raise ValueError(
+                "async_pipeline is single-controller only: deferred "
+                "verdicts issue process_allgather collectives from the "
+                "worker thread, which cannot be ordered against the "
+                "checker thread's across processes"
+            )
+        self._pool_lock = threading.Lock()
+        self._inflight_verdicts = 0
         self._target_state_count: Optional[int] = options._target_state_count
         self._depth_cap = options._target_max_depth or _DEPTH_INF
         self._setup_lasso(options)
         symmetry = options._symmetry is not None
         self._live = validate_liveness_mode(liveness, symmetry=symmetry, expand_fps=False,
                                             options=options)
-        if self._live == "device":
-            raise NotImplementedError(f"liveness='device' on the sharded GPU checker {_WHY_10B}")
 
         self._checkpoint_path = checkpoint_path
         self._checkpoint_every = max(1, checkpoint_every_chunks)
@@ -349,12 +403,69 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
         self._Ll = max(max(1, drain_log_factor) * self._F_loc, self._F_loc * self._A)
         self._PCl = _pow2ceil(max(max(1, pool_factor) * self._F_loc, self._F_loc * self._A))
 
+        # Out of core: one tier a shard, the host budget divided among them.
+        validate_budget_knobs(hbm_budget_mib, host_budget_mib, spill_dir)
+        self._tiers: List[TieredVisitedStore] = []
+        self._si = None
+        self._max_cap_loc = None
+        if hbm_budget_mib is not None:
+            max_cap = max_table_rows_for_budget(hbm_budget_mib)
+            worst, min_cap = _min_shard_rows(self._F_loc, self._A)
+            if max_cap < min_cap:
+                raise ValueError(
+                    f"hbm_budget_mib={hbm_budget_mib} allows a per-shard "
+                    f"table of {max_cap} rows, but one wave "
+                    f"({worst} routed keys at 4x skew) needs at least "
+                    f"{min_cap}; raise the budget or shrink "
+                    "frontier_per_device"
+                )
+            if max_cap < TILE_ROWS:
+                raise ValueError(
+                    f"the hbm_budget_mib cap of {max_cap} rows a shard is less than one "
+                    f"{TILE_ROWS}-row tile of the insert kernel; raise the budget"
+                )
+            self._max_cap_loc = max_cap
+            self._cap_loc = min(self._cap_loc, max_cap)
+            self._si = StorageInstruments("sharded_bfs", registry=self._registry)
+            self._tiers = [
+                TieredVisitedStore(
+                    host_budget_mib=(host_budget_mib / n if host_budget_mib is not None
+                                     else None),
+                    spill_dir=spill_dir, instruments=self._si, shard=d,
+                    tracer=self._tracer, owner=f"shard-{d}",
+                )
+                for d in range(n)
+            ]
+            # The host probe runs at each wave's harvest: wave at a time.
+            self._max_drain_waves = 1
+
+        # Device liveness: the edge rows of every wave attempt go to one
+        # host store at the harvest; the drain has no harvest a wave, so the
+        # knob forces the wave path.
+        self._live_enabled = self._live == "device" and bool(self._ebit)
+        self._live_paths: Dict[str, Path] = {}
+        self._live_outcomes: Dict[str, dict] = {}
+        if self._live_enabled:
+            self._max_drain_waves = 1
+            self._live_ins = LivenessInstruments("sharded_bfs", registry=self._registry)
+            self._live_store = LivenessEdgeStore(
+                instruments=self._live_ins, spill_dir=spill_dir,
+                host_budget_mib=host_budget_mib,
+            )
+
+        self._init_attribution("sharded_bfs", attribution)
+        if self._attr is not None and self._async:
+            self._attr.set_overlap_mode(True)
+        self._init_coverage("sharded_bfs", coverage, self._A, symmetry=symmetry)
         self._sym_scheme = sym_key_scheme(options._symmetry)
         self._sym = make_key_fn(model, model.packed_fingerprint, options._symmetry, self._device)
-        self._spec = wave_spec(model, self._device, symmetry=self._sym)
+        self._spec = wave_spec(model, self._device, cov_layout=self._cov_layout,
+                               cov_antecedents=self._cov_antecedents, symmetry=self._sym)
 
         self._state_count = 0
         self._unique_count = 0
+        # Keys resident in the shard tables: the unique count until the
+        # first eviction.
         self._l0_count = 0
         self._max_depth = 0
         self._discoveries_fp: Dict[str, int] = {}
@@ -367,15 +478,21 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
         self._error: Optional[BaseException] = None
         self.warmup_seconds: Optional[float] = None
         # Run statistics: waves run (a drain's included), drains, table
-        # growths, ring growths, checkpoints written.
+        # growths, ring growths, checkpoints written, the restore's insert
+        # launches; out of core, the evictions, the fresh lanes a tier held
+        # (``stale_lanes``) and the host probe's seconds.
         self.waves = 0
         self.drains = 0
         self.table_growths = 0
         self.ring_growths = 0
         self.checkpoints_written = 0
         self.restore_inserts = 0
+        self.evictions = 0
+        self.stale_lanes = 0
+        self.host_probe_s = 0.0
         self._wi = WaveInstruments("sharded_bfs", registry=self._registry)
         self._ci = CommsInstruments("sharded_bfs", registry=self._registry)
+        self._pipe = HostPipeline(name="sharded-gpu-bfs-host") if self._async else None
         self._handles = [threading.Thread(target=self._run, name="sharded-gpu-bfs", daemon=True)]
         self._handles[0].start()
 
@@ -598,19 +715,69 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
             idx = h.to(torch.uint8).argmax(1, keepdim=True)
             items += [h.any(1), hv.gather(1, idx)[:, 0], lv.gather(1, idx)[:, 0]]
         out["stats"] = torch.stack([x.to(torch.int64) for x in items], 1)
+        if self._cov is not None:
+            # The JAX package's per-shard coverage reductions, summed over
+            # this process's shards: ``fresh`` marks each shard's own claim
+            # winners, so the per-action fresh counts stay exact across the
+            # exchange; under symmetry the in-wave distinct counts are each
+            # shard's, summed, as there.
+            lay = self._cov_layout
+            uniq_fp = uniq_key = None
+            if self._sym is not None:
+                ch, cl = chi.view(L, B), clo.view(L, B)
+                uniq_fp = sum(lay.count_distinct(ch[d], cl[d], cv[d]) for d in range(L))
+                uniq_key = sum(lay.count_distinct(kh[d], kl[d], cv[d]) for d in range(L))
+            flat = torch.arange(LF * A, dtype=torch.int64, device=dev)
+            out["cov"] = lay.wave_reduce(
+                eval_mask=eval_mask, cvalid=cvalid.view(LF, A), fresh=fresh.reshape(-1),
+                lane_action=flat % A, new_depth=depth[flat // A] + 1,
+                exercised=_exercised(spec, cond, antecedent_stage(spec, states, LF),
+                                     eval_mask, ebits_after),
+                uniq_fp=uniq_fp, uniq_key=uniq_key)
+        if self._live_enabled:
+            # The condition-false edge and terminal rows of this process's
+            # lanes, compacted; pulled at the harvest (the store dedups).
+            out["live"], out["live_n"] = wave_edge_rows(
+                spec.conditions, dict(spec.ebit), cond, cand_flat, cvalid, terminal,
+                hi, lo, chi, clo, A)
         return out
 
     def _call_wave(self, table, dev):
         """One wave through ``_wave_core``, its stats and comms read once
         (gathered over the mesh); returns ``(out, stats)``, ``stats`` the
-        ``(n, 5 + 3P)`` rows as host lists."""
+        ``(n, 5 + 3P)`` rows as host lists. The same read carries the
+        mesh's coverage vector (``out["cov_vec"]``) and each process's
+        count of edge rows (``out["live_ns"]``)."""
         fault_point("device.wave")
-        out = self._wave_core(table, dev, self._depth_cap)
-        ns = out["stats"].shape[1]
-        rows = self._pull(torch.cat([out["stats"], out["comms"]], 1)).tolist()
-        self._consume_comms([r[ns:] for r in rows], dev["hi"].shape[0] // self._L * self._A)
+        with self._phase("device"):
+            out = self._wave_core(table, dev, self._depth_cap)
+            stats, comms = self._read_rows(out, out["stats"], out["comms"], out.get("cov"),
+                                           out.get("live_n"))
+        self._consume_comms(comms, dev["hi"].shape[0] // self._L * self._A)
         self.waves += 1
-        return out, [r[:ns] for r in rows]
+        return out, stats
+
+    def _read_rows(self, out, stats, comms, cov=None, live_n=None):
+        """One host read of the shards' stats and comms rows, gathered over
+        the mesh, with this process's coverage vector and edge-row count in
+        its first shard's row; the mesh's sums go into ``out``. Returns the
+        stats and comms rows as host lists."""
+        L = self._L
+        ns, nc = stats.shape[1], comms.shape[1]
+        parts = [stats, comms]
+        for x in (cov, live_n):
+            if x is not None:
+                z = torch.zeros((L, x.numel()), dtype=torch.int64, device=stats.device)
+                z[:1] = x.reshape(1, -1)
+                parts.append(z)
+        rows = self._pull(torch.cat(parts, 1)).tolist()
+        at = ns + nc
+        if cov is not None:
+            out["cov_vec"] = np.asarray([r[at : at + cov.numel()] for r in rows]).sum(0)
+            at += cov.numel()
+        if live_n is not None:
+            out["live_ns"] = [rows[r * L][at] for r in range(self._mesh.world)]
+        return [r[:ns] for r in rows], [r[ns : ns + nc] for r in rows]
 
     def _consume_comms(self, rows, m):
         """Host accounting of one dispatch's comms rows (``m``: a shard's
@@ -634,8 +801,25 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
             self._explore()
         except BaseException as e:  # noqa: BLE001 - surfaced via worker_error
             self._error = e
+            self._abort_attribution()
         finally:
+            self._shutdown_pipeline()
+            self._finalize_coverage(set(self._discoveries_fp))
             self._done_event.set()
+
+    def _shutdown_pipeline(self) -> None:
+        """Run-end barrier and teardown of the async pipeline: a verdict
+        error nothing drained yet becomes the worker error, and the host
+        thread never outlives the run."""
+        if self._pipe is None:
+            return
+        try:
+            self._pipe.drain()
+        except BaseException as e:  # noqa: BLE001 - surfaced via worker_error
+            if self._error is None:
+                self._error = e
+        finally:
+            self._pipe.close()
 
     def _explore(self):
         self._t_start = time.perf_counter()
@@ -648,12 +832,17 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
             # come from keys this run routed and their owners acknowledged.
             self._sieve_dev = self._new_sieve()
         # The deep drain is off for visitors, target counts and depth caps
-        # (its ring order is only approximately global FIFO).
+        # (its ring order is only approximately global FIFO), and for a
+        # resumed run whose tiers hold keys (each wave needs the host probe).
         if (self._max_drain_waves > 1 and self._visitor is None
-                and self._target_state_count is None and self._depth_cap == _DEPTH_INF):
+                and self._target_state_count is None and self._depth_cap == _DEPTH_INF
+                and not self._tier_active()):
             self._explore_deep(table)
         else:
             self._explore_waves(table)
+        # Sound `eventually` verdicts (liveness="device"): the trim and
+        # reach over the absorbed edge relation.
+        self._run_liveness_analysis("sharded_bfs")
 
     def _seed(self):
         """Fingerprints and inserts the initial states through the routed
@@ -689,9 +878,17 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
         self._unique_count = self._l0_count = int(fresh.sum())
         self._wi.generated.inc(self._state_count)
         self._wi.unique.inc(self._unique_count)
+        if self._cov is not None:
+            self._cov.record_seed(self._unique_count)
         child = _fp64(hi, lo)
         kept = child[fresh].cpu().numpy().view(np.uint64)
         self._wave_log.append((kept, np.zeros_like(kept)))
+        if self._live_enabled:
+            # The analysis roots: the valid init states whose condition is
+            # false.
+            roots = seed_root_mask(self._conditions, self._ebit, states, valid)
+            self._live_store.add_roots(child[valid].cpu().numpy().view(np.uint64),
+                                       roots[valid].cpu().numpy())
         if self._sym is not None:
             self._key_log.append(_fp64(khi, klo)[valid].cpu().numpy().view(np.uint64))
         k = int(fresh.sum())
@@ -715,24 +912,28 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
     def _pool_append(self, rows):
         k = rows["hi"].shape[0]
         if k:
-            self._pool.append(rows)
-            self._pool_count += k
+            # Locked: the async pipeline's worker appends survivors while
+            # this thread takes chunks.
+            with self._pool_lock:
+                self._pool.append(rows)
+                self._pool_count += k
 
     def _pool_take(self, width):
         """Pops up to ``width`` rows as a chunk of exactly ``width`` lanes,
         dealt round-robin to the ``n`` contiguous shard slices (a short chunk
         gives every shard about ``got / n`` live lanes), with ``mask``."""
         parts, got = [], 0
-        while got < width and self._pool:
-            batch = self._pool.popleft()
-            k = batch["hi"].shape[0]
-            if got + k > width:
-                keep = width - got
-                self._pool.appendleft(self._rows_slice(batch, keep, k))
-                batch, k = self._rows_slice(batch, 0, keep), keep
-            parts.append(batch)
-            got += k
-        self._pool_count -= got
+        with self._pool_lock:
+            while got < width and self._pool:
+                batch = self._pool.popleft()
+                k = batch["hi"].shape[0]
+                if got + k > width:
+                    keep = width - got
+                    self._pool.appendleft(self._rows_slice(batch, keep, k))
+                    batch, k = self._rows_slice(batch, 0, keep), keep
+                parts.append(batch)
+                got += k
+            self._pool_count -= got
 
         def cat_pad(*xs):
             out = torch.cat(xs) if len(xs) > 1 else xs[0]
@@ -777,11 +978,21 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
                     break
 
     def _explore_waves(self, table):
+        """The wave-at-a-time loop. With the async pipeline each wave's
+        harvest rides the worker while the next wave runs; the loop
+        dispatches ahead of the verdicts in flight only while the pool holds
+        a full chunk without them (the head ``G`` rows and the bucket are
+        then those of the synchronous run), and waits for them otherwise."""
         props = self._properties
         n, G, A = self._n, self._G, self._A
+        pipe = self._pipe
         chunks = 0
         last_checkpoint = time.perf_counter()
         while True:
+            if pipe is not None and self._inflight_verdicts > 0 and self._pool_count < G:
+                # The coalescing barrier: keyed on verdicts, which may add
+                # pool rows; a deferred checkpoint or absorb adds none.
+                pipe.drain()
             if not self._pool_count or not props:
                 break
             if len(self._discoveries_fp) == len(props):
@@ -790,66 +1001,180 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
                     and self._target_state_count <= self._state_count):
                 break
             if self._preempt_event.is_set():
+                if pipe is not None:
+                    pipe.drain()
                 self._preempt_payload = self.checkpoint_payload(list(self._pool))
                 self._tracer.instant("sharded_bfs.preempted", batches=len(self._pool),
                                      mode="wave")
                 return
-            if (self._checkpoint_path is not None and chunks
-                    and chunks % self._checkpoint_every == 0
-                    and time.perf_counter() - last_checkpoint >= self._checkpoint_min_interval):
-                self.save_checkpoint(self._checkpoint_path, self._pool)
-                last_checkpoint = time.perf_counter()
-            chunks += 1
-            B_glob = G * A
-            if self._l0_count + B_glob > _MAX_LOAD * n * self._cap_loc:
-                table = self._grow_table(
-                    table, _pow2ceil(int((self._l0_count + B_glob) / (_MAX_LOAD * n))))
-            # The chunk shrinks to n x the smallest ladder rung that holds
-            # the pending rows.
-            got = min(self._pool_count, G)
-            width, bucket = G, None
-            if len(self._buckets) > 1:
-                bucket = bucket_for(self._buckets, max(1, -(-got // n)))
-                width = n * bucket
-                self._wi.bucket.set(bucket)
-                self._wi.bucket_dispatch(bucket)
-                self._wi.compaction.set(got / width)
-                self._wi.frontier_fill.set(got / G)
-            chunk = self._pool_take(width)
-            table = self._wave_sync(table, chunk, self._put(chunk), width, bucket, got)
-            if self.warmup_seconds is None:
-                self.warmup_seconds = time.perf_counter() - self._t_start
-                self._wi.warmup.set(self.warmup_seconds)
+            # The window covers the whole iteration, the checkpoint and the
+            # growth ahead of the wave included.
+            with self._wave_window():
+                if (self._checkpoint_path is not None and chunks
+                        and chunks % self._checkpoint_every == 0
+                        and time.perf_counter() - last_checkpoint
+                        >= self._checkpoint_min_interval):
+                    with self._phase("checkpoint"):
+                        self._save_checkpoint_maybe_async()
+                    last_checkpoint = time.perf_counter()
+                chunks += 1
+                B_glob = G * A
+                if self._l0_count + B_glob > _MAX_LOAD * n * self._cap_loc:
+                    table = self._grow_table(
+                        table, _pow2ceil(int((self._l0_count + B_glob) / (_MAX_LOAD * n))),
+                        defer_evict=pipe is not None)
+                # The chunk shrinks to n x the smallest ladder rung that
+                # holds the pending rows.
+                got = min(self._pool_count, G)
+                width, bucket = G, None
+                if len(self._buckets) > 1:
+                    bucket = bucket_for(self._buckets, max(1, -(-got // n)))
+                    width = n * bucket
+                    self._wi.bucket.set(bucket)
+                    self._wi.bucket_dispatch(bucket)
+                    self._wi.compaction.set(got / width)
+                    self._wi.frontier_fill.set(got / G)
+                chunk = self._pool_take(width)
+                if pipe is None:
+                    table = self._wave_sync(table, chunk, self._put(chunk), width, bucket, got)
+                else:
+                    # The bounded set of pending verdicts.
+                    pipe.throttle()
+                    table = self._wave_async(table, self._put(chunk), width, bucket, got)
+                if self.warmup_seconds is None:
+                    self.warmup_seconds = time.perf_counter() - self._t_start
+                    self._wi.warmup.set(self.warmup_seconds)
+        if pipe is not None:
+            # Counts and the parent log settle before the audit and the end.
+            pipe.drain()
+        self._audit_table(table)
 
     def _wave_sync(self, table, chunk, dev, width, bucket, got):
-        """One wave and its harvest; a probe overflow grows every table and
-        runs the same chunk again, each attempt's fresh rows kept."""
+        """One wave and its harvest; a probe overflow grows every table (or,
+        under the budget, evicts them) and runs the same chunk again, each
+        attempt's fresh rows, coverage and edge rows kept."""
         attempt = 0
         generated = wave_new = 0
         while True:
             out, stats = self._call_wave(table, dev)
             if attempt == 0:
                 generated = self._apply_wave_stats(stats, chunk)
+            self._consume_coverage(out, attempt == 0)
             wave_new += self._harvest(out, stats)
+            self._harvest_liveness(out)
             if not sum(r[_OVERFLOW] for r in stats):
                 break
+            self._retry_guard(attempt)
             table = self._grow_table(table, self._cap_loc * 2)
             attempt += 1
-        capacity = self._n * self._cap_loc
-        self._wi.record(None, frontier=width, generated=generated, n_new=wave_new,
-                        occupancy=self._l0_count / capacity, capacity=capacity,
-                        max_depth=self._max_depth, bucket=bucket,
-                        compaction_ratio=(got / width if bucket else None))
+        self._record_wave_metrics(width, generated, wave_new, bucket, got)
+        if self._cov is not None:
+            self._cov.emit_wave_span()
         return table
+
+    def _retry_guard(self, attempt):
+        if self._max_cap_loc is not None and attempt >= 8:
+            # One shard overflows even freshly evicted: a configuration
+            # error, not a loop to spin in.
+            raise RuntimeError(
+                "a single wave's routed keys overflow one "
+                "budget-capped shard after repeated "
+                "evictions; raise hbm_budget_mib or shrink "
+                "frontier_per_device"
+            )
+
+    def _wave_async(self, table, dev, width, bucket, got):
+        """One wave's dispatch with the async pipeline (this thread): the
+        stats, discoveries, coverage and growth retries, everything the
+        next dispatch depends on; each attempt's harvest goes to the worker
+        before any growth or eviction that follows it, so the tiers see the
+        probes and evictions in the synchronous order."""
+        attempt = 0
+        ctx = {"wave_new": 0, "generated": 0}
+        while True:
+            out, stats = self._call_wave(table, dev)
+            if attempt == 0:
+                ctx["generated"] = self._apply_wave_stats(stats)
+            self._consume_coverage(out, attempt == 0)
+            n_new = [r[_N_NEW] for r in stats]
+            self._l0_count += sum(n_new)
+            final = not sum(r[_OVERFLOW] for r in stats)
+            # Counted in before it is queued, so the barrier never misses
+            # a verdict whose decrement lands first.
+            with self._pool_lock:
+                self._inflight_verdicts += 1
+            try:
+                # The wave's point-in-time figures: by verdict time a later
+                # wave (or an eviction) has moved them.
+                self._pipe.submit(
+                    lambda o=out, nn=n_new, f=final,
+                    st=(self._l0_count, self._n * self._cap_loc, self._max_depth):
+                        self._harvest_verdict(ctx, o, nn, f, width, bucket, got, st))
+            except BaseException:
+                with self._pool_lock:
+                    self._inflight_verdicts -= 1
+                raise
+            if final:
+                if self._cov is not None:
+                    self._cov.emit_wave_span()
+                return table
+            self._retry_guard(attempt)
+            table = self._grow_table(table, self._cap_loc * 2, defer_evict=True)
+            attempt += 1
+
+    def _harvest_verdict(self, ctx, out, n_new, final, width, bucket, got, state):
+        """The worker's half of an async wave attempt: its edge rows, its
+        fresh rows through the tier probe (exact here: every eviction's
+        absorb runs on this thread, in submission order) into the parent
+        log and the pool; the final attempt records the wave."""
+        try:
+            self._harvest_liveness(out)
+            if sum(n_new):
+                ctx["wave_new"] += self._harvest_rows(out, n_new, overlapped=True)
+            if final:
+                self._record_wave_metrics(width, ctx["generated"], ctx["wave_new"], bucket,
+                                          got, state)
+        finally:
+            # Even on an error: the barrier must not wait on a verdict that
+            # will never append (the error surfaces at the next barrier).
+            with self._pool_lock:
+                self._inflight_verdicts -= 1
+
+    def _record_wave_metrics(self, width, generated, n_new, bucket, got, state=None):
+        """One wave's telemetry; ``state`` (l0, capacity, max depth) is the
+        async verdict's capture, else the live fields."""
+        l0, capacity, depth = state or (self._l0_count, self._n * self._cap_loc,
+                                        self._max_depth)
+        if self._si is not None:
+            self._si.set_l0(l0)
+        self._wi.record(None, frontier=width, generated=generated, n_new=n_new,
+                        occupancy=l0 / capacity, capacity=capacity, max_depth=depth,
+                        bucket=bucket, compaction_ratio=(got / width if bucket else None))
+
+    def _consume_coverage(self, out, first_attempt):
+        """A wave attempt's mesh-summed coverage vector; a growth retry
+        re-expands the same chunk, so only its fresh-based slices count."""
+        if self._cov is not None:
+            self._cov.consume_device(out["cov_vec"], self._cov_layout,
+                                     first_attempt=first_attempt, max_depth=self._max_depth)
 
     def _harvest(self, out, stats):
         """Pulls every shard's fresh rows into the host pool and the parent
-        log, shard by shard in lane order; returns how many."""
+        log (``_harvest_rows``); returns how many survive the tier probe."""
         n_new = [r[_N_NEW] for r in stats]
         total = sum(n_new)
         self._l0_count += total
         if not total:
             return 0
+        return self._harvest_rows(out, n_new)
+
+    def _harvest_rows(self, out, n_new, overlapped=False):
+        """One wave attempt's fresh rows, shard by shard in lane order: once
+        a tier holds keys, the rows whose key (the orbit key under symmetry)
+        a tier holds are stale and dropped; the survivors go to the parent
+        log and the pool. One site for the synchronous harvest and the
+        async verdict (``overlapped``: the worker's attribution ledger).
+        Returns the survivors' count."""
         new = out["new"]
         B = new["hi"].shape[1]
         cols = [new["hi"], new["lo"], new["ebits"], new["depth"], out["parent_hi"],
@@ -861,35 +1186,161 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
         idx = torch.cat([d * B + torch.arange(k, device=self._device)
                          for d, k in enumerate(n_new) if k])
         flat = cols.permute(1, 0, 2).reshape(ncol, self._n * B)[:, idx]
-        states = map_leaves(lambda x: self._pull(x)[idx], new["states"])
         rows = [_fp64(flat[0], flat[1]), _fp64(flat[4], flat[5])]
         if self._sym is not None:
             rows.append(_fp64(flat[6], flat[7]))
         log = torch.stack(rows).cpu().numpy().view(np.uint64)
+        if self._tier_active():
+            phase = self._phase_overlapped if overlapped else self._phase
+            with phase("host_probe"):
+                t0 = time.perf_counter()
+                stale = self._probe_tiers(log[2] if self._sym is not None else log[0])
+                self.host_probe_s += time.perf_counter() - t0
+            n_stale = int(stale.sum())
+            self.stale_lanes += n_stale
+            if n_stale:
+                keep = np.flatnonzero(~stale)
+                log = log[:, keep]
+                keep = torch.from_numpy(keep).to(self._device)
+                idx, flat = idx[keep], flat[:, keep]
+        survivors = log.shape[1]
+        self._unique_count += survivors
+        if not survivors:
+            return 0
+        states = map_leaves(lambda x: self._pull(x)[idx], new["states"])
         self._wave_log.append((log[0], log[1]))
         if self._sym is not None:
             self._key_log.append(log[2])
-        self._unique_count += total
         self._pool_append({"states": states, "hi": flat[0], "lo": flat[1],
                            "ebits": flat[2], "depth": flat[3]})
-        return total
+        return survivors
 
-    def _grow_table(self, table, min_cap):
+    def _harvest_liveness(self, out):
+        """Absorbs one wave attempt's edge rows (every process's first
+        ``live_ns`` rows) into the host store, zero-fresh attempts
+        included: the edges that close cycles reach visited states."""
+        if not self._live_enabled:
+            return
+        ns = out["live_ns"]
+        if not sum(ns):
+            return
+        rows = out["live"]
+        top = max(ns)
+        cols = self._pull(torch.stack([rows[c][:top] for c in EDGE_COLS], 1)).cpu().numpy()
+        sel = np.zeros(cols.shape[0], bool)
+        for r, k in enumerate(ns):
+            sel[r * top : r * top + k] = True
+        self._live_store.absorb(**{c: cols[sel, i] for i, c in enumerate(EDGE_COLS)})
+
+    def _grow_table(self, table, min_cap, defer_evict=False):
         """Doubles every shard's table to at least ``min_cap`` rows, each
         rehashed locally through the insert kernel (``rehash_table``; keys
         never change owner); a rehash that leaves a key without a slot
-        doubles again."""
+        doubles again. Under the budget, growth past the cap evicts instead
+        (``defer_evict``: the async loop's, whose absorbs ride the
+        worker)."""
+        if self._max_cap_loc is not None and min_cap > self._max_cap_loc:
+            return self._evict_shards(table, defer=defer_evict)
         while self._cap_loc < min_cap:
             self._cap_loc *= 2
         while True:
-            shards = [rehash_table(table[d], self._cap_loc) for d in range(self._L)]
-            leftover = torch.tensor([sum(n for _t, n in shards)], device=self._device)
-            if not int(self._allsum(leftover)):
+            with self._phase("table_grow"):
+                shards = [rehash_table(table[d], self._cap_loc) for d in range(self._L)]
+                leftover = torch.tensor([sum(n for _t, n in shards)], device=self._device)
+                overflowed = int(self._allsum(leftover))
+            if not overflowed:
                 break
             self._cap_loc *= 2
+            if self._max_cap_loc is not None and self._cap_loc > self._max_cap_loc:
+                return self._evict_shards(table, defer=defer_evict)
         self.table_growths += 1
         self._wi.table_grows.inc()
         return torch.stack([t for t, _n in shards])
+
+    # -- the per-shard host tiers ---------------------------------------------------
+
+    def _tier_active(self) -> bool:
+        return any(not t.is_empty() for t in self._tiers)
+
+    def _evict_shards(self, table, defer=False):
+        """Growth under the budget: every shard's live keys go to its own
+        tier and the tables start empty at the cap. Across processes the
+        keys travel delta-encoded (``_allgather_evicted_keys``); in one
+        process they are read from the tables. ``defer`` (the async loop):
+        the read and the reset stay here, the absorbs ride the worker in
+        FIFO order between the verdicts around them. The sieve flushes: a
+        receipt must only cover keys the tables hold, or a lane whose
+        evicted key comes back would be killed where the sieve-off run
+        keeps it."""
+        with self._phase("evict"):
+            if self._mesh.distributed:
+                shard_keys = self._allgather_evicted_keys(table)
+            else:
+                tab = table.cpu().numpy().view(np.uint32)
+                shard_keys = [live_table_keys(tab[d]) for d in range(self._n)]
+            if defer and self._pipe is not None:
+                self._pipe.submit(lambda ks=shard_keys: self._evict_absorb(ks))
+            else:
+                for tier, keys in zip(self._tiers, shard_keys):
+                    tier.evict(keys)
+            self._cap_loc = self._max_cap_loc
+            self._l0_count = 0
+            self._si.set_l0(0)
+            self.evictions += 1
+            if self._sieve and self._sieve_dev is not None:
+                self._sieve_dev = self._new_sieve()
+            return self._new_table()
+
+    def _allgather_evicted_keys(self, table):
+        """The eviction's exchange across processes: each process
+        delta-encodes its shards' sorted live keys (``storage/runs.py``'s
+        codec), the lengths are gathered, then the padded byte rows; every
+        process decodes the same per-shard key lists. Counts the bytes on
+        the wire (``comms.evict_wire_bytes``)."""
+        from ..storage.runs import decode_sorted_fps, encode_sorted_fps
+
+        tab = table.cpu().numpy().view(np.uint32)
+        bufs = [encode_sorted_fps(np.sort(live_table_keys(tab[j]))) for j in range(self._L)]
+        lens = self._pull(torch.tensor([len(b) for b in bufs], dtype=torch.int64,
+                                       device=self._device)).tolist()
+        width = max(1, max(lens))
+        pad = np.zeros((self._L, width), np.uint8)
+        for j, b in enumerate(bufs):
+            pad[j, : len(b)] = np.frombuffer(b, np.uint8)
+        rows = self._pull(torch.from_numpy(pad).to(self._device)).cpu().numpy()
+        shard_keys = [decode_sorted_fps(rows[d, :ln].tobytes()) for d, ln in enumerate(lens)]
+        wire_bytes = sum(lens)
+        self._ci.evict_wire_bytes.inc(wire_bytes)
+        self._tracer.instant("sharded_bfs.evict_wire", bytes=wire_bytes,
+                             raw_bytes=self._n * int(table.shape[1]) * 8,
+                             keys=sum(len(k) for k in shard_keys))
+        return shard_keys
+
+    def _evict_absorb(self, shard_keys):
+        """The worker's half of a deferred eviction, every shard."""
+        with self._phase_overlapped("evict"):
+            for tier, keys in zip(self._tiers, shard_keys):
+                tier.evict(keys)
+
+    def _probe_tiers(self, keys):
+        """Membership in the union of every shard's tier, as in the JAX
+        package (a non-owner's Bloom filters reject a key in O(1))."""
+        found = np.zeros(len(keys), bool)
+        for tier in self._tiers:
+            rem = np.flatnonzero(~found)
+            if not len(rem):
+                break
+            found[rem] = tier.probe(keys[rem])
+        return found
+
+    def _audit_table(self, table):
+        """Run-end audit in attribution mode: every shard's probe-length
+        counts, summed (the shards share one hash scheme)."""
+        if self._attr is None:
+            return
+        counts = sum(hashset_probe_length_counts(table[d]) for d in range(self._L))
+        counts = self._allsum(torch.from_numpy(counts).to(self._device)).cpu().numpy()
+        self._attr.observe_probe_lengths(counts)
 
     # -- the deep drain --------------------------------------------------------------
 
@@ -1044,7 +1495,7 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
         log = torch.zeros((L, ncol, Ll + 1), dtype=torch.int64, device=dev)
         z = torch.zeros(L, dtype=torch.int64, device=dev)
         log_n, gen_acc, consumed, max_depth = z, z.clone(), z.clone(), z.clone()
-        comms_acc = None
+        comms_acc = cov_acc = None
         fr = self._ring_take(ring, F)
         out = self._wave_plus(table, fr)
         waves = 1
@@ -1062,6 +1513,8 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
                 log[shard, 2, slot] = _fp64(out["new_khi"], out["new_klo"])
             self._ring_push(ring, out["recv"], out["recv_mask"])
             comms_acc = out["comms"] if comms_acc is None else comms_acc + out["comms"]
+            if self._cov is not None:
+                cov_acc = out["cov"] if cov_acc is None else cov_acc + out["cov"]
             log_n = log_n + n_new
             gen_acc = gen_acc + st[:, _GENERATED]
             consumed = consumed + n_new
@@ -1072,9 +1525,13 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
             waves += 1
             v = self._vote(out, ring["count"], log_n, gen_acc, undiscovered)
         comms_acc = out["comms"] if comms_acc is None else comms_acc + out["comms"]
-        return {"out": out, "frontier": fr, "log": log, "log_n": log_n, "generated": gen_acc,
-                "consumed": consumed, "max_depth": max_depth, "waves": waves,
-                "comms_acc": comms_acc}
+        res = {"out": out, "frontier": fr, "log": log, "log_n": log_n, "generated": gen_acc,
+               "consumed": consumed, "max_depth": max_depth, "waves": waves,
+               "comms_acc": comms_acc}
+        if self._cov is not None:
+            # The consumed waves' coverage and the final wave's.
+            res["cov_acc"] = out["cov"] if cov_acc is None else cov_acc + out["cov"]
+        return res
 
     def _explore_deep(self, table):
         props = self._properties
@@ -1095,53 +1552,67 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
             ring, ring_est = self._feed_rings(ring, ring_est)
             if ring_est == 0:
                 break
-            if (self._checkpoint_path is not None and drains
-                    and time.perf_counter() - last_checkpoint >= self._checkpoint_min_interval):
-                self.save_checkpoint(self._checkpoint_path, self._rings_pool_batches(ring))
-                last_checkpoint = time.perf_counter()
-            drains += 1
-            self.drains += 1
-            B_glob = G * A
-            if self._l0_count + B_glob > _MAX_LOAD * n * self._cap_loc:
-                table = self._grow_table(
-                    table, _pow2ceil(int((self._l0_count + B_glob) / (_MAX_LOAD * n))))
-            undiscovered = torch.tensor([p.name not in self._discoveries_fp for p in props],
-                                        dtype=torch.bool, device=self._device)
-            budget = min(int(_MAX_LOAD * n * self._cap_loc) - self._l0_count,
-                         (1 << 31) - 1 - G * A)
-            res = self._drain(table, ring, undiscovered, budget)
-            if self.warmup_seconds is None:
-                self.warmup_seconds = time.perf_counter() - self._t_start
-                self._wi.warmup.set(self.warmup_seconds)
-            out = res["out"]
-            acc = self._pull(torch.stack([res["log_n"], res["generated"], res["consumed"],
-                                          res["max_depth"], ring["count"]], 1)).tolist()
-            drain_new = sum(r[2] for r in acc)
-            self._state_count += sum(r[1] for r in acc)
-            self._unique_count += drain_new
-            self._l0_count += drain_new
-            self._max_depth = max(self._max_depth, max(r[3] for r in acc))
-            self.waves += res["waves"]
-            self._wi.drains.inc()
-            self._wi.waves.inc(res["waves"])
-            self._wi.generated.inc(sum(r[1] for r in acc))
-            self._wi.unique.inc(drain_new)
-            ns = out["stats"].shape[1]
-            final = self._pull(torch.cat([out["stats"], res["comms_acc"]], 1)).tolist()
-            self._consume_comms([r[ns:] for r in final], self._F_loc * self._A)
-            stats = [r[:ns] for r in final]
-            ring_est = max(r[4] for r in acc)
-            max_log = max(r[0] for r in acc)
-            if max_log:
-                pack = self._pull(res["log"][:, :, :max_log].contiguous())
-                pack = pack.cpu().numpy().view(np.uint64)
-                for d in range(n):
-                    ln = acc[d][0]
-                    if ln:
-                        self._wave_log.append((pack[d, 0, :ln], pack[d, 1, :ln]))
-                        if self._sym is not None:
-                            self._key_log.append(pack[d, 2, :ln])
-            table, ring, ring_est = self._consume_final(res, stats, table, ring, ring_est)
+            # The window covers the whole drain iteration.
+            with self._wave_window("drain"):
+                if (self._checkpoint_path is not None and drains
+                        and time.perf_counter() - last_checkpoint
+                        >= self._checkpoint_min_interval):
+                    with self._phase("checkpoint"):
+                        self._save_checkpoint_maybe_async(self._rings_pool_batches(ring))
+                    last_checkpoint = time.perf_counter()
+                drains += 1
+                self.drains += 1
+                B_glob = G * A
+                if self._l0_count + B_glob > _MAX_LOAD * n * self._cap_loc:
+                    table = self._grow_table(
+                        table, _pow2ceil(int((self._l0_count + B_glob) / (_MAX_LOAD * n))))
+                undiscovered = torch.tensor([p.name not in self._discoveries_fp for p in props],
+                                            dtype=torch.bool, device=self._device)
+                budget = min(int(_MAX_LOAD * n * self._cap_loc) - self._l0_count,
+                             (1 << 31) - 1 - G * A)
+                with self._phase("device"):
+                    res = self._drain(table, ring, undiscovered, budget)
+                if self.warmup_seconds is None:
+                    self.warmup_seconds = time.perf_counter() - self._t_start
+                    self._wi.warmup.set(self.warmup_seconds)
+                table, ring, ring_est = self._consume_drain(res, table, ring)
+        self._audit_table(table)
+
+    def _consume_drain(self, res, table, ring):
+        """A drain's results on the host: its consumed waves' counts, comms,
+        coverage and parent log, then its final wave (``_consume_final``)."""
+        n = self._n
+        out = res["out"]
+        acc = self._pull(torch.stack([res["log_n"], res["generated"], res["consumed"],
+                                      res["max_depth"], ring["count"]], 1)).tolist()
+        drain_new = sum(r[2] for r in acc)
+        self._state_count += sum(r[1] for r in acc)
+        self._unique_count += drain_new
+        self._l0_count += drain_new
+        self._max_depth = max(self._max_depth, max(r[3] for r in acc))
+        self.waves += res["waves"]
+        self._wi.drains.inc()
+        self._wi.waves.inc(res["waves"])
+        self._wi.generated.inc(sum(r[1] for r in acc))
+        self._wi.unique.inc(drain_new)
+        stats, comms = self._read_rows(res, out["stats"], res["comms_acc"], res.get("cov_acc"))
+        self._consume_comms(comms, self._F_loc * self._A)
+        if self._cov is not None:
+            # Every wave of the drain, its final one included.
+            self._cov.consume_device(res["cov_vec"], self._cov_layout,
+                                     max_depth=self._max_depth)
+        ring_est = max(r[4] for r in acc)
+        max_log = max(r[0] for r in acc)
+        if max_log:
+            pack = self._pull(res["log"][:, :, :max_log].contiguous())
+            pack = pack.cpu().numpy().view(np.uint64)
+            for d in range(n):
+                ln = acc[d][0]
+                if ln:
+                    self._wave_log.append((pack[d, 0, :ln], pack[d, 1, :ln]))
+                    if self._sym is not None:
+                        self._key_log.append(pack[d, 2, :ln])
+        return self._consume_final(res, stats, table, ring, ring_est)
 
     def _consume_final(self, res, stats, table, ring, ring_est):
         """The drain's final (unconsumed) wave on the host: counts,
@@ -1191,9 +1662,14 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
             while True:
                 table = self._grow_table(table, self._cap_loc * 2)
                 wave, wstats = self._call_wave(table, fr)
+                # The final frontier's evaluation already rode the drain's
+                # coverage: only the retry's fresh lanes count.
+                self._consume_coverage(wave, False)
                 self._wi.unique.inc(self._harvest(wave, wstats))
                 if not sum(r[_OVERFLOW] for r in wstats):
                     break
+        if self._cov is not None:
+            self._cov.emit_wave_span()
         return table, ring, ring_est
 
     def _rings_pool_batches(self, ring):
@@ -1215,6 +1691,28 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
         if self._mesh.rank == 0:
             atomic_pickle(path, payload)
         self.checkpoints_written += 1
+
+    def _save_checkpoint_maybe_async(self, batches=None):
+        """A checkpoint at a boundary: with the async pipeline the payload
+        is built after the barrier (the verdicts in flight append pool
+        rows) and its pickle rides the worker. ``batches`` stands for the
+        host pool (the drain passes its rings' rows)."""
+        if self._pipe is None:
+            self.save_checkpoint(self._checkpoint_path,
+                                 batches if batches is not None else self._pool)
+            return
+        self._pipe.drain()
+        payload = self.checkpoint_payload(list(batches) if batches is not None
+                                          else list(self._pool))
+        path = self._checkpoint_path
+        self._pipe.submit(lambda: self._checkpoint_write(path, payload))
+        self.checkpoints_written += 1
+
+    def _checkpoint_write(self, path, payload):
+        """The worker's half of a deferred checkpoint: the pickle and the
+        rename (one process: the async pipeline refuses more)."""
+        with self._phase_overlapped("checkpoint"):
+            atomic_pickle(path, payload)
 
     def checkpoint_payload(self, pool) -> dict:
         """The checkpoint as an in-memory payload: counters, discoveries,
@@ -1241,6 +1739,13 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
         if self._sym is not None:
             payload["keys"] = (np.concatenate(self._key_log) if self._key_log
                                else np.zeros((0,), np.uint64))
+        if self._tier_active():
+            # Every shard's runs; the tables rebuild from the keys no run
+            # holds.
+            payload["storage"] = [t.export_state() for t in self._tiers]
+        if self._live_enabled:
+            payload["liveness"] = self._live_store.export_state()
+            payload["version"] = 3
         return payload
 
     def _restore(self, source):
@@ -1266,24 +1771,77 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
             self._key_log.append(keys)
         for batch in payload["pool"]:
             self._pool_append(_tree_to_device(batch, self._device))
+        # The edge store round-trips with the run: resuming across the
+        # liveness mode would end with a truncated relation.
+        live_state = payload.get("liveness")
+        if self._live_enabled and live_state is None:
+            raise ValueError(
+                "liveness='device' cannot resume a checkpoint written "
+                "without it: pre-checkpoint edges were never logged, so "
+                "the final verdict would be unsound"
+            )
+        if live_state is not None:
+            if not self._live_enabled:
+                raise ValueError(
+                    "checkpoint carries a liveness edge store; resume "
+                    "with liveness='device' (dropping it would discard "
+                    "the soundness the original run paid for)"
+                )
+            self._live_store.load_state(live_state)
         n, L = self._n, self._L
+        storage = payload.get("storage")
+        if storage:
+            if not self._tiers:
+                # Resumed without a budget: the runs stay probed, the
+                # tables grow without a cap from here on.
+                self._si = StorageInstruments("sharded_bfs", registry=self._registry)
+                self._tiers = [TieredVisitedStore(instruments=self._si, shard=d,
+                                                  tracer=self._tracer) for d in range(n)]
+            if len(storage) == n:
+                for tier, state in zip(self._tiers, storage):
+                    tier.load_state(state)
+            else:
+                # Elastic: every key goes to its owner's tier on this mesh
+                # (the probe takes the union, so only the balance moves).
+                from ..storage.runs import FingerprintRun
+
+                allk = np.unique(np.concatenate(
+                    [FingerprintRun.from_state(r).decode_all() for st in storage
+                     for r in list(st.get("l1", [])) + list(st.get("l2", []))]))
+                owner = ((allk >> np.uint64(32)) % np.uint64(n)).astype(np.int64)
+                for d, tier in enumerate(self._tiers):
+                    tier.evict(allk[owner == d])
+        keys = np.asarray(keys, np.uint64)
+        if self._tier_active():
+            keys = keys[~self._probe_tiers(keys)]
         if payload["n_shards"] == n:
             self._cap_loc = max(self._cap_loc, payload["cap_loc"])
         self._cap_loc = _pow2ceil(max(int(len(keys) / (_MAX_LOAD * n)), self._cap_loc))
+        W = n * (1 << 13)
+        if self._max_cap_loc is not None:
+            self._cap_loc = min(self._cap_loc, self._max_cap_loc)
+            # A batch fits a freshly evicted shard under the load cap even
+            # if every key routes there.
+            W = min(W, n * max(1, int(self._max_cap_loc * _MAX_LOAD) // n))
         table = self._new_table()
-        keys = np.asarray(keys, np.uint64)
         hi = torch.from_numpy((keys >> np.uint64(32)).astype(np.int64)).to(self._device)
         lo = torch.from_numpy((keys & np.uint64(0xFFFFFFFF)).astype(np.int64)).to(self._device)
-        W = n * (1 << 13)
         w = W // n
         for start in range(0, len(keys), W):
             bh, bl = hi[start : start + W], lo[start : start + W]
             m = bh.shape[0]
+            if self._l0_count + m > _MAX_LOAD * n * self._cap_loc:
+                # As ahead of a wave: the tables stay under the load cap
+                # (under the budget: they evict).
+                table = self._grow_table(
+                    table, _pow2ceil(int((self._l0_count + m) / (_MAX_LOAD * n))))
             valid = torch.arange(W, device=self._device) < m
             if m < W:
                 bh = torch.cat([bh, bh.new_zeros(W - m)])
                 bl = torch.cat([bl, bl.new_zeros(W - m)])
             while True:
+                # The routed insert: each owner's batch arrives sorted and
+                # deduplicated for the insert kernel.
                 fresh, overflow, _recv, _comms = self._route(
                     table, self._local(bh).view(L, w), self._local(bl).view(L, w),
                     self._local(valid).view(L, w))
@@ -1293,6 +1851,8 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
                 if not got[1]:
                     break
                 table = self._grow_table(table, self._cap_loc * 2)
+        if self._si is not None:
+            self._si.set_l0(self._l0_count)
         return table
 
     def request_preempt(self) -> None:
@@ -1314,7 +1874,12 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
 
     def discoveries(self) -> Dict[str, Path]:
         out = {name: self._reconstruct(fp) for name, fp in list(self._discoveries_fp.items())}
-        return self._with_lassos(out, self._done_event.is_set(), set(self._discoveries_fp))
+        out = self._with_device_liveness(out)
+        return self._with_lassos(out, self._done_event.is_set(),
+                                 set(self._discoveries_fp) | set(self._live_paths))
+
+    def _discovery_names(self) -> List[str]:
+        return list(set(self._discoveries_fp) | set(self._live_paths))
 
     def table_capacity_per_shard(self) -> int:
         return self._cap_loc
@@ -1340,4 +1905,8 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
         if self._sieve:
             digest["comm_sieve"] = {"cache_slots": self._sieve_slots,
                                     "bloom_bits": self._sieve_bits}
+        if self._si is not None:
+            digest["storage"] = self._si.bench_stats()
+        if self._live_store is not None:
+            digest["liveness_edge_store"] = self._live_store.stats()
         return digest

@@ -43,6 +43,7 @@ from .tiered import (
     TenantPartitions,
     TieredVisitedStore,
     max_table_rows_for_budget,
+    table_budget_mib,
     validate_budget_knobs,
 )
 
@@ -60,5 +61,6 @@ __all__ = [
     "encode_sorted_fps",
     "encode_varint_u64",
     "max_table_rows_for_budget",
+    "table_budget_mib",
     "validate_budget_knobs",
 ]

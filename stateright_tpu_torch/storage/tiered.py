@@ -1,7 +1,8 @@
 """The tiered visited-fingerprint store (host side: L1 runs + L2 spill).
 
-The port's copy of the JAX package's ``storage/tiered.py`` (without its
-sharded checker's per-shard tags).
+The port's copy of the JAX package's ``storage/tiered.py``; the sharded
+checker keeps one store a shard (``shard=`` tags its spans and names its
+spill files).
 ``TieredVisitedStore`` owns everything below the device table: evicted
 fingerprints live in delta-compressed sorted runs (``runs.py``) fronted
 by per-run Bloom filters. Runs merge LSM-style once their count passes
@@ -41,8 +42,17 @@ __all__ = [
     "TenantPartitions",
     "TieredVisitedStore",
     "max_table_rows_for_budget",
+    "table_budget_mib",
     "validate_budget_knobs",
 ]
+
+
+def table_budget_mib(rows: int) -> float:
+    """The smallest ``hbm_budget_mib`` whose cap is a table of ``rows``
+    rows (a power of two): the inverse of ``max_table_rows_for_budget``."""
+    from ..ops.hashset import MAX_PROBES
+
+    return (rows + MAX_PROBES) * 8 / (1 << 20)
 
 
 def max_table_rows_for_budget(hbm_budget_mib: float) -> int:
@@ -207,6 +217,7 @@ class TieredVisitedStore:
         merge_run_threshold: int = MERGE_RUN_THRESHOLD,
         instruments: Optional[StorageInstruments] = None,
         prefix: str = "gpu_bfs",
+        shard: Optional[int] = None,
         tracer=None,
         owner=None,
     ):
@@ -232,6 +243,10 @@ class TieredVisitedStore:
         # evict/merge/spill spans with the run id; default otherwise.
         self._tracer = tracer if tracer is not None else get_tracer()
         self._span_prefix = self._instr.prefix
+        # The sharded checker's shard this store serves (None: a solo
+        # store): its spans carry it and its spill files are named by it,
+        # so the shards' stores share one ``spill_dir``.
+        self._shard = shard
         # Fault attribution (utils/faults.py): the tenant key of a packed
         # partition, None for a solo store, so a fault spec can target one
         # tenant's host tier.
@@ -275,7 +290,7 @@ class TieredVisitedStore:
         if len(fps) == 0:
             return 0
         with self._fence, self._tracer.span(
-            f"{self._span_prefix}.evict", fps=int(len(fps)),
+            f"{self._span_prefix}.evict", fps=int(len(fps)), shard=self._shard,
         ):
             self.l1.append(FingerprintRun.build(fps))
             self._instr.evictions.inc()
@@ -345,7 +360,8 @@ class TieredVisitedStore:
         # tier list mutates (see _enforce_host_budget's ordering).
         fault_point("storage.spill", tenant=self._owner)
         os.makedirs(self._spill_dir, exist_ok=True)
-        path = os.path.join(self._spill_dir, f"run{self._seq:05d}.fpr")
+        shard_tag = "" if self._shard is None else f"s{self._shard}_"
+        path = os.path.join(self._spill_dir, f"{shard_tag}run{self._seq:05d}.fpr")
         self._seq += 1
         with self._tracer.span(
             f"{self._span_prefix}.spill", fps=run.count,
@@ -374,7 +390,7 @@ class TieredVisitedStore:
         bloom_probed = 0
         bloom_fp = 0
         with self._fence, self._tracer.span(
-            f"{self._span_prefix}.probe", keys=int(len(fps)),
+            f"{self._span_prefix}.probe", keys=int(len(fps)), shard=self._shard,
         ) as sp:
             for tier, runs in (("l1", self.l1), ("l2", self.l2)):
                 for run in runs:

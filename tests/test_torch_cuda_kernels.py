@@ -1937,3 +1937,59 @@ def test_cuda_sharded_matches_cpu_twin(cuda_device, case):
     assert got["unique"] == (80 if "sym" in case else 1568)
     if case == "n4_growth":
         assert card.table_growths >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["n8_budget_sieve", "n2_budget_async", "n4_coverage",
+                                  "n2_liveness", "n8_attribution"])
+def test_cuda_sharded_knobs_match_cpu_twin(cuda_device, case):
+    """The per-shard tiers (with the sieve, with the async pipeline),
+    coverage, device liveness and attribution of ``spawn_sharded_gpu_bfs``
+    on the card against the same run on the CPU twin: counts, depth,
+    discoveries, paths, lanes shipped and rungs, and the coverage report,
+    the liveness verdicts and relation, evictions."""
+    from stateright_tpu_torch.configs import LevelDag
+    from stateright_tpu_torch.parallel import default_mesh
+    from stateright_tpu_torch.parallel.sharded import run_summary
+    from stateright_tpu_torch.storage import table_budget_mib
+
+    n = int(case.split("_")[0][1:])
+    budget = table_budget_mib(2048)
+    kw, make = dict(frontier_per_device=32, table_capacity_per_device=1 << 12), (
+        lambda: TwoPhaseSys(4))
+    if case == "n8_budget_sieve":
+        kw = dict(frontier_per_device=8, table_capacity_per_device=2048, sieve=True,
+                  hbm_budget_mib=budget)
+        make = lambda: TwoPhaseSys(5)  # noqa: E731
+    elif case == "n2_budget_async":
+        kw = dict(frontier_per_device=16, table_capacity_per_device=4096, async_pipeline=True,
+                  hbm_budget_mib=table_budget_mib(4096))
+        make = lambda: TwoPhaseSys(5)  # noqa: E731
+    elif case == "n4_coverage":
+        kw["coverage"] = True
+    elif case == "n2_liveness":
+        kw = dict(frontier_per_device=4, liveness="device")
+        make = lambda: LevelDag(6, 10)  # noqa: E731
+    else:
+        kw["attribution"] = True
+
+    def run(device, tag):
+        checker = make().checker().spawn_sharded_gpu_bfs(
+            mesh=default_mesh(n, device=device), run_id=f"tsh-cuda-{case}-{tag}", **kw).join()
+        return checker, run_summary(checker)
+
+    hk.launches = 0
+    card, got = run(cuda_device, "card")
+    assert hk.launches >= card.waves * n > 0
+    cpu, want = run("cpu", "cpu")
+    assert got == want
+    assert card.evictions == cpu.evictions
+    if "budget" in case:
+        assert card.evictions >= 1
+    if case == "n4_coverage":
+        assert card.coverage_report() == cpu.coverage_report()
+    if case == "n2_liveness":
+        assert _liveness_outcomes(card) == _liveness_outcomes(cpu)
+        assert np.array_equal(card._live_store.edge_rows(), cpu._live_store.edge_rows())
+    if case == "n8_attribution":
+        assert card.attribution_report()["within_tolerance"]

