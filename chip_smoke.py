@@ -176,6 +176,19 @@ shards against the solo run; and the JAX package's slow sharded counts
 ``{"sharded_run": ...}`` line a run, and ``{"sharded": ...}``,
 ``{"sharded_tiers": ...}``, ``{"sharded_telemetry": ...}`` and
 ``{"sharded_liveness": ...}`` lines after the kernels line.
+Then the conformance plane and the insert micro-bench (``conformance``), at
+the JAX bench's conformance leg, each result against the CPU twin: the
+seed corpus (``examples/conformance_corpus.jsonl``) through
+``ConformanceChecker(parity=True, batch_lanes=32)`` on the card, its
+``conformance_report()`` equal to the twin's; increment_lock traces
+(T = 16) replayed through one captured CUDA Graph a shape at 1, 64 and
+1,024 lanes, cold then warm (traces/s, capture seconds); register histories
+(C=2, O=2, linearizability) audited at the same batches (histories/s);
+0, 10 and 50% divergent lanes at 1,024 (exact counts, ``divergence_flatness``);
+and ``ops/bench_hashset.run`` at its defaults (2^20 rows, 2^15 lanes, 16
+rounds) and at the main path's shape (2^22 rows, 344,064 lanes, 6 rounds),
+the insert kernel equal to its plain twin, its launches in the kernels
+line. One ``{"conformance": ...}`` line after the kernels line.
 Prints phase lines, the card's name and power limit, the fused wave's
 stage times, the drains' walls, waves, no-op and warm-up waves, exits,
 graph captures and replays and rungs, peak device memory, one
@@ -321,11 +334,12 @@ def _sweep_pass_ms(run, reset=None, reps=5):
     return out
 
 
-def _compare_insert(table_np, hi, lo, active, timing=False):
+def _compare_insert(table_np, hi, lo, active, timing=False, passes=True):
     """Runs the CUDA kernel and the plain twin on the same inputs; returns
-    a dict: max_abs_err, the kernel's median ms and its passes' ms (with
-    ``timing``), plain ms, touched tiles, the tiles the repair redid and
-    the tiles it had to redo, the table after and the fresh flags."""
+    a dict: max_abs_err, the kernel's median ms and (with ``passes``) its
+    passes' ms (with ``timing``), plain ms, touched tiles, the tiles the
+    repair redid and the tiles it had to redo, the table after and the
+    fresh flags. ``passes=False`` runs no ``torch.profiler``."""
     import numpy as np
     import torch
 
@@ -376,6 +390,7 @@ def _compare_insert(table_np, hi, lo, active, timing=False):
             end.synchronize()
             times.append(start.elapsed_time(end))
         res["ms"] = statistics.median(times)
+    if timing and passes:
         res["pass_ms"] = _sweep_pass_ms(
             lambda: hk._launch(work, dhi, dlo, dact, dstarts, *flags),
             reset=lambda: work.copy_(orig),
@@ -4550,6 +4565,218 @@ def sharded():
     return out
 
 
+# -- the conformance plane and the insert micro-bench ---------------------------
+
+CONFORMANCE_BATCHES = (1, 64, 1024)
+CONFORMANCE_TRACE_STEPS = 16
+# The insert micro-bench's two shapes: its defaults (2^20 rows, 2^15-lane
+# batches) and the main path's (2^22 rows, one 2pc-8 wave's 344,064 lanes),
+# each filled to about half its rows (16 and 6 rounds).
+BENCH_SHAPES = {"bench_hashset_2p20": (20, 1 << 15), "bench_hashset_2p22": (22, 8192 * 42)}
+
+
+def _same_verdicts(label, card, cpu):
+    if card != cpu:
+        bad = next(i for i, (a, b) in enumerate(zip(card, cpu)) if a != b)
+        raise AssertionError(f"{label}: card verdict {card[bad]!r} != CPU twin {cpu[bad]!r}")
+
+
+def _timed_twice(fn, more=5):
+    """``fn()`` cold, then warm (the JAX bench leg's two calls), then
+    ``more`` warm calls for their spread: (warm result, warm s, cold s,
+    the more calls' median s)."""
+    t0 = time.perf_counter()
+    fn()
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = fn()
+    warm = time.perf_counter() - t0
+    times = []
+    for _ in range(more):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return out, warm, cold, statistics.median(times)
+
+
+@phase("conformance")
+def conformance():
+    """The conformance plane on the card at the JAX bench's conformance leg
+    (``bench.py:1483-1653``), each result against the CPU twin: the seed
+    corpus through ``ConformanceChecker(parity=True, batch_lanes=32)``;
+    replay of increment_lock (T = 16, a pool of 32 seeded walks from
+    ``random.Random(20)``) at 1, 64 and 1,024 lanes, cold (the graph's
+    capture) then warm; audits of register C=2, O=2 linearizability
+    histories at the same batches; the divergence sweep (0, 10 and 50% of
+    1,024 lanes divergent, counted exactly). Then the insert micro-bench
+    (``ops/bench_hashset.run``) at its defaults and at the main path's
+    shape, the kernel against its plain twin."""
+    import random
+
+    from stateright_tpu_torch.conformance import (
+        ConformanceChecker,
+        audit_batch,
+        bucket_key,
+        decode_lines,
+        mutate_trace,
+        random_history,
+        random_walk_trace,
+        replay_batch,
+        replay_kernel,
+    )
+    from stateright_tpu_torch.ops import bench_hashset
+    from stateright_tpu_torch.ops import hashset_kernel as hk
+    from stateright_tpu_torch.service import aot_namespace, default_zoo
+
+    out = {"replay": {}, "audit": {}, "divergence_sweep": {}, "bench": {}}
+
+    # The seed corpus, card and CPU twin, the host parity gate on.
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                        "conformance_corpus.jsonl")
+    with open(path, encoding="utf-8") as f:
+        records, refusals = decode_lines([ln for ln in f if ln.strip()])
+    assert not refusals and len(records) == 36
+    reports = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        ck = ConformanceChecker(records, default_zoo(), parity=True, batch_lanes=32,
+                                device=dev).join()
+        reports[dev] = (ck.conformance_report(), time.perf_counter() - t0)
+    card, cpu = (dict(reports[d][0]) for d in ("cuda", "cpu"))
+    traces_per_s = card.pop("traces_per_s")
+    cpu.pop("traces_per_s")
+    if card != cpu:
+        raise AssertionError("seed corpus: the card's conformance_report() != the CPU twin's")
+    out["seed_corpus"] = {k: card[k] for k in ("traces", "histories", "refusals",
+                                               "divergences", "violations")}
+    out["seed_corpus"].update(traces_per_s=traces_per_s, wall_s=reports["cuda"][1],
+                              cpu_wall_s=reports["cpu"][1])
+    log(f"  seed corpus: {json.dumps(out['seed_corpus'])}")
+
+    # Replay: the bench leg's pools, replicated with fresh ids.
+    name, T = "increment_lock", CONFORMANCE_TRACE_STEPS
+    model = default_zoo()[name]()
+    ns = aot_namespace(name, {})
+    rng = random.Random(20)
+    walk_pool = [random_walk_trace(model, rng, T, rec_id=f"w{i}", model_name=name)
+                 for i in range(32)]
+    divergent_pool = [m for m in (mutate_trace(model, rng, r) for r in walk_pool)
+                      if m is not None]
+    assert divergent_pool, "no mutation sites in the walk pool"
+
+    def trace_batch(n, frac=0.0):
+        n_div = int(round(n * frac))
+        return [dict(src, id=f"{src['id']}-{i}") for i, src in enumerate(
+            divergent_pool[i % len(divergent_pool)] if i < n_div
+            else walk_pool[i % len(walk_pool)] for i in range(n))]
+
+    for n in CONFORMANCE_BATCHES:
+        recs = trace_batch(n)
+        got, warm, cold, median = _timed_twice(
+            lambda: replay_batch(recs, model, ns, T, lanes=n, device="cuda"))
+        _same_verdicts(f"replay batch {n}", got,
+                       replay_batch(recs, model, ns, T, lanes=n, device="cpu"))
+        assert all(v["conforms"] for v in got)
+        fn = replay_kernel(model, ns, T, n, "cuda")
+        out["replay"][str(n)] = {"traces_per_s": n / warm, "warm_s": warm, "cold_s": cold,
+                                 "warm_median_s": median, "capture_s": fn.capture_s,
+                                 "captures": fn.captures}
+        log(f"  replay batch={n}: {n / warm:,.0f} traces/s (warm {warm * 1e3:.3f} ms, "
+            f"median of 5 more {median * 1e3:.3f} ms, cold {cold:.3f} s, "
+            f"capture {fn.capture_s:.3f} s)")
+    out["replay_batch_amortization"] = (out["replay"]["1024"]["traces_per_s"]
+                                        / out["replay"]["1"]["traces_per_s"])
+
+    # Audit: one bucket, register C=2, O=2 linearizability.
+    hist_pool = [random_history(rng, spec="register", semantics="linearizability",
+                                threads=2, ops_per_thread=2, mode=("clean", "random")[i % 2],
+                                rec_id=f"h{i}") for i in range(64)]
+    key0 = bucket_key(hist_pool[0])
+    hist_pool = [h for h in hist_pool if bucket_key(h) == key0]
+    for n in CONFORMANCE_BATCHES:
+        recs = [dict(hist_pool[i % len(hist_pool)], id=f"h{i}-{n}") for i in range(n)]
+        got, warm, cold, median = _timed_twice(lambda: audit_batch(recs, device="cuda"))
+        _same_verdicts(f"audit batch {n}", got, audit_batch(recs, device="cpu"))
+        assert all("refused" not in v for v in got)
+        out["audit"][str(n)] = {"histories_per_s": n / warm, "warm_s": warm, "cold_s": cold,
+                                "warm_median_s": median}
+        log(f"  audit batch={n}: {n / warm:,.0f} histories/s (warm {warm * 1e3:.3f} ms, "
+            f"median of 5 more {median * 1e3:.3f} ms, cold {cold:.3f} s)")
+
+    # The divergence sweep at the widest batch: the graph is branchless, so
+    # throughput should not move with the divergent share.
+    n = CONFORMANCE_BATCHES[-1]
+    for frac in (0.0, 0.1, 0.5):
+        recs = trace_batch(n, frac)
+        t0 = time.perf_counter()
+        got = replay_batch(recs, model, ns, T, lanes=n, device="cuda")
+        warm = time.perf_counter() - t0
+        _same_verdicts(f"divergence {frac}", got,
+                       replay_batch(recs, model, ns, T, lanes=n, device="cpu"))
+        n_div = sum(1 for v in got if not v["conforms"])
+        if n_div != int(round(n * frac)):
+            raise AssertionError(f"divergence {frac}: {n_div} divergent lanes")
+        out["divergence_sweep"][f"{int(frac * 100)}pct"] = {"traces_per_s": n / warm,
+                                                            "divergent_lanes": n_div}
+    rates = [v["traces_per_s"] for v in out["divergence_sweep"].values()]
+    out["divergence_flatness"] = min(rates) / max(rates)
+    log(f"  divergence sweep: {json.dumps(out['divergence_sweep'])} "
+        f"flatness {out['divergence_flatness']:.3f}")
+
+    # The insert micro-bench, its launches counted from 0 over each run.
+    for label, (log2_cap, batch) in BENCH_SHAPES.items():
+        hk.launches = 0
+        res = bench_hashset.run(log2_cap, batch, device="cuda", must_move=True)
+        launches = hk.launches
+        if not res["equal"] or launches != res["launches"]:
+            raise AssertionError(f"{label}: kernel and plain twin disagree ({res})")
+        rounds = res["rounds"]
+        out["bench"][label] = {
+            "cap_log2": log2_cap, "batch": batch, "rounds": rounds, "launches": launches,
+            "max_abs_err": res["max_abs_err"],
+            "kernel_lanes_per_s": res["kernel"]["lanes_per_s"],
+            "plain_lanes_per_s": res["plain"]["lanes_per_s"],
+            "fresh": res["kernel"]["fresh"], "pending": res["kernel"]["pending"],
+            # A round's mean: one insert of one batch.
+            "ms": res["kernel"]["seconds"] * 1e3 / rounds,
+            "plain_ms": res["plain"]["seconds"] * 1e3 / rounds,
+            "bound_ms": res["must_move_bytes"] / rounds / HBM_BYTES_PER_S * 1e3,
+        }
+        out["bench"][label]["last_round"] = _bench_last_round(log2_cap, batch)
+        log(f"  {label}: {json.dumps(out['bench'][label])}")
+    return out
+
+
+def _bench_last_round(log2_cap, batch):
+    """The micro-bench's last round alone: its table before it (the plain
+    twin over the earlier rounds), then ``_compare_insert``: the kernel's
+    launch under CUDA events (median of 21, no wrapper), err against the
+    twin, the tiles touched and those the repair redid."""
+    import numpy as np
+    import torch
+
+    from stateright_tpu_torch.interop import table_to_numpy
+    from stateright_tpu_torch.ops import bench_hashset
+    from stateright_tpu_torch.ops import hashset_kernel as hk
+    from stateright_tpu_torch.ops.hashset import hashset_new
+
+    data = bench_hashset.batches(log2_cap, batch)
+    table = hashset_new(1 << log2_cap)
+    ones = torch.ones(batch, dtype=torch.bool)
+    for hi, lo in data[:-1]:
+        table, *_ = hk.hashset_insert_sorted_plain(table, *bench_hashset._keys(hi, lo, "cpu"),
+                                                   ones)
+    hi, lo = data[-1]
+    r = _compare_insert(table_to_numpy(table), hi, lo, np.ones(batch, bool), timing=True,
+                        passes=False)
+    if r["err"] or r["redone"] != r["to_redo"]:
+        raise AssertionError(f"the bench's last round: err {r['err']}, the repair redid "
+                             f"{r['redone']} tiles of {r['to_redo']} to redo")
+    return {"kernel_ms": r["ms"], "plain_ms": r["plain_ms"], "max_abs_err": r["err"],
+            "tiles_touched": r["touched"], "tiles_redone": r["redone"],
+            "tiles_to_redo": r["to_redo"]}
+
+
 @phase("stage_device_profile")
 def stage_device_profile(reps=5):
     """``_profile_chains`` over every timed wave, in this process's only
@@ -4819,6 +5046,7 @@ def main() -> int:
     liveness = device_liveness() if not FAILED else None
     packing = tenant_packing() if not FAILED else None
     shard = sharded() if not FAILED else None
+    conf = conformance() if not FAILED else None
     if not FAILED:
         stage_device_profile()
     if FAILED:
@@ -4856,6 +5084,8 @@ def main() -> int:
     # Sharding: every owner insert of every shard, the seeds and the
     # growths' rehashes.
     insert_launches.update(shard["launches"])
+    # The insert micro-bench: a launch a round and its warm-up batch.
+    insert_launches.update({label: b["launches"] for label, b in conf["bench"].items()})
     fused_launches = by_path("fused", "fused_wave", {"2pc8": drains, **actor_runs})
     comphash_launches = by_path("fused", "fw_comphash_keys", actor_runs)
     cov_runs = {"2pc8": cov_2pc8, "skv4x4": cov_skv}
@@ -4929,7 +5159,8 @@ def main() -> int:
                                packing["insert"]["max_abs_err"],
                                shard["insert"]["max_abs_err"],
                                shard["evicted_insert"]["max_abs_err"],
-                               shard["restore_insert"]["max_abs_err"]),
+                               shard["restore_insert"]["max_abs_err"],
+                               *(b["max_abs_err"] for b in conf["bench"].values())),
             # On a random 344,064-key batch into a 2^22-row table at load
             # 0.4; on the keys of a raft5 wave and on a 2pc-9 drain take's
             # canonical (symmetry) keys, below.
@@ -4963,7 +5194,12 @@ def main() -> int:
                         # The last batch of the elastic restore's rebuild
                         # (8 shards to 4): its launches in the resumed run.
                         "sharded_restore_2pc8": held(shard["restore_insert"],
-                                                     shard["restore_inserts"])},
+                                                     shard["restore_inserts"]),
+                        # The insert micro-bench (ops/bench_hashset.py): a
+                        # round's mean, the kernel against its twin on the
+                        # host over the same batches.
+                        **{label: held(b, b["launches"])
+                           for label, b in conf["bench"].items()}},
         },
         {
             "name": "fused_wave",
@@ -5161,6 +5397,7 @@ def main() -> int:
     log(json.dumps({"sharded_tiers": shard["tiers"]}, default=str))
     log(json.dumps({"sharded_telemetry": shard["telemetry"]}, default=str))
     log(json.dumps({"sharded_liveness": shard["liveness"]}, default=str))
+    log(json.dumps({"conformance": conf}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

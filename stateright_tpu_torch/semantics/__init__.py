@@ -2,9 +2,11 @@
 that validate concurrent histories against a consistency model.
 
 Reference: ``src/semantics.rs`` and submodules. The port carries the
-register and write-once register specs and the linearizability tester,
-which the register-protocol models (paxos, single-copy register) and the
-write-once register actors check against.
+register, write-once register and stack (``VecSpec``) specs, and the
+linearizability and sequential-consistency testers: the register-protocol
+models (paxos, single-copy register) and the write-once register actors
+check against them, and the conformance plane (``conformance/``) audits
+uploaded histories with them.
 """
 
 from .base import ConsistencyTester, SequentialSpec
@@ -17,7 +19,9 @@ from .write_once_register import (
     WoReadOk,
     WoWrite,
 )
+from .vec import VecSpec, Push, POP, LEN, PUSH_OK, PopOk, LenOk
 from .linearizability import LinearizabilityTester
+from .sequential_consistency import SequentialConsistencyTester
 
 __all__ = [
     "ConsistencyTester",
@@ -25,7 +29,9 @@ __all__ = [
     "READ",
     "ReadOk",
     "Register",
+    "SequentialConsistencyTester",
     "SequentialSpec",
+    "VecSpec",
     "WORegister",
     "WO_READ",
     "WO_WRITE_FAIL",
@@ -34,4 +40,10 @@ __all__ = [
     "WoReadOk",
     "WoWrite",
     "Write",
+    "Push",
+    "POP",
+    "LEN",
+    "PUSH_OK",
+    "PopOk",
+    "LenOk",
 ]

@@ -23,12 +23,15 @@ never seen, and results are bit-identical to the single-tier run.
 ``edge_log.py`` is the host tier of the device liveness edge log
 (``LivenessEdgeStore``: the condition-false edges, deduped, spilled past
 ``host_budget_mib``, with the roots and terminals). ``TenantPartitions``
-keeps one tiered store for each tenant of the tenant-packed engine. The JAX package's
-``persist`` and ``corpus`` modules wait for the modules of the port that
-use them. Nothing here imports JAX or the JAX package.
+keeps one tiered store for each tenant of the tenant-packed engine.
+``corpus.py`` is the named conformance-corpus store (``CorpusStore``: one
+JSONL file of wire frames a validated name). The JAX package's ``persist``
+module waits for the service that uses it. Nothing here imports JAX or the
+JAX package.
 """
 
 from .bloom import BloomFilter
+from .corpus import CorpusStore, validate_corpus_name
 from .edge_log import LivenessEdgeStore, LivenessInstruments
 from .runs import (
     RUN_BLOCK,
@@ -49,6 +52,7 @@ from .tiered import (
 
 __all__ = [
     "BloomFilter",
+    "CorpusStore",
     "FingerprintRun",
     "LivenessEdgeStore",
     "LivenessInstruments",
@@ -63,4 +67,5 @@ __all__ = [
     "max_table_rows_for_budget",
     "table_budget_mib",
     "validate_budget_knobs",
+    "validate_corpus_name",
 ]

@@ -4,8 +4,10 @@ events, the coverage ledger and the wave-timeline attribution.
 The port's copies of the JAX package's ``telemetry`` modules that it uses
 (``metrics``, ``trace`` without its ``jax.profiler`` bridge,
 ``coverage`` with its device reduction rewritten in torch,
-``instruments``, and ``attribution`` with its fence and profiler
-window rewritten in torch). Nothing here imports JAX or the JAX package.
+``instruments``, ``attribution`` with its fence and profiler window
+rewritten in torch, and the registry lint of ``server``:
+``sanitize_metric_name`` and ``registry_hygiene_problems``). Nothing here
+imports JAX or the JAX package.
 """
 
 from .attribution import (
@@ -39,6 +41,7 @@ from .metrics import (
     metrics_registry,
     run_registries,
 )
+from .server import registry_hygiene_problems, sanitize_metric_name
 from .trace import JsonlSink, RunScopedTracer, Tracer, get_tracer, instant, span
 
 __all__ = [
@@ -68,7 +71,9 @@ __all__ = [
     "get_tracer",
     "instant",
     "metrics_registry",
+    "registry_hygiene_problems",
     "run_registries",
     "sanitize_component",
+    "sanitize_metric_name",
     "span",
 ]

@@ -172,6 +172,13 @@ class MetricsRegistry:
             items = sorted(self._instruments.items())
         return {name: inst.snapshot() for name, inst in items}
 
+    def instruments(self) -> List:
+        """Sorted ``(name, instrument)`` pairs — the typed view the
+        registry lint needs (``snapshot`` erases the counter/gauge
+        distinction)."""
+        with self._lock:
+            return sorted(self._instruments.items())
+
 
 _default_registry = MetricsRegistry()
 

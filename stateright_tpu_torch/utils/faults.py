@@ -114,8 +114,8 @@ class SeedLoadFault(OSError, FaultError):
 
 
 class ConformanceBatchFault(FaultError):
-    """A conformance batch dispatch raised (replay/audit kernel, XLA
-    error). Verdicts are deterministic in the upload, so a retry must
+    """A conformance batch dispatch raised (the replay graph or the audit
+    program, a CUDA error). Verdicts are deterministic in the upload, so a retry must
     recover bit-identically through the journal."""
 
     fault_class = "conformance_batch"
@@ -143,7 +143,7 @@ class TenantFaultError(Exception):
 
 # Default exception factory per site (a spec may override with exc=):
 # the seams of the port's tree. The JAX package's other sites (its
-# warm-start and conformance planes) wait for the modules that hold them.
+# warm-start plane and ``wave.stall``) wait for the modules that hold them.
 _SITE_EXC = {
     "storage.host_probe": HostProbeFault,
     "storage.spill": SpillFault,
@@ -162,6 +162,9 @@ _SITE_EXC = {
     "swarm.tenant.verdict": PackTenantFault,
     # The device liveness edge log's host absorb (storage/edge_log.py).
     "liveness.edge_evict": LivenessEvictFault,
+    # The conformance plane (conformance/checker.py): the per-batch device
+    # dispatch, the retry seam of uploaded-trace auditing.
+    "conformance.batch": ConformanceBatchFault,
 }
 
 # Sites that exist in the tree — fail fast on typos in test specs.

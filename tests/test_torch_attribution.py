@@ -524,8 +524,9 @@ def test_coverage_report_renders_a_port_run(tmp_path):
 # -- the port stands alone ------------------------------------------------------------
 
 
-# Modules the walk above must have imported: the device walkers', and the
-# sharded checker's, its mesh's and the comm sieve's.
+# Modules the walk above must have imported: the device walkers', the
+# sharded checker's, its mesh's and the comm sieve's, and the conformance
+# plane's with the zoo and the insert micro-bench.
 WALK_MODULES = (
     "stateright_tpu_torch.ops.threefry",
     "stateright_tpu_torch.checker.gpu_simulation",
@@ -533,6 +534,17 @@ WALK_MODULES = (
     "stateright_tpu_torch.parallel.base_mesh",
     "stateright_tpu_torch.parallel.sharded",
     "stateright_tpu_torch.ops.comm_sieve",
+    "stateright_tpu_torch.conformance.audit",
+    "stateright_tpu_torch.conformance.checker",
+    "stateright_tpu_torch.conformance.corpus",
+    "stateright_tpu_torch.conformance.replay",
+    "stateright_tpu_torch.conformance.wire",
+    "stateright_tpu_torch.semantics.sequential_consistency",
+    "stateright_tpu_torch.semantics.vec",
+    "stateright_tpu_torch.service.zoo",
+    "stateright_tpu_torch.storage.corpus",
+    "stateright_tpu_torch.telemetry.server",
+    "stateright_tpu_torch.ops.bench_hashset",
 )
 
 

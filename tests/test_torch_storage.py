@@ -264,7 +264,7 @@ def test_store_fault_seams_fire_and_keep_the_tiers_whole(tmp_path):
     assert FAULT_SITES == {"checkpoint.write", "storage.host_probe", "storage.spill",
                            "swarm.wave", "swarm.tenant.verdict", "liveness.edge_evict",
                            "pipeline.worker", "device.wave", "pack.tenant.verdict",
-                           "pack.tenant.evict"}
+                           "pack.tenant.evict", "conformance.batch"}
     with pytest.raises(ValueError, match="unknown fault site"):
         FaultSpec("warmstart.seed_load")
     store = TieredVisitedStore(host_budget_mib=0.01, spill_dir=str(tmp_path),
