@@ -189,6 +189,20 @@ and ``ops/bench_hashset.run`` at its defaults (2^20 rows, 2^15 lanes, 16
 rounds) and at the main path's shape (2^22 rows, 344,064 lanes, 6 rounds),
 the insert kernel equal to its plain twin, its launches in the kernels
 line. One ``{"conformance": ...}`` line after the kernels line.
+Then the check service (``service``), every job on the card: 4 x 2pc-5
+packed, each tenant equal to a direct ``spawn_gpu_bfs`` run, the salted
+insert of a full-width pack wave against its plain twin; a solo 2pc-8 job
+preempted for a higher-priority job and resumed to the direct run's golden
+report; the budgeted 2pc-8 pair (the smallest admissible budget),
+synchronous and ``async_pipeline=True``, with equal counts, evictions and
+reports, their walls and ``host_probe_s``, the fused chain on the first
+wave after an eviction against its plain twin; 2pc-8 resubmitted on a
+``service_dir``, completing from its seed in verify-only mode; a
+``device.wave`` fault in a drained job, retried to the direct run's report;
+a conformance job against the CPU twin and a swarm pair against direct
+runs; ``torch.cuda.memory_allocated()`` after every service closed, within
+1 MiB of the phase's start. ``{"service_run": ...}`` lines, and a
+``{"service": ...}`` line after the kernels line.
 Prints phase lines, the card's name and power limit, the fused wave's
 stage times, the drains' walls, waves, no-op and warm-up waves, exits,
 graph captures and replays and rungs, peak device memory, one
@@ -2741,6 +2755,12 @@ def _golden(checker):
     return re.sub(r"sec=\d+", "sec=_", out.getvalue())
 
 
+def _golden_text(text):
+    import re
+
+    return re.sub(r"sec=\d+", "sec=_", text)
+
+
 def _same_run(label, got, want, golden=True):
     """Holds a resumed or budgeted run to the reference run: counts, depth,
     discovery fingerprints and (``golden``) the report lines."""
@@ -3631,16 +3651,16 @@ def _same_pack_tenant(label, got, want, golden=True):
 PACK_INSERT_WAVE = 64
 
 
-def _capture_pack_insert(pt, width):
+def _capture_pack_insert(pt, width, nth=PACK_INSERT_WAVE):
     """Wraps the pack's salted insert to keep the inputs of one full-width
-    wave (the ``PACK_INSERT_WAVE``-th): the table before it, the keys, the
-    salts and the valid lanes."""
+    wave (the ``nth``): the table before it, the keys, the salts and the
+    valid lanes."""
     real, seen = pt.hashset_insert_salted, {"n": 0}
 
     def spy(table, hi, lo, salt_hi, salt_lo, active):
         if hi.shape[0] == width and "table" not in seen:
             seen["n"] += 1
-            if seen["n"] == PACK_INSERT_WAVE:
+            if seen["n"] == nth:
                 seen.update(table=table.clone(), args=[x.clone() for x in (
                     hi, lo, salt_hi, salt_lo, active)])
         return real(table, hi, lo, salt_hi, salt_lo, active)
@@ -3649,7 +3669,7 @@ def _capture_pack_insert(pt, width):
     return real, seen
 
 
-def _insert_on_pack_wave(seen):
+def _insert_on_pack_wave(seen, label="2pc-8 pack wave"):
     """``hashset_insert_sorted`` against its plain twin on one full-width
     2pc-8 pack wave, as ``hashset_insert_salted`` hands it over: the four
     tenants' salted keys, sorted, the first copy of each key active, into
@@ -3673,7 +3693,7 @@ def _insert_on_pack_wave(seen):
     r = _compare_insert(table_to_numpy(seen["table"]), hi_np, lo_np, act_np, timing=True)
     moved = _bd().insert_must_move(r["after"], hi_np, lo_np, act_np, r["fresh"])
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    log(f"  hashset_insert_sorted (2pc-8 pack wave): B={hi_np.shape[0]} "
+    log(f"  hashset_insert_sorted ({label}): B={hi_np.shape[0]} "
         f"active={int(act_np.sum())} fresh={int(r['fresh'].sum())} max_abs_err={r['err']} "
         f"median {r['ms']:.4f} ms plain={r['plain_ms']:.1f} ms (host CPU) "
         f"bound={bound_ms:.6f} ms ({moved} B)")
@@ -4599,6 +4619,339 @@ def _timed_twice(fn, more=5):
     return out, warm, cold, statistics.median(times)
 
 
+# -- 14. the check service ----------------------------------------------------
+
+
+class _StepClock:
+    """The service's clock for the phase: the monotonic clock plus an
+    offset the phase steps, to end a slice's quantum at a chosen point."""
+
+    def __init__(self):
+        self._offset = 0.0
+
+    def __call__(self):
+        return time.monotonic() + self._offset
+
+    def advance(self, dt):
+        self._offset += dt
+
+
+def _fused_held(label, spec, table, chunk, depth_cap):
+    """The fused chain against its plain twin on one captured wave (its
+    insert, the tile sweep, included), timed with CUDA events; the bound is
+    the bytes the wave must move (``breakdown.fused_wave_must_move``) over
+    the card's memory rate."""
+    import numpy as np
+
+    from stateright_tpu_torch.interop import table_to_numpy
+    from stateright_tpu_torch.ops import fused_wave as fw
+    from stateright_tpu_torch.ops.fingerprint import fingerprint_words, state_words
+
+    err, pout, plain_ms, pt, _sweeps = _compare_fused(spec, table, chunk, depth_cap)
+    hi, lo, ebits, depth = (chunk[k] for k in ("hi", "lo", "ebits", "depth"))
+    F, A, P = hi.shape[0], spec.action_count, len(spec.conditions)
+    B = F * A
+    cond, cvalid, cand_flat = fw.model_stage(spec, chunk["states"], F)
+    kin = fw.keys_input(spec, cand_flat)
+    work = table.clone()
+    ms, _stages = _time_on_card(
+        lambda mark: fw.kernel_chain(spec, work, hi, lo, ebits, depth, depth_cap, cond, cvalid,
+                                     kin, cand_flat, mark=mark),
+        reset=lambda: work.copy_(table))
+    words = state_words(cand_flat)
+    valid = (cvalid.view(F, A) & (depth < depth_cap)[:, None]).reshape(B).cpu().numpy()
+    fh, fl = fingerprint_words(words.cpu())
+    fps = (fh.numpy().astype(np.uint64) << np.uint64(32)) | fl.numpy().astype(np.uint64)
+    probed = _bd().probed_rows(table_to_numpy(pt), np.unique(fps[valid]))
+    n = int(pout["stats"][1])
+    row_bytes = sum(x[0].numel() * x.element_size() for x in pout["new"]["states"].values())
+    moved = _bd().fused_wave_must_move(words.numel(), B, F, P, probed, n, row_bytes)
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    log(f"  fused wave ({label}): F={F} table rows={table.shape[0]} n_new={n} "
+        f"max_abs_err={err} median {ms:.4f} ms plain={plain_ms:.1f} ms (host CPU) "
+        f"bound={bound_ms:.6f} ms ({moved} B)")
+    if err:
+        raise AssertionError(f"{label}: the fused chain and its plain twin disagree")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None}
+
+
+def _capture_after_eviction(cls):
+    """Wraps the checker class so the first wave it runs after its first
+    eviction keeps its inputs (the emptied table and the chunk); returns
+    ``(restore, seen)``."""
+    from stateright_tpu_torch.core.batch import map_leaves
+
+    evict, wave, seen = cls._evict_l0, cls._device_wave, {}
+
+    def evict_spy(self, table, defer=False):
+        out = evict(self, table, defer=defer)
+        seen.setdefault("evicted", True)
+        return out
+
+    def wave_spy(self, table, chunk):
+        if seen.get("evicted") and "table" not in seen:
+            seen.update(table=table.clone(), spec=self._spec, depth_cap=self._depth_cap,
+                        chunk={k: (map_leaves(lambda x: x.clone(), v) if k == "states"
+                                   else v.clone()) for k, v in chunk.items()})
+        return wave(self, table, chunk)
+
+    cls._evict_l0, cls._device_wave = evict_spy, wave_spy
+
+    def restore():
+        cls._evict_l0, cls._device_wave = evict, wave
+
+    return restore, seen
+
+
+@phase("service")
+def service():
+    """The check service (``CheckService``) on the card, every job on
+    ``cuda``: 4 x 2pc-5 packed (each tenant against a direct
+    ``spawn_gpu_bfs`` run; the salted insert of one full-width pack wave
+    against its plain twin); a solo 2pc-8 job (the 2pc8 configuration's
+    widths, drains of at most 8 waves) preempted for a higher-priority job
+    and resumed, its golden report equal to the direct run's; the budgeted
+    2pc-8 pair (the smallest admissible budget) synchronous and with
+    ``async_pipeline=True``: equal counts, evictions and reports, both
+    walls and ``host_probe_s``, the fused chain on the first wave after an
+    eviction against its plain twin; 2pc-8 on a ``service_dir`` resubmitted
+    to a new service, which completes in verify-only mode from the seed;
+    a ``device.wave`` fault in a drained 2pc-5 job, retried to the direct
+    run's report; a conformance job on the seed corpus against the CPU
+    twin; a swarm pair against direct card runs. Then
+    ``torch.cuda.memory_allocated()`` after every service closed against
+    its value at the phase's start (the conformance replay cache, a
+    process-wide cache, cleared first and its size reported). Every run's
+    kernel launches counted from 0. One ``{"service": ...}`` line after the
+    kernels line."""
+    import tempfile
+
+    import torch
+
+    from stateright_tpu_torch.checker import packed_tenancy as pt
+    from stateright_tpu_torch.checker.gpu import GpuBfsChecker, min_admissible_hbm_budget_mib
+    from stateright_tpu_torch.conformance import ConformanceChecker, decode_lines
+    from stateright_tpu_torch.conformance.replay import _KERNELS, clear_replay_kernels
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+    from stateright_tpu_torch.service import CheckService, default_zoo
+    from stateright_tpu_torch.utils.faults import FaultSpec, inject
+
+    out, launches, checkers = {"runs": {}}, {}, {}
+    cfg = _config("2pc8")
+    clock = _StepClock()
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+
+    def keep_checkers(svc):
+        """The service's verdict hook, wrapped to keep each job's checker
+        (its run statistics) until the phase reads them."""
+        finalize = svc._finalize
+
+        def spy(job, checker):
+            checkers[job.job_id] = checker
+            return finalize(job, checker)
+
+        svc._finalize = spy
+
+    def job_run(name, svc, submit, **extra):
+        _zero_launches()
+        t0 = time.perf_counter()
+        h = submit()
+        r = h.result(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = n = _read_launches()
+        st = h.status()
+        ck = checkers.get(h.job_id)
+        rec = {"wall_s": wall, "active_s": st["latency"]["active_s"],
+               "queued_s": st["latency"]["queued_s"], "ttfv_s": st["latency"]["ttfv_s"],
+               "unique": r["unique"], "states": r["states"], "depth": r["max_depth"],
+               "packed": st["packed"], "preempts": st["preempts"], "retries": st["retries"],
+               "warm_start": st["warm_start"], "launches": n}
+        if ck is not None and hasattr(ck, "waves"):
+            rec.update(engine=ck._wave_kernel, waves=ck.waves, drains=ck.drains,
+                       evictions=ck.evictions, host_probe_s=ck.host_probe_s,
+                       stale_lanes=ck.stale_lanes, handoff_wave=ck.handoff_wave,
+                       graph_captures=ck.graph_captures, capture_s=ck.capture_s)
+            assert ck.device.type == "cuda", (name, ck.device)
+            if ck.waves:
+                # Every wave went through the fused kernels, and the insert
+                # kernel seeded or rebuilt the table.
+                assert n["fused_wave"] >= ck.waves, (name, n, ck.waves)
+                assert n["hashset_insert_sorted"] >= 1, (name, n)
+        rec.update(extra)
+        out["runs"][name] = rec
+        log(json.dumps({"service_run": dict(name=name, **{k: v for k, v in rec.items()
+                                                         if k != "launches"})}))
+        return h, r, rec
+
+    spawn = dict(cfg.spawn)
+    direct_2pc8 = cfg.make().checker().spawn_gpu_bfs(max_drain_waves=8, **spawn).join()
+    assert direct_2pc8.unique_state_count() == cfg.unique
+
+    # (a) 4 x 2pc-5, packed; the salted insert on one full-width wave.
+    svc = CheckService(quantum_s=60.0, clock=clock)
+    keep_checkers(svc)
+    F = svc.default_spawn["frontier_capacity"]
+    real, seen = _capture_pack_insert(pt, F * TwoPhaseSys(5).packed_action_count(), nth=4)
+    try:
+        _zero_launches()
+        t0 = time.perf_counter()
+        hs = [svc.submit(model_name="2pc", model_args={"rm_count": 5}) for _ in range(4)]
+        rs = [h.result(timeout=300) for h in hs]
+        torch.cuda.synchronize()
+        launches["pack_2pc5x4"] = _read_launches()
+        pack_wall = time.perf_counter() - t0
+    finally:
+        pt.hashset_insert_salted = real
+    direct = TwoPhaseSys(5).checker().spawn_gpu_bfs(**svc.default_spawn).join()
+    for h, r in zip(hs, rs):
+        assert h.status()["packed"], h.status()
+        assert (r["unique"], r["states"], r["max_depth"]) == (
+            direct.unique_state_count(), direct.state_count(), direct.max_depth()), r
+        assert sorted(r["discoveries"]) == sorted(direct.discoveries())
+    assert launches["pack_2pc5x4"]["hashset_insert_sorted"] > 0
+    out["runs"]["pack_2pc5x4"] = {"wall_s": pack_wall, "tenants": 4,
+                                  "unique": [r["unique"] for r in rs]}
+    out["insert"] = _insert_on_pack_wave(seen, "2pc-5 service pack wave")
+    del seen
+
+    # (b) a solo 2pc-8 job preempted for a higher-priority one, resumed.
+    def preempted():
+        h = svc.submit(model_name="2pc", model_args={"rm_count": 8}, spawn=dict(spawn))
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline:
+            ck = svc._active_checker
+            if isinstance(ck, GpuBfsChecker) and ck.drains >= 2:
+                break
+            time.sleep(0.001)
+        # A higher-priority arrival, then the running slice's quantum over.
+        hi = svc.submit(model_name="2pc", model_args={"rm_count": 5}, priority=5,
+                        spawn={"max_drain_waves": 4})
+        clock.advance(120.0)
+        assert hi.result(timeout=300)["unique"] == 8832
+        return h
+
+    h, r, _rec = job_run("solo_2pc8_preempted", svc, preempted)
+    assert h.status()["preempts"] >= 1, h.status()
+    assert _golden_text(r["report"]) == _golden(direct_2pc8), "preempted 2pc-8 report"
+    svc.close()
+
+    # (c) the budgeted 2pc-8 pair, synchronous and async.
+    budget = min_admissible_hbm_budget_mib(cfg.make(), spawn["frontier_capacity"])
+    out["budget_mib"] = budget
+    svc = CheckService(quantum_s=600.0)
+    keep_checkers(svc)
+    pair = {}
+    for mode, extra in (("sync", {}), ("async", {"async_pipeline": True})):
+        restore, seen = _capture_after_eviction(GpuBfsChecker) if mode == "async" else (
+            lambda: None, None)
+        try:
+            h, r, rec = job_run(f"budget_2pc8_{mode}", svc, lambda extra=extra: svc.submit(
+                model_name="2pc", model_args={"rm_count": 8}, hbm_budget_mib=budget,
+                spawn=dict(spawn, **extra)))
+        finally:
+            restore()
+        pair[mode] = (r, checkers[h.job_id])
+        if seen is not None:
+            out["evicted_wave"] = _fused_held("2pc-8 after an eviction", seen["spec"],
+                                              seen["table"], seen["chunk"], seen["depth_cap"])
+            del seen
+    (rs_, cs), (ra, ca) = pair["sync"], pair["async"]
+    assert ra["unique"] == rs_["unique"] == cfg.unique
+    assert (ra["states"], ra["max_depth"], ca.evictions) == (
+        rs_["states"], rs_["max_depth"], cs.evictions), (ra, rs_)
+    assert cs.evictions >= 2
+    assert _golden_text(ra["report"]) == _golden_text(rs_["report"])
+    out["budget_pair"] = {m: {"wall_s": out["runs"][f"budget_2pc8_{m}"]["wall_s"],
+                              "host_probe_s": c.host_probe_s, "evictions": c.evictions,
+                              "stale_lanes": c.stale_lanes}
+                          for m, (_r, c) in pair.items()}
+    log(json.dumps({"service_budget_pair": out["budget_pair"]}))
+    svc.close()
+    del pair, cs, ca
+
+    # (d) a seed on a service_dir, resubmitted to a new service.
+    with tempfile.TemporaryDirectory() as tmp:
+        walls = {}
+        for attempt in ("cold", "seeded"):
+            svc = CheckService(quantum_s=600.0, service_dir=tmp)
+            keep_checkers(svc)
+            try:
+                h, r, rec = job_run(f"seed_2pc8_{attempt}", svc, lambda: svc.submit(
+                    model_name="2pc", model_args={"rm_count": 8}, spawn=dict(spawn)))
+            finally:
+                svc.close()
+            walls[attempt] = rec["wall_s"]
+            assert r["unique"] == cfg.unique
+            assert bool(h.status()["warm_start"]) == (attempt == "seeded"), h.status()
+        assert rec["waves"] == 0, rec
+        out["seed"] = dict(walls, seeded_from=h.status()["seeded_from"])
+        log(json.dumps({"service_seed": out["seed"]}))
+
+    # (e) a device.wave fault in a drained job, retried.
+    svc = CheckService(quantum_s=600.0, packing=False)
+    keep_checkers(svc)
+    fault_spawn = {"max_drain_waves": 4}
+    with inject(FaultSpec("device.wave", at=1)) as inj:
+        h, r, rec = job_run("fault_2pc5", svc, lambda: svc.submit(
+            model_name="2pc", model_args={"rm_count": 5}, spawn=dict(fault_spawn)))
+    assert inj.triggered() == 1 and h.status()["retries"] == 1, h.status()
+    assert h.status()["faults"][0]["class"] == "device_wave"
+    want = TwoPhaseSys(5).checker().spawn_gpu_bfs(**dict(svc.default_spawn, **fault_spawn)).join()
+    assert _golden_text(r["report"]) == _golden(want), "retried 2pc-5 report"
+
+    # (f) a conformance job, and a swarm pair.
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                        "conformance_corpus.jsonl")
+    with open(path, encoding="utf-8") as f:
+        lines = [ln.strip() for ln in f if ln.strip()]
+    h, r, _rec = job_run("conformance_seed", svc, lambda: svc.submit(conformance=lines))
+    records, _ = decode_lines(lines)
+    twin = ConformanceChecker(records, default_zoo(), device="cpu").join()
+    _same_verdicts("service conformance", r["conformance"]["records"],
+                   twin.conformance_report()["records"])
+    svc.close()
+    svc = CheckService(quantum_s=600.0)
+    _zero_launches()
+    t0 = time.perf_counter()
+    hs = [svc.submit(model_name="2pc", model_args={"rm_count": 3}, mode="swarm", seed=s,
+                     options={"target_state_count": 10_000}) for s in (21, 22)]
+    rs = [h.result(timeout=300) for h in hs]
+    torch.cuda.synchronize()
+    launches["swarm_2pc3x2"] = _read_launches()
+    out["runs"]["swarm_2pc3x2"] = {"wall_s": time.perf_counter() - t0,
+                                   "states": [r["states"] for r in rs]}
+    for s, r in zip((21, 22), rs):
+        ck = TwoPhaseSys(3).checker().target_state_count(10_000).spawn_swarm(
+            seed=s, **svc.default_swarm_spawn).join()
+        assert (r["states"], r["unique"]) == (ck.state_count(), ck.unique_state_count()), r
+    assert any(h.status()["packed"] for h in hs)
+    svc.close()
+
+    # (g) memory: every job's table, ring, log and graphs released.
+    replay_graphs = len(_KERNELS)
+    checkers.clear()
+    del direct, direct_2pc8, want, twin, ck, h, hs
+    gc.collect()
+    torch.cuda.synchronize()
+    before_clear = torch.cuda.memory_allocated()
+    clear_replay_kernels()
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    bound = 1 << 20
+    out["memory"] = {"start_bytes": mem0, "end_bytes": mem1, "bound_bytes": bound,
+                     "replay_cache_bytes": before_clear - mem1,
+                     "replay_graphs": replay_graphs}
+    log(json.dumps({"service_memory": out["memory"]}))
+    assert mem1 <= mem0 + bound, out["memory"]
+    out["launches"] = launches
+    return out
+
+
 @phase("conformance")
 def conformance():
     """The conformance plane on the card at the JAX bench's conformance leg
@@ -5047,6 +5400,7 @@ def main() -> int:
     packing = tenant_packing() if not FAILED else None
     shard = sharded() if not FAILED else None
     conf = conformance() if not FAILED else None
+    svc = service() if not FAILED else None
     if not FAILED:
         stage_device_profile()
     if FAILED:
@@ -5086,6 +5440,10 @@ def main() -> int:
     insert_launches.update(shard["launches"])
     # The insert micro-bench: a launch a round and its warm-up batch.
     insert_launches.update({label: b["launches"] for label, b in conf["bench"].items()})
+    # The check service: its pack's salted claims and its swarm pair's
+    # sample inserts (its solo jobs join default_runs below).
+    insert_launches.update({f"service_{name}": svc["launches"][name]["hashset_insert_sorted"]
+                            for name in ("pack_2pc5x4", "swarm_2pc3x2")})
     fused_launches = by_path("fused", "fused_wave", {"2pc8": drains, **actor_runs})
     comphash_launches = by_path("fused", "fw_comphash_keys", actor_runs)
     cov_runs = {"2pc8": cov_2pc8, "skv4x4": cov_skv}
@@ -5108,7 +5466,12 @@ def main() -> int:
                        for name, n in tiering["launches"].items()},
                     **{f"attribution_{name}": run
                        for name, run in attribution["runs"].items()},
-                    **{name: {"launches": n} for name, n in pack_solo.items()}}
+                    **{name: {"launches": n} for name, n in pack_solo.items()},
+                    # The service's solo exhaustive jobs (the seeded job runs
+                    # no wave and launches nothing: it verifies on the host).
+                    **{f"service_{name}": {"launches": svc["launches"][name]}
+                       for name in ("solo_2pc8_preempted", "budget_2pc8_sync",
+                                    "budget_2pc8_async", "seed_2pc8_cold", "fault_2pc5")}}
     for kernel, counts in (("hashset_insert_sorted", insert_launches),
                            ("fused_wave", fused_launches), ("fw_sort", sort_launches),
                            ("fw_dedup", dedup_launches), ("fw_compact", compact_launches),
@@ -5160,6 +5523,7 @@ def main() -> int:
                                shard["insert"]["max_abs_err"],
                                shard["evicted_insert"]["max_abs_err"],
                                shard["restore_insert"]["max_abs_err"],
+                               svc["insert"]["max_abs_err"],
                                *(b["max_abs_err"] for b in conf["bench"].values())),
             # On a random 344,064-key batch into a 2^22-row table at load
             # 0.4; on the keys of a raft5 wave and on a 2pc-9 drain take's
@@ -5199,7 +5563,11 @@ def main() -> int:
                         # round's mean, the kernel against its twin on the
                         # host over the same batches.
                         **{label: held(b, b["launches"])
-                           for label, b in conf["bench"].items()}},
+                           for label, b in conf["bench"].items()},
+                        # One full-width wave of the service's 4 x 2pc-5
+                        # pack: the tenants' salted keys.
+                        "service_pack_2pc5x4": held(
+                            svc["insert"], insert_launches["service_pack_2pc5x4"])},
         },
         {
             "name": "fused_wave",
@@ -5208,13 +5576,18 @@ def main() -> int:
             "replaces": "stateright_tpu/ops/pallas_wave.py:91",
             "launches": sum(fused_launches.values()),
             "launches_by_path": fused_launches,
-            # The chain at 2pc-8; held bit for bit on the actor waves too.
-            "max_abs_err": max([fused["max_abs_err"]] + [w["chain_err"] for w in waves.values()]),
+            # The chain at 2pc-8; held bit for bit on the actor waves too,
+            # and on the service's budgeted async 2pc-8 job's first wave
+            # after an eviction (into the emptied table).
+            "max_abs_err": max([fused["max_abs_err"], svc["evicted_wave"]["max_abs_err"]]
+                               + [w["chain_err"] for w in waves.values()]),
             "ms": fused["ms"],
             "plain_ms": fused["plain_ms"],
             "bound_ms": fused["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
+            "by_path": {"service_budget_2pc8_evicted": held(
+                svc["evicted_wave"], fused_launches["service_budget_2pc8_async"])},
         },
         {
             "name": "fw_comphash_keys",
@@ -5398,6 +5771,8 @@ def main() -> int:
     log(json.dumps({"sharded_telemetry": shard["telemetry"]}, default=str))
     log(json.dumps({"sharded_liveness": shard["liveness"]}, default=str))
     log(json.dumps({"conformance": conf}))
+    log(json.dumps({"service": {k: v for k, v in svc.items() if k != "launches"}},
+                   default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

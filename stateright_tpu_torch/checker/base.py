@@ -322,8 +322,8 @@ class Checker(Generic[State, Action]):
         if not self._live_enabled or self._preempt_payload is not None:
             return
         # The JAX package first drains its async pipeline's deferred
-        # absorbs here; the port absorbs on this thread until it takes the
-        # pipeline on (Queue 1 #12).
+        # absorbs here; the port's edge-log absorbs run on this thread, with
+        # the async pipeline too, so nothing is left to drain.
         self._flush_live_edges()
         from .device_liveness import analyze_liveness
 

@@ -169,7 +169,16 @@ class CheckerBuilder:
         reach decide each property at run end, with a certificate
         (``liveness_report()``); it runs the staged wave and refuses
         ``wave_kernel="fused"``, ``expand_fps=True``, symmetry and a capped
-        run. See ``checker/gpu.py`` for the knobs."""
+        run. The check service's solo knobs (the JAX package's): ``run_id``
+        (the run's own metrics registry and stamped spans), ``aot_cache``
+        (the namespace of runs configured alike; each run's graph captures
+        are its own compile phase) with ``aot_store`` (the disk record of
+        the namespace's kernels and their build digests, ``storage/persist.py``),
+        ``profile_dir`` (the attribution engine's ``torch.profiler``
+        window), ``async_pipeline=True`` (the wave path's host-tier verdicts,
+        evictions and checkpoint writes on a worker thread overlapping the
+        next wave; refuses a visitor) and ``config_notes`` (extra lines for
+        the report). See ``checker/gpu.py`` for the knobs."""
         from .gpu import GpuBfsChecker
 
         return GpuBfsChecker(self, **kwargs)
@@ -215,7 +224,8 @@ class CheckerBuilder:
         512), ``sample_capacity`` (1 << 15), ``sample_stride`` (1), ``seeds``
         (a packed-state pool, or a preempted ``spawn_gpu_bfs`` payload for
         the frontier-seeded hybrid), ``resume_from`` (a ``preempt_payload()``),
-        ``coverage`` and ``aot_cache``; plus ``device`` (``cuda`` unless
+        ``coverage``, ``aot_cache`` and ``run_id`` (the run's own metrics
+        registry and stamped spans); plus ``device`` (``cuda`` unless
         ``"cpu"``). The walks are the JAX package's ``spawn_swarm`` walks for
         the same seed and knobs. Reference simulation semantics: the run
         ends when every property has a discovery or ``target_state_count``

@@ -174,6 +174,29 @@ Attribution adds fences and nothing else: waves, rungs, exits, captures
 and results are those of the run without it. With it off no hook reads a
 clock, fences or emits a span.
 
+The check service's solo knobs (the reference's): ``run_id`` gives the run
+its own metrics registry and stamped spans, and the run's totals land in it
+at the end (the ``gpu_bfs.*`` wave family, ``gpu_bfs.kernel_builds``);
+``aot_cache`` names the namespace of runs configured alike (a captured drain
+graph binds this checker's buffers, so each run's captures are its own
+compile phase; the kernels build once a process), with ``aot_store`` the
+disk record of the namespace's kernels and their build digests
+(``storage/persist.py``), which a later process loads before its first
+wave; ``profile_dir`` opens the attribution engine's
+``torch.profiler`` window; ``async_pipeline=True`` turns the wave path into
+the reference's two-deep pipeline over ``checker/pipeline.py``: each wave's
+fresh keys and log rows come to the host once its stats are read, and the
+worker applies the host probe, the parent log and survivor re-entry at the
+queue tail, the absorb of a deferred eviction and the checkpoint writes,
+in the synchronous path's order, while the next wave runs; preempts,
+checkpoints and the run's end wait for it. A drain hands off to it after
+the first eviction. The knob is kept for parity with the reference: the
+worker's probe holds the interpreter the wave loop needs, so on the card
+the pipeline has not shortened a budgeted run. The ``device.wave`` fault seam fires before a wave or a
+drain is queued and ``wave.stall`` between waves and between drains, host
+points never inside a capture; the host sees a drain only at its exit, so
+``max_drain_waves`` bounds how late a stall watchdog sees a wedged drain.
+
 Semantics parity notes (mirrored from the reference): ``eventually`` bits
 propagate along paths and are not part of the fingerprint;
 ``target_state_count``/``target_max_depth`` may overshoot by up to a wave.
@@ -236,9 +259,11 @@ from ..storage import (
     max_table_rows_for_budget,
     validate_budget_knobs,
 )
+from ..telemetry import WaveInstruments, get_tracer, metrics_registry
 from ..telemetry.trace import _NULL_SPAN
 from ..utils.faults import fault_point
 from .base import Checker
+from .pipeline import HostPipeline
 from .device_liveness import seed_root_mask, validate_liveness_mode
 from .symmetry import SYM_KEY_SCHEME, make_key_fn, sym_key_scheme
 
@@ -296,19 +321,28 @@ _ORBIT_FALLBACK = 1 << EXIT_REASONS.index("orbit fallback")
 _EDGE_LOG_FULL_BIT = EXIT_REASONS.index("edge log full")
 
 
+# One CUDA Graph capture at a time in the process: the collector pause below
+# is process-wide, so two captures on two threads (the check service's
+# scheduler capturing a drain while its warm pool captures a replay graph)
+# would re-enable the collector under each other.
+_CAPTURE_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
 def _collector_paused():
-    """Python's cyclic collector paused for a CUDA Graph capture: a
-    collection inside the capture can free a graph that became garbage
-    (another run's), and destroying a graph while this thread captures
-    invalidates the capture. ``torch.cuda.graph`` collects once on entry."""
-    enabled = gc.isenabled()
-    gc.disable()
-    try:
-        yield
-    finally:
-        if enabled:
-            gc.enable()
+    """Python's cyclic collector paused for a CUDA Graph capture, one
+    capture at a time in the process (``_CAPTURE_LOCK``): a collection
+    inside the capture can free a graph that became garbage (another
+    run's), and destroying a graph while a thread captures invalidates the
+    capture. ``torch.cuda.graph`` collects once on entry."""
+    with _CAPTURE_LOCK:
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            yield
+        finally:
+            if enabled:
+                gc.enable()
 
 
 def take_width(width: int, action_count: int) -> int:
@@ -580,6 +614,13 @@ def rehash_table(table, capacity: int):
     return new_table, int(pending.sum())
 
 
+def _kernel_builds() -> int:
+    """``nvcc`` builds the calling thread has run (``ops/_build.py``)."""
+    from ..ops import _build
+
+    return _build.thread_builds()
+
+
 def _chunk_to_host(chunk) -> dict:
     """A queue chunk as numpy arrays (the payload's form)."""
     return {k: (map_leaves(lambda x: x.cpu().numpy(), v) if k == "states"
@@ -707,6 +748,9 @@ class GpuBfsChecker(DeviceBfsChecker):
     (module docstring, ``attribution_report()``)."""
 
     supports_preempt = True
+    # An instance attribute (the run's tracer, run-scoped with a run id)
+    # in place of the base class's process-wide one.
+    _tracer = None
 
     def __init__(
         self,
@@ -731,6 +775,12 @@ class GpuBfsChecker(DeviceBfsChecker):
         attribution=False,
         liveness=None,
         edge_log_capacity=None,
+        run_id=None,
+        aot_cache=None,
+        aot_store=None,
+        async_pipeline=False,
+        profile_dir=None,
+        config_notes=None,
     ):
         model = options.model
         if not isinstance(model, BatchableModel):
@@ -770,6 +820,12 @@ class GpuBfsChecker(DeviceBfsChecker):
             )
         self._wave_kernel = wave_kernel
         self._device = resolve_device(device)
+        # Run identity: ``run_id`` gives the run its own metrics registry and
+        # stamps its trace spans, so many runs in one process (the check
+        # service's jobs) keep their counters apart.
+        self.run_id = run_id
+        self._registry = metrics_registry(run_id) if run_id else None
+        self._tracer = get_tracer(run_id)
         self._setup_lasso(options)
         # Dedup keys: the fingerprints, or under symmetry the orbit keys of
         # checker/symmetry.py (the permutation tables go to the device now).
@@ -881,6 +937,7 @@ class GpuBfsChecker(DeviceBfsChecker):
         # Run-configuration notes, reported once at run end
         # (``Reporter.report_config_notes``).
         self.config_notes: List[str] = [engine_note] if engine_note else []
+        self.config_notes.extend(config_notes or ())
         cap = int(table_capacity)
         # Out-of-core tiering: the budget caps the table; growth past the
         # cap evicts the table to the host tiers (``_evict_l0``).
@@ -903,7 +960,8 @@ class GpuBfsChecker(DeviceBfsChecker):
             cap = min(cap, max_cap)
             self._tier = TieredVisitedStore(
                 host_budget_mib=host_budget_mib, spill_dir=spill_dir,
-                instruments=StorageInstruments("gpu_bfs"), tracer=self._tracer,
+                instruments=StorageInstruments("gpu_bfs", registry=self.metrics()),
+                tracer=self._tracer,
             )
         if wave_kernel == "fused":
             # The fused wave's sweep grids over TILE_ROWS-row tiles: round
@@ -939,6 +997,17 @@ class GpuBfsChecker(DeviceBfsChecker):
         self._target_state_count: Optional[int] = options._target_state_count
         self._depth_cap = options._target_max_depth or _DEPTH_INF
         self._init_coverage("gpu_bfs", coverage, self._A, symmetry=symmetry)
+        if profile_dir is not None:
+            # The profiler window is the attribution engine's.
+            if not isinstance(attribution, bool):
+                raise ValueError(
+                    "profile_dir cannot be given with an attribution engine already "
+                    "built; build it with WaveAttribution(..., profile_dir=...)"
+                )
+            from ..telemetry.attribution import WaveAttribution
+
+            attribution = WaveAttribution("gpu_bfs", tracer=self._tracer,
+                                          registry=self.metrics(), profile_dir=profile_dir)
         self._init_attribution("gpu_bfs", attribution)
         # The attribution phase of a wave's device work, by engine.
         self._device_phase = "wave_kernel" if wave_kernel == "fused" else "device"
@@ -1003,6 +1072,45 @@ class GpuBfsChecker(DeviceBfsChecker):
         # request_preempt() sets it; the worker stops at the next wave or
         # drain boundary with its state in ``_preempt_payload``.
         self._preempt_event = threading.Event()
+        # Seconds before the first wave or drain result (the kernels' loads
+        # and builds and the first capture), then every later capture's:
+        # None until the first result, as in the reference.
+        self.warmup_seconds: Optional[float] = None
+        # The async pipeline (the reference's ``async_pipeline``): one FIFO
+        # host worker applies each wave's host-tier verdict (the host probe
+        # against the evicted runs, the parent log, survivor re-entry at
+        # the queue tail), eviction absorbs and checkpoint writes while the
+        # next wave runs on the device.
+        if async_pipeline and self._visitor is not None:
+            raise ValueError(
+                "async_pipeline is incompatible with a visitor: per-chunk "
+                "callbacks reconstruct paths through verdicts the "
+                "pipeline defers; drop the visitor or run synchronously"
+            )
+        self._pipe = HostPipeline(name="gpu-bfs-host") if async_pipeline else None
+        if self._attr is not None and self._pipe is not None:
+            self._attr.set_overlap_mode(True)
+        # The warm-start plane: ``aot_cache`` names the namespace of runs
+        # configured alike. A captured drain graph binds this checker's
+        # buffers, so nothing captured is shared across runs: a run's
+        # captures are its own compile phase. What a namespace shares is
+        # the kernels' build (once a process) and, with ``aot_store``, the
+        # disk record of the kernels its runs launch (``storage/persist.py``).
+        self.aot_cache = aot_cache
+        self._aot_disk = None
+        if aot_store is not None:
+            if aot_cache is None:
+                raise ValueError(
+                    "aot_store requires aot_cache=<namespace>: the disk "
+                    "entries inherit the namespace's assertion that its runs "
+                    "are configured alike"
+                )
+            from ..storage.persist import AotDiskStore
+
+            store = aot_store if isinstance(aot_store, AotDiskStore) else AotDiskStore(aot_store)
+            self._aot_disk = store.binding(aot_cache, self._aot_signature(),
+                                           registry=self.metrics())
+        self._wi = WaveInstruments("gpu_bfs", registry=self._registry)
         self._drain = None
         self._graphs: Dict = {}
         self._go_host = None
@@ -1072,11 +1180,16 @@ class GpuBfsChecker(DeviceBfsChecker):
         if self._attr is not None:
             self._attr.observe_probe_lengths(hashset_probe_length_counts(table))
 
-    def _grow_table(self, table, min_capacity):
+    def _grow_table(self, table, min_capacity, defer_evict=False):
         """Doubles the table (rehash) to at least ``min_capacity`` rows, or,
-        under a budget, evicts it when that would pass the cap."""
+        under a budget, evicts it when that would pass the cap.
+        ``defer_evict`` (the async wave loop only) hands an eviction's host
+        absorb to the pipeline worker."""
+        def evict():
+            return self._evict_l0(table, defer=True) if defer_evict else self._evict_l0(table)
+
         if self._max_capacity is not None and min_capacity > self._max_capacity:
-            return self._evict_l0(table)
+            return evict()
         capacity = self._capacity
         while capacity < min_capacity:
             capacity *= 2
@@ -1093,31 +1206,51 @@ class GpuBfsChecker(DeviceBfsChecker):
             # budget the next doubling may not exist: evict instead.
             capacity *= 2
             if self._max_capacity is not None and capacity > self._max_capacity:
-                return self._evict_l0(table)
+                return evict()
         self._capacity = capacity
         self.table_growths += 1
         return new_table
 
-    def _evict_l0(self, table):
+    def _evict_l0(self, table, defer=False):
         """Growth under the budget: the table's live rows go to the host
         tiers as a new L1 run and the table starts empty at the cap; older
-        keys answer through the host probe from here on."""
+        keys answer through the host probe from here on. ``defer=True``
+        (the async wave loop): the table's read and reset stay here, the
+        host absorb rides the pipeline worker, after every verdict already
+        submitted (whose fresh keys the eviction holds) and before every
+        later one (whose probes must see them), as the synchronous path
+        orders them."""
         with self._phase("evict"):
-            self._tier.evict(live_table_keys(table.cpu().numpy().view(np.uint32)))
+            keys = live_table_keys(table.cpu().numpy().view(np.uint32))
+            if defer and self._pipe is not None:
+                self._pipe.submit(lambda: self._evict_absorb(keys))
+            else:
+                self._tier.evict(keys)
         self._capacity = self._max_capacity
         self._l0_count = 0
         self.evictions += 1
         self._tier.instruments.set_l0(0)
         return hashset_new(self._capacity, self._device)
 
+    def _evict_absorb(self, keys):
+        """The pipeline worker's half of a deferred eviction."""
+        with self._phase_overlapped("evict"):
+            self._tier.evict(keys)
+
     # -- host exploration loop ----------------------------------------------
 
     def _run(self):
+        self._t_start = time.perf_counter()
+        builds = _kernel_builds()
         try:
+            self._aot_prepare()
             if self._live_enabled:
                 self._elog = edge_log_new(self._elog_capacity, self._device)
+            self._start_counts = (0, 0)
             if self._resume_from is not None:
                 table, queue = self._restore(self._resume_from)
+                # A resumed run publishes only what it adds.
+                self._start_counts = (self._state_count, self._unique_count)
             else:
                 table, queue = self._seed()
             # As in the reference: the drain is off when a visitor needs
@@ -1143,9 +1276,15 @@ class GpuBfsChecker(DeviceBfsChecker):
             # certificate.
             self._run_liveness_analysis("gpu_bfs")
             self._finalize_coverage(set(self._discoveries_fp))
+            self._publish_run_metrics(builds)
+            self._aot_record()
         except BaseException as e:  # noqa: BLE001 - surfaced via worker_error
             self._error = e
         finally:
+            # The pipeline is quiescent before done is observable: counters
+            # and logs a late verdict would change are read once join()
+            # returns.
+            self._shutdown_pipeline()
             # A window a crash left open closes, and a profiler window
             # still running stops, on this thread.
             self._abort_attribution()
@@ -1154,6 +1293,90 @@ class GpuBfsChecker(DeviceBfsChecker):
             self._drain = None
             self._graphs = {}
             self._done_event.set()
+
+    def _mark_warm(self):
+        """Stamps ``warmup_seconds`` at the first wave or drain result."""
+        if self.warmup_seconds is None:
+            self.warmup_seconds = time.perf_counter() - self._t_start
+            self._wi.warmup.set(self.warmup_seconds)
+
+    def _discovery_names(self) -> List[str]:
+        """The properties discovered so far (the service polls them for
+        its time to first violation)."""
+        return list(self._discoveries_fp) + list(self._live_paths)
+
+    def _publish_run_metrics(self, builds_before):
+        """A finished run's totals into its registry (the ``gpu_bfs.*``
+        wave family, per incarnation: a resumed run adds what it did),
+        with the ``nvcc`` builds the run started
+        (``gpu_bfs.kernel_builds``: none once the kernels are built)."""
+        wi = self._wi
+        wi.waves.inc(self.waves)
+        wi.drains.inc(self.drains)
+        wi.generated.inc(self._state_count - self._start_counts[0])
+        wi.unique.inc(self._unique_count - self._start_counts[1])
+        wi.table_grows.inc(self.table_growths)
+        wi.capacity.set(self._capacity)
+        wi.depth.set(self._max_depth)
+        self.metrics().counter("gpu_bfs.kernel_builds").inc(_kernel_builds() - builds_before)
+
+    def _aot_signature(self):
+        """What the run's kernels and drain shapes depend on: the model's
+        configuration and every knob that shapes a wave or a drain."""
+        return (
+            type(self._model).__name__,
+            packed_model_digest(self._model, self._A),
+            self._wave_kernel,
+            self._use_fps,
+            self._sym_scheme if self._sym is not None else None,
+            self._cov is not None,
+            self._F_max,
+            tuple(self._buckets),
+            self._drain_log_capacity,
+            self._max_drain_waves,
+            self._max_capacity,
+            self._live_enabled,
+            self._device.type,
+        )
+
+    def _aot_kernels(self):
+        """The ``csrc`` sources this run's waves launch on the card (none on
+        the CPU, whose plain twins need no build)."""
+        if self._device.type != "cuda":
+            return []
+        return ["fused_wave", "hashset_insert"] if self._wave_kernel == "fused" \
+            else ["hashset_insert"]
+
+    def _aot_prepare(self):
+        """With a disk store: reads the namespace's record and, on a hit,
+        loads the kernels it names before the first wave, through the
+        build cache's lock (``ops/_build.load``: built once a process,
+        from the artifact on disk when one is there)."""
+        if self._aot_disk is None:
+            return
+        rec = self._aot_disk.load("kernels", self._device.type)
+        if rec is not None:
+            from ..ops._build import load
+
+            for name in rec.get("kernels", ()):
+                load(name)
+
+    def _aot_record(self):
+        """With a disk store: the namespace's record of the kernels the
+        run launches, with their build digests. It stores no graph: a
+        captured graph binds one checker's buffers."""
+        if self._aot_disk is None:
+            return
+        kernels = self._aot_kernels()
+        build = {}
+        if kernels:
+            from ..ops._build import library_path
+
+            build = {k: library_path(k).name for k in kernels}
+        self._aot_disk.ensure("kernels", self._device.type, {
+            "kernels": kernels,
+            "build": build,
+        })
 
     def _seed(self):
         """Inserts + enqueues the initial states; returns (table, queue)."""
@@ -1199,10 +1422,31 @@ class GpuBfsChecker(DeviceBfsChecker):
         return table, queue
 
     def _explore_waves(self, table, queue):
+        """The wave-at-a-time loop. With ``async_pipeline=True`` it is the
+        reference's two-deep pipeline: each iteration runs the next chunk
+        as soon as the previous wave's stats are read, while the pipeline
+        worker applies that wave's host-tier verdict. The waves run are the
+        synchronous path's: survivors re-enter only at the queue tail,
+        where the synchronous path appends them, so popping the head early
+        pops the same chunk, and every decision a wave depends on (growth,
+        eviction, targets, discovery exits) comes from the stats this
+        thread read, in the same order. A queue that runs dry with verdicts
+        in flight waits for their survivors before the run ends."""
         props = self._properties
+        pipe = self._pipe
         chunks = 0
         last_checkpoint = time.perf_counter()
-        while queue:
+        while True:
+            # Injection seam: a wedged wave (a hung device wait, a stuck
+            # host probe), simulated as a sleep, which the service's stall
+            # watchdog must catch.
+            fault_point("wave.stall")
+            if pipe is not None and not queue and pipe.pending():
+                # In-flight verdicts may refill the queue; only a queue
+                # empty after the barrier means the space is exhausted.
+                pipe.drain()
+            if not queue:
+                break
             if not props:
                 break
             if len(self._discoveries_fp) == len(props):
@@ -1213,7 +1457,10 @@ class GpuBfsChecker(DeviceBfsChecker):
             ):
                 break
             if self._preempt_event.is_set():
-                # The queue is the whole pending frontier here.
+                # The queue is the whole pending frontier here, once the
+                # verdicts in flight have landed.
+                if pipe is not None:
+                    pipe.drain()
                 self._preempt_payload = self.checkpoint_payload(queue)
                 self._tracer.instant("gpu_bfs.preempted", chunks=len(queue), mode="wave")
                 return
@@ -1228,7 +1475,7 @@ class GpuBfsChecker(DeviceBfsChecker):
                     >= self._checkpoint_min_interval
                 ):
                     with self._phase("checkpoint"):
-                        self.save_checkpoint(self._checkpoint_path, queue)
+                        self._save_checkpoint_maybe_async(queue)
                     last_checkpoint = time.perf_counter()
                 chunks += 1
                 chunk = queue.popleft()
@@ -1236,14 +1483,48 @@ class GpuBfsChecker(DeviceBfsChecker):
                 B = self._F_max * self._A
                 if (self._l0_count + B) > _MAX_LOAD * self._capacity:
                     table = self._grow_table(
-                        table, _pow2ceil(int((self._l0_count + B) / _MAX_LOAD))
+                        table, _pow2ceil(int((self._l0_count + B) / _MAX_LOAD)),
+                        defer_evict=pipe is not None,
                     )
-                with self._span("gpu_bfs.wave", wave=chunks) as sp:
-                    generated = self._state_count
-                    table, n_new = self._consume_wave(table, chunk, queue)
-                    self._span_counts(sp, chunk["hi"].shape[0],
-                                      self._state_count - generated, n_new)
+                if pipe is None:
+                    with self._span("gpu_bfs.wave", wave=chunks) as sp:
+                        generated = self._state_count
+                        table, n_new = self._consume_wave(table, chunk, queue)
+                        self._span_counts(sp, chunk["hi"].shape[0],
+                                          self._state_count - generated, n_new)
+                else:
+                    # At most ``max_pending`` waves of outputs held at once.
+                    pipe.throttle()
+                    table = self._consume_wave_async(table, chunk, queue, chunks)
+            self._mark_warm()
+        if pipe is not None:
+            # Run-end barrier: counters and the parent log settle before
+            # the audit and the done flag.
+            pipe.drain()
         self._audit_table(table)
+
+    def _wave_read(self, table, chunk):
+        """One wave and its one read (its counters, with coverage on its
+        vector, with device liveness the edge log's fill count); returns
+        ``(table, out, stats, cov)``. The ``device.wave`` seam fires
+        before the wave is queued, so a fault leaves nothing half
+        applied."""
+        fault_point("device.wave")
+        if self._live_enabled:
+            self._maybe_evict_elog()
+        table, out = self._device_wave(table, chunk)
+        parts = [out["stats"]]
+        if self._cov is not None:
+            parts.append(out["cov"])
+        if self._live_enabled:
+            parts.append(self._elog["count"].view(1))
+        read = torch.cat(parts).tolist()
+        ns = out["stats"].shape[0]
+        stats = read[:ns]
+        cov = read[ns:ns + self._cov_layout.size] if self._cov is not None else None
+        if self._live_enabled:
+            self._elog_count = read[-1]
+        return table, out, stats, cov
 
     def _consume_wave(self, table, chunk, queue, out=None, stats=None, cov=None):
         """Applies one wave host-side (counters, discoveries, coverage, log,
@@ -1261,23 +1542,7 @@ class GpuBfsChecker(DeviceBfsChecker):
         wave_new = 0
         while True:
             if out is None:
-                if self._live_enabled:
-                    self._maybe_evict_elog()
-                table, out = self._device_wave(table, chunk)
-                # The wave's one read: its counters, with coverage on its
-                # vector, with device liveness the edge log's fill count.
-                parts = [out["stats"]]
-                if self._cov is not None:
-                    parts.append(out["cov"])
-                if self._live_enabled:
-                    parts.append(self._elog["count"].view(1))
-                read = torch.cat(parts).tolist()
-                ns = out["stats"].shape[0]
-                stats = read[:ns]
-                if self._cov is not None:
-                    cov = read[ns:ns + self._cov_layout.size]
-                if self._live_enabled:
-                    self._elog_count = read[-1]
+                table, out, stats, cov = self._wave_read(table, chunk)
             self.waves += 1
             if self._cov is not None:
                 # A table-growth retry re-expands the same frontier: only
@@ -1289,41 +1554,10 @@ class GpuBfsChecker(DeviceBfsChecker):
                 self._apply_wave_stats(stats, chunk)
             n_new = stats[1]
             keep = self._probe_fresh(out, n_new)
-            survivors = n_new if keep is None else keep.shape[0]
             self._l0_count += n_new
-            self._unique_count += survivors
-            wave_new += survivors
+            wave_new += self._keep_fresh(out, chunk, queue, n_new, keep, self._fresh_log(out, n_new))
             if self._tier is not None:
                 self._tier.instruments.set_l0(self._l0_count)
-            if survivors:
-                # Copies of the fresh rows (or of the survivors of the host
-                # probe): the queued chunks are views of these, so the
-                # wave's B-row outputs are freed now rather than held until
-                # its last chunk runs. The fingerprint-only wave makes its
-                # children here, in one take.
-                def fresh(x):
-                    return x[:n_new].clone() if keep is None else x[:n_new][keep]
-
-                new = {k: fresh(out["new"][k]) for k in ("hi", "lo", "ebits", "depth")}
-                if self._use_fps:
-                    states = take_children(self._spec, chunk["states"],
-                                           fresh(out["new"]["src"]))
-                    self.host_takes += 1
-                    self.host_take_rows += survivors
-                else:
-                    states = map_leaves(fresh, out["new"]["states"])
-                rows = [_fp64(new["hi"], new["lo"]),
-                        _fp64(fresh(out["parent_hi"]), fresh(out["parent_lo"]))]
-                if self._sym is not None:
-                    rows.append(_fp64(fresh(out["key_hi"]), fresh(out["key_lo"])))
-                log = _u64(torch.stack(rows))
-                self._wave_log.append((log[0], log[1]))
-                if self._sym is not None:
-                    self._key_log.append(log[2])
-                for s in range(0, survivors, self._F_max):
-                    piece = {k: v[s : s + self._F_max] for k, v in new.items()}
-                    piece["states"] = map_leaves(lambda x: x[s : s + self._F_max], states)
-                    queue.append(piece)
             if not stats[2]:
                 if self._cov is not None:
                     self._cov.emit_wave_span()
@@ -1340,29 +1574,184 @@ class GpuBfsChecker(DeviceBfsChecker):
             attempt += 1
             out = None
 
+    def _fresh_log(self, out, n_new):
+        """The wave's ``n_new`` fresh lanes' parent-log rows on the host:
+        child and parent fingerprints (and the claimed keys under
+        symmetry), one ``(rows, n_new)`` u64 array, or None with none."""
+        if not n_new:
+            return None
+        rows = [_fp64(out["new"]["hi"][:n_new], out["new"]["lo"][:n_new]),
+                _fp64(out["parent_hi"][:n_new], out["parent_lo"][:n_new])]
+        if self._sym is not None:
+            rows.append(_fp64(out["key_hi"][:n_new], out["key_lo"][:n_new]))
+        return _u64(torch.stack(rows))
+
+    def _keep_fresh(self, out, chunk, queue, n_new, keep, log):
+        """Counts, logs and queues a wave attempt's fresh lanes that
+        survived the host probe (``keep``: their lanes, ascending, or None
+        for all ``n_new``); ``log`` is ``_fresh_log``. Returns the
+        survivors' count."""
+        survivors = n_new if keep is None else keep.shape[0]
+        self._unique_count += survivors
+        if not survivors:
+            return 0
+        # Copies of the fresh rows (or of the survivors of the host probe):
+        # the queued chunks are views of these, so the wave's B-row outputs
+        # are freed now rather than held until its last chunk runs. The
+        # fingerprint-only wave makes its children here, in one take.
+        dkeep = None if keep is None else torch.from_numpy(keep).to(self._device)
+
+        def fresh(x):
+            return x[:n_new].clone() if dkeep is None else x[:n_new][dkeep]
+
+        new = {k: fresh(out["new"][k]) for k in ("hi", "lo", "ebits", "depth")}
+        if self._use_fps:
+            states = take_children(self._spec, chunk["states"], fresh(out["new"]["src"]))
+            self.host_takes += 1
+            self.host_take_rows += survivors
+        else:
+            states = map_leaves(fresh, out["new"]["states"])
+        if keep is not None:
+            log = log[:, keep]
+        self._wave_log.append((log[0], log[1]))
+        if self._sym is not None:
+            self._key_log.append(log[2])
+        for s in range(0, survivors, self._F_max):
+            piece = {k: v[s : s + self._F_max] for k, v in new.items()}
+            piece["states"] = map_leaves(lambda x: x[s : s + self._F_max], states)
+            queue.append(piece)
+        return survivors
+
+    def _consume_wave_async(self, table, chunk, queue, wave_no):
+        """The device half of one wave (async pipeline), on the checker
+        thread: the wave, its read, counters and discoveries, and the
+        growth and eviction retry loop: everything the next wave depends
+        on. Each attempt's fresh keys and log rows come to the host here
+        (the stream is idle after the read) and its host-tier verdict goes
+        to the pipeline worker before any growth or eviction that follows
+        it, so the tiers see probes and evictions in the synchronous order
+        (an eviction holds the attempt's fresh keys; probing after
+        absorbing them would mark the whole wave stale). Returns the
+        table; survivors re-enter the queue on the worker."""
+        if chunk["hi"].shape[0] == 0:
+            return table
+        attempt = 0
+        ctx = {"wave_new": 0}
+        while True:
+            with self._span("gpu_bfs.wave", wave=wave_no, attempt=attempt) as sp:
+                table, out, stats, cov = self._wave_read(table, chunk)
+                self._span_counts(sp, chunk["hi"].shape[0], stats[0], stats[1])
+            self.waves += 1
+            if self._cov is not None:
+                self._cov.consume_device(cov, self._cov_layout,
+                                         first_attempt=(attempt == 0),
+                                         max_depth=stats[3])
+            if attempt == 0:
+                self._apply_wave_stats(stats, chunk)
+            n_new = stats[1]
+            self._l0_count += n_new
+            log = self._fresh_log(out, n_new)
+            if self._tier is not None and n_new:
+                keys = log[2] if self._sym is not None else log[0]
+            else:
+                keys = None
+            self._pipe.submit(
+                lambda o=out, n=n_new, lg=log, k=keys, l0=self._l0_count:
+                    self._wave_verdict(ctx, o, chunk, queue, n, lg, k, l0)
+            )
+            if not stats[2]:
+                if self._cov is not None:
+                    self._cov.emit_wave_span()
+                return table
+            if self._max_capacity is not None and attempt >= 8:
+                raise RuntimeError(
+                    "a wave's candidates overflow the budget-capped table after "
+                    "repeated evictions; raise hbm_budget_mib or shrink "
+                    "frontier_capacity"
+                )
+            table = self._grow_table(table, self._capacity * 2, defer_evict=True)
+            attempt += 1
+
+    def _wave_verdict(self, ctx, out, chunk, queue, n_new, log, keys, l0):
+        """One wave attempt's host-tier verdict on the pipeline worker: the
+        host probe against the evicted runs, the parent log and survivor
+        re-entry at the queue tail. ``l0`` is the table's load when the
+        attempt ran (this thread runs later)."""
+        keep = self._probe_keys(keys, n_new, overlapped=True)
+        ctx["wave_new"] += self._keep_fresh(out, chunk, queue, n_new, keep, log)
+        if self._tier is not None:
+            self._tier.instruments.set_l0(l0)
+
+    def _save_checkpoint_maybe_async(self, queue, drain=None):
+        """A checkpoint at a barrier. The payload is built here, after the
+        verdicts in flight have landed (they append survivors to the
+        queue: a payload taken before would hold their keys without their
+        frontier); with the async pipeline only the pickle and the rename
+        ride the worker."""
+        if self._pipe is None:
+            self.save_checkpoint(self._checkpoint_path, list(queue), drain)
+            return
+        self._pipe.drain()
+        payload = self.checkpoint_payload(list(queue), drain)
+        path = self._checkpoint_path
+        self._pipe.submit(lambda: self._checkpoint_write(path, payload))
+
+    def _checkpoint_write(self, path, payload):
+        """The pipeline worker's half of a deferred checkpoint."""
+        with self._phase_overlapped("checkpoint"):
+            t0 = time.perf_counter()
+            size = atomic_pickle(path, payload)
+            self.checkpoints_written += 1
+            self.checkpoint_s += time.perf_counter() - t0
+            self.checkpoint_bytes += size
+
+    def _shutdown_pipeline(self):
+        """The run-end barrier and the worker's teardown: a verdict error
+        no barrier raised yet becomes the run's error, and the worker never
+        outlives the run."""
+        if self._pipe is None:
+            return
+        try:
+            self._pipe.drain()
+        except BaseException as e:  # noqa: BLE001 - surfaced via worker_error
+            if self._error is None:
+                self._error = e
+        finally:
+            self._pipe.close()
+
     def _probe_fresh(self, out, n_new):
         """The host half of the two-phase probe, once the table has
         evicted: the table vouches only for the keys it holds, so the
         wave's ``n_new`` fresh lanes whose keys (orbit keys under symmetry)
         a host run holds are stale. One batched probe a wave attempt.
-        Returns the survivors' lanes (a device index tensor, ascending) or
-        None when every fresh lane survives."""
+        Returns the survivors' lanes (ascending numpy indices) or None
+        when every fresh lane survives."""
         if not n_new or self._tier is None or self._tier.is_empty():
             return None
+        if self._sym is not None:
+            keys = _fp64(out["key_hi"][:n_new], out["key_lo"][:n_new])
+        else:
+            keys = _fp64(out["new"]["hi"][:n_new], out["new"]["lo"][:n_new])
+        return self._probe_keys(_u64(keys), n_new)
+
+    def _probe_keys(self, keys, n_new, overlapped=False):
+        """``_probe_fresh`` over the fresh keys already on the host (u64):
+        one site for the synchronous path and the async verdict, so the
+        two never diverge. ``overlapped`` (the worker) records into the
+        attribution's overlapped ledger."""
+        if not n_new or self._tier is None or self._tier.is_empty():
+            return None
+        phase = self._phase_overlapped if overlapped else self._phase
         # The phase and host_probe_s time the same work.
-        with self._phase("host_probe"):
+        with phase("host_probe"):
             t0 = time.perf_counter()
-            if self._sym is not None:
-                keys = _fp64(out["key_hi"][:n_new], out["key_lo"][:n_new])
-            else:
-                keys = _fp64(out["new"]["hi"][:n_new], out["new"]["lo"][:n_new])
-            stale = self._tier.probe(_u64(keys))
+            stale = self._tier.probe(keys)
             self.host_probe_s += time.perf_counter() - t0
         n_stale = int(stale.sum())
         if not n_stale:
             return None
         self.stale_lanes += n_stale
-        return torch.from_numpy(np.flatnonzero(~stale)).to(self._device)
+        return np.flatnonzero(~stale)
 
     def _apply_wave_stats(self, stats, chunk):
         self._state_count += stats[0]
@@ -1422,9 +1811,17 @@ class GpuBfsChecker(DeviceBfsChecker):
         drains = 0
         last_checkpoint = time.perf_counter()
         while True:
+            # Injection seam: a wedged drain loop (see _explore_waves). The
+            # host sees a drain only between drains, so the service's stall
+            # watchdog detects a stall no sooner than a drain's end:
+            # ``max_drain_waves`` bounds that latency.
+            fault_point("wave.stall")
             if len(self._discoveries_fp) == len(props):
                 break
             if self._preempt_event.is_set():
+                if self._pipe is not None:
+                    # Checkpoint writes in flight land before the run stops.
+                    self._pipe.drain()
                 # The ring's rows are older than the host queue's (the
                 # final wave spilled after everything the drain consumed):
                 # ring, then queue, is the exact FIFO order.
@@ -1461,8 +1858,10 @@ class GpuBfsChecker(DeviceBfsChecker):
                     and time.perf_counter() - last_checkpoint >= self._checkpoint_min_interval
                 ):
                     with self._phase("checkpoint"):
-                        self.save_checkpoint(self._checkpoint_path, self._export_pool_chunks(),
-                                             drain_state())
+                        # Deep drains run with the tiers empty: with the
+                        # pipeline its worker carries only the write.
+                        self._save_checkpoint_maybe_async(self._export_pool_chunks(),
+                                                          drain_state())
                     last_checkpoint = time.perf_counter()
                 drains += 1
                 self.drains += 1
@@ -1485,6 +1884,10 @@ class GpuBfsChecker(DeviceBfsChecker):
                 budget = min(
                     int(_MAX_LOAD * self._capacity) - self._l0_count, (1 << 31) - 1 - B
                 )
+                # Injection seam before the drain is queued (a host point,
+                # never inside a capture): the ring still holds the frontier,
+                # so nothing of the drain is half applied on a raise.
+                fault_point("device.wave")
                 with self._span("gpu_bfs.drain", drain=drains, bucket=width) as sp:
                     table, summary, out, frontier = self._deep_drain(table, width, budget)
                     sc, stats, final_cov = self._apply_drain(summary, width, rungs)
@@ -1509,6 +1912,7 @@ class GpuBfsChecker(DeviceBfsChecker):
                     table, spilled = self._consume_wave(table, chunk, queue, out=out,
                                                         stats=stats, cov=final_cov)
                     self._span_counts(sp, n, self._state_count - generated, spilled)
+            self._mark_warm()
             rungs["live_est"] = pool_count + spilled
         self._audit_table(table)
         return None
@@ -1817,7 +2221,11 @@ class GpuBfsChecker(DeviceBfsChecker):
             with self._span("gpu_bfs.compile", kind="drain", bucket=width,
                             table_capacity=self._capacity):
                 entry = self._graphs[key] = self._capture_drain(table, width)
-            self.capture_s += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.capture_s += dt
+            if self.warmup_seconds is not None:
+                # A capture after the first result is warm-up too.
+                self.warmup_seconds += dt
         if self._go_host is None:
             self._go_host = torch.zeros(2, dtype=torch.int64, pin_memory=True)
         graphs, events, flag = entry["graphs"], entry["events"], self._go_host
@@ -1979,8 +2387,9 @@ class GpuBfsChecker(DeviceBfsChecker):
             if self._tier is None:
                 # Resumed without a budget: the runs stay probed, the table
                 # grows without a cap from here on.
-                self._tier = TieredVisitedStore(instruments=StorageInstruments("gpu_bfs"),
-                                                tracer=self._tracer)
+                self._tier = TieredVisitedStore(
+                    instruments=StorageInstruments("gpu_bfs", registry=self.metrics()),
+                    tracer=self._tracer)
             self._tier.load_state(storage)
         # Device-liveness state must round-trip with the run: resuming a
         # liveness="device" run without the knob (or the reverse) would end

@@ -1,12 +1,14 @@
 """The host pipeline: one FIFO worker thread for host-tier work.
 
-The port's copy of the JAX package's ``checker/pipeline.py``. The
-tenant-packed engine (``checker/packed_tenancy.py``, ``async_pipeline=True``)
-runs its per-tenant partition probes, parent-log appends and survivor
-re-entry here while the next packed wave runs on the device: FIFO is the
-per-tenant merge fence, and the engine drains the pipeline before
-evictions, lane drops and admissions. (The solo checker's
-``async_pipeline`` is later work.)
+The port's copy of the JAX package's ``checker/pipeline.py``. With
+``async_pipeline=True`` the solo checker (``checker/gpu.py``'s wave path)
+runs each wave's host probe, parent log and survivor re-entry here, with
+its eviction absorbs and checkpoint writes, while the next wave runs on the
+device; the tenant-packed engine (``checker/packed_tenancy.py``) runs its
+per-tenant partition probes, parent-log appends and survivor re-entry here
+while the next packed wave runs. FIFO is the merge fence, and the callers
+drain the pipeline before preempts, checkpoints, lane drops, admissions
+and the run's end.
 
 Correctness rests on three properties this class enforces:
 

@@ -578,12 +578,19 @@ class SwarmChecker(Checker):
     # Swarm runs pack: lane blocks over one step (``SwarmPackedEngine``).
     supports_packing = True
     packing_reason = None
+    # The run's tracer (run-scoped with a ``run_id``).
+    _tracer = None
 
     def __init__(self, options, seed: int, lanes: int = 1024, wave_steps: int = 1024,
                  max_trace_len: Optional[int] = None, sample_capacity: int = 1 << 15,
                  sample_stride: int = 1, seeds=None, resume_from=None,
-                 coverage: bool = False, aot_cache: Optional[str] = None, device=None):
+                 coverage: bool = False, aot_cache: Optional[str] = None, device=None,
+                 run_id: Optional[str] = None):
         check_walkable(options, "spawn_swarm")
+        # ``run_id``: the run's own metrics registry and stamped spans.
+        self.run_id = run_id
+        self._registry = metrics_registry(run_id) if run_id else None
+        self._tracer = get_tracer(run_id)
         model = options.model
         self._model = model
         self._properties = model.properties()
@@ -806,7 +813,9 @@ class _TenantWalkView(Checker):
     supports_packing = True
     packing_reason = None
 
-    def __init__(self, pack: "SwarmPackedEngine", key: str, slot: int):
+    def __init__(self, pack: "SwarmPackedEngine", key: str, slot: int, run_id=None):
+        self.run_id = run_id
+        self._registry = metrics_registry(run_id) if run_id else None
         self._pack = pack
         self._key = key
         self._slot = slot
@@ -937,11 +946,12 @@ class SwarmPackedEngine:
     def fault_error(self, key: str):
         return self._faulted.get(key)
 
-    def admit(self, job_id: str, *, seed: int = 0, depth_cap=None,
+    def admit(self, job_id: str, run_id=None, *, seed: int = 0, depth_cap=None,
               target_state_count=None, resume_from=None) -> _TenantWalkView:
         """Claims a slot: fresh walks from ``seed``, or a suspended run's
         carry (``resume_from``, a swarm payload of a solo run or of an
-        earlier pack)."""
+        earlier pack). ``run_id`` gives the tenant's view its own
+        registry."""
         try:
             slot = self._slots.index(None)
         except ValueError:
@@ -955,7 +965,7 @@ class SwarmPackedEngine:
         self._engine.write_slot(slot, carry)
         self._slots[slot] = job_id
         self._seeds[job_id] = int(seed)
-        view = _TenantWalkView(self, job_id, slot)
+        view = _TenantWalkView(self, job_id, slot, run_id=run_id)
         view._prime(self._engine.tenant_stats(slot), self._engine.tenant_found_names(slot))
         self._views[job_id] = view
         self._reported.discard(job_id)

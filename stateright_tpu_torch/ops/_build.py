@@ -6,7 +6,8 @@ a plain C interface, under ``stateright_tpu_torch/_build/`` (listed in
 content hash of the source and of every ``csrc`` header it includes
 (``#include "x.cuh"``, followed through headers), so an edited kernel or
 header never loads a stale binary. ``build_all`` compiles several sources
-at once, one ``nvcc`` process each. Nothing here runs at import time: the
+at once, one ``nvcc`` process each, into the directory
+``utils/compile_cache.py`` secures (mode 0700, owned by this user). Nothing here runs at import time: the
 CPU tests import every module of the port on a machine with no ``nvcc``.
 
 A failed build raises. There is no fallback: a caller that asked for the
@@ -34,8 +35,18 @@ NVCC_FLAGS = [
 ]
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
-_lock = threading.Lock()
+# Held over every build and load: two threads never compile one source
+# into the same temporary file, nor load a library half written.
+_lock = threading.RLock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# ``nvcc`` processes each thread has started (a checker reports the ones its
+# run started: none once a namespace's kernels are built).
+_counts = threading.local()
+
+
+def thread_builds() -> int:
+    """The ``nvcc`` processes the calling thread has started."""
+    return getattr(_counts, "builds", 0)
 
 
 def nvcc_path() -> str:
@@ -79,36 +90,42 @@ def build_all(names: Iterable[str], verbose: bool = False) -> Dict[str, Path]:
     ``nvcc`` processes started together; returns the library paths.
     ``verbose`` adds ``-Xptxas -v`` and prints its report (registers,
     shared memory, spills)."""
-    outs = {name: library_path(name) for name in names}
-    jobs = {}
-    for name, out in outs.items():
-        if out.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC)]
-        if verbose:
-            cmd += ["-Xptxas", "-v"]
-        cmd += ["-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ))
-    failed = []
-    for name, (tmp, proc) in jobs.items():
-        try:
-            log, _ = proc.communicate(timeout=600)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
-            continue
-        if verbose:
-            print(f"-- {name}.cu\n{log}", flush=True)
-        os.replace(tmp, outs[name])
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return outs
+    from ..utils.compile_cache import enable_persistent_cache
+
+    with _lock:
+        if enable_persistent_cache() is None:
+            # Another user's directory could hold a planted library.
+            raise RuntimeError(f"the kernel build directory {BUILD_DIR} cannot be secured")
+        outs = {name: library_path(name) for name in names}
+        jobs = {}
+        for name, out in outs.items():
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC)]
+            if verbose:
+                cmd += ["-Xptxas", "-v"]
+            cmd += ["-o", str(tmp), str(CSRC / f"{name}.cu")]
+            jobs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ))
+            _counts.builds = thread_builds() + 1
+        failed = []
+        for name, (tmp, proc) in jobs.items():
+            try:
+                log, _ = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
+                continue
+            if verbose:
+                print(f"-- {name}.cu\n{log}", flush=True)
+            os.replace(tmp, outs[name])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return outs
 
 
 def build(name: str, verbose: bool = False) -> Path:

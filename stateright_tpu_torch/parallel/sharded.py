@@ -257,7 +257,7 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
     ``default_mesh(device=device)``). ``wave_kernel="fused"`` is refused, as
     in the JAX package. ``aot_store`` is accepted and caches nothing.
     ``fleet=True`` raises until the fleet ledger is ported (ROADMAP Queue 1
-    #12)."""
+    #12b)."""
 
     supports_preempt = True
     supports_device_liveness = True
@@ -365,7 +365,7 @@ class ShardedGpuBfsChecker(DeviceBfsChecker):
         if fleet:
             raise NotImplementedError(
                 "fleet=True on the sharded GPU checker waits for the fleet ledger "
-                "(telemetry/fleet.py, ROADMAP Queue 1 #12); it is off by default")
+                "(telemetry/fleet.py, ROADMAP Queue 1 #12b); it is off by default")
         self._visitor = options._visitor
         # The async pipeline (module docstring). The pool takes a lock: the
         # worker appends survivors while this thread takes chunks; the

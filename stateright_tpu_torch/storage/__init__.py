@@ -25,14 +25,26 @@ never seen, and results are bit-identical to the single-tier run.
 ``host_budget_mib``, with the roots and terminals). ``TenantPartitions``
 keeps one tiered store for each tenant of the tenant-packed engine.
 ``corpus.py`` is the named conformance-corpus store (``CorpusStore``: one
-JSONL file of wire frames a validated name). The JAX package's ``persist``
-module waits for the service that uses it. Nothing here imports JAX or the
-JAX package.
+JSONL file of wire frames a validated name). ``persist.py`` is the check
+service's warm-start plane: the fenced disk record of a namespace's kernels
+(``AotDiskStore``) and the finished-run seeds
+(``SeedStore``, keyed on ``model_structure_signature``). Nothing here
+imports JAX or the JAX package.
 """
 
 from .bloom import BloomFilter
 from .corpus import CorpusStore, validate_corpus_name
 from .edge_log import LivenessEdgeStore, LivenessInstruments
+from .persist import (
+    AotDiskBinding,
+    AotDiskStore,
+    SeedStore,
+    adapt_seed_checkpoint,
+    aot_fence,
+    build_seed_artifact,
+    model_structure_signature,
+    seed_compatibility,
+)
 from .runs import (
     RUN_BLOCK,
     FingerprintRun,
@@ -51,9 +63,17 @@ from .tiered import (
 )
 
 __all__ = [
+    "AotDiskBinding",
+    "AotDiskStore",
     "BloomFilter",
     "CorpusStore",
     "FingerprintRun",
+    "SeedStore",
+    "adapt_seed_checkpoint",
+    "aot_fence",
+    "build_seed_artifact",
+    "model_structure_signature",
+    "seed_compatibility",
     "LivenessEdgeStore",
     "LivenessInstruments",
     "RUN_BLOCK",

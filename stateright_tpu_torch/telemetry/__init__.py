@@ -5,9 +5,9 @@ The port's copies of the JAX package's ``telemetry`` modules that it uses
 (``metrics``, ``trace`` without its ``jax.profiler`` bridge,
 ``coverage`` with its device reduction rewritten in torch,
 ``instruments``, ``attribution`` with its fence and profiler window
-rewritten in torch, and the registry lint of ``server``:
-``sanitize_metric_name`` and ``registry_hygiene_problems``). Nothing here
-imports JAX or the JAX package.
+rewritten in torch, and of ``server`` the registry lint
+(``sanitize_metric_name``, ``registry_hygiene_problems``) and the service's
+``StallWatchdog``). Nothing here imports JAX or the JAX package.
 """
 
 from .attribution import (
@@ -41,7 +41,7 @@ from .metrics import (
     metrics_registry,
     run_registries,
 )
-from .server import registry_hygiene_problems, sanitize_metric_name
+from .server import StallWatchdog, registry_hygiene_problems, sanitize_metric_name
 from .trace import JsonlSink, RunScopedTracer, Tracer, get_tracer, instant, span
 
 __all__ = [
@@ -63,6 +63,7 @@ __all__ = [
     "JsonlSink",
     "MetricsRegistry",
     "RunScopedTracer",
+    "StallWatchdog",
     "TenantInstruments",
     "Tracer",
     "WaveInstruments",

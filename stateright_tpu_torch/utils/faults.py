@@ -1,32 +1,42 @@
-"""Deterministic seeded fault injection.
+"""Deterministic seeded fault injection for the self-healing service.
 
-The port's copy of the JAX package's ``utils/faults.py``, without
-``classify_fault`` and ``tenant_fault_of`` (they map faults for the
-service's retry policy, which the port has not taken on). Code sprinkles
-zero-cost ``fault_point(site)`` calls at the seams where a real run can
-fail (``checker/gpu.py``'s checkpoint write, ``storage/tiered.py``'s host
-probe and spill), and a test arms an injector::
+The port's copy of the JAX package's ``utils/faults.py``. The failure modes
+a run must survive (a host-tier probe dying mid-wave, a spill hitting
+ENOSPC, the async pipeline worker raising, a device wave throwing, a
+checkpoint write failing, a wedged wave) are rare and timing-shaped, so the
+chaos tests make each happen at an exact, reproducible point. Code
+sprinkles zero-cost ``fault_point(site, tenant=...)`` calls at the seams
+(``storage/tiered.py``, ``storage/persist.py``, ``checker/pipeline.py``,
+``checker/gpu.py``, ``checker/packed_tenancy.py``, ``checker/swarm.py``,
+``conformance/checker.py``), and a test arms an injector::
 
     from stateright_tpu_torch.utils.faults import FaultSpec, inject
 
-    with inject(FaultSpec("checkpoint.write", at=1)):
-        ...   # the SECOND checkpoint write in the process raises
-              # CheckpointWriteFault; everything else runs untouched
+    with inject(FaultSpec("storage.host_probe", at=1)):
+        ...   # the SECOND host probe anywhere in the process raises
+              # HostProbeFault; everything else runs untouched
 
-With no injector installed every ``fault_point`` is one global read and
+With no injector armed, ``fault_point`` is one module-global load and
 a None check. A spec fires on exact hit indices (``at``/``count``) of a
-named site, counted under a lock, so multi-threaded runs still hit
-reproducibly for a fixed workload. Every injected exception derives from
-``FaultError`` and carries a ``fault_class`` string.
+named site, optionally filtered to one tenant (``tenant=``), counted under
+a lock, so multi-threaded runs (the async pipeline worker, the service
+scheduler) still hit reproducibly for a fixed workload. ``seeded_specs``
+derives the hit indices from an RNG seed for randomized but replayable
+chaos sweeps.
+
+Every injected exception derives from ``FaultError`` and carries a
+``fault_class`` string; ``classify_fault`` maps any exception (walking the
+``__cause__``/``__context__`` chain, so a fault surfaced through
+``PipelinePoisonedError`` or ``TenantFaultError`` still classifies as its
+root) to the class string the service's ``RetryPolicy`` filters on.
 """
 
-from __future__ import annotations
-
 import errno
+import random
 import threading
 import time
 from contextlib import contextmanager
-from typing import Callable, List, Optional
+from typing import Callable, Iterable, List, Optional
 
 __all__ = [
     "CheckpointWriteFault",
@@ -43,10 +53,13 @@ __all__ = [
     "SpillFault",
     "TenantFaultError",
     "WorkerDeathFault",
+    "classify_fault",
     "clear_fault_injector",
     "fault_point",
     "inject",
+    "seeded_specs",
     "set_fault_injector",
+    "tenant_fault_of",
 ]
 
 
@@ -139,11 +152,47 @@ class TenantFaultError(Exception):
         self.pre_dispatch = pre_dispatch
 
 
+def _exception_chain(exc: Optional[BaseException]):
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        yield exc
+        exc = exc.__cause__ or exc.__context__
+
+
+def classify_fault(exc: Optional[BaseException]) -> str:
+    """The fault-class string for an arbitrary exception: the first
+    ``FaultError`` (or recognizable real-world analogue) in its cause
+    chain, else ``"unknown"``. This is what ``RetryPolicy.retry_on``
+    filters against, so injected and organic faults classify alike."""
+    from ..checker.pipeline import PipelinePoisonedError
+
+    saw_pipeline = False
+    for e in _exception_chain(exc):
+        if isinstance(e, TenantFaultError):
+            e = e.original
+        if isinstance(e, FaultError):
+            return e.fault_class
+        if isinstance(e, OSError) and e.errno == errno.ENOSPC:
+            return "spill"
+        if isinstance(e, PipelinePoisonedError):
+            saw_pipeline = True
+    return "pipeline_worker" if saw_pipeline else "unknown"
+
+
+def tenant_fault_of(exc: Optional[BaseException]):
+    """The ``TenantFaultError`` in an exception's cause chain, or None:
+    how the service decides whether a pack fault is attributable to one
+    tenant (drop its lanes) or to the whole engine (retry all solo)."""
+    for e in _exception_chain(exc):
+        if isinstance(e, TenantFaultError):
+            return e
+    return None
+
+
 # -- the injector ------------------------------------------------------------
 
-# Default exception factory per site (a spec may override with exc=):
-# the seams of the port's tree. The JAX package's other sites (its
-# warm-start plane and ``wave.stall``) wait for the modules that hold them.
+# Default exception factory per site (a spec may override with exc=).
 _SITE_EXC = {
     "storage.host_probe": HostProbeFault,
     "storage.spill": SpillFault,
@@ -162,21 +211,25 @@ _SITE_EXC = {
     "swarm.tenant.verdict": PackTenantFault,
     # The device liveness edge log's host absorb (storage/edge_log.py).
     "liveness.edge_evict": LivenessEvictFault,
+    # The warm-start plane (storage/persist.py): the seed-artifact read; a
+    # refusal must degrade to a full recheck, never a wrong verdict.
+    "warmstart.seed_load": SeedLoadFault,
     # The conformance plane (conformance/checker.py): the per-batch device
     # dispatch, the retry seam of uploaded-trace auditing.
     "conformance.batch": ConformanceBatchFault,
 }
 
 # Sites that exist in the tree — fail fast on typos in test specs.
-FAULT_SITES = frozenset(_SITE_EXC)
+# ``wave.stall`` (checker/gpu.py's wave and drain loops) only ever sleeps.
+FAULT_SITES = frozenset(_SITE_EXC) | {"wave.stall"}
 
 
 class FaultSpec:
     """One planned fault: fire at hit indices ``[at, at + count)`` of
     ``site`` (0-based, counted per spec over the hits that match its
-    ``tenant`` filter). ``stall_s`` sleeps instead of raising (a wedged
-    seam); ``exc`` is a zero-arg exception factory overriding the site
-    default."""
+    ``tenant`` filter). ``stall_s`` sleeps instead of raising (the
+    wedged-wave simulation the stall watchdog must catch); ``exc`` is a
+    zero-arg exception factory overriding the site default."""
 
     def __init__(self, site: str, at: int = 0, count: int = 1,
                  tenant=None, exc: Optional[Callable] = None,
@@ -185,6 +238,8 @@ class FaultSpec:
             raise ValueError(
                 f"unknown fault site {site!r} (known: {sorted(FAULT_SITES)})"
             )
+        if site == "wave.stall" and stall_s is None:
+            raise ValueError("site 'wave.stall' needs stall_s=")
         self.site = site
         self.at = int(at)
         self.count = max(1, int(count))
@@ -304,3 +359,15 @@ def inject(*specs: FaultSpec):
         yield inj
     finally:
         clear_fault_injector()
+
+
+def seeded_specs(seed: int, sites: Iterable[str], max_at: int = 8,
+                 ) -> List[FaultSpec]:
+    """A reproducible randomized plan: one fault per site at an RNG-drawn
+    hit index. Same seed, same plan, same failure point, run after run:
+    the deterministic seeded half of the chaos harness."""
+    rng = random.Random(seed)
+    return [
+        FaultSpec(site, at=rng.randrange(max(1, max_at)))
+        for site in sites
+    ]

@@ -545,6 +545,11 @@ WALK_MODULES = (
     "stateright_tpu_torch.storage.corpus",
     "stateright_tpu_torch.telemetry.server",
     "stateright_tpu_torch.ops.bench_hashset",
+    "stateright_tpu_torch.service.jobs",
+    "stateright_tpu_torch.service.service",
+    "stateright_tpu_torch.service.slo",
+    "stateright_tpu_torch.storage.persist",
+    "stateright_tpu_torch.utils.compile_cache",
 )
 
 
@@ -578,9 +583,12 @@ def test_entry_points_run_on_cuda_unless_asked_for_the_cpu():
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
         return
+    from stateright_tpu_torch.service import CheckService
+
     for call in (lambda: resolve_device(None), lambda: resolve_device("cuda"),
                  lambda: TwoPhaseSys(3).checker().spawn_gpu_bfs(attribution=True),
-                 lambda: measure_pipeline_choice(_paxos22())):
+                 lambda: measure_pipeline_choice(_paxos22()),
+                 lambda: CheckService(device=None)):
         with pytest.raises(RuntimeError):
             call()
 

@@ -261,12 +261,15 @@ def test_store_fault_seams_fire_and_keep_the_tiers_whole(tmp_path):
         inject,
     )
 
-    assert FAULT_SITES == {"checkpoint.write", "storage.host_probe", "storage.spill",
-                           "swarm.wave", "swarm.tenant.verdict", "liveness.edge_evict",
-                           "pipeline.worker", "device.wave", "pack.tenant.verdict",
-                           "pack.tenant.evict", "conformance.batch"}
+    from stateright_tpu.utils.faults import FAULT_SITES as JAX_FAULT_SITES
+
+    assert FAULT_SITES == JAX_FAULT_SITES == {
+        "checkpoint.write", "storage.host_probe", "storage.spill", "swarm.wave",
+        "swarm.tenant.verdict", "liveness.edge_evict", "pipeline.worker", "device.wave",
+        "pack.tenant.verdict", "pack.tenant.evict", "conformance.batch",
+        "warmstart.seed_load", "wave.stall"}
     with pytest.raises(ValueError, match="unknown fault site"):
-        FaultSpec("warmstart.seed_load")
+        FaultSpec("warmstart.no_such_site")
     store = TieredVisitedStore(host_budget_mib=0.01, spill_dir=str(tmp_path),
                                prefix="t_faults")
     keys = np.unique(_keys(60, 6_000))
